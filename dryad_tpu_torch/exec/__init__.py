@@ -1,0 +1,1 @@
+"""exec layer of the PyTorch port (mirrors dryad_tpu/exec)."""

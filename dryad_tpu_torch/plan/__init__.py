@@ -1,0 +1,1 @@
+"""plan layer of the PyTorch port (mirrors dryad_tpu/plan)."""
