@@ -124,9 +124,14 @@ def _case(gen, cap, K, kinds, dev):
     return keys, valid.to(dev), [v.to(dev) for v in vals]
 
 
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int32)
+
+
 def _compare(keys, valid, vals, K):
-    """Kernel vs plain on one input: returns the max abs error; raises on
-    a disagreement past the stated tolerance or nondeterminism."""
+    """Kernel vs plain on one input: counts and every sum must be equal
+    byte for byte, and two launches identical; returns the max abs
+    difference (0.0 when the bytes agree)."""
     from dryad_tpu_torch.ops.bucket import bucket_sum_count, bucket_sum_count_plain
 
     before = bucket_sum_count.launches
@@ -135,73 +140,192 @@ def _compare(keys, valid, vals, K):
     torch.cuda.synchronize()
     check(bucket_sum_count.launches == before + 2, "launch counter did not advance")
     p_sums, p_cnt = bucket_sum_count_plain(keys, vals, valid, K)
-    check(torch.equal(cnt, p_cnt), f"counts differ (K={K})")
-    check(torch.equal(cnt.view(torch.int32), cnt2.view(torch.int32)), "counts not deterministic")
+    check(torch.equal(_bits(cnt), _bits(p_cnt)), f"counts differ from the plain version (K={K})")
+    check(torch.equal(_bits(cnt), _bits(cnt2)), "counts not deterministic")
     err = 0.0
-    for v, s, s2, ps in zip(vals, sums, sums2, p_sums):
-        check(torch.equal(s.view(torch.int32), s2.view(torch.int32)), "sums not deterministic")
-        if v.dtype == torch.int32:
-            check(torch.equal(s, ps), f"integer sums differ (K={K})")
-        else:
-            absum = bucket_sum_count_plain(keys, [v.abs()], valid, K)[0][0]
-            d = (s - ps).abs()
-            check(bool((d <= FLOAT_REL * absum + 1e-6).all()),
-                  f"float sums differ past 2^-16 * sum|v| (K={K}, max {float(d.max())})")
-            err = max(err, float(d.max()))
+    for j, (s, s2, ps) in enumerate(zip(sums, sums2, p_sums)):
+        check(torch.equal(_bits(s), _bits(s2)), f"sums of column {j} not deterministic")
+        same = _bits(s) == _bits(ps)
+        if not bool(same.all()):
+            d = (s - ps).abs()[~same]
+            raise AssertionError(
+                f"sums of column {j} ({vals[j].dtype}) differ from the plain version "
+                f"in {int((~same).sum())} buckets (K={K}, max {float(d.max())})")
     return err
 
 
+def _check_f64(keys, valid, v, K, sums):
+    """Float sums against a float64 numpy sum within 2^-16 * sum |v|."""
+    k, ok, x = keys.cpu().numpy(), valid.cpu().numpy(), v.cpu().numpy().astype(np.float64)
+    for p in range(k.shape[0]):
+        kk, xx = k[p][ok[p]], x[p][ok[p]]
+        exact = np.bincount(kk, weights=xx, minlength=K)
+        absum = np.bincount(kk, weights=np.abs(xx), minlength=K)
+        got = sums[p].cpu().numpy().astype(np.float64)
+        check(bool((np.abs(got - exact) <= FLOAT_REL * absum).all()),
+              "float sums past 2^-16 * sum|v| of the float64 sum")
+
+
+def _special_cases(gen, dev):
+    """(label, keys, valid, values, K) of the adversarial inputs."""
+    cases = []
+    cap = 50_001
+    # values spanning 2^-60 .. 2^60; buckets [0, 64) hold only tiny ones
+    K = 4096
+    keys = torch.randint(0, K, (P, cap), generator=gen, dtype=torch.int32)
+    expo = torch.randint(-60, 61, (P, cap), generator=gen)
+    tiny = keys < 64
+    expo = torch.where(tiny, torch.randint(-60, -50, (P, cap), generator=gen), expo)
+    v = torch.randn((P, cap), generator=gen) * torch.pow(2.0, expo.double()).float()
+    valid = torch.rand((P, cap), generator=gen) > 0.1
+    cases.append(("f32 over 2^-60..2^60", keys, valid, [v], K))
+    # NaN, +Inf, -Inf and -0.0 rows among finite ones
+    K = 512
+    keys = torch.randint(0, K, (P, cap), generator=gen, dtype=torch.int32)
+    v = torch.randn((P, cap), generator=gen)
+    pick = torch.rand((P, cap), generator=gen)
+    v = torch.where(pick < 0.001, float("nan"), v)
+    v = torch.where((pick >= 0.001) & (pick < 0.003), float("inf"), v)
+    v = torch.where((pick >= 0.003) & (pick < 0.005), float("-inf"), v)
+    v = torch.where(pick >= 0.99, -0.0, v)
+    v[:, :64] = -0.0
+    keys[:, :64] = K - 1  # a bucket of -0.0 rows only
+    keys[:, 64:80] = K - 2
+    v[:, 64:72] = float("inf")
+    v[:, 72:80] = float("-inf")  # +Inf and -Inf in one bucket: NaN
+    valid = torch.ones((P, cap), dtype=torch.bool)
+    valid[:, 80:] = keys[:, 80:] < K - 2  # the two special buckets hold only those rows
+    w = torch.randint(-5, 5, (P, cap), generator=gen, dtype=torch.int32)
+    cases.append(("NaN/+Inf/-Inf/-0.0", keys, valid, [v, w], K))
+    # K = 1
+    keys = torch.zeros((P, cap), dtype=torch.int32)
+    valid = torch.rand((P, cap), generator=gen) > 0.5
+    cases.append(("K=1", keys, valid, [torch.randn((P, cap), generator=gen),
+                                       torch.randint(-9, 9, (P, cap), generator=gen, dtype=torch.int32)], 1))
+    # K not a multiple of any tile, and integer sums past 2^24
+    K = 100_003
+    keys = torch.randint(0, 64, (P, cap), generator=gen, dtype=torch.int32) * 1511
+    w = torch.randint(1 << 20, 1 << 30, (P, cap), generator=gen, dtype=torch.int32)
+    valid = torch.rand((P, cap), generator=gen) > 0.25
+    cases.append(("K=100003, int sums past 2^24", keys, valid,
+                  [w, torch.randn((P, cap), generator=gen)], K))
+    # K = 2^20 with two value columns: bucket passes
+    K = 1 << 20
+    keys = torch.randint(0, K, (P, cap), generator=gen, dtype=torch.int32)
+    valid = torch.rand((P, cap), generator=gen) > 0.25
+    cases.append(("K=2^20, f32+i32", keys, valid,
+                  [torch.randn((P, cap), generator=gen),
+                   torch.randint(-100, 100, (P, cap), generator=gen, dtype=torch.int32)], K))
+    return [(lab, k.to(dev), m.to(dev), [x.to(dev) for x in vs], K)
+            for lab, k, m, vs, K in cases]
+
+
+def _dense_inputs(gen, keys, dev, hot: bool):
+    """The dense group_by's shape: K=65536, an f32 and an int32 column;
+    with ``hot``, 90% of the rows on one key."""
+    dk = torch.randint(0, DENSE_K, keys.shape, generator=gen, dtype=torch.int32)
+    if hot:
+        dk = torch.where(torch.rand(keys.shape, generator=gen) < 0.9, 7, dk).to(torch.int32)
+    dv = [(torch.randn(keys.shape, generator=gen) * 100).to(dev),
+          torch.randint(-100, 100, keys.shape, generator=gen, dtype=torch.int32).to(dev)]
+    return dk.to(dev), dv
+
+
 def phase_kernel(dev) -> dict:
-    from dryad_tpu_torch.ops.bucket import bucket_sum_count, bucket_sum_count_plain
+    from dryad_tpu_torch.ops.bucket import (bucket_sum_count, bucket_sum_count_plain,
+                                            launch_geometry)
 
     gen = torch.Generator().manual_seed(SEED)
-    err = 0.0
     for K in KERNEL_CASES_K:
         for kinds in KERNEL_CASES_VALS:
             cap = 50_001 if K < 131072 else 400_003
             keys, valid, vals = _case(gen, cap, K, kinds, dev)
-            e = _compare(keys, valid, vals, K)
-            err = max(err, e)
-            log(f"kernel vs plain: K={K} values={kinds or '-'} cap={cap}: ok (max abs err {e:.3g})")
+            _compare(keys, valid, vals, K)
+            log(f"kernel vs plain: K={K} values={kinds or '-'} cap={cap}: byte-equal")
+    # forced cluster sizes (K=5000 alone would fit one block)
+    from dryad_tpu_torch.ops import bucket as BK
 
-    # timing at the WordCount shape: P x 2^23 keys of Zipf(1.1) words, all valid
+    keys, valid, vals = _case(gen, 50_001, 5000, ("i32", "f32"), dev)
+    saved = BK.CLUSTER
+    try:
+        for C in (2, 4, 16):
+            BK.CLUSTER = C
+            _compare(keys, valid, vals, 5000)
+            log(f"kernel vs plain: cluster {C}: byte-equal")
+    finally:
+        BK.CLUSTER = saved
+    for label, keys, valid, vals, K in _special_cases(gen, dev):
+        _compare(keys, valid, vals, K)
+        sums, cnt = bucket_sum_count(keys, vals, valid, K)
+        if label.startswith("f32 over"):
+            _check_f64(keys, valid, vals[0], K, sums[0])
+        if label.startswith("NaN"):
+            s = sums[0].cpu()
+            check(bool(torch.isnan(s[:, K - 2]).all()), "+Inf and -Inf did not give NaN")
+            check(bool((s[:, K - 1].view(torch.int32) == 0).all()), "-0.0 rows did not give +0.0")
+        log(f"kernel vs plain: {label}: byte-equal")
+
+    def timed(keys, vals, valid, K, plain_iters):
+        kernel_ms = cuda_time_ms(lambda: bucket_sum_count(keys, vals, valid, K), 10)
+        plain_ms = cuda_time_ms(lambda: bucket_sum_count_plain(keys, vals, valid, K), plain_iters)
+        return kernel_ms, plain_ms
+
+    # the WordCount shape: P x 2^23 keys of Zipf(1.1) words, all valid
     ids = zipf_ids(np.random.default_rng(SEED + 1), WC_WORDS)
     K = 131072
     keys = torch.from_numpy(ids.astype(np.int32).reshape(P, -1)).to(dev)
     valid = torch.ones_like(keys, dtype=torch.bool)
-    e = _compare(keys, valid, [], K)
-    kernel_ms = cuda_time_ms(lambda: bucket_sum_count(keys, [], valid, K), 20)
-    plain_ms = cuda_time_ms(lambda: bucket_sum_count_plain(keys, [], valid, K), 10)
+    _compare(keys, valid, [], K)
+    kernel_ms, plain_ms = timed(keys, [], valid, K, 10)
     flat = (keys.long() + torch.arange(P, device=dev).reshape(P, 1) * K).reshape(-1)
     lib_out = torch.bincount(flat, minlength=P * K).reshape(P, K).float()
     check(torch.equal(lib_out, bucket_sum_count(keys, [], valid, K)[1]), "bincount yardstick differs")
     library_ms = cuda_time_ms(lambda: torch.bincount(flat, minlength=P * K), 10)
     n = keys.numel()
-    moved = n * (4 + 1) + P * K * 4
+    cap = keys.shape[1]
     del flat, lib_out
-
-    # the dense group_by's shape: K=65536, an f32 and an int32 value column
-    dk = torch.randint(0, DENSE_K, keys.shape, generator=gen, dtype=torch.int32).to(dev)
-    dv = [(torch.randn(keys.shape, generator=gen) * 100).to(dev),
-          torch.randint(-100, 100, keys.shape, generator=gen, dtype=torch.int32).to(dev)]
-    e2 = _compare(dk, valid, dv, DENSE_K)
-    dense = {
-        "shape": f"P={P} cap={keys.shape[1]} K={DENSE_K} values=f32,i32",
-        "kernel_ms": cuda_time_ms(lambda: bucket_sum_count(dk, dv, valid, DENSE_K), 10),
-        "plain_ms": cuda_time_ms(lambda: bucket_sum_count_plain(dk, dv, valid, DENSE_K), 5),
-        "bound_ms": (n * (4 + 1 + 8) + 3 * P * DENSE_K * 4) / HBM_BYTES_PER_S * 1e3,
-        "max_abs_err": e2,
-    }
-    log(f"bucket_sum_count at the dense shape ({dense['shape']}): kernel "
-        f"{dense['kernel_ms']:.3f} ms, plain {dense['plain_ms']:.3f} ms, "
-        f"bound {dense['bound_ms']:.4f} ms")
+    geo = launch_geometry(P, cap, K, 0, 0)
     res = {
-        "max_abs_err": max(err, e), "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-        "library_ms": library_ms, "bound_ms": moved / HBM_BYTES_PER_S * 1e3,
-        "shape": f"P={P} cap={keys.shape[1]} K={K} values=0", "dense_shape": dense,
+        "max_abs_err": 0.0, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+        "library_ms": library_ms, "bound_ms": (n * (4 + 1) + P * K * 4) / HBM_BYTES_PER_S * 1e3,
+        "shape": f"P={P} cap={cap} K={K} values=0", "geometry": geo._asdict(),
     }
     log(f"bucket_sum_count at the WordCount shape ({res['shape']}): kernel {kernel_ms:.3f} ms, "
-        f"plain {plain_ms:.3f} ms, bincount {library_ms:.3f} ms, bound {res['bound_ms']:.4f} ms")
+        f"plain {plain_ms:.3f} ms, bincount {library_ms:.3f} ms, bound {res['bound_ms']:.4f} ms; "
+        f"{geo}")
+
+    # the dense group_by's shape, uniform keys and a hot key
+    for label, hot in (("dense", False), ("hot_key", True)):
+        dk, dv = _dense_inputs(gen, keys, dev, hot)
+        _compare(dk, valid, dv, DENSE_K)
+        kernel_ms, plain_ms = timed(dk, dv, valid, DENSE_K, 3)
+        geo = launch_geometry(P, cap, DENSE_K, 1, 1)
+        geo0 = launch_geometry(P, cap, DENSE_K, 1, 1, phase=0)
+        out = {
+            "shape": f"P={P} cap={cap} K={DENSE_K} values=f32,i32" + (", 90% on one key" if hot else ""),
+            "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": (n * (4 + 1 + 8) + 3 * P * DENSE_K * 4) / HBM_BYTES_PER_S * 1e3,
+            "geometry": geo._asdict(),
+            "geometry_phase0": geo0._asdict(),
+        }
+        if not hot:
+            # one index_add_ of a stacked (rows, 1+m) f32 source computes the
+            # counts and both sums; the stacking is done outside the timed window
+            flat = (dk.long() + torch.arange(P, device=dev).reshape(P, 1) * DENSE_K).reshape(-1)
+            src = torch.stack([valid.reshape(-1).float(), dv[0].reshape(-1),
+                               dv[1].reshape(-1).float()], 1)
+            tab = torch.zeros((P * DENSE_K, 3), device=dev)
+            lib_ms = cuda_time_ms(lambda: tab.zero_().index_add_(0, flat, src), 5)
+            check(torch.equal(tab[:, 0].reshape(P, DENSE_K),
+                              bucket_sum_count(dk, dv, valid, DENSE_K)[1]),
+                  "index_add_ yardstick counts differ")
+            out["library_ms"] = lib_ms
+            del flat, src, tab
+        res[label] = out
+        log(f"bucket_sum_count at the {label} shape ({out['shape']}): kernel {kernel_ms:.3f} ms, "
+            f"plain {plain_ms:.3f} ms, one index_add_ {out.get('library_ms', float('nan')):.3f} ms, "
+            f"bound {out['bound_ms']:.4f} ms; {geo}")
+        del dk, dv
     return res
 
 
@@ -395,6 +519,13 @@ def main(argv=None) -> int:
         "bound_ms": kern.get("bound_ms"),
         "bound_by": "bytes",
         "library_ms": kern.get("library_ms"),
+        "dense_launches": results.get("dense", {}).get("launches"),
+        "dense_kernel_ms": kern.get("dense", {}).get("kernel_ms"),
+        "dense_plain_ms": kern.get("dense", {}).get("plain_ms"),
+        "dense_library_ms": kern.get("dense", {}).get("library_ms"),
+        "dense_bound_ms": kern.get("dense", {}).get("bound_ms"),
+        "hot_key_kernel_ms": kern.get("hot_key", {}).get("kernel_ms"),
+        "hot_key_bound_ms": kern.get("hot_key", {}).get("bound_ms"),
     }]}
     print(json.dumps(line))
     print(card)
