@@ -5,9 +5,11 @@ Run from the root of a checkout:  python3 chip_smoke.py
 It builds the port's native code from the checkout (the CUDA bucket
 kernel for sm_90a and the host tokenizer, both compilers started
 together), holds the kernel against its plain PyTorch version on the
-card, drives WordCount at full size and the dense integer group_by
-through the port's entry points, checks every result against a numpy
-oracle, and prints:
+card, drives through the port's entry points WordCount at full size,
+the dense integer group_by, TeraSort (2^28 rows, and 2^26 rows with a
+hot key), the sort-path group_by with distinct and range_partition
+(2^26 rows), and the parity queries of the CPU tests on the card and on
+the CPU, checks every result against a numpy oracle, and prints:
 
 - a ``{"kernels": [...]}`` line (each kernel's launches on the main
   path, its error against the plain version, its time, the plain
@@ -18,9 +20,11 @@ oracle, and prints:
 
 Any failed check raises, so the script exits non-zero and prints no
 result line.  Without a CUDA device it exits non-zero at once.
-``--phases`` runs a subset (env, kernel, wordcount, dense), for short
-first runs of a changed kernel.  The WordCount phase also profiles one
-warm query with torch.profiler and prints device time by kernel.
+``--phases`` runs a subset (env, kernel, wordcount, dense, terasort,
+terasort_hot, groupby_sort, cpu_parity), for short first runs of a
+changed kernel.  The WordCount, TeraSort and sort-path group_by phases
+also profile one warm query with torch.profiler and print device time
+by op, the device's busy share of the warm query, and peak memory.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -50,6 +54,14 @@ P = 8
 DENSE_ROWS = 1 << 26
 DENSE_K = 65536
 SEED = 0
+# TeraSort: int32 keys uniform over the full range, an f32 payload
+TS_ROWS = 1 << 28
+TS_HOT_ROWS = 1 << 26
+# sort-path group_by: 2^22 distinct keys over the int32 range
+GB_ROWS = 1 << 26
+GB_KEYS = 1 << 22
+PARITY_ROWS = 1 << 14
+F32_REL = 2.0 ** -23  # the sort path's float sums: n_g * 2^-23 * sum |v|
 
 KERNEL_CASES_K = (128, 4096, 5000, 131072)
 KERNEL_CASES_VALS = ((), ("f32",), ("i32", "f32"))
@@ -308,19 +320,18 @@ def phase_kernel(dev) -> dict:
             "geometry": geo._asdict(),
             "geometry_phase0": geo0._asdict(),
         }
-        if not hot:
-            # one index_add_ of a stacked (rows, 1+m) f32 source computes the
-            # counts and both sums; the stacking is done outside the timed window
-            flat = (dk.long() + torch.arange(P, device=dev).reshape(P, 1) * DENSE_K).reshape(-1)
-            src = torch.stack([valid.reshape(-1).float(), dv[0].reshape(-1),
-                               dv[1].reshape(-1).float()], 1)
-            tab = torch.zeros((P * DENSE_K, 3), device=dev)
-            lib_ms = cuda_time_ms(lambda: tab.zero_().index_add_(0, flat, src), 5)
-            check(torch.equal(tab[:, 0].reshape(P, DENSE_K),
-                              bucket_sum_count(dk, dv, valid, DENSE_K)[1]),
-                  "index_add_ yardstick counts differ")
-            out["library_ms"] = lib_ms
-            del flat, src, tab
+        # one index_add_ of a stacked (rows, 1+m) f32 source computes the
+        # counts and both sums; the stacking is done outside the timed window
+        flat = (dk.long() + torch.arange(P, device=dev).reshape(P, 1) * DENSE_K).reshape(-1)
+        src = torch.stack([valid.reshape(-1).float(), dv[0].reshape(-1),
+                           dv[1].reshape(-1).float()], 1)
+        tab = torch.zeros((P * DENSE_K, 3), device=dev)
+        lib_ms = cuda_time_ms(lambda: tab.zero_().index_add_(0, flat, src), 5)
+        check(torch.equal(tab[:, 0].reshape(P, DENSE_K),
+                          bucket_sum_count(dk, dv, valid, DENSE_K)[1]),
+              "index_add_ yardstick counts differ")
+        out["library_ms"] = lib_ms
+        del flat, src, tab
         res[label] = out
         log(f"bucket_sum_count at the {label} shape ({out['shape']}): kernel {kernel_ms:.3f} ms, "
             f"plain {plain_ms:.3f} ms, one index_add_ {out.get('library_ms', float('nan')):.3f} ms, "
@@ -352,22 +363,42 @@ def vocab_table() -> np.ndarray:
     return tab
 
 
-def profile_query(q, path: str) -> list:
-    """One ``collect()`` under torch.profiler: device time by kernel name
-    (top 15), the full table written to ``path``."""
+def profile_query(q, path: str) -> dict:
+    """One ``collect()`` under torch.profiler: device time by op (the
+    top 15 ``aten::`` ops), the device time of all kernels, and the full
+    table written to ``path``."""
     from torch.profiler import ProfilerActivity, profile
 
+    os.makedirs(os.path.dirname(path), exist_ok=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         q.collect()
         torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     avgs = prof.key_averages()
     with open(path, "w") as fh:
-        fh.write(avgs.table(sort_by="cuda_time_total", row_limit=60))
-    rows = sorted(
-        ((a.key, getattr(a, "device_time_total", 0) / 1e3) for a in avgs),
+        fh.write(avgs.table(sort_by="cuda_time_total", row_limit=80))
+    ops = sorted(
+        ((a.key, getattr(a, "device_time_total", 0) / 1e3) for a in avgs
+         if a.key.startswith("aten::")),
         key=lambda r: -r[1],
     )
-    return [r for r in rows if r[1] > 0][:15]
+    from torch.autograd import DeviceType
+
+    # device busy time: the kernels', copies' and fills' own spans
+    busy = sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / 1e6
+    return {"top_ops_ms": [r for r in ops if r[1] > 0][:15], "device_busy_s": busy,
+            "profiled_wall_s": wall}
+
+
+def print_profile(label: str, card: str, prof: dict, warm_s: float) -> None:
+    for name, ms in prof["top_ops_ms"]:
+        log(f"  profile {label} [{card}] {ms:9.3f} ms  {name[:90]}")
+    log(f"  profile {label}: device busy {prof['device_busy_s']:.4f} s (kernels, copies, fills); "
+        f"warm query {warm_s:.4f} s without the profiler, so the device is idle "
+        f"{max(0.0, 1 - prof['device_busy_s'] / warm_s):.3f} of it; "
+        f"wall with the profiler on {prof['profiled_wall_s']:.4f} s")
 
 
 def phase_wordcount(dev, card: str) -> dict:
@@ -401,8 +432,11 @@ def phase_wordcount(dev, card: str) -> dict:
     warm_s = time.perf_counter() - t0
     top_q = q.order_by([("n", True)]).take(20)
     top = top_q.collect()
+    t0 = time.perf_counter()
+    top = top_q.collect()  # warm: its coding tables are built
+    top_s = time.perf_counter() - t0
     launches = bucket_sum_count.launches
-    check(launches >= 3, f"WordCount ran the kernel {launches} times, expected 3")
+    check(launches >= 4, f"WordCount ran the kernel {launches} times, expected 4")
     resident = next(iter(ctx._device_cache.values()))[1].nbytes()
 
     # the oracle: numpy counts of the sampled ids
@@ -419,12 +453,9 @@ def phase_wordcount(dev, card: str) -> dict:
         "first_query_s": cold_s, "warm_query_s": warm_s, "warm_rows_per_s": WC_WORDS / warm_s,
         "device_resident_bytes": resident, "launches": launches, "card": card,
     }
-    t0 = time.perf_counter()
-    res["profile_ms_by_kernel"] = profile_query(top_q, os.path.join(WORK_DIR, "profile.txt"))
-    res["profiled_query_s"] = time.perf_counter() - t0
-    for name, ms in res["profile_ms_by_kernel"]:
-        log(f"  profile [{card}] {ms:9.3f} ms  {name[:90]}")
-    log(f"  profiled top-20 query wall time (profiler on) {res['profiled_query_s']:.4f} s")
+    res["profile"] = profile_query(top_q, os.path.join(WORK_DIR, "profile_wordcount.txt"))
+    res["warm_top20_query_s"] = top_s
+    print_profile("wordcount top-20", card, res["profile"], top_s)
     log(f"wordcount: {len(oracle)} distinct words, table and top-20 match the oracle; "
         f"top-3 {list(zip(top['word'][:3], top['n'][:3].tolist()))}")
     log(f"wordcount [{card}]: tokenize+register {tokenize_s:.2f} s, first query "
@@ -482,9 +513,279 @@ def phase_dense(dev, card: str) -> dict:
     return out
 
 
+# -- phases 5-8: TeraSort, the sort-path group_by, CPU parity -------------------
+
+def overflow_retries(ctx) -> int:
+    """Overflow retries of the context's last job."""
+    return sum(1 for e in ctx.executor.events if e[0] == "stage_overflow")
+
+
+def digest(out: dict) -> str:
+    """SHA-256 over every column's name, dtype and bytes, in order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for c, a in out.items():
+        h.update(f"{c}:{a.dtype}:".encode())
+        h.update(np.ascontiguousarray(a).view(np.uint8) if a.dtype != object
+                 else "\0".join(map(str, a)).encode())
+    return h.hexdigest()
+
+
+def timed_runs(ctx, q, label: str, card: str, rows: int):
+    """Cold run (ingest included); two warm runs, each after the previous
+    result was dropped, and a third while the second's result is still
+    held (results live in page-locked memory, so holding one makes the
+    next query allocate anew); all three must give the same bytes with
+    no overflow retry.  Then peak device memory of a warm run and one
+    profiled warm run.  The bucket kernel's launch count is read around
+    the runs: this path holds no hand-written kernel, so it stays 0."""
+    from dryad_tpu_torch.ops.bucket import bucket_sum_count
+
+    bucket_sum_count.launches = 0
+    t0 = time.perf_counter()
+    out = q.collect()
+    cold_s = time.perf_counter() - t0
+    check(overflow_retries(ctx) == 0, f"{label}: the cold run retried an overflow")
+    del out
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = q.collect()
+    warm_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    check(overflow_retries(ctx) == 0, f"{label}: a warm run retried an overflow")
+    first = digest(out)
+    del out
+    t0 = time.perf_counter()
+    out = q.collect()
+    warm2_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    held = q.collect()
+    held_s = time.perf_counter() - t0
+    check(digest(out) == first == digest(held), f"{label}: warm runs differ")
+    del held
+    launches = bucket_sum_count.launches
+    prof = profile_query(q, os.path.join(WORK_DIR, f"profile_{label}.txt"))
+    res = {"rows": rows, "cold_s": cold_s, "warm_s": warm_s, "warm2_s": warm2_s,
+           "warm_result_held_s": held_s, "rows_per_s": rows / warm_s, "peak_bytes": peak,
+           "resident_bytes": base, "profile": prof, "card": card,
+           "bucket_sum_count_launches": launches}
+    log(f"{label} [{card}]: {rows} rows, first query (ingest to device + run) {cold_s:.3f} s, "
+        f"warm {warm_s:.4f} s and {warm2_s:.4f} s = {rows / warm_s:.4g} rows/s, "
+        f"{held_s:.4f} s with the previous result held (all byte-equal), "
+        f"peak device memory {peak / 1e9:.2f} GB ({base / 1e9:.2f} GB resident before), "
+        f"0 overflow retries, bucket kernel launches {launches}")
+    print_profile(label, card, prof, warm_s)
+    return res, out
+
+
+def check_terasort(out: dict, key: np.ndarray, pay: np.ndarray, label: str) -> None:
+    """Keys equal np.sort; (key, payload) pairs equal the input's as a
+    multiset (both packed to int64 and sorted)."""
+    check(len(out["key"]) == len(key), f"{label}: {len(out['key'])} rows out of {len(key)}")
+    check(np.array_equal(out["key"], np.sort(key)), f"{label}: keys are not sorted as np.sort")
+    pack = lambda k, p: (k.astype(np.int64) << 32) | p.view(np.uint32).astype(np.int64)  # noqa: E731
+    check(np.array_equal(np.sort(pack(out["key"], out["payload"])), np.sort(pack(key, pay))),
+          f"{label}: (key, payload) pairs differ from the input's")
+
+
+def phase_terasort(dev, card: str, rows: int, hot: bool) -> dict:
+    from dryad_tpu_torch import DryadContext
+
+    label = "terasort_hot" if hot else "terasort"
+    rng = np.random.default_rng(SEED + (5 if hot else 4))
+    key = rng.integers(-2**31, 2**31, rows, dtype=np.int32)
+    if hot:
+        key[rng.random(rows) < 0.9] = 12345
+    pay = rng.random(rows, dtype=np.float32)
+    ctx = DryadContext(num_partitions_=P)
+    q = ctx.from_arrays({"key": key, "payload": pay}).order_by([("key", False)])
+    res, out = timed_runs(ctx, q, label, card, rows)
+    check_terasort(out, key, pay, label)
+    log(f"{label}: output keys equal np.sort, (key, payload) pairs equal the input's")
+    del ctx, q, out
+    torch.cuda.empty_cache()
+    return res
+
+
+def groupby_table(rng, rows: int, nkeys: int) -> dict:
+    """``nkeys`` distinct int32 keys, one in each of nkeys equal bins of
+    the int32 range (negatives included), drawn uniformly per row."""
+    width = (1 << 32) // nkeys
+    pool = (np.arange(nkeys, dtype=np.int64) * width + rng.integers(0, width, nkeys) - 2**31)
+    return {
+        "key": pool.astype(np.int32)[rng.integers(0, nkeys, rows)],
+        "v": (rng.standard_normal(rows) * 100).astype(np.float32),
+        "w": rng.integers(-1000, 1000, rows, dtype=np.int32),
+        "L": rng.integers(-2**40, 2**40, rows, dtype=np.int64),
+    }
+
+
+GB_AGGS = {"c": ("count", None), "sv": ("sum", "v"), "mv": ("mean", "v"),
+           "mnw": ("min", "w"), "mxw": ("max", "w"), "sL": ("sum", "L")}
+
+
+def phase_groupby_sort(dev, card: str) -> dict:
+    from dryad_tpu_torch import DryadContext
+
+    rng = np.random.default_rng(SEED + 6)
+    t = groupby_table(rng, GB_ROWS, GB_KEYS)
+    ctx = DryadContext(num_partitions_=P)
+    src = ctx.from_arrays(t)
+    q = src.group_by("key", GB_AGGS)
+    res, out = timed_runs(ctx, q, "groupby_sort", card, GB_ROWS)
+
+    # the oracle: float64 and exact int64 sums over the key-sorted rows
+    order = np.argsort(t["key"], kind="stable")
+    ks = t["key"][order]
+    starts = np.flatnonzero(np.r_[True, ks[1:] != ks[:-1]])
+    uniq = ks[starts]
+    cnt = np.diff(np.r_[starts, len(ks)])
+    v = t["v"][order].astype(np.float64)
+    sv, av = np.add.reduceat(v, starts), np.add.reduceat(np.abs(v), starts)
+    w = t["w"][order]
+    sL = np.add.reduceat(t["L"][order], starts)
+    got = np.argsort(out["key"])
+    o = {c: a[got] for c, a in out.items()}
+    check(np.array_equal(o["key"], uniq), "groupby_sort: keys differ from the oracle's")
+    check(np.array_equal(o["c"], cnt.astype(np.int32)), "groupby_sort: counts differ")
+    check(np.array_equal(o["mnw"], np.minimum.reduceat(w, starts)), "groupby_sort: min differs")
+    check(np.array_equal(o["mxw"], np.maximum.reduceat(w, starts)), "groupby_sort: max differs")
+    check(np.array_equal(o["sL"], sL), "groupby_sort: int64 sums differ")
+    bound = cnt * F32_REL * av
+    err = np.abs(o["sv"] - sv)
+    check(bool((err <= bound).all()), "groupby_sort: f32 sums past n_g * 2^-23 * sum|v|")
+    merr = np.abs(o["mv"] - sv / cnt)
+    check(bool((merr <= bound / cnt).all()), "groupby_sort: f32 means past the bound")
+    res["distinct_keys"] = int(len(uniq))
+    res["max_rel_err_sum"] = float((err / np.maximum(av, 1e-30)).max())
+    log(f"groupby_sort: {len(uniq)} groups; keys, counts, min/max, int64 sums exact; f32 sums "
+        f"within n_g*2^-23*sum|v| (max |err|/sum|v| {res['max_rel_err_sum']:.3g})")
+    del out, o
+
+    # distinct over the key
+    t0 = time.perf_counter()
+    d = src.distinct(["key"]).collect()
+    res["distinct_s"] = time.perf_counter() - t0
+    check(np.array_equal(np.sort(d["key"]), uniq), "distinct: keys differ from np.unique")
+    check(overflow_retries(ctx) == 0, "distinct retried an overflow")
+    # range_partition over the key: disjoint ascending key ranges
+    t0 = time.perf_counter()
+    b = ctx.execute(src.range_partition(["key"]))
+    keys = b.data["key"]
+    big = torch.iinfo(torch.int32)
+    lo = torch.where(b.valid, keys, big.max).amin(-1).cpu().numpy()
+    hi = torch.where(b.valid, keys, big.min).amax(-1).cpu().numpy()
+    n_part = b.valid.sum(-1).cpu().numpy()
+    flat = keys[b.valid].cpu().numpy()
+    res["range_partition_s"] = time.perf_counter() - t0
+    check(overflow_retries(ctx) == 0, "range_partition retried an overflow")
+    check(int(n_part.sum()) == GB_ROWS, "range_partition lost rows")
+    check(np.array_equal(np.sort(flat), ks), "range_partition: keys differ from the input's")
+    live = [p for p in range(P) if n_part[p]]
+    check(all(hi[a] < lo[b_] for a, b_ in zip(live, live[1:])),
+          "range_partition: partitions' key ranges overlap or are out of order")
+    res["range_partition_rows"] = n_part.tolist()
+    log(f"groupby_sort: distinct {res['distinct_s']:.3f} s and range_partition "
+        f"{res['range_partition_s']:.3f} s (warm, host checks included) match the oracle; "
+        f"rows per partition {n_part.tolist()}")
+    del ctx, src, q, b, keys, flat
+    torch.cuda.empty_cache()
+    return res
+
+
+def parity_table(rng, n: int) -> dict:
+    return {
+        "k": rng.integers(-2**31, 2**31, n, dtype=np.int32),
+        "g": rng.integers(-60, 60, n).astype(np.int32),
+        "b": rng.random(n) < 0.5,
+        "s": np.array([f"w{i}" for i in rng.integers(0, 90, n)], object),
+        "v": (rng.standard_normal(n) * 10.0 ** rng.integers(-2, 3, n)).astype(np.float32),
+        "w": rng.integers(-1000, 1000, n).astype(np.int32),
+        "L": rng.integers(-2**40, 2**40, n, dtype=np.int64),
+        "id": np.arange(n, dtype=np.int32),
+    }
+
+
+PARITY_AGGS = {"c": ("count", None), "sv": ("sum", "v"), "mv": ("mean", "v"),
+               "mnw": ("min", "w"), "sL": ("sum", "L"), "mL": ("mean", "L"),
+               "fw": ("first", "w"), "ab": ("any", "b")}
+PARITY_QUERIES = {  # the queries of tests/test_torch_terasort.py
+    "terasort_asc": (lambda q: q.order_by([("k", False)]), None),
+    "terasort_desc": (lambda q: q.order_by([("k", True)]), None),
+    "terasort_multikey": (lambda q: q.order_by([("g", False), ("v", True), ("id", False)]), None),
+    "group_by_negative": (lambda q: q.group_by("g", PARITY_AGGS), ["g"]),
+    "group_by_unbounded": (lambda q: q.group_by("k", {"c": ("count", None), "sv": ("sum", "v")}), ["k"]),
+    "group_by_two_keys": (lambda q: q.group_by(["g", "b"], PARITY_AGGS), ["g", "b"]),
+    "group_by_string": (lambda q: q.group_by("s", PARITY_AGGS), ["s"]),
+    "group_by_salt": (lambda q: q.group_by("g", PARITY_AGGS, salt=3), ["g"]),
+    "range_partition_order_by": (
+        lambda q: q.range_partition(["g"]).order_by([("g", False), ("id", False)]), None),
+    "group_by_order_by": (
+        lambda q: q.group_by("g", PARITY_AGGS).order_by([("c", True), ("g", False)]), ["g"]),
+    "distinct": (lambda q: q.distinct(["g", "b"]), None),
+    "hash_partition": (lambda q: q.hash_partition(["g"]), None),
+}
+
+
+def phase_cpu_parity(dev, card: str) -> dict:
+    """The parity tests' queries at 2^14 rows, full width and behind a
+    1000-row top-k (fan-reduced), on the CPU and on the card: every
+    column byte-equal in row order but f32 sums and means, which must be
+    within n_g * 2^-23 * sum |v| of each other (a check of the int64
+    word arithmetic of hashing and splitters on the card)."""
+    from dryad_tpu_torch import DryadConfig, DryadContext
+
+    t = parity_table(np.random.default_rng(SEED + 7), PARITY_ROWS)
+    ctxs = [DryadContext(num_partitions_=P, config=DryadConfig(auto_dense_strings=False),
+                         device=d) for d in ("cpu", dev)]
+    res = {}
+    for reduced in (False, True):
+        src_t = {c: a[:1000] for c, a in t.items()} if reduced else t
+        for name, (build, keys) in PARITY_QUERIES.items():
+            outs = []
+            for ctx in ctxs:
+                q = ctx.from_arrays(t)
+                if reduced:
+                    q = q.order_by([("id", False)]).take(1000)
+                outs.append(build(q).collect())
+            a, b = outs
+            check(list(a) == list(b), f"cpu_parity {name}: columns differ")
+            exact = True
+            for c in a:
+                check(a[c].dtype == b[c].dtype and len(a[c]) == len(b[c]),
+                      f"cpu_parity {name}: column {c} differs in type or length")
+                if a[c].dtype == np.float32 and c in ("sv", "mv"):
+                    same = np.array_equal(a[c].view(np.uint8), b[c].view(np.uint8))
+                    exact = exact and same
+                    if not same:
+                        grp = {}
+                        for kk, v in zip(zip(*[src_t[k].tolist() for k in keys]),
+                                         np.abs(src_t["v"].astype(np.float64))):
+                            n, s_ = grp.get(kk, (0, 0.0))
+                            grp[kk] = (n + 1, s_ + v)
+                        ng = np.array([grp[kk] for kk in zip(*[a[k].tolist() for k in keys])])
+                        bound = ng[:, 0] * F32_REL * ng[:, 1] / (ng[:, 0] if c == "mv" else 1)
+                        check(bool((np.abs(a[c].astype(np.float64) - b[c]) <= bound).all()),
+                              f"cpu_parity {name}: {c} past the f32 bound")
+                elif a[c].dtype == object:
+                    check(a[c].tolist() == b[c].tolist(), f"cpu_parity {name}: {c} differs")
+                else:
+                    check(np.array_equal(a[c].view(np.uint8), b[c].view(np.uint8)),
+                          f"cpu_parity {name}: {c} differs")
+            tag = f"{name}{' (fan-reduced)' if reduced else ''}"
+            res[tag] = "byte-equal" if exact else "f32 within bound"
+            log(f"cpu_parity {tag}: {len(next(iter(a.values())))} rows, {res[tag]}")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="env,kernel,wordcount,dense")
+    ap.add_argument(
+        "--phases",
+        default="env,kernel,wordcount,dense,terasort,terasort_hot,groupby_sort,cpu_parity")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     if not torch.cuda.is_available():
@@ -501,6 +802,14 @@ def main(argv=None) -> int:
         results["wordcount"] = phase_wordcount(dev, card)
     if "dense" in phases:
         results["dense"] = phase_dense(dev, card)
+    if "terasort" in phases:
+        results["terasort"] = phase_terasort(dev, card, TS_ROWS, hot=False)
+    if "terasort_hot" in phases:
+        results["terasort_hot"] = phase_terasort(dev, card, TS_HOT_ROWS, hot=True)
+    if "groupby_sort" in phases:
+        results["groupby_sort"] = phase_groupby_sort(dev, card)
+    if "cpu_parity" in phases:
+        results["cpu_parity"] = phase_cpu_parity(dev, card)
     print("results: " + json.dumps(results))
 
     kern = results.get("kernel", {})
@@ -525,6 +834,8 @@ def main(argv=None) -> int:
         "dense_library_ms": kern.get("dense", {}).get("library_ms"),
         "dense_bound_ms": kern.get("dense", {}).get("bound_ms"),
         "hot_key_kernel_ms": kern.get("hot_key", {}).get("kernel_ms"),
+        "hot_key_plain_ms": kern.get("hot_key", {}).get("plain_ms"),
+        "hot_key_library_ms": kern.get("hot_key", {}).get("library_ms"),
         "hot_key_bound_ms": kern.get("hot_key", {}).get("bound_ms"),
     }]}
     print(json.dumps(line))

@@ -193,7 +193,7 @@ class DryadContext:
 
     def execute(self, query: Query) -> ColumnBatch:
         """Lower and run a query; the result batch stays on the device."""
-        graph = lower([query.node], self.config, self.dictionary)
+        graph = lower([query.node], self.config, self.dictionary, P=self.num_partitions)
         bindings = {nid: self._bind_device(n) for nid, n in graph.inputs.items()}
         results = self.executor.execute(graph, bindings)
         return results[graph.outputs[query.node.id]]

@@ -1,9 +1,10 @@
 """Query — the lazy table handle and its operators (ported subset).
 
 The counterpart of ``dryad_tpu/api/query.py`` for ``select``,
-``project``, ``where``, ``group_by``, ``order_by``, ``take`` and
-``collect``.  Node construction, validation and the auto-dense gates are
-the reference's, so both packages build the same logical plan; what
+``project``, ``where``, ``group_by`` (dense and sort path, ``salt``,
+int64/float64 aggregates), ``distinct``, ``hash_partition``,
+``range_partition``, ``order_by``, ``take`` and ``collect``.  Node
+construction, validation and the auto-dense gates are the reference's, so both packages build the same logical plan; what
 the planner cannot lower yet raises there (``plan/lower.py``).
 """
 
@@ -166,8 +167,11 @@ class Query:
         in [0, K): the dense bucket kernel then reduces it, sum/count/mean
         only, out-of-range rows dropped.  Without ``dense``, a group_by
         over one INT32 key with an ingest range [0, K) or one STRING key
-        takes the same path automatically (``auto_dense_*``); other
-        group_bys need the sort path, which is not ported yet."""
+        takes the same path automatically (``auto_dense_*``); every
+        other group_by takes the sort path: partial reduce, hash
+        exchange, final reduce (int64 aggregates exact, float64
+        min/max/first).  ``salt=S`` spreads each key over S exchange
+        destinations first, the escape hatch for heavy keys."""
         keys = _keys(keys)
         if salt is not None:
             if salt < 2:
@@ -255,10 +259,40 @@ class Query:
             return False
         return self._plain_aggs(agg_list)
 
+    def distinct(self, keys: Optional[KeyArg] = None) -> "Query":
+        """Distinct rows over ``keys`` (default: every column).  One
+        STRING column as the whole schema is the vocabulary query, which
+        rides the auto-dense bucket path."""
+        keys = _keys(keys) if keys is not None else self.schema.names
+        auto = self.schema.names == list(keys) and self._auto_dense_eligible(
+            keys, [("count", None, "#c")], None
+        )
+        return Query(self.ctx, Node(
+            "distinct", [self.node], self.schema,
+            PartitionInfo() if auto else PartitionInfo.hashed(keys),
+            keys=keys, auto_dense=auto,
+        ))
+
+    # -- partitioning -----------------------------------------------------------
+    def hash_partition(self, keys: KeyArg) -> "Query":
+        keys = _keys(keys)
+        return Query(self.ctx, Node(
+            "hash_partition", [self.node], self.schema, PartitionInfo.hashed(keys), keys=keys,
+        ))
+
+    def range_partition(self, keys: KeyArg) -> "Query":
+        """Range-partition by ``keys`` (each a name or ``(name, desc)``):
+        equal keys share a partition, partitions in key order."""
+        ks = _order_keys(_keys(keys))
+        self._require_cols([n for n, _ in ks], "in range_partition")
+        return Query(self.ctx, Node(
+            "range_partition", [self.node], self.schema, PartitionInfo.ranged(ks), keys=ks,
+        ))
+
     # -- ordering -------------------------------------------------------------
     def order_by(self, keys: Sequence[OrderArg]) -> "Query":
-        """Global sort.  Only ``order_by(...).take(n)`` (fused top-k) is
-        ported; a plain order_by raises at collect."""
+        """Global sort: the skew-spread range exchange, then a local sort
+        (``take(n)`` right after fuses both into top-k)."""
         ks = _order_keys(keys)
         self._require_cols([n for n, _ in ks], "in order_by")
         return Query(self.ctx, Node(

@@ -17,7 +17,7 @@ Host/device movement happens only here and in ``api/context.py``.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -35,6 +35,10 @@ from dryad_tpu_torch.columnar.schema import (
 
 WORD = torch.int64  # device carrier of uint32 words
 MASK32 = 0xFFFFFFFF
+# A scatter sends the rows it drops to DUMP slots past its output,
+# spread by row position: one shared slot would serialize their writes
+# (and atomics) on the card.
+DUMP = 1024
 
 
 def encode_physical(
@@ -82,6 +86,15 @@ def to_host_column(t: torch.Tensor) -> np.ndarray:
     return a.astype(np.uint32) if a.dtype == np.int64 else a
 
 
+def row_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive int64 cumsum along the last axis of a ``(P, n)`` tensor,
+    as one scan of the flattened tensor minus each row's start.  (A scan
+    along the last axis of a few long rows runs one block per row on
+    CUDA; the flat scan uses the whole card.)"""
+    flat = x.reshape(-1).cumsum(0, dtype=torch.int64).view(x.shape)
+    return flat - torch.nn.functional.pad(flat[:-1, -1], (1, 0))[:, None]
+
+
 class ColumnBatch:
     """Fixed-capacity columnar batch of P partitions with a validity mask.
 
@@ -125,6 +138,47 @@ class ColumnBatch:
         """Row filter: AND a predicate into the validity mask (Where)."""
         return ColumnBatch(self.data, self.valid & keep_mask)
 
+    def count(self) -> torch.Tensor:
+        """Valid rows per partition, ``(P,)`` int32."""
+        return self.valid.sum(-1, dtype=torch.int32)
+
+    def compact_order(self) -> torch.Tensor:
+        """The ``(P, cap)`` gather index that moves each partition's valid
+        rows to its front, stably: the reference's stable sort on
+        ``~valid`` (valid rows in order, then the invalid ones in theirs),
+        computed as the inverse of one cumsum rather than a sort."""
+        v = self.valid
+        c = row_cumsum(v)
+        src = torch.arange(v.shape[-1], device=v.device).expand_as(c)
+        dst = torch.where(v, c - 1, c[:, -1:] + src - c)
+        return torch.empty_like(dst).scatter_(-1, dst, src)
+
+    def compact(self) -> "ColumnBatch":
+        """Move valid rows to the front (stable); invalid slots keep
+        stale values with their mask bits off."""
+        return self.take(self.compact_order())
+
+    def take(self, order: torch.Tensor) -> "ColumnBatch":
+        """Row gather by a ``(P, n)`` index (caller manages mask
+        semantics)."""
+        return ColumnBatch(
+            {c: t.gather(-1, order) for c, t in self.data.items()},
+            self.valid.gather(-1, order),
+        )
+
+    def pad_to(self, capacity: int) -> "ColumnBatch":
+        """Grow every partition to ``capacity`` rows with zero-filled,
+        invalid slots."""
+        extra = capacity - self.capacity
+        if extra == 0:
+            return self
+        if extra < 0:
+            raise ValueError(
+                f"pad_to({capacity}) below current capacity {self.capacity}"
+            )
+        pad = lambda t: torch.nn.functional.pad(t, (0, extra))
+        return ColumnBatch({c: pad(t) for c, t in self.data.items()}, pad(self.valid))
+
     # -- host conversion ---------------------------------------------------
     @staticmethod
     def from_host_layout(
@@ -161,19 +215,29 @@ class ColumnBatch:
         data, valid = block_layout(phys, num_partitions, partition_capacity)
         return ColumnBatch.from_host_layout(data, valid, device)
 
-    def fetch_host(self) -> Tuple[np.ndarray, Dict[str, np.ndarray]]:
-        """``(valid, columns)`` on the host in the flat partition-major
-        ``(P * cap)`` layout, uint32 words restored."""
-        valid = self.valid.reshape(-1).cpu().numpy()
-        host = {c: to_host_column(v.reshape(-1)) for c, v in self.data.items()}
-        return valid, host
+    def fetch_valid_rows(self) -> Dict[str, np.ndarray]:
+        """The valid rows' physical columns on the host, in the flat
+        partition-major order, uint32 words restored.  Rows are selected
+        on the device first, so only valid rows cross to the host (an
+        exchanged batch is mostly padding); from a GPU they are copied
+        into page-locked buffers, all copies queued before one wait."""
+        keep = self.valid.reshape(-1).nonzero().squeeze(1)
+        rows = {c: v.reshape(-1)[keep] for c, v in self.data.items()}
+        if self.device.type == "cuda":
+            pinned = {}
+            for c, t in rows.items():
+                pinned[c] = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                pinned[c].copy_(t, non_blocking=True)
+            torch.cuda.current_stream(self.device).synchronize()
+            rows = pinned
+        return {c: to_host_column(t) for c, t in rows.items()}
 
     def to_numpy(
         self, schema: Schema, dictionary: Optional[StringDictionary] = None
     ) -> Dict[str, np.ndarray]:
         """Decode valid rows back to host logical columns."""
-        valid, host = self.fetch_host()
-        return decode_physical_table(schema, valid, host, dictionary)
+        host = self.fetch_valid_rows()
+        return decode_physical_table(schema, slice(None), host, dictionary)
 
 
 def decode_physical_table(

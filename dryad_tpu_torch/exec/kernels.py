@@ -2,22 +2,32 @@
 
 The counterpart of ``dryad_tpu/exec/kernels.py`` for the op kinds of the
 ported path: ``select``, ``where``, ``project``, ``string_code``,
-``group_reduce_dense`` and ``topk``.  The reference composes them into
-one traced SPMD program per stage; PyTorch runs eagerly, so each op
-runs as it is applied, on all P partitions at once.  Collectives are
-the partition layer's tensor ops (``parallel/partition.py``).
+``group_reduce_dense``, ``topk``, the exchanges ``exchange_hash`` and
+``exchange_range`` with ``resize``, ``group_reduce``, ``distinct`` and
+``local_sort``.  The reference composes them into one traced SPMD
+program per stage; PyTorch runs eagerly, so each op runs as it is
+applied, on all P partitions at once.  Collectives are the partition
+layer's tensor ops (``parallel/partition.py``).  Capacities derive from
+the stage's entry capacities, its growth and the executor's retry
+``boost``, as in the reference.  The hybrid-mesh ``tree`` exchange
+(ROADMAP.md queue 1 item 11) is not ported: on one device the ``tree``
+param of ``exchange_hash`` is ignored, as the reference ignores it on a
+one-axis mesh.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from dryad_tpu_torch.columnar.batch import ColumnBatch
+from dryad_tpu_torch.ops import segmented as SEG
+from dryad_tpu_torch.ops import shuffle as SH
 from dryad_tpu_torch.ops import sort as SORT
 from dryad_tpu_torch.ops.bucket import bucket_sum_count
+from dryad_tpu_torch.ops.hash import partition_ids
 from dryad_tpu_torch.parallel import partition as PART
 
 
@@ -26,15 +36,21 @@ def _round8(n: float) -> int:
 
 
 class StageContext:
-    """Mutable state while running one stage: its slots, and the
-    deferred counters the executor reads once after the job."""
+    """Mutable state while running one stage at one retry ``boost``: its
+    slots, the overflow flag the executor reads after the stage, and the
+    dictionary-miss counter it reads once after the job."""
 
-    def __init__(self, P: int, device, tables=None):
+    def __init__(self, P: int, device, tables=None, slack: float = 2.0, boost: int = 1):
         self.P = P
         self.device = torch.device(device)
         self.tables = tables  # exec.operands.DeviceTables
+        self.slack = slack
+        self.boost = boost
         self.slots: Dict[int, ColumnBatch] = {}
-        # the exchange's overflow flag; no op of the ported path sets it
+        self.entry_caps: Dict[int, int] = {}
+        # capacity of the resize fused into the running exchange (run_ops)
+        self.resize_to: Optional[int] = None
+        # set when an exchange bucket or a resize dropped rows
         self.overflow = torch.zeros((), dtype=torch.bool, device=self.device)
         # rows whose dense key missed its domain (STRING words absent
         # from the dictionary, INT32 keys past the ingest range)
@@ -43,6 +59,10 @@ class StageContext:
     def bind_inputs(self, batches: Tuple[ColumnBatch, ...]) -> None:
         for i, b in enumerate(batches):
             self.slots[i] = b
+            self.entry_caps[i] = b.capacity
+
+    def base_cap(self, slot: int) -> int:
+        return self.entry_caps.get(slot, max(self.entry_caps.values() or [64]))
 
     def operand(self, obj) -> Tuple[torch.Tensor, ...]:
         """Device tensors of a coding table (uploaded once per context)."""
@@ -54,6 +74,26 @@ def apply_op(ctx: StageContext, kind: str, p: Dict[str, Any]) -> None:
     if fn is None:
         raise NotImplementedError(f"no kernel for stage op {kind!r}")
     fn(ctx, p)
+
+
+def run_ops(ctx: StageContext, ops) -> None:
+    """Apply a stage's ops in order.  An exchange followed by the resize
+    of its slot (lowering always emits the pair) runs as one placement
+    straight into the resized layout: the two ops' bytes and overflow
+    flag, without the exchange's padded layout in between."""
+    i = 0
+    while i < len(ops):
+        op = ops[i]
+        nxt = ops[i + 1] if i + 1 < len(ops) else None
+        fuse = (
+            op.kind in ("exchange_hash", "exchange_range")
+            and nxt is not None and nxt.kind == "resize"
+            and nxt.params["slot"] == op.params["slot"]
+        )
+        ctx.resize_to = _resize_target(ctx, nxt.params) if fuse else None
+        apply_op(ctx, op.kind, op.params)
+        ctx.resize_to = None
+        i += 2 if fuse else 1
 
 
 def _k_select(ctx: StageContext, p) -> None:
@@ -69,6 +109,93 @@ def _k_where(ctx: StageContext, p) -> None:
 def _k_project(ctx: StageContext, p) -> None:
     b = ctx.slots[p["slot"]]
     ctx.slots[p["slot"]] = b.select(p["cols"])
+
+
+# -- exchanges ------------------------------------------------------------
+
+def _fanout(ctx: StageContext, nparts) -> int:
+    """Destination count of a fan-reduced exchange: rows concentrate on
+    the first ``nparts`` partitions, the rest run masked-empty."""
+    if not nparts:
+        return ctx.P
+    return min(int(nparts), ctx.P)
+
+
+def _exchange(ctx: StageContext, slot: int, dest: torch.Tensor, P_eff: int) -> None:
+    b = ctx.slots[slot]
+    B = SH.bucket_capacity(b.capacity, P_eff, ctx.slack * ctx.boost)
+    out, ovf = SH.exchange(b, dest, ctx.P, B, capacity=ctx.resize_to)
+    ctx.slots[slot] = out
+    ctx.overflow = ctx.overflow | ovf
+
+
+def _k_exchange_hash(ctx: StageContext, p) -> None:
+    b = ctx.slots[p["slot"]]
+    P_eff = _fanout(ctx, p.get("nparts"))
+    _exchange(ctx, p["slot"], partition_ids([b.data[k] for k in p["keys"]], P_eff), P_eff)
+
+
+def _k_exchange_range(ctx: StageContext, p) -> None:
+    """Range exchange.  The splitter sample count is ``sample_rate`` of
+    the partition, clamped to [16, 512]; rate and clamp scale with the
+    boost, so an overflow retry also elects better splitters.  With
+    ``spread`` (order_by) the splitters are elected over every sort
+    operand plus a uniform tiebreak word, so a heavy key's run is cut
+    across partitions; range_partition keeps strict splitters over the
+    primary operand, so equal keys share a partition."""
+    b = ctx.slots[p["slot"]]
+    operands = p["operands_fn"](b)
+    rate = float(p.get("rate", 0.001)) * ctx.boost
+    m = int(min(512 * ctx.boost, max(16 * ctx.boost, b.capacity * rate)))
+    P_eff = _fanout(ctx, p.get("nparts"))
+    if p.get("spread"):
+        words = list(operands) + [SORT.spread_word(b.capacity, b.device).expand_as(b.valid)]
+        splitters = SORT.sample_splitters_multi(words, b.valid, P_eff, m)
+        dest = SORT.range_dest_multi(words, splitters)
+    else:
+        splitters = SORT.sample_splitters(operands[0], b.valid, P_eff, m)
+        dest = SORT.range_dest(operands[0], splitters)
+    _exchange(ctx, p["slot"], dest, P_eff)
+
+
+def _resize_target(ctx: StageContext, p) -> int:
+    """Post-shuffle capacity: entry capacity x growth x retry boost x
+    slack, scaled by P / P_eff after a fan-reduced exchange."""
+    conc = ctx.P / _fanout(ctx, p.get("nparts"))
+    return _round8(ctx.base_cap(p["slot"]) * p["factor"] * conc * ctx.boost * ctx.slack)
+
+
+def _k_resize(ctx: StageContext, p) -> None:
+    slot = p["slot"]
+    out, ovf = SH.resize(ctx.slots[slot], _resize_target(ctx, p))
+    ctx.slots[slot] = out
+    ctx.overflow = ctx.overflow | ovf
+
+
+# Op kinds whose kernels never set the overflow flag: the executor reads
+# the flag only of stages holding another kind.
+NON_OVERFLOW_OPS = frozenset({
+    "select", "where", "project", "select_many", "apply", "fork",
+    "group_reduce", "group_combine", "group_reduce_dense", "distinct",
+    "local_sort", "concat", "scalar_agg", "topk", "string_code",
+})
+
+
+# -- grouping / sorting ------------------------------------------------------
+
+def _k_group_reduce(ctx: StageContext, p) -> None:
+    b = ctx.slots[p["slot"]]
+    ctx.slots[p["slot"]] = SEG.group_reduce(b, p["keys"], p["aggs"])
+
+
+def _k_distinct(ctx: StageContext, p) -> None:
+    b = ctx.slots[p["slot"]]
+    ctx.slots[p["slot"]] = SEG.distinct(b, p["keys"])
+
+
+def _k_local_sort(ctx: StageContext, p) -> None:
+    b = ctx.slots[p["slot"]]
+    ctx.slots[p["slot"]] = SORT.sort_batch_by_operands(b, p["operands_fn"](b))
 
 
 def _kernel_value(v: torch.Tensor) -> torch.Tensor:
@@ -190,4 +317,10 @@ _KERNELS = {
     "group_reduce_dense": _k_group_reduce_dense,
     "string_code": _k_string_code,
     "topk": _k_topk,
+    "exchange_hash": _k_exchange_hash,
+    "exchange_range": _k_exchange_range,
+    "resize": _k_resize,
+    "group_reduce": _k_group_reduce,
+    "distinct": _k_distinct,
+    "local_sort": _k_local_sort,
 }

@@ -1,21 +1,62 @@
-"""Aggregation specs shared by the planner and the stage ops.
+"""Segmented (group-by) reduction over sorted rows.
 
-Only ``AggSpec`` of ``dryad_tpu/ops/segmented.py`` is ported so far; the
-sort-based ``group_reduce`` / ``group_combine`` / ``distinct`` follow
-with the exchange (ROADMAP.md, queue 1 item 5).
+The counterpart of ``dryad_tpu/ops/segmented.py``: ``group_reduce``
+sorts each partition's rows by key, marks segment starts, and reduces
+every segment; ``distinct`` keeps each segment's first row.  Every
+function works along the last axis of ``(P, cap)`` batches.
+
+Output rows, keys and counts are the reference's byte for byte.  How
+each aggregate is reduced:
+
+- counts come from one scatter of segment-start positions, as in the
+  reference;
+- integer sums, min/max, any/all and the 64-bit pair ops
+  (``sum64``/``min64``/``max64`` over split ``(lo, hi)`` words) are
+  integer scatters, whose result does not depend on the order the
+  device applies them in.  ``sum64`` adds the low and high words
+  apart and carries, so nothing overflows; ``min64``/``max64`` compare
+  the pair as one signed int64.  The reference gets the same values
+  from a segmented scan;
+- float32 min/max reduce the order-preserving uint32 image of each
+  value (``to_sortable_u32``), so they are integer scatters too; a
+  segment holding a NaN gives NaN, as the reference's ``segment_min``/
+  ``segment_max`` do;
+- float32 sums and means never use float atomics (their rounding would
+  change from run to run on CUDA).  Each value is scaled to a 64-bit
+  integer against its segment's largest exponent, the integers are
+  summed (exactly, in any order), and the total is scaled back and
+  rounded once.  The result is the same on every run and device, and
+  differs from the reference's f32 summation only by rounding: within
+  ``n_g * 2^-23 * sum |v|`` for a group of ``n_g`` values.
+
+``group_reduce_fused`` (an opt-in environment switch of the reference,
+off by default) and ``group_combine`` (reached only by decomposable
+aggregates) are not ported yet (ROADMAP.md queue 1 item 5).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Dict, Optional, Sequence, Tuple
+
+import torch
+
+from dryad_tpu_torch.columnar.batch import DUMP, MASK32, WORD, ColumnBatch, row_cumsum
+from dryad_tpu_torch.ops.sort import sort_batch_by_operands
+from dryad_tpu_torch.ops.sortkeys import (
+    SIGN32,
+    flush_subnormal,
+    keys_equal_adjacent,
+    to_sortable_u32,
+)
 
 
 @dataclasses.dataclass(frozen=True)
 class AggSpec:
     """One built-in aggregation over a physical column.
 
-    op: sum | count | min | max | mean | any | all | first
+    op: sum | count | min | max | mean | any | all | first, and the
+    64-bit pair ops sum64 | min64 | max64 (``col`` names the low word)
     col: input physical column (None for count)
     out: output physical column name
     """
@@ -23,3 +64,220 @@ class AggSpec:
     op: str
     col: Optional[str]
     out: str
+
+
+PAIR_OPS = ("sum64", "min64", "max64")
+_I32_MIN, _I32_MAX = -(1 << 31), (1 << 31) - 1
+
+
+def _dump(cap: int, device) -> torch.Tensor:
+    """Where rows outside any segment (invalid rows; non-first rows of a
+    first-row scatter) land: DUMP slots past the ``cap`` segments."""
+    return cap + torch.arange(cap, device=device) % DUMP
+
+
+def _segment_layout(
+    batch: ColumnBatch, key_cols: Sequence[str]
+) -> Tuple[ColumnBatch, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Sort each partition by its keys (valid rows first); return
+    ``(sorted batch, valid, start, seg, nseg)``.  ``seg`` maps each row to
+    its segment id, invalid rows to the dump slots past ``cap``."""
+    cap = batch.capacity
+    sb = sort_batch_by_operands(
+        batch, [to_sortable_u32(batch.data[k]) for k in key_cols]
+    )
+    v = sb.valid
+    start = v & ~keys_equal_adjacent([sb.data[k] for k in key_cols])
+    seg = torch.where(v, row_cumsum(start) - 1, _dump(cap, v.device))
+    nseg = start.sum(-1, dtype=torch.int32)
+    return sb, v, start, seg, nseg
+
+
+def _first_scatter(
+    val: torch.Tensor, start: torch.Tensor, seg: torch.Tensor, cap: int
+) -> torch.Tensor:
+    """Per-segment value of the segment's first row (zeros past the
+    last segment)."""
+    idx = torch.where(start, seg, _dump(cap, seg.device))
+    out = torch.zeros(val.shape[:-1] + (cap + DUMP,), dtype=val.dtype, device=val.device)
+    return out.scatter_(-1, idx, val)[..., :cap]
+
+
+def _scatter(val, seg, cap, reduce, init) -> torch.Tensor:
+    """``scatter_reduce`` of rows into ``cap`` segments (the dump slots
+    past them dropped); empty segments keep ``init``."""
+    out = torch.full(val.shape[:-1] + (cap + DUMP,), init, dtype=val.dtype, device=val.device)
+    return out.scatter_reduce_(-1, seg, val, reduce, include_self=True)[..., :cap]
+
+
+def _signed64(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """A split (lo, hi) word pair as one signed int64."""
+    return torch.where(hi >= SIGN32, hi - (1 << 32), hi) * (1 << 32) + lo
+
+
+def _segmented_pair_reduce(op, lo, hi, seg, cap) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-segment 64-bit reduce of a split (lo, hi) word column;
+    empty segments give the (0, 0) pair, as the reference."""
+    if op == "sum64":  # mod 2^64: word sums apart (exact), then the carry
+        s_lo = _scatter(lo, seg, cap, "sum", 0)
+        s_hi = _scatter(hi, seg, cap, "sum", 0)
+        return s_lo & MASK32, (s_hi + (s_lo >> 32)) & MASK32
+    v = _signed64(lo, hi)
+    out = torch.zeros(v.shape[:-1] + (cap + DUMP,), dtype=v.dtype, device=v.device)
+    r = out.scatter_reduce_(
+        -1, seg, v, "amin" if op == "min64" else "amax", include_self=False
+    )[..., :cap]
+    return r & MASK32, (r >> 32) & MASK32
+
+
+def pair_to_f32(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """Approximate f32 value of a split signed-64 word pair (hi signed *
+    2^32 + lo unsigned), the reference's float32 operations in order."""
+    hs = torch.where(hi >= SIGN32, hi - (1 << 32), hi)
+    return hs.to(torch.float32) * 4294967296.0 + lo.to(torch.float32)
+
+
+def _pow2(k: torch.Tensor) -> torch.Tensor:
+    """``2.0 ** k`` in float64, exactly, for integer k in [-1022, 1023]
+    (built from the exponent bits: no pow/exp2 rounding)."""
+    return ((k.to(torch.int64) + 1023) << 52).view(torch.float64)
+
+
+def _f32_sum(x: torch.Tensor, seg: torch.Tensor, cap: int) -> torch.Tensor:
+    """Per-segment float32 sum with integer accumulation (module
+    docstring).  With E a segment's largest biased exponent, each value
+    becomes ``round(x * 2^(K + 127 - E))``, below 2^(K+1) in magnitude,
+    so the sum of up to ``cap`` of them stays below 2^63; values within
+    2^(K-23) of the largest are exact, smaller ones lose at most half a
+    unit of 2^(E-127-K) each.  Subnormal inputs and results count as
+    zero, as in the reference's backends.  NaN and infinities follow
+    IEEE: any NaN, or both infinities, give NaN; one infinity gives
+    itself."""
+    K = 62 - max(1, cap.bit_length())
+    x = flush_subnormal(x)  # as the reference's backends add
+    biased = (x.view(torch.int32) >> 23) & 0xFF
+    keep = (biased != 0xFF) & (seg < cap)  # finite rows of a real segment
+    e = torch.where(keep, torch.clamp(biased, min=1), 0)  # subnormals as 1
+    E = _scatter(e, seg, cap, "amax", 0)
+    E_row = E.gather(-1, seg.clamp(max=cap - 1))  # any E for rows dropped anyway
+    xd = torch.where(keep, x, 0.0).to(torch.float64)
+    q = torch.round(xd * _pow2(K + 127 - E_row)).to(torch.int64)
+    total = _scatter(q, seg, cap, "sum", 0)
+    out = flush_subnormal((total.to(torch.float64) * _pow2(E - 127 - K)).to(torch.float32))
+    # non-finite rows: code 2 = NaN, 1 = +Inf (a max), and -Inf apart
+    pos = torch.where(torch.isnan(x), 2, (x == float("inf")).to(torch.int32))
+    f_pos = _scatter(pos.to(torch.int32), seg, cap, "amax", 0)
+    f_neg = _scatter((x == float("-inf")).to(torch.int32), seg, cap, "amax", 0)
+    out = torch.where(f_pos == 1, float("inf"), out)
+    out = torch.where(f_neg == 1, float("-inf"), out)
+    return torch.where((f_pos == 2) | ((f_pos == 1) & (f_neg == 1)), float("nan"), out)
+
+
+def _u32_minmax(w: torch.Tensor, seg, cap, op: str, init: int) -> torch.Tensor:
+    """Per-segment min/max of uint32 words (int64 carrier), reduced as
+    int32 (``w - 2^31`` keeps the order) so the card's native 32-bit
+    atomics apply; empty segments give ``init``."""
+    red = "amin" if op == "min" else "amax"
+    r = _scatter((w - SIGN32).to(torch.int32), seg, cap, red, init - SIGN32)
+    return r.to(WORD) + SIGN32
+
+
+def _f32_minmax(x: torch.Tensor, seg, cap, op: str) -> torch.Tensor:
+    """Per-segment float32 min/max over the values' sortable words;
+    empty segments give +inf (min) or -inf (max), as the reference."""
+    init = to_sortable_u32(torch.tensor(float("inf") if op == "min" else float("-inf")))
+    r = _u32_minmax(to_sortable_u32(x), seg, cap, op, int(init))
+    bits = torch.where(r >= SIGN32, r ^ SIGN32, r ^ MASK32)
+    out = (torch.where(bits >= SIGN32, bits - (1 << 32), bits)).to(torch.int32).view(torch.float32)
+    has_nan = _scatter(torch.isnan(x).to(torch.int32), seg, cap, "amax", 0)
+    return torch.where(has_nan > 0, float("nan"), out)
+
+
+def _segment_sum(col: torch.Tensor, seg, cap) -> torch.Tensor:
+    """The reference's ``segment_sum`` for one plain column: int32
+    wraps mod 2^32, uint32 words too, bool sums are an OR."""
+    if col.dtype == torch.float32:
+        return _f32_sum(col, seg, cap)
+    s = _scatter(col.to(torch.int64), seg, cap, "sum", 0)
+    if col.dtype == torch.int32:
+        return (((s + (1 << 31)) & MASK32) - (1 << 31)).to(torch.int32)
+    if col.dtype == WORD:
+        return s & MASK32
+    return s > 0  # bool
+
+
+def _segment_minmax(col: torch.Tensor, seg, cap, op: str) -> torch.Tensor:
+    if col.dtype == torch.float32:
+        return _f32_minmax(col, seg, cap, op)
+    red = "amin" if op == "min" else "amax"
+    if col.dtype == torch.int32:
+        return _scatter(col, seg, cap, red, _I32_MAX if op == "min" else _I32_MIN)
+    if col.dtype == WORD:
+        return _u32_minmax(col, seg, cap, op, MASK32 if op == "min" else 0)
+    return _scatter(col.to(torch.int32), seg, cap, red, int(op == "min")).to(torch.bool)
+
+
+def group_reduce(
+    batch: ColumnBatch, key_cols: Sequence[str], aggs: Sequence[AggSpec]
+) -> ColumnBatch:
+    """Group each partition's rows by the key columns and reduce; the
+    output keeps the input's capacity, with one valid row per distinct
+    key at the front (rows ``0..nseg-1``): the key columns plus one
+    column per AggSpec (two words for the pair ops)."""
+    cap = batch.capacity
+    sb, v, start, seg, nseg = _segment_layout(batch, key_cols)
+    out: Dict[str, torch.Tensor] = {}
+    for k in key_cols:
+        out[k] = _first_scatter(sb.data[k], start, seg, cap)
+
+    seg_count = None
+    if any(a.op in ("count", "mean") for a in aggs):
+        # counts from one scatter of segment-start positions, then
+        # adjacent differences (the reference's start-position scatter)
+        nvalid = v.sum(-1, keepdim=True, dtype=torch.int32)
+        idx = torch.where(start, seg, _dump(cap, v.device) + 2)
+        pos = torch.arange(cap, dtype=torch.int32, device=v.device).expand_as(v)
+        sp = nvalid.expand(-1, cap + 2 + DUMP).clone().scatter_(-1, idx, pos)[:, : cap + 1]
+        seg_count = sp[:, 1:] - sp[:, :cap]
+
+    sums: Dict[str, torch.Tensor] = {}  # aggs summing one column share it
+    for a in aggs:
+        if a.op == "count":
+            out[a.out] = seg_count
+            continue
+        if a.op in PAIR_OPS:
+            hi_col = a.col[: -len("#h0")] + "#h1"
+            lo, hi = _segmented_pair_reduce(a.op, sb.data[a.col], sb.data[hi_col], seg, cap)
+            out[f"{a.out}#h0"] = lo
+            out[f"{a.out}#h1"] = hi
+            continue
+        col = sb.data[a.col]
+        if a.op == "sum":
+            if a.col not in sums:
+                sums[a.col] = _segment_sum(col, seg, cap)
+            out[a.out] = sums[a.col]
+        elif a.op in ("min", "max"):
+            out[a.out] = _segment_minmax(col, seg, cap, a.op)
+        elif a.op == "mean":
+            s = _f32_sum(col.to(torch.float32), seg, cap)
+            out[a.out] = s / torch.clamp(seg_count.to(torch.float32), min=1.0)
+        elif a.op == "any":
+            out[a.out] = _scatter(col.to(torch.int32), seg, cap, "amax", _I32_MIN) != 0
+        elif a.op == "all":
+            vals = torch.where(v, col, True).to(torch.int32)
+            out[a.out] = _scatter(vals, seg, cap, "amin", _I32_MAX) != 0
+        elif a.op == "first":
+            out[a.out] = _first_scatter(col, start, seg, cap)
+        else:
+            raise ValueError(f"unknown agg op {a.op!r}")
+
+    valid = torch.arange(cap, device=v.device) < nseg[:, None]
+    return ColumnBatch(out, valid)
+
+
+def distinct(batch: ColumnBatch, key_cols: Sequence[str]) -> ColumnBatch:
+    """Distinct rows over the key columns: group with the segment's
+    first row of every other column."""
+    keys = set(key_cols)
+    aggs = [AggSpec("first", c, c) for c in batch.columns if c not in keys]
+    return group_reduce(batch, key_cols, aggs)

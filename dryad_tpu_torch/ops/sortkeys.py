@@ -17,6 +17,15 @@ import torch
 from dryad_tpu_torch.columnar.batch import MASK32, WORD
 
 SIGN32 = 0x80000000
+FLT_MIN = 2.0 ** -126  # smallest normal float32
+
+
+def flush_subnormal(col: torch.Tensor) -> torch.Tensor:
+    """Subnormal float32 values (and -0.0) as +0.0.  The reference's XLA
+    backends flush subnormals to zero in arithmetic and compares, so
+    where a float decides placement (hashing, key equality) the port
+    compares flushed values to give the same answer."""
+    return torch.where(col.abs() < FLT_MIN, torch.zeros_like(col), col)
 
 
 def to_sortable_u32(col: torch.Tensor, descending: bool = False) -> torch.Tensor:
@@ -53,3 +62,29 @@ def sort_order(
     for col, d in zip(key_cols, desc):
         operands.append(to_sortable_u32(col, d))
     return lex_order(operands)
+
+
+def lexi_less(
+    a_cols: Sequence[torch.Tensor], b_cols: Sequence[torch.Tensor]
+) -> torch.Tensor:
+    """Elementwise lexicographic ``a < b`` over parallel key columns."""
+    lt = torch.zeros(a_cols[0].shape, dtype=torch.bool, device=a_cols[0].device)
+    eq = torch.ones_like(lt)
+    for a, b in zip(a_cols, b_cols):
+        ka, kb = to_sortable_u32(a), to_sortable_u32(b)
+        lt = lt | (eq & (ka < kb))
+        eq = eq & (ka == kb)
+    return lt
+
+
+def keys_equal_adjacent(key_cols: Sequence[torch.Tensor]) -> torch.Tensor:
+    """For columns sorted along the last axis: row i equals row i-1 on
+    every key (row 0 of each partition -> False; float32 compared as the
+    reference's backends compare, subnormals equal to zero)."""
+    eq = torch.ones(key_cols[0].shape, dtype=torch.bool, device=key_cols[0].device)
+    for col in key_cols:
+        if col.dtype == torch.float32:
+            col = flush_subnormal(col)
+        eq = eq & (col == torch.roll(col, 1, -1))
+    eq[..., 0] = False
+    return eq

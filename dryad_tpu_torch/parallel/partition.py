@@ -10,7 +10,9 @@ tensor operations on that axis:
 reference collective               here
 =================================  =====================================
 ``psum_scatter(tiled=True)``       ``x.sum(0)`` then ``reshape(P, per)``
+``psum``                           ``x.sum(0)``, the same on every row
 ``all_gather(tiled=True)``         ``reshape(1, P * n)`` on every row
+``all_to_all(tiled=True)``         transpose of the ``(P, P, B)`` buffer
 ``axis_index``                     ``arange(P)``
 =================================  =====================================
 
@@ -78,3 +80,16 @@ def all_gather(x: torch.Tensor) -> torch.Tensor:
 def axis_index(P: int, device) -> torch.Tensor:
     """Each partition's index, as a ``(P, 1)`` column."""
     return torch.arange(P, device=device).reshape(P, 1)
+
+
+def psum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the partition axis (``(P, ...)`` -> ``(...)``): the value
+    every partition holds after the reference's ``psum``."""
+    return x.sum(0, dtype=x.dtype)
+
+
+def all_to_all(send: torch.Tensor) -> torch.Tensor:
+    """``send[src, dst, b]`` -> ``recv[dst, src * B + b]``: partition
+    ``dst`` receives every source's block for it, in source order."""
+    P, P2, B = send.shape[:3]
+    return send.transpose(0, 1).reshape((P2, P * B) + send.shape[3:])

@@ -2,13 +2,18 @@
 
 The counterpart of ``dryad_tpu/plan/lower.py`` for the node kinds of the
 ported path: ``input``, ``select``/``where`` (including name-only
-projections), ``group_by`` on the dense bucket path (explicit
-``dense=K``, int auto-dense with its range guard, and auto-dense STRING
-through ``string_code``), and ``order_by`` + ``take(n)`` fused into
+projections), ``group_by`` (the dense bucket path: explicit ``dense=K``,
+int auto-dense with its range guard, auto-dense STRING through
+``string_code``; and the sort path: partial reduce, hash exchange,
+final reduce, with or without ``salt``), ``distinct``,
+``hash_partition``, ``order_by`` and ``range_partition`` (the range
+exchange plus local sort), and ``order_by`` + ``take(n)`` fused into
 ``topk``.  It emits the SAME ``StageOp`` kinds and params as the
-reference, so a plan's op list can be held against the reference's
-lowering.  Every other node kind raises ``NotImplementedError`` naming
-the ROADMAP.md item that will port it.
+reference, including the static fan-out reduction of exchanges over
+statically small inputs (``nparts``), so a plan's op list can be held
+against the reference's lowering.  Every other node kind, and the
+decomposable ``group_by``, raises ``NotImplementedError`` naming the
+ROADMAP.md item that will port it.
 """
 
 from __future__ import annotations
@@ -17,8 +22,10 @@ import dataclasses
 import itertools
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
-from dryad_tpu_torch.columnar.schema import Schema
-from dryad_tpu_torch.ops.segmented import AggSpec
+import torch
+
+from dryad_tpu_torch.columnar.schema import ColumnType, Schema
+from dryad_tpu_torch.ops.segmented import AggSpec, pair_to_f32
 from dryad_tpu_torch.plan import keys as K
 from dryad_tpu_torch.plan.nodes import Node, PartitionInfo, consumers, walk
 
@@ -26,13 +33,9 @@ _stage_ids = itertools.count()
 
 # Where each not-yet-ported node kind lands (ROADMAP.md, "Modules to port").
 _PENDING = {
-    "order_by": "slice 2: TeraSort and plain order_by (exchange_range, "
-                "resize, local_sort)",
-    "range_partition": "slice 2: TeraSort and plain order_by (exchange_range)",
-    "group_by": "queue 1 items 4-5: the hash exchange and sort-path "
-                "group_reduce",
-    "distinct": "queue 1 items 4-5: the hash exchange and segmented distinct",
-    "hash_partition": "queue 1 item 4: the hash exchange",
+    "decomposable": "queue 1 items 5 and 9: group_combine and "
+                    "api/decomposable.py",
+    "join": "queue 1 item 10: ops/join.py and the join kernels",
 }
 
 
@@ -63,6 +66,8 @@ class Stage:
     input_refs: List[Tuple[Any, int]]
     ops: List[StageOp] = dataclasses.field(default_factory=list)
     out_slots: List[int] = dataclasses.field(default_factory=lambda: [0])
+    # output capacity multiplier relative to the base input capacity
+    growth: float = 1.0
 
 
 @dataclasses.dataclass
@@ -72,14 +77,36 @@ class StageGraph:
     inputs: Dict[int, Node]
 
 
+def tail_width(rows, config, P) -> Optional[int]:
+    """``ceil(rows / tail_rows_per_partition)`` when ``rows`` is at or
+    below ``tail_fanout_rows``; None = full width.  A width at or above
+    the partition count ``P`` (when known) is no reduction.  One sizing
+    policy for the static estimator and the executor's observed-volume
+    adaptation."""
+    limit = getattr(config, "tail_fanout_rows", 4096)
+    if not limit or rows is None or rows > limit:
+        return None
+    per = max(1, getattr(config, "tail_rows_per_partition", 512))
+    nparts = max(1, -(-rows // per))
+    if P is not None and nparts >= P:
+        return None
+    return nparts
+
+
 class _Builder:
-    def __init__(self, config, dictionary=None) -> None:
+    def __init__(self, config, dictionary=None, P: Optional[int] = None) -> None:
         self.config = config
         self.dictionary = dictionary
+        self.P = P  # partition count when the caller knows it
         self.stages: List[Stage] = []
         self.open: Dict[int, Stage] = {}
         self.cursor: Dict[int, Tuple] = {}
         self.plan_inputs: Dict[int, Node] = {}
+        # node id -> static bound on the global row count (None = none)
+        self.est: Dict[int, Optional[int]] = {}
+        # nodes whose hash claim came from a fan-reduced exchange: still
+        # key-colocated, but not co-partitioned with a full-width side
+        self.reduced: set = set()
         self._vocab_cache: Dict[Tuple[int, str], Any] = {}
 
     def _str_vocab(self, node: Node, col: str):
@@ -89,6 +116,43 @@ class _Builder:
 
             self._vocab_cache[key] = static_str_vocab(node, col)
         return self._vocab_cache[key]
+
+    # -- static row estimates (as the reference) -------------------------
+    def _estimate_node(self, node: Node) -> Optional[int]:
+        ins = [self.est.get(i.id) for i in node.inputs]
+        k = node.kind
+        if k == "aggregate":
+            return 1
+        if k in ("take", "tail", "topk"):
+            return int(node.params["n"])
+        if k == "group_by":
+            if node.params.get("dense"):
+                return int(node.params["dense"])
+            if node.params.get("auto_dense") and self.dictionary is not None:
+                return len(self.dictionary)
+            return ins[0]  # groups <= input rows
+        if k == "distinct":
+            return ins[0]
+        if k == "concat":
+            return sum(ins) if all(e is not None for e in ins) else None
+        if k == "zip":
+            known = [e for e in ins if e is not None]
+            return min(known) if known else None
+        if k in (
+            "select", "where", "project", "with_rank", "take_while",
+            "skip_while", "skip", "reverse", "default_if_empty",
+            "order_by", "hash_partition", "range_partition",
+            "assume_partition", "tee", "fork_branch", "cache",
+        ):
+            return ins[0] if ins else None
+        if k == "join" and node.params.get("join_kind") in ("count", "semi", "anti"):
+            return ins[0]
+        return None
+
+    def _tail_nparts(self, src: Node) -> Optional[int]:
+        """Fan-out of the consumer exchange when the source is statically
+        small (:func:`tail_width`); None = full width."""
+        return tail_width(self.est.get(src.id), self.config, self.P)
 
     # -- stage bookkeeping (as the reference) -------------------------------
     def _new_stage(self, name: str, input_refs: List[Tuple[Any, int]]) -> Stage:
@@ -125,6 +189,10 @@ class _Builder:
 
     # -- node lowering -------------------------------------------------------
     def lower_node(self, node: Node, fanout: Dict[int, int]) -> None:
+        self.est[node.id] = self._estimate_node(node)
+        # reduced-ness is sticky down single-input chains
+        if node.inputs and node.inputs[0].id in self.reduced:
+            self.reduced.add(node.id)
         n_cons = fanout.get(node.id, 1)
         k = node.kind
         if k == "input":
@@ -146,8 +214,10 @@ class _Builder:
             self._materialize(node)
         elif k == "assume_partition":
             self.cursor[node.id] = self.cursor[node.inputs[0].id]
-        elif k == "group_by":
-            self._lower_group_by(node, fanout)
+        elif k in ("hash_partition", "group_by", "distinct"):
+            self._lower_keyed(node, fanout)
+        elif k in ("order_by", "range_partition"):
+            self._lower_ranged(node, fanout)
         else:
             raise _pending(k)
         if n_cons > 1 and self.cursor[node.id][0] == "open":
@@ -192,34 +262,281 @@ class _Builder:
         return 0 < bound <= limit
 
     def _phys_aggs(self, schema: Schema, aggs) -> List[AggSpec]:
-        """Logical aggs -> physical AggSpecs for plain (non-split)
-        columns, which is all the dense path accepts."""
+        """Logical aggs -> physical AggSpecs: int64 sum/min/max/mean and
+        float64 min/max become the 64-bit pair ops over the split
+        ``(#h0, #h1)`` words; ``first`` of a split column takes each
+        word."""
         out = []
         for op, col, name in aggs:
-            if col is not None and schema.field(col).ctype.is_split:
-                raise _pending("group_by")
+            if col is not None:
+                f = schema.field(col)
+                if f.ctype is ColumnType.INT64 and op in ("sum", "min", "max"):
+                    out.append(AggSpec(f"{op}64", f"{col}#h0", name))
+                    continue
+                if f.ctype is ColumnType.INT64 and op == "mean":
+                    out.append(AggSpec("mean64", f"{col}#h0", name))
+                    continue
+                if f.ctype is ColumnType.FLOAT64:
+                    if op in ("min", "max"):
+                        # the words are the order-preserving signed-int64
+                        # image, so int64 min/max apply unchanged
+                        out.append(AggSpec(f"{op}64", f"{col}#h0", name))
+                        continue
+                    if op in ("sum", "mean"):
+                        raise ValueError(
+                            f"aggregate {op!r} unsupported on float64 "
+                            f"column {col!r}: no f64 arithmetic on "
+                            f"device — cast to float32 for approximate "
+                            f"sums"
+                        )
+                if f.ctype.is_split:
+                    if op != "first":
+                        raise ValueError(
+                            f"aggregate {op!r} unsupported on {f.ctype.value} "
+                            f"column {col!r}"
+                        )
+                    for dev in f.device_names:
+                        word = dev.split("#", 1)[1]
+                        out.append(AggSpec("first", dev, f"{name}#{word}"))
+                    continue
             out.append(AggSpec(op, col, name))
         return out
 
-    def _lower_group_by(self, node: Node, fanout: Dict[int, int]) -> None:
-        keys = node.params["keys"]
-        dense = node.params.get("dense")
-        if not dense and not self._auto_dense_ok(node, keys):
-            raise _pending("group_by")
+    def _needs_hash_exchange(self, node: Node, keys: Sequence[str]) -> bool:
+        """Equal-key colocation elision for keyed ops: a matching hash
+        claim colocates, and so does a strict (non-spread) range claim
+        whose keys are a subset of the group keys."""
+        p = node.inputs[0].partition
+        if p.scheme == "hash" and tuple(p.keys) == tuple(keys):
+            return False
+        if p.scheme == "range" and not p.spread and p.keys and set(p.keys) <= set(keys):
+            return False
+        return True
+
+    def _hash_exchange(self, node, stage, slot, keys, nparts, tree=None) -> None:
+        """exchange_hash + resize of one slot (the reference's pair)."""
+        if nparts:
+            self.reduced.add(node.id)
+        params = dict(slot=slot, keys=keys, nparts=nparts)
+        if tree is not None:
+            params["tree"] = tree
+        stage.ops.append(StageOp("exchange_hash", params))
+        stage.ops.append(StageOp(
+            "resize", dict(slot=slot, factor=stage.growth, nparts=nparts),
+        ))
+
+    def _lower_keyed(self, node: Node, fanout: Dict[int, int]) -> None:
         stage, slot = self._continue_or_start(node, fanout.get(node.inputs[0].id, 1))
         in_schema = node.inputs[0].schema
-        aggs = self._phys_aggs(in_schema, node.params["aggs"])
-        if not dense:
+        keys = node.params["keys"]
+        eq_cols = K.equality_cols(in_schema, keys)
+        carry_cols = K.group_carry_cols(in_schema, keys)
+        need_exchange = self._needs_hash_exchange(node, keys)
+        # a statically small input concentrates onto fewer partitions
+        nparts = self._tail_nparts(node.inputs[0])
+
+        if node.kind == "hash_partition":
+            if need_exchange:
+                self._hash_exchange(node, stage, slot, eq_cols, nparts)
+            self.cursor[node.id] = ("open", stage, slot)
+            return
+
+        if node.kind == "distinct" and self._auto_dense_ok(node, keys):
+            # vocabulary distinct: bucket count > 0 + decode, no shuffle
+            self._emit_auto_dense(
+                node, stage, slot, keys[0], [AggSpec("count", None, "#c")]
+            )
+            return
+
+        if node.kind == "distinct":
+            if need_exchange:
+                stage.ops.append(StageOp("distinct", dict(slot=slot, keys=eq_cols)))
+                self._hash_exchange(
+                    node, stage, slot, eq_cols, nparts,
+                    tree=dict(keys=eq_cols, distinct=True),
+                )
+            stage.ops.append(StageOp("distinct", dict(slot=slot, keys=eq_cols)))
+            self.cursor[node.id] = ("open", stage, slot)
+            return
+
+        if node.params.get("dense"):
+            aggs = self._phys_aggs(in_schema, node.params["aggs"])
+            stage.ops.append(StageOp(
+                "group_reduce_dense",
+                dict(slot=slot, key=carry_cols[0], aggs=aggs,
+                     num_buckets=int(node.params["dense"]),
+                     guard=bool(node.params.get("guard_range"))),
+            ))
+            want = K.group_carry_cols(node.schema, node.schema.names)
+            stage.ops.append(StageOp("project", dict(slot=slot, cols=want)))
+            self.cursor[node.id] = ("open", stage, slot)
+            return
+
+        if self._auto_dense_ok(node, keys):
+            aggs = self._phys_aggs(in_schema, node.params["aggs"])
             self._emit_auto_dense(node, stage, slot, keys[0], aggs)
             return
-        stage.ops.append(StageOp(
-            "group_reduce_dense",
-            dict(slot=slot, key=K.group_carry_cols(in_schema, keys)[0], aggs=aggs,
-                 num_buckets=int(dense), guard=bool(node.params.get("guard_range"))),
-        ))
+
+        if node.params.get("decomposable") is not None:
+            raise _pending("decomposable")
+
+        aggs = self._phys_aggs(in_schema, node.params["aggs"])
+        partial, final = _decompose_aggs(aggs)
+        salt = node.params.get("salt")
+        if salt and need_exchange:
+            # skew path: partial-reduce on (key, salt), exchange on (key,
+            # salt), re-reduce, then the key-only exchange below
+            salted = carry_cols + ["#salt"]
+            stage.ops.append(StageOp("select", dict(slot=slot, fn=_AddSalt(int(salt)))))
+            stage.ops.append(StageOp("group_reduce", dict(slot=slot, keys=salted, aggs=partial)))
+            stage.ops.append(StageOp(
+                "exchange_hash",
+                dict(slot=slot, keys=eq_cols + ["#salt"], tree=dict(keys=salted, aggs=final)),
+            ))
+            stage.ops.append(StageOp("resize", dict(slot=slot, factor=stage.growth)))
+            stage.ops.append(StageOp("group_reduce", dict(slot=slot, keys=salted, aggs=final)))
+        else:
+            stage.ops.append(StageOp("group_reduce", dict(slot=slot, keys=carry_cols, aggs=partial)))
+        if need_exchange:
+            self._hash_exchange(
+                node, stage, slot, eq_cols, nparts, tree=dict(keys=carry_cols, aggs=final),
+            )
+            stage.ops.append(StageOp("group_reduce", dict(slot=slot, keys=carry_cols, aggs=final)))
+        fin = _finalize_fn(aggs)
+        if fin is not None:
+            stage.ops.append(StageOp("select", dict(slot=slot, fn=fin)))
         want = K.group_carry_cols(node.schema, node.schema.names)
         stage.ops.append(StageOp("project", dict(slot=slot, cols=want)))
         self.cursor[node.id] = ("open", stage, slot)
+
+    def _lower_ranged(self, node: Node, fanout: Dict[int, int]) -> None:
+        stage, slot = self._continue_or_start(node, fanout.get(node.inputs[0].id, 1))
+        keys: List[Tuple[str, bool]] = [(kk, bool(d)) for kk, d in node.params["keys"]]
+        operands_fn = K.ordering_operands(node.inputs[0].schema, keys)
+        src_p = node.inputs[0].partition
+        # Elision needs the same primary key AND direction.  A spread
+        # input keeps global order but not equal-key colocation, so only
+        # an order_by by exactly its ordering may elide over it.
+        spread_ok = node.kind == "order_by" and src_p.ordered_by == tuple(keys)
+        already_ranged = (
+            src_p.scheme == "range"
+            and len(src_p.range_by) > 0
+            and src_p.range_by[0] == keys[0]
+            and (not src_p.spread or spread_ok)
+        )
+        if not already_ranged:
+            # order_by needs only global order, so its exchange spreads
+            # equal keys (skew-proof); range_partition promises
+            # colocation and keeps strict splitters
+            nparts = self._tail_nparts(node.inputs[0])
+            if nparts:
+                self.reduced.add(node.id)
+            stage.ops.append(StageOp(
+                "exchange_range",
+                dict(slot=slot, operands_fn=operands_fn, spread=node.kind == "order_by",
+                     rate=self.config.sample_rate, nparts=nparts),
+            ))
+            stage.ops.append(StageOp(
+                "resize", dict(slot=slot, factor=stage.growth, nparts=nparts)
+            ))
+        if node.kind == "order_by":
+            stage.ops.append(StageOp("local_sort", dict(slot=slot, operands_fn=operands_fn)))
+        self.cursor[node.id] = ("open", stage, slot)
+
+
+def _decompose_aggs(aggs):
+    """Builtin combiner decomposition: local partial + post-shuffle
+    final (count -> local count + final sum; mean -> (sum, count)
+    partials + final divide; the 64-bit pair ops re-reduce their
+    pair)."""
+    partial, final = [], []
+    for a in aggs:
+        if a.op == "sum":
+            partial.append(AggSpec("sum", a.col, a.out))
+            final.append(AggSpec("sum", a.out, a.out))
+        elif a.op == "count":
+            partial.append(AggSpec("count", None, a.out))
+            final.append(AggSpec("sum", a.out, a.out))
+        elif a.op in ("min", "max", "first", "any", "all"):
+            partial.append(AggSpec(a.op, a.col, a.out))
+            final.append(AggSpec(a.op, a.out, a.out))
+        elif a.op in ("sum64", "min64", "max64"):
+            partial.append(AggSpec(a.op, a.col, a.out))
+            final.append(AggSpec(a.op, f"{a.out}#h0", a.out))
+        elif a.op == "mean64":
+            partial.append(AggSpec("sum64", a.col, f"{a.out}#s"))
+            partial.append(AggSpec("count", None, f"{a.out}#c"))
+            final.append(AggSpec("sum64", f"{a.out}#s#h0", f"{a.out}#s"))
+            final.append(AggSpec("sum", f"{a.out}#c", f"{a.out}#c"))
+        elif a.op == "mean":
+            partial.append(AggSpec("sum", a.col, f"{a.out}#s"))
+            partial.append(AggSpec("count", None, f"{a.out}#c"))
+            final.append(AggSpec("sum", f"{a.out}#s", f"{a.out}#s"))
+            final.append(AggSpec("sum", f"{a.out}#c", f"{a.out}#c"))
+        else:
+            raise ValueError(f"unknown agg op {a.op!r}")
+    return partial, final
+
+
+class _AddSalt:
+    """Row fn appending the ``#salt`` spread column (row index mod
+    salt); value-equal, as in the reference."""
+
+    def __init__(self, salt: int):
+        self.salt = salt
+
+    def __eq__(self, other) -> bool:
+        return type(other) is _AddSalt and other.salt == self.salt
+
+    def __hash__(self) -> int:
+        return hash(("_AddSalt", self.salt))
+
+    def __call__(self, cols):
+        ref = next(iter(cols.values()))
+        n = ref.shape[-1]
+        salt = torch.arange(n, dtype=torch.int32, device=ref.device) % self.salt
+        return {**cols, "#salt": salt.expand(ref.shape[:-1] + (n,))}
+
+
+class _FinalizeMeans:
+    """Post-shuffle mean finalize (sum / count; 64-bit sums decode their
+    word pair to f32 first); value-equal, as in the reference."""
+
+    def __init__(self, outs, outs64=()):
+        self.outs = tuple(outs)
+        self.outs64 = tuple(outs64)
+
+    def __eq__(self, other) -> bool:
+        return (
+            type(other) is _FinalizeMeans
+            and other.outs == self.outs
+            and other.outs64 == self.outs64
+        )
+
+    def __hash__(self) -> int:
+        return hash(("_FinalizeMeans", self.outs, self.outs64))
+
+    def __call__(self, cols):
+        out = dict(cols)
+        for name in self.outs:
+            s = out.pop(f"{name}#s").to(torch.float32)
+            c = out.pop(f"{name}#c").to(torch.float32)
+            out[name] = s / torch.clamp(c, min=1.0)
+        for name in self.outs64:
+            lo = out.pop(f"{name}#s#h0")
+            hi = out.pop(f"{name}#s#h1")
+            c = out.pop(f"{name}#c").to(torch.float32)
+            out[name] = pair_to_f32(lo, hi) / torch.clamp(c, min=1.0)
+        return out
+
+
+def _finalize_fn(aggs):
+    """Post-shuffle finalize for aggs whose partials differ (mean)."""
+    means = [a.out for a in aggs if a.op == "mean"]
+    means64 = [a.out for a in aggs if a.op == "mean64"]
+    if not means and not means64:
+        return None
+    return _FinalizeMeans(means, means64)
 
 
 def _rewrite_topk(roots: Sequence[Node], limit: int) -> List[Node]:
@@ -257,10 +574,13 @@ def _rewrite_topk(roots: Sequence[Node], limit: int) -> List[Node]:
     return [rb(r) for r in roots]
 
 
-def lower(roots: Sequence[Node], config, dictionary=None) -> StageGraph:
+def lower(
+    roots: Sequence[Node], config, dictionary=None, P: Optional[int] = None
+) -> StageGraph:
     """Lower a logical DAG to a stage graph (``dictionary`` enables the
-    auto-dense STRING rewrite)."""
-    b = _Builder(config, dictionary)
+    auto-dense STRING rewrite; ``P``, the partition count when known,
+    lets the fan-out reduction skip widths at or above it)."""
+    b = _Builder(config, dictionary, P)
     rewritten = _rewrite_topk(roots, getattr(config, "topk_limit", 1024))
     fanout = consumers(rewritten)
     for node in walk(rewritten):

@@ -41,9 +41,15 @@ class DryadConfig:
       with a range-miss guard.
     - ``stringcode_runtime_tables``: the dense domain of the STRING
       rewrite is the code table's power-of-two tier, not K itself.
-    - ``shuffle_slack`` / ``max_shuffle_retries``: exchange capacity
-      slack and retry budget (validated here; the exchange itself is
-      not ported yet).
+    - ``shuffle_slack`` / ``max_shuffle_retries``: exchange bucket
+      slack over the uniform expectation, and the number of overflow
+      retries (each doubles the boost) before a stage fails.
+    - ``sample_rate``: range-exchange sampler rate (0.1%), clamped to
+      16-512 samples a partition, both scaled by the boost.
+    - ``tail_fanout_rows`` / ``tail_rows_per_partition``: an exchange
+      whose input holds at most ``tail_fanout_rows`` rows (statically,
+      or as observed at run time) concentrates them onto
+      ``ceil(rows / tail_rows_per_partition)`` partitions; 0 disables.
     - ``topk_limit``: order_by + take(n) fuses to top-k for n at or
       below this.
     - ``device_cache_bytes``: budget of the device-resident ingest
@@ -52,6 +58,11 @@ class DryadConfig:
 
     shuffle_slack: float = _env_float("DRYAD_TPU_SHUFFLE_SLACK", 2.0)
     max_shuffle_retries: int = 3
+    sample_rate: float = 0.001
+    tail_fanout_rows: int = _env_int("DRYAD_TPU_TAIL_FANOUT_ROWS", 4096)
+    tail_rows_per_partition: int = _env_int(
+        "DRYAD_TPU_TAIL_ROWS_PER_PARTITION", 512
+    )
     topk_limit: int = _env_int("DRYAD_TPU_TOPK_LIMIT", 1024)
     auto_dense_strings: bool = True
     auto_dense_ints: bool = True
@@ -66,7 +77,13 @@ class DryadConfig:
     def validate(self) -> None:
         if self.shuffle_slack < 1.0:
             raise ValueError("shuffle_slack must be >= 1.0")
+        if not 0.0 < self.sample_rate <= 1.0:
+            raise ValueError("sample_rate must be in (0, 1]")
         if self.max_shuffle_retries < 0:
             raise ValueError("max_shuffle_retries must be >= 0")
+        if self.tail_fanout_rows < 0:
+            raise ValueError("tail_fanout_rows must be >= 0")
+        if self.tail_rows_per_partition < 1:
+            raise ValueError("tail_rows_per_partition must be >= 1")
         if self.device_cache_bytes < 0:
             raise ValueError("device_cache_bytes must be >= 0")

@@ -74,3 +74,15 @@ def test_sort_order_descending_keys_with_ties_matches_reference(rng):
         [torch.from_numpy(a), torch.from_numpy(b)], torch.from_numpy(valid), [True, False]
     )
     np.testing.assert_array_equal(got.numpy(), ref)
+
+
+def test_lexi_less_and_adjacent_equality_match_reference(rng):
+    a = [rng.integers(-2, 2, 200).astype(np.int32), rng.choice(FLOATS, 200)]
+    b = [rng.integers(-2, 2, 200).astype(np.int32), rng.choice(FLOATS, 200)]
+    ref = np.asarray(JK.lexi_less([jnp.asarray(x) for x in a], [jnp.asarray(x) for x in b]))
+    got = TK.lexi_less([torch.from_numpy(x) for x in a], [torch.from_numpy(x) for x in b])
+    np.testing.assert_array_equal(got.numpy(), ref)
+    srt = [np.sort(a[0]), np.sort(a[1])]
+    ref = np.asarray(JK.keys_equal_adjacent([jnp.asarray(x) for x in srt]))
+    got = TK.keys_equal_adjacent([torch.from_numpy(x) for x in srt])
+    np.testing.assert_array_equal(got.numpy(), ref)

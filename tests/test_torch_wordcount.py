@@ -177,15 +177,21 @@ def test_ingest_layout_matches_reference(mesh8, rng):
 
 
 def test_unported_shapes_raise_not_implemented():
+    from dryad_tpu_torch.plan.nodes import Node, PartitionInfo
+
     _, tc = _ctxs()
     q = tc.from_text("b a c a")
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        q.order_by(["word"]).collect()
-    with pytest.raises(NotImplementedError):
+    k = tc.from_arrays({"k": np.array([-1, 2], np.int32)})
+    join = Node("join", [q.node, k.node], q.schema, PartitionInfo(),
+                left_keys=["word"], right_keys=["k"], join_kind="inner")
+    with pytest.raises(NotImplementedError, match="queue 1 item 10: ops/join.py"):
+        tlower([join], tc.config, tc.dictionary)
+    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
         q.take(2).collect()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tc.from_arrays({"k": np.array([-1, 2], np.int32)}).group_by(
-            "k", {"c": ("count", None)}).collect()
+    decomposable = Node("group_by", [k.node], k.schema, PartitionInfo.hashed(["k"]),
+                        keys=["k"], decomposable=object())
+    with pytest.raises(NotImplementedError, match="ROADMAP.*group_combine"):
+        tlower([decomposable], tc.config, tc.dictionary)
 
 
 def test_context_device_cache_reuses_ingest():
