@@ -8,8 +8,12 @@ together), holds the kernel against its plain PyTorch version on the
 card, drives through the port's entry points WordCount at full size,
 the dense integer group_by, TeraSort (2^28 rows, and 2^26 rows with a
 hot key), the sort-path group_by with distinct and range_partition
-(2^26 rows), and the parity queries of the CPU tests on the card and on
-the CPU, checks every result against a numpy oracle, and prints:
+(2^26 rows), the Join Task of Pavlo et al. (2^26 visits joined to 2^23
+pages by shuffle, then a sort-path group_by and a top-1), the broadcast
+join of samples/join_groupby.py (2^26 orders, then the dense group_by
+on the bucket kernel), and the parity queries of the CPU tests on the
+card and on the CPU, checks every result against a numpy oracle, and
+prints:
 
 - a ``{"kernels": [...]}`` line (each kernel's launches on the main
   path, its error against the plain version, its time, the plain
@@ -21,10 +25,11 @@ the CPU, checks every result against a numpy oracle, and prints:
 Any failed check raises, so the script exits non-zero and prints no
 result line.  Without a CUDA device it exits non-zero at once.
 ``--phases`` runs a subset (env, kernel, wordcount, dense, terasort,
-terasort_hot, groupby_sort, cpu_parity), for short first runs of a
-changed kernel.  The WordCount, TeraSort and sort-path group_by phases
-also profile one warm query with torch.profiler and print device time
-by op, the device's busy share of the warm query, and peak memory.
+terasort_hot, groupby_sort, join_shuffle, join_broadcast, cpu_parity),
+for short first runs of a changed kernel.  The WordCount, TeraSort,
+sort-path group_by and join phases also profile one warm query with
+torch.profiler and print device time by op, the device's busy share of
+the warm query, and peak memory.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -61,6 +66,20 @@ TS_HOT_ROWS = 1 << 26
 GB_ROWS = 1 << 26
 GB_KEYS = 1 << 22
 PARITY_ROWS = 1 << 14
+# the Join Task of Pavlo et al. (SIGMOD 2009): UserVisits 8x Rankings
+JS_VISITS = 1 << 26
+JS_PAGES = 1 << 23
+JS_IPS = 1 << 22
+JS_DAYS = 1 << 12
+JS_WEEK = (2100, 2107)  # the one-week visitDate window of the query
+# samples/join_groupby.py at full size
+JB_ORDERS = 1 << 26
+JB_CUSTOMERS = 1000
+JB_REGIONS = 7
+# both join tables stay resident between queries, as for a user who
+# re-queries them: UserVisits alone is 1.95 GB on the card, so the
+# default 2 GiB ingest cache would evict and re-upload it every query
+JOIN_CACHE_BYTES = 16 << 30
 F32_REL = 2.0 ** -23  # the sort path's float sums: n_g * 2^-23 * sum |v|
 
 KERNEL_CASES_K = (128, 4096, 5000, 131072)
@@ -337,6 +356,32 @@ def phase_kernel(dev) -> dict:
             f"plain {plain_ms:.3f} ms, one index_add_ {out.get('library_ms', float('nan')):.3f} ms, "
             f"bound {out['bound_ms']:.4f} ms; {geo}")
         del dk, dv
+
+    # the join_broadcast phase's shape: the dense group_by over the 7
+    # regions of the joined rows (P x 2^23 keys in [0, 7), one f32
+    # column; the kernel takes K = 8, the buckets rounded up to P)
+    rk = torch.randint(0, JB_REGIONS, keys.shape, generator=gen, dtype=torch.int32).to(dev)
+    rv = [(torch.rand(keys.shape, generator=gen) * 40).to(dev)]
+    Kj = -(-JB_REGIONS // P) * P
+    _compare(rk, valid, rv, Kj)
+    kernel_ms, plain_ms = timed(rk, rv, valid, Kj, 3)
+    flat = (rk.long() + torch.arange(P, device=dev).reshape(P, 1) * Kj).reshape(-1)
+    src = torch.stack([valid.reshape(-1).float(), rv[0].reshape(-1)], 1)
+    tab = torch.zeros((P * Kj, 2), device=dev)
+    lib_ms = cuda_time_ms(lambda: tab.zero_().index_add_(0, flat, src), 5)
+    check(torch.equal(tab[:, 0].reshape(P, Kj), bucket_sum_count(rk, rv, valid, Kj)[1]),
+          "index_add_ yardstick counts differ at the join_broadcast shape")
+    geo = launch_geometry(P, cap, Kj, 0, 1)
+    res["join_broadcast"] = {
+        "shape": f"P={P} cap={cap} K={Kj} (dense=7) values=f32",
+        "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+        "bound_ms": (n * (4 + 1 + 4) + 2 * P * Kj * 4) / HBM_BYTES_PER_S * 1e3,
+        "geometry": geo._asdict(),
+    }
+    log(f"bucket_sum_count at the join_broadcast shape ({res['join_broadcast']['shape']}): "
+        f"kernel {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms, one index_add_ {lib_ms:.3f} ms, "
+        f"bound {res['join_broadcast']['bound_ms']:.4f} ms; {geo}")
+    del flat, src, tab, rk, rv
     return res
 
 
@@ -538,8 +583,9 @@ def timed_runs(ctx, q, label: str, card: str, rows: int):
     held (results live in page-locked memory, so holding one makes the
     next query allocate anew); all three must give the same bytes with
     no overflow retry.  Then peak device memory of a warm run and one
-    profiled warm run.  The bucket kernel's launch count is read around
-    the runs: this path holds no hand-written kernel, so it stays 0."""
+    profiled warm run.  The bucket kernel's launches over the four runs
+    are counted from 0: a path that reaches the kernel once a query
+    (join_broadcast) reads 4, one that holds no hand-written kernel 0."""
     from dryad_tpu_torch.ops.bucket import bucket_sum_count
 
     bucket_sum_count.launches = 0
@@ -696,6 +742,153 @@ def phase_groupby_sort(dev, card: str) -> dict:
     return res
 
 
+# -- phases 9-10: joins at full size -------------------------------------------
+
+class StrategySpy:
+    """Records each placement the join kernel chooses (True = broadcast
+    the right side, False = co-hash-partition) while installed."""
+
+    def __init__(self):
+        from dryad_tpu_torch.exec import kernels
+
+        self.mod, self.real, self.chosen = kernels, kernels._join_strategy, []
+
+    def __enter__(self):
+        def spy(ctx, p, right):
+            self.chosen.append(self.real(ctx, p, right))
+            return self.chosen[-1]
+
+        self.mod._join_strategy = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._join_strategy = self.real
+
+
+def visits_tables(rng) -> tuple:
+    """UserVisits and Rankings of the Join Task: 2^26 visits of 2^22
+    distinct sourceIPs spread over the int32 range; each destURL a
+    64-bit page id drawn from the 2^23 unique pageURLs."""
+    width = (1 << 32) // JS_IPS
+    ips = (np.arange(JS_IPS, dtype=np.int64) * width + rng.integers(0, width, JS_IPS)
+           - 2**31).astype(np.int32)
+    # an odd multiplier is a bijection of 64-bit words: unique ids
+    pages = (np.arange(JS_PAGES, dtype=np.uint64) * np.uint64(0x9E3779B97F4A7C15)
+             + np.uint64(12345)).view(np.int64)
+    visits = {
+        "sourceIP": ips[rng.integers(0, JS_IPS, JS_VISITS)],
+        "destURL": pages[rng.integers(0, JS_PAGES, JS_VISITS)],
+        "adRevenue": (rng.random(JS_VISITS, dtype=np.float32) * 1000).astype(np.float32),
+        "visitDate": rng.integers(0, JS_DAYS, JS_VISITS).astype(np.int32),
+    }
+    rankings = {
+        "pageURL": pages,
+        "pageRank": rng.integers(0, 10000, JS_PAGES).astype(np.int32),
+        "avgDuration": rng.integers(1, 600, JS_PAGES).astype(np.int32),
+    }
+    return visits, rankings
+
+
+JS_AGGS = {"totalRevenue": ("sum", "adRevenue"), "avgPageRank": ("mean", "pageRank"),
+           "n": ("count", None)}
+
+
+def phase_join_shuffle(dev, card: str) -> dict:
+    """The Join Task: visits in a one-week window, joined to their
+    page's rank (``auto`` must shuffle: the right side's capacity is far
+    past ``broadcast_limit``), grouped by sourceIP (the sort path: the
+    keys are negative too), then the top source by revenue."""
+    from dryad_tpu_torch import DryadConfig, DryadContext
+
+    rng = np.random.default_rng(SEED + 8)
+    visits, rankings = visits_tables(rng)
+    lo, hi = JS_WEEK
+    ctx = DryadContext(num_partitions_=P, config=DryadConfig(device_cache_bytes=JOIN_CACHE_BYTES))
+    v = ctx.from_arrays(visits).where(lambda c: (c["visitDate"] >= lo) & (c["visitDate"] < hi))
+    j = v.join(ctx.from_arrays(rankings), "destURL", "pageURL", strategy="auto", expansion=1.0)
+    g = j.group_by("sourceIP", JS_AGGS)
+    q = g.order_by([("totalRevenue", True)]).take(1)
+    with StrategySpy() as spy:
+        res, top = timed_runs(ctx, q, "join_shuffle", card, JS_VISITS)
+        table = g.collect()
+    check(overflow_retries(ctx) == 0, "join_shuffle: the grouped table retried an overflow")
+    check(spy.chosen and not any(spy.chosen), f"join_shuffle: auto chose {spy.chosen}, not shuffle")
+    res["auto_chose"] = "shuffle"
+
+    # float64 oracle of the grouped table
+    keep = (visits["visitDate"] >= lo) & (visits["visitDate"] < hi)
+    order = np.argsort(rankings["pageURL"])
+    at = np.searchsorted(rankings["pageURL"], visits["destURL"][keep], sorter=order)
+    pr = rankings["pageRank"][order[at]].astype(np.float64)
+    uk, inv = np.unique(visits["sourceIP"][keep], return_inverse=True)
+    cnt = np.bincount(inv)
+    rev = np.bincount(inv, weights=visits["adRevenue"][keep].astype(np.float64))
+    mean_pr = np.bincount(inv, weights=pr) / cnt
+    o = np.argsort(table["sourceIP"])
+    got = {c: a[o] for c, a in table.items()}
+    check(np.array_equal(got["sourceIP"], uk), "join_shuffle: sourceIPs differ from the oracle's")
+    check(np.array_equal(got["n"], cnt.astype(np.int32)), "join_shuffle: counts differ")
+    err = np.abs(got["totalRevenue"] - rev)
+    check(bool((err <= cnt * F32_REL * rev).all()),  # adRevenue >= 0: sum |v| = sum v
+          "join_shuffle: revenue sums past n_g * 2^-23 * sum|v|")
+    check(bool((np.abs(got["avgPageRank"] - mean_pr) <= 2.0 ** -22 * mean_pr + 1e-6).all()),
+          "join_shuffle: mean pageRank past f32 rounding")
+    best = int(np.argmax(table["totalRevenue"]))
+    check(top["totalRevenue"].tolist() == [table["totalRevenue"][best]]
+          and top["sourceIP"].tolist() == [table["sourceIP"][best]],
+          "join_shuffle: the top-1 row is not the grouped table's largest revenue")
+    res.update(visits_in_window=int(keep.sum()), groups=int(len(uk)),
+               max_rel_err_revenue=float((err / np.maximum(rev, 1e-30)).max()))
+    log(f"join_shuffle: auto chose shuffle; {res['visits_in_window']} visits in the window, "
+        f"{len(uk)} sourceIPs: keys and counts exact, revenue within n_g*2^-23*sum|v| "
+        f"(max rel err {res['max_rel_err_revenue']:.3g}), top-1 {top['sourceIP'][0]} "
+        f"{top['totalRevenue'][0]:.2f}")
+    del ctx, v, j, g, q, table, visits, rankings
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_join_broadcast(dev, card: str) -> dict:
+    """samples/join_groupby.py at 2^26 orders: ``auto`` replicates the
+    1000 customers to every partition, and the dense group_by over the 7
+    regions runs the bucket kernel (its launches are counted).  The
+    join's ``expansion=1.0`` (each order has one customer): the sample's
+    default 4.0 would size the pair buffer at 2^25 rows a partition, past
+    the dense path's 2^24 guard, in the reference as here."""
+    from dryad_tpu_torch import DryadConfig, DryadContext
+
+    rng = np.random.default_rng(SEED + 9)
+    orders = {"cust": rng.integers(0, JB_CUSTOMERS, JB_ORDERS).astype(np.int32),
+              "amount": rng.gamma(2.0, 10.0, JB_ORDERS).astype(np.float32)}
+    customers = {"cust": np.arange(JB_CUSTOMERS, dtype=np.int32),
+                 "region": (np.arange(JB_CUSTOMERS) % JB_REGIONS).astype(np.int32)}
+    ctx = DryadContext(num_partitions_=P, config=DryadConfig(device_cache_bytes=JOIN_CACHE_BYTES))
+    q = (ctx.from_arrays(orders)
+         .join(ctx.from_arrays(customers), "cust", strategy="auto", expansion=1.0)
+         .group_by("region", {"total": ("sum", "amount"), "orders": ("count", None)},
+                   dense=JB_REGIONS))
+    with StrategySpy() as spy:
+        res, out = timed_runs(ctx, q, "join_broadcast", card, JB_ORDERS)
+    check(spy.chosen and all(spy.chosen), f"join_broadcast: auto chose {spy.chosen}, not broadcast")
+    launches = res["bucket_sum_count_launches"]
+    check(launches == 4, f"join_broadcast ran the bucket kernel {launches} times, expected 4")
+    region = orders["cust"] % JB_REGIONS
+    amount = orders["amount"].astype(np.float64)
+    cnt = np.bincount(region, minlength=JB_REGIONS)
+    exact = np.bincount(region, weights=amount, minlength=JB_REGIONS)
+    check(np.array_equal(out["region"], np.arange(JB_REGIONS)), "join_broadcast: regions differ")
+    check(np.array_equal(out["orders"], cnt.astype(np.int32)), "join_broadcast: counts differ")
+    err = np.abs(out["total"] - exact)
+    check(bool((err <= FLOAT_REL * exact).all()),  # amount > 0: sum |v| = sum v
+          "join_broadcast: sums past 2^-16 * sum|v|")
+    res.update(auto_chose="broadcast", max_rel_err_total=float((err / exact).max()))
+    log(f"join_broadcast: auto chose broadcast; counts exact, sums within 2^-16*sum|v| "
+        f"(max rel err {res['max_rel_err_total']:.3g}); bucket kernel launches {launches}")
+    del ctx, q, out, orders
+    torch.cuda.empty_cache()
+    return res
+
+
 def parity_table(rng, n: int) -> dict:
     return {
         "k": rng.integers(-2**31, 2**31, n, dtype=np.int32),
@@ -728,6 +921,61 @@ PARITY_QUERIES = {  # the queries of tests/test_torch_terasort.py
     "distinct": (lambda q: q.distinct(["g", "b"]), None),
     "hash_partition": (lambda q: q.hash_partition(["g"]), None),
 }
+
+
+def parity_join_tables(rng, n: int, hot: bool) -> tuple:
+    k = rng.integers(0, 1000, n).astype(np.int32)
+    if hot:
+        k = np.where(rng.random(n) < 0.9, 77, k).astype(np.int32)
+    left = {"k": k, "lv": np.arange(n, dtype=np.int32),
+            "x": rng.standard_normal(n).astype(np.float32)}
+    m = n // 4
+    right = {"k": rng.integers(0, 1200, m).astype(np.int32),
+             "rv": rng.standard_normal(m).astype(np.float32),
+             "w": rng.integers(-1000, 1000, m).astype(np.int32),
+             "L": rng.integers(-2**40, 2**40, m, dtype=np.int64)}
+    return left, right
+
+
+PARITY_JOIN_QUERIES = {  # the queries of tests/test_torch_join.py
+    "inner": lambda a, b, s: a.join(b, "k", strategy=s),
+    "left": lambda a, b, s: a.left_join(b, "k", right_defaults={"rv": -1.0}, strategy=s),
+    "semi": lambda a, b, s: a.semi_join(b, "k", strategy=s),
+    "anti": lambda a, b, s: a.anti_join(b, "k", strategy=s),
+    "count": lambda a, b, s: a.group_join_count(b, "k", strategy=s),
+    "group_join_aggs": lambda a, b, s: a.group_join(
+        b, "k", aggs={"n": ("count", None), "sw": ("sum", "w"), "srv": ("sum", "rv"),
+                      "mL": ("max", "L")}, strategy=s),
+    "group_join_selector": lambda a, b, s: a.group_join(
+        b, "k", order=[("rv", True)], rank_limit=2, strategy=s,
+        selector=lambda p: p.group_by("gj_lid", {"m": ("count", None), "top": ("max", "rv"),
+                                                 "sw": ("sum", "w")}),
+        defaults={"m": 0}),
+}
+PARITY_SCALAR_QUERIES = {  # the queries of tests/test_torch_scalar.py
+    "scalar_aggregates": lambda q: q.aggregate_as_query({
+        "n": ("count", None), "sv": ("sum", "v"), "mv": ("mean", "v"), "sw": ("sum", "w"),
+        "mnw": ("min", "w"), "mxv": ("max", "v"), "sL": ("sum", "L"), "mnL": ("min", "L"),
+        "mL": ("mean", "L"), "ab": ("any", "b"), "allb": ("all", "b")}),
+    "scalar_empty": lambda q: q.where(lambda c: c["id"] < 0).aggregate_as_query({
+        "n": ("count", None), "sv": ("sum", "v"), "mnw": ("min", "w"), "mxL": ("max", "L")}),
+    "with_rank": lambda q: q.with_rank("r"),
+    "take": lambda q: q.take(37),
+    "skip": lambda q: q.skip(PARITY_ROWS - 50),
+    "tail": lambda q: q.tail(25),
+    "order_by_take": lambda q: q.order_by([("v", True)]).take(2000),
+}
+
+
+def _byte_equal(a: dict, b: dict, what: str) -> None:
+    check(list(a) == list(b), f"{what}: columns differ")
+    for c in a:
+        check(a[c].dtype == b[c].dtype and len(a[c]) == len(b[c]),
+              f"{what}: column {c} differs in type or length")
+        if a[c].dtype == object:
+            check(a[c].tolist() == b[c].tolist(), f"{what}: {c} differs")
+        else:
+            check(np.array_equal(a[c].view(np.uint8), b[c].view(np.uint8)), f"{what}: {c} differs")
 
 
 def phase_cpu_parity(dev, card: str) -> dict:
@@ -778,6 +1026,29 @@ def phase_cpu_parity(dev, card: str) -> dict:
             tag = f"{name}{' (fan-reduced)' if reduced else ''}"
             res[tag] = "byte-equal" if exact else "f32 within bound"
             log(f"cpu_parity {tag}: {len(next(iter(a.values())))} rows, {res[tag]}")
+    # joins under each placement, uniform and 90% hot keys; the scalar
+    # and rank queries: every column byte-equal, float sums included
+    # (their integer accumulation gives the same bytes on both devices)
+    for hot in (False, True):
+        left, right = parity_join_tables(np.random.default_rng(SEED + 10), PARITY_ROWS, hot)
+        for name, build in PARITY_JOIN_QUERIES.items():
+            for strategy in ("shuffle", "broadcast", "auto"):
+                outs, events = [], []
+                for ctx in ctxs:
+                    outs.append(build(ctx.from_arrays(left), ctx.from_arrays(right),
+                                      strategy).collect())
+                    events.append(list(ctx.executor.events))
+                tag = f"{name} {strategy}{' (90% hot key)' if hot else ''}"
+                _byte_equal(outs[0], outs[1], f"cpu_parity {tag}")
+                check(events[0] == events[1], f"cpu_parity {tag}: retries differ {events}")
+                res[tag] = "byte-equal"
+                log(f"cpu_parity {tag}: {len(next(iter(outs[0].values())))} rows, byte-equal, "
+                    f"retries {len(events[0])}")
+    for name, build in PARITY_SCALAR_QUERIES.items():
+        a, b = (build(ctx.from_arrays(t)).collect() for ctx in ctxs)
+        _byte_equal(a, b, f"cpu_parity {name}")
+        res[name] = "byte-equal"
+        log(f"cpu_parity {name}: {len(next(iter(a.values())))} rows, byte-equal")
     return res
 
 
@@ -785,7 +1056,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument(
         "--phases",
-        default="env,kernel,wordcount,dense,terasort,terasort_hot,groupby_sort,cpu_parity")
+        default="env,kernel,wordcount,dense,terasort,terasort_hot,groupby_sort,"
+                "join_shuffle,join_broadcast,cpu_parity")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     if not torch.cuda.is_available():
@@ -808,19 +1080,32 @@ def main(argv=None) -> int:
         results["terasort_hot"] = phase_terasort(dev, card, TS_HOT_ROWS, hot=True)
     if "groupby_sort" in phases:
         results["groupby_sort"] = phase_groupby_sort(dev, card)
+    if "join_shuffle" in phases:
+        results["join_shuffle"] = phase_join_shuffle(dev, card)
+    if "join_broadcast" in phases:
+        results["join_broadcast"] = phase_join_broadcast(dev, card)
     if "cpu_parity" in phases:
         results["cpu_parity"] = phase_cpu_parity(dev, card)
     print("results: " + json.dumps(results))
 
     kern = results.get("kernel", {})
-    wc = results.get("wordcount", {})
+    # launches on each main path that ran, each counted from 0 just
+    # before its queries and read just after
+    per_path = {
+        "wordcount": results.get("wordcount", {}).get("launches"),
+        "dense": results.get("dense", {}).get("launches"),
+        "join_broadcast": results.get("join_broadcast", {}).get("bucket_sum_count_launches"),
+    }
+    ran = [n for n in per_path.values() if n is not None]
+    jb = kern.get("join_broadcast", {})
     line = {"kernels": [{
         "name": "bucket_sum_count",
         "route": "cuda",
         "source": "dryad_tpu_torch/ops/csrc/bucket_sum_count.cu",
         "replaces": "dryad_tpu/ops/pallas_bucket.py:156",
         "tpu": "dryad_tpu/ops/pallas_bucket.py::_make_kernel",
-        "launches": wc.get("launches"),
+        "launches": sum(ran) if ran else None,
+        "launches_by_path": per_path,
         "max_abs_err": kern.get("max_abs_err"),
         "ms": kern.get("kernel_ms"),
         "kernel_ms": kern.get("kernel_ms"),
@@ -837,6 +1122,10 @@ def main(argv=None) -> int:
         "hot_key_plain_ms": kern.get("hot_key", {}).get("plain_ms"),
         "hot_key_library_ms": kern.get("hot_key", {}).get("library_ms"),
         "hot_key_bound_ms": kern.get("hot_key", {}).get("bound_ms"),
+        "join_broadcast_kernel_ms": jb.get("kernel_ms"),
+        "join_broadcast_plain_ms": jb.get("plain_ms"),
+        "join_broadcast_library_ms": jb.get("library_ms"),
+        "join_broadcast_bound_ms": jb.get("bound_ms"),
     }]}
     print(json.dumps(line))
     print(card)

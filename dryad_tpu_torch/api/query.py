@@ -1,16 +1,25 @@
 """Query — the lazy table handle and its operators (ported subset).
 
 The counterpart of ``dryad_tpu/api/query.py`` for ``select``,
-``project``, ``where``, ``group_by`` (dense and sort path, ``salt``,
-int64/float64 aggregates), ``distinct``, ``hash_partition``,
-``range_partition``, ``order_by``, ``take`` and ``collect``.  Node
-construction, validation and the auto-dense gates are the reference's, so both packages build the same logical plan; what
-the planner cannot lower yet raises there (``plan/lower.py``).
+``project``, ``where``, ``of_type``, ``group_by`` (dense and sort path,
+``salt``, int64/float64 aggregates), ``distinct``, the partitioning
+operators and their ``assume_*`` claims, ``order_by``, the joins
+(``join``, ``semi_join``, ``anti_join``, ``left_join``, ``group_join``
+in its count, aggregate and selector forms, ``group_join_count``), the
+set operators (``concat``, ``union``, ``intersect``, ``except_``), the
+rank operators (``with_rank``, ``take``, ``skip``, ``tail``) and the
+element accessors built on them, the scalar aggregates, and
+``collect``.  Node construction, validation and the auto-dense gates
+are the reference's, so both packages build the same logical plan.
+The reference's other methods raise ``NotImplementedError`` naming the
+ROADMAP.md item that will port them.
 """
 
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
+
+import operator
 
 import numpy as np
 
@@ -20,6 +29,15 @@ from dryad_tpu_torch.plan.nodes import Node, PartitionInfo
 
 KeyArg = Union[str, Sequence[str]]
 OrderArg = Union[str, Tuple[str, Union[bool, str]]]  # True / "desc" = descending
+
+JOIN_STRATEGIES = ("shuffle", "broadcast", "auto")
+
+
+def _check_strategy(strategy: str) -> None:
+    if strategy not in JOIN_STRATEGIES:
+        raise ValueError(
+            f"unknown join strategy {strategy!r}; expected one of {JOIN_STRATEGIES}"
+        )
 
 _AGG_TYPE_RULES = {
     "count": lambda ct: ColumnType.INT32,
@@ -300,11 +318,485 @@ class Query:
             PartitionInfo.ranged(ks, ks, spread=True), keys=ks,
         ))
 
+    def assume_hash_partition(self, keys: KeyArg) -> "Query":
+        return Query(self.ctx, Node(
+            "assume_partition", [self.node], self.schema, PartitionInfo.hashed(_keys(keys)),
+        ))
+
+    def assume_range_partition(self, keys: KeyArg) -> "Query":
+        return Query(self.ctx, Node(
+            "assume_partition", [self.node], self.schema,
+            PartitionInfo.ranged(_order_keys(_keys(keys))),
+        ))
+
+    def assume_order_by(self, keys: Sequence[OrderArg]) -> "Query":
+        ks = _order_keys(keys)
+        return Query(self.ctx, Node(
+            "assume_partition", [self.node], self.schema, PartitionInfo.ranged(ks, ks),
+        ))
+
+    # -- rank operators (global engine order: partition-major) ----------------
+    def with_rank(self, out: str = "rank") -> "Query":
+        """Attach each row's global engine-order position as an INT32
+        column (the indexed-operator primitive)."""
+        if out in self.schema.names:
+            raise ValueError(f"column {out!r} already exists")
+        return Query(self.ctx, Node(
+            "with_rank", [self.node], self.schema.with_field(out, ColumnType.INT32),
+            self.node.partition, out=out,
+        ))
+
     def take(self, n: int) -> "Query":
+        """The first n rows of global engine order (after ``order_by``:
+        of sort order; negative n gives an empty table)."""
         return Query(self.ctx, Node(
             "take", [self.node], self.schema, self.node.partition, n=max(0, int(n)),
         ))
 
+    def skip(self, n: int) -> "Query":
+        """Drop the first n rows of global engine order."""
+        return Query(self.ctx, Node(
+            "skip", [self.node], self.schema, self.node.partition, n=max(0, int(n)),
+        ))
+
+    def tail(self, n: int) -> "Query":
+        """Keep the last n rows of global engine order."""
+        return Query(self.ctx, Node(
+            "tail", [self.node], self.schema, self.node.partition, n=max(0, int(n)),
+        ))
+
+    def of_type(self, tag_col: str, value: Any) -> "Query":
+        """Rows whose type-tag column equals ``value`` (tag equality)."""
+        self._require_cols([tag_col], "in of_type")
+        if self.schema.field(tag_col).ctype.is_split:
+            phys = self._physical_row({tag_col: value})
+            h0, h1 = int(phys[f"{tag_col}#h0"]), int(phys[f"{tag_col}#h1"])
+
+            def fn(cols):
+                return (cols[f"{tag_col}#h0"] == h0) & (cols[f"{tag_col}#h1"] == h1)
+        else:
+            def fn(cols):
+                return cols[tag_col] == value
+        return self.where(fn)
+
+    # -- element access (eager) -------------------------------------------------
+    def _one_row(self, q: "Query") -> Optional[Dict[str, Any]]:
+        table = q.collect()
+        n = len(next(iter(table.values()), []))
+        if n == 0:
+            return None
+        return {k: v[0] if np.asarray(v).ndim else v for k, v in table.items()}
+
+    def first(self) -> Dict[str, Any]:
+        row = self._one_row(self.take(1))
+        if row is None:
+            raise ValueError("first() on an empty sequence")
+        return row
+
+    def first_or_default(self) -> Optional[Dict[str, Any]]:
+        return self._one_row(self.take(1))
+
+    def last(self) -> Dict[str, Any]:
+        row = self._one_row(self.tail(1))
+        if row is None:
+            raise ValueError("last() on an empty sequence")
+        return row
+
+    def last_or_default(self) -> Optional[Dict[str, Any]]:
+        return self._one_row(self.tail(1))
+
+    def single(self) -> Dict[str, Any]:
+        table = self.take(2).collect()
+        n = len(next(iter(table.values()), []))
+        if n == 0:
+            raise ValueError("single() on an empty sequence")
+        if n > 1:
+            raise ValueError("single() on a sequence with more than one row")
+        return {k: v[0] for k, v in table.items()}
+
+    def single_or_default(self) -> Optional[Dict[str, Any]]:
+        table = self.take(2).collect()
+        n = len(next(iter(table.values()), []))
+        if n > 1:
+            raise ValueError("single_or_default() on a sequence with more than one row")
+        return {k: v[0] for k, v in table.items()} if n else None
+
+    def element_at(self, n: int) -> Dict[str, Any]:
+        if n < 0:
+            raise IndexError(f"element_at({n}) out of range")
+        row = self._one_row(self.skip(n).take(1))
+        if row is None:
+            raise IndexError(f"element_at({n}) out of range")
+        return row
+
+    def element_at_or_default(self, n: int) -> Optional[Dict[str, Any]]:
+        if n < 0:
+            return None
+        return self._one_row(self.skip(n).take(1))
+
+    def contains(self, row: Dict[str, Any]) -> bool:
+        """Whole-row membership: a broadcast semi join against a one-row
+        table."""
+        if set(row) != set(self.schema.names):
+            raise ValueError(f"contains() row must bind every column {self.schema.names}")
+        arrays = {k: np.asarray([v]) for k, v in row.items()}
+        one = self.ctx.from_arrays(arrays, schema=self.schema)
+        return self.semi_join(one, self.schema.names, strategy="broadcast").count() > 0
+
+    # -- joins ------------------------------------------------------------------
+    def _join_partition_info(self, lk: List[str], strategy: str) -> PartitionInfo:
+        """A broadcast join keeps the left side's placement; a shuffle
+        join co-hash-partitions; ``auto`` is decided at run time, so
+        nothing can be assumed."""
+        if strategy == "broadcast":
+            return self.node.partition
+        if strategy == "auto":
+            return PartitionInfo()
+        return PartitionInfo.hashed(lk)
+
+    def _join_fields(self, other: "Query", rk: List[str], suffix: str) -> List[Tuple[str, ColumnType]]:
+        """Every left field, then the right side's non-key fields (names
+        clashing with the left's get ``suffix``)."""
+        fields = [(f.name, f.ctype) for f in self.schema.fields]
+        lnames = {f.name for f in self.schema.fields}
+        for f in other.schema.fields:
+            if f.name in rk:
+                continue
+            fields.append((f.name if f.name not in lnames else f"{f.name}{suffix}", f.ctype))
+        return fields
+
+    def _join_keys(self, other, left_keys, right_keys, where="in join") -> Tuple[List[str], List[str]]:
+        lk = _keys(left_keys)
+        rk = _keys(right_keys) if right_keys is not None else lk
+        self._require_cols(lk, f"{where} left keys")
+        other._require_cols(rk, f"{where} right keys")
+        return lk, rk
+
+    def join(
+        self,
+        other: "Query",
+        left_keys: KeyArg,
+        right_keys: Optional[KeyArg] = None,
+        expansion: float = 4.0,
+        suffix: str = "_r",
+        strategy: str = "auto",
+    ) -> "Query":
+        """Inner equi-join: co-hash-partition both sides and join each
+        partition, or replicate a small right side to every partition
+        (``strategy``: shuffle | broadcast | auto).  ``expansion`` sizes
+        the pair buffer (output rows per input row); a larger need
+        retries the stage with a doubled buffer."""
+        _check_strategy(strategy)
+        lk, rk = self._join_keys(other, left_keys, right_keys)
+        return Query(self.ctx, Node(
+            "join", [self.node, other.node], Schema(self._join_fields(other, rk, suffix)),
+            self._join_partition_info(lk, strategy),
+            left_keys=lk, right_keys=rk, join_kind="inner",
+            expansion=expansion, suffix=suffix, strategy=strategy,
+        ))
+
+    def semi_join(
+        self, other: "Query", left_keys: KeyArg,
+        right_keys: Optional[KeyArg] = None, expansion: float = 4.0,
+        strategy: str = "auto",
+    ) -> "Query":
+        return self._semi(other, left_keys, right_keys, expansion, False, strategy)
+
+    def anti_join(
+        self, other: "Query", left_keys: KeyArg,
+        right_keys: Optional[KeyArg] = None, expansion: float = 4.0,
+        strategy: str = "auto",
+    ) -> "Query":
+        return self._semi(other, left_keys, right_keys, expansion, True, strategy)
+
+    def _semi(self, other, left_keys, right_keys, expansion, anti, strategy="shuffle") -> "Query":
+        _check_strategy(strategy)
+        lk, rk = self._join_keys(other, left_keys, right_keys)
+        return Query(self.ctx, Node(
+            "join", [self.node, other.node], self.schema,
+            self._join_partition_info(lk, strategy),
+            left_keys=lk, right_keys=rk,
+            join_kind="anti" if anti else "semi", expansion=expansion,
+            strategy=strategy,
+        ))
+
+    def left_join(
+        self,
+        other: "Query",
+        left_keys: KeyArg,
+        right_keys: Optional[KeyArg] = None,
+        right_defaults: Optional[Dict[str, Any]] = None,
+        expansion: float = 4.0,
+        suffix: str = "_r",
+        strategy: str = "auto",
+    ) -> "Query":
+        """Left-outer equi-join: unmatched left rows survive with
+        default-valued right columns (zero / empty string unless
+        ``right_defaults`` names a value)."""
+        _check_strategy(strategy)
+        lk, rk = self._join_keys(other, left_keys, right_keys)
+        return Query(self.ctx, Node(
+            "join", [self.node, other.node], Schema(self._join_fields(other, rk, suffix)),
+            self._join_partition_info(lk, strategy),
+            left_keys=lk, right_keys=rk, join_kind="left",
+            expansion=expansion, suffix=suffix,
+            right_defaults=other._physical_row(right_defaults or {}), strategy=strategy,
+        ))
+
+    def group_join(
+        self,
+        other: "Query",
+        left_keys: KeyArg,
+        right_keys: Optional[KeyArg] = None,
+        aggs: Optional[Dict[str, Tuple[str, Optional[str]]]] = None,
+        defaults: Optional[Dict[str, Any]] = None,
+        expansion: float = 4.0,
+        strategy: str = "auto",
+        selector: Optional[Callable[["Query"], "Query"]] = None,
+        order: Optional[Sequence[OrderArg]] = None,
+        rank_limit: Optional[int] = None,
+        lid_col: str = "gj_lid",
+        rank_col: str = "gj_rank",
+        suffix: str = "_r",
+    ) -> "Query":
+        """GroupJoin: per left row, the group of exactly matching right
+        rows, in three shapes (see the reference for the contract):
+
+        - neither ``aggs`` nor ``selector``: the match count per left row;
+        - ``aggs``: aggregates over the group, by a right-side group_by
+          and a left join (unmatched lefts get ``defaults``; counts 0);
+        - ``selector``: the pairs (every left column, the right non-key
+          columns, ``lid_col`` the global left-row id and ``rank_col``
+          the match's rank in its group, by ``order`` when given) go
+          through ``selector``, whose result keeps ``lid_col`` and is
+          left-joined back onto the left rows.  ``rank_limit=k`` keeps
+          each group's first k matches, bounded before pair expansion.
+        """
+        lk = _keys(left_keys)
+        rk = _keys(right_keys) if right_keys is not None else lk
+        if rank_limit is not None and selector is None:
+            raise ValueError("group_join: rank_limit only applies to the selector form")
+        if selector is not None:
+            if aggs:
+                raise ValueError("group_join: pass aggs OR selector, not both")
+            for c in (lid_col, rank_col):
+                if c in self.schema.names or c in other.schema.names:
+                    raise ValueError(
+                        f"group_join helper column {c!r} clashes with an "
+                        "input column; rename via lid_col=/rank_col="
+                    )
+            left2 = self.with_rank(lid_col)
+            pairs = left2._ranked_join(
+                other, lk, rk, rank_out=rank_col, order=order,
+                expansion=expansion, suffix=suffix, strategy=strategy,
+                rank_limit=rank_limit,
+            )
+            sel = selector(pairs)
+            if lid_col not in sel.schema.names:
+                raise ValueError(
+                    f"group_join selector result must keep the {lid_col!r} "
+                    "column (one row per left-row group)"
+                )
+            out = left2.left_join(
+                sel, [lid_col], right_defaults=defaults, expansion=2.0,
+                suffix="_s", strategy=strategy,
+            )
+            return out.project([c for c in out.schema.names if c not in (lid_col, rank_col)])
+        if not aggs:
+            return self.group_join_count(other, lk, rk, expansion=expansion, strategy=strategy)
+        right_agg = other.group_by(rk, aggs)
+        dflt = dict(defaults or {})
+        for out_name, (op, _col) in aggs.items():
+            if op == "count" and out_name not in dflt:
+                dflt[out_name] = 0
+        return self.left_join(
+            right_agg, lk, rk, right_defaults=dflt, expansion=expansion, strategy=strategy,
+        )
+
+    def _ranked_join(
+        self,
+        other: "Query",
+        left_keys: List[str],
+        right_keys: List[str],
+        rank_out: str,
+        order: Optional[Sequence[OrderArg]] = None,
+        expansion: float = 4.0,
+        suffix: str = "_r",
+        strategy: str = "auto",
+        rank_limit: Optional[int] = None,
+    ) -> "Query":
+        """Inner equi-join that also emits each pair's group-local match
+        rank (:meth:`group_join`'s selector form)."""
+        _check_strategy(strategy)
+        if rank_limit is not None:
+            try:  # any integral type (np.int32 etc.), not bool
+                if isinstance(rank_limit, (bool, np.bool_)):
+                    raise TypeError
+                rank_limit = operator.index(rank_limit)
+            except TypeError:
+                raise ValueError(f"rank_limit must be a positive int, got {rank_limit!r}") from None
+            if rank_limit < 1:
+                raise ValueError(f"rank_limit must be a positive int, got {rank_limit!r}")
+        self._require_cols(left_keys, "in group_join left keys")
+        other._require_cols(right_keys, "in group_join right keys")
+        ks = _order_keys(order) if order is not None else None
+        if ks is not None:
+            other._require_cols([n for n, _ in ks], "in group_join order")
+        fields = self._join_fields(other, right_keys, suffix) + [(rank_out, ColumnType.INT32)]
+        return Query(self.ctx, Node(
+            "join", [self.node, other.node], Schema(fields),
+            self._join_partition_info(left_keys, strategy),
+            left_keys=left_keys, right_keys=right_keys, join_kind="ranked",
+            rank_out=rank_out, order=ks, expansion=expansion, suffix=suffix,
+            strategy=strategy, rank_limit=rank_limit,
+        ))
+
+    def group_join_count(
+        self,
+        other: "Query",
+        left_keys: KeyArg,
+        right_keys: Optional[KeyArg] = None,
+        out: str = "match_count",
+        expansion: float = 4.0,
+        strategy: str = "auto",
+    ) -> "Query":
+        """Per left row, the count of matching right rows as a new INT32
+        column."""
+        _check_strategy(strategy)
+        lk, rk = self._join_keys(other, left_keys, right_keys, "in group_join")
+        fields = [(f.name, f.ctype) for f in self.schema.fields] + [(out, ColumnType.INT32)]
+        return Query(self.ctx, Node(
+            "join", [self.node, other.node], Schema(fields),
+            self._join_partition_info(lk, strategy),
+            left_keys=lk, right_keys=rk, join_kind="count",
+            expansion=expansion, out=out, strategy=strategy,
+        ))
+
+    def _physical_row(self, values: Dict[str, Any]) -> Dict[str, Any]:
+        """One logical row (missing columns -> zero / empty string) as
+        physical column scalars, strings registered in the context
+        dictionary."""
+        from dryad_tpu_torch.columnar.batch import encode_physical
+
+        row: Dict[str, Any] = {}
+        for f in self.schema.fields:
+            v = values.get(f.name)
+            if v is None:
+                v = "" if f.ctype == ColumnType.STRING else 0
+            enc = encode_physical(f, np.asarray([v]), self.ctx.dictionary)
+            row.update({k: np.asarray(a)[0] for k, a in enc.items()})
+        return row
+
+    # -- set operations -----------------------------------------------------------
+    def concat(self, *others: "Query") -> "Query":
+        for o in others:
+            if o.schema.names != self.schema.names:
+                raise ValueError("concat requires identical schemas")
+        return Query(self.ctx, Node(
+            "concat", [self.node] + [o.node for o in others], self.schema, PartitionInfo(),
+        ))
+
+    def union(self, other: "Query") -> "Query":
+        return self.concat(other).distinct()
+
+    def intersect(self, other: "Query") -> "Query":
+        return self.distinct().semi_join(other, self.schema.names)
+
+    def except_(self, other: "Query") -> "Query":
+        return self.distinct().anti_join(other, self.schema.names)
+
+    # -- scalar aggregates ----------------------------------------------------------
+    def _aggregate_node(self, aggs: List[Tuple[str, Optional[str], str]]) -> Node:
+        fields = []
+        for op, col, out in aggs:
+            ct = self.schema.field(col).ctype if col else ColumnType.INT32
+            fields.append((out, _AGG_TYPE_RULES[op](ct)))
+        return Node("aggregate", [self.node], Schema(fields), PartitionInfo(), aggs=aggs)
+
+    def aggregate_as_query(self, aggs: Dict[str, Tuple[str, Optional[str]]]) -> "Query":
+        lst = [(op, col, out) for out, (op, col) in aggs.items()]
+        return Query(self.ctx, self._aggregate_node(lst))
+
+    def count_as_query(self) -> "Query":
+        return self.aggregate_as_query({"count": ("count", None)})
+
+    def _scalar(self, op: str, col: Optional[str]):
+        # min/max/mean/any/all of an empty table would show the
+        # reduction's identity; the count beside it guards that
+        q = self.aggregate_as_query({"v": (op, col), "n": ("count", None)})
+        table = q.collect()
+        if op not in ("count", "sum") and int(table["n"][0]) == 0:
+            return None
+        return table["v"][0].item()
+
+    def count(self) -> int:
+        return int(self._scalar("count", None))
+
+    def sum_(self, col: str):
+        return self._scalar("sum", col)
+
+    def min_(self, col: str):
+        return self._scalar("min", col)
+
+    def max_(self, col: str):
+        return self._scalar("max", col)
+
+    def mean(self, col: str) -> float:
+        return float(self._scalar("mean", col))
+
+    def any_(self, col: str) -> bool:
+        return bool(self._scalar("any", col))
+
+    def all_(self, col: str) -> bool:
+        return bool(self._scalar("all", col))
+
+    # -- materialization ---------------------------------------------------------
     def collect(self) -> Dict[str, np.ndarray]:
         """Execute and fetch host logical columns."""
         return self.ctx.run_to_host(self)
+
+    def __iter__(self):
+        """Execute and yield the result's rows as dicts."""
+        table = self.collect()
+        names = list(table.keys())
+        n = len(table[names[0]]) if names else 0
+        for i in range(n):
+            yield {c: table[c][i] for c in names}
+
+
+# The reference's Query methods whose node kinds the port does not lower
+# yet, each with the ROADMAP.md item (queue 1) that will port it.
+_PENDING_METHODS = {
+    "select_many": "item 10: operator breadth",
+    "take_while": "item 10: operator breadth",
+    "skip_while": "item 10: operator breadth",
+    "reverse": "item 10: operator breadth",
+    "default_if_empty": "item 10: operator breadth",
+    "zip_": "item 10: operator breadth",
+    "sequence_equal": "item 10: operator breadth (zip)",
+    "sliding_window": "item 10: operator breadth",
+    "apply": "item 10: operator breadth",
+    "apply_host": "item 10: operator breadth",
+    "fork": "item 10: operator breadth",
+    "do_while": "item 10: do_while and cache",
+    "cache": "item 10: do_while and cache",
+    "aggregate_decomposable": "items 5 and 9: group_combine and api/decomposable.py",
+    "collect_stream": "item 12: out-of-core",
+    "submit": "item 12: stores",
+    "to_store": "item 12: stores",
+    "explain": "item 14: tools",
+}
+
+
+def _pending_method(name: str, where: str):
+    def method(self, *args, **kwargs):
+        raise NotImplementedError(
+            f"dryad_tpu_torch does not port Query.{name} yet (ROADMAP.md, queue 1 {where})"
+        )
+
+    method.__name__ = name
+    return method
+
+
+for _name, _where in _PENDING_METHODS.items():
+    setattr(Query, _name, _pending_method(_name, _where))

@@ -179,6 +179,18 @@ class ColumnBatch:
         pad = lambda t: torch.nn.functional.pad(t, (0, extra))
         return ColumnBatch({c: pad(t) for c, t in self.data.items()}, pad(self.valid))
 
+    @staticmethod
+    def concatenate(batches: Sequence["ColumnBatch"]) -> "ColumnBatch":
+        """Concat along rows, partition by partition (the Concat
+        operator's device step): partition p holds the first batch's
+        rows of p, then the second's, and so on."""
+        names = batches[0].columns
+        for b in batches[1:]:
+            if b.columns != names:
+                raise ValueError("concat of batches with differing columns")
+        data = {n: torch.cat([b.data[n] for b in batches], -1) for n in names}
+        return ColumnBatch(data, torch.cat([b.valid for b in batches], -1))
+
     # -- host conversion ---------------------------------------------------
     @staticmethod
     def from_host_layout(

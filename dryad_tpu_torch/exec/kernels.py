@@ -3,13 +3,17 @@
 The counterpart of ``dryad_tpu/exec/kernels.py`` for the op kinds of the
 ported path: ``select``, ``where``, ``project``, ``string_code``,
 ``group_reduce_dense``, ``topk``, the exchanges ``exchange_hash`` and
-``exchange_range`` with ``resize``, ``group_reduce``, ``distinct`` and
-``local_sort``.  The reference composes them into one traced SPMD
-program per stage; PyTorch runs eagerly, so each op runs as it is
-applied, on all P partitions at once.  Collectives are the partition
-layer's tensor ops (``parallel/partition.py``).  Capacities derive from
-the stage's entry capacities, its growth and the executor's retry
-``boost``, as in the reference.  The hybrid-mesh ``tree`` exchange
+``exchange_range`` with ``resize``, ``group_reduce``, ``distinct``,
+``local_sort``, the joins (``join``, ``semi``, ``group_join_count``,
+``join_ranked``, two input slots each, with shuffle, broadcast or
+run-time ``auto`` placement), ``concat``, the rank ops (``with_rank``,
+``take``, ``skip``, ``tail``) and ``scalar_agg``.  The reference
+composes them into one traced SPMD program per stage; PyTorch runs
+eagerly, so each op runs as it is applied, on all P partitions at once.
+Collectives are the partition layer's tensor ops
+(``parallel/partition.py``).  Capacities derive from the stage's entry
+capacities, its growth and the executor's retry ``boost``, as in the
+reference.  The hybrid-mesh ``tree`` exchange
 (ROADMAP.md queue 1 item 11) is not ported: on one device the ``tree``
 param of ``exchange_hash`` is ignored, as the reference ignores it on a
 one-axis mesh.
@@ -22,7 +26,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from dryad_tpu_torch.columnar.batch import ColumnBatch
+from dryad_tpu_torch.columnar.batch import MASK32, WORD, ColumnBatch
+from dryad_tpu_torch.ops import join as J
 from dryad_tpu_torch.ops import segmented as SEG
 from dryad_tpu_torch.ops import shuffle as SH
 from dryad_tpu_torch.ops import sort as SORT
@@ -310,6 +315,262 @@ def _k_topk(ctx: StageContext, p) -> None:
     ctx.slots[p["slot"]] = ColumnBatch(data, valid)
 
 
+# -- multi-input -------------------------------------------------------------
+
+def _join_strategy(ctx: StageContext, p, right: ColumnBatch) -> bool:
+    """True -> broadcast the right side; False -> co-hash-partition.
+    With ``strategy="auto"`` the plan's static row bound of the right
+    side decides when there is one, else its total capacity (both known
+    before the stage runs, as the reference decides at trace time)."""
+    strategy = p.get("strategy", "shuffle")
+    if strategy == "broadcast":
+        return True
+    if strategy == "auto":
+        limit = p.get("broadcast_limit", 1 << 16)
+        est = p.get("est_right")
+        if est is not None:
+            return est <= limit
+        return right.capacity * ctx.P <= limit
+    return False
+
+
+def _exchange_hash_resized(ctx: StageContext, slot: int, keys) -> None:
+    """``exchange_hash`` then ``resize(factor=1.0)`` of one slot, run as
+    one placement (see :func:`run_ops`)."""
+    ctx.resize_to = _resize_target(ctx, dict(slot=slot, factor=1.0))
+    b = ctx.slots[slot]
+    _exchange(ctx, slot, partition_ids([b.data[k] for k in keys], ctx.P), ctx.P)
+    ctx.resize_to = None
+
+
+def _co_partition_for_join(ctx: StageContext, p) -> None:
+    """Hash-exchange whichever sides the plan found not partitioned on
+    the join keys (deferred from lowering when the strategy is
+    decided at run time)."""
+    if p.get("need_left_exchange"):
+        _exchange_hash_resized(ctx, p["left_slot"], p["left_keys"])
+    if p.get("need_right_exchange"):
+        _exchange_hash_resized(ctx, p["right_slot"], p["right_keys"])
+
+
+def _apply_join_strategy(ctx: StageContext, p) -> int:
+    """Run the chosen placement (replicate the right side, or the
+    deferred co-partition exchanges) and return the capacity base that
+    sizes the candidate-pair buffer: the sides' capacities BEFORE a
+    broadcast (replication multiplies the right capacity by P, not the
+    match count)."""
+    base = max(ctx.slots[p["left_slot"]].capacity, ctx.slots[p["right_slot"]].capacity)
+    if "strategy" in p:
+        if _join_strategy(ctx, p, ctx.slots[p["right_slot"]]):
+            right = ctx.slots[p["right_slot"]]
+            est = p.get("est_right")
+            if est is not None:
+                # a row-bounded right side shrinks to its bound first, so
+                # the replica is not P x its capacity (cannot overflow:
+                # a partition's rows <= all rows <= est)
+                tight = _round8(min(right.capacity, max(8, int(est))))
+                if tight < right.capacity:
+                    right, ovf = SH.resize(right, tight)
+                    ctx.overflow = ctx.overflow | ovf
+            ctx.slots[p["right_slot"]] = PART.gather_batch(right)
+        else:
+            _co_partition_for_join(ctx, p)
+            base = max(
+                ctx.slots[p["left_slot"]].capacity, ctx.slots[p["right_slot"]].capacity
+            )
+    return base
+
+
+def _join_sides(ctx: StageContext, p) -> Tuple[ColumnBatch, ColumnBatch, int]:
+    """Placement, then (left, right, pair capacity)."""
+    base = _apply_join_strategy(ctx, p)
+    cap = _round8(base * p["expansion"] * ctx.boost)
+    return ctx.slots[p["left_slot"]], ctx.slots[p["right_slot"]], cap
+
+
+def _k_join(ctx: StageContext, p) -> None:
+    left, right, out_cap = _join_sides(ctx, p)
+    if p.get("outer"):
+        out, ovf = J.hash_join_outer(
+            left, right, p["left_keys"], p["right_keys"], out_cap,
+            p.get("right_defaults") or {}, p.get("suffix", "_r"),
+        )
+    else:
+        out, ovf = J.hash_join(
+            left, right, p["left_keys"], p["right_keys"], out_cap, p.get("suffix", "_r")
+        )
+    ctx.slots[p["left_slot"]] = out
+    ctx.overflow = ctx.overflow | ovf
+
+
+def _k_semi(ctx: StageContext, p) -> None:
+    left, right, cap = _join_sides(ctx, p)
+    mask, ovf = J.exists_mask(left, right, p["left_keys"], p["right_keys"], cap)
+    if p.get("negate"):
+        mask = ~mask
+    ctx.slots[p["left_slot"]] = left.filter(mask)
+    ctx.overflow = ctx.overflow | ovf
+
+
+def _k_concat(ctx: StageContext, p) -> None:
+    batches = [ctx.slots[s] for s in p["slots"]]
+    names = sorted(set(batches[0].columns))
+    ctx.slots[p["out_slot"]] = ColumnBatch.concatenate([b.select(names) for b in batches])
+
+
+def _k_group_join_count(ctx: StageContext, p) -> None:
+    left, right, cap = _join_sides(ctx, p)
+    counts, ovf = J.group_join_counts(left, right, p["left_keys"], p["right_keys"], cap)
+    ctx.slots[p["left_slot"]] = left.with_column(p["out"], counts)
+    ctx.overflow = ctx.overflow | ovf
+
+
+def _k_join_ranked(ctx: StageContext, p) -> None:
+    """Inner join emitting each pair's group-local match rank (full
+    GroupJoin's enumerable group).  At the retry ladder's last rung the
+    ``rank_limit`` window clamp drops away."""
+    left, right, out_cap = _join_sides(ctx, p)
+    operands_fn = p.get("operands_fn")
+    operands = operands_fn(right) if operands_fn is not None else ()
+    out, ovf = J.hash_join_ranked(
+        left, right, p["left_keys"], p["right_keys"], out_cap,
+        p.get("suffix", "_r"), p["rank_out"], operands,
+        rank_limit=p.get("rank_limit"), boost=ctx.boost,
+        final_attempt=ctx.boost >= p.get("rank_limit_max_boost", 1 << 30),
+    )
+    ctx.slots[p["left_slot"]] = out
+    ctx.overflow = ctx.overflow | ovf
+
+
+# -- global (rank) ops ------------------------------------------------------------
+
+RANK_NONE = 0xFFFFFFFF  # the rank of an invalid row
+
+
+def _rank_column(b: ColumnBatch, P: int) -> Tuple[ColumnBatch, torch.Tensor]:
+    """Compact each partition and attach every valid row's global rank
+    in partition-major order as ``#rank`` (uint32 values on the int64
+    carrier, ``RANK_NONE`` on invalid rows); also the total row count."""
+    c = b.compact()
+    # the reference's ranks are uint32: guard the global capacity
+    if P * c.capacity >= 0xFFFFFFFF:
+        raise ValueError(
+            f"rank-based operator: global capacity {P * c.capacity} "
+            "exceeds the uint32 rank range (4.29e9 rows)"
+        )
+    local = c.valid.sum(-1, dtype=torch.int64)
+    offset = local.cumsum(0) - local  # rows of earlier partitions
+    pos = torch.arange(c.capacity, device=c.device)
+    rank = torch.where(c.valid, offset[:, None] + pos, RANK_NONE)
+    return ColumnBatch(dict(c.data, **{"#rank": rank}), c.valid), local.sum()
+
+
+def _strip_rank(b: ColumnBatch, keep: torch.Tensor) -> ColumnBatch:
+    return ColumnBatch({n: c for n, c in b.data.items() if n != "#rank"}, keep)
+
+
+def _k_with_rank(ctx: StageContext, p) -> None:
+    """Attach each row's global engine-order rank as an int32 column."""
+    b, _total = _rank_column(ctx.slots[p["slot"]], ctx.P)
+    out = {n: c for n, c in b.data.items() if n != "#rank"}
+    out[p["out"]] = torch.where(b.valid, b.data["#rank"], 0).to(torch.int32)
+    ctx.slots[p["slot"]] = ColumnBatch(out, b.valid)
+
+
+def _k_take(ctx: StageContext, p) -> None:
+    """The first n rows of global engine order."""
+    b, _total = _rank_column(ctx.slots[p["slot"]], ctx.P)
+    ctx.slots[p["slot"]] = _strip_rank(b, b.valid & (b.data["#rank"] < int(p["n"])))
+
+
+def _k_skip(ctx: StageContext, p) -> None:
+    """Drop the first n rows of global engine order."""
+    b, _total = _rank_column(ctx.slots[p["slot"]], ctx.P)
+    ctx.slots[p["slot"]] = _strip_rank(b, b.valid & (b.data["#rank"] >= int(p["n"])))
+
+
+def _k_tail(ctx: StageContext, p) -> None:
+    """Keep the last n rows of global engine order."""
+    b, total = _rank_column(ctx.slots[p["slot"]], ctx.P)
+    cut = torch.clamp(total - int(p["n"]), min=0)
+    ctx.slots[p["slot"]] = _strip_rank(b, b.valid & (b.data["#rank"] >= cut))
+
+
+# -- scalar aggregates ---------------------------------------------------------
+
+def _extreme(dtype: torch.dtype, op: str):
+    """Identity of a min (``"min"``) or max over ``dtype``: +-inf for
+    float32, the type's bounds for int32 and the uint32 carrier."""
+    if dtype == torch.float32:
+        return float("inf") if op == "min" else float("-inf")
+    if dtype == WORD:
+        return MASK32 if op == "min" else 0
+    bounds = torch.iinfo(torch.int32)
+    return bounds.max if op == "min" else bounds.min
+
+
+def _global_pair_reduce(op: str, b: ColumnBatch, lo_col: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Whole-table 64-bit reduce of a split column: each partition's
+    pair, then the P partial pairs reduced the same way (all-invalid
+    partitions give the identity pair), as the reference."""
+    hi_col = lo_col[: -len("#h0")] + "#h1"
+    plo, phi = SEG.pair_scalar_reduce(op, b.data[lo_col], b.data[hi_col], b.valid)
+    return SEG.pair_scalar_reduce(op, plo, phi, torch.ones_like(plo, dtype=torch.bool))
+
+
+def _scalar_sum(col: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Sum of the valid values: float32 by integer accumulation
+    (``ops/segmented.py::f32_total``), int32 mod 2^32 as the
+    reference's int32 sums wrap, uint32 words mod 2^32."""
+    if col.dtype == torch.float32:
+        return SEG.f32_total(col, v)
+    s = torch.where(v, col.to(torch.int64), 0).sum()
+    if col.dtype == WORD:
+        return s & MASK32
+    return (((s + (1 << 31)) & MASK32) - (1 << 31)).to(torch.int32)
+
+
+def _k_scalar_agg(ctx: StageContext, p) -> None:
+    """Whole-table aggregates: one output row, valid on partition 0
+    (every partition holds the value, as after the reference's
+    ``psum``).  Float32 sums and means are the same bytes on every run
+    and device; their difference from the reference's summation order
+    is rounding only."""
+    b = ctx.slots[p["slot"]]
+    v = b.valid
+    one = lambda x: x.reshape(1, 1).expand(ctx.P, 1)
+    out: Dict[str, torch.Tensor] = {}
+    for a in p["aggs"]:
+        if a.op == "count":
+            out[a.out] = one(v.sum(dtype=torch.int64).to(torch.int32))
+        elif a.op == "sum":
+            out[a.out] = one(_scalar_sum(b.data[a.col], v))
+        elif a.op in ("min", "max"):
+            col = b.data[a.col]
+            masked = torch.where(v, col, _extreme(col.dtype, a.op))
+            out[a.out] = one(masked.amin() if a.op == "min" else masked.amax())
+        elif a.op == "mean":
+            s = SEG.f32_total(b.data[a.col].to(torch.float32), v)
+            c = v.sum(dtype=torch.int64).to(torch.float32)
+            out[a.out] = one(s / torch.clamp(c, min=1.0))
+        elif a.op == "mean64":
+            tlo, thi = _global_pair_reduce("sum64", b, a.col)
+            c = v.sum(dtype=torch.int64).to(torch.float32)
+            out[a.out] = one(SEG.pair_to_f32(tlo, thi) / torch.clamp(c, min=1.0))
+        elif a.op in SEG.PAIR_OPS:
+            tlo, thi = _global_pair_reduce(a.op, b, a.col)
+            out[f"{a.out}#h0"] = one(tlo)
+            out[f"{a.out}#h1"] = one(thi)
+        elif a.op == "any":
+            out[a.out] = one((v & b.data[a.col]).any())
+        elif a.op == "all":
+            out[a.out] = one(torch.where(v, b.data[a.col], True).all())
+        else:
+            raise ValueError(f"unknown scalar agg {a.op!r}")
+    valid = PART.axis_index(ctx.P, v.device) == 0
+    ctx.slots[p["slot"]] = ColumnBatch(out, valid)
+
+
 _KERNELS = {
     "select": _k_select,
     "where": _k_where,
@@ -323,4 +584,14 @@ _KERNELS = {
     "group_reduce": _k_group_reduce,
     "distinct": _k_distinct,
     "local_sort": _k_local_sort,
+    "join": _k_join,
+    "semi": _k_semi,
+    "concat": _k_concat,
+    "group_join_count": _k_group_join_count,
+    "join_ranked": _k_join_ranked,
+    "with_rank": _k_with_rank,
+    "take": _k_take,
+    "skip": _k_skip,
+    "tail": _k_tail,
+    "scalar_agg": _k_scalar_agg,
 }

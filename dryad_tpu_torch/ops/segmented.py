@@ -130,6 +130,28 @@ def _segmented_pair_reduce(op, lo, hi, seg, cap) -> Tuple[torch.Tensor, torch.Te
     return r & MASK32, (r >> 32) & MASK32
 
 
+_PAIR_IDENTITY = {"min64": (1 << 63) - 1, "max64": -(1 << 63)}
+
+
+def pair_scalar_reduce(
+    op: str, lo: torch.Tensor, hi: torch.Tensor, valid: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """64-bit reduce of a split (lo, hi) word column along the last axis
+    to one (lo, hi) pair per leading index: ``sum64`` mod 2^64 (word
+    sums apart, then the carry), ``min64``/``max64`` over the pair as one
+    signed int64.  Invalid rows count as the op's identity, so an
+    all-invalid row block reduces to the identity pair ((0, 0) for
+    ``sum64``), which is neutral when partial pairs are reduced again.
+    The reference's scan gives the same pair in any order."""
+    if op == "sum64":
+        s_lo = torch.where(valid, lo, 0).sum(-1)
+        s_hi = torch.where(valid, hi, 0).sum(-1)
+        return s_lo & MASK32, (s_hi + (s_lo >> 32)) & MASK32
+    v = torch.where(valid, _signed64(lo, hi), _PAIR_IDENTITY[op])
+    r = v.amin(-1) if op == "min64" else v.amax(-1)
+    return r & MASK32, (r >> 32) & MASK32
+
+
 def pair_to_f32(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
     """Approximate f32 value of a split signed-64 word pair (hi signed *
     2^32 + lo unsigned), the reference's float32 operations in order."""
@@ -171,6 +193,27 @@ def _f32_sum(x: torch.Tensor, seg: torch.Tensor, cap: int) -> torch.Tensor:
     out = torch.where(f_pos == 1, float("inf"), out)
     out = torch.where(f_neg == 1, float("-inf"), out)
     return torch.where((f_pos == 2) | ((f_pos == 1) & (f_neg == 1)), float("nan"), out)
+
+
+def f32_total(x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Sum of every valid float32 value of ``x``, as a 0-d tensor: the
+    integer accumulation of :func:`_f32_sum` for one segment, by
+    reductions (a scatter into one slot would serialize its atomics on
+    the card).  The same bytes on every run and device."""
+    n = x.numel()
+    K = 62 - max(1, n.bit_length())
+    x = flush_subnormal(x)
+    biased = (x.view(torch.int32) >> 23) & 0xFF
+    keep = valid & (biased != 0xFF)
+    E = torch.where(keep, torch.clamp(biased, min=1), 0).amax()
+    xd = torch.where(keep, x, 0.0).to(torch.float64)
+    total = torch.round(xd * _pow2(K + 127 - E)).to(torch.int64).sum()
+    out = flush_subnormal((total.to(torch.float64) * _pow2(E - 127 - K)).to(torch.float32))
+    nan = (valid & torch.isnan(x)).any()
+    pinf = (valid & (x == float("inf"))).any()
+    ninf = (valid & (x == float("-inf"))).any()
+    out = torch.where(pinf, float("inf"), torch.where(ninf, float("-inf"), out))
+    return torch.where(nan | (pinf & ninf), float("nan"), out)
 
 
 def _u32_minmax(w: torch.Tensor, seg, cap, op: str, init: int) -> torch.Tensor:

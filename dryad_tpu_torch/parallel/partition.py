@@ -11,7 +11,8 @@ reference collective               here
 =================================  =====================================
 ``psum_scatter(tiled=True)``       ``x.sum(0)`` then ``reshape(P, per)``
 ``psum``                           ``x.sum(0)``, the same on every row
-``all_gather(tiled=True)``         ``reshape(1, P * n)`` on every row
+``all_gather(tiled=True)``         ``reshape(1, P * n)`` on every row,
+                                   a stride-0 view (``gather_batch``)
 ``all_to_all(tiled=True)``         transpose of the ``(P, P, B)`` buffer
 ``axis_index``                     ``arange(P)``
 =================================  =====================================
@@ -75,6 +76,19 @@ def all_gather(x: torch.Tensor) -> torch.Tensor:
     partition order (a broadcast view, no copy)."""
     P = x.shape[0]
     return x.reshape(1, -1).expand(P, -1)
+
+
+def gather_batch(batch):
+    """Replicate a batch to every partition: each of the P partitions
+    holds all P blocks in partition order (the reference's tiled
+    ``all_gather`` of every column, ``dryad_tpu/exec/kernels.py::_gather_all``).
+    The result is a stride-0 view of one ``(1, P * cap)`` copy, which
+    its consumers only read."""
+    from dryad_tpu_torch.columnar.batch import ColumnBatch
+
+    return ColumnBatch(
+        {c: all_gather(t) for c, t in batch.data.items()}, all_gather(batch.valid)
+    )
 
 
 def axis_index(P: int, device) -> torch.Tensor:

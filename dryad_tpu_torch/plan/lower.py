@@ -7,8 +7,10 @@ int auto-dense with its range guard, auto-dense STRING through
 ``string_code``; and the sort path: partial reduce, hash exchange,
 final reduce, with or without ``salt``), ``distinct``,
 ``hash_partition``, ``order_by`` and ``range_partition`` (the range
-exchange plus local sort), and ``order_by`` + ``take(n)`` fused into
-``topk``.  It emits the SAME ``StageOp`` kinds and params as the
+exchange plus local sort), ``order_by`` + ``take(n)`` fused into
+``topk``, the joins (inner, left-outer, semi, anti, count, ranked; with
+static shuffle, broadcast or run-time ``auto`` placement), ``concat``,
+``with_rank``, ``take``/``skip``/``tail`` and the scalar ``aggregate``.  It emits the SAME ``StageOp`` kinds and params as the
 reference, including the static fan-out reduction of exchanges over
 statically small inputs (``nparts``), so a plan's op list can be held
 against the reference's lowering.  Every other node kind, and the
@@ -35,7 +37,6 @@ _stage_ids = itertools.count()
 _PENDING = {
     "decomposable": "queue 1 items 5 and 9: group_combine and "
                     "api/decomposable.py",
-    "join": "queue 1 item 10: ops/join.py and the join kernels",
 }
 
 
@@ -199,9 +200,17 @@ class _Builder:
             self.plan_inputs[node.id] = node
             stage = self._new_stage("input", [("plan_input", node.id)])
             self.cursor[node.id] = ("open", stage, 0)
-        elif k in ("select", "where"):
+        elif k in ("select", "where", "take", "skip", "tail", "with_rank"):
             stage, slot = self._continue_or_start(node, fanout.get(node.inputs[0].id, 1))
-            stage.ops.append(StageOp(k, dict(slot=slot, fn=node.params["fn"])))
+            if k in ("select", "where"):
+                stage.ops.append(StageOp(k, dict(slot=slot, fn=node.params["fn"])))
+            elif k == "with_rank":
+                stage.ops.append(StageOp("with_rank", dict(slot=slot, out=node.params["out"])))
+            else:
+                # global rank is partition-major, so take() after order_by
+                # keeps the first n in sort order, and on unordered input
+                # the first n in engine (ingest) order
+                stage.ops.append(StageOp(k, dict(slot=slot, n=node.params["n"])))
             self.cursor[node.id] = ("open", stage, slot)
         elif k == "topk":
             stage, slot = self._continue_or_start(node, fanout.get(node.inputs[0].id, 1))
@@ -218,6 +227,19 @@ class _Builder:
             self._lower_keyed(node, fanout)
         elif k in ("order_by", "range_partition"):
             self._lower_ranged(node, fanout)
+        elif k == "join":
+            self._lower_join(node)
+        elif k == "concat":
+            refs = [self._materialize(i) for i in node.inputs]
+            stage = self._new_stage("concat", refs)
+            stage.ops.append(StageOp("concat", dict(slots=list(range(len(refs))), out_slot=0)))
+            stage.growth = float(len(refs))
+            self.cursor[node.id] = ("open", stage, 0)
+        elif k == "aggregate":
+            stage, slot = self._continue_or_start(node, fanout.get(node.inputs[0].id, 1))
+            aggs = self._phys_aggs(node.inputs[0].schema, node.params["aggs"])
+            stage.ops.append(StageOp("scalar_agg", dict(slot=slot, aggs=aggs)))
+            self.cursor[node.id] = ("open", stage, slot)
         else:
             raise _pending(k)
         if n_cons > 1 and self.cursor[node.id][0] == "open":
@@ -442,6 +464,77 @@ class _Builder:
         if node.kind == "order_by":
             stage.ops.append(StageOp("local_sort", dict(slot=slot, operands_fn=operands_fn)))
         self.cursor[node.id] = ("open", stage, slot)
+
+    # -- join -----------------------------------------------------------------
+    def _lower_join(self, node: Node) -> None:
+        left, right = node.inputs
+        lref = self._materialize(left)
+        rref = self._materialize(right)
+        stage = self._new_stage("join", [lref, rref])
+        lkeys = K.equality_cols(left.schema, node.params["left_keys"])
+        rkeys = K.equality_cols(right.schema, node.params["right_keys"])
+        strategy = node.params.get("strategy", "shuffle")
+        need_l = self._needs_hash_exchange_for(left, node.params["left_keys"])
+        need_r = self._needs_hash_exchange_for(right, node.params["right_keys"])
+        strat_params = {}
+        if strategy == "shuffle":
+            # static co-partitioning: the exchanges are stage ops
+            if need_l:
+                stage.ops.append(StageOp("exchange_hash", dict(slot=0, keys=lkeys)))
+                stage.ops.append(StageOp("resize", dict(slot=0, factor=1.0)))
+            if need_r:
+                stage.ops.append(StageOp("exchange_hash", dict(slot=1, keys=rkeys)))
+                stage.ops.append(StageOp("resize", dict(slot=1, factor=1.0)))
+        else:
+            # broadcast / auto: the kernel decides from the right side's
+            # static row bound (``est_right``) or capacity, and either
+            # replicates the right side or runs the deferred exchanges
+            strat_params = dict(
+                strategy=strategy,
+                need_left_exchange=need_l,
+                need_right_exchange=need_r,
+                broadcast_limit=self.config.broadcast_limit,
+                est_right=self.est.get(right.id),
+            )
+        sides = dict(left_slot=0, right_slot=1, left_keys=lkeys, right_keys=rkeys)
+        expansion = node.params.get("expansion", 1.0)
+        jk = node.params.get("join_kind", "inner")
+        if jk == "count":
+            stage.ops.append(StageOp("group_join_count", dict(
+                **sides, out=node.params["out"], expansion=expansion, **strat_params,
+            )))
+        elif jk == "ranked":
+            order = node.params.get("order")
+            operands_fn = K.ordering_operands(right.schema, list(order)) if order else None
+            stage.ops.append(StageOp("join_ranked", dict(
+                **sides, rank_out=node.params["rank_out"], operands_fn=operands_fn,
+                expansion=expansion, suffix=node.params.get("suffix", "_r"),
+                rank_limit=node.params.get("rank_limit"),
+                rank_limit_max_boost=2 ** self.config.max_shuffle_retries,
+                **strat_params,
+            )))
+            stage.growth = max(1.0, expansion)
+        elif jk in ("inner", "left"):
+            stage.ops.append(StageOp("join", dict(
+                **sides, expansion=expansion, suffix=node.params.get("suffix", "_r"),
+                outer=(jk == "left"), right_defaults=node.params.get("right_defaults"),
+                **strat_params,
+            )))
+            stage.growth = max(1.0, expansion) + (1.0 if jk == "left" else 0.0)
+        else:
+            stage.ops.append(StageOp("semi", dict(
+                **sides, negate=(jk == "anti"), expansion=expansion, **strat_params,
+            )))
+        self.cursor[node.id] = ("open", stage, 0)
+
+    def _needs_hash_exchange_for(self, src: Node, keys: Sequence[str]) -> bool:
+        """A join side needs its exchange unless it is hash-partitioned
+        on exactly these keys at full width (a fan-reduced layout is
+        key-colocated but not co-partitioned with a full-width side)."""
+        if src.id in self.reduced:
+            return True
+        p = src.partition
+        return not (p.scheme == "hash" and tuple(p.keys) == tuple(keys))
 
 
 def _decompose_aggs(aggs):

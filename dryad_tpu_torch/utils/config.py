@@ -52,6 +52,10 @@ class DryadConfig:
       ``ceil(rows / tail_rows_per_partition)`` partitions; 0 disables.
     - ``topk_limit``: order_by + take(n) fuses to top-k for n at or
       below this.
+    - ``broadcast_limit``: a join with ``strategy="auto"`` replicates
+      its right side to every partition when the right side's static
+      row bound (or, without one, its total capacity) is at or below
+      this; otherwise both sides are co-hash-partitioned.
     - ``device_cache_bytes``: budget of the device-resident ingest
       cache; 0 turns it off.
     """
@@ -64,6 +68,7 @@ class DryadConfig:
         "DRYAD_TPU_TAIL_ROWS_PER_PARTITION", 512
     )
     topk_limit: int = _env_int("DRYAD_TPU_TOPK_LIMIT", 1024)
+    broadcast_limit: int = _env_int("DRYAD_TPU_BROADCAST_LIMIT", 1 << 16)
     auto_dense_strings: bool = True
     auto_dense_ints: bool = True
     auto_dense_limit: int = _env_int("DRYAD_TPU_AUTO_DENSE_LIMIT", 1 << 17)

@@ -182,12 +182,11 @@ def test_unported_shapes_raise_not_implemented():
     _, tc = _ctxs()
     q = tc.from_text("b a c a")
     k = tc.from_arrays({"k": np.array([-1, 2], np.int32)})
-    join = Node("join", [q.node, k.node], q.schema, PartitionInfo(),
-                left_keys=["word"], right_keys=["k"], join_kind="inner")
-    with pytest.raises(NotImplementedError, match="queue 1 item 10: ops/join.py"):
-        tlower([join], tc.config, tc.dictionary)
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        q.take(2).collect()
+    zipped = Node("zip", [q.node, k.node], q.schema, PartitionInfo(), suffix="_r")
+    with pytest.raises(NotImplementedError, match="queue 1 item 10: operator breadth"):
+        tlower([zipped], tc.config, tc.dictionary)
+    with pytest.raises(NotImplementedError, match="Query.reverse .*queue 1 item 10"):
+        q.reverse()
     decomposable = Node("group_by", [k.node], k.schema, PartitionInfo.hashed(["k"]),
                         keys=["k"], decomposable=object())
     with pytest.raises(NotImplementedError, match="ROADMAP.*group_combine"):
