@@ -11,9 +11,14 @@ hot key), the sort-path group_by with distinct and range_partition
 (2^26 rows), the Join Task of Pavlo et al. (2^26 visits joined to 2^23
 pages by shuffle, then a sort-path group_by and a top-1), the broadcast
 join of samples/join_groupby.py (2^26 orders, then the dense group_by
-on the bucket kernel), and the parity queries of the CPU tests on the
-card and on the CPU, checks every result against a numpy oracle, and
-prints:
+on the bucket kernel), PageRank by do_while on a Graph500 Kronecker
+graph (scale 22, edgefactor 16, 10 rounds), the decomposable group_by,
+its built-in twin and aggregate_decomposable over the Join Task's
+UserVisits, the ordered and user-function operators over a 2^26-row
+event log (sliding_window, reverse, take_while/skip_while, zip_,
+select_many, default_if_empty, apply with the partition index, fork),
+and the parity queries of the CPU tests on the card and on the CPU,
+checks every result against a numpy oracle, and prints:
 
 - a ``{"kernels": [...]}`` line (each kernel's launches on the main
   path, its error against the plain version, its time, the plain
@@ -25,11 +30,12 @@ prints:
 Any failed check raises, so the script exits non-zero and prints no
 result line.  Without a CUDA device it exits non-zero at once.
 ``--phases`` runs a subset (env, kernel, wordcount, dense, terasort,
-terasort_hot, groupby_sort, join_shuffle, join_broadcast, cpu_parity),
-for short first runs of a changed kernel.  The WordCount, TeraSort,
-sort-path group_by and join phases also profile one warm query with
-torch.profiler and print device time by op, the device's busy share of
-the warm query, and peak memory.
+terasort_hot, groupby_sort, join_shuffle, join_broadcast, pagerank,
+decomposable, ordered_ops, cpu_parity), for short first runs of a
+changed kernel.  The WordCount, TeraSort, sort-path group_by, join,
+PageRank, decomposable and ordered phases also profile one warm query
+with torch.profiler and print device time by op, the device's busy
+share of the warm query, and peak memory.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -37,6 +43,7 @@ It imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import subprocess
@@ -82,6 +89,18 @@ JB_REGIONS = 7
 JOIN_CACHE_BYTES = 16 << 30
 F32_REL = 2.0 ** -23  # the sort path's float sums: n_g * 2^-23 * sum |v|
 
+# PageRank (samples/pagerank_dowhile.py) on a Graph500 Kronecker graph:
+# scale 22, edgefactor 16, A/B/C/D = 0.57/0.19/0.19/0.05
+PR_SCALE = 22
+PR_EDGEFACTOR = 16
+PR_A, PR_B, PR_C = 0.57, 0.19, 0.19
+PR_DAMP = 0.85
+PR_ROUNDS = 10
+PR_REL = 1e-4  # every rank within PR_REL * max(rank) of the float64 oracle
+PR_PARITY_SCALE = 10
+# the ordered operators over an event log in timestamp order
+ORD_ROWS = 1 << 26
+
 KERNEL_CASES_K = (128, 4096, 5000, 131072)
 KERNEL_CASES_VALS = ((), ("f32",), ("i32", "f32"))
 FLOAT_REL = 2.0 ** -16  # the reference's per-element bound for float sums
@@ -112,6 +131,14 @@ def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def free_card() -> None:
+    """Return a finished phase's device memory: a context that ran a
+    do_while stays in a reference cycle (its subplans' functions close
+    over its queries) until the collector runs."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def check(cond: bool, what: str) -> None:
@@ -507,7 +534,7 @@ def phase_wordcount(dev, card: str) -> dict:
         f"(ingest to device + run) {cold_s:.3f} s, warm query {warm_s:.4f} s = "
         f"{WC_WORDS / warm_s:.4g} rows/s, resident {resident / 1e9:.2f} GB, kernel launches {launches}")
     del ctx
-    torch.cuda.empty_cache()
+    free_card()
     return res
 
 
@@ -652,7 +679,7 @@ def phase_terasort(dev, card: str, rows: int, hot: bool) -> dict:
     check_terasort(out, key, pay, label)
     log(f"{label}: output keys equal np.sort, (key, payload) pairs equal the input's")
     del ctx, q, out
-    torch.cuda.empty_cache()
+    free_card()
     return res
 
 
@@ -738,7 +765,7 @@ def phase_groupby_sort(dev, card: str) -> dict:
         f"{res['range_partition_s']:.3f} s (warm, host checks included) match the oracle; "
         f"rows per partition {n_part.tolist()}")
     del ctx, src, q, b, keys, flat
-    torch.cuda.empty_cache()
+    free_card()
     return res
 
 
@@ -844,7 +871,7 @@ def phase_join_shuffle(dev, card: str) -> dict:
         f"(max rel err {res['max_rel_err_revenue']:.3g}), top-1 {top['sourceIP'][0]} "
         f"{top['totalRevenue'][0]:.2f}")
     del ctx, v, j, g, q, table, visits, rankings
-    torch.cuda.empty_cache()
+    free_card()
     return res
 
 
@@ -885,7 +912,366 @@ def phase_join_broadcast(dev, card: str) -> dict:
     log(f"join_broadcast: auto chose broadcast; counts exact, sums within 2^-16*sum|v| "
         f"(max rel err {res['max_rel_err_total']:.3g}); bucket kernel launches {launches}")
     del ctx, q, out, orders
-    torch.cuda.empty_cache()
+    free_card()
+    return res
+
+
+# -- phases 11-13: iteration, decomposable aggregates, ordered operators --------
+
+def kronecker_edges(rng, scale: int, edgefactor: int = 16):
+    """The Graph500 Kronecker generator (graph500.org benchmark
+    specification): ``edgefactor * 2^scale`` edges over ``2^scale``
+    vertices, each edge's bits drawn with A=0.57, B=0.19, C=0.19
+    (D=0.05), the vertex labels randomly permuted; then self loops
+    removed (as samples/pagerank_dowhile.py does) and duplicate edges
+    kept."""
+    n, m = 1 << scale, edgefactor << scale
+    ab, c_norm, a_norm = PR_A + PR_B, PR_C / (1.0 - (PR_A + PR_B)), PR_A / (PR_A + PR_B)
+    src = np.zeros(m, np.int32)
+    dst = np.zeros(m, np.int32)
+    for bit in range(scale):
+        ii = rng.random(m, dtype=np.float32) > ab
+        jj = rng.random(m, dtype=np.float32) > np.where(ii, np.float32(c_norm), np.float32(a_norm))
+        src |= ii.astype(np.int32) << bit
+        dst |= jj.astype(np.int32) << bit
+    perm = rng.permutation(n).astype(np.int32)
+    src, dst = perm[src], perm[dst]
+    keep = src != dst
+    return src[keep], dst[keep]
+
+
+# PageRank rows (module level: a do_while's subplans are built once per
+# function object, and these rows are the same objects every round)
+def _pr_contrib(c):
+    return {"node": c["dst"], "c": c["w"] * c["rank"]}
+
+
+def _pr_delta(c):
+    return {"d": abs(c["rank"] - c["prev"])}
+
+
+class _PrApply:
+    def __init__(self, n):
+        self.n = n
+
+    def __call__(self, c):
+        return {"node": c["node"], "rank": (1.0 - PR_DAMP) / self.n + PR_DAMP * c["inflow"],
+                "prev": c["rank"]}
+
+
+def pagerank_query(ctx, src, dst, w, n, max_iter=PR_ROUNDS, eps=0.0):
+    """samples/pagerank_dowhile.py's query: the edges cached on the
+    card, the state {node, rank, prev} over every vertex; each round
+    joins ranks onto the edges, sums contributions per destination,
+    left-joins them back and applies the damping; the condition keeps
+    going while the largest change exceeds ``eps``.  Two cuts, both
+    for memory: each join passes ``expansion=1.0`` (every edge matches
+    one vertex, every vertex at most one sum), and the state is
+    hash-partitioned on ``node`` once, a claim the body restates with
+    ``assume_hash_partition``.  Without it every round after the first
+    re-exchanges the already-partitioned state, whose buckets (sized for
+    a uniform spread) overflow twice and rerun the round's joins at
+    boost 4, as in the reference."""
+    edges = ctx.from_arrays({"src": src, "dst": dst, "w": w}).cache()
+    state = ctx.from_arrays({"node": np.arange(n, dtype=np.int32),
+                             "rank": np.full(n, 1.0 / n, np.float32),
+                             "prev": np.zeros(n, np.float32)}).hash_partition("node")
+    apply_rank = _PrApply(n)
+
+    def body(q):
+        q = q.assume_hash_partition("node")
+        contrib = (edges.join(q, "src", "node", expansion=1.0).select(_pr_contrib)
+                   .group_by("node", {"inflow": ("sum", "c")}))
+        return q.left_join(contrib, "node", expansion=1.0).select(apply_rank)
+
+    def cond(q):
+        return (q.select(_pr_delta).aggregate_as_query({"m": ("max", "d")})
+                .select(lambda c: {"go": c["m"] > eps}))
+
+    return state.do_while(body, cond, max_iter=max_iter)
+
+
+def pagerank_oracle(src, dst, w, n, rounds):
+    """float64 PageRank, the query's formula, ``rounds`` rounds."""
+    r = np.full(n, 1.0 / n)
+    w64 = w.astype(np.float64)
+    for _ in range(rounds):
+        r = (1.0 - PR_DAMP) / n + PR_DAMP * np.bincount(dst, weights=w64 * r[src], minlength=n)
+    return r
+
+
+def loop_rounds(ctx) -> int:
+    return sum(1 for e in ctx.executor.events if e[0] == "do_while_iter")
+
+
+def phase_pagerank(dev, card: str) -> dict:
+    """PageRank by do_while on a Graph500 Kronecker graph, scale 22,
+    edgefactor 16 (2^22 vertices, 2^26 edges before self loops go):
+    exactly 10 rounds (eps = 0), checked against a float64 oracle."""
+    from dryad_tpu_torch import DryadConfig, DryadContext
+
+    rng = np.random.default_rng(SEED + 11)
+    t0 = time.perf_counter()
+    src, dst = kronecker_edges(rng, PR_SCALE)
+    n = 1 << PR_SCALE
+    deg = np.bincount(src, minlength=n).astype(np.float32)
+    w = (1.0 / np.maximum(deg, 1.0))[src].astype(np.float32)
+    gen_s = time.perf_counter() - t0
+    log(f"pagerank graph: Kronecker scale {PR_SCALE}, {len(src)} edges after self loops "
+        f"({(PR_EDGEFACTOR << PR_SCALE) - len(src)} removed), max out-degree {int(deg.max())}; "
+        f"made in {gen_s:.1f} s (set-up)")
+    ctx = DryadContext(num_partitions_=P, config=DryadConfig(device_cache_bytes=JOIN_CACHE_BYTES))
+    t0 = time.perf_counter()
+    q = pagerank_query(ctx, src, dst, w, n)
+    cache_s = time.perf_counter() - t0
+    res, out = timed_runs(ctx, q, "pagerank", card, len(src))
+    rounds = loop_rounds(ctx)
+    check(rounds == PR_ROUNDS, f"pagerank ran {rounds} rounds, expected {PR_ROUNDS}")
+    check(any(e[0] == "do_while_max_iter" for e in ctx.executor.events),
+          "pagerank: the loop did not stop at max_iter")
+    check(res["bucket_sum_count_launches"] == 0, "pagerank reached the bucket kernel")
+    boosts = [e[2] for e in ctx.executor.events if e[0] == "do_while_state_boost"]
+    oracle = pagerank_oracle(src, dst, w, n, PR_ROUNDS)
+    check(np.array_equal(np.sort(out["node"]), np.arange(n)), "pagerank: vertices differ")
+    rank = np.empty(n, np.float64)
+    rank[out["node"]] = out["rank"]
+    err = np.abs(rank - oracle)
+    tol = PR_REL * oracle.max()
+    check(bool((err <= tol).all()), f"pagerank: a rank is past {PR_REL} * max(r) of the oracle")
+    # the top 100 in the oracle's order, wherever the oracle's ranks are
+    # not tied within twice this run's largest error
+    top = np.argsort(-oracle, kind="stable")[:101]
+    mine = np.argsort(-rank, kind="stable")[:100]
+    gap = 2 * err.max()
+    sep = np.abs(np.diff(oracle[top])) > gap
+    for i in range(100):
+        if sep[i] and (i == 0 or sep[i - 1]):
+            check(mine[i] == top[i], f"pagerank: top-100 position {i} differs from the oracle")
+    res.update(rounds=rounds, seconds_per_round=res["warm_s"] / rounds, edges=int(len(src)),
+               vertices=n, max_abs_err_over_max_rank=float(err.max() / oracle.max()),
+               state_boosts=boosts, graph_s=gen_s, cache_edges_s=cache_s)
+    log(f"pagerank [{card}]: {rounds} rounds, {res['seconds_per_round']:.4f} s a round (warm); "
+        f"ranks within {res['max_abs_err_over_max_rank']:.3g} * max(r) of the float64 oracle "
+        f"(bound {PR_REL}); top-100 in the oracle's order where not tied; state boosts {boosts}")
+    del ctx, q, out, src, dst, w
+    free_card()
+    return res
+
+
+def variance_dec(state_key: str = "adRevenue"):
+    """(count, sum, sum of squares) with the variance as finalize; the
+    finalize keeps every column, states included."""
+    from dryad_tpu_torch import ColumnType, Decomposable
+
+    def finalize(c):
+        m = c["s1"] / c["cnt"]
+        return {**c, "var": c["s2"] / c["cnt"] - m * m}
+
+    return Decomposable(
+        seed=lambda c: {"cnt": torch.ones_like(c[state_key]), "s1": c[state_key],
+                        "s2": c[state_key] * c[state_key]},
+        merge=lambda a, b: {k: a[k] + b[k] for k in ("cnt", "s1", "s2")},
+        state_cols=["cnt", "s1", "s2"], finalize=finalize,
+        out_fields=[(n, ColumnType.FLOAT32) for n in ("cnt", "s1", "s2", "var")])
+
+
+def best_visit_dec(rev: str = "adRevenue", day: str = "visitDate"):
+    """A non-linear merge: the highest revenue with its date, ties to
+    the later date."""
+    from dryad_tpu_torch import ColumnType, Decomposable
+
+    def merge(a, b):
+        take_b = (b["rev"] > a["rev"]) | ((b["rev"] == a["rev"]) & (b["day"] > a["day"]))
+        return {"rev": torch.where(take_b, b["rev"], a["rev"]),
+                "day": torch.where(take_b, b["day"], a["day"])}
+
+    return Decomposable(seed=lambda c: {"rev": c[rev], "day": c[day]}, merge=merge,
+                        state_cols=["rev", "day"],
+                        out_fields=[("rev", ColumnType.FLOAT32), ("day", ColumnType.INT32)])
+
+
+def _with_rev2(c):
+    return {**c, "rev2": c["adRevenue"] * c["adRevenue"]}
+
+
+def phase_decomposable(dev, card: str) -> dict:
+    """The Join Task's UserVisits: the variance of adRevenue per
+    sourceIP through a Decomposable (seed, local combine, shuffle, final
+    combine), the same sums through the built-in aggregates in the same
+    call, a non-linear argmax merge, and the whole-table
+    aggregate_decomposable; every one against numpy."""
+    from dryad_tpu_torch import DryadConfig, DryadContext
+    from dryad_tpu_torch.ops.bucket import bucket_sum_count
+
+    rng = np.random.default_rng(SEED + 8)
+    visits, _ = visits_tables(rng)
+    visits = {c: visits[c] for c in ("sourceIP", "adRevenue", "visitDate")}
+    ctx = DryadContext(num_partitions_=P, config=DryadConfig(device_cache_bytes=JOIN_CACHE_BYTES))
+    src = ctx.from_arrays(visits)
+    res, out = timed_runs(ctx, src.group_by("sourceIP", decomposable=variance_dec()),
+                          "decomposable", card, JS_VISITS)
+    builtin, bout = timed_runs(
+        ctx, src.select(_with_rev2).group_by(
+            "sourceIP", {"cnt": ("count", None), "s1": ("sum", "adRevenue"), "s2": ("sum", "rev2")}),
+        "decomposable_builtin", card, JS_VISITS)
+
+    ip, rev = visits["sourceIP"], visits["adRevenue"].astype(np.float64)
+    uk, inv = np.unique(ip, return_inverse=True)
+    cnt = np.bincount(inv)
+    s1, s2 = np.bincount(inv, weights=rev), np.bincount(inv, weights=rev * rev)
+    o = np.argsort(out["sourceIP"])
+    got = {c: a[o] for c, a in out.items()}
+    check(np.array_equal(got["sourceIP"], uk), "decomposable: sourceIPs differ from the oracle's")
+    check(np.array_equal(got["cnt"], cnt.astype(np.float32)), "decomposable: counts differ")
+    # adRevenue >= 0: sum |v| = s1; each square rounds once more
+    check(bool((np.abs(got["s1"] - s1) <= cnt * F32_REL * s1).all()),
+          "decomposable: sums past n_g * 2^-23 * sum|v|")
+    check(bool((np.abs(got["s2"] - s2) <= (cnt + 1) * F32_REL * s2).all()),
+          "decomposable: sums of squares past (n_g + 1) * 2^-23 * sum v^2")
+    m = got["s1"].astype(np.float64) / got["cnt"]
+    fin = got["s2"] / got["cnt"].astype(np.float64) - m * m
+    check(bool((np.abs(got["var"] - fin) <= 2.0 ** -22 * (got["s2"] / got["cnt"] + m * m)).all()),
+          "decomposable: the variance is not its states' within rounding")
+    ob = np.argsort(bout["sourceIP"])
+    check(np.array_equal(bout["sourceIP"][ob], uk)
+          and np.array_equal(bout["cnt"][ob], cnt.astype(np.int32)),
+          "decomposable_builtin: keys or counts differ from the oracle's")
+    check(bool((np.abs(bout["s1"][ob] - s1) <= cnt * F32_REL * s1).all()),
+          "decomposable_builtin: sums past the bound")
+
+    bucket_sum_count.launches = 0  # timed_runs counted its own queries
+    best_q = src.group_by("sourceIP", decomposable=best_visit_dec())
+    best_q.collect()
+    t0 = time.perf_counter()
+    best = best_q.collect()
+    res["argmax_warm_s"] = time.perf_counter() - t0
+    last = np.lexsort((visits["visitDate"], visits["adRevenue"], inv))
+    ends = np.r_[np.flatnonzero(np.diff(inv[last])), len(last) - 1]
+    ob = np.argsort(best["sourceIP"])
+    check(np.array_equal(best["sourceIP"][ob], uk)
+          and np.array_equal(best["rev"][ob], visits["adRevenue"][last[ends]])
+          and np.array_equal(best["day"][ob], visits["visitDate"][last[ends]]),
+          "decomposable argmax: not the oracle's highest revenue and latest date")
+    check(overflow_retries(ctx) == 0, "decomposable argmax retried an overflow")
+
+    whole_dec = variance_dec()
+    src.aggregate_decomposable(whole_dec)
+    t0 = time.perf_counter()
+    whole = src.aggregate_decomposable(whole_dec)
+    res["aggregate_warm_s"] = time.perf_counter() - t0
+    n = float(JS_VISITS)
+    check(whole["cnt"] == n, f"aggregate_decomposable: count {whole['cnt']} != {JS_VISITS}")
+    check(abs(whole["s1"] - s1.sum()) <= n * F32_REL * s1.sum()
+          and abs(whole["s2"] - s2.sum()) <= (n + 1) * F32_REL * s2.sum(),
+          "aggregate_decomposable: sums past the bound")
+    res.update(builtin=builtin, groups=int(len(uk)),
+               max_rel_err_s1=float((np.abs(got["s1"] - s1) / s1).max()),
+               whole_rel_err_s1=float(abs(whole["s1"] - s1.sum()) / s1.sum()))
+    log(f"decomposable [{card}]: {len(uk)} groups; counts exact, sums within n_g*2^-23*sum|v| "
+        f"(max rel err {res['max_rel_err_s1']:.3g}); warm {res['warm_s']:.4f} s against the "
+        f"built-in aggregates' {builtin['warm_s']:.4f} s; argmax merge exact, warm "
+        f"{res['argmax_warm_s']:.4f} s; aggregate_decomposable warm {res['aggregate_warm_s']:.4f} s "
+        f"(rel err {res['whole_rel_err_s1']:.3g})")
+    res["bucket_sum_count_launches"] += (builtin["bucket_sum_count_launches"]
+                                         + bucket_sum_count.launches)
+    check(res["bucket_sum_count_launches"] == 0, "decomposable reached the bucket kernel")
+    del ctx, src, out, bout, best, visits
+    free_card()
+    return res
+
+
+def _pid(b, i):
+    return b.with_column("pid", b["ts"] * 0 + i)
+
+
+def _dup_neg(cols):
+    ts, v = cols["ts"], cols["v"]
+    return ({"ts": torch.stack([ts, ts], 1), "v": torch.stack([v, -v], 1)},
+            torch.stack([torch.ones_like(v, dtype=torch.bool), v > 0], 1))
+
+
+def _split_sign(b):
+    return b.filter(b["v"] > 0), b.filter(~(b["v"] > 0))
+
+
+def phase_ordered_ops(dev, card: str) -> dict:
+    """An event log of 2^26 rows in timestamp order (int32, strictly
+    increasing) and a second 2^26-row table: sliding_window, reverse,
+    take_while/skip_while, zip_, select_many, default_if_empty, apply
+    with the partition index and a two-way fork, each equal to numpy
+    with no overflow retry."""
+    from dryad_tpu_torch import ColumnType, DryadConfig, DryadContext, Schema
+    from dryad_tpu_torch.ops.bucket import bucket_sum_count
+
+    rng = np.random.default_rng(SEED + 12)
+    n = ORD_ROWS
+    ts = (np.cumsum(rng.integers(1, 32, n)) - 2**30).astype(np.int32)
+    v = rng.standard_normal(n).astype(np.float32)
+    u = rng.integers(-2**31, 2**31, n, dtype=np.int32)
+    # a rank exchange moves each partition's contiguous run of ranks to
+    # one or two partitions, so a bucket must hold a whole partition
+    ctx = DryadContext(num_partitions_=P, config=DryadConfig(
+        shuffle_slack=float(P), device_cache_bytes=JOIN_CACHE_BYTES))
+    log_q = ctx.from_arrays({"ts": ts, "v": v}).assume_order_by([("ts", False)])
+    other = ctx.from_arrays({"u": u})
+    cut = int(ts[n // 3])
+    sch = Schema([("ts", ColumnType.INT32), ("v", ColumnType.FLOAT32)])
+    pos_q, neg_q = log_q.fork(_split_sign, [sch, sch])
+    keep = np.stack([np.ones(n, bool), v > 0], 1).ravel()
+    expect = {
+        "sliding_window": (log_q.sliding_window(3, ["v"]),
+                           {"v_w0": v[:-2], "v_w1": v[1:-1], "v_w2": v[2:]}),
+        "reverse": (log_q.reverse(), {"ts": ts[::-1], "v": v[::-1]}),
+        "take_while": (log_q.take_while(lambda c: c["ts"] < cut),
+                       {"ts": ts[: n // 3], "v": v[: n // 3]}),
+        "skip_while": (log_q.skip_while(lambda c: c["ts"] < cut),
+                       {"ts": ts[n // 3:], "v": v[n // 3:]}),
+        "zip": (log_q.zip_(other), {"ts": ts, "v": v, "u": u}),
+        "select_many": (log_q.select_many(_dup_neg, 2),
+                        {"ts": np.repeat(ts, 2)[keep], "v": np.stack([v, -v], 1).ravel()[keep]}),
+        "default_if_empty": (log_q.where(lambda c: c["ts"] < -2**31 + 1).default_if_empty(
+            {"ts": -1, "v": 0.5}), {"ts": np.array([-1], np.int32), "v": np.array([0.5], np.float32)}),
+        "apply_with_index": (log_q.apply(_pid, schema=sch.with_field("pid", ColumnType.INT32),
+                                         with_index=True), None),
+        "fork_positive": (pos_q, {"ts": ts[v > 0], "v": v[v > 0]}),
+        "fork_rest": (neg_q, {"ts": ts[~(v > 0)], "v": v[~(v > 0)]}),
+    }
+    res = {"rows": n, "card": card}
+    bucket_sum_count.launches = 0
+    for name, (q, want) in expect.items():
+        t0 = time.perf_counter()
+        got = q.collect()
+        first = time.perf_counter() - t0
+        check(overflow_retries(ctx) == 0, f"ordered_ops {name}: retried an overflow")
+        del got
+        t0 = time.perf_counter()
+        got = q.collect()
+        secs = time.perf_counter() - t0
+        check(overflow_retries(ctx) == 0, f"ordered_ops {name}: retried an overflow")
+        if want is None:  # apply: the log unchanged, each row tagged with its partition
+            pid = got["pid"]
+            check(np.array_equal(got["ts"], ts) and np.array_equal(got["v"], v),
+                  "ordered_ops apply_with_index: rows differ")
+            check(bool((np.diff(pid) >= 0).all()) and np.array_equal(
+                np.bincount(pid, minlength=P), np.full(P, n // P)),
+                "ordered_ops apply_with_index: partition indexes differ from the layout's")
+        else:
+            check(list(got) == list(want), f"ordered_ops {name}: columns {list(got)}")
+            for c, a in want.items():
+                a = np.ascontiguousarray(a)
+                check(got[c].dtype == a.dtype and np.array_equal(got[c].view(np.uint8), a.view(np.uint8)),
+                      f"ordered_ops {name}: column {c} differs from numpy's")
+        rows = len(next(iter(got.values())))
+        res[name] = {"first_s": first, "warm_s": secs, "rows_out": rows}
+        log(f"ordered_ops {name} [{card}]: {rows} rows out, equal to numpy, 0 retries; "
+            f"first {first:.4f} s, warm {secs:.4f} s")
+        del got
+    res["bucket_sum_count_launches"] = bucket_sum_count.launches
+    check(bucket_sum_count.launches == 0, "ordered_ops reached the bucket kernel")
+    res["profile"] = profile_query(expect["reverse"][0], os.path.join(WORK_DIR, "profile_ordered_ops.txt"))
+    print_profile("ordered_ops reverse", card, res["profile"], res["reverse"]["warm_s"])
+    del ctx, log_q, other, expect
+    free_card()
     return res
 
 
@@ -965,6 +1351,81 @@ PARITY_SCALAR_QUERIES = {  # the queries of tests/test_torch_scalar.py
     "tail": lambda q: q.tail(25),
     "order_by_take": lambda q: q.order_by([("v", True)]).take(2000),
 }
+
+
+def _parity_pagerank(ctx, t):
+    rng = np.random.default_rng(SEED + 13)
+    src, dst = kronecker_edges(rng, PR_PARITY_SCALE)
+    n = 1 << PR_PARITY_SCALE
+    deg = np.bincount(src, minlength=n).astype(np.float32)
+    w = (1.0 / np.maximum(deg, 1.0))[src].astype(np.float32)
+    return [pagerank_query(ctx, src, dst, w, n).collect()]
+
+
+def _parity_host(cols, i):
+    keep = cols["w"] > np.median(cols["w"]) if len(cols["w"]) else cols["w"] > 0
+    return {"w": cols["w"][keep], "pid": np.full(int(keep.sum()), i, np.int32)}
+
+
+def _parity_fork(ctx, t):
+    q = ctx.from_arrays(t)
+    a, b = q.fork(lambda bt: (bt.filter(bt["b"]), bt.filter(bt["w"] > 0)), [q.schema, q.schema])
+    return [a.collect(), b.collect()]
+
+
+def _parity_cache(ctx, t):
+    cached = ctx.from_arrays(t).group_by("g", {"n": ("count", None), "sw": ("sum", "w")}).cache()
+    out = [cached.where(lambda c: c["n"] > 30).collect(), cached.group_by("g", {"m": ("max", "sw")}).collect()]
+    ctx.release(cached)
+    return out
+
+
+def _parity_do_while(ctx, t):
+    q = ctx.from_arrays({"x": t["w"]})
+    return [q.do_while(lambda s: s.select(lambda c: {"x": c["x"] // 2}).distinct(),
+                       lambda s: s.count_as_query().select(lambda c: {"go": c["count"] > 5}),
+                       max_iter=30).collect()]
+
+
+PARITY_OPERATOR_QUERIES = {  # the queries of tests/test_torch_{operators,decomposable,dowhile}.py
+    "take_while": lambda c, t: [c.from_arrays(t).take_while(lambda x: x["id"] < 5000).collect()],
+    "skip_while": lambda c, t: [c.from_arrays(t).skip_while(lambda x: x["w"] < 900).collect()],
+    "reverse": lambda c, t: [c.from_arrays(t).reverse().collect()],
+    "reverse_hash_partitioned": lambda c, t: [c.from_arrays(t).hash_partition(["g"]).reverse().collect()],
+    "default_if_empty": lambda c, t: [c.from_arrays(t).where(lambda x: x["id"] < 0).default_if_empty(
+        {"g": 3, "s": "none", "L": -5}).collect()],
+    "zip": lambda c, t: [c.from_arrays(t).zip_(c.from_arrays(t).where(lambda x: x["b"])).collect()],
+    "sequence_equal": lambda c, t: [{"eq": np.array([c.from_arrays(t).sequence_equal(
+        c.from_arrays(t).where(lambda x: x["id"] >= 0))])}],
+    "sliding_window": lambda c, t: [c.from_arrays(t).where(lambda x: x["g"] > 40).sliding_window(
+        3, ["v", "w"]).collect()],
+    "select_many": lambda c, t: [c.from_arrays(t).select_many(_dup_neg_w, 2).collect()],
+    "apply_with_index": lambda c, t: [c.from_arrays(t).apply(
+        lambda b, i: b.with_column("w", b["w"] * 0 + i).filter(b["b"]), cap_factor=2.0,
+        with_index=True).group_by("w", {"n": ("count", None)}).collect()],
+    "fork": _parity_fork,
+    "apply_host": lambda c, t: [c.from_arrays(t).apply_host(_parity_host, schema=_host_schema()).collect()],
+    "decomposable_variance": lambda c, t: [c.from_arrays(t).group_by(
+        "g", decomposable=variance_dec("v")).collect()],
+    "decomposable_argmax": lambda c, t: [c.from_arrays(t).group_by(
+        "g", decomposable=best_visit_dec("v", "w")).collect()],
+    "aggregate_decomposable": lambda c, t: [{k: np.atleast_1d(x) for k, x in c.from_arrays(
+        t).aggregate_decomposable(variance_dec("v")).items()}],
+    "do_while": _parity_do_while,
+    "cache": _parity_cache,
+    "pagerank_scale10": _parity_pagerank,
+}
+
+
+def _dup_neg_w(cols):
+    w = cols["w"]
+    return {"w": torch.stack([w, -w], 1)}, torch.stack([w > 0, w < 0], 1)
+
+
+def _host_schema():
+    from dryad_tpu_torch import ColumnType, Schema
+
+    return Schema([("w", ColumnType.INT32), ("pid", ColumnType.INT32)])
 
 
 def _byte_equal(a: dict, b: dict, what: str) -> None:
@@ -1049,6 +1510,20 @@ def phase_cpu_parity(dev, card: str) -> dict:
         _byte_equal(a, b, f"cpu_parity {name}")
         res[name] = "byte-equal"
         log(f"cpu_parity {name}: {len(next(iter(a.values())))} rows, byte-equal")
+    # the ordered, user-function, decomposable and iteration queries,
+    # PageRank at scale 10: every table byte-equal, retries and rounds too
+    for name, build in PARITY_OPERATOR_QUERIES.items():
+        outs, events = [], []
+        for ctx in ctxs:
+            outs.append(build(ctx, t))
+            events.append(list(ctx.executor.events))
+        for i, (a, b) in enumerate(zip(*outs)):
+            _byte_equal(a, b, f"cpu_parity {name} [{i}]")
+        check(events[0] == events[1], f"cpu_parity {name}: events differ {events}")
+        res[name] = "byte-equal"
+        rounds = sum(1 for e in events[0] if e[0] == "do_while_iter")
+        log(f"cpu_parity {name}: {[len(next(iter(a.values()))) for a in outs[0]]} rows, "
+            f"byte-equal, events {len(events[0])} ({rounds} loop rounds)")
     return res
 
 
@@ -1057,7 +1532,7 @@ def main(argv=None) -> int:
     ap.add_argument(
         "--phases",
         default="env,kernel,wordcount,dense,terasort,terasort_hot,groupby_sort,"
-                "join_shuffle,join_broadcast,cpu_parity")
+                "join_shuffle,join_broadcast,pagerank,decomposable,ordered_ops,cpu_parity")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     if not torch.cuda.is_available():
@@ -1084,6 +1559,12 @@ def main(argv=None) -> int:
         results["join_shuffle"] = phase_join_shuffle(dev, card)
     if "join_broadcast" in phases:
         results["join_broadcast"] = phase_join_broadcast(dev, card)
+    if "pagerank" in phases:
+        results["pagerank"] = phase_pagerank(dev, card)
+    if "decomposable" in phases:
+        results["decomposable"] = phase_decomposable(dev, card)
+    if "ordered_ops" in phases:
+        results["ordered_ops"] = phase_ordered_ops(dev, card)
     if "cpu_parity" in phases:
         results["cpu_parity"] = phase_cpu_parity(dev, card)
     print("results: " + json.dumps(results))
@@ -1095,6 +1576,9 @@ def main(argv=None) -> int:
         "wordcount": results.get("wordcount", {}).get("launches"),
         "dense": results.get("dense", {}).get("launches"),
         "join_broadcast": results.get("join_broadcast", {}).get("bucket_sum_count_launches"),
+        "pagerank": results.get("pagerank", {}).get("bucket_sum_count_launches"),
+        "decomposable": results.get("decomposable", {}).get("bucket_sum_count_launches"),
+        "ordered_ops": results.get("ordered_ops", {}).get("bucket_sum_count_launches"),
     }
     ran = [n for n in per_path.values() if n is not None]
     jb = kern.get("join_broadcast", {})

@@ -7,9 +7,10 @@ layout so every ported module has its reference at the same path under
 ``device="cpu"``.
 """
 
+from dryad_tpu_torch.api.decomposable import Decomposable
 from dryad_tpu_torch.api.context import DryadContext
 from dryad_tpu_torch.api.query import Query
 from dryad_tpu_torch.columnar.schema import ColumnType, Schema
 from dryad_tpu_torch.utils.config import DryadConfig
 
-__all__ = ["DryadContext", "DryadConfig", "Query", "Schema", "ColumnType"]
+__all__ = ["DryadContext", "DryadConfig", "Decomposable", "Query", "Schema", "ColumnType"]

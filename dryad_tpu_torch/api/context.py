@@ -1,10 +1,13 @@
 """DryadContext — the port's entry point and job driver.
 
 The counterpart of ``dryad_tpu/api/context.py`` for ``from_arrays``,
-``from_text`` and ``collect``.  A context owns one device (CUDA unless
-the caller passes ``device="cpu"``; it never falls back by itself), P
-logical partitions on it, the string dictionary, and a device-resident
-ingest cache keyed by binding, LRU by bytes.
+``from_text``, ``collect``, the tables pinned by ``Query.cache()`` (and
+``release``), and the subplans of a ``do_while``.  A context owns one
+device (CUDA unless the caller passes ``device="cpu"``; it never falls
+back by itself), P logical partitions on it, the string dictionary, and
+a device-resident ingest cache keyed by binding, LRU by bytes.  A
+cached table is a pin, not an entry of that cache: its budget never
+evicts it.
 """
 
 from __future__ import annotations
@@ -82,6 +85,8 @@ class DryadContext:
         # binding identity invalidates the entry when a node is rebound
         self._device_cache: "OrderedDict[int, tuple]" = OrderedDict()
         self.executor = GraphExecutor(self.num_partitions, self.config, self.device)
+        # do_while body/cond plans, built once per function object
+        self._subplans: Dict[tuple, tuple] = {}
         self.tokenizer_native = None  # set by from_text: which tokenizer ran
 
     # -- ingestion -----------------------------------------------------------
@@ -160,9 +165,41 @@ class DryadContext:
         )
         return Query(self, node)
 
+    def _from_device_batch(
+        self, batch: ColumnBatch, schema: Schema, partition: Optional[PartitionInfo] = None
+    ) -> Query:
+        """A query over a device-resident batch.  ``partition``: the
+        producing node's claim, which the batch's layout meets, so a
+        consumer keyed the same elides its exchange."""
+        node = Node("input", [], schema, partition or PartitionInfo(), source="device")
+        self._bindings[node.id] = ("device", batch)
+        return Query(self, node)
+
+    def release(self, query: Query) -> None:
+        """Drop a table pinned by ``Query.cache()``; later use of the
+        query raises the stale-binding error.  Only such queries
+        qualify: releasing a source table or a derived query raises."""
+        binding = self._bindings.get(query.node.id)
+        if query.node.kind != "input" or binding is None or binding[0] != "device":
+            raise ValueError(
+                "release() takes the query returned by cache(); got a "
+                f"{query.node.kind!r} node bound as "
+                f"{binding[0] if binding else None!r}"
+            )
+        del self._bindings[query.node.id]
+        self._device_cache.pop(query.node.id, None)
+
     # -- execution -------------------------------------------------------------
     def _bind_device(self, node: Node) -> ColumnBatch:
+        if node.id not in self._bindings:
+            raise RuntimeError(
+                f"input node {node.id} has no binding: its device-resident "
+                "table was dropped (release() drops it) — re-run .cache() "
+                "or re-ingest"
+            )
         binding = self._bindings[node.id]
+        if binding[0] == "device":
+            return binding[1]  # a pin, outside the ingest cache
         budget = self.config.device_cache_bytes
         hit = self._device_cache.get(node.id)
         if hit is not None and hit[0] is binding:
@@ -195,8 +232,30 @@ class DryadContext:
         """Lower and run a query; the result batch stays on the device."""
         graph = lower([query.node], self.config, self.dictionary, P=self.num_partitions)
         bindings = {nid: self._bind_device(n) for nid, n in graph.inputs.items()}
-        results = self.executor.execute(graph, bindings)
+        results = self.executor.execute(graph, bindings, subquery_runner=self._run_subquery)
         return results[graph.outputs[query.node.id]]
 
     def run_to_host(self, query: Query) -> Dict[str, np.ndarray]:
         return self.execute(query).to_numpy(query.schema, self.dictionary)
+
+    # -- do_while support ------------------------------------------------------
+    def _run_subquery(self, plan_fn, schema: Schema, current: ColumnBatch, scalar: bool = False):
+        """Run a do_while body (-> the new state batch) or condition (->
+        its one bool value, read on the host) on ``current``.  Each plan
+        is built once per function object and its input rebound every
+        round."""
+        key = (plan_fn, tuple(schema.names))
+        if key not in self._subplans:
+            q0 = self._from_device_batch(current, schema)
+            self._subplans[key] = (q0.node.id, plan_fn(q0).node)
+        input_id, out_node = self._subplans[key]
+        self._bindings[input_id] = ("device", current)
+        try:
+            batch = self.execute(Query(self, out_node))
+        finally:  # the loop state is pinned only while its round runs
+            del self._bindings[input_id]
+        if not scalar:
+            return batch
+        col = next(iter(batch.data.values())).reshape(-1)
+        vals = col[batch.valid.reshape(-1)][:1].cpu()
+        return bool(vals[0]) if len(vals) else False

@@ -1,18 +1,23 @@
-"""Query — the lazy table handle and its operators (ported subset).
+"""Query — the lazy table handle and its operators.
 
-The counterpart of ``dryad_tpu/api/query.py`` for ``select``,
-``project``, ``where``, ``of_type``, ``group_by`` (dense and sort path,
-``salt``, int64/float64 aggregates), ``distinct``, the partitioning
-operators and their ``assume_*`` claims, ``order_by``, the joins
-(``join``, ``semi_join``, ``anti_join``, ``left_join``, ``group_join``
-in its count, aggregate and selector forms, ``group_join_count``), the
-set operators (``concat``, ``union``, ``intersect``, ``except_``), the
-rank operators (``with_rank``, ``take``, ``skip``, ``tail``) and the
-element accessors built on them, the scalar aggregates, and
-``collect``.  Node construction, validation and the auto-dense gates
-are the reference's, so both packages build the same logical plan.
-The reference's other methods raise ``NotImplementedError`` naming the
-ROADMAP.md item that will port them.
+The counterpart of ``dryad_tpu/api/query.py``: ``select``, ``project``,
+``where``, ``select_many``, ``of_type``, ``group_by`` (dense and sort
+path, ``salt``, int64/float64 aggregates, a ``Decomposable``),
+``distinct``, the partitioning operators and their ``assume_*`` claims,
+``order_by``, the joins (``join``, ``semi_join``, ``anti_join``,
+``left_join``, ``group_join`` in its count, aggregate and selector
+forms, ``group_join_count``), the set operators (``concat``, ``union``,
+``intersect``, ``except_``), the rank and ordered operators
+(``with_rank``, ``take``, ``skip``, ``tail``, ``take_while``,
+``skip_while``, ``reverse``, ``default_if_empty``, ``zip_``,
+``sequence_equal``, ``sliding_window``) and the element accessors
+built on them, the user-function operators (``apply``, ``apply_host``,
+``fork``), iteration (``do_while``) and materialization (``cache``),
+the scalar and decomposable aggregates, and ``collect``.  Node
+construction, validation and the auto-dense gates are the reference's,
+so both packages build the same logical plan.  ``collect_stream``,
+``submit``, ``to_store`` and ``explain`` raise ``NotImplementedError``
+naming the ROADMAP.md item that will port them.
 """
 
 from __future__ import annotations
@@ -22,7 +27,9 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 import operator
 
 import numpy as np
+import torch
 
+from dryad_tpu_torch.api.decomposable import Decomposable
 from dryad_tpu_torch.columnar.schema import ColumnType, Schema
 from dryad_tpu_torch.plan import infer
 from dryad_tpu_torch.plan.nodes import Node, PartitionInfo
@@ -172,11 +179,26 @@ class Query:
         """Filter by a predicate over physical column tensors."""
         return Query(self.ctx, Node("where", [self.node], self.schema, self.node.partition, fn=fn))
 
+    def select_many(
+        self,
+        fn: Callable[[Dict], Tuple[Dict, Any]],
+        factor: int,
+        schema: Optional[Schema] = None,
+    ) -> "Query":
+        """Flat-map: each row becomes ``factor`` rows.  ``fn`` gets the
+        physical columns flattened to ``(n,)`` tensors and returns
+        ``(out_cols each (n, factor), valid (n, factor))``."""
+        out_schema = schema or infer.infer_select_many_schema(self.schema, fn, factor)
+        return Query(self.ctx, Node(
+            "select_many", [self.node], out_schema, PartitionInfo(), fn=fn, factor=int(factor),
+        ))
+
     # -- grouping -----------------------------------------------------------
     def group_by(
         self,
         keys: KeyArg,
         aggs: Optional[Dict[str, Tuple[str, Optional[str]]]] = None,
+        decomposable: Optional[Decomposable] = None,
         dense: Optional[int] = None,
         salt: Optional[int] = None,
     ) -> "Query":
@@ -189,14 +211,19 @@ class Query:
         other group_by takes the sort path: partial reduce, hash
         exchange, final reduce (int64 aggregates exact, float64
         min/max/first).  ``salt=S`` spreads each key over S exchange
-        destinations first, the escape hatch for heavy keys."""
+        destinations first, the escape hatch for heavy keys.
+        ``decomposable`` reduces each group with a user's seed, merge
+        and finalize instead: local combine, hash exchange, final
+        combine."""
         keys = _keys(keys)
         if salt is not None:
             if salt < 2:
                 raise ValueError("salt must be >= 2")
-            if dense is not None:
+            if dense is not None or decomposable is not None:
                 raise ValueError("salt applies to builtin-agg group_by only")
         if dense is not None:
+            if decomposable is not None:
+                raise ValueError("dense group_by takes builtin aggs only")
             if len(keys) != 1:
                 raise ValueError("dense group_by requires exactly one key")
             if self.schema.field(keys[0]).ctype != ColumnType.INT32:
@@ -218,9 +245,15 @@ class Query:
                     f"columns {wide} are 64-bit/split types — use the "
                     f"sort-based path"
                 )
-        if not aggs:
-            raise ValueError("group_by needs aggs")
         fields: List[Tuple[str, ColumnType]] = [(k, self.schema.field(k).ctype) for k in keys]
+        if decomposable is not None:
+            fields += list(decomposable.out_fields)
+            return Query(self.ctx, Node(
+                "group_by", [self.node], Schema(fields), PartitionInfo.hashed(keys),
+                keys=keys, decomposable=decomposable,
+            ))
+        if not aggs:
+            raise ValueError("group_by needs aggs or a decomposable")
         agg_list = []
         for out_name, (op, col) in aggs.items():
             if op not in _AGG_TYPE_RULES:
@@ -363,6 +396,87 @@ class Query:
         """Keep the last n rows of global engine order."""
         return Query(self.ctx, Node(
             "tail", [self.node], self.schema, self.node.partition, n=max(0, int(n)),
+        ))
+
+    def take_while(self, fn: Callable[[Dict], Any]) -> "Query":
+        """Rows strictly before the first predicate failure in global
+        engine order (TakeWhile)."""
+        return Query(self.ctx, Node("take_while", [self.node], self.schema, self.node.partition, fn=fn))
+
+    def skip_while(self, fn: Callable[[Dict], Any]) -> "Query":
+        """Rows from the first predicate failure onward (SkipWhile)."""
+        return Query(self.ctx, Node("skip_while", [self.node], self.schema, self.node.partition, fn=fn))
+
+    def reverse(self) -> "Query":
+        """Global engine row order reversed."""
+        return Query(self.ctx, Node("reverse", [self.node], self.schema, PartitionInfo()))
+
+    def default_if_empty(self, defaults: Optional[Dict[str, Any]] = None) -> "Query":
+        """If empty, a single row of ``defaults`` (logical column ->
+        value; unlisted columns zero / empty string) on partition 0, so
+        no placement claim survives."""
+        return Query(self.ctx, Node(
+            "default_if_empty", [self.node], self.schema, PartitionInfo(),
+            defaults=self._physical_row(defaults or {}),
+        ))
+
+    def zip_(self, other: "Query", suffix: str = "_r") -> "Query":
+        """Pair rows by global position; the shorter input's length
+        (LINQ Zip).  Right names clashing with the left's get
+        ``suffix``."""
+        fields = [(f.name, f.ctype) for f in self.schema.fields]
+        lnames = {f.name for f in self.schema.fields}
+        for f in other.schema.fields:
+            fields.append((f.name if f.name not in lnames else f"{f.name}{suffix}", f.ctype))
+        return Query(self.ctx, Node(
+            "zip", [self.node, other.node], Schema(fields), PartitionInfo(), suffix=suffix,
+        ))
+
+    def sequence_equal(self, other: "Query") -> bool:
+        """Element-wise equality of two sequences in global engine
+        order (SequenceEqual): same schema, same count, and a zip whose
+        every row matches."""
+        if [(f.name, f.ctype) for f in self.schema.fields] != [
+            (f.name, f.ctype) for f in other.schema.fields
+        ]:
+            return False
+        n1, n2 = self.count(), other.count()
+        if n1 != n2:
+            return False
+        if n1 == 0:
+            return True
+        from dryad_tpu_torch.ops.join import _suffixed
+        from dryad_tpu_torch.plan import keys as K
+
+        suffix = "__sq"
+        lcols = K.equality_cols(self.schema, self.schema.names)
+        rcols = [_suffixed(c, suffix) for c in lcols]
+
+        def fn(cols):
+            m = None
+            for a, b in zip(lcols, rcols):
+                e = cols[a] == cols[b]
+                m = e if m is None else (m & e)
+            return {"eq": m}
+
+        z = self.zip_(other, suffix=suffix)
+        return bool(z.select(fn, schema=Schema([("eq", ColumnType.BOOL)])).all_("eq"))
+
+    def sliding_window(self, size: int, cols: Optional[KeyArg] = None) -> "Query":
+        """Windows of ``size`` consecutive rows of the global sequence:
+        columns ``{c}_w{j}`` (the j-th row of the window), n - size + 1
+        windows; non-split columns only."""
+        cols = _keys(cols) if cols is not None else self.schema.names
+        self._require_cols(cols, "in sliding_window")
+        fields: List[Tuple[str, ColumnType]] = []
+        for c in cols:
+            ct = self.schema.field(c).ctype
+            if ct.is_split:
+                raise ValueError(f"sliding_window unsupported on {ct.value} column {c!r}")
+            fields += [(f"{c}_w{j}", ct) for j in range(size)]
+        return Query(self.ctx, Node(
+            "sliding_window", [self.node], Schema(fields), PartitionInfo(),
+            size=int(size), cols=cols,
         ))
 
     def of_type(self, tag_col: str, value: Any) -> "Query":
@@ -687,6 +801,91 @@ class Query:
             row.update({k: np.asarray(a)[0] for k, a in enc.items()})
         return row
 
+    def aggregate_decomposable(self, dec: Decomposable) -> Dict[str, Any]:
+        """Whole-table custom aggregate: a one-group ``group_by`` with
+        ``dec``; returns the single result row."""
+        phys = self.schema.device_names()
+
+        def add_key(cols):
+            out = {c: cols[c] for c in phys}
+            out["__g"] = torch.zeros_like(next(iter(cols.values())), dtype=torch.int32)
+            return out
+
+        keyed = self.select(add_key, schema=self.schema.with_field("__g", ColumnType.INT32))
+        table = keyed.group_by("__g", decomposable=dec).project([n for n, _ in dec.out_fields]).collect()
+        return {k: (v[0] if len(v) else None) for k, v in table.items()}
+
+    # -- user functions, iteration, materialization ------------------------------
+    def apply(
+        self,
+        fn: Callable,
+        schema: Optional[Schema] = None,
+        cap_factor: float = 1.0,
+        with_index: bool = False,
+    ) -> "Query":
+        """Per-partition user function: ``fn(batch)`` (``fn(batch, i)``
+        with ``with_index``, i the partition's index) over a
+        one-partition ColumnBatch of ``(cap,)`` tensors, returning one;
+        every partition's result has the same capacity.  ``cap_factor``
+        scales the capacity later exchanges size for."""
+        return Query(self.ctx, Node(
+            "apply", [self.node], schema or self.schema, PartitionInfo(),
+            fn=fn, cap_factor=cap_factor, with_index=with_index,
+        ))
+
+    def apply_host(self, fn: Callable, schema: Optional[Schema] = None) -> "Query":
+        """Per-partition HOST callback: ``fn(cols, partition_index)``
+        over the partition's valid rows as numpy arrays of *physical*
+        columns (STRING as its ``#h0``..``#r1`` words) -> a dict of
+        equal-length arrays, checked against ``schema`` and cast.  Each
+        run costs a device->host->device round trip."""
+        return Query(self.ctx, Node(
+            "apply_host", [self.node], schema or self.schema, PartitionInfo(), fn=fn,
+        ))
+
+    def fork(self, fn: Callable, out_schemas: Sequence[Schema]) -> Tuple["Query", ...]:
+        """Multi-output per-partition function: ``fn(batch)`` -> a tuple
+        of one-partition batches, one query per ``out_schemas`` entry."""
+        fork_node = Node(
+            "fork", [self.node], self.schema, PartitionInfo(),
+            fn=fn, out_schemas=list(out_schemas),
+        )
+        return tuple(
+            Query(self.ctx, Node("fork_branch", [fork_node], s, PartitionInfo(), index=i))
+            for i, s in enumerate(out_schemas)
+        )
+
+    def do_while(
+        self,
+        body: Callable[["Query"], "Query"],
+        cond: Callable[["Query"], "Query"],
+        max_iter: int = 100,
+        device: bool = False,
+    ) -> "Query":
+        """Iterate ``body`` until ``cond`` (the current dataset -> a
+        one-row bool query) yields False, at most ``max_iter`` rounds;
+        the body runs before the first check (DoWhile).  Each round
+        the driver runs the body's plan, built once and rebound to the
+        new state, compacts the state, then runs the condition and reads
+        its value on the host.  ``device=True`` is accepted and runs
+        this same driver loop on the card: the reference's on-device
+        loop (one ``lax.while_loop`` for a one-stage body) has no port
+        yet (ROADMAP.md queue 1 item 8)."""
+        return Query(self.ctx, Node(
+            "do_while", [self.node], self.schema, PartitionInfo(),
+            body=body, cond=cond, max_iter=max_iter, device=device,
+        ))
+
+    def cache(self) -> "Query":
+        """Execute now and return a query over the device-resident
+        result, which later queries read instead of recomputing this
+        one.  The table is pinned (the ingest cache's budget does not
+        evict it) until ``ctx.release`` drops it, and carries this
+        query's partition claim, so a consumer keyed the same elides
+        its exchange."""
+        batch = self.ctx.execute(self)
+        return self.ctx._from_device_batch(batch, self.schema, partition=self.node.partition)
+
     # -- set operations -----------------------------------------------------------
     def concat(self, *others: "Query") -> "Query":
         for o in others:
@@ -764,23 +963,9 @@ class Query:
             yield {c: table[c][i] for c in names}
 
 
-# The reference's Query methods whose node kinds the port does not lower
-# yet, each with the ROADMAP.md item (queue 1) that will port it.
+# The reference's Query methods the port does not have yet, each with the
+# ROADMAP.md item (queue 1) that will port it.
 _PENDING_METHODS = {
-    "select_many": "item 10: operator breadth",
-    "take_while": "item 10: operator breadth",
-    "skip_while": "item 10: operator breadth",
-    "reverse": "item 10: operator breadth",
-    "default_if_empty": "item 10: operator breadth",
-    "zip_": "item 10: operator breadth",
-    "sequence_equal": "item 10: operator breadth (zip)",
-    "sliding_window": "item 10: operator breadth",
-    "apply": "item 10: operator breadth",
-    "apply_host": "item 10: operator breadth",
-    "fork": "item 10: operator breadth",
-    "do_while": "item 10: do_while and cache",
-    "cache": "item 10: do_while and cache",
-    "aggregate_decomposable": "items 5 and 9: group_combine and api/decomposable.py",
     "collect_stream": "item 12: out-of-core",
     "submit": "item 12: stores",
     "to_store": "item 12: stores",

@@ -99,7 +99,9 @@ class ColumnBatch:
     """Fixed-capacity columnar batch of P partitions with a validity mask.
 
     ``data`` maps physical column name -> ``(P, cap)`` tensor; ``valid``
-    is ``(P, cap)`` bool.  Every tensor lies on one device.
+    is ``(P, cap)`` bool.  Every tensor lies on one device.  A user
+    function of ``apply`` or ``fork`` gets one partition as a batch of
+    ``(cap,)`` tensors, on which the row methods below work the same.
     """
 
     def __init__(self, data: Dict[str, torch.Tensor], valid: torch.Tensor):
@@ -113,7 +115,7 @@ class ColumnBatch:
     @property
     def capacity(self) -> int:
         """Per-partition capacity."""
-        return int(self.valid.shape[1])
+        return int(self.valid.shape[-1])
 
     @property
     def device(self) -> torch.device:
@@ -127,6 +129,9 @@ class ColumnBatch:
         return sum(
             t.numel() * t.element_size() for t in self.data.values()
         ) + self.valid.numel()
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        return self.data[name]
 
     def with_column(self, name: str, values: torch.Tensor) -> "ColumnBatch":
         return ColumnBatch({**self.data, name: values}, self.valid)

@@ -7,22 +7,32 @@ ported stages need:
   (:func:`retry_regions`): the reference compiles each maximal run of
   stages into one program (``plan/fuse.py``, on by default) and retries
   the run as a whole, so the port retries the same runs; a stage the
-  width adaptation may re-dispatch stands alone, as there.  A unit
-  holding an op outside ``NON_OVERFLOW_OPS`` (an exchange, a resize, a
-  join) reads its overflow flag before its consumers run, in one
-  device->host copy with the observed row counts the width adaptation
-  wants.  On overflow the unit reruns with the boost doubled, up to
-  ``2 ** max_shuffle_retries``; past that it fails with the
-  reference's message.  Units that cannot overflow never synchronise.
+  width adaptation may re-dispatch, and a driver stage (``do_while``,
+  ``apply_host``), stands alone, as there.
+- The speculative dispatch window, as the reference's: a unit holding
+  an op outside ``NON_OVERFLOW_OPS`` (an exchange, a resize, a join)
+  joins the window, and so does every unit dispatched while it is
+  open; the window's overflow flags and the row counts the width
+  adaptation wants are read in ONE device->host copy when it holds
+  ``overflow_sync_depth`` units, before a driver stage, before a stage
+  that could adapt its width from a count it holds, and at job end.
+  On overflow the clean prefix is kept and the overflowing unit and
+  everything dispatched after it rerun one by one, the first at boost
+  2; each rerun unit retries with the boost doubled up to
+  ``2 ** max_shuffle_retries`` and past that fails with the
+  reference's message.  With depth 1 each overflow-capable unit reads
+  its flag at once and overflow-free units never synchronise.
 - Observed-volume width adaptation, as the reference: a stage whose ops
   are all width-insensitive (``ADAPT_OK_OPS``), with a full-width
   exchange, fed only by stages whose observed output is tail-sized,
   reruns its exchanges at a reduced power-of-two width (a join side
   whose exchange was elided gets one).  Escalated boosts (4 and up)
-  drop the reduced width first.  The reference also counts
-  overflow-free units that join its speculative dispatch window while
-  one is open; the port reads each flag before consumers run and has no
-  such window, so only overflow-capable units report counts.
+  drop the reduced width first.  Counts are those of units read
+  synchronously or drained from the window, so a stage adapts exactly
+  when the reference's does.
+- ``do_while`` is the reference's driver loop (body, then condition,
+  the state compacted after every round, its capacity boosted on
+  overflow); ``apply_host`` is its host round trip per partition.
 - After the job, the deferred dictionary/range-miss counters of every
   unit are read in ONE copy; a nonzero count raises, as the
   reference's ``_raise_miss``.
@@ -30,12 +40,15 @@ ported stages need:
 
 from __future__ import annotations
 
+import math
 from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
-from dryad_tpu_torch.columnar.batch import ColumnBatch
-from dryad_tpu_torch.exec.kernels import NON_OVERFLOW_OPS, StageContext, run_ops
+from dryad_tpu_torch.columnar.batch import ColumnBatch, to_host_column
+from dryad_tpu_torch.exec.kernels import NON_OVERFLOW_OPS, StageContext, _round8, run_ops
+from dryad_tpu_torch.ops import shuffle as SH
 from dryad_tpu_torch.exec.operands import DeviceTables
 from dryad_tpu_torch.plan.lower import Stage, StageGraph, StageOp, tail_width
 
@@ -145,21 +158,29 @@ def _adapt_candidate(stage: Stage, by_id: Dict[int, Stage], config) -> bool:
     return any(op.kind in SHRINKING_OPS for p in producers for op in p.ops)
 
 
+# Driver-evaluated stages: host boundaries no run of stages crosses.
+DRIVER_OPS = frozenset({"do_while", "apply_host"})
+
+
+def _driver_kind(stage: Stage) -> Optional[str]:
+    return next((op.kind for op in stage.ops if op.kind in DRIVER_OPS), None)
+
+
 def retry_regions(graph: StageGraph, config) -> List[List[Stage]]:
     """The units that run and retry as one, in order: maximal runs of
     consecutive stages, an adaptation candidate (:func:`_adapt_candidate`)
-    standing alone.  The reference compiles each such run into one
-    program (``plan/fuse.py``) whose overflow retries the whole run at
-    the next boost; the port runs the member stages one after another
-    and retries the run the same way, so capacities, range splitters and
-    overflow events follow the reference's."""
+    or a driver stage standing alone.  The reference compiles each such
+    run into one program (``plan/fuse.py``) whose overflow retries the
+    whole run at the next boost; the port runs the member stages one
+    after another and retries the run the same way, so capacities,
+    range splitters and overflow events follow the reference's."""
     if len(graph.stages) <= 1:
         return [[s] for s in graph.stages]
     by_id = {s.id: s for s in graph.stages}
     units: List[List[Stage]] = []
     run: List[Stage] = []
     for s in graph.stages:
-        if _adapt_candidate(s, by_id, config):
+        if _driver_kind(s) or _adapt_candidate(s, by_id, config):
             if run:
                 units.append(run)
                 run = []
@@ -180,28 +201,76 @@ def _unit_name(unit: List[Stage]) -> str:
     return "+".join(seen)
 
 
+
+
+def _phys_np_dtype(col: str, schema) -> np.dtype:
+    """Host numpy dtype of one physical column (split words uint32)."""
+    if "#" in col:
+        return np.dtype(np.uint32)
+    return schema.field(col).ctype.numpy_dtype
+
+
 class GraphExecutor:
     def __init__(self, P: int, config, device):
         self.P = P
         self.config = config
         self.device = torch.device(device)
         self.tables = DeviceTables(self.device)
-        # the last job's retries and adaptations, as (kind, name, value):
-        # ("stage_overflow", name, boost) for each overflowed attempt,
-        # ("stage_width_adapt", name, fan) for each adapted stage; a run
-        # of stages is named by its members' tokens (``_unit_name``)
+        # the last job's retries, adaptations and loop rounds, as (kind,
+        # name, value): ("stage_overflow", name, boost) for each
+        # overflowed attempt, ("stage_width_adapt", name, fan) for each
+        # adapted stage (a run of stages is named by its members' tokens,
+        # ``_unit_name``), ("do_while_iter", name, round),
+        # ("do_while_state_boost", name, boost) and ("do_while_max_iter",
+        # name, rounds); a do_while's subplans add theirs to its job's
         self.events: List[Tuple[str, str, int]] = []
+        # runs a do_while body or condition subplan, during a job only:
+        # the context's method, kept past the job, would keep the
+        # context (and its device tables) alive in a reference cycle
+        self.subquery_runner = None
+        self._depth = 0  # do_while subplans re-enter execute()
 
     def execute(
-        self, graph: StageGraph, bindings: Dict[int, ColumnBatch]
+        self, graph: StageGraph, bindings: Dict[int, ColumnBatch], subquery_runner=None
     ) -> Dict[Tuple[int, int], ColumnBatch]:
+        if self._depth == 0:
+            self.events = []
+        # the adaptation state is per graph: a nested run keeps its own
+        saved = tuple(getattr(self, a, None) for a in _ADAPT_STATE)
+        saved_runner = self.subquery_runner
+        self.subquery_runner = subquery_runner or saved_runner
+        self._depth += 1
+        try:
+            return self._execute(graph, bindings)
+        finally:
+            self._depth -= 1
+            self.subquery_runner = saved_runner
+            for a, v in zip(_ADAPT_STATE, saved):
+                setattr(self, a, v)
+
+    def _execute(self, graph: StageGraph, bindings) -> Dict[Tuple[int, int], ColumnBatch]:
         results: Dict[Tuple[int, int], ColumnBatch] = {}
-        misses = []  # (unit name, miss counter)
-        self.events = []
+        misses: List[Tuple[str, torch.Tensor]] = []  # (unit name, miss counter)
         units = retry_regions(graph, self.config)
         self._prepare_width_adapt(graph, units)
+        depth = max(1, self.config.overflow_sync_depth)
+        window: List[dict] = []
         for unit in units:
-            misses.append(self._run_unit(unit, bindings, results))
+            driver = _driver_kind(unit[0])
+            if driver:
+                self._drain(window, bindings, results, misses)
+                stage = unit[0]
+                (current,) = self._inputs(stage, bindings, results)
+                run = self._run_do_while if driver == "do_while" else self._run_apply_host
+                results[(stage.id, 0)] = run(stage, current)
+                continue
+            if window and self._drain_for_adapt(unit, window):
+                # a count this stage could adapt from sits in the window
+                self._drain(window, bindings, results, misses)
+            self._run_unit(unit, bindings, results, misses, window if depth > 1 else None)
+            if len(window) >= depth:
+                self._drain(window, bindings, results, misses)
+        self._drain(window, bindings, results, misses)
         if misses:
             counts = torch.stack([m for _, m in misses]).cpu().tolist()
             for (name, _), m in zip(misses, counts):
@@ -209,8 +278,18 @@ class GraphExecutor:
                     raise StageFailedError(_miss_message(name, int(m)))
         return results
 
+    def _inputs(self, stage: Stage, bindings, results) -> Tuple[ColumnBatch, ...]:
+        return tuple(
+            bindings[idx] if ref == "plan_input" else results[(ref, idx)]
+            for ref, idx in stage.input_refs
+        )
+
     # -- one unit (a stage or a run of stages), with the overflow retry ------
-    def _run_unit(self, unit: List[Stage], bindings, results):
+    def _run_unit(self, unit: List[Stage], bindings, results, misses, window, boost: int = 1):
+        """Run a unit.  Inside an open window (``window`` a list) it is
+        dispatched once and its flag and counts wait for the drain;
+        otherwise an overflow-capable unit reads its flag (and wanted
+        counts) at once and retries until clean."""
         solo = unit[0] if len(unit) == 1 else None
         name = solo.name if solo else _unit_name(unit)
         ops = [op for m in unit for op in m.ops]
@@ -219,40 +298,172 @@ class GraphExecutor:
         if adapt_fan:
             self.events.append(("stage_width_adapt", name, adapt_fan))
         exports = self._exports[id(unit)]
-        want_count = can_overflow and id(unit) in self._count_wanted
-        boost = 1
+        want_count = id(unit) in self._count_wanted and (can_overflow or bool(window))
         while True:
-            overflow = dict_miss = None  # or-ed / summed over the members
-            for m in unit:
-                # escalated boosts drop the reduced width first: the
-                # concentration itself may be what overflowed
-                run = _fan_adapted_stage(m, adapt_fan) if adapt_fan and boost < 4 else m
-                ctx = StageContext(
-                    self.P, self.device, self.tables, self.config.shuffle_slack, boost
-                )
-                ctx.bind_inputs(tuple(
-                    bindings[idx] if ref == "plan_input" else results[(ref, idx)]
-                    for ref, idx in m.input_refs
+            # escalated boosts drop the reduced width first: the
+            # concentration itself may be what overflowed
+            fan = adapt_fan if adapt_fan and boost < 4 else None
+            overflow, dict_miss = self._dispatch(unit, bindings, results, fan, boost)
+            counts = [results[e].valid.sum() for e in exports] if want_count else []
+            if window is not None and (can_overflow or window):
+                window.append(dict(
+                    unit=unit, name=name, ops=ops, boost=boost, miss=dict_miss,
+                    flag=overflow if can_overflow else None, counts=counts,
                 ))
-                run_ops(ctx, run.ops)
-                for i, slot in enumerate(m.out_slots):
-                    results[(m.id, i)] = ctx.slots[slot]
-                overflow = ctx.overflow if overflow is None else overflow | ctx.overflow
-                dict_miss = ctx.dict_miss if dict_miss is None else dict_miss + ctx.dict_miss
+                return
             if not can_overflow:
-                return name, dict_miss
-            flags = [overflow.to(torch.int64)]
-            if want_count:
-                flags += [results[e].valid.sum() for e in exports]
-            host = torch.stack(flags).cpu().tolist()
+                misses.append((name, dict_miss))
+                return
+            host = torch.stack([overflow.to(torch.int64)] + counts).cpu().tolist()
             if not host[0]:
-                for e, c in zip(exports if want_count else (), host[1:]):
-                    self._observed_rows[e] = int(c)
-                return name, dict_miss
+                self._record(exports, host[1:])
+                misses.append((name, dict_miss))
+                return
             self.events.append(("stage_overflow", name, boost))
             if boost >= 2 ** self.config.max_shuffle_retries:
                 raise StageFailedError(_exhausted_message(name, ops, boost))
             boost *= 2
+
+    def _dispatch(self, unit: List[Stage], bindings, results, fan, boost: int):
+        """Run a unit's member stages once; returns its overflow flag and
+        dictionary-miss counter (or-ed and summed over the members)."""
+        overflow = dict_miss = None
+        for m in unit:
+            run = _fan_adapted_stage(m, fan) if fan else m
+            ctx = StageContext(self.P, self.device, self.tables, self.config.shuffle_slack, boost)
+            ctx.bind_inputs(self._inputs(m, bindings, results))
+            run_ops(ctx, run.ops)
+            for i, slot in enumerate(m.out_slots):
+                results[(m.id, i)] = ctx.slots[slot]
+            overflow = ctx.overflow if overflow is None else overflow | ctx.overflow
+            dict_miss = ctx.dict_miss if dict_miss is None else dict_miss + ctx.dict_miss
+        return overflow, dict_miss
+
+    def _record(self, exports, counts) -> None:
+        for e, c in zip(exports, counts):
+            self._observed_rows[e] = int(c)
+
+    def _drain(self, window: List[dict], bindings, results, misses) -> None:
+        """Resolve the window in one device->host copy of its flags and
+        counts.  All clean: record the counts.  Else keep the clean
+        prefix, forget the counts from the first overflowing unit on,
+        and rerun those units one by one, the first at boost 2."""
+        if not window:
+            return
+        entries = list(window)
+        window.clear()
+        parts = [w["flag"].to(torch.int64) for w in entries if w["flag"] is not None]
+        parts += [c for w in entries for c in w["counts"]]
+        host = iter(torch.stack(parts).cpu().tolist() if parts else [])
+        flag_of = {id(w): next(host) for w in entries if w["flag"] is not None}
+        count_of = {id(w): [next(host) for _ in w["counts"]] for w in entries}
+        bad = next((i for i, w in enumerate(entries) if flag_of.get(id(w))), len(entries))
+        for w in entries[:bad]:
+            self._record(self._exports[id(w["unit"])], count_of[id(w)])
+            misses.append((w["name"], w["miss"]))
+        if bad == len(entries):
+            return
+        for w in entries[bad:]:
+            for e in self._exports[id(w["unit"])]:
+                self._observed_rows.pop(e, None)
+        self.events.append(("stage_overflow", entries[bad]["name"], entries[bad]["boost"]))
+        for j, w in enumerate(entries[bad:]):
+            self._run_unit(w["unit"], bindings, results, misses, None, boost=2 if j == 0 else 1)
+
+    def _drain_for_adapt(self, unit: List[Stage], window: List[dict]) -> bool:
+        """Worth draining early: this stage could adapt its width, every
+        input's count is known or held by the window, and a producer in
+        the window is aggregation-shaped (the reference's rule)."""
+        if len(unit) != 1 or not getattr(self.config, "tail_fanout_rows", 0):
+            return False
+        stage = unit[0]
+        if not _adaptable(stage) or not self._consumers_allow_adapt(stage):
+            return False
+        in_window = {id(w["unit"]): w for w in window}
+        shrinker = False
+        for ref, idx in stage.input_refs:
+            if ref == "plan_input":
+                return False
+            if (ref, idx) in self._observed_rows:
+                continue
+            w = in_window.get(id(self._unit_of[ref]))
+            if w is None or not w["counts"]:
+                return False
+            shrinker = shrinker or any(op.kind in SHRINKING_OPS for op in w["ops"])
+        return shrinker
+
+    # -- driver stages -------------------------------------------------------
+    def _run_do_while(self, stage: Stage, current: ColumnBatch) -> ColumnBatch:
+        """The reference's driver loop (DoWhile): each round runs the
+        body subplan on the current state, compacts the state back to
+        ``base_pp * boost`` rows a partition (doubling ``boost`` while it
+        overflows, up to ``2 ** max_shuffle_retries``), then runs the
+        condition subplan, whose one value is read on the host."""
+        if self.subquery_runner is None:
+            raise RuntimeError("do_while requires a subquery_runner (use DryadContext)")
+        p = stage.ops[0].params
+        base_pp = max(8, current.capacity)
+        boost, it = 1, 0
+        while True:
+            it += 1
+            if it > p["max_iter"]:
+                self.events.append(("do_while_max_iter", stage.name, it - 1))
+                break
+            self.events.append(("do_while_iter", stage.name, it))
+            current = self.subquery_runner(p["body"], p["schema"], current)
+            while True:
+                compacted, ovf = SH.resize(current, _round8(base_pp * boost))
+                if not bool(ovf):
+                    current = compacted
+                    break
+                if boost >= 2 ** self.config.max_shuffle_retries:
+                    raise RuntimeError(
+                        f"do_while state exceeded compaction capacity at "
+                        f"boost {boost} (base {base_pp} rows/partition)"
+                    )
+                boost *= 2
+                self.events.append(("do_while_state_boost", stage.name, boost))
+            if not self.subquery_runner(p["cond"], p["schema"], current, scalar=True):
+                break
+        return current
+
+    def _run_apply_host(self, stage: Stage, b: ColumnBatch) -> ColumnBatch:
+        """Host-callback Apply: each partition's valid rows go to the
+        host, ``fn(cols, partition_index)`` runs on numpy arrays, and
+        the results, checked against the schema and cast, come back as a
+        new batch (the reference's documented device->host->device round
+        trip)."""
+        p = stage.ops[0].params
+        schema = p["schema"]
+        phys = schema.device_names()
+        expected = {n: _phys_np_dtype(n, schema) for n in phys}
+        valid = b.valid.cpu().numpy()
+        host = {n: to_host_column(v) for n, v in b.data.items()}
+        out_parts = []
+        for i in range(self.P):
+            m = valid[i]
+            out = p["fn"]({n: v[i][m] for n, v in host.items()}, i)
+            if set(out.keys()) != set(phys):
+                raise ValueError(
+                    f"apply_host fn output columns {sorted(out)} != "
+                    f"schema physical columns {phys} (partition {i})"
+                )
+            out = {n: np.asarray(v, expected[n]) for n, v in out.items()}
+            lens = {len(v) for v in out.values()} or {0}
+            if len(lens) != 1:
+                raise ValueError(
+                    f"apply_host fn returned ragged columns: { {n: len(v) for n, v in out.items()} }"
+                )
+            out_parts.append(out)
+        rows = [len(next(iter(op.values()), [])) for op in out_parts]
+        new_cap = max(8, int(math.ceil(max(rows, default=1) / 8.0)) * 8)
+        data = {n: np.zeros((self.P, new_cap), expected[n]) for n in phys}
+        vbuf = np.zeros((self.P, new_cap), np.bool_)
+        for i, op in enumerate(out_parts):
+            for n in phys:
+                data[n][i, : rows[i]] = op[n]
+            vbuf[i, : rows[i]] = True
+        return ColumnBatch.from_host_layout(data, vbuf, self.device)
 
     # -- observed-volume stage-width adaptation ----------------------------
     def _prepare_width_adapt(self, graph: StageGraph, units: List[List[Stage]]) -> None:
@@ -267,7 +478,7 @@ class GraphExecutor:
         self._count_wanted: set = set()
         self._adapt_safe: Dict[Tuple[int, int], bool] = {}
         self._exports: Dict[int, List[Tuple[int, int]]] = {}
-        unit_of = {m.id: unit for unit in units for m in unit}
+        self._unit_of = unit_of = {m.id: unit for unit in units for m in unit}
         roots = set(graph.outputs.values())
         consumed = {
             (ref, idx)
@@ -294,14 +505,19 @@ class GraphExecutor:
                     if ref != "plan_input":
                         self._count_wanted.add(id(unit_of[ref]))
 
+    def _consumers_allow_adapt(self, stage: Stage) -> bool:
+        """Every consumer of this stage's outputs re-routes them through
+        a leading exchange (no entry = no consumer)."""
+        return all(
+            self._adapt_safe.get((stage.id, i), True) for i in range(len(stage.out_slots))
+        )
+
     def _adapt_fan_for(self, stage: Stage) -> Optional[int]:
         """Reduced width for this stage from its inputs' observed rows;
         None = run as lowered."""
         if not getattr(self.config, "tail_fanout_rows", 0) or not _adaptable(stage):
             return None
-        if not all(
-            self._adapt_safe.get((stage.id, i), True) for i in range(len(stage.out_slots))
-        ):
+        if not self._consumers_allow_adapt(stage):
             return None  # a consumer pinned this stage to full width
         total = 0
         for ref, idx in stage.input_refs:
@@ -316,3 +532,7 @@ class GraphExecutor:
             return None
         fan = 1 << (w - 1).bit_length()  # power-of-two widths
         return fan if fan < self.P else None
+
+
+# the per-graph adaptation state a nested execute() saves and restores
+_ADAPT_STATE = ("_observed_rows", "_count_wanted", "_adapt_safe", "_exports", "_unit_of")

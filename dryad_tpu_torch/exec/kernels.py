@@ -1,22 +1,27 @@
 """Per-partition stage ops over ``(P, cap)`` batches.
 
-The counterpart of ``dryad_tpu/exec/kernels.py`` for the op kinds of the
-ported path: ``select``, ``where``, ``project``, ``string_code``,
-``group_reduce_dense``, ``topk``, the exchanges ``exchange_hash`` and
-``exchange_range`` with ``resize``, ``group_reduce``, ``distinct``,
-``local_sort``, the joins (``join``, ``semi``, ``group_join_count``,
-``join_ranked``, two input slots each, with shuffle, broadcast or
-run-time ``auto`` placement), ``concat``, the rank ops (``with_rank``,
-``take``, ``skip``, ``tail``) and ``scalar_agg``.  The reference
-composes them into one traced SPMD program per stage; PyTorch runs
-eagerly, so each op runs as it is applied, on all P partitions at once.
+The counterpart of ``dryad_tpu/exec/kernels.py``: every stage op kind
+of the reference (the row-wise ops and user functions ``select``,
+``where``, ``project``, ``seed``, ``select_many``, ``apply``, ``fork``;
+``string_code`` and ``group_reduce_dense``; the exchanges
+``exchange_hash`` and ``exchange_range`` with ``resize``;
+``group_reduce``, ``group_combine``, ``distinct``, ``local_sort``,
+``topk``; the joins ``join``, ``semi``, ``group_join_count``,
+``join_ranked`` with shuffle, broadcast or run-time ``auto`` placement;
+``concat``; the rank and ordered ops ``with_rank``, ``take``, ``skip``,
+``tail``, ``take_while``, ``skip_while``, ``reverse``,
+``default_if_empty``, ``zip``, ``sliding_window``; ``scalar_agg``).
+The reference composes them into one traced SPMD program per stage;
+PyTorch runs eagerly, so each op runs as it is applied, on all P
+partitions at once, and a user function of ``apply`` or ``fork`` runs
+once per partition on a one-partition view, as the reference's does.
 Collectives are the partition layer's tensor ops
 (``parallel/partition.py``).  Capacities derive from the stage's entry
 capacities, its growth and the executor's retry ``boost``, as in the
-reference.  The hybrid-mesh ``tree`` exchange
-(ROADMAP.md queue 1 item 11) is not ported: on one device the ``tree``
-param of ``exchange_hash`` is ignored, as the reference ignores it on a
-one-axis mesh.
+reference.  The hybrid-mesh ``tree`` exchange (ROADMAP.md queue 1 item
+11) is not ported: on one device the ``tree`` param of
+``exchange_hash`` is ignored, as the reference ignores it on a one-axis
+mesh.
 """
 
 from __future__ import annotations
@@ -116,6 +121,81 @@ def _k_project(ctx: StageContext, p) -> None:
     ctx.slots[p["slot"]] = b.select(p["cols"])
 
 
+def _k_seed(ctx: StageContext, p) -> None:
+    """A decomposable's seed: its state columns added to the batch."""
+    b = ctx.slots[p["slot"]]
+    ctx.slots[p["slot"]] = ColumnBatch({**b.data, **p["fn"](dict(b.data))}, b.valid)
+
+
+def _k_select_many(ctx: StageContext, p) -> None:
+    """Flat-map with a static factor: ``fn`` sees the columns flattened
+    to ``(P * cap,)`` and returns ``(P * cap, factor)`` columns and
+    validity; row r of partition q becomes rows ``r * factor ..`` of
+    partition q, as in the reference's per-partition layout."""
+    b = ctx.slots[p["slot"]]
+    factor = int(p["factor"])
+    P, cap = b.valid.shape
+    n = P * cap
+    out_cols, out_valid = p["fn"]({c: t.reshape(n) for c, t in b.data.items()})
+    data = {}
+    for name, col in out_cols.items():
+        if tuple(col.shape[:2]) != (n, factor):
+            raise ValueError(
+                f"select_many column {name!r} must be ({n},{factor},...), got {tuple(col.shape)}"
+            )
+        data[name] = col.reshape((P, cap * factor) + tuple(col.shape[2:]))
+    valid = (b.valid.reshape(n, 1) & out_valid).reshape(P, cap * factor)
+    ctx.slots[p["slot"]] = ColumnBatch(data, valid)
+
+
+def _partition_views(b: ColumnBatch):
+    """One-partition ``(cap,)`` views of a batch, in partition order."""
+    return [
+        ColumnBatch({c: t[i] for c, t in b.data.items()}, b.valid[i])
+        for i in range(b.valid.shape[0])
+    ]
+
+
+def _stack_partitions(outs, what: str) -> ColumnBatch:
+    """One-partition batches from a user function -> one ``(P, cap)``
+    batch; every partition must give the same columns and capacity, as
+    the reference's traced program must."""
+    cols, caps = outs[0].columns, {o.capacity for o in outs}
+    if any(o.columns != cols for o in outs) or len(caps) != 1:
+        raise ValueError(f"{what} fn must give every partition the same columns and capacity")
+    return ColumnBatch(
+        {c: torch.stack([o.data[c] for o in outs]) for c in cols},
+        torch.stack([o.valid for o in outs]),
+    )
+
+
+def _k_apply(ctx: StageContext, p) -> None:
+    """Per-partition user function over a one-partition ColumnBatch
+    (with ``with_index``, also the partition's index)."""
+    outs = []
+    for i, view in enumerate(_partition_views(ctx.slots[p["slot"]])):
+        out = p["fn"](view, i) if p.get("with_index") else p["fn"](view)
+        if not isinstance(out, ColumnBatch):
+            raise TypeError("apply fn must return a ColumnBatch")
+        outs.append(out)
+    ctx.slots[p["slot"]] = _stack_partitions(outs, "apply")
+
+
+def _k_fork(ctx: StageContext, p) -> None:
+    """Multi-output per-partition user function: each output branch
+    fills one of the stage's output slots."""
+    per_part = []
+    for view in _partition_views(ctx.slots[p["slot"]]):
+        outs = p["fn"](view)
+        if len(outs) != p["n_out"]:
+            raise ValueError(f"fork fn returned {len(outs)} outputs, expected {p['n_out']}")
+        if not all(isinstance(o, ColumnBatch) for o in outs):
+            raise TypeError("fork fn must return ColumnBatches")
+        per_part.append(outs)
+    for j, slot in enumerate(p["out_slots"]):
+        ctx.slots[slot] = _stack_partitions([outs[j] for outs in per_part], "fork")
+
+
 # -- exchanges ------------------------------------------------------------
 
 def _fanout(ctx: StageContext, nparts) -> int:
@@ -191,6 +271,11 @@ NON_OVERFLOW_OPS = frozenset({
 def _k_group_reduce(ctx: StageContext, p) -> None:
     b = ctx.slots[p["slot"]]
     ctx.slots[p["slot"]] = SEG.group_reduce(b, p["keys"], p["aggs"])
+
+
+def _k_group_combine(ctx: StageContext, p) -> None:
+    b = ctx.slots[p["slot"]]
+    ctx.slots[p["slot"]] = SEG.group_combine(b, p["keys"], p["state_cols"], p["merge"])
 
 
 def _k_distinct(ctx: StageContext, p) -> None:
@@ -496,6 +581,108 @@ def _k_tail(ctx: StageContext, p) -> None:
     ctx.slots[p["slot"]] = _strip_rank(b, b.valid & (b.data["#rank"] >= cut))
 
 
+def _cut_at_first_failure(ctx: StageContext, p, before: bool) -> None:
+    """Rows before (TakeWhile) or from (SkipWhile) the first valid row,
+    in global engine order, that fails the predicate."""
+    b, total = _rank_column(ctx.slots[p["slot"]], ctx.P)
+    pred = p["fn"]({n: c for n, c in b.data.items() if n != "#rank"})
+    rank = b.data["#rank"]
+    cut = torch.minimum(torch.where(b.valid & ~pred, rank, RANK_NONE).amin(), total)
+    ctx.slots[p["slot"]] = _strip_rank(b, b.valid & ((rank < cut) if before else (rank >= cut)))
+
+
+def _k_take_while(ctx: StageContext, p) -> None:
+    _cut_at_first_failure(ctx, p, before=True)
+
+
+def _k_skip_while(ctx: StageContext, p) -> None:
+    _cut_at_first_failure(ctx, p, before=False)
+
+
+def _exchange_by_rank(ctx: StageContext, b: ColumnBatch, per: int) -> ColumnBatch:
+    """Repartition so global rank r lands on partition ``r // per``, each
+    partition sorted by rank (position i holds rank ``pid * per + i``):
+    the hash exchange's placement into a ``per``-row layout, whose
+    bucket and resize overflows set the flag, then a sort by rank."""
+    dest = torch.clamp(b.data["#rank"] // per, 0, ctx.P - 1)
+    B = SH.bucket_capacity(b.capacity, ctx.P, ctx.slack * ctx.boost)
+    out, ovf = SH.exchange(b, dest, ctx.P, B, capacity=per)
+    ctx.overflow = ctx.overflow | ovf
+    return SORT.sort_batch_by_operands(out, [out.data["#rank"]])
+
+
+def _k_reverse(ctx: StageContext, p) -> None:
+    """Globally reverse engine row order: invert each row's global rank
+    and repartition by it."""
+    b, total = _rank_column(ctx.slots[p["slot"]], ctx.P)
+    inv = torch.where(b.valid, (total - 1) - b.data["#rank"], RANK_NONE)
+    b = ColumnBatch(dict(b.data, **{"#rank": inv}), b.valid)
+    out = _exchange_by_rank(ctx, b, _round8(ctx.base_cap(p["slot"]) * ctx.boost))
+    ctx.slots[p["slot"]] = _strip_rank(out, out.valid)
+
+
+def _k_default_if_empty(ctx: StageContext, p) -> None:
+    """If the table is empty, one row of defaults on partition 0."""
+    b = ctx.slots[p["slot"]].compact()
+    emit = ~b.valid.any()
+    first = torch.zeros_like(b.valid)
+    first[0, 0] = True
+    first = first & emit
+    data = {}
+    for name, col in b.data.items():
+        dflt = torch.as_tensor(p["defaults"].get(name, 0), dtype=col.dtype, device=col.device)
+        data[name] = torch.where(first, dflt, col)
+    ctx.slots[p["slot"]] = ColumnBatch(data, b.valid | first)
+
+
+def _k_zip(ctx: StageContext, p) -> None:
+    """Pair rows by global position (LINQ Zip: the shorter side's
+    length): both sides exchanged by rank into the same layout."""
+    per = _round8(max(ctx.base_cap(p["left_slot"]), ctx.base_cap(p["right_slot"])) * ctx.boost)
+    lb, _ = _rank_column(ctx.slots[p["left_slot"]], ctx.P)
+    rb, _ = _rank_column(ctx.slots[p["right_slot"]], ctx.P)
+    la = _exchange_by_rank(ctx, lb, per)
+    ra = _exchange_by_rank(ctx, rb, per)
+    data = {n: c for n, c in la.data.items() if n != "#rank"}
+    for n, c in ra.data.items():
+        if n != "#rank":
+            data[J._suffixed(n, p["suffix"]) if n in data else n] = c
+    ctx.slots[p["left_slot"]] = ColumnBatch(data, la.valid & ra.valid)
+
+
+def _k_sliding_window(ctx: StageContext, p) -> None:
+    """Windows of ``size`` consecutive rows over the global sequence:
+    columns ``{c}_w{j}``.  Each compacted partition is extended by a
+    halo, the next ``size - 1`` valid rows of the partitions after it in
+    global order (empty partitions between included), written right
+    after its own valid rows: the rows the reference's ring of
+    ``ppermute`` hops brings to each device."""
+    b = ctx.slots[p["slot"]].compact()
+    w = int(p["size"])
+    need = w - 1
+    P, cap = b.valid.shape
+    n_loc = b.valid.sum(-1)
+    ext_v = torch.nn.functional.pad(b.valid, (0, max(need, 0)))
+    ext = {c: torch.nn.functional.pad(b.data[c], (0, max(need, 0))) for c in p["cols"]}
+    if need > 0 and P > 1:
+        k = min(need, cap)  # each partition's prefix, as the reference ships it
+
+        def arrivals(x):  # hop h brings partition i the prefix of i + h (none past the end)
+            return torch.cat([torch.nn.functional.pad(x[h:, :k], (0, 0, 0, h)) for h in range(1, P)], -1)
+
+        arr_v = arrivals(b.valid)
+        order = torch.sort((~arr_v).to(torch.uint8), dim=-1, stable=True)[1][:, :need]
+        at = n_loc[:, None] + torch.arange(order.shape[-1], device=b.device)
+        ext_v = ext_v.scatter(-1, at, arr_v.gather(-1, order))
+        for c in p["cols"]:
+            ext[c] = ext[c].scatter(-1, at, arrivals(b.data[c]).gather(-1, order))
+    win_valid = torch.ones_like(b.valid)
+    for j in range(w):
+        win_valid = win_valid & ext_v[:, j : j + cap]
+    out = {f"{c}_w{j}": ext[c][:, j : j + cap] for c in p["cols"] for j in range(w)}
+    ctx.slots[p["slot"]] = ColumnBatch(out, win_valid)
+
+
 # -- scalar aggregates ---------------------------------------------------------
 
 def _extreme(dtype: torch.dtype, op: str):
@@ -575,6 +762,17 @@ _KERNELS = {
     "select": _k_select,
     "where": _k_where,
     "project": _k_project,
+    "seed": _k_seed,
+    "select_many": _k_select_many,
+    "apply": _k_apply,
+    "fork": _k_fork,
+    "group_combine": _k_group_combine,
+    "take_while": _k_take_while,
+    "skip_while": _k_skip_while,
+    "reverse": _k_reverse,
+    "default_if_empty": _k_default_if_empty,
+    "zip": _k_zip,
+    "sliding_window": _k_sliding_window,
     "group_reduce_dense": _k_group_reduce_dense,
     "string_code": _k_string_code,
     "topk": _k_topk,

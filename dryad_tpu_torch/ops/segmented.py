@@ -29,15 +29,20 @@ each aggregate is reduced:
   differs from the reference's f32 summation only by rounding: within
   ``n_g * 2^-23 * sum |v|`` for a group of ``n_g`` values.
 
+``group_combine`` reduces each segment with a user's associative
+``merge`` (the decomposable aggregates): a flagged segmented scan
+through :func:`associative_scan`, which copies JAX's own recursion
+(``lax.associative_scan``), so every merge sees the operands the
+reference's sees and float states come out with the same bytes.
+
 ``group_reduce_fused`` (an opt-in environment switch of the reference,
-off by default) and ``group_combine`` (reached only by decomposable
-aggregates) are not ported yet (ROADMAP.md queue 1 item 5).
+off by default) is not ported yet (ROADMAP.md queue 1 item 5).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -324,3 +329,88 @@ def distinct(batch: ColumnBatch, key_cols: Sequence[str]) -> ColumnBatch:
     keys = set(key_cols)
     aggs = [AggSpec("first", c, c) for c in batch.columns if c not in keys]
     return group_reduce(batch, key_cols, aggs)
+
+
+# -- generic user decompositions ------------------------------------------
+
+MergeFn = Callable[[Dict[str, torch.Tensor], Dict[str, torch.Tensor]], Dict[str, torch.Tensor]]
+
+
+def _interleave(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a[0], b[0], a[1], b[1], ...`` along the last axis (``a`` as long
+    as ``b`` or one longer).  JAX interleaves by adding two zero-padded
+    arrays, which on the reference's backends turns -0.0 into +0.0 and
+    flushes subnormals: float values take the same bytes here."""
+    n = a.shape[-1] + b.shape[-1]
+    out = torch.empty(a.shape[:-1] + (n,), dtype=a.dtype, device=a.device)
+    out[..., 0::2] = a
+    out[..., 1::2] = b
+    return flush_subnormal(out) if out.dtype.is_floating_point else out
+
+
+def associative_scan(
+    combine: Callable[[List[torch.Tensor], List[torch.Tensor]], List[torch.Tensor]],
+    elems: List[torch.Tensor],
+) -> List[torch.Tensor]:
+    """Inclusive scan along the last axis with an associative
+    ``combine`` over lists of tensors: JAX's recursion
+    (``lax.associative_scan``), so each output is combined from the same
+    operands in the same order.  Combine even/odd neighbours, scan that
+    half-length result, combine it with the remaining even elements
+    (odd lengths apart), put the first element back in front and
+    interleave."""
+    n = elems[0].shape[-1]
+    if n < 2:
+        return list(elems)
+    reduced = combine([e[..., 0:-1:2] for e in elems], [e[..., 1::2] for e in elems])
+    odd = associative_scan(combine, reduced)
+    if n % 2 == 0:
+        even = combine([e[..., :-1] for e in odd], [e[..., 2::2] for e in elems])
+    else:
+        even = combine(odd, [e[..., 2::2] for e in elems])
+    even = [torch.cat([e[..., :1], r], -1) for e, r in zip(elems, even)]
+    return [_interleave(a, b) for a, b in zip(even, odd)]
+
+
+def _flush_floats(cols: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    return {k: flush_subnormal(v) if v.dtype.is_floating_point else v for k, v in cols.items()}
+
+
+def group_combine(
+    batch: ColumnBatch,
+    key_cols: Sequence[str],
+    state_cols: Sequence[str],
+    merge: MergeFn,
+) -> ColumnBatch:
+    """Segmented reduce with an arbitrary associative ``merge`` (the
+    reference's RecursiveAccumulate), applied to whole ``(P, n)``
+    state tensors, invalid rows included, as the reference applies it.
+    A flagged segmented :func:`associative_scan`: a pair keeps its right
+    operand where that starts a segment, else the merge; each segment's
+    scan value at its last row is the segment's reduction.
+
+    The reference's backends treat subnormal floats as zero in
+    arithmetic and compares, and its scan's interleave flushes every
+    output, so float state columns enter every merge flushed and leave
+    it flushed: the same bytes for additive and selecting merges."""
+    cap = batch.capacity
+    sb, v, start, seg, nseg = _segment_layout(batch, key_cols)
+    names = list(state_cols)
+
+    def combine(a, b):
+        fa, *va = a
+        fb, *vb = b
+        da, db = dict(zip(names, va)), dict(zip(names, vb))
+        merged = _flush_floats(merge(_flush_floats(da), _flush_floats(db)))
+        return [fa | fb] + [torch.where(fb, db[k], merged[k]) for k in names]
+
+    _, *scanned = associative_scan(combine, [start] + [sb.data[c] for c in names])
+    # last row of each segment: the next row starts a segment, is invalid, or is past the end
+    nxt_start = torch.nn.functional.pad(start[..., 1:], (0, 1), value=True)
+    nxt_valid = torch.nn.functional.pad(v[..., 1:], (0, 1), value=False)
+    last = v & (nxt_start | ~nxt_valid)
+    out: Dict[str, torch.Tensor] = {k: _first_scatter(sb.data[k], start, seg, cap) for k in key_cols}
+    for c, val in zip(names, scanned):
+        out[c] = _first_scatter(val, last, seg, cap)
+    pos = torch.arange(cap, device=v.device)
+    return ColumnBatch(out, pos < nseg[..., None])

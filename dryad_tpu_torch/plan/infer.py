@@ -2,7 +2,8 @@
 
 The counterpart of ``dryad_tpu/plan/infer.py``: where the reference
 traces ``fn`` with ``jax.eval_shape``, the port calls it on a tiny
-zero-filled CPU batch and reads the output dtypes.  Physical names
+zero-filled CPU batch and reads the output dtypes.  Output columns are
+taken in name order, as a traced dict comes back from JAX.  Physical names
 ``x#h0``/``x#h1``/``x#r0``/``x#r1`` are STRING, ``x#h0``/``x#h1`` pairs
 INT64 (or the input's split type), everything else maps by dtype (the
 int64 word carrier maps to UINT32).
@@ -37,11 +38,20 @@ def dummy_cols(schema: Schema, n: int = 4) -> Dict[str, torch.Tensor]:
     return out
 
 
+def infer_select_many_schema(schema: Schema, fn, factor: int) -> Schema:
+    """``fn`` maps ``(n,)`` columns to ``(n, factor)`` columns and
+    validity (the flat-map contract)."""
+    cols = {k: v.reshape(-1) for k, v in dummy_cols(schema).items()}
+    out_cols, _valid = fn(cols)
+    flat = {n: out_cols[n].reshape(-1) for n in sorted(out_cols)}
+    return schema_from_physical(flat, like=schema)
+
+
 def infer_select_schema(schema: Schema, fn) -> Schema:
     out = fn(dummy_cols(schema))
     if not isinstance(out, dict):
         raise TypeError("select fn must return a dict of physical columns")
-    return schema_from_physical(out, like=schema)
+    return schema_from_physical({n: out[n] for n in sorted(out)}, like=schema)
 
 
 def schema_from_physical(cols: Dict[str, torch.Tensor], like: Schema = None) -> Schema:

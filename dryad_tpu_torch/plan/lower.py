@@ -1,21 +1,23 @@
-"""Lowering: logical node DAG -> fused stage graph (ported subset).
+"""Lowering: logical node DAG -> fused stage graph.
 
-The counterpart of ``dryad_tpu/plan/lower.py`` for the node kinds of the
-ported path: ``input``, ``select``/``where`` (including name-only
-projections), ``group_by`` (the dense bucket path: explicit ``dense=K``,
-int auto-dense with its range guard, auto-dense STRING through
-``string_code``; and the sort path: partial reduce, hash exchange,
-final reduce, with or without ``salt``), ``distinct``,
-``hash_partition``, ``order_by`` and ``range_partition`` (the range
-exchange plus local sort), ``order_by`` + ``take(n)`` fused into
-``topk``, the joins (inner, left-outer, semi, anti, count, ranked; with
+The counterpart of ``dryad_tpu/plan/lower.py``: every node kind of the
+reference lowers here to the SAME ``StageOp`` kinds and params,
+including the static fan-out reduction of exchanges over statically
+small inputs (``nparts``), so a plan's op list can be held against the
+reference's lowering.  ``input``, ``select``/``where`` (name-only
+projections too), ``select_many``, ``apply``, ``fork``/``fork_branch``,
+``tee``, the rank and ordered operators (``with_rank``, ``take``,
+``skip``, ``tail``, ``take_while``, ``skip_while``, ``reverse``,
+``default_if_empty``, ``zip``, ``sliding_window``), ``group_by`` (the
+dense bucket path: explicit ``dense=K``, int auto-dense with its range
+guard, auto-dense STRING through ``string_code``; the sort path with or
+without ``salt``; and a ``Decomposable``: seed, local combine, hash
+exchange, final combine, finalize), ``distinct``, ``hash_partition``,
+``order_by`` and ``range_partition``, ``order_by`` + ``take(n)`` fused
+into ``topk``, the joins (inner, left-outer, semi, anti, count, ranked;
 static shuffle, broadcast or run-time ``auto`` placement), ``concat``,
-``with_rank``, ``take``/``skip``/``tail`` and the scalar ``aggregate``.  It emits the SAME ``StageOp`` kinds and params as the
-reference, including the static fan-out reduction of exchanges over
-statically small inputs (``nparts``), so a plan's op list can be held
-against the reference's lowering.  Every other node kind, and the
-decomposable ``group_by``, raises ``NotImplementedError`` naming the
-ROADMAP.md item that will port it.
+the scalar ``aggregate``, and the driver stages ``apply_host`` and
+``do_while`` (re-lowered by the executor each round).
 """
 
 from __future__ import annotations
@@ -32,19 +34,6 @@ from dryad_tpu_torch.plan import keys as K
 from dryad_tpu_torch.plan.nodes import Node, PartitionInfo, consumers, walk
 
 _stage_ids = itertools.count()
-
-# Where each not-yet-ported node kind lands (ROADMAP.md, "Modules to port").
-_PENDING = {
-    "decomposable": "queue 1 items 5 and 9: group_combine and "
-                    "api/decomposable.py",
-}
-
-
-def _pending(kind: str) -> NotImplementedError:
-    where = _PENDING.get(kind, "queue 1 item 10: operator breadth")
-    return NotImplementedError(
-        f"dryad_tpu_torch does not lower {kind!r} yet (ROADMAP.md, {where})"
-    )
 
 
 @dataclasses.dataclass
@@ -200,17 +189,38 @@ class _Builder:
             self.plan_inputs[node.id] = node
             stage = self._new_stage("input", [("plan_input", node.id)])
             self.cursor[node.id] = ("open", stage, 0)
-        elif k in ("select", "where", "take", "skip", "tail", "with_rank"):
+        elif k in (
+            "select", "where", "select_many", "apply", "take", "skip", "tail",
+            "take_while", "skip_while", "reverse", "default_if_empty", "with_rank",
+        ):
             stage, slot = self._continue_or_start(node, fanout.get(node.inputs[0].id, 1))
-            if k in ("select", "where"):
+            if k in ("select", "where", "take_while", "skip_while"):
                 stage.ops.append(StageOp(k, dict(slot=slot, fn=node.params["fn"])))
+            elif k == "select_many":
+                stage.ops.append(StageOp("select_many", dict(
+                    slot=slot, fn=node.params["fn"], factor=node.params["factor"],
+                )))
+                stage.growth *= node.params["factor"]
+            elif k == "apply":
+                stage.ops.append(StageOp("apply", dict(
+                    slot=slot, fn=node.params["fn"],
+                    with_index=node.params.get("with_index", False),
+                    cap_factor=node.params.get("cap_factor", 1.0),
+                )))
+                stage.growth *= node.params.get("cap_factor", 1.0)
             elif k == "with_rank":
                 stage.ops.append(StageOp("with_rank", dict(slot=slot, out=node.params["out"])))
-            else:
+            elif k in ("take", "skip", "tail"):
                 # global rank is partition-major, so take() after order_by
                 # keeps the first n in sort order, and on unordered input
                 # the first n in engine (ingest) order
                 stage.ops.append(StageOp(k, dict(slot=slot, n=node.params["n"])))
+            elif k == "reverse":
+                stage.ops.append(StageOp("reverse", dict(slot=slot)))
+            else:
+                stage.ops.append(StageOp(
+                    "default_if_empty", dict(slot=slot, defaults=node.params["defaults"]),
+                ))
             self.cursor[node.id] = ("open", stage, slot)
         elif k == "topk":
             stage, slot = self._continue_or_start(node, fanout.get(node.inputs[0].id, 1))
@@ -240,8 +250,59 @@ class _Builder:
             aggs = self._phys_aggs(node.inputs[0].schema, node.params["aggs"])
             stage.ops.append(StageOp("scalar_agg", dict(slot=slot, aggs=aggs)))
             self.cursor[node.id] = ("open", stage, slot)
+        elif k == "zip":
+            lref = self._materialize(node.inputs[0])
+            rref = self._materialize(node.inputs[1])
+            stage = self._new_stage("zip", [lref, rref])
+            stage.ops.append(StageOp("zip", dict(
+                left_slot=0, right_slot=1, suffix=node.params["suffix"],
+            )))
+            self.cursor[node.id] = ("open", stage, 0)
+        elif k == "sliding_window":
+            stage, slot = self._continue_or_start(node, fanout.get(node.inputs[0].id, 1))
+            stage.ops.append(StageOp("sliding_window", dict(
+                slot=slot, size=node.params["size"], cols=node.params["cols"],
+            )))
+            self.cursor[node.id] = ("open", stage, slot)
+        elif k == "fork":
+            stage, slot = self._continue_or_start(node, fanout.get(node.inputs[0].id, 1))
+            n_out = len(node.params["out_schemas"])
+            # fork outputs occupy fresh slots after the stage's inputs
+            out_slots = [len(stage.input_refs) + 100 + i for i in range(n_out)]
+            stage.ops.append(StageOp("fork", dict(
+                slot=slot, fn=node.params["fn"], n_out=n_out, out_slots=out_slots,
+            )))
+            self._close(stage, out_slots)
+            self.cursor[node.id] = ("closed", stage.id, -1)  # branches index it
+        elif k == "fork_branch":
+            _, stage_id, _ = self.cursor[node.inputs[0].id]
+            self.cursor[node.id] = ("closed", stage_id, node.params["index"])
+        elif k == "tee":
+            ref = self._materialize(node.inputs[0])
+            self.cursor[node.id] = ("closed", ref[0], ref[1])
+        elif k == "apply_host":
+            # driver-evaluated host callback (device -> host -> device)
+            ref = self._materialize(node.inputs[0])
+            stage = self._new_stage("apply_host", [ref])
+            stage.ops.append(StageOp("apply_host", dict(
+                fn=node.params["fn"], schema=node.schema,
+            )))
+            self._close(stage, [0])
+            self.cursor[node.id] = ("closed", stage.id, 0)
+        elif k == "do_while":
+            # driver loop: body and cond are plan-building callables the
+            # executor lowers and runs each round
+            ref = self._materialize(node.inputs[0])
+            stage = self._new_stage("do_while", [ref])
+            stage.ops.append(StageOp("do_while", dict(
+                body=node.params["body"], cond=node.params["cond"],
+                max_iter=node.params.get("max_iter", 100),
+                device=node.params.get("device", False), schema=node.schema,
+            )))
+            self._close(stage, [0])
+            self.cursor[node.id] = ("closed", stage.id, 0)
         else:
-            raise _pending(k)
+            raise NotImplementedError(f"lowering for node kind {k!r}")
         if n_cons > 1 and self.cursor[node.id][0] == "open":
             self._materialize(node)
 
@@ -399,8 +460,11 @@ class _Builder:
             self._emit_auto_dense(node, stage, slot, keys[0], aggs)
             return
 
-        if node.params.get("decomposable") is not None:
-            raise _pending("decomposable")
+        dec = node.params.get("decomposable")
+        if dec is not None:
+            self._lower_decomposable(node, stage, slot, dec, carry_cols, eq_cols,
+                                     need_exchange, nparts)
+            return
 
         aggs = self._phys_aggs(in_schema, node.params["aggs"])
         partial, final = _decompose_aggs(aggs)
@@ -429,6 +493,32 @@ class _Builder:
             stage.ops.append(StageOp("select", dict(slot=slot, fn=fin)))
         want = K.group_carry_cols(node.schema, node.schema.names)
         stage.ops.append(StageOp("project", dict(slot=slot, cols=want)))
+        self.cursor[node.id] = ("open", stage, slot)
+
+    def _lower_decomposable(self, node, stage, slot, dec, carry_cols, eq_cols,
+                            need_exchange, nparts) -> None:
+        """Seed, project to keys + state, local combine, then (unless the
+        input is already partitioned on the keys) the hash exchange and
+        the final combine, then finalize."""
+        combine = StageOp("group_combine", dict(
+            slot=slot, keys=carry_cols, state_cols=dec.state_cols, merge=dec.merge,
+        ))
+        stage.ops.append(StageOp("seed", dict(slot=slot, fn=dec.seed, state_cols=dec.state_cols)))
+        stage.ops.append(StageOp("project", dict(slot=slot, cols=carry_cols + list(dec.state_cols))))
+        stage.ops.append(combine)
+        if need_exchange:
+            if nparts:
+                self.reduced.add(node.id)
+            stage.ops.append(StageOp("exchange_hash", dict(
+                slot=slot, keys=eq_cols, nparts=nparts,
+                tree=dict(keys=carry_cols, state_cols=dec.state_cols, merge=dec.merge),
+            )))
+            stage.ops.append(StageOp("resize", dict(slot=slot, factor=stage.growth, nparts=nparts)))
+            stage.ops.append(StageOp("group_combine", dict(combine.params)))
+        if dec.finalize is not None:
+            stage.ops.append(StageOp("select", dict(slot=slot, fn=dec.finalize)))
+            want = K.group_carry_cols(node.schema, node.schema.names)
+            stage.ops.append(StageOp("project", dict(slot=slot, cols=want)))
         self.cursor[node.id] = ("open", stage, slot)
 
     def _lower_ranged(self, node: Node, fanout: Dict[int, int]) -> None:

@@ -57,7 +57,11 @@ class DryadConfig:
       row bound (or, without one, its total capacity) is at or below
       this; otherwise both sides are co-hash-partitioned.
     - ``device_cache_bytes``: budget of the device-resident ingest
-      cache; 0 turns it off.
+      cache; 0 turns it off.  A table pinned by ``Query.cache()`` is
+      not an entry of it.
+    - ``overflow_sync_depth``: units (stages or runs of stages)
+      dispatched before their overflow flags are read in one batched
+      copy (the speculative dispatch window); 1 reads each at once.
     """
 
     shuffle_slack: float = _env_float("DRYAD_TPU_SHUFFLE_SLACK", 2.0)
@@ -78,6 +82,7 @@ class DryadConfig:
     device_cache_bytes: int = _env_int(
         "DRYAD_TPU_DEVICE_CACHE", 2 * 1024 * 1024 * 1024
     )
+    overflow_sync_depth: int = _env_int("DRYAD_TPU_OVERFLOW_SYNC_DEPTH", 4)
 
     def validate(self) -> None:
         if self.shuffle_slack < 1.0:
@@ -92,3 +97,5 @@ class DryadConfig:
             raise ValueError("tail_rows_per_partition must be >= 1")
         if self.device_cache_bytes < 0:
             raise ValueError("device_cache_bytes must be >= 0")
+        if self.overflow_sync_depth < 1:
+            raise ValueError("overflow_sync_depth must be >= 1")

@@ -57,11 +57,13 @@ def test_no_module_imports_jax_or_the_jax_package():
 
 def test_scan_covers_every_module_of_the_port():
     """The AST scan above reads each module of the package, the join
-    operators (ops/join.py) and the stage kernels and executor that
-    drive them included."""
+    operators (ops/join.py), the decomposable aggregates
+    (api/decomposable.py) and the stage kernels and executor that drive
+    them included."""
     scanned = {os.path.relpath(p, ROOT) for p in _port_files()}
     for mod in ("ops/join.py", "ops/segmented.py", "exec/kernels.py", "exec/executor.py",
-                "parallel/partition.py", "plan/lower.py", "api/query.py"):
+                "parallel/partition.py", "plan/lower.py", "plan/infer.py", "api/query.py",
+                "api/context.py", "api/decomposable.py"):
         assert os.path.join("dryad_tpu_torch", mod) in scanned, mod
     assert "chip_smoke.py" in scanned
 
@@ -71,6 +73,7 @@ def test_import_in_fresh_process_loads_no_jax():
         "import sys, dryad_tpu_torch, dryad_tpu_torch.interop\n"
         "import dryad_tpu_torch.ops.bucket, dryad_tpu_torch.exec.executor\n"
         "import dryad_tpu_torch.ops.join, dryad_tpu_torch.exec.kernels\n"
+        "import dryad_tpu_torch.api.decomposable\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "print(bad); sys.exit(1 if bad else 0)\n"

@@ -182,15 +182,13 @@ def test_unported_shapes_raise_not_implemented():
     _, tc = _ctxs()
     q = tc.from_text("b a c a")
     k = tc.from_arrays({"k": np.array([-1, 2], np.int32)})
-    zipped = Node("zip", [q.node, k.node], q.schema, PartitionInfo(), suffix="_r")
-    with pytest.raises(NotImplementedError, match="queue 1 item 10: operator breadth"):
-        tlower([zipped], tc.config, tc.dictionary)
-    with pytest.raises(NotImplementedError, match="Query.reverse .*queue 1 item 10"):
-        q.reverse()
-    decomposable = Node("group_by", [k.node], k.schema, PartitionInfo.hashed(["k"]),
-                        keys=["k"], decomposable=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP.*group_combine"):
-        tlower([decomposable], tc.config, tc.dictionary)
+    unknown = Node("bogus", [q.node, k.node], q.schema, PartitionInfo())
+    with pytest.raises(NotImplementedError, match="lowering for node kind 'bogus'"):
+        tlower([unknown], tc.config, tc.dictionary)
+    with pytest.raises(NotImplementedError, match="Query.explain .*queue 1 item 14"):
+        q.explain()
+    with pytest.raises(NotImplementedError, match="Query.to_store .*queue 1 item 12"):
+        k.to_store("unused")
 
 
 def test_context_device_cache_reuses_ingest():
