@@ -3,8 +3,8 @@
 Run from the root of a checkout:  python3 chip_smoke.py
 
 It builds the port's native code from the checkout (the CUDA bucket
-kernel for sm_90a and the host tokenizer, both compilers started
-together), holds the kernel against its plain PyTorch version on the
+kernel for sm_90a, the host tokenizer and the host I/O routines, the
+compilers started together), holds the kernel against its plain PyTorch version on the
 card, drives through the port's entry points WordCount at full size,
 the dense integer group_by, TeraSort (2^28 rows, and 2^26 rows with a
 hot key), the sort-path group_by with distinct and range_partition
@@ -17,8 +17,11 @@ its built-in twin and aggregate_decomposable over the Join Task's
 UserVisits, the ordered and user-function operators over a 2^26-row
 event log (sliding_window, reverse, take_while/skip_while, zip_,
 select_many, default_if_empty, apply with the partition index, fork),
-and the parity queries of the CPU tests on the card and on the CPU,
-checks every result against a numpy oracle, and prints:
+the parity queries of the CPU tests on the card and on the CPU, and the
+stores (TeraSort of 2^28 rows from a store into a store, a zlib store,
+WordCount through 8 text files and a STRING store, ``submit``, the JSONL
+event log, and the six ported samples), checks every result against a
+numpy oracle, and prints:
 
 - a ``{"kernels": [...]}`` line (each kernel's launches on the main
   path, its error against the plain version, its time, the plain
@@ -31,8 +34,8 @@ Any failed check raises, so the script exits non-zero and prints no
 result line.  Without a CUDA device it exits non-zero at once.
 ``--phases`` runs a subset (env, kernel, wordcount, dense, terasort,
 terasort_hot, groupby_sort, join_shuffle, join_broadcast, pagerank,
-decomposable, ordered_ops, cpu_parity), for short first runs of a
-changed kernel.  The WordCount, TeraSort, sort-path group_by, join,
+decomposable, ordered_ops, cpu_parity, stores), for short first runs of
+a changed kernel.  The WordCount, TeraSort, sort-path group_by, join,
 PageRank, decomposable and ordered phases also profile one warm query
 with torch.profiler and print device time by op, the device's busy
 share of the warm query, and peak memory.
@@ -159,11 +162,13 @@ def phase_env(card: str) -> dict:
     build.build_many({
         bucket.LIB_NAME: (bucket.SOURCES, True),
         bindings.LIB_NAME: (bindings.SOURCES, False),
+        bindings.IO_LIB_NAME: (bindings.IO_SOURCES, False, bindings.IO_LIBS),
     })
     secs = time.perf_counter() - t0
     bucket._kernel_lib()
     check(bindings.native_loaded(), "native tokenizer did not load")
-    log(f"build (set-up, not measured work): {secs:.1f} s for kernel + tokenizer")
+    check(bindings.io_native_loaded(), "native I/O routines did not load")
+    log(f"build (set-up, not measured work): {secs:.1f} s for kernel + tokenizer + I/O")
     return {"build_s": secs}
 
 
@@ -654,13 +659,26 @@ def timed_runs(ctx, q, label: str, card: str, rows: int):
     return res, out
 
 
-def check_terasort(out: dict, key: np.ndarray, pay: np.ndarray, label: str) -> None:
+def _pack(k: np.ndarray, p: np.ndarray) -> np.ndarray:
+    return (k.astype(np.int64) << 32) | p.view(np.uint32).astype(np.int64)
+
+
+def terasort_oracle(key: np.ndarray, pay: np.ndarray) -> tuple:
+    """np.sort of the keys, and of the (key, payload) pairs packed to int64."""
+    return np.sort(key), np.sort(_pack(key, pay))
+
+
+def check_terasort(out: dict, key: np.ndarray, pay: np.ndarray, label: str, oracle=None) -> None:
     """Keys equal np.sort; (key, payload) pairs equal the input's as a
-    multiset (both packed to int64 and sorted)."""
+    multiset (both packed to int64 and sorted).  ``oracle``: the input's
+    ``terasort_oracle``, when computed ahead (numpy sorts release the
+    GIL, so a phase can sort the input while the card works).  The
+    output's pairs are sorted stably: they are already in key order, so
+    the merge sort only orders payloads of equal keys."""
+    sorted_key, sorted_pairs = oracle if oracle is not None else terasort_oracle(key, pay)
     check(len(out["key"]) == len(key), f"{label}: {len(out['key'])} rows out of {len(key)}")
-    check(np.array_equal(out["key"], np.sort(key)), f"{label}: keys are not sorted as np.sort")
-    pack = lambda k, p: (k.astype(np.int64) << 32) | p.view(np.uint32).astype(np.int64)  # noqa: E731
-    check(np.array_equal(np.sort(pack(out["key"], out["payload"])), np.sort(pack(key, pay))),
+    check(np.array_equal(out["key"], sorted_key), f"{label}: keys are not sorted as np.sort")
+    check(np.array_equal(np.sort(_pack(out["key"], out["payload"]), kind="stable"), sorted_pairs),
           f"{label}: (key, payload) pairs differ from the input's")
 
 
@@ -1527,12 +1545,259 @@ def phase_cpu_parity(dev, card: str) -> dict:
     return res
 
 
+# -- phase 14: stores, submit, the event log and the samples ------------------
+
+ST_ROWS = 1 << 28  # TeraSort through stores: 2 GiB of int32 keys and f32 payloads
+ST_ZLIB_ROWS = 1 << 26  # the compressed store (zlib's host time; PERF.md section 4)
+ST_WC_FILES = 8
+# Disk peaks while the sorted TeraSort store is written beside its input
+# (2 x 2 GiB); both go once checked.  The later files (the 0.47 GiB zlib
+# store, the 0.5 GiB corpus, its 8 pieces of 0.5 GiB in all, the 1 GiB
+# words store) hold about 2.5 GiB.  One GiB more for the event logs.
+ST_FREE_BYTES = 5 << 30
+SAMPLE_EXPECT = {  # the strings tests/test_samples.py checks, and top_words' panel
+    "wordcount": "the", "terasort": "sorted 100000 rows", "join_groupby": "region 0:",
+    "pagerank_dowhile": "top node matches numpy PageRank: OK",
+    "topk_per_key_hdfs": "ranked reviews considered: 100", "top_words": "== fusion ==",
+}
+
+
+def _gbps(nbytes: float, secs: float) -> float:
+    return nbytes / secs / 1e9 if secs > 0 else float("inf")
+
+
+def _read_back(path: str) -> dict:
+    """A store's rows in partition order, by the port's read_store."""
+    from dryad_tpu_torch.columnar.io import read_store
+
+    _schema, parts, _ = read_store(path)
+    return {c: np.concatenate([p[c] for p in parts]) for c in parts[0]}
+
+
+def phase_stores(dev, card: str) -> dict:
+    """TeraSort through stores (2^28 rows), a zlib store (2^26 rows),
+    WordCount through 8 text files and a STRING store, ``submit``, the
+    event log, and the six ported samples on the card.  Every context of
+    the phase logs its events to a JSONL file."""
+    import contextlib
+    import importlib
+    import io
+    import shutil
+    import threading
+
+    from dryad_tpu_torch import DryadConfig, DryadContext
+    from dryad_tpu_torch.exec.events import EVENT_KINDS, EventLog
+    from dryad_tpu_torch.ops.bucket import bucket_sum_count
+
+    t_phase = time.perf_counter()
+    root = os.path.join(WORK_DIR, "stores")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    free = shutil.disk_usage(root).free
+    if free < ST_FREE_BYTES:
+        raise RuntimeError(f"stores phase needs {ST_FREE_BYTES / 1e9:.1f} GB free under {root}; "
+                           f"{free / 1e9:.1f} GB free")
+    evdir = os.path.join(root, "events")
+    contexts = []
+
+    def context(**cfg):
+        ctx = DryadContext(num_partitions_=P, config=DryadConfig(event_log_dir=evdir, **cfg))
+        contexts.append(ctx.events.path)
+        time.sleep(0.002)  # one log file per context: names carry milliseconds
+        return ctx
+
+    torch.cuda.reset_peak_memory_stats()
+    res = {"card": card}
+    try:
+        # -- TeraSort through stores ------------------------------------------
+        rng = np.random.default_rng(SEED + 14)
+        key = rng.integers(-2**31, 2**31, ST_ROWS, dtype=np.int32)
+        pay = rng.random(ST_ROWS, dtype=np.float32)
+        oracle = {}
+        sorter = threading.Thread(target=lambda: oracle.update(v=terasort_oracle(key, pay)))
+        sorter.start()  # the numpy oracle sorts while the card works
+        in_path, out_path = os.path.join(root, "ts_in"), os.path.join(root, "ts_out")
+        ctx = context()
+        ctx.from_arrays({"key": key, "payload": pay}).to_store(in_path)
+        check(ctx.io_native is True, "to_store did not use the native I/O routines")
+        w = dict(ctx.io_stats)
+        del ctx
+        free_card()
+        ctx = context()
+        q = ctx.from_store(in_path).order_by([("key", False)])
+        check(ctx.io_native is True, "from_store did not use the native I/O routines")
+        h = q.to_store(out_path)
+        r = dict(ctx.io_stats)
+        sort_s = r["run_s"] - r["repack_s"] - r["h2d_s"]
+        retries = overflow_retries(ctx)
+        ts_events = ctx.events.path
+        del h, q, ctx
+        free_card()
+        t0 = time.perf_counter()
+        out = _read_back(out_path)
+        readback_s = time.perf_counter() - t0
+        sorter.join()
+        check_terasort(out, key, pay, "stores terasort", oracle=oracle["v"])
+        del out, oracle
+        shutil.rmtree(in_path)
+        shutil.rmtree(out_path)
+        gib = w["write_bytes"]
+        res["terasort"] = {
+            "rows": ST_ROWS, "to_store_fetch_s": w["fetch_s"], "to_store_write_s": w["write_s"],
+            "to_store_fetch_gbps": _gbps(gib, w["fetch_s"]), "to_store_write_gbps": _gbps(gib, w["write_s"]),
+            "from_store_read_s": r["read_s"], "from_store_read_gbps": _gbps(r["read_bytes"], r["read_s"]),
+            "from_store_repack_s": r["repack_s"], "from_store_h2d_s": r["h2d_s"],
+            "from_store_h2d_gbps": _gbps(r["h2d_bytes"], r["h2d_s"]), "sort_s": sort_s,
+            "sorted_to_store_fetch_s": r["fetch_s"], "sorted_to_store_write_s": r["write_s"],
+            "read_back_s": readback_s, "overflow_retries": retries, "bytes": gib,
+        }
+        log(f"stores terasort [{card}]: {ST_ROWS} rows, {gib / 2**30:.2f} GiB of columns, P={P}; "
+            f"to_store: device->host {w['fetch_s']:.4f} s = {_gbps(gib, w['fetch_s']):.2f} GB/s, "
+            f"write {w['write_s']:.4f} s = {_gbps(gib, w['write_s']):.2f} GB/s (into the page cache, "
+            f"not synced); from_store's first query: read+parse {r['read_s']:.4f} s = "
+            f"{_gbps(r['read_bytes'], r['read_s']):.2f} GB/s (from the page cache: the files were "
+            f"just written), repack to (P, cap) {r['repack_s']:.4f} s, host->device "
+            f"{r['h2d_s']:.4f} s = {_gbps(r['h2d_bytes'], r['h2d_s']):.2f} GB/s, sort {sort_s:.4f} s; "
+            f"sorted to_store: device->host {r['fetch_s']:.4f} s, write {r['write_s']:.4f} s; "
+            f"read back {readback_s:.4f} s; keys equal np.sort, pairs equal the input's; "
+            f"{retries} overflow retries")
+
+        # -- the compressed store ---------------------------------------------
+        zkey, zpay = key[:ST_ZLIB_ROWS], pay[:ST_ZLIB_ROWS]
+        zpath = os.path.join(root, "ts_zlib")
+        ctx = context(intermediate_compression="zlib")
+        ctx.from_arrays({"key": zkey, "payload": zpay}).to_store(zpath)
+        zw = dict(ctx.io_stats)
+        disk = sum(os.path.getsize(os.path.join(zpath, f)) for f in os.listdir(zpath))
+        del ctx
+        ctx = context()
+        zq = ctx.from_store(zpath).order_by([("key", False)])
+        zr = dict(ctx.io_stats)
+        zout = zq.collect()
+        check_terasort(zout, zkey, zpay, "stores zlib")
+        res["zlib"] = {"rows": ST_ZLIB_ROWS, "write_s": zw["write_s"], "read_s": zr["read_s"],
+                       "raw_bytes": zw["write_bytes"], "disk_bytes": disk,
+                       "ratio": zw["write_bytes"] / disk}
+        log(f"stores zlib [{card}]: {ST_ZLIB_ROWS} rows, {zw['write_bytes'] / 2**20:.0f} MiB raw, "
+            f"{disk / 2**20:.0f} MiB on disk (ratio {zw['write_bytes'] / disk:.3f}); compress+write "
+            f"{zw['write_s']:.3f} s = {_gbps(zw['write_bytes'], zw['write_s']):.3f} GB/s, read+inflate "
+            f"{zr['read_s']:.3f} s = {_gbps(zw['write_bytes'], zr['read_s']):.3f} GB/s; rows check as "
+            f"TeraSort's")
+        del zq, ctx, zout, key, pay, zkey, zpay
+        free_card()
+
+        # -- WordCount through files and a STRING store -----------------------
+        rng = np.random.default_rng(SEED + 15)
+        ids = zipf_ids(rng, WC_WORDS)
+        tab = vocab_table()
+        words = np.array([bytes(r).split()[0].decode() for r in tab], object)
+        one = os.path.join(root, "corpus.txt")
+        with open(one, "wb") as fh:
+            fh.write(tab[ids].tobytes())
+        paths = []
+        for i, chunk in enumerate(np.array_split(ids, ST_WC_FILES)):
+            paths.append(os.path.join(root, f"corpus-{i}.txt"))
+            with open(paths[-1], "wb") as fh:
+                fh.write(tab[chunk].tobytes())
+        ctx = context()
+        count = {"n": ("count", None)}
+        t0 = time.perf_counter()
+        q8 = ctx.from_text(paths)
+        multi_s = time.perf_counter() - t0
+        check(ctx.io_native is True and ctx.tokenizer_native is True,
+              "multi-file from_text did not use the native prefetch channel and tokenizer")
+        t0 = time.perf_counter()
+        q1 = ctx.from_text(one)
+        single_s = time.perf_counter() - t0
+        check(digest(q8.group_by("word", count).collect()) == digest(q1.group_by("word", count).collect()),
+              "from_text of 8 files counts differently from one file")
+        words_path = os.path.join(root, "words")
+        q8.to_store(words_path)
+        wst = dict(ctx.io_stats)
+        del q1, q8, ctx
+        free_card()
+        ctx = context()
+        qs = ctx.from_store(words_path).group_by("word", count)
+        top_q = qs.order_by([("n", True)]).take(20)
+        text = top_q.explain()
+        check("string_code" in text and "exchange_hash" not in text,
+              "explain of the STRING store's top-20 shows no string_code or an exchange_hash")
+        bucket_sum_count.launches = 0  # the stores path starts here
+        t0 = time.perf_counter()
+        table = qs.collect()
+        first_s = time.perf_counter() - t0
+        top = top_q.collect()
+        launches = bucket_sum_count.launches
+        check(launches == 2, f"WordCount from a STRING store launched the bucket kernel {launches} "
+              "times, not 2 (the count and the top-20)")
+        uid, ucnt = np.unique(ids, return_counts=True)
+        oracle_wc = dict(zip(words[uid].tolist(), ucnt.tolist()))
+        check(dict(zip(table["word"].tolist(), table["n"].tolist())) == oracle_wc,
+              "WordCount from the STRING store differs from the numpy oracle")
+        check(top["n"].tolist() == sorted(ucnt.tolist(), reverse=True)[:20],
+              "top-20 counts from the STRING store differ from the oracle")
+        check(all(oracle_wc[w_] == c for w_, c in zip(top["word"], top["n"])), "a top-20 word has a wrong count")
+        h = qs.submit()
+        check(digest(h.result()) == digest(qs.collect()), "submit(q).result() differs from collect()")
+        res["wordcount"] = {"words": WC_WORDS, "files": ST_WC_FILES, "from_text_files_s": multi_s,
+                            "from_text_one_file_s": single_s,
+                            "words_store_bytes": wst["write_bytes"], "words_to_store_write_s": wst["write_s"],
+                            "first_query_s": first_s, "launches": launches}
+        log(f"stores wordcount [{card}]: from_text (tokenize and register) of {ST_WC_FILES} files "
+            f"({WC_WORDS} words) {multi_s:.3f} s, of one file {single_s:.3f} s; counts equal; the words' STRING store "
+            f"{wst['write_bytes'] / 2**20:.0f} MiB written in {wst['write_s']:.3f} s; from_store + "
+            f"group_by first query {first_s:.3f} s; table and top-20 equal the oracle; explain shows "
+            f"string_code and no exchange_hash; submit equals collect; bucket kernel launches {launches}")
+        del ctx, qs, top_q, table, top, h
+        free_card()
+
+        # -- the event log ------------------------------------------------------
+        check(len(set(contexts)) == len(contexts), "two contexts shared one event-log file")
+        n_events = 0
+        for path in contexts:
+            evs = EventLog.load(path)
+            n_events += len(evs)
+            bad = sorted({e["kind"] for e in evs} - set(EVENT_KINDS))
+            check(not bad, f"{path}: kinds outside EVENT_KINDS {bad}")
+            kinds = [e["kind"] for e in evs]
+            check(kinds.count("job_start") == kinds.count("job_complete") > 0,
+                  f"{path}: {kinds.count('job_start')} job_start, {kinds.count('job_complete')} job_complete")
+        ts_overflows = [e for e in EventLog.load(ts_events) if e["kind"] == "stage_overflow"]
+        check(len(ts_overflows) == res["terasort"]["overflow_retries"],
+              "the TeraSort log's stage_overflow count differs from overflow_retries")
+        res["event_log"] = {"files": len(contexts), "events": n_events}
+        log(f"stores event log: {len(contexts)} files, {n_events} events, every line parses, every kind "
+            f"registered, job_start = job_complete per file, stage_overflow = overflow retries "
+            f"({len(ts_overflows)})")
+
+        # -- the samples on the card --------------------------------------------
+        res["samples_s"] = {}
+        for name, expect in SAMPLE_EXPECT.items():
+            mod = importlib.import_module(f"dryad_tpu_torch.samples.{name}")
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                mod.main([])
+            res["samples_s"][name] = time.perf_counter() - t0
+            check(expect in buf.getvalue(), f"sample {name} did not print {expect!r}")
+            free_card()
+        log(f"stores samples [{card}]: " + ", ".join(f"{n} {t:.2f} s" for n, t in res["samples_s"].items())
+            + "; each printed its expected string")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    res["peak_bytes"] = torch.cuda.max_memory_allocated()
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"stores phase [{card}]: peak device memory {res['peak_bytes'] / 1e9:.2f} GB, "
+        f"{res['phase_s']:.1f} s")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument(
         "--phases",
         default="env,kernel,wordcount,dense,terasort,terasort_hot,groupby_sort,"
-                "join_shuffle,join_broadcast,pagerank,decomposable,ordered_ops,cpu_parity")
+                "join_shuffle,join_broadcast,pagerank,decomposable,ordered_ops,cpu_parity,stores")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     if not torch.cuda.is_available():
@@ -1567,6 +1832,8 @@ def main(argv=None) -> int:
         results["ordered_ops"] = phase_ordered_ops(dev, card)
     if "cpu_parity" in phases:
         results["cpu_parity"] = phase_cpu_parity(dev, card)
+    if "stores" in phases:
+        results["stores"] = phase_stores(dev, card)
     print("results: " + json.dumps(results))
 
     kern = results.get("kernel", {})
@@ -1579,6 +1846,7 @@ def main(argv=None) -> int:
         "pagerank": results.get("pagerank", {}).get("bucket_sum_count_launches"),
         "decomposable": results.get("decomposable", {}).get("bucket_sum_count_launches"),
         "ordered_ops": results.get("ordered_ops", {}).get("bucket_sum_count_launches"),
+        "stores": results.get("stores", {}).get("wordcount", {}).get("launches"),
     }
     ran = [n for n in per_path.values() if n is not None]
     jb = kern.get("join_broadcast", {})

@@ -1,27 +1,34 @@
 """DryadContext — the port's entry point and job driver.
 
-The counterpart of ``dryad_tpu/api/context.py`` for ``from_arrays``,
-``from_text``, ``collect``, the tables pinned by ``Query.cache()`` (and
-``release``), and the subplans of a ``do_while``.  A context owns one
-device (CUDA unless the caller passes ``device="cpu"``; it never falls
-back by itself), P logical partitions on it, the string dictionary, and
-a device-resident ingest cache keyed by binding, LRU by bytes.  A
-cached table is a pin, not an entry of that cache: its budget never
-evicts it.
+The counterpart of ``dryad_tpu/api/context.py`` for ``from_arrays``
+(with user-type ``codecs``), ``from_text`` (one path, a list of paths,
+a str or bytes), ``from_store`` / ``to_store`` (partitioned stores by
+path or URI, ``columnar/uri.py``), ``collect`` and ``submit``, the
+tables pinned by ``Query.cache()`` (and ``release``), and the subplans
+of a ``do_while``.  A context owns one device (CUDA unless the caller
+passes ``device="cpu"``; it never falls back by itself), P logical
+partitions on it, the string dictionary, the job event log
+(``exec/events.py``: a JSONL file under ``event_log_dir``, or memory
+only), and a device-resident ingest cache keyed by binding, LRU by
+bytes.  A cached table is a pin, not an entry of that cache: its budget
+never evicts it.
 """
 
 from __future__ import annotations
 
+import math
 import os
+import time
 from collections import OrderedDict
 from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
 
-from dryad_tpu_torch.api.query import Query
-from dryad_tpu_torch.columnar.batch import ColumnBatch
+from dryad_tpu_torch.api.query import JobHandle, Query
+from dryad_tpu_torch.columnar.batch import ColumnBatch, decode_physical_table
 from dryad_tpu_torch.columnar.schema import ColumnType, Schema, StringDictionary
+from dryad_tpu_torch.exec.events import EventLog
 from dryad_tpu_torch.exec.executor import GraphExecutor
 from dryad_tpu_torch.parallel.partition import block_layout
 from dryad_tpu_torch.plan.lower import lower
@@ -81,13 +88,27 @@ class DryadContext:
             raise ValueError("num_partitions_ must be >= 1")
         self.dictionary = StringDictionary()
         self._bindings: Dict[int, tuple] = {}
+        # column name -> TypeCodec of from_arrays(codecs=): expanded at
+        # ingest, folded back at collect
+        self._codecs: Dict[str, object] = {}
         # input node id -> (binding tuple, batch, bytes); the stored
         # binding identity invalidates the entry when a node is rebound
         self._device_cache: "OrderedDict[int, tuple]" = OrderedDict()
-        self.executor = GraphExecutor(self.num_partitions, self.config, self.device)
+        path = None
+        if self.config.event_log_dir:
+            path = os.path.join(self.config.event_log_dir, f"job-{int(time.time() * 1000)}.jsonl")
+        self.events = EventLog(path, mem_cap=self.config.obs_events_mem_cap)
+        self.executor = GraphExecutor(self.num_partitions, self.config, self.device, self.events)
         # do_while body/cond plans, built once per function object
         self._subplans: Dict[tuple, tuple] = {}
         self.tokenizer_native = None  # set by from_text: which tokenizer ran
+        # set by the store and multi-file paths: which I/O routines ran
+        # (native or the Python twins); and the host timings (seconds)
+        # and bytes of the last store read (read_s), store ingest
+        # (repack_s, h2d_s) and to_store (run_s: the query, ingest
+        # included; fetch_s: the device->host copy; write_s)
+        self.io_native = None
+        self.io_stats: Dict[str, float] = {}
 
     # -- ingestion -----------------------------------------------------------
     def from_arrays(
@@ -95,10 +116,19 @@ class DryadContext:
         arrays: Dict[str, np.ndarray],
         schema: Optional[Schema] = None,
         partition_capacity: Optional[int] = None,
+        codecs: Optional[Dict[str, object]] = None,
     ) -> Query:
         """A table from host arrays.  STRING values register in the
         dictionary now (the auto-dense rewrite codes against it at
-        lowering); INT32 ranges feed the int auto-dense rewrite."""
+        lowering); INT32 ranges feed the int auto-dense rewrite.
+        ``codecs``: column name -> ``columnar.codecs.TypeCodec``; each
+        coded column expands into typed columns here and folds back at
+        collect."""
+        if codecs:
+            from dryad_tpu_torch.columnar.codecs import expand_arrays
+
+            arrays = expand_arrays(arrays, codecs)
+            self._codecs.update(codecs)
         schema = schema or _infer_schema(arrays)
         str_vocab = {}
         if self.config.auto_dense_strings:
@@ -144,15 +174,32 @@ class DryadContext:
 
     def from_text(self, data, column: str = "word") -> Query:
         """A one-STRING-column table of the whitespace-separated tokens
-        of ``data``: a filesystem path, a str, or bytes."""
-        if isinstance(data, str) and os.path.exists(data):
-            with open(data, "rb") as fh:
-                buf = fh.read()
-        elif isinstance(data, str):
-            buf = data.encode("utf-8")
+        of ``data``: a filesystem path, a list of paths (read through
+        the prefetch channel: file i+1 is read while file i tokenizes),
+        a str, or bytes."""
+        if isinstance(data, (list, tuple)):
+            from dryad_tpu_torch.runtime import bindings as RB
+
+            self.io_native = RB.io_native_loaded()
+            parts = []
+            with RB.PrefetchChannel(list(data), depth=4, threads=2) as ch:
+                for fbuf in ch:
+                    parts.append(self._tokenize_buf(fbuf))
+            if parts:
+                h0, h1, r0, r1 = (np.concatenate([p[i] for p in parts]) for i in range(4))
+                vocab = np.unique(np.concatenate([p[4] for p in parts]))
+            else:
+                h0 = h1 = r0 = r1 = np.zeros(0, np.uint32)
+                vocab = np.zeros(0, np.uint64)
         else:
-            buf = bytes(data)
-        h0, h1, r0, r1, vocab = self._tokenize_buf(buf)
+            if isinstance(data, str) and os.path.exists(data):
+                with open(data, "rb") as fh:
+                    buf = fh.read()
+            elif isinstance(data, str):
+                buf = data.encode("utf-8")
+            else:
+                buf = bytes(data)
+            h0, h1, r0, r1, vocab = self._tokenize_buf(buf)
         node = Node(
             "input", [], Schema([(column, ColumnType.STRING)]),
             PartitionInfo.roundrobin(), source="host_physical",
@@ -163,6 +210,33 @@ class DryadContext:
             {f"{column}#h0": h0, f"{column}#h1": h1,
              f"{column}#r0": r0, f"{column}#r1": r1},
         )
+        return Query(self, node)
+
+    def from_store(self, path: str) -> Query:
+        """A table from a store by path or URI (``columnar/uri.py``:
+        partfile://, file://, mem://, hdfs://, wasb://, abfs://).  The
+        store's dictionary merges into the context's, and every STRING
+        column takes the store's hashes as its vocabulary (a superset
+        per column, still a sound auto-dense gate)."""
+        from dryad_tpu_torch.columnar.uri import read_store_uri
+        from dryad_tpu_torch.runtime import bindings as RB
+
+        t0 = time.perf_counter()
+        schema, parts, dictionary = read_store_uri(path)
+        self.io_native = RB.io_native_loaded()
+        self.io_stats.update(
+            read_s=time.perf_counter() - t0,
+            read_bytes=sum(a.nbytes for cols in parts for a in cols.values()),
+        )
+        self.dictionary = self.dictionary.merge(dictionary)
+        store_hashes = np.sort(np.fromiter(dictionary._map.keys(), dtype=np.uint64))
+        node = Node(
+            "input", [], schema, PartitionInfo.roundrobin(), source="store",
+            str_vocab={
+                f.name: store_hashes for f in schema.fields if f.ctype is ColumnType.STRING
+            },
+        )
+        self._bindings[node.id] = ("store", parts, schema)
         return Query(self, node)
 
     def _from_device_batch(
@@ -226,7 +300,50 @@ class DryadContext:
         if kind == "host_physical":
             data, valid = block_layout(rest[0], self.num_partitions)
             return ColumnBatch.from_host_layout(data, valid, self.device)
+        if kind == "store":
+            return self._ingest_store(*rest)
         raise RuntimeError(f"unknown binding kind {kind}")
+
+    def _ingest_store(self, parts, schema: Schema) -> ColumnBatch:
+        """The reference's store binding: store partition i folds into
+        partition ``i % P``, ``cap = ceil(max rows / 8) * 8``, and one
+        host ``(P, cap)`` layout per physical column (in the device
+        carrier's dtype; page-locked when the target is the card) is
+        the one copy of the rows, then copied to the device."""
+        t0 = time.perf_counter()
+        P = self.num_partitions
+        phys = schema.device_names()
+        folded: list = [[] for _ in range(P)]
+        for i, cols in enumerate(parts):
+            folded[i % P].append(cols)
+        rows_per = [sum(_rows(c) for c in group) for group in folded]
+        cap = math.ceil(max(max(rows_per, default=1), 1) / 8) * 8
+        pin = self.device.type == "cuda"
+        data = {
+            c: torch.zeros((P, cap), dtype=_carrier(c, schema), pin_memory=pin) for c in phys
+        }
+        valid = torch.zeros((P, cap), dtype=torch.bool, pin_memory=pin)
+        host = {c: t.numpy() for c, t in data.items()}
+        vhost = valid.numpy()
+        for p, group in enumerate(folded):
+            at = 0
+            for cols in group:
+                n = _rows(cols)
+                for c in phys:
+                    host[c][p, at : at + n] = cols[c]
+                vhost[p, at : at + n] = True
+                at += n
+        t1 = time.perf_counter()
+        batch = ColumnBatch(
+            {c: t.to(self.device, non_blocking=True) for c, t in data.items()},
+            valid.to(self.device, non_blocking=True),
+        )
+        if pin:
+            torch.cuda.current_stream(self.device).synchronize()
+        self.io_stats.update(
+            repack_s=t1 - t0, h2d_s=time.perf_counter() - t1, h2d_bytes=batch.nbytes(),
+        )
+        return batch
 
     def execute(self, query: Query) -> ColumnBatch:
         """Lower and run a query; the result batch stays on the device."""
@@ -236,7 +353,48 @@ class DryadContext:
         return results[graph.outputs[query.node.id]]
 
     def run_to_host(self, query: Query) -> Dict[str, np.ndarray]:
-        return self.execute(query).to_numpy(query.schema, self.dictionary)
+        table = self.execute(query).to_numpy(query.schema, self.dictionary)
+        if self._codecs:
+            from dryad_tpu_torch.columnar.codecs import collapse_table
+
+            table = collapse_table(table, self._codecs)
+        return table
+
+    def submit(self, query: Query) -> JobHandle:
+        return JobHandle(self.run_to_host(query))
+
+    def to_store(self, query: Query, path: str) -> JobHandle:
+        """Execute and persist as a store by path or URI: one part file
+        per partition holding that partition's valid rows (columns in
+        name order, as the reference's host fetch returns them), then
+        the manifest and the dictionary.  The column codec is
+        ``config.intermediate_compression``."""
+        from dryad_tpu_torch.columnar.uri import write_store_uri
+        from dryad_tpu_torch.runtime import bindings as RB
+
+        t_run = time.perf_counter()
+        batch = self.execute(query)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        t0 = time.perf_counter()
+        host, counts = batch.fetch_valid_rows(with_counts=True)
+        t1 = time.perf_counter()
+        bounds = np.concatenate([[0], np.cumsum(counts)])
+        names = sorted(host)
+        parts = [
+            {c: host[c][bounds[i] : bounds[i + 1]] for c in names}
+            for i in range(batch.num_partitions)
+        ]
+        self.io_native = RB.io_native_loaded()
+        write_store_uri(
+            path, parts, query.schema, self.dictionary, self.config.intermediate_compression,
+        )
+        self.io_stats.update(
+            run_s=t0 - t_run, fetch_s=t1 - t0, write_s=time.perf_counter() - t1,
+            write_bytes=sum(a.nbytes for a in host.values()),
+        )
+        table = decode_physical_table(query.schema, slice(None), host, self.dictionary)
+        return JobHandle(table, path)
 
     # -- do_while support ------------------------------------------------------
     def _run_subquery(self, plan_fn, schema: Schema, current: ColumnBatch, scalar: bool = False):
@@ -259,3 +417,20 @@ class DryadContext:
         col = next(iter(batch.data.values())).reshape(-1)
         vals = col[batch.valid.reshape(-1)][:1].cpu()
         return bool(vals[0]) if len(vals) else False
+
+
+def _rows(cols: Dict[str, np.ndarray]) -> int:
+    return len(next(iter(cols.values()))) if cols else 0
+
+
+def _carrier(col: str, schema: Schema) -> torch.dtype:
+    """Device dtype of one physical column: uint32 words (split columns
+    and UINT32) ride as int64."""
+    if "#" in col:
+        return torch.int64
+    return {
+        ColumnType.INT32: torch.int32,
+        ColumnType.FLOAT32: torch.float32,
+        ColumnType.BOOL: torch.bool,
+        ColumnType.UINT32: torch.int64,
+    }[schema.field(col).ctype]

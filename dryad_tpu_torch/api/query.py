@@ -13,11 +13,11 @@ forms, ``group_join_count``), the set operators (``concat``, ``union``,
 ``sequence_equal``, ``sliding_window``) and the element accessors
 built on them, the user-function operators (``apply``, ``apply_host``,
 ``fork``), iteration (``do_while``) and materialization (``cache``),
-the scalar and decomposable aggregates, and ``collect``.  Node
-construction, validation and the auto-dense gates are the reference's,
-so both packages build the same logical plan.  ``collect_stream``,
-``submit``, ``to_store`` and ``explain`` raise ``NotImplementedError``
-naming the ROADMAP.md item that will port them.
+the scalar and decomposable aggregates, ``collect``, ``submit``,
+``to_store`` and ``explain``.  Node construction, validation and the
+auto-dense gates are the reference's, so both packages build the same
+logical plan.  ``collect_stream`` and ``explain(analyze=True)`` raise
+``NotImplementedError`` naming the ROADMAP.md item that will port them.
 """
 
 from __future__ import annotations
@@ -954,6 +954,26 @@ class Query:
         """Execute and fetch host logical columns."""
         return self.ctx.run_to_host(self)
 
+    def submit(self) -> "JobHandle":
+        return self.ctx.submit(self)
+
+    def to_store(self, path: str) -> "JobHandle":
+        """Execute and persist as a partitioned store (path or URI)."""
+        return self.ctx.to_store(self, path)
+
+    def explain(self, analyze: bool = False) -> str:
+        """The logical plan, the stage graph and the fusion decision as
+        text (``tools/explain.py``).  ``analyze=True`` needs the
+        runtime-diagnosis panel of ``obs/``, not ported yet."""
+        if analyze:
+            raise NotImplementedError(
+                "dryad_tpu_torch does not port Query.explain(analyze=True) yet "
+                "(ROADMAP.md, queue 1 item 14: obs)"
+            )
+        from dryad_tpu_torch.tools.explain import explain
+
+        return explain(self)
+
     def __iter__(self):
         """Execute and yield the result's rows as dicts."""
         table = self.collect()
@@ -963,13 +983,22 @@ class Query:
             yield {c: table[c][i] for c in names}
 
 
+class JobHandle:
+    """A completed job: its result table and, for ``to_store``, the
+    store's path."""
+
+    def __init__(self, table: Dict[str, np.ndarray], path: Optional[str] = None):
+        self.table = table
+        self.path = path
+
+    def result(self) -> Dict[str, np.ndarray]:
+        return self.table
+
+
 # The reference's Query methods the port does not have yet, each with the
 # ROADMAP.md item (queue 1) that will port it.
 _PENDING_METHODS = {
     "collect_stream": "item 12: out-of-core",
-    "submit": "item 12: stores",
-    "to_store": "item 12: stores",
-    "explain": "item 14: tools",
 }
 
 

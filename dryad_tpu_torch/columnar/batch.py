@@ -232,22 +232,26 @@ class ColumnBatch:
         data, valid = block_layout(phys, num_partitions, partition_capacity)
         return ColumnBatch.from_host_layout(data, valid, device)
 
-    def fetch_valid_rows(self) -> Dict[str, np.ndarray]:
+    def fetch_valid_rows(self, with_counts: bool = False):
         """The valid rows' physical columns on the host, in the flat
         partition-major order, uint32 words restored.  Rows are selected
         on the device first, so only valid rows cross to the host (an
         exchanged batch is mostly padding); from a GPU they are copied
-        into page-locked buffers, all copies queued before one wait."""
+        into page-locked buffers, all copies queued before one wait.
+        ``with_counts``: also each partition's valid count, ``(P,)``
+        int64, in the same copy; returns ``(columns, counts)``."""
         keep = self.valid.reshape(-1).nonzero().squeeze(1)
         rows = {c: v.reshape(-1)[keep] for c, v in self.data.items()}
+        extra = [self.valid.sum(-1)] if with_counts else []
         if self.device.type == "cuda":
-            pinned = {}
-            for c, t in rows.items():
-                pinned[c] = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                pinned[c].copy_(t, non_blocking=True)
+            def pinned(t):
+                return torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t, non_blocking=True)
+
+            rows = {c: pinned(t) for c, t in rows.items()}
+            extra = [pinned(t) for t in extra]
             torch.cuda.current_stream(self.device).synchronize()
-            rows = pinned
-        return {c: to_host_column(t) for c, t in rows.items()}
+        host = {c: to_host_column(t) for c, t in rows.items()}
+        return (host, extra[0].numpy()) if with_counts else host
 
     def to_numpy(
         self, schema: Schema, dictionary: Optional[StringDictionary] = None

@@ -4,11 +4,11 @@ The counterpart of ``dryad_tpu/exec/executor.py`` reduced to what the
 ported stages need:
 
 - Stages run in order, each fed its inputs, grouped into retry units
-  (:func:`retry_regions`): the reference compiles each maximal run of
-  stages into one program (``plan/fuse.py``, on by default) and retries
-  the run as a whole, so the port retries the same runs; a stage the
-  width adaptation may re-dispatch, and a driver stage (``do_while``,
-  ``apply_host``), stands alone, as there.
+  (:func:`retry_regions`), the regions of ``plan/fuse.py``'s decision:
+  the reference compiles each maximal run of stages into one program
+  (on by default) and retries the run as a whole, so the port retries
+  the same runs; a stage the width adaptation may re-dispatch, and a
+  driver stage (``do_while``, ``apply_host``), stands alone, as there.
 - The speculative dispatch window, as the reference's: a unit holding
   an op outside ``NON_OVERFLOW_OPS`` (an exchange, a resize, a join)
   joins the window, and so does every unit dispatched while it is
@@ -36,30 +36,38 @@ ported stages need:
 - After the job, the deferred dictionary/range-miss counters of every
   unit are read in ONE copy; a nonzero count raises, as the
   reference's ``_raise_miss``.
+- Every job writes the reference's events to the context's
+  :class:`~dryad_tpu_torch.exec.events.EventLog`, with the reference's
+  fields, in its order: ``fuse_break`` per seam of ``plan/fuse.py``'s
+  decision, ``job_start``, per unit ``stage_fanout`` /
+  ``stage_width_adapt``, then per attempt ``stage_start`` (and
+  ``fused_dispatch`` for a run of stages) followed by
+  ``stage_complete``, ``stage_overflow`` or, inside the window,
+  ``stage_dispatched``; a drain logs ``overflow_drain`` and completes
+  its clean prefix; ``do_while_*`` and ``apply_host_*`` for the driver
+  stages; ``job_complete`` after the miss check (``dict_miss`` and
+  ``job_failed`` on the failure paths).  A unit's ``stage`` id is its
+  region's id in that decision.
 """
 
 from __future__ import annotations
 
 import math
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from dryad_tpu_torch.columnar.batch import ColumnBatch, to_host_column
+from dryad_tpu_torch.exec.events import EventLog
 from dryad_tpu_torch.exec.kernels import NON_OVERFLOW_OPS, StageContext, _round8, run_ops
 from dryad_tpu_torch.ops import shuffle as SH
 from dryad_tpu_torch.exec.operands import DeviceTables
+from dryad_tpu_torch.plan.fuse import (
+    DRIVER_OPS, SHRINKING_OPS, FuseReport, _adaptable_shape as _adaptable, fuse,
+)
 from dryad_tpu_torch.plan.lower import Stage, StageGraph, StageOp, tail_width
-
-# Op kinds proven width-insensitive: the observed-volume adapter may
-# re-dispatch a stage of only these at a reduced fan (the reference's
-# ``plan/fuse.py`` set).
-ADAPT_OK_OPS = frozenset({
-    "select", "where", "project", "exchange_hash", "exchange_range",
-    "resize", "group_reduce", "group_reduce_dense", "local_sort",
-    "join", "scalar_agg", "string_code",
-})
 
 
 class StageFailedError(RuntimeError):
@@ -101,13 +109,6 @@ def _slot_reroutes(stage: Stage, slot: int) -> bool:
     return False
 
 
-def _adaptable(stage: Stage) -> bool:
-    return all(op.kind in ADAPT_OK_OPS for op in stage.ops) and any(
-        op.kind in ("exchange_hash", "exchange_range") and not op.params.get("nparts")
-        for op in stage.ops
-    )
-
-
 def _fan_adapted_stage(stage: Stage, fan: int) -> Stage:
     """Stage copy whose full-width exchanges and resizes concentrate
     onto ``fan`` partitions; a join side whose exchange was elided on
@@ -137,59 +138,21 @@ def _fan_adapted_stage(stage: Stage, fan: int) -> Stage:
     )
 
 
-# Aggregation-shaped ops that shrink data by orders of magnitude: a
-# stage fed by one of them may adapt its width (the reference's set).
-SHRINKING_OPS = frozenset({
-    "group_reduce", "group_reduce_dense", "distinct", "scalar_agg", "topk",
-})
-
-
-def _adapt_candidate(stage: Stage, by_id: Dict[int, Stage], config) -> bool:
-    """A stage the width adaptation may re-dispatch at a reduced width:
-    adaptable ops, every input from a stage, one of them aggregation-
-    shaped.  Such a stage retries on its own."""
-    if not getattr(config, "tail_fanout_rows", 0) or not _adaptable(stage):
-        return False
-    producers = []
-    for ref, _idx in stage.input_refs:
-        if ref == "plan_input" or ref not in by_id:
-            return False
-        producers.append(by_id[ref])
-    return any(op.kind in SHRINKING_OPS for p in producers for op in p.ops)
-
-
-# Driver-evaluated stages: host boundaries no run of stages crosses.
-DRIVER_OPS = frozenset({"do_while", "apply_host"})
-
-
 def _driver_kind(stage: Stage) -> Optional[str]:
     return next((op.kind for op in stage.ops if op.kind in DRIVER_OPS), None)
 
 
-def retry_regions(graph: StageGraph, config) -> List[List[Stage]]:
-    """The units that run and retry as one, in order: maximal runs of
-    consecutive stages, an adaptation candidate (:func:`_adapt_candidate`)
-    or a driver stage standing alone.  The reference compiles each such
-    run into one program (``plan/fuse.py``) whose overflow retries the
-    whole run at the next boost; the port runs the member stages one
-    after another and retries the run the same way, so capacities,
-    range splitters and overflow events follow the reference's."""
-    if len(graph.stages) <= 1:
-        return [[s] for s in graph.stages]
+def retry_regions(graph: StageGraph, report: FuseReport) -> List[List[Stage]]:
+    """The units that run and retry as one, in order: the regions of
+    the fusion decision ``report`` (``plan/fuse.py``): maximal runs of
+    consecutive stages, with an adaptation candidate or a driver stage
+    standing alone.  The reference compiles each such run into one
+    program whose overflow retries the whole run at the next boost; the
+    port runs the member stages one after another and retries the run
+    the same way, so capacities, range splitters and overflow events
+    follow the reference's."""
     by_id = {s.id: s for s in graph.stages}
-    units: List[List[Stage]] = []
-    run: List[Stage] = []
-    for s in graph.stages:
-        if _driver_kind(s) or _adapt_candidate(s, by_id, config):
-            if run:
-                units.append(run)
-                run = []
-            units.append([s])
-        else:
-            run.append(s)
-    if run:
-        units.append(run)
-    return units
+    return [[by_id[m] for m in r["members"]] for r in report.regions]
 
 
 def _unit_name(unit: List[Stage]) -> str:
@@ -201,8 +164,6 @@ def _unit_name(unit: List[Stage]) -> str:
     return "+".join(seen)
 
 
-
-
 def _phys_np_dtype(col: str, schema) -> np.dtype:
     """Host numpy dtype of one physical column (split words uint32)."""
     if "#" in col:
@@ -211,11 +172,13 @@ def _phys_np_dtype(col: str, schema) -> np.dtype:
 
 
 class GraphExecutor:
-    def __init__(self, P: int, config, device):
+    def __init__(self, P: int, config, device, event_log: Optional[EventLog] = None):
         self.P = P
         self.config = config
         self.device = torch.device(device)
         self.tables = DeviceTables(self.device)
+        # every job's events, the reference's kinds and fields
+        self.event_log = event_log if event_log is not None else EventLog(None)
         # the last job's retries, adaptations and loop rounds, as (kind,
         # name, value): ("stage_overflow", name, boost) for each
         # overflowed attempt, ("stage_width_adapt", name, fan) for each
@@ -251,7 +214,9 @@ class GraphExecutor:
     def _execute(self, graph: StageGraph, bindings) -> Dict[Tuple[int, int], ColumnBatch]:
         results: Dict[Tuple[int, int], ColumnBatch] = {}
         misses: List[Tuple[str, torch.Tensor]] = []  # (unit name, miss counter)
-        units = retry_regions(graph, self.config)
+        report = fuse(graph, self.config)
+        units = retry_regions(graph, report)
+        self._start_job(graph, report, units)
         self._prepare_width_adapt(graph, units)
         depth = max(1, self.config.overflow_sync_depth)
         window: List[dict] = []
@@ -275,8 +240,39 @@ class GraphExecutor:
             counts = torch.stack([m for _, m in misses]).cpu().tolist()
             for (name, _), m in zip(misses, counts):
                 if m:
+                    self.event_log.emit("dict_miss", stage_name=name, rows=int(m))
                     raise StageFailedError(_miss_message(name, int(m)))
+        self.event_log.emit("job_complete")
         return results
+
+    def _note(self, kind: str, label: str, value: int, **fields) -> None:
+        """Log an event and keep its ``(kind, name, value)`` record."""
+        self.events.append((kind, label, value))
+        self.event_log.emit(kind, **fields)
+
+    def _start_job(self, graph: StageGraph, report: FuseReport, units: List[List[Stage]]) -> None:
+        """Log the fusion decision's seams and ``job_start`` with the
+        topology of the units, and fix each unit's id (its region's)."""
+        if len(graph.stages) > 1:
+            for br in report.breaks:
+                self.event_log.emit(
+                    "fuse_break", after=br["after"], before=br["before"], reason=br["reason"],
+                )
+        self._unit_id = {id(u): r["id"] for u, r in zip(units, report.regions)}
+        owner = {m.id: self._unit_id[id(u)] for u in units for m in u}
+        topology = []
+        for u in units:
+            members = {m.id for m in u}
+            deps: List[list] = []
+            for m in u:
+                for ref, idx in m.input_refs:
+                    if ref in members:
+                        continue
+                    dep = ["in", idx] if ref == "plan_input" else [owner[ref], idx]
+                    if dep not in deps:
+                        deps.append(dep)
+            topology.append({"id": self._unit_id[id(u)], "name": _unit_name(u), "deps": deps})
+        self.event_log.emit("job_start", stages=len(units), topology=topology)
 
     def _inputs(self, stage: Stage, bindings, results) -> Tuple[ColumnBatch, ...]:
         return tuple(
@@ -292,14 +288,28 @@ class GraphExecutor:
         counts) at once and retries until clean."""
         solo = unit[0] if len(unit) == 1 else None
         name = solo.name if solo else _unit_name(unit)
+        sid = self._unit_id[id(unit)]
+        log = self.event_log
         ops = [op for m in unit for op in m.ops]
         can_overflow = any(op.kind not in NON_OVERFLOW_OPS for op in ops)
+        static_fan = [op.params["nparts"] for op in ops if op.params.get("nparts")]
+        if static_fan and min(static_fan) < self.P:
+            log.emit("stage_fanout", stage=sid, name=name, nparts=min(static_fan), of=self.P)
         adapt_fan = self._adapt_fan_for(solo) if solo else None
         if adapt_fan:
-            self.events.append(("stage_width_adapt", name, adapt_fan))
+            observed = sum(self._observed_rows.get(r, 0) for r in solo.input_refs)
+            self._note("stage_width_adapt", name, adapt_fan, stage=sid, name=name,
+                       nparts=adapt_fan, of=self.P, observed_rows=observed)
         exports = self._exports[id(unit)]
         want_count = id(unit) in self._count_wanted and (can_overflow or bool(window))
+        version = 0
         while True:
+            version += 1
+            log.emit("stage_start", stage=sid, name=name, version=version, boost=boost)
+            if solo is None:
+                log.emit("fused_dispatch", stage=sid, name=name, members=len(unit),
+                         version=version, boost=boost)
+            t0 = time.time()
             # escalated boosts drop the reduced width first: the
             # concentration itself may be what overflowed
             fan = adapt_fan if adapt_fan and boost < 4 else None
@@ -307,20 +317,31 @@ class GraphExecutor:
             counts = [results[e].valid.sum() for e in exports] if want_count else []
             if window is not None and (can_overflow or window):
                 window.append(dict(
-                    unit=unit, name=name, ops=ops, boost=boost, miss=dict_miss,
+                    unit=unit, name=name, sid=sid, ops=ops, boost=boost, miss=dict_miss,
                     flag=overflow if can_overflow else None, counts=counts,
+                    version=version, t0=t0,
                 ))
+                log.emit("stage_dispatched", stage=sid, name=name, version=version,
+                         boost=boost, inflight=len(window))
                 return
             if not can_overflow:
                 misses.append((name, dict_miss))
+                # overflow-free units report their dispatch time
+                log.emit("stage_complete", stage=sid, name=name, version=version,
+                         seconds=time.time() - t0, **{"async": True})
                 return
             host = torch.stack([overflow.to(torch.int64)] + counts).cpu().tolist()
             if not host[0]:
                 self._record(exports, host[1:])
                 misses.append((name, dict_miss))
+                log.emit("stage_complete", stage=sid, name=name, version=version,
+                         seconds=time.time() - t0)
                 return
-            self.events.append(("stage_overflow", name, boost))
+            self._note("stage_overflow", name, boost, stage=sid, name=name,
+                       version=version, boost=boost)
             if boost >= 2 ** self.config.max_shuffle_retries:
+                log.emit("job_failed", stage=sid, name=name, failure_kind="resource",
+                         reason="shuffle overflow at max boost")
                 raise StageFailedError(_exhausted_message(name, ops, boost))
             boost *= 2
 
@@ -352,6 +373,8 @@ class GraphExecutor:
             return
         entries = list(window)
         window.clear()
+        self.event_log.emit("overflow_drain", inflight=len(entries),
+                            stages=[w["name"] for w in entries])
         parts = [w["flag"].to(torch.int64) for w in entries if w["flag"] is not None]
         parts += [c for w in entries for c in w["counts"]]
         host = iter(torch.stack(parts).cpu().tolist() if parts else [])
@@ -361,12 +384,18 @@ class GraphExecutor:
         for w in entries[:bad]:
             self._record(self._exports[id(w["unit"])], count_of[id(w)])
             misses.append((w["name"], w["miss"]))
+            # dispatch to drain: the whole window's time
+            self.event_log.emit("stage_complete", stage=w["sid"], name=w["name"],
+                                version=w["version"], seconds=time.time() - w["t0"],
+                                deferred=True)
         if bad == len(entries):
             return
         for w in entries[bad:]:
             for e in self._exports[id(w["unit"])]:
                 self._observed_rows.pop(e, None)
-        self.events.append(("stage_overflow", entries[bad]["name"], entries[bad]["boost"]))
+        first = entries[bad]
+        self._note("stage_overflow", first["name"], first["boost"], stage=first["sid"],
+                   name=first["name"], version=first["version"], boost=first["boost"])
         for j, w in enumerate(entries[bad:]):
             self._run_unit(w["unit"], bindings, results, misses, None, boost=2 if j == 0 else 1)
 
@@ -407,9 +436,9 @@ class GraphExecutor:
         while True:
             it += 1
             if it > p["max_iter"]:
-                self.events.append(("do_while_max_iter", stage.name, it - 1))
+                self._note("do_while_max_iter", stage.name, it - 1, stage=stage.id, iters=it - 1)
                 break
-            self.events.append(("do_while_iter", stage.name, it))
+            self._note("do_while_iter", stage.name, it, stage=stage.id, iter=it)
             current = self.subquery_runner(p["body"], p["schema"], current)
             while True:
                 compacted, ovf = SH.resize(current, _round8(base_pp * boost))
@@ -422,7 +451,7 @@ class GraphExecutor:
                         f"boost {boost} (base {base_pp} rows/partition)"
                     )
                 boost *= 2
-                self.events.append(("do_while_state_boost", stage.name, boost))
+                self._note("do_while_state_boost", stage.name, boost, stage=stage.id, boost=boost)
             if not self.subquery_runner(p["cond"], p["schema"], current, scalar=True):
                 break
         return current
@@ -433,6 +462,7 @@ class GraphExecutor:
         the results, checked against the schema and cast, come back as a
         new batch (the reference's documented device->host->device round
         trip)."""
+        self.event_log.emit("apply_host_start", stage=stage.id)
         p = stage.ops[0].params
         schema = p["schema"]
         phys = schema.device_names()
@@ -463,6 +493,7 @@ class GraphExecutor:
             for n in phys:
                 data[n][i, : rows[i]] = op[n]
             vbuf[i, : rows[i]] = True
+        self.event_log.emit("apply_host_done", stage=stage.id)
         return ColumnBatch.from_host_layout(data, vbuf, self.device)
 
     # -- observed-volume stage-width adaptation ----------------------------
@@ -535,4 +566,4 @@ class GraphExecutor:
 
 
 # the per-graph adaptation state a nested execute() saves and restores
-_ADAPT_STATE = ("_observed_rows", "_count_wanted", "_adapt_safe", "_exports", "_unit_of")
+_ADAPT_STATE = ("_observed_rows", "_count_wanted", "_adapt_safe", "_exports", "_unit_of", "_unit_id")

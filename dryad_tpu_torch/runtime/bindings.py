@@ -1,10 +1,16 @@
-"""ctypes bindings for the port's host tokenizer, with a Python twin.
+"""ctypes bindings for the port's host tokenizer and host I/O, each
+with a Python twin.
 
-The counterpart of ``dryad_tpu/runtime/bindings.py`` for ``tokenize``
-and ``hash64`` only.  The library is built at first use from
-``runtime/native/dryadtok.cpp`` by :mod:`dryad_tpu_torch.utils.build`.
-Where no C++ compiler exists the Python twin (identical semantics, far
-slower) runs instead; :func:`native_loaded` says which one is in use.
+The counterpart of ``dryad_tpu/runtime/bindings.py`` for ``tokenize``,
+``hash64``, ``decompress_batch``, ``write_partition``, ``Fifo`` and
+``PrefetchChannel`` (its TLV routines belong to the cluster, ROADMAP.md
+queue 1 item 13).  Two libraries are built at first use by
+:mod:`dryad_tpu_torch.utils.build`: the tokenizer from
+``runtime/native/dryadtok.cpp`` and the I/O routines from
+``runtime/native/dryadio.cpp`` (linked with zlib).  Where one cannot be
+built its Python twin (identical semantics and bytes, slower) runs
+instead; :func:`native_loaded` and :func:`io_native_loaded` say which
+is in use.
 """
 
 from __future__ import annotations
@@ -12,7 +18,7 @@ from __future__ import annotations
 import ctypes
 import logging
 import threading
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -23,9 +29,14 @@ log = logging.getLogger("dryad_tpu_torch.runtime")
 
 SOURCES = ("runtime/native/dryadtok.cpp",)
 LIB_NAME = "dryadtok"
+IO_SOURCES = ("runtime/native/dryadio.cpp",)
+IO_LIB_NAME = "dryadio"
+IO_LIBS = ("-pthread", "-lz")
 
 _lib = None
 _lib_tried = False
+_io_lib = None
+_io_lib_tried = False
 _lock = threading.Lock()
 
 
@@ -120,3 +131,210 @@ def tokenize_python(text: bytes) -> Tokens:
         np.array(starts_l, np.uint64),
         np.array([len(t) for t in tokens], np.uint32),
     )
+
+
+# -- host I/O -------------------------------------------------------------------
+
+def _load_io() -> Optional[ctypes.CDLL]:
+    global _io_lib, _io_lib_tried
+    with _lock:
+        if _io_lib is not None or _io_lib_tried:
+            return _io_lib
+        _io_lib_tried = True
+        try:
+            lib = ctypes.CDLL(B.build(IO_LIB_NAME, IO_SOURCES, cuda=False, libs=IO_LIBS))
+        except (B.BuildError, OSError) as e:
+            log.warning("native I/O unavailable (%s); using the Python twins", e)
+            return None
+        vp, u64, u8pp = ctypes.c_void_p, ctypes.c_uint64, ctypes.POINTER(ctypes.POINTER(ctypes.c_uint8))
+        lib.dn_decompress_batch.restype = ctypes.c_int32
+        lib.dn_decompress_batch.argtypes = [
+            ctypes.c_size_t, ctypes.POINTER(vp), ctypes.POINTER(u64),
+            ctypes.POINTER(vp), ctypes.POINTER(u64),
+        ]
+        lib.dn_channel_open.restype = vp
+        lib.dn_channel_open.argtypes = [
+            ctypes.POINTER(ctypes.c_char_p), ctypes.c_size_t, ctypes.c_size_t, ctypes.c_size_t,
+        ]
+        lib.dn_channel_next.restype = ctypes.c_int64
+        lib.dn_channel_next.argtypes = [vp, u8pp]
+        lib.dn_channel_close.restype = None
+        lib.dn_channel_close.argtypes = [vp]
+        lib.dn_write_partition.restype = ctypes.c_int32
+        lib.dn_write_partition.argtypes = [
+            ctypes.c_char_p, ctypes.c_size_t,
+            ctypes.POINTER(ctypes.c_char_p), ctypes.POINTER(ctypes.c_char_p),
+            ctypes.POINTER(vp), ctypes.POINTER(u64), u64, ctypes.c_int32,
+        ]
+        lib.dn_fifo_create.restype = vp
+        lib.dn_fifo_create.argtypes = [ctypes.c_size_t]
+        lib.dn_fifo_push.restype = ctypes.c_int32
+        lib.dn_fifo_push.argtypes = [vp, ctypes.c_char_p, ctypes.c_size_t]
+        lib.dn_fifo_pop.restype = ctypes.c_int64
+        lib.dn_fifo_pop.argtypes = [vp, u8pp]
+        lib.dn_fifo_close.restype = None
+        lib.dn_fifo_close.argtypes = [vp]
+        lib.dn_fifo_destroy.restype = None
+        lib.dn_fifo_destroy.argtypes = [vp]
+        _io_lib = lib
+        return _io_lib
+
+
+def io_native_loaded() -> bool:
+    """True when the compiled I/O routines (not the Python twins) are in use."""
+    return _load_io() is not None
+
+
+def decompress_batch(srcs, dsts) -> bool:
+    """Inflate each zlib payload in ``srcs`` into the matching writable
+    numpy array in ``dsts``, all columns in parallel on native threads.
+    Returns False when the native library is unavailable (the caller
+    inflates with :mod:`zlib`)."""
+    lib = _load_io()
+    if lib is None or not srcs:
+        return False
+    n = len(srcs)
+    src_ptrs = (ctypes.c_void_p * n)()
+    src_lens = (ctypes.c_uint64 * n)()
+    dst_ptrs = (ctypes.c_void_p * n)()
+    dst_lens = (ctypes.c_uint64 * n)()
+    for i, (s, d) in enumerate(zip(srcs, dsts)):
+        # points at the bytes object's buffer (no copy); the caller keeps
+        # ``srcs`` referenced for the duration of the call
+        src_ptrs[i] = ctypes.cast(ctypes.c_char_p(s), ctypes.c_void_p)
+        src_lens[i] = len(s)
+        dst_ptrs[i] = d.ctypes.data_as(ctypes.c_void_p)
+        dst_lens[i] = d.nbytes
+    if lib.dn_decompress_batch(n, src_ptrs, src_lens, dst_ptrs, dst_lens) != 0:
+        raise ValueError("corrupt compressed column payload")
+    return True
+
+
+def write_partition(path: str, cols: "dict[str, np.ndarray]", compression: Optional[str] = None) -> None:
+    """Write one ``.dpf`` partition file (format: ``columnar/io.py``),
+    columns compressed concurrently on native threads; the Python
+    writer where the library is unavailable (the same bytes)."""
+    lib = _load_io()
+    if lib is None:
+        from dryad_tpu_torch.columnar import io as cio
+
+        cio.write_partition_file(path, cols, compression)
+        return
+    names = list(cols.keys())
+    arrays = [np.ascontiguousarray(cols[n]) for n in names]
+    rows = len(arrays[0]) if arrays else 0
+    name_arr = (ctypes.c_char_p * len(names))(*[n.encode() for n in names])
+    dt_arr = (ctypes.c_char_p * len(names))(*[str(a.dtype).encode() for a in arrays])
+    buf_arr = (ctypes.c_void_p * len(names))(
+        *[a.ctypes.data_as(ctypes.c_void_p).value for a in arrays]
+    )
+    len_arr = (ctypes.c_uint64 * len(names))(*[a.nbytes for a in arrays])
+    level = 6 if (compression or "none") == "zlib" else -1
+    rc = lib.dn_write_partition(
+        path.encode(), len(names), name_arr, dt_arr, buf_arr, len_arr, rows, level,
+    )
+    if rc != 0:
+        raise IOError(f"native partition write failed rc={rc} path={path}")
+
+
+class Fifo:
+    """Bounded blocking byte-block queue (the reference's ``Fifo``):
+    ``push`` blocks while full and returns False once closed; ``pop``
+    blocks until a block or close, then returns None at end of stream
+    (repeatably); ``close`` never blocks.  Native or Python, the same
+    semantics."""
+
+    def __init__(self, depth: int = 4):
+        self._lib = _load_io()
+        # a native pop hands out a pointer into a buffer owned by the
+        # queue, valid until the next pop: pop and copy under one lock
+        self._pop_lock = threading.Lock()
+        if self._lib is not None:
+            self._handle = self._lib.dn_fifo_create(depth)
+        else:
+            self._handle = None
+            self._depth = max(1, depth)
+            self._deque: List[bytes] = []
+            self._closed = False
+            self._cv = threading.Condition()
+
+    def push(self, data: bytes) -> bool:
+        if self._handle is not None:
+            return self._lib.dn_fifo_push(self._handle, data, len(data)) == 0
+        with self._cv:
+            while not self._closed and len(self._deque) >= self._depth:
+                self._cv.wait()
+            if self._closed:
+                return False
+            self._deque.append(data)
+            self._cv.notify_all()
+            return True
+
+    def pop(self) -> Optional[bytes]:
+        """Next block, or None at end of stream (closed and drained)."""
+        if self._handle is not None:
+            with self._pop_lock:
+                ptr = ctypes.POINTER(ctypes.c_uint8)()
+                n = self._lib.dn_fifo_pop(self._handle, ctypes.byref(ptr))
+                return None if n < 0 else ctypes.string_at(ptr, n)
+        with self._cv:
+            while not self._closed and not self._deque:
+                self._cv.wait()
+            if not self._deque:
+                return None
+            item = self._deque.pop(0)
+            self._cv.notify_all()
+            return item
+
+    def close(self) -> None:
+        if self._handle is not None:
+            self._lib.dn_fifo_close(self._handle)
+            return
+        with self._cv:
+            self._closed = True
+            self._cv.notify_all()
+
+    def destroy(self) -> None:
+        if self._handle is not None:
+            self._lib.dn_fifo_destroy(self._handle)
+            self._handle = None
+
+
+class PrefetchChannel:
+    """Ordered multi-file reader with background prefetch: iterate for
+    each file's bytes in order (native threads read ahead up to
+    ``depth`` files; the Python twin reads them one by one)."""
+
+    def __init__(self, paths: List[str], depth: int = 4, threads: int = 2):
+        self.paths = list(paths)
+        self._lib = _load_io()
+        self._handle = None
+        if self._lib is not None:
+            arr = (ctypes.c_char_p * len(self.paths))(*[p.encode() for p in self.paths])
+            self._handle = self._lib.dn_channel_open(arr, len(self.paths), depth, threads)
+
+    def __iter__(self):
+        if self._handle is None:
+            for p in self.paths:
+                with open(p, "rb") as fh:
+                    yield fh.read()
+            return
+        ptr = ctypes.POINTER(ctypes.c_uint8)()
+        while True:
+            n = self._lib.dn_channel_next(self._handle, ctypes.byref(ptr))
+            if n == -1:
+                break
+            if n == -2:
+                raise IOError("native channel read error")
+            yield ctypes.string_at(ptr, n)
+
+    def close(self) -> None:
+        if self._handle is not None:
+            self._lib.dn_channel_close(self._handle)
+            self._handle = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()

@@ -1,5 +1,6 @@
 """Build step for the port's native code: the CUDA kernels (``nvcc`` for
-``sm_90a``) and the host tokenizer (the system C++ compiler).
+``sm_90a``), the host tokenizer and the host I/O routines (the system
+C++ compiler; the I/O library links zlib).
 
 Each library is compiled at first use from the sources in the checkout
 into ``dryad_tpu_torch/_build/`` (listed in ``.gitignore``), named by a
@@ -55,37 +56,40 @@ def _sources(rel: Sequence[str]) -> List[str]:
     return [os.path.join(PKG_DIR, r) for r in rel]
 
 
-def library_path(name: str, sources: Sequence[str], cuda: bool) -> str:
+def library_path(name: str, sources: Sequence[str], cuda: bool, libs: Sequence[str] = ()) -> str:
     """Where the build of ``sources`` (paths relative to the package)
-    lives: the name carries a digest of the sources and flags."""
-    h = hashlib.sha1(" ".join(CUDA_FLAGS if cuda else CXX_FLAGS).encode())
+    lives: the name carries a digest of the sources, flags and link
+    libraries."""
+    h = hashlib.sha1(" ".join((*(CUDA_FLAGS if cuda else CXX_FLAGS), *libs)).encode())
     for path in _sources(sources):
         with open(path, "rb") as fh:
             h.update(fh.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
-def _command(out: str, sources: Sequence[str], cuda: bool) -> List[str]:
+def _command(out: str, sources: Sequence[str], cuda: bool, libs: Sequence[str]) -> List[str]:
     if cuda:
-        return [_nvcc(), *CUDA_FLAGS, "-o", out, *_sources(sources)]
-    return [_cxx(), *CXX_FLAGS, "-o", out, *_sources(sources)]
+        return [_nvcc(), *CUDA_FLAGS, "-o", out, *_sources(sources), *libs]
+    return [_cxx(), *CXX_FLAGS, "-o", out, *_sources(sources), *libs]
 
 
 def build_many(specs: Dict[str, tuple]) -> Dict[str, str]:
-    """Build every ``name -> (sources, cuda)`` spec not built yet, all
-    compilers started together; returns ``name -> library path``.
-    Raises :class:`BuildError` with the compiler's output on failure."""
-    paths = {n: library_path(n, s, c) for n, (s, c) in specs.items()}
+    """Build every ``name -> (sources, cuda[, libs])`` spec not built
+    yet, all compilers started together; returns ``name -> library
+    path``.  ``libs``: link flags after the sources (``-lz``).  Raises
+    :class:`BuildError` with the compiler's output on failure."""
+    specs = {n: (tuple(s[0]), s[1], tuple(s[2]) if len(s) > 2 else ()) for n, s in specs.items()}
+    paths = {n: library_path(n, s, c, l) for n, (s, c, l) in specs.items()}
     with _lock:
         os.makedirs(BUILD_DIR, exist_ok=True)
         procs = []
-        for name, (sources, cuda) in specs.items():
+        for name, (sources, cuda, libs) in specs.items():
             out = paths[name]
             if os.path.exists(out):
                 continue
             tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
             proc = subprocess.Popen(
-                _command(tmp, sources, cuda),
+                _command(tmp, sources, cuda, libs),
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             )
             procs.append((name, proc, tmp, out))
@@ -103,6 +107,6 @@ def build_many(specs: Dict[str, tuple]) -> Dict[str, str]:
     return paths
 
 
-def build(name: str, sources: Sequence[str], cuda: bool) -> str:
+def build(name: str, sources: Sequence[str], cuda: bool, libs: Sequence[str] = ()) -> str:
     """Build (or find) one library; returns its path."""
-    return build_many({name: (tuple(sources), cuda)})[name]
+    return build_many({name: (tuple(sources), cuda, tuple(libs))})[name]

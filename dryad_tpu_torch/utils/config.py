@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+from typing import Optional
 
 
 def _env_int(name: str, default: int) -> int:
@@ -62,6 +63,13 @@ class DryadConfig:
     - ``overflow_sync_depth``: units (stages or runs of stages)
       dispatched before their overflow flags are read in one batched
       copy (the speculative dispatch window); 1 reads each at once.
+    - ``intermediate_compression``: the column codec of stores written
+      by ``to_store`` (None or "zlib").
+    - ``event_log_dir``: directory of the context's JSONL event log
+      (one ``job-<ms>.jsonl`` file per context); None keeps the log in
+      memory only.
+    - ``obs_events_mem_cap``: ring cap of the event log's in-memory
+      mirror; 0 = unbounded (the file keeps the full stream).
     """
 
     shuffle_slack: float = _env_float("DRYAD_TPU_SHUFFLE_SLACK", 2.0)
@@ -83,10 +91,15 @@ class DryadConfig:
         "DRYAD_TPU_DEVICE_CACHE", 2 * 1024 * 1024 * 1024
     )
     overflow_sync_depth: int = _env_int("DRYAD_TPU_OVERFLOW_SYNC_DEPTH", 4)
+    intermediate_compression: Optional[str] = None  # None | "zlib"
+    event_log_dir: Optional[str] = None
+    obs_events_mem_cap: int = _env_int("DRYAD_TPU_OBS_EVENTS_MEM_CAP", 1 << 16)
 
     def validate(self) -> None:
         if self.shuffle_slack < 1.0:
             raise ValueError("shuffle_slack must be >= 1.0")
+        if self.intermediate_compression not in (None, "zlib"):
+            raise ValueError("intermediate_compression must be None or 'zlib'")
         if not 0.0 < self.sample_rate <= 1.0:
             raise ValueError("sample_rate must be in (0, 1]")
         if self.max_shuffle_retries < 0:
@@ -99,3 +112,5 @@ class DryadConfig:
             raise ValueError("device_cache_bytes must be >= 0")
         if self.overflow_sync_depth < 1:
             raise ValueError("overflow_sync_depth must be >= 1")
+        if self.obs_events_mem_cap < 0:
+            raise ValueError("obs_events_mem_cap must be >= 0")

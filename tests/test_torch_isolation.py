@@ -58,12 +58,19 @@ def test_no_module_imports_jax_or_the_jax_package():
 def test_scan_covers_every_module_of_the_port():
     """The AST scan above reads each module of the package, the join
     operators (ops/join.py), the decomposable aggregates
-    (api/decomposable.py) and the stage kernels and executor that drive
-    them included."""
+    (api/decomposable.py), the stage kernels and executor that drive
+    them, and the stores, codecs, providers, event log, fusion decision,
+    explain, the WebHDFS stub and the samples included."""
     scanned = {os.path.relpath(p, ROOT) for p in _port_files()}
     for mod in ("ops/join.py", "ops/segmented.py", "exec/kernels.py", "exec/executor.py",
                 "parallel/partition.py", "plan/lower.py", "plan/infer.py", "api/query.py",
-                "api/context.py", "api/decomposable.py"):
+                "api/context.py", "api/decomposable.py", "columnar/io.py",
+                "columnar/codecs.py", "columnar/chunked.py", "columnar/uri.py",
+                "columnar/webhdfs.py", "columnar/azblob.py", "exec/events.py", "plan/fuse.py",
+                "tools/explain.py", "tools/webhdfs_stub.py", "runtime/bindings.py",
+                "samples/wordcount.py", "samples/terasort.py", "samples/join_groupby.py",
+                "samples/pagerank_dowhile.py", "samples/top_words.py",
+                "samples/topk_per_key_hdfs.py"):
         assert os.path.join("dryad_tpu_torch", mod) in scanned, mod
     assert "chip_smoke.py" in scanned
 
@@ -74,6 +81,9 @@ def test_import_in_fresh_process_loads_no_jax():
         "import dryad_tpu_torch.ops.bucket, dryad_tpu_torch.exec.executor\n"
         "import dryad_tpu_torch.ops.join, dryad_tpu_torch.exec.kernels\n"
         "import dryad_tpu_torch.api.decomposable\n"
+        "import dryad_tpu_torch.columnar.uri, dryad_tpu_torch.columnar.codecs\n"
+        "import dryad_tpu_torch.tools.explain, dryad_tpu_torch.tools.webhdfs_stub\n"
+        "import dryad_tpu_torch.samples.topk_per_key_hdfs, dryad_tpu_torch.samples.top_words\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "print(bad); sys.exit(1 if bad else 0)\n"

@@ -185,10 +185,10 @@ def test_unported_shapes_raise_not_implemented():
     unknown = Node("bogus", [q.node, k.node], q.schema, PartitionInfo())
     with pytest.raises(NotImplementedError, match="lowering for node kind 'bogus'"):
         tlower([unknown], tc.config, tc.dictionary)
-    with pytest.raises(NotImplementedError, match="Query.explain .*queue 1 item 14"):
-        q.explain()
-    with pytest.raises(NotImplementedError, match="Query.to_store .*queue 1 item 12"):
-        k.to_store("unused")
+    with pytest.raises(NotImplementedError, match=r"Query.explain\(analyze=True\) .*queue 1 item 14"):
+        q.explain(analyze=True)
+    with pytest.raises(NotImplementedError, match="Query.collect_stream .*queue 1 item 12"):
+        k.collect_stream()
 
 
 def test_context_device_cache_reuses_ingest():
