@@ -20,8 +20,12 @@ select_many, default_if_empty, apply with the partition index, fork),
 the parity queries of the CPU tests on the card and on the CPU, and the
 stores (TeraSort of 2^28 rows from a store into a store, a zlib store,
 WordCount through 8 text files and a STRING store, ``submit``, the JSONL
-event log, and the six ported samples), checks every result against a
-numpy oracle, and prints:
+event log, and the six ported samples), and out-of-core streaming (an
+external TeraSort of 2^30 rows whose peak device memory stays within
+1.5x of the same query's at 2^27, streaming WordCount through
+``text_stream``, a 2^28-row group_by through the combine tree, and the
+Join Task as a Grace join of two ``store_stream``s into a stream
+``to_store``), checks every result against a numpy oracle, and prints:
 
 - a ``{"kernels": [...]}`` line (each kernel's launches on the main
   path, its error against the plain version, its time, the plain
@@ -34,8 +38,8 @@ Any failed check raises, so the script exits non-zero and prints no
 result line.  Without a CUDA device it exits non-zero at once.
 ``--phases`` runs a subset (env, kernel, wordcount, dense, terasort,
 terasort_hot, groupby_sort, join_shuffle, join_broadcast, pagerank,
-decomposable, ordered_ops, cpu_parity, stores), for short first runs of
-a changed kernel.  The WordCount, TeraSort, sort-path group_by, join,
+decomposable, ordered_ops, cpu_parity, stores, stream), for short first
+runs of a changed kernel.  The WordCount, TeraSort, sort-path group_by, join,
 PageRank, decomposable and ordered phases also profile one warm query
 with torch.profiler and print device time by op, the device's busy
 share of the warm query, and peak memory.
@@ -113,9 +117,17 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def card_id() -> str:
+    """The card torch uses, as ``nvidia-smi -i`` takes it: its uuid (an
+    index would name the physical card, which CUDA_VISIBLE_DEVICES may
+    have renumbered)."""
+    u = str(torch.cuda.get_device_properties(0).uuid)
+    return u if u.startswith("GPU-") else "GPU-" + u
+
+
 def card_line() -> str:
     r = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", "-i", card_id(), "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     )
     return r.stdout.strip().splitlines()[0]
@@ -838,6 +850,32 @@ JS_AGGS = {"totalRevenue": ("sum", "adRevenue"), "avgPageRank": ("mean", "pageRa
            "n": ("count", None)}
 
 
+def check_join_task(table: dict, visits: dict, rankings: dict, label: str) -> tuple:
+    """The grouped Join Task table against a float64 oracle: sourceIPs
+    and counts exact, revenue within n_g * 2^-23 * sum|v|, the mean
+    pageRank within f32 rounding.  Returns (window mask, keys, counts,
+    |revenue error|)."""
+    lo, hi = JS_WEEK
+    keep = (visits["visitDate"] >= lo) & (visits["visitDate"] < hi)
+    order = np.argsort(rankings["pageURL"])
+    at = np.searchsorted(rankings["pageURL"], visits["destURL"][keep], sorter=order)
+    pr = rankings["pageRank"][order[at]].astype(np.float64)
+    uk, inv = np.unique(visits["sourceIP"][keep], return_inverse=True)
+    cnt = np.bincount(inv)
+    rev = np.bincount(inv, weights=visits["adRevenue"][keep].astype(np.float64))
+    mean_pr = np.bincount(inv, weights=pr) / cnt
+    o = np.argsort(table["sourceIP"])
+    got = {c: a[o] for c, a in table.items()}
+    check(np.array_equal(got["sourceIP"], uk), f"{label}: sourceIPs differ from the oracle's")
+    check(np.array_equal(got["n"], cnt.astype(np.int32)), f"{label}: counts differ")
+    err = np.abs(got["totalRevenue"] - rev)
+    check(bool((err <= cnt * F32_REL * rev).all()),  # adRevenue >= 0: sum |v| = sum v
+          f"{label}: revenue sums past n_g * 2^-23 * sum|v|")
+    check(bool((np.abs(got["avgPageRank"] - mean_pr) <= 2.0 ** -22 * mean_pr + 1e-6).all()),
+          f"{label}: mean pageRank past f32 rounding")
+    return keep, uk, cnt, err / np.maximum(rev, 1e-30)
+
+
 def phase_join_shuffle(dev, card: str) -> dict:
     """The Join Task: visits in a one-week window, joined to their
     page's rank (``auto`` must shuffle: the right side's capacity is far
@@ -860,30 +898,13 @@ def phase_join_shuffle(dev, card: str) -> dict:
     check(spy.chosen and not any(spy.chosen), f"join_shuffle: auto chose {spy.chosen}, not shuffle")
     res["auto_chose"] = "shuffle"
 
-    # float64 oracle of the grouped table
-    keep = (visits["visitDate"] >= lo) & (visits["visitDate"] < hi)
-    order = np.argsort(rankings["pageURL"])
-    at = np.searchsorted(rankings["pageURL"], visits["destURL"][keep], sorter=order)
-    pr = rankings["pageRank"][order[at]].astype(np.float64)
-    uk, inv = np.unique(visits["sourceIP"][keep], return_inverse=True)
-    cnt = np.bincount(inv)
-    rev = np.bincount(inv, weights=visits["adRevenue"][keep].astype(np.float64))
-    mean_pr = np.bincount(inv, weights=pr) / cnt
-    o = np.argsort(table["sourceIP"])
-    got = {c: a[o] for c, a in table.items()}
-    check(np.array_equal(got["sourceIP"], uk), "join_shuffle: sourceIPs differ from the oracle's")
-    check(np.array_equal(got["n"], cnt.astype(np.int32)), "join_shuffle: counts differ")
-    err = np.abs(got["totalRevenue"] - rev)
-    check(bool((err <= cnt * F32_REL * rev).all()),  # adRevenue >= 0: sum |v| = sum v
-          "join_shuffle: revenue sums past n_g * 2^-23 * sum|v|")
-    check(bool((np.abs(got["avgPageRank"] - mean_pr) <= 2.0 ** -22 * mean_pr + 1e-6).all()),
-          "join_shuffle: mean pageRank past f32 rounding")
+    keep, uk, cnt, rel_err = check_join_task(table, visits, rankings, "join_shuffle")
     best = int(np.argmax(table["totalRevenue"]))
     check(top["totalRevenue"].tolist() == [table["totalRevenue"][best]]
           and top["sourceIP"].tolist() == [table["sourceIP"][best]],
           "join_shuffle: the top-1 row is not the grouped table's largest revenue")
     res.update(visits_in_window=int(keep.sum()), groups=int(len(uk)),
-               max_rel_err_revenue=float((err / np.maximum(rev, 1e-30)).max()))
+               max_rel_err_revenue=float(rel_err.max()))
     log(f"join_shuffle: auto chose shuffle; {res['visits_in_window']} visits in the window, "
         f"{len(uk)} sourceIPs: keys and counts exact, revenue within n_g*2^-23*sum|v| "
         f"(max rel err {res['max_rel_err_revenue']:.3g}), top-1 {top['sourceIP'][0]} "
@@ -1792,12 +1813,444 @@ def phase_stores(dev, card: str) -> dict:
     return res
 
 
+# -- phase 15: out-of-core streaming ---------------------------------------------
+
+SM_TS_ROWS = 1 << 30  # the external TeraSort: 8 GiB of int32 keys and f32 payloads
+SM_TS_SMALL_ROWS = 1 << 27  # the same query first, for the peak it must stay within 1.5x of
+SM_TS_CHUNK = 1 << 26  # rows a from_stream chunk
+SM_GB_ROWS = 1 << 28  # the combine-tree group_by
+SM_GB_CHUNK = 1 << 24
+SM_PEAK_RATIO = 1.5
+# streaming WordCount's bucket-kernel launches: 16 chunk partials (the
+# corpus in 2^25-byte chunks), the combine tree's merges and its root
+ST_WC_LAUNCHES = 22
+# The TeraSort's spill peaks at its whole table (8 GiB) plus one bucket's
+# re-split (1/32 of it); the corpus, the Join Task's stores and the
+# event logs take about 2 GiB more, after the sort's spill is gone.
+SM_FREE_BYTES = 10 << 30
+_MIX1 = np.uint64(0x9E3779B97F4A7C15)
+
+
+def row_checksum(key: np.ndarray, pay: np.ndarray) -> int:
+    """Order-free checksum of (key, payload bits) rows: the sum, mod
+    2^64, of a 64-bit mix of each row (a row's 64 bits, xor-shifted,
+    times an odd constant)."""
+    x = (key.view(np.uint32).astype(np.uint64) << np.uint64(32)) | pay.view(np.uint32)
+    x ^= x >> np.uint64(29)
+    x *= _MIX1
+    return int(x.sum(dtype=np.uint64))
+
+
+class DeviceBusy:
+    """The card's busy share over a whole part, sampled every 100 ms by
+    ``nvidia-smi`` on the card torch uses (NVML's ``utilization.gpu``:
+    the share of each sample period in which a kernel ran; copies alone
+    count as idle).  Cheap at
+    any length, where a torch.profiler trace of the 2^30-row sort's
+    thousands of bucket jobs takes minutes to read back."""
+
+    def __enter__(self):
+        torch.cuda.synchronize()
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "-i", card_id(), "--query-gpu=utilization.gpu",
+             "--format=csv,noheader,nounits", "-lms", "100"],
+            stdout=subprocess.PIPE, text=True)
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        try:
+            torch.cuda.synchronize()
+            self.wall_s = time.perf_counter() - self.t0
+        finally:
+            self.proc.terminate()
+            out, _ = self.proc.communicate(timeout=60)
+        if exc[0] is not None:
+            return
+        samples = [float(x) for x in out.split() if x.replace(".", "", 1).isdigit()]
+        check(bool(samples), "nvidia-smi gave no utilization samples")
+        share = sum(samples) / len(samples) / 100.0
+        self.samples = len(samples)
+        self.busy_s = share * self.wall_s
+        self.idle = 1.0 - share
+
+
+def metric_total(ctx, name: str) -> float:
+    """A counter of the context's metrics registry, summed over its
+    labels (the stream driver counts ``spill_bytes`` and
+    ``spill_read_bytes`` there)."""
+    return sum(c["value"] for c in ctx.executor.metrics.snapshot()["counters"] if c["name"] == name)
+
+
+class LaunchRecorder:
+    """Keeps on the host, while installed, the inputs of the first call
+    of the executor's bucket kernel (``exec/kernels.py``) at each shape
+    (value-column count, K, cap): in a streaming WordCount, the chunk
+    partials' count-only launches and the combine tree's merges and root
+    of one int32 count column.  The kernel's launch counter is left as it is;
+    the context runs one job at a time, so calls do not interleave."""
+
+    def __enter__(self):
+        from dryad_tpu_torch.exec import kernels
+
+        self.mod, self.real = kernels, kernels.bucket_sum_count
+        self.calls, self.first = 0, {}
+
+        def rec(keys, values, valid, num_buckets):
+            self.calls += 1
+            key = (len(values), int(num_buckets), int(keys.shape[1]))
+            if key not in self.first:
+                self.first[key] = (keys.cpu(), [v.cpu() for v in values], valid.cpu())
+            return self.real(keys, values, valid, num_buckets)
+
+        kernels.bucket_sum_count = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.bucket_sum_count = self.real
+
+
+def _stream_ctx(spill_root: str, **cfg):
+    """A context on the reference's default stream configuration
+    (pipeline depth 4, the combine tree, 2^21-row buckets, 32 buckets),
+    spilling under ``spill_root``, keeping every event in memory."""
+    from dryad_tpu_torch import DryadConfig, DryadContext
+
+    ctx = DryadContext(num_partitions_=P, config=DryadConfig(
+        stream_spill_dir=spill_root, obs_events_mem_cap=0, **cfg))
+    c = ctx.config
+    check((c.stream_pipeline_depth, c.combine_tree, c.stream_bucket_rows, c.stream_buckets)
+          == (4, True, 1 << 21, 32), "the stream phase is not on the default stream config")
+    return ctx
+
+
+def stream_terasort(rows: int, spill_root: str, card: str) -> dict:
+    """order_by(key) over a from_stream of ``rows`` seeded rows in
+    SM_TS_CHUNK-row chunks, read with collect_stream and checked as it
+    streams: each piece sorted, piece boundaries non-decreasing, the row
+    count, and the order-free checksum of (key, payload bits)."""
+    rng = np.random.default_rng(SEED + 16)
+    chunk = min(SM_TS_CHUNK, rows)
+    made = {"rows": 0, "sum": 0, "s": 0.0}
+
+    def chunks():
+        for _ in range(rows // chunk):
+            t = time.perf_counter()
+            key = rng.integers(-2**31, 2**31, chunk, dtype=np.int32)
+            pay = rng.random(chunk, dtype=np.float32)
+            made["rows"] += chunk
+            made["sum"] = (made["sum"] + row_checksum(key, pay)) % (1 << 64)
+            made["s"] += time.perf_counter() - t
+            yield {"key": key, "payload": pay}
+
+    ctx = _stream_ctx(spill_root)
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    got, total, last, pieces = 0, 0, None, 0
+    t0 = time.monotonic()
+    with DeviceBusy() as busy:
+        for piece in ctx.from_stream(chunks()).order_by([("key", False)]).collect_stream():
+            k = piece["key"]
+            if len(k) == 0:
+                continue
+            check(bool((k[1:] >= k[:-1]).all()), f"stream terasort: piece {pieces} is not sorted")
+            check(last is None or int(k[0]) >= last, f"stream terasort: piece {pieces} starts below "
+                  "the previous piece's last key")
+            last = int(k[-1])
+            got += len(k)
+            total = (total + row_checksum(k, piece["payload"])) % (1 << 64)
+            pieces += 1
+        t_end = time.monotonic()
+    peak = torch.cuda.max_memory_allocated()
+    evs = ctx.events.events()
+    written, read = metric_total(ctx, "spill_bytes"), metric_total(ctx, "spill_read_bytes")
+    check(written > 0 and read >= written, f"stream terasort: spill written {written} bytes, read {read}")
+    check(got == made["rows"] == rows, f"stream terasort: {got} rows out of {rows}")
+    check(total == made["sum"], "stream terasort: the (key, payload) checksum differs from the input's")
+    kinds = [e["kind"] for e in evs]
+    check("events_dropped" not in kinds, "stream terasort: the event log dropped events")
+    gather_at = min(e["mono"] for e in evs if e["kind"] in ("stream_bucket", "stream_bucket_split"))
+    splits = [e for e in evs if e["kind"] == "stream_bucket_split"]
+    res = {
+        "rows": rows, "bytes": rows * 8, "wall_s": busy.wall_s, "rows_per_s": rows / busy.wall_s,
+        "scatter_s": gather_at - t0, "gather_s": t_end - gather_at, "source_s": made["s"],
+        "spill_written_bytes": written, "spill_read_bytes": read,
+        "buckets_sorted": kinds.count("stream_bucket"), "pieces": pieces,
+        "phase1_buckets": len({e["bucket"] for e in evs if e["kind"] == "stream_spill" and e["depth"] == 0}),
+        "resplits": sum(e["mode"] == "resplit" for e in splits),
+        "peak_bytes": peak, "device_busy_s": busy.busy_s, "device_idle": busy.idle, "card": card,
+    }
+    log(f"stream terasort [{card}]: {rows} rows ({rows * 8 / 2**30:.2f} GiB) in {busy.wall_s:.2f} s = "
+        f"{rows / busy.wall_s:.4g} rows/s; phase-1 scatter {res['scatter_s']:.2f} s (of it the "
+        f"source's generation and checksum {made['s']:.2f} s, on the prefetch thread), phase-2 "
+        f"gather {res['gather_s']:.2f} s; spill written {written / 2**30:.2f} GiB, read "
+        f"{read / 2**30:.2f} GiB; {res['phase1_buckets']} phase-1 buckets, {res['resplits']} "
+        f"re-splits, {res['buckets_sorted']} buckets sorted on the card, {pieces} pieces, each sorted, "
+        f"boundaries ordered, rows and checksum equal the input's; peak device memory "
+        f"{peak / 1e9:.3f} GB; device busy {busy.busy_s:.3f} s, idle {busy.idle:.3f}")
+    del ctx
+    free_card()
+    return res
+
+
+def stream_wordcount(root: str, spill_root: str, card: str) -> dict:
+    """The wordcount phase's corpus as 8 files through text_stream
+    (2^25-byte chunks), group_by(word, count), then the top 20; equal
+    to the in-core WordCount of the same files, and to the numpy
+    oracle.  The bucket kernel's launches are counted from 0 just
+    before the stream query; the inputs of its first launch at each
+    shape the query gives it are kept and, after the query, the kernel
+    is held byte for byte against its plain version on each."""
+    from dryad_tpu_torch import DryadContext
+    from dryad_tpu_torch.ops.bucket import bucket_sum_count, bucket_sum_count_plain
+
+    rng = np.random.default_rng(SEED + 2)
+    ids = zipf_ids(rng, WC_WORDS)
+    tab = vocab_table()
+    words = np.array([bytes(r).split()[0].decode() for r in tab], object)
+    paths = []
+    for i, part in enumerate(np.array_split(ids, ST_WC_FILES)):
+        paths.append(os.path.join(root, f"corpus-{i}.txt"))
+        with open(paths[-1], "wb") as fh:
+            fh.write(tab[part].tobytes())
+    count = {"n": ("count", None)}
+    ctx = _stream_ctx(spill_root)
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    bucket_sum_count.launches = 0  # the stream path starts here
+    with LaunchRecorder() as rec, DeviceBusy() as busy:
+        table = ctx.text_stream(paths).group_by("word", count).collect()
+    launches = bucket_sum_count.launches
+    peak = torch.cuda.max_memory_allocated()
+    top = ctx.from_arrays(table).order_by([("n", True)]).take(20).collect()
+    check(launches == rec.calls == ST_WC_LAUNCHES,
+          f"streaming WordCount launched the bucket kernel {launches} times in {rec.calls} calls, "
+          f"expected {ST_WC_LAUNCHES}")
+    check({m for m, _, _ in rec.first} == {0, 1},
+          f"streaming WordCount's kernel shapes {sorted(rec.first)} lack a chunk partial or a merge")
+    shapes = []
+    for (m, K, _), (keys, vals, valid) in sorted(rec.first.items()):
+        keys, valid, vals = keys.cuda(), valid.cuda(), [v.cuda() for v in vals]
+        _compare(keys, valid, vals, K)
+        n = keys.numel()
+        shapes.append({
+            "shape": f"P={keys.shape[0]} cap={keys.shape[1]} K={K} values={m}{' (int32)' if m else ''}",
+            "kernel_ms": cuda_time_ms(lambda: bucket_sum_count(keys, vals, valid, K), 10),
+            "plain_ms": cuda_time_ms(lambda: bucket_sum_count_plain(keys, vals, valid, K), 3),
+            # each input byte once (keys, mask, int32 columns), the
+            # count and sum tables written once
+            "bound_ms": (n * (4 + 1 + 4 * m) + (1 + m) * P * K * 4) / HBM_BYTES_PER_S * 1e3})
+        log(f"kernel vs plain at the stream WordCount's {'merge' if m else 'chunk partial'} shape "
+            f"({shapes[-1]['shape']}): byte-equal; kernel {shapes[-1]['kernel_ms']:.3f} ms, "
+            f"plain {shapes[-1]['plain_ms']:.3f} ms, bound {shapes[-1]['bound_ms']:.4f} ms")
+        del keys, valid, vals
+    rec.first.clear()
+    chunks = sum(e["kind"] == "stream_chunk" for e in ctx.events.events())
+    del ctx
+    free_card()
+    incore = DryadContext(num_partitions_=P)
+    t0 = time.perf_counter()
+    q = incore.from_text(paths).group_by("word", count)
+    ref = q.collect()
+    ref_top = q.order_by([("n", True)]).take(20).collect()
+    incore_s = time.perf_counter() - t0
+    del incore, q
+    free_card()
+    got = dict(zip(table["word"].tolist(), table["n"].tolist()))
+    check(table["n"].dtype == np.int32, "streaming WordCount's count column is not int32")
+    check(got == dict(zip(ref["word"].tolist(), ref["n"].tolist())),
+          "streaming WordCount differs from the in-core WordCount")
+    uid, ucnt = np.unique(ids, return_counts=True)
+    check(got == dict(zip(words[uid].tolist(), ucnt.tolist())), "streaming WordCount differs from numpy")
+    check(top["n"].tolist() == ref_top["n"].tolist() == sorted(ucnt.tolist(), reverse=True)[:20],
+          "streaming top-20 counts differ from the in-core top-20")
+    check(all(got[w] == c for w, c in zip(top["word"], top["n"])), "a streaming top-20 word has a wrong count")
+    res = {"words": WC_WORDS, "files": len(paths), "chunks": chunks, "wall_s": busy.wall_s,
+           "words_per_s": WC_WORDS / busy.wall_s, "incore_s": incore_s, "launches": launches,
+           "kernel_shapes": shapes,
+           "peak_bytes": peak, "device_busy_s": busy.busy_s, "device_idle": busy.idle, "card": card}
+    log(f"stream wordcount [{card}]: {WC_WORDS} words in {len(paths)} files, {chunks} chunks of "
+        f"2^25 bytes, text_stream + group_by {busy.wall_s:.2f} s = {WC_WORDS / busy.wall_s:.4g} words/s "
+        f"(in-core from_text + group_by + top-20: {incore_s:.2f} s); {len(got)} words, table and top-20 "
+        f"equal the in-core WordCount and numpy; bucket kernel launches {launches}; peak device memory "
+        f"{peak / 1e9:.3f} GB; device busy {busy.busy_s:.3f} s, idle {busy.idle:.3f}")
+    for p in paths:
+        os.remove(p)
+    return res
+
+
+def stream_groupby(spill_root: str, card: str) -> dict:
+    """SM_GB_ROWS rows over GB_KEYS int32 keys spread over the int32
+    range (groupby_sort's distribution), SM_GB_CHUNK-row chunks, through
+    the combine tree: count, int sum, min, max exact; the f32 sum within
+    n_g * 2^-23 * sum|v| of float64; the tree's merge events logged."""
+    rng = np.random.default_rng(SEED + 17)
+    width = (1 << 32) // GB_KEYS
+    pool = (np.arange(GB_KEYS, dtype=np.int64) * width + rng.integers(0, width, GB_KEYS)
+            - 2**31).astype(np.int32)  # ascending, one key in each bin
+    o_cnt = np.zeros(GB_KEYS, np.int64)
+    o_sum = np.zeros(GB_KEYS, np.int64)
+    o_min = np.full(GB_KEYS, np.iinfo(np.int32).max, np.int32)
+    o_max = np.full(GB_KEYS, np.iinfo(np.int32).min, np.int32)
+    o_fs = np.zeros(GB_KEYS)
+    o_abs = np.zeros(GB_KEYS)
+
+    def chunks():
+        for _ in range(SM_GB_ROWS // SM_GB_CHUNK):
+            idx = rng.integers(0, GB_KEYS, SM_GB_CHUNK)
+            w = rng.integers(-1000, 1000, SM_GB_CHUNK, dtype=np.int32)
+            v = (rng.standard_normal(SM_GB_CHUNK) * 100).astype(np.float32)
+            o_cnt[:] += np.bincount(idx, minlength=GB_KEYS)
+            o_sum[:] += np.bincount(idx, weights=w, minlength=GB_KEYS).astype(np.int64)
+            np.minimum.at(o_min, idx, w)
+            np.maximum.at(o_max, idx, w)
+            o_fs[:] += np.bincount(idx, weights=v.astype(np.float64), minlength=GB_KEYS)
+            o_abs[:] += np.bincount(idx, weights=np.abs(v.astype(np.float64)), minlength=GB_KEYS)
+            yield {"key": pool[idx], "w": w, "v": v}
+
+    ctx = _stream_ctx(spill_root)
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    aggs = {"c": ("count", None), "sw": ("sum", "w"), "lo": ("min", "w"), "hi": ("max", "w"),
+            "sv": ("sum", "v")}
+    with DeviceBusy() as busy:
+        out = ctx.from_stream(chunks()).group_by("key", aggs).collect()
+    peak = torch.cuda.max_memory_allocated()
+    evs = ctx.events.events()
+    del ctx
+    free_card()
+    live = o_cnt > 0
+    o = np.argsort(out["key"])
+    got = {c: a[o] for c, a in out.items()}
+    check(np.array_equal(got["key"], pool[live]), "stream group_by: keys differ from the oracle's")
+    check(np.array_equal(got["c"], o_cnt[live].astype(np.int32)), "stream group_by: counts differ")
+    check(np.array_equal(got["sw"].astype(np.int64), o_sum[live]), "stream group_by: int sums differ")
+    check(np.array_equal(got["lo"], o_min[live]) and np.array_equal(got["hi"], o_max[live]),
+          "stream group_by: min or max differ")
+    err = np.abs(got["sv"].astype(np.float64) - o_fs[live])
+    check(bool((err <= o_cnt[live] * F32_REL * o_abs[live]).all()),
+          "stream group_by: f32 sums past n_g * 2^-23 * sum|v|")
+    levels = [e for e in evs if e["kind"] == "combine_tree_level"]
+    check(bool(levels), "stream group_by: the combine tree logged no merge")
+    check(not any(e["kind"] == "combine_tree_degrade" for e in evs),
+          "stream group_by: a reducing stream degraded key ranges to the host")
+    res = {"rows": SM_GB_ROWS, "keys": int(live.sum()), "wall_s": busy.wall_s,
+           "rows_per_s": SM_GB_ROWS / busy.wall_s, "tree_merges": len(levels),
+           "tree_levels": sorted({e["level"] for e in levels}),
+           "stream_combine_events": sum(e["kind"] == "stream_combine" for e in evs),
+           "max_rel_err_sum": float((err / np.maximum(o_abs[live], 1e-30)).max()),
+           "peak_bytes": peak, "device_busy_s": busy.busy_s, "device_idle": busy.idle, "card": card}
+    log(f"stream group_by [{card}]: {SM_GB_ROWS} rows in {SM_GB_ROWS // SM_GB_CHUNK} chunks, "
+        f"{res['keys']} keys, {busy.wall_s:.2f} s = {SM_GB_ROWS / busy.wall_s:.4g} rows/s; count, int "
+        f"sum, min, max exact, f32 sum within n_g*2^-23*sum|v| (max |err|/sum|v| "
+        f"{res['max_rel_err_sum']:.3g}); {len(levels)} combine_tree_level merges at levels "
+        f"{res['tree_levels']}, {res['stream_combine_events']} stream_combine; peak device memory "
+        f"{peak / 1e9:.3f} GB; device busy {busy.busy_s:.3f} s, idle {busy.idle:.3f}")
+    return res
+
+
+def stream_join(root: str, spill_root: str, card: str) -> dict:
+    """The Join Task's tables (join_shuffle's generator and seed) written
+    with to_store and opened with store_stream, so both sides stream and
+    the join takes the Grace path; then group_by("sourceIP") and a
+    stream to_store.  The store read back equals the in-core
+    join_shuffle query on the same data."""
+    from dryad_tpu_torch import DryadConfig, DryadContext
+
+    rng = np.random.default_rng(SEED + 8)
+    visits, rankings = visits_tables(rng)
+    vpath, rpath, opath = (os.path.join(root, n) for n in ("visits", "rankings", "grouped"))
+    ctx = DryadContext(num_partitions_=P)
+    ctx.from_arrays(visits).to_store(vpath)
+    ctx.from_arrays(rankings).to_store(rpath)
+    del ctx
+    free_card()
+    lo, hi = JS_WEEK
+    ctx = _stream_ctx(spill_root)
+    torch.cuda.reset_peak_memory_stats()
+    with DeviceBusy() as busy:
+        v = ctx.store_stream(vpath).where(lambda c: (c["visitDate"] >= lo) & (c["visitDate"] < hi))
+        j = v.join(ctx.store_stream(rpath), "destURL", "pageURL", strategy="auto", expansion=1.0)
+        h = j.group_by("sourceIP", JS_AGGS).to_store(opath)
+    peak = torch.cuda.max_memory_allocated()
+    evs = ctx.events.events()
+    check(any(e["kind"] == "stream_store" for e in evs), "stream join: to_store did not stream")
+    joins = sum(e["kind"] == "stream_bucket" for e in evs)
+    del ctx, v, j
+    free_card()
+    table = _read_back(opath)
+    check(int(h.result()["rows"][0]) == len(table["sourceIP"]), "stream join: the store's row count differs")
+    incore = DryadContext(num_partitions_=P, config=DryadConfig(device_cache_bytes=JOIN_CACHE_BYTES))
+    iv = incore.from_arrays(visits).where(lambda c: (c["visitDate"] >= lo) & (c["visitDate"] < hi))
+    ref = iv.join(incore.from_arrays(rankings), "destURL", "pageURL", strategy="auto",
+                  expansion=1.0).group_by("sourceIP", JS_AGGS).collect()
+    del incore, iv
+    free_card()
+    o, r = np.argsort(table["sourceIP"]), np.argsort(ref["sourceIP"])
+    check(np.array_equal(table["sourceIP"][o], ref["sourceIP"][r])
+          and np.array_equal(table["n"][o], ref["n"][r]),
+          "stream join: sourceIPs or counts differ from the in-core join_shuffle query")
+    keep, uk, cnt, rel_err = check_join_task(table, visits, rankings, "stream join")
+    check_join_task(ref, visits, rankings, "in-core join")
+    res = {"visits": JS_VISITS, "pages": JS_PAGES, "groups": int(len(uk)), "bucket_joins": joins,
+           "wall_s": busy.wall_s, "max_rel_err_revenue": float(rel_err.max()), "peak_bytes": peak,
+           "device_busy_s": busy.busy_s, "device_idle": busy.idle, "card": card}
+    log(f"stream join [{card}]: {JS_VISITS} visits and {JS_PAGES} pages from stores, Grace join in "
+        f"{joins} bucket jobs, group_by and to_store {busy.wall_s:.2f} s; {len(uk)} sourceIPs, keys and "
+        f"counts equal the in-core query's, revenue within n_g*2^-23*sum|v| (max rel err "
+        f"{res['max_rel_err_revenue']:.3g}); peak device memory {peak / 1e9:.3f} GB; device busy "
+        f"{busy.busy_s:.3f} s, idle {busy.idle:.3f}")
+    return res
+
+
+def phase_stream(dev, card: str) -> dict:
+    """Out-of-core streaming on the default stream config at P=8: the
+    external TeraSort at SM_TS_SMALL_ROWS and SM_TS_ROWS (its peak device
+    memory may not grow past SM_PEAK_RATIO), streaming WordCount (the
+    bucket kernel's stream path), the combine-tree group_by, and the
+    Grace join into a store.  Spills go under WORK_DIR/stream."""
+    import shutil
+
+    t_phase = time.perf_counter()
+    root = os.path.join(WORK_DIR, "stream")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    free = shutil.disk_usage(root).free
+    if free < SM_FREE_BYTES:
+        raise RuntimeError(f"stream phase needs {SM_FREE_BYTES / 2**30:.0f} GiB free under {root}; "
+                           f"{free / 2**30:.1f} GiB free")
+    spill_root = os.path.join(root, "spill")
+    res = {"card": card, "free_bytes": free}
+    try:
+        res["terasort_small"] = stream_terasort(SM_TS_SMALL_ROWS, spill_root, card)
+        res["terasort"] = stream_terasort(SM_TS_ROWS, spill_root, card)
+        ratio = res["terasort"]["peak_bytes"] / res["terasort_small"]["peak_bytes"]
+        res["terasort_peak_ratio"] = ratio
+        check(ratio <= SM_PEAK_RATIO, f"stream terasort: the {SM_TS_ROWS}-row peak is {ratio:.3f}x the "
+              f"{SM_TS_SMALL_ROWS}-row peak, past {SM_PEAK_RATIO}x")
+        log(f"stream terasort: peak device memory {res['terasort']['peak_bytes'] / 1e9:.3f} GB at "
+            f"{SM_TS_ROWS} rows, {res['terasort_small']['peak_bytes'] / 1e9:.3f} GB at "
+            f"{SM_TS_SMALL_ROWS} rows: {ratio:.3f}x")
+        check(not os.listdir(spill_root), "stream terasort left spill directories behind")
+        res["wordcount"] = stream_wordcount(root, spill_root, card)
+        res["groupby"] = stream_groupby(spill_root, card)
+        res["join"] = stream_join(root, spill_root, card)
+        check(not os.listdir(spill_root), "the stream phase left spill directories behind")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    res["launches"] = res["wordcount"]["launches"]
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"stream phase [{card}]: {res['phase_s']:.1f} s")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument(
         "--phases",
         default="env,kernel,wordcount,dense,terasort,terasort_hot,groupby_sort,"
-                "join_shuffle,join_broadcast,pagerank,decomposable,ordered_ops,cpu_parity,stores")
+                "join_shuffle,join_broadcast,pagerank,decomposable,ordered_ops,cpu_parity,stores,"
+                "stream")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     if not torch.cuda.is_available():
@@ -1834,6 +2287,8 @@ def main(argv=None) -> int:
         results["cpu_parity"] = phase_cpu_parity(dev, card)
     if "stores" in phases:
         results["stores"] = phase_stores(dev, card)
+    if "stream" in phases:
+        results["stream"] = phase_stream(dev, card)
     print("results: " + json.dumps(results))
 
     kern = results.get("kernel", {})
@@ -1847,6 +2302,7 @@ def main(argv=None) -> int:
         "decomposable": results.get("decomposable", {}).get("bucket_sum_count_launches"),
         "ordered_ops": results.get("ordered_ops", {}).get("bucket_sum_count_launches"),
         "stores": results.get("stores", {}).get("wordcount", {}).get("launches"),
+        "stream": results.get("stream", {}).get("launches"),
     }
     ran = [n for n in per_path.values() if n is not None]
     jb = kern.get("join_broadcast", {})
@@ -1878,6 +2334,7 @@ def main(argv=None) -> int:
         "join_broadcast_plain_ms": jb.get("plain_ms"),
         "join_broadcast_library_ms": jb.get("library_ms"),
         "join_broadcast_bound_ms": jb.get("bound_ms"),
+        "stream_shapes": results.get("stream", {}).get("wordcount", {}).get("kernel_shapes"),
     }]}
     print(json.dumps(line))
     print(card)

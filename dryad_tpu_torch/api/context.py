@@ -4,6 +4,10 @@ The counterpart of ``dryad_tpu/api/context.py`` for ``from_arrays``
 (with user-type ``codecs``), ``from_text`` (one path, a list of paths,
 a str or bytes), ``from_store`` / ``to_store`` (partitioned stores by
 path or URI, ``columnar/uri.py``), ``collect`` and ``submit``, the
+out-of-core stream inputs (``from_stream``, ``text_stream``,
+``store_stream``), whose plans run through ``exec/outofcore.py``, the
+asynchronous result fetches of that driver (``run_to_host_async``,
+``run_many_to_host_async``), the
 tables pinned by ``Query.cache()`` (and ``release``), and the subplans
 of a ``do_while``.  A context owns one device (CUDA unless the caller
 passes ``device="cpu"``; it never falls back by itself), P logical
@@ -16,8 +20,10 @@ never evicts it.
 
 from __future__ import annotations
 
+import itertools
 import math
 import os
+import threading
 import time
 from collections import OrderedDict
 from typing import Dict, Optional, Union
@@ -88,6 +94,9 @@ class DryadContext:
             raise ValueError("num_partitions_ must be >= 1")
         self.dictionary = StringDictionary()
         self._bindings: Dict[int, tuple] = {}
+        # True once a stream binding exists: the fast gate of the
+        # per-collect stream check (``exec/outofcore.py::has_stream_input``)
+        self._any_stream = False
         # column name -> TypeCodec of from_arrays(codecs=): expanded at
         # ingest, folded back at collect
         self._codecs: Dict[str, object] = {}
@@ -99,6 +108,10 @@ class DryadContext:
             path = os.path.join(self.config.event_log_dir, f"job-{int(time.time() * 1000)}.jsonl")
         self.events = EventLog(path, mem_cap=self.config.obs_events_mem_cap)
         self.executor = GraphExecutor(self.num_partitions, self.config, self.device, self.events)
+        # one job at a time: the executor keeps per-job state, and the
+        # stream driver runs jobs from its prefetch threads too (a
+        # group_by over a join's bucket stream); re-entrant for do_while
+        self._job_lock = threading.RLock()
         # do_while body/cond plans, built once per function object
         self._subplans: Dict[tuple, tuple] = {}
         self.tokenizer_native = None  # set by from_text: which tokenizer ran
@@ -212,6 +225,94 @@ class DryadContext:
         )
         return Query(self, node)
 
+    def from_stream(self, chunks, schema: Optional[Schema] = None) -> Query:
+        """Out-of-core input: an iterable of host tables, processed as
+        bounded chunks by the streaming driver (``exec/outofcore.py``).
+        Queries over it run the row-local operators per chunk, plus
+        group_by/aggregate/distinct (partial combine), order_by
+        (external distribution sort), join (Grace bucketing), take and
+        concat.  Without ``schema`` the first chunk's dtypes give it."""
+        from dryad_tpu_torch.exec.outofcore import ChunkSource
+
+        it = iter(chunks)
+        if schema is None:
+            first = next(it, None)
+            if first is None:
+                raise ValueError("an empty stream needs an explicit schema")
+            first = {k: np.asarray(v) for k, v in first.items()}
+            schema = _infer_schema(first)
+            it = itertools.chain([first], it)
+        node = Node("input", [], schema, PartitionInfo.roundrobin(), source="stream")
+        self._bindings[node.id] = ("stream", ChunkSource(it, schema))
+        self._any_stream = True
+        return Query(self, node)
+
+    def text_stream(self, paths, chunk_bytes: int = 1 << 25, column: str = "word") -> Query:
+        """Chunked tokenizing text input for corpora larger than memory
+        (the streaming ``from_text``).  Chunks split at whitespace, so
+        no token straddles two, and arrive as the tokenizer's physical
+        columns (hash and prefix-rank words) with their vocabulary."""
+        if isinstance(paths, str):
+            paths = [paths]
+        schema = Schema([(column, ColumnType.STRING)])
+
+        def phys(buf):
+            h0, h1, r0, r1, vocab = self._tokenize_buf(buf)
+            return {
+                f"{column}#h0": h0, f"{column}#h1": h1,
+                f"{column}#r0": r0, f"{column}#r1": r1,
+                "#vocab": {column: vocab},
+            }
+
+        def gen():
+            for p in paths:
+                with open(p, "rb") as fh:
+                    carry = b""
+                    while True:
+                        buf = fh.read(chunk_bytes)
+                        if not buf:
+                            if carry.strip():
+                                yield phys(carry)
+                            break
+                        buf = carry + buf
+                        # cut at the last whitespace so tokens stay whole
+                        cut = max(buf.rfind(b" "), buf.rfind(b"\n"),
+                                  buf.rfind(b"\t"), buf.rfind(b"\r"))
+                        if cut <= 0:
+                            carry = buf
+                            continue
+                        chunk, carry = buf[:cut], buf[cut:]
+                        if chunk.strip():
+                            yield phys(chunk)
+
+        return self.from_stream(gen(), schema)
+
+    def store_stream(self, path: str, parts_per_chunk: int = 1) -> Query:
+        """A local store as a chunk stream, ``parts_per_chunk``
+        partition files a chunk: the out-of-core ``from_store``."""
+        from dryad_tpu_torch.columnar.io import _part_name, load_store_meta, read_partition_file
+
+        manifest, schema, dict_map = load_store_meta(path)
+        self.dictionary._map.update(dict_map)
+
+        def flush(batch):
+            if len(batch) == 1:
+                return batch[0]
+            return {c: np.concatenate([b[c] for b in batch]) for c in batch[0]}
+
+        def gen():
+            batch: list = []
+            for i in range(manifest["partitions"]):
+                phys = read_partition_file(os.path.join(path, _part_name(i)))
+                batch.append(decode_physical_table(schema, slice(None), phys, self.dictionary))
+                if len(batch) >= parts_per_chunk:
+                    yield flush(batch)
+                    batch = []
+            if batch:
+                yield flush(batch)
+
+        return self.from_stream(gen(), schema)
+
     def from_store(self, path: str) -> Query:
         """A table from a store by path or URI (``columnar/uri.py``:
         partfile://, file://, mem://, hdfs://, wasb://, abfs://).  The
@@ -260,8 +361,9 @@ class DryadContext:
                 f"{query.node.kind!r} node bound as "
                 f"{binding[0] if binding else None!r}"
             )
-        del self._bindings[query.node.id]
-        self._device_cache.pop(query.node.id, None)
+        with self._job_lock:
+            del self._bindings[query.node.id]
+            self._device_cache.pop(query.node.id, None)
 
     # -- execution -------------------------------------------------------------
     def _bind_device(self, node: Node) -> ColumnBatch:
@@ -298,10 +400,18 @@ class DryadContext:
                 partition_capacity=cap, dictionary=self.dictionary,
             )
         if kind == "host_physical":
-            data, valid = block_layout(rest[0], self.num_partitions)
+            # a stream chunk carries the capacity its scope fixed
+            cap = rest[1] if len(rest) > 1 else None
+            data, valid = block_layout(rest[0], self.num_partitions, cap)
             return ColumnBatch.from_host_layout(data, valid, self.device)
         if kind == "store":
             return self._ingest_store(*rest)
+        if kind == "stream":
+            raise RuntimeError(
+                "a chunk-stream input cannot bind as a device table; "
+                "this operator needs the whole input resident (e.g. "
+                "cache/apply) — materialize with to_store() first"
+            )
         raise RuntimeError(f"unknown binding kind {kind}")
 
     def _ingest_store(self, parts, schema: Schema) -> ColumnBatch:
@@ -345,20 +455,73 @@ class DryadContext:
         )
         return batch
 
-    def execute(self, query: Query) -> ColumnBatch:
-        """Lower and run a query; the result batch stays on the device."""
-        graph = lower([query.node], self.config, self.dictionary, P=self.num_partitions)
-        bindings = {nid: self._bind_device(n) for nid, n in graph.inputs.items()}
-        results = self.executor.execute(graph, bindings, subquery_runner=self._run_subquery)
-        return results[graph.outputs[query.node.id]]
+    def _run_graph(self, queries, defer_miss: bool = False):
+        with self._job_lock:
+            graph = lower([q.node for q in queries], self.config, self.dictionary, P=self.num_partitions)
+            bindings = {nid: self._bind_device(n) for nid, n in graph.inputs.items()}
+            out = self.executor.execute(
+                graph, bindings, subquery_runner=self._run_subquery, defer_miss=defer_miss,
+            )
+        results, deferred = out if defer_miss else (out, None)
+        return [results[graph.outputs[q.node.id]] for q in queries], deferred
 
-    def run_to_host(self, query: Query) -> Dict[str, np.ndarray]:
-        table = self.execute(query).to_numpy(query.schema, self.dictionary)
+    def execute(self, query: Query, defer_miss: bool = False):
+        """Lower and run a query; the result batch stays on the device.
+        ``defer_miss``: returns ``(batch, DeferredFinish)`` and leaves
+        the dictionary-miss check to the caller's ``finish()``."""
+        (batch,), deferred = self._run_graph([query], defer_miss)
+        return (batch, deferred) if defer_miss else batch
+
+    def _host_table(self, query: Query, batch: ColumnBatch) -> Dict[str, np.ndarray]:
+        table = batch.to_numpy(query.schema, self.dictionary)
         if self._codecs:
             from dryad_tpu_torch.columnar.codecs import collapse_table
 
             table = collapse_table(table, self._codecs)
         return table
+
+    def run_to_host(self, query: Query) -> Dict[str, np.ndarray]:
+        from dryad_tpu_torch.exec.outofcore import StreamExecutor, has_stream_input
+
+        if has_stream_input(self, query.node):
+            return StreamExecutor(self).run_to_host(query.node)
+        return self._host_table(query, self.execute(query))
+
+    def _fetch(self, query: Query, batch: ColumnBatch, deferred):
+        """A zero-arg closure that runs ``deferred``'s miss check (when
+        given) and copies ``batch`` to the host as ``query``'s table."""
+        def fetch() -> Dict[str, np.ndarray]:
+            if deferred is not None:
+                deferred.finish()
+            try:
+                return self._host_table(query, batch)
+            except Exception as e:  # the copy failed: close the job out
+                if deferred is not None:
+                    deferred.abort(f"output transfer failed: {e!r}")
+                raise
+
+        return fetch
+
+    def run_to_host_async(self, query: Query):
+        """Dispatch the job now; return a zero-arg ``fetch`` closure that
+        checks its dictionary-miss counters and copies the result to the
+        host (the streaming driver's dispatch/drain split: bucket k+1's
+        job is queued while bucket k's result copies).  Not for plans
+        over a stream input."""
+        batch, deferred = self.execute(query, defer_miss=True)
+        return self._fetch(query, batch, deferred)
+
+    def run_many_to_host_async(self, queries):
+        """Lower SEVERAL independent queries as one job (cross-chunk
+        fusion, ``config.chunk_fuse``); one ``fetch`` closure each.
+        Each query stays its own computation, so results equal separate
+        runs.  The miss check rides the FIRST fetch: a miss anywhere in
+        the group raises there, before any result is committed."""
+        batches, deferred = self._run_graph(list(queries), defer_miss=True)
+        return [
+            self._fetch(q, b, deferred if i == 0 else None)
+            for i, (q, b) in enumerate(zip(queries, batches))
+        ]
 
     def submit(self, query: Query) -> JobHandle:
         return JobHandle(self.run_to_host(query))
@@ -368,10 +531,17 @@ class DryadContext:
         per partition holding that partition's valid rows (columns in
         name order, as the reference's host fetch returns them), then
         the manifest and the dictionary.  The column codec is
-        ``config.intermediate_compression``."""
+        ``config.intermediate_compression``.  A plan over a stream input
+        writes a local store as it streams, one part file per non-empty
+        piece; its handle's table holds the row count."""
         from dryad_tpu_torch.columnar.uri import write_store_uri
+        from dryad_tpu_torch.exec.outofcore import StreamExecutor, has_stream_input
         from dryad_tpu_torch.runtime import bindings as RB
 
+        if has_stream_input(self, query.node):
+            # results stream into the store one part file per piece
+            rows = StreamExecutor(self).to_store(query.node, path)
+            return JobHandle({"rows": np.asarray([rows])}, path)
         t_run = time.perf_counter()
         batch = self.execute(query)
         if self.device.type == "cuda":

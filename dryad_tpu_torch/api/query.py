@@ -13,11 +13,12 @@ forms, ``group_join_count``), the set operators (``concat``, ``union``,
 ``sequence_equal``, ``sliding_window``) and the element accessors
 built on them, the user-function operators (``apply``, ``apply_host``,
 ``fork``), iteration (``do_while``) and materialization (``cache``),
-the scalar and decomposable aggregates, ``collect``, ``submit``,
-``to_store`` and ``explain``.  Node construction, validation and the
-auto-dense gates are the reference's, so both packages build the same
-logical plan.  ``collect_stream`` and ``explain(analyze=True)`` raise
-``NotImplementedError`` naming the ROADMAP.md item that will port them.
+the scalar and decomposable aggregates, ``collect``,
+``collect_stream``, ``submit``, ``to_store`` and ``explain``.  Node
+construction, validation and the auto-dense gates are the reference's,
+so both packages build the same logical plan.  ``explain(analyze=True)``
+raises ``NotImplementedError`` naming the ROADMAP.md item that will
+port it.
 """
 
 from __future__ import annotations
@@ -954,6 +955,20 @@ class Query:
         """Execute and fetch host logical columns."""
         return self.ctx.run_to_host(self)
 
+    def collect_stream(self):
+        """Execute and yield host tables one bounded piece at a time:
+        a plan over a stream input (``from_stream`` and kin) yields the
+        out-of-core driver's pieces (sorted buckets in key order, join
+        buckets, ...), for results larger than host memory; any other
+        plan yields its whole result once."""
+        from dryad_tpu_torch.exec.outofcore import StreamExecutor, has_stream_input
+
+        if not has_stream_input(self.ctx, self.node):
+            yield self.collect()
+            return
+        _schema, tables = StreamExecutor(self.ctx).run_stream(self.node)
+        yield from tables
+
     def submit(self) -> "JobHandle":
         return self.ctx.submit(self)
 
@@ -994,23 +1009,3 @@ class JobHandle:
     def result(self) -> Dict[str, np.ndarray]:
         return self.table
 
-
-# The reference's Query methods the port does not have yet, each with the
-# ROADMAP.md item (queue 1) that will port it.
-_PENDING_METHODS = {
-    "collect_stream": "item 12: out-of-core",
-}
-
-
-def _pending_method(name: str, where: str):
-    def method(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"dryad_tpu_torch does not port Query.{name} yet (ROADMAP.md, queue 1 {where})"
-        )
-
-    method.__name__ = name
-    return method
-
-
-for _name, _where in _PENDING_METHODS.items():
-    setattr(Query, _name, _pending_method(_name, _where))

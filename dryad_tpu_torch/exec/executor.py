@@ -35,7 +35,10 @@ ported stages need:
   overflow); ``apply_host`` is its host round trip per partition.
 - After the job, the deferred dictionary/range-miss counters of every
   unit are read in ONE copy; a nonzero count raises, as the
-  reference's ``_raise_miss``.
+  reference's ``_raise_miss``.  ``execute(defer_miss=True)`` hands
+  that read to the caller (:class:`DeferredFinish`), who makes it
+  beside the result's own copy, as the reference's asynchronous
+  result fetches do.
 - Every job writes the reference's events to the context's
   :class:`~dryad_tpu_torch.exec.events.EventLog`, with the reference's
   fields, in its order: ``fuse_break`` per seam of ``plan/fuse.py``'s
@@ -64,6 +67,7 @@ from dryad_tpu_torch.exec.events import EventLog
 from dryad_tpu_torch.exec.kernels import NON_OVERFLOW_OPS, StageContext, _round8, run_ops
 from dryad_tpu_torch.ops import shuffle as SH
 from dryad_tpu_torch.exec.operands import DeviceTables
+from dryad_tpu_torch.obs.metrics import MetricsRegistry
 from dryad_tpu_torch.plan.fuse import (
     DRIVER_OPS, SHRINKING_OPS, FuseReport, _adaptable_shape as _adaptable, fuse,
 )
@@ -72,6 +76,39 @@ from dryad_tpu_torch.plan.lower import Stage, StageGraph, StageOp, tail_width
 
 class StageFailedError(RuntimeError):
     """A stage reached a terminal failure (budget, capacity, guard)."""
+
+
+class DeferredFinish:
+    """Tail of an ``execute(defer_miss=True)`` job: its dictionary-miss
+    counters, read when the caller fetches the result.  ``finish()``
+    raises ``StageFailedError`` on a nonzero counter (``job_failed``
+    and ``dict_miss`` logged, as the reference's) and logs
+    ``job_complete`` otherwise; ``abort(reason)`` closes a job whose
+    result copy failed."""
+
+    def __init__(self, executor: "GraphExecutor", pending):
+        self._executor = executor
+        self._pending = pending
+
+    def abort(self, reason: str) -> None:
+        self._pending = []
+        self._executor.event_log.emit("job_failed", reason=reason, failure_kind="transient")
+
+    def finish(self, deferred: bool = True) -> None:
+        """``deferred=False``: the executor's own check at job end,
+        which logs ``dict_miss`` alone, as the reference's."""
+        pending, self._pending = self._pending, []
+        log = self._executor.event_log
+        if pending:
+            counts = torch.stack([m for _, m in pending]).cpu().tolist()
+            for (name, _), m in zip(pending, counts):
+                if m:
+                    if deferred:
+                        log.emit("job_failed", reason=f"dict miss in {name}",
+                                 failure_kind="deterministic")
+                    log.emit("dict_miss", stage_name=name, rows=int(m))
+                    raise StageFailedError(_miss_message(name, int(m)))
+        log.emit("job_complete")
 
 
 def _miss_message(name: str, m: int) -> str:
@@ -179,6 +216,9 @@ class GraphExecutor:
         self.tables = DeviceTables(self.device)
         # every job's events, the reference's kinds and fields
         self.event_log = event_log if event_log is not None else EventLog(None)
+        # counters and histograms of the stream driver (spill and
+        # transfer bytes, per-piece rows), written as ``metrics`` events
+        self.metrics = MetricsRegistry()
         # the last job's retries, adaptations and loop rounds, as (kind,
         # name, value): ("stage_overflow", name, boost) for each
         # overflowed attempt, ("stage_width_adapt", name, fan) for each
@@ -194,8 +234,12 @@ class GraphExecutor:
         self._depth = 0  # do_while subplans re-enter execute()
 
     def execute(
-        self, graph: StageGraph, bindings: Dict[int, ColumnBatch], subquery_runner=None
-    ) -> Dict[Tuple[int, int], ColumnBatch]:
+        self, graph: StageGraph, bindings: Dict[int, ColumnBatch], subquery_runner=None,
+        defer_miss: bool = False,
+    ):
+        """Run the graph; returns its results by ``(stage id, output)``,
+        or with ``defer_miss`` ``(results, DeferredFinish)``, whose
+        ``finish()`` the caller runs when it reads the result."""
         if self._depth == 0:
             self.events = []
         # the adaptation state is per graph: a nested run keeps its own
@@ -204,14 +248,19 @@ class GraphExecutor:
         self.subquery_runner = subquery_runner or saved_runner
         self._depth += 1
         try:
-            return self._execute(graph, bindings)
+            results, misses = self._execute(graph, bindings)
         finally:
             self._depth -= 1
             self.subquery_runner = saved_runner
             for a, v in zip(_ADAPT_STATE, saved):
                 setattr(self, a, v)
+        deferred = DeferredFinish(self, misses)
+        if defer_miss:
+            return results, deferred
+        deferred.finish(deferred=False)
+        return results
 
-    def _execute(self, graph: StageGraph, bindings) -> Dict[Tuple[int, int], ColumnBatch]:
+    def _execute(self, graph: StageGraph, bindings):
         results: Dict[Tuple[int, int], ColumnBatch] = {}
         misses: List[Tuple[str, torch.Tensor]] = []  # (unit name, miss counter)
         report = fuse(graph, self.config)
@@ -236,14 +285,7 @@ class GraphExecutor:
             if len(window) >= depth:
                 self._drain(window, bindings, results, misses)
         self._drain(window, bindings, results, misses)
-        if misses:
-            counts = torch.stack([m for _, m in misses]).cpu().tolist()
-            for (name, _), m in zip(misses, counts):
-                if m:
-                    self.event_log.emit("dict_miss", stage_name=name, rows=int(m))
-                    raise StageFailedError(_miss_message(name, int(m)))
-        self.event_log.emit("job_complete")
-        return results
+        return results, misses
 
     def _note(self, kind: str, label: str, value: int, **fields) -> None:
         """Log an event and keep its ``(kind, name, value)`` record."""

@@ -70,6 +70,30 @@ class DryadConfig:
       memory only.
     - ``obs_events_mem_cap``: ring cap of the event log's in-memory
       mirror; 0 = unbounded (the file keeps the full stream).
+    - Out-of-core streaming (``exec/outofcore.py``):
+      ``stream_bucket_rows`` is the most rows a phase-2 bucket job may
+      hold before it re-splits from observed volume,
+      ``stream_combine_rows`` the partial accumulator's compaction
+      threshold, ``stream_buckets`` the phase-1 spill fan-out and
+      ``stream_spill_dir`` the spill root (None: a fresh temporary
+      directory).  ``stream_pipeline_depth`` chunks may be in flight
+      (prefetch thread, background spill writer and device-resident
+      partials; 1 is the serial driver) and ``stream_writer_queue``
+      pieces may wait for the spill writer.
+    - Combine tree (``exec/combinetree.py``): ``combine_tree`` routes a
+      streaming group_by's partials into similarity-placed groups whose
+      merges elide the exchange (off: the flat N-ary combiner);
+      ``combine_tree_fan`` caps one merge's fan-in,
+      ``combine_tree_ranges`` is the key-range histograms' resolution (a
+      power of two), ``combine_tree_groups`` the level-0 group count (0:
+      auto) and ``combine_tree_degrade_ratio`` the distinct/rows ratio at
+      which a key range degrades to host accumulation.
+      ``stream_host_reprobe``: consecutive reducing host combines after
+      which the flat combiner retries the device (0: never).
+    - ``dispatch_depth``: chunk and bucket jobs in flight behind the
+      dispatch window's collector thread (1: dispatch then read; -1:
+      adaptive, which resolves to 2 without a memory measurement);
+      ``chunk_fuse``: chunk plans lowered together into one job.
     """
 
     shuffle_slack: float = _env_float("DRYAD_TPU_SHUFFLE_SLACK", 2.0)
@@ -94,6 +118,22 @@ class DryadConfig:
     intermediate_compression: Optional[str] = None  # None | "zlib"
     event_log_dir: Optional[str] = None
     obs_events_mem_cap: int = _env_int("DRYAD_TPU_OBS_EVENTS_MEM_CAP", 1 << 16)
+    stream_bucket_rows: int = _env_int("DRYAD_TPU_STREAM_BUCKET_ROWS", 1 << 21)
+    stream_combine_rows: int = _env_int("DRYAD_TPU_STREAM_COMBINE_ROWS", 1 << 20)
+    stream_buckets: int = _env_int("DRYAD_TPU_STREAM_BUCKETS", 32)
+    stream_spill_dir: Optional[str] = os.environ.get("DRYAD_TPU_STREAM_SPILL_DIR") or None
+    stream_pipeline_depth: int = _env_int("DRYAD_TPU_STREAM_PIPELINE_DEPTH", 4)
+    stream_writer_queue: int = _env_int("DRYAD_TPU_STREAM_WRITER_QUEUE", 8)
+    combine_tree: bool = _env_bool("DRYAD_TPU_COMBINE_TREE", True)
+    combine_tree_fan: int = _env_int("DRYAD_TPU_COMBINE_TREE_FAN", 16)
+    combine_tree_ranges: int = _env_int("DRYAD_TPU_COMBINE_TREE_RANGES", 64)
+    combine_tree_groups: int = _env_int("DRYAD_TPU_COMBINE_TREE_GROUPS", 0)
+    combine_tree_degrade_ratio: float = _env_float(
+        "DRYAD_TPU_COMBINE_TREE_DEGRADE_RATIO", 0.75
+    )
+    stream_host_reprobe: int = _env_int("DRYAD_TPU_STREAM_HOST_REPROBE", 2)
+    dispatch_depth: int = _env_int("DRYAD_TPU_DISPATCH_DEPTH", 2)
+    chunk_fuse: int = _env_int("DRYAD_TPU_CHUNK_FUSE", 1)
 
     def validate(self) -> None:
         if self.shuffle_slack < 1.0:
@@ -114,3 +154,32 @@ class DryadConfig:
             raise ValueError("overflow_sync_depth must be >= 1")
         if self.obs_events_mem_cap < 0:
             raise ValueError("obs_events_mem_cap must be >= 0")
+        if self.stream_bucket_rows < 1:
+            raise ValueError("stream_bucket_rows must be >= 1")
+        if self.stream_combine_rows < 1:
+            raise ValueError("stream_combine_rows must be >= 1")
+        if self.stream_buckets < 2:
+            raise ValueError("stream_buckets must be >= 2")
+        if self.stream_pipeline_depth < 1:
+            raise ValueError("stream_pipeline_depth must be >= 1")
+        if self.stream_writer_queue < 1:
+            raise ValueError("stream_writer_queue must be >= 1")
+        if self.combine_tree_fan < 2:
+            raise ValueError("combine_tree_fan must be >= 2")
+        if self.combine_tree_ranges < 2 or (
+            self.combine_tree_ranges & (self.combine_tree_ranges - 1)
+        ):
+            raise ValueError("combine_tree_ranges must be a power of two >= 2")
+        if self.combine_tree_groups < 0:
+            raise ValueError("combine_tree_groups must be >= 0")
+        if not 0.0 < self.combine_tree_degrade_ratio <= 1.0:
+            raise ValueError("combine_tree_degrade_ratio must be in (0, 1]")
+        if self.stream_host_reprobe < 0:
+            raise ValueError("stream_host_reprobe must be >= 0")
+        if self.dispatch_depth != -1 and self.dispatch_depth < 1:
+            raise ValueError(
+                "dispatch_depth must be >= 1, or -1 for the adaptive "
+                "headroom policy"
+            )
+        if self.chunk_fuse < 1:
+            raise ValueError("chunk_fuse must be >= 1")

@@ -11,6 +11,7 @@ the ids (``stage``, ``topology``, ``after``, ``before``).
 """
 
 import ast
+import itertools
 import json
 import os
 import re
@@ -35,6 +36,19 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "dryad_tpu_torch")
 
 _ID = re.compile(r"(#|\bin|\bstage ?|\bf|\bs)(\d+)")
+
+
+@pytest.fixture(autouse=True)
+def same_id_width(monkeypatch):
+    """Both packages draw node ids from counters of the same width:
+    explain pads its columns to the longest label, ids included, so ids
+    of different digit counts (each counter advanced by whatever ran
+    before in the process) would shift the padding."""
+    from dryad_tpu.plan import nodes as jnodes
+    from dryad_tpu_torch.plan import nodes as tnodes
+
+    for mod in (jnodes, tnodes):
+        monkeypatch.setattr(mod, "_ids", itertools.count(10**12))
 
 
 def renumber(text: str) -> str:

@@ -60,7 +60,9 @@ def test_scan_covers_every_module_of_the_port():
     operators (ops/join.py), the decomposable aggregates
     (api/decomposable.py), the stage kernels and executor that drive
     them, and the stores, codecs, providers, event log, fusion decision,
-    explain, the WebHDFS stub and the samples included."""
+    explain, the WebHDFS stub, the samples and the out-of-core stream
+    path (obs/, spill, pipeline, partial, combine tree, the driver)
+    included."""
     scanned = {os.path.relpath(p, ROOT) for p in _port_files()}
     for mod in ("ops/join.py", "ops/segmented.py", "exec/kernels.py", "exec/executor.py",
                 "parallel/partition.py", "plan/lower.py", "plan/infer.py", "api/query.py",
@@ -70,7 +72,9 @@ def test_scan_covers_every_module_of_the_port():
                 "tools/explain.py", "tools/webhdfs_stub.py", "runtime/bindings.py",
                 "samples/wordcount.py", "samples/terasort.py", "samples/join_groupby.py",
                 "samples/pagerank_dowhile.py", "samples/top_words.py",
-                "samples/topk_per_key_hdfs.py"):
+                "samples/topk_per_key_hdfs.py", "obs/span.py", "obs/metrics.py",
+                "obs/telemetry.py", "exec/spill.py", "exec/pipeline.py", "exec/partial.py",
+                "exec/combinetree.py", "exec/outofcore.py"):
         assert os.path.join("dryad_tpu_torch", mod) in scanned, mod
     assert "chip_smoke.py" in scanned
 
@@ -84,6 +88,10 @@ def test_import_in_fresh_process_loads_no_jax():
         "import dryad_tpu_torch.columnar.uri, dryad_tpu_torch.columnar.codecs\n"
         "import dryad_tpu_torch.tools.explain, dryad_tpu_torch.tools.webhdfs_stub\n"
         "import dryad_tpu_torch.samples.topk_per_key_hdfs, dryad_tpu_torch.samples.top_words\n"
+        "import dryad_tpu_torch.exec.outofcore, dryad_tpu_torch.exec.combinetree\n"
+        "import dryad_tpu_torch.exec.pipeline, dryad_tpu_torch.exec.spill\n"
+        "import dryad_tpu_torch.exec.partial, dryad_tpu_torch.obs.span\n"
+        "import dryad_tpu_torch.obs.metrics, dryad_tpu_torch.obs.telemetry\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "print(bad); sys.exit(1 if bad else 0)\n"
@@ -103,3 +111,20 @@ def test_context_without_gpu_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         T.DryadContext()
     assert T.DryadContext(device="cpu").device.type == "cpu"
+
+
+def test_collect_stream_is_ported():
+    """``Query.collect_stream`` is the port's own method (it was the
+    last pending Query method), and a stream plan's pieces come out of
+    the out-of-core driver."""
+    import numpy as np
+
+    import dryad_tpu_torch as T
+    from dryad_tpu_torch.api import query
+
+    assert not hasattr(query, "_PENDING_METHODS")
+    assert T.Query.collect_stream.__qualname__ == "Query.collect_stream"
+    ctx = T.DryadContext(device="cpu")
+    chunks = [{"x": np.arange(i, i + 3, dtype=np.int32)} for i in (0, 3)]
+    pieces = list(ctx.from_stream(iter(chunks)).collect_stream())
+    assert [p["x"].tolist() for p in pieces] == [[0, 1, 2], [3, 4, 5]]

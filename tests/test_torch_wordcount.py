@@ -187,8 +187,10 @@ def test_unported_shapes_raise_not_implemented():
         tlower([unknown], tc.config, tc.dictionary)
     with pytest.raises(NotImplementedError, match=r"Query.explain\(analyze=True\) .*queue 1 item 14"):
         q.explain(analyze=True)
-    with pytest.raises(NotImplementedError, match="Query.collect_stream .*queue 1 item 12"):
-        k.collect_stream()
+    # collect_stream is ported: a plan without a stream input yields
+    # its whole result as one piece
+    (piece,) = list(k.collect_stream())
+    np.testing.assert_array_equal(piece["k"], np.array([-1, 2], np.int32))
 
 
 def test_context_device_cache_reuses_ingest():
