@@ -21,11 +21,17 @@ the parity queries of the CPU tests on the card and on the CPU, and the
 stores (TeraSort of 2^28 rows from a store into a store, a zlib store,
 WordCount through 8 text files and a STRING store, ``submit``, the JSONL
 event log, and the six ported samples), and out-of-core streaming (an
-external TeraSort of 2^30 rows whose peak device memory stays within
+external TeraSort of 2^29 rows whose peak device memory stays within
 1.5x of the same query's at 2^27, streaming WordCount through
 ``text_stream``, a 2^28-row group_by through the combine tree, and the
 Join Task as a Grace join of two ``store_stream``s into a stream
-``to_store``), checks every result against a numpy oracle, and prints:
+``to_store``), and serving (16 and 64 closed-loop clients over 4 tenants
+of 2^24 rows on one resident context through ``QueryService``, result
+cache off and on; materialized views under three 2^22-row appends in the
+views, recompute and epoch modes; stage checkpoints of the 2^26-row
+group_by written, resumed in a new context and recomputed past a
+corrupted column file), checks every result against a numpy oracle, and
+prints:
 
 - a ``{"kernels": [...]}`` line (each kernel's launches on the main
   path, its error against the plain version, its time, the plain
@@ -38,7 +44,7 @@ Any failed check raises, so the script exits non-zero and prints no
 result line.  Without a CUDA device it exits non-zero at once.
 ``--phases`` runs a subset (env, kernel, wordcount, dense, terasort,
 terasort_hot, groupby_sort, join_shuffle, join_broadcast, pagerank,
-decomposable, ordered_ops, cpu_parity, stores, stream), for short first
+decomposable, ordered_ops, cpu_parity, stores, stream, serve), for short first
 runs of a changed kernel.  The WordCount, TeraSort, sort-path group_by, join,
 PageRank, decomposable and ordered phases also profile one warm query
 with torch.profiler and print device time by op, the device's busy
@@ -1815,7 +1821,10 @@ def phase_stores(dev, card: str) -> dict:
 
 # -- phase 15: out-of-core streaming ---------------------------------------------
 
-SM_TS_ROWS = 1 << 30  # the external TeraSort: 8 GiB of int32 keys and f32 payloads
+# the external TeraSort: 4 GiB of int32 keys and f32 payloads (cut from
+# 2^30 rows so that every phase, the serve phase included, fits the
+# run's time limit with room: PERF.md section 4)
+SM_TS_ROWS = 1 << 29
 SM_TS_SMALL_ROWS = 1 << 27  # the same query first, for the peak it must stay within 1.5x of
 SM_TS_CHUNK = 1 << 26  # rows a from_stream chunk
 SM_GB_ROWS = 1 << 28  # the combine-tree group_by
@@ -1846,7 +1855,7 @@ class DeviceBusy:
     ``nvidia-smi`` on the card torch uses (NVML's ``utilization.gpu``:
     the share of each sample period in which a kernel ran; copies alone
     count as idle).  Cheap at
-    any length, where a torch.profiler trace of the 2^30-row sort's
+    any length, where a torch.profiler trace of the 2^29-row sort's
     thousands of bucket jobs takes minutes to read back."""
 
     def __enter__(self):
@@ -1993,6 +2002,51 @@ def stream_terasort(rows: int, spill_root: str, card: str) -> dict:
     return res
 
 
+def kernel_shape_report(keys, vals, valid, K: int) -> dict:
+    """Holds the bucket kernel byte for byte against its plain version
+    on inputs a main path gave it (kept on the host by LaunchRecorder),
+    and times both, one PyTorch call computing the same function
+    (``torch.bincount`` for counts alone; otherwise one ``index_add_``
+    of the stacked mask and value columns: int64 when every column is
+    int32, else f32) and the bound: each input byte once (keys, mask,
+    value columns), the count and sum tables written once."""
+    from dryad_tpu_torch.ops.bucket import bucket_sum_count, bucket_sum_count_plain
+
+    keys, valid, vals = keys.cuda(), valid.cuda(), [v.cuda() for v in vals]
+    _compare(keys, valid, vals, K)
+    Pk, cap = keys.shape
+    n = keys.numel()
+    m = len(vals)
+    kinds = ",".join(str(v.dtype).replace("torch.", "") for v in vals) or "-"
+    # invalid rows go to one extra bucket, outside the timed call
+    flat = torch.where(valid, keys.long() + torch.arange(Pk, device=keys.device).reshape(Pk, 1) * K,
+                       Pk * K).reshape(-1)
+    counts = bucket_sum_count(keys, vals, valid, K)[1]
+    if not vals:
+        library = "torch.bincount"
+        lib = lambda: torch.bincount(flat, minlength=Pk * K + 1)  # noqa: E731
+        check(torch.equal(lib()[: Pk * K].reshape(Pk, K).float(), counts),
+              "bincount yardstick counts differ")
+    else:
+        dt = torch.float32 if any(v.is_floating_point() for v in vals) else torch.int64
+        src = torch.stack([valid.reshape(-1).to(dt)] + [v.reshape(-1).to(dt) for v in vals], 1)
+        tab = torch.zeros((Pk * K + 1, 1 + m), dtype=dt, device=keys.device)
+        library = f"one index_add_ of a (rows, {1 + m}) {str(dt).replace('torch.', '')} source"
+        lib = lambda: tab.zero_().index_add_(0, flat, src)  # noqa: E731
+        check(torch.equal(lib()[: Pk * K, 0].reshape(Pk, K).float(), counts),
+              "index_add_ yardstick counts differ")
+    out = {
+        "shape": f"P={Pk} cap={cap} K={K} values={m}" + (f" ({kinds})" if m else ""),
+        "kernel_ms": cuda_time_ms(lambda: bucket_sum_count(keys, vals, valid, K), 10),
+        "plain_ms": cuda_time_ms(lambda: bucket_sum_count_plain(keys, vals, valid, K), 3),
+        "library": library,
+        "library_ms": cuda_time_ms(lib, 10),
+        "bound_ms": (n * (4 + 1 + 4 * m) + (1 + m) * Pk * K * 4) / HBM_BYTES_PER_S * 1e3,
+    }
+    del keys, valid, vals, flat
+    return out
+
+
 def stream_wordcount(root: str, spill_root: str, card: str) -> dict:
     """The wordcount phase's corpus as 8 files through text_stream
     (2^25-byte chunks), group_by(word, count), then the top 20; equal
@@ -2002,7 +2056,7 @@ def stream_wordcount(root: str, spill_root: str, card: str) -> dict:
     shape the query gives it are kept and, after the query, the kernel
     is held byte for byte against its plain version on each."""
     from dryad_tpu_torch import DryadContext
-    from dryad_tpu_torch.ops.bucket import bucket_sum_count, bucket_sum_count_plain
+    from dryad_tpu_torch.ops.bucket import bucket_sum_count
 
     rng = np.random.default_rng(SEED + 2)
     ids = zipf_ids(rng, WC_WORDS)
@@ -2030,20 +2084,11 @@ def stream_wordcount(root: str, spill_root: str, card: str) -> dict:
           f"streaming WordCount's kernel shapes {sorted(rec.first)} lack a chunk partial or a merge")
     shapes = []
     for (m, K, _), (keys, vals, valid) in sorted(rec.first.items()):
-        keys, valid, vals = keys.cuda(), valid.cuda(), [v.cuda() for v in vals]
-        _compare(keys, valid, vals, K)
-        n = keys.numel()
-        shapes.append({
-            "shape": f"P={keys.shape[0]} cap={keys.shape[1]} K={K} values={m}{' (int32)' if m else ''}",
-            "kernel_ms": cuda_time_ms(lambda: bucket_sum_count(keys, vals, valid, K), 10),
-            "plain_ms": cuda_time_ms(lambda: bucket_sum_count_plain(keys, vals, valid, K), 3),
-            # each input byte once (keys, mask, int32 columns), the
-            # count and sum tables written once
-            "bound_ms": (n * (4 + 1 + 4 * m) + (1 + m) * P * K * 4) / HBM_BYTES_PER_S * 1e3})
+        shapes.append(kernel_shape_report(keys, vals, valid, K))
         log(f"kernel vs plain at the stream WordCount's {'merge' if m else 'chunk partial'} shape "
             f"({shapes[-1]['shape']}): byte-equal; kernel {shapes[-1]['kernel_ms']:.3f} ms, "
-            f"plain {shapes[-1]['plain_ms']:.3f} ms, bound {shapes[-1]['bound_ms']:.4f} ms")
-        del keys, valid, vals
+            f"plain {shapes[-1]['plain_ms']:.3f} ms, {shapes[-1]['library']} "
+            f"{shapes[-1]['library_ms']:.3f} ms, bound {shapes[-1]['bound_ms']:.4f} ms")
     rec.first.clear()
     chunks = sum(e["kind"] == "stream_chunk" for e in ctx.events.events())
     del ctx
@@ -2244,13 +2289,513 @@ def phase_stream(dev, card: str) -> dict:
     return res
 
 
+# -- phase 16: serving tenants from one resident engine -------------------------
+
+SV_TENANTS = 4
+SV_ROWS = 1 << 24  # each tenant's table: 2^26 rows in all
+SV_WORDS = 1024  # each tenant's STRING keys t{t}w{i:04d}
+SV_CELLS = (16, 64)  # closed-loop client threads
+SV_PER_CLIENT = 6
+SV_CACHE_BYTES = 256 << 20
+# the tables stay resident: 4 tenants' device tables (~0.85 GB each at
+# 2^24 rows) pass the 2 GiB default and would re-upload every query
+SV_DEVICE_CACHE = 16 << 30
+SV_MAX_CLIENTS_PER_TENANT = max(SV_CELLS) // SV_TENANTS
+MV_ROWS = 1 << 24  # the hot tenant's table, and the unrelated tenant's
+MV_KEYS = 512
+# the bench's chunk-to-table ratio, 1/4; the writer's appends set each
+# mode's wall time (about 10 s each at 2^24 rows on the card: the grown
+# table's fingerprint and the views' folds), so 3 of the bench's 6 fit
+# the run's time limit (PERF.md section 4)
+MV_APPENDS = 3
+MV_APPEND_ROWS = 1 << 22
+MV_READERS = 8
+MV_READS = 12
+MV_OTHER_READERS = MV_READERS // 2
+MV_STALENESS_S = 0.05
+MV_MODES = ("views", "recompute", "epoch")
+CK_FREE_BYTES = 10 << 30  # the group_by's checkpoint (4.4 GB) twice: a rerun writes its new copy before removing the old
+
+
+def serve_tables(rng) -> list:
+    """The reference's serve bench schema: per tenant a STRING key over
+    its 1024 words (indexed from a vocabulary array), int64 v in [0,
+    1000) and f32 w; each with its word ids for the oracle."""
+    out = []
+    for t in range(SV_TENANTS):
+        vocab = np.array([f"t{t}w{i:04d}" for i in range(SV_WORDS)], object)
+        ids = rng.integers(0, SV_WORDS, SV_ROWS)
+        out.append((vocab, ids, {
+            "k": vocab[ids],
+            "v": rng.integers(0, 1000, SV_ROWS).astype(np.int64),
+            "w": rng.random(SV_ROWS).astype(np.float32),
+        }))
+    return out
+
+
+def serve_plans(tab) -> list:
+    """The bench's four prepared shapes, all value-hashable."""
+    return [
+        tab.group_by("k", {"s": ("sum", "v")}),
+        tab.group_by("k", {"c": ("count", None), "m": ("mean", "w")}),
+        tab.distinct("k"),
+        tab.order_by("v").take(64),
+    ]
+
+
+def serve_oracle(i: int, out: dict, vocab, ids, data) -> None:
+    """Plan ``i``'s result against numpy: keys, counts and integer sums
+    exact, the mean within 2^-16 * sum|w| of its key's, the top-64 rows
+    rows of the table with the 64 smallest v."""
+    cnt = np.bincount(ids, minlength=SV_WORDS)
+    present = np.flatnonzero(cnt)
+    if i == 3:
+        v = out["v"]
+        check(np.array_equal(v, np.sort(data["v"])[:64]), "serve top-64: v differs from np.sort")
+        pool = {}
+        for val in np.unique(v):
+            m = data["v"] == val
+            pool[int(val)] = set(zip(ids[m].tolist(), data["w"][m].view(np.int32).tolist()))
+        idx = {w: j for j, w in enumerate(vocab.tolist())}
+        rows = zip(out["k"].tolist(), v.tolist(), out["w"].view(np.int32).tolist())
+        check(all((idx[k], wb) in pool[val] for k, val, wb in rows),
+              "serve top-64: a row is not a row of the table")
+        return
+    keys = np.array([int(str(k)[-4:]) for k in out["k"]])
+    check(sorted(keys.tolist()) == present.tolist(), f"serve plan {i}: keys differ from numpy")
+    if i == 0:
+        sums = np.bincount(ids, weights=data["v"], minlength=SV_WORDS)
+        check(out["s"].dtype == np.int64 and np.array_equal(out["s"], sums[keys].astype(np.int64)),
+              "serve plan 0: int64 sums differ from numpy")
+    elif i == 1:
+        check(np.array_equal(out["c"], cnt[keys].astype(np.int32)), "serve plan 1: counts differ")
+        sw = np.bincount(ids, weights=data["w"].astype(np.float64), minlength=SV_WORDS)
+        aw = np.bincount(ids, weights=np.abs(data["w"]).astype(np.float64), minlength=SV_WORDS)
+        err = np.abs(out["m"].astype(np.float64) - sw[keys] / cnt[keys])
+        check(bool((err <= FLOAT_REL * aw[keys]).all()), "serve plan 1: mean past 2^-16 * sum|w|")
+
+
+def _dispatches(ctx) -> int:
+    from dryad_tpu_torch.obs.metrics import JobMetrics
+
+    return JobMetrics.from_events(ctx.events.events()).dispatch_count
+
+
+def _pct(lat: list, q: float) -> float:
+    lat = sorted(lat)
+    return lat[min(len(lat) - 1, int(len(lat) * q))]
+
+
+def serve_cell(ctx, plans, refs, plan_dispatches, clients: int, cache_on: bool, card: str) -> dict:
+    """The bench's run_cell: ``clients`` closed-loop threads spread over
+    the tenants, SV_PER_CLIENT queries each (a rejected query is
+    retried), through one QueryService over ``ctx``.  Every result is
+    held byte for byte against its plan's serial result, and the
+    dispatches of the cell against the plans' serial dispatch counts:
+    a cache hit adds none."""
+    import threading
+
+    from dryad_tpu_torch.serve import QueryRejected, QueryService
+
+    ctx.config.serve_result_cache_bytes = SV_CACHE_BYTES if cache_on else 0
+    d0 = _dispatches(ctx)
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    svc = QueryService(ctx)
+    lat = [[] for _ in range(clients)]
+    fin = [0.0] * clients
+    served, errors = [], []
+    rejected = [0]
+
+    def client(i):
+        tenant = i % SV_TENANTS
+        sess = svc.session(f"tenant{tenant}")
+        try:
+            for j in range(SV_PER_CLIENT):
+                pi = (i // SV_TENANTS + j) % len(plans[tenant])
+                t0 = time.perf_counter()
+                while True:
+                    try:
+                        fut = sess.submit(plans[tenant][pi])
+                        out = fut.result(timeout=600)
+                        break
+                    except QueryRejected:
+                        rejected[0] += 1
+                        time.sleep(0.002)
+                lat[i].append(time.perf_counter() - t0)
+                served.append((tenant, pi, out, fut.cached))
+            fin[i] = time.perf_counter()
+        except BaseException as e:  # noqa: BLE001 - raised below
+            errors.append(repr(e))
+
+    ths = [threading.Thread(target=client, args=(i,)) for i in range(clients)]
+    with DeviceBusy() as busy:
+        t_start = time.perf_counter()
+        for th in ths:
+            th.start()
+        for th in ths:
+            th.join()
+        elapsed = time.perf_counter() - t_start
+    stats = svc.stats()
+    svc.close()
+    peak = torch.cuda.max_memory_allocated()
+    check(not errors, f"serve cell {clients}/{'on' if cache_on else 'off'}: {errors[:1]}")
+    queries = clients * SV_PER_CLIENT
+    check(len(served) == queries, "a served query went missing")
+    for tenant, pi, out, _cached in served:
+        _byte_equal(out, refs[tenant][pi], f"served tenant{tenant} plan {pi}")
+    hits = sum(c for *_, c in served)
+    check(cache_on or hits == 0, "a query was served from the cache with the cache off")
+    want = sum(plan_dispatches[t][pi] for t, pi, _, c in served if not c)
+    got = _dispatches(ctx) - d0
+    check(got == want, f"serve cell: {got} dispatches, expected {want} (a cache hit dispatched)")
+    check(rejected[0] == 0 and sum(t["rejected"] for t in stats["tenants"].values()) == 0,
+          f"serve cell: {rejected[0]} queries rejected")
+    tput = []
+    for t in range(SV_TENANTS):
+        el = max(fin[i] for i in range(clients) if i % SV_TENANTS == t) - t_start
+        tput.append(stats["tenants"][f"tenant{t}"]["completed"] / max(el, 1e-9))
+    all_lat = [x for ls in lat for x in ls]
+    cache = stats["cache"]
+    looked = cache["hits"] + cache["misses"]
+    res = {
+        "clients": clients, "cache": "on" if cache_on else "off", "queries": queries,
+        "seconds": elapsed, "queries_per_s": queries / elapsed,
+        "rows_per_s": queries * SV_ROWS / elapsed,
+        "p50_ms": 1e3 * _pct(all_lat, 0.5), "p99_ms": 1e3 * _pct(all_lat, 0.99),
+        "cache_hit_rate": cache["hits"] / looked if looked else 0.0, "served_hits": hits,
+        "fairness_spread": max(tput) / max(min(tput), 1e-9), "rejected": rejected[0],
+        "dispatches": got, "device_idle": busy.idle, "device_busy_s": busy.busy_s,
+        "peak_bytes": peak, "card": card,
+    }
+    log(f"serve cell [{card}]: {clients} clients, cache {res['cache']}: {queries} queries in "
+        f"{elapsed:.3f} s = {res['queries_per_s']:.1f} queries/s, {res['rows_per_s']:.4g} rows/s; "
+        f"p50 {res['p50_ms']:.2f} ms, p99 {res['p99_ms']:.2f} ms; hit rate "
+        f"{res['cache_hit_rate']:.3f} ({hits} hits, {got} dispatches); fairness spread "
+        f"{res['fairness_spread']:.3f}; rejected {rejected[0]}; device idle {busy.idle:.3f}; "
+        f"peak device memory {peak / 1e9:.2f} GB; every result byte-equal to serial")
+    return res
+
+
+def serve_tenants(card: str) -> dict:
+    """4 tenants of 2^24 rows on one resident context; each plan run
+    serially (cold, then warm: the warm result is the reference), then
+    the cells of SV_CELLS clients with the result cache off and on."""
+    from dryad_tpu_torch import DryadConfig, DryadContext
+
+    rng = np.random.default_rng(SEED + 11)
+    t0 = time.perf_counter()
+    tables = serve_tables(rng)
+    gen_s = time.perf_counter() - t0
+    cost = sum(a.nbytes for a in tables[0][2].values())
+    # the default byte budget (1 GiB) admits 3 of these 320 MiB queries
+    # a tenant at once; the cells' closed loops keep up to
+    # SV_MAX_CLIENTS_PER_TENANT in flight, so the budget admits them all
+    ctx = DryadContext(num_partitions_=P, config=DryadConfig(
+        device_cache_bytes=SV_DEVICE_CACHE, obs_events_mem_cap=0,
+        serve_max_bytes=SV_MAX_CLIENTS_PER_TENANT * cost))
+    check(ctx.config.serve_max_inflight >= SV_MAX_CLIENTS_PER_TENANT,
+          "the default in-flight quota is below the clients a tenant runs")
+    t0 = time.perf_counter()
+    tabs = [ctx.from_arrays(d) for _, _, d in tables]
+    register_s = time.perf_counter() - t0
+    plans = [serve_plans(t) for t in tabs]
+    check(ctx.query_input_bytes(plans[0][0]) == cost, "query_input_bytes is not the table's bytes")
+    refs, plan_dispatches, first_s = [], [], []
+    for (vocab, ids, data), ps in zip(tables, plans):
+        refs.append([])
+        plan_dispatches.append([])
+        for i, q in enumerate(ps):
+            t0 = time.perf_counter()
+            cold = ctx.run_to_host(q)
+            first_s.append(time.perf_counter() - t0)
+            d0 = _dispatches(ctx)
+            warm = ctx.run_to_host(q)
+            plan_dispatches[-1].append(_dispatches(ctx) - d0)
+            _byte_equal(warm, cold, f"serial plan {i}: warm vs cold")
+            serve_oracle(i, warm, vocab, ids, data)
+            refs[-1].append(warm)
+    log(f"serve tables [{card}]: {SV_TENANTS} tenants x {SV_ROWS} rows generated in {gen_s:.2f} s, "
+        f"registered in {register_s:.2f} s; serial plans (first run, ingest included) "
+        f"{min(first_s):.3f}-{max(first_s):.3f} s; every result equals numpy; dispatches a plan "
+        f"{plan_dispatches[0]}")
+    cells = []
+    for clients in SV_CELLS:
+        for cache_on in (False, True):
+            cells.append(serve_cell(ctx, plans, refs, plan_dispatches, clients, cache_on, card))
+    # one hit, alone: zero dispatches
+    from dryad_tpu_torch.serve import QueryService
+
+    ctx.config.serve_result_cache_bytes = SV_CACHE_BYTES
+    with QueryService(ctx) as svc:
+        s = svc.session("tenant0")
+        s.run(plans[0][1], timeout=600)
+        d0 = _dispatches(ctx)
+        fut = s.submit(plans[0][1])
+        _byte_equal(fut.result(timeout=600), refs[0][1], "a cache hit")
+        check(fut.cached and _dispatches(ctx) == d0, "a cache hit added dispatches")
+    del ctx, tabs, plans, refs
+    free_card()
+    return {"rows_per_tenant": SV_ROWS, "tenants": SV_TENANTS, "query_bytes": cost,
+            "generate_s": gen_s, "register_s": register_s, "first_query_s": first_s,
+            "plan_dispatches": plan_dispatches, "cells": cells}
+
+
+def matview_chunk(rng, rows: int) -> dict:
+    """The reference's matview bench rows: 512 STRING keys, int64 v and
+    integer-valued f32 w (a view's host fold then adds exactly)."""
+    vocab = np.array([f"h{i:03d}" for i in range(MV_KEYS)], object)
+    return {
+        "k": vocab[rng.integers(0, MV_KEYS, rows)],
+        "v": rng.integers(0, 1_000_000, rows).astype(np.int64),
+        "w": rng.integers(0, 64, rows).astype(np.float32),
+    }
+
+
+def matview_plans(tab) -> list:
+    return [tab.group_by("k", {"s": ("sum", "v")}),
+            tab.group_by("k", {"c": ("count", None), "m": ("mean", "w")})]
+
+
+def matview_mode(mode: str, base: dict, other: dict, chunks: list, card: str) -> dict:
+    """The reference's matview bench cell: a hot tenant whose table
+    takes MV_APPENDS appends while MV_READERS readers read its two
+    plans, and an unrelated tenant's cached plan read by
+    MV_OTHER_READERS readers.  ``views``: the hot plans are views
+    (max_staleness_s=0.05); ``recompute``: every read after an append
+    recomputes; ``epoch``: each append also bumps both tenants' epochs."""
+    import threading
+
+    from dryad_tpu_torch import DryadConfig, DryadContext
+    from dryad_tpu_torch.serve import QueryService
+
+    final_rows = MV_ROWS + MV_APPENDS * MV_APPEND_ROWS
+    cost = sum(a.nbytes for a in base.values()) * final_rows // MV_ROWS
+    ctx = DryadContext(num_partitions_=P, config=DryadConfig(
+        device_cache_bytes=SV_DEVICE_CACHE, obs_events_mem_cap=0,
+        serve_result_cache_bytes=SV_CACHE_BYTES, serve_max_bytes=MV_READERS * cost))
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    svc = QueryService(ctx)
+    hot = svc.session("hot")
+    hot_t = hot.ingest(dict(base))
+    hot_plans = matview_plans(hot_t)
+    oth = svc.session("other")
+    other_q = oth.ingest(dict(other)).group_by("k", {"s": ("sum", "v")})
+    t0 = time.perf_counter()
+    if mode == "views":
+        for q in hot_plans:
+            hot.register_view(q, max_staleness_s=MV_STALENESS_S)
+    register_s = time.perf_counter() - t0
+    for q in hot_plans:
+        hot.run(q, timeout=600)
+    oth.run(other_q, timeout=600)
+    errors, append_s = [], []
+
+    def writer():
+        try:
+            for ch in chunks:
+                t = time.perf_counter()
+                hot.append(hot_t, ch)
+                if mode == "epoch":
+                    hot.bump_epoch()
+                    oth.bump_epoch()
+                append_s.append(time.perf_counter() - t)
+                time.sleep(0.02)
+        except BaseException as e:  # noqa: BLE001 - raised below
+            errors.append(repr(e))
+
+    def reader(i, sess, q, counts):
+        try:
+            for _ in range(MV_READS):
+                sess.run(q, timeout=600)
+                counts[i] += 1
+        except BaseException as e:  # noqa: BLE001
+            errors.append(repr(e))
+
+    hot_counts, oth_counts = [0] * MV_READERS, [0] * MV_OTHER_READERS
+    ths = [threading.Thread(target=writer)]
+    ths += [threading.Thread(target=reader, args=(i, hot, hot_plans[i % 2], hot_counts))
+            for i in range(MV_READERS)]
+    ths += [threading.Thread(target=reader, args=(i, oth, other_q, oth_counts))
+            for i in range(MV_OTHER_READERS)]
+    with DeviceBusy() as busy:
+        t_start = time.perf_counter()
+        for th in ths:
+            th.start()
+        for th in ths:
+            th.join()
+        elapsed = time.perf_counter() - t_start
+    check(not errors, f"matview {mode}: {errors[:1]}")
+    time.sleep(2 * MV_STALENESS_S)  # past the staleness bound: the next read is fresh
+    final = [hot.run(q, timeout=600) for q in hot_plans]
+    stats = svc.stats()
+    evs = ctx.events.events()
+    svc.close()
+    peak = torch.cuda.max_memory_allocated()
+    snaps = [e for e in evs if e["kind"] == "view_snapshot"]
+    fresh_stal = [e["staleness_s"] for e in snaps if e["fresh"]]
+    check(all(s <= MV_STALENESS_S for s in fresh_stal),
+          f"matview {mode}: a fresh snapshot was {max(fresh_stal, default=0):.4f} s stale")
+    o = stats["tenants"]["other"]
+    if mode != "epoch":
+        check(o["cache_hits"] == MV_OTHER_READERS * MV_READS,
+              f"matview {mode}: the unrelated tenant's entry was invalidated "
+              f"({o['cache_hits']} hits of {MV_OTHER_READERS * MV_READS} reads)")
+    del ctx, svc, hot_t, hot_plans, other_q
+    free_card()
+    # the oracle: a new context over every row, the plans run directly
+    rows = {c: np.concatenate([base[c]] + [ch[c] for ch in chunks]) for c in base}
+    fresh = DryadContext(num_partitions_=P, config=DryadConfig(device_cache_bytes=SV_DEVICE_CACHE))
+    tab = fresh.from_arrays(rows)
+    for q, got in zip(matview_plans(tab), final):
+        _byte_equal(got, fresh.run_to_host(q), f"matview {mode}: a read after the writer stopped")
+    del fresh, tab, rows
+    free_card()
+    views = stats["views"]
+    hot_reads = sum(hot_counts)
+    res = {
+        "mode": mode, "seconds": elapsed, "hot_reads": hot_reads,
+        "reads_per_s": hot_reads / elapsed, "rows_per_s": hot_reads * final_rows / elapsed,
+        "dispatches": stats["dispatches"],
+        "unrelated_hit_rate": o["cache_hits"] / max(o["completed"], 1),
+        "staleness_p95_ms": 1e3 * _pct([e["staleness_s"] for e in snaps], 0.95) if snaps else 0.0,
+        "fresh_staleness_max_ms": 1e3 * max(fresh_stal, default=0.0),
+        "delta_fold_bytes": views["delta_bytes"], "snapshots_fresh": views["snapshots_fresh"],
+        "snapshots_finalized": views["snapshots_finalized"], "register_s": register_s,
+        "append_s": append_s, "device_idle": busy.idle, "peak_bytes": peak, "card": card,
+    }
+    log(f"matview {mode} [{card}]: {hot_reads} hot reads in {elapsed:.3f} s = "
+        f"{res['reads_per_s']:.2f} reads/s during {len(chunks)} appends of {MV_APPEND_ROWS} rows "
+        f"(append {min(append_s):.3f}-{max(append_s):.3f} s); {stats['dispatches']} dispatches; "
+        f"unrelated tenant hit rate {res['unrelated_hit_rate']:.3f}; staleness p95 "
+        f"{res['staleness_p95_ms']:.2f} ms (fresh max {res['fresh_staleness_max_ms']:.2f} ms); "
+        f"delta-fold bytes {views['delta_bytes']}; snapshots fresh {views['snapshots_fresh']}, "
+        f"finalized {views['snapshots_finalized']}; device idle {busy.idle:.3f}; reads after "
+        f"the writer equal a full recompute over {final_rows} rows")
+    return res
+
+
+def serve_matviews(card: str) -> dict:
+    rng = np.random.default_rng(SEED + 12)
+    base = matview_chunk(rng, MV_ROWS)
+    other = matview_chunk(rng, MV_ROWS)
+    chunks = [matview_chunk(rng, MV_APPEND_ROWS) for _ in range(MV_APPENDS)]
+    res = {m: matview_mode(m, base, other, chunks, card) for m in MV_MODES}
+    res["views_speedup"] = res["views"]["reads_per_s"] / res["recompute"]["reads_per_s"]
+    log(f"matview [{card}]: views {res['views_speedup']:.2f}x the reads/s of recompute")
+    return res
+
+
+def serve_checkpoints(card: str) -> dict:
+    """The groupby_sort phase's query (2^26 rows, 2^22 keys) with stage
+    checkpoints: a cold run writes them, a new context on the directory
+    resumes (byte-equal, no stage dispatched), and with one column file
+    corrupted a third context logs checkpoint_corrupt, recomputes and
+    gives the same bytes."""
+    import shutil
+
+    from dryad_tpu_torch import DryadConfig, DryadContext
+
+    root = os.path.join(WORK_DIR, "ckpt")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    free = shutil.disk_usage(root).free
+    if free < CK_FREE_BYTES:
+        raise RuntimeError(f"the checkpoint part needs {CK_FREE_BYTES / 2**30:.0f} GiB free under "
+                           f"{root}; {free / 2**30:.1f} GiB free")
+    t = groupby_table(np.random.default_rng(SEED + 6), GB_ROWS, GB_KEYS)
+
+    def run():
+        ctx = DryadContext(num_partitions_=P, config=DryadConfig(checkpoint_dir=root))
+        t0 = time.perf_counter()
+        out = ctx.from_arrays(t).group_by("key", GB_AGGS).collect()
+        secs = time.perf_counter() - t0
+        evs = ctx.events.events()
+        del ctx
+        free_card()
+        kinds = [e["kind"] for e in evs]
+        io_s = sum(e["dur"] for e in evs if e["kind"] == "span" and e["cat"] == "checkpoint")
+        return out, secs, kinds, io_s
+
+    try:
+        cold, cold_s, kinds, save_s = run()
+        saved = kinds.count("stage_checkpoint_saved")
+        check(saved >= 1, "the cold run saved no checkpoint")
+        nbytes = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root) for f in fs)
+        uniq, cnt = np.unique(t["key"], return_counts=True)
+        order = np.argsort(cold["key"])
+        check(np.array_equal(cold["key"][order], uniq) and
+              np.array_equal(cold["c"][order], cnt.astype(np.int32)),
+              "checkpointed group_by: keys or counts differ from numpy")
+        resumed, resume_s, kinds, load_s = run()
+        _byte_equal(resumed, cold, "the resumed group_by")
+        check(kinds.count("stage_start") == 0 and kinds.count("stage_checkpoint_hit") == saved,
+              f"the resume dispatched {kinds.count('stage_start')} stages")
+        files = sorted((os.path.getsize(os.path.join(d, f)), os.path.join(d, f))
+                       for d, _, fs in os.walk(root) for f in fs if f.endswith(".dpf"))
+        path = files[-1][1]
+        with open(path, "r+b") as fh:
+            head = fh.readline()
+            fh.seek(len(head) + 12345)
+            b = fh.read(1)
+            fh.seek(len(head) + 12345)
+            fh.write(bytes([b[0] ^ 0xFF]))
+        again, again_s, kinds, _ = run()
+        _byte_equal(again, cold, "the group_by after a corrupted checkpoint")
+        check("checkpoint_corrupt" in kinds and kinds.count("stage_start") >= 1,
+              "a corrupted checkpoint was not detected and recomputed")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    res = {"rows": GB_ROWS, "keys": GB_KEYS, "checkpoints": saved, "bytes": nbytes,
+           "cold_s": cold_s, "save_s": save_s, "resume_s": resume_s, "load_s": load_s,
+           "corrupt_rerun_s": again_s, "card": card}
+    log(f"checkpoints [{card}]: group_by of {GB_ROWS} rows, {GB_KEYS} keys: cold run {cold_s:.3f} s "
+        f"with {saved} checkpoints written ({nbytes / 1e9:.3f} GB, save {save_s:.3f} s); resume in a "
+        f"new context {resume_s:.3f} s (load {load_s:.3f} s), byte-equal, no stage dispatched; a "
+        f"corrupted column file recomputed in {again_s:.3f} s, byte-equal")
+    return res
+
+
+def phase_serve(dev, card: str) -> dict:
+    """Many tenants served from one resident engine at P=8: the serve
+    bench's cells, materialized views under continuous ingest, and stage
+    checkpoints.  The bucket kernel's launches are counted from 0 at the
+    phase start; the inputs of its first launch at each shape are kept
+    and the kernel is held against its plain version on each."""
+    from dryad_tpu_torch.ops.bucket import bucket_sum_count
+
+    t_phase = time.perf_counter()
+    bucket_sum_count.launches = 0  # the serve path starts here
+    with LaunchRecorder() as rec:
+        res = {"tenants": serve_tenants(card)}
+        res["matview"] = serve_matviews(card)
+        res["checkpoint"] = serve_checkpoints(card)
+    launches = bucket_sum_count.launches
+    check(launches >= 1 and launches == rec.calls,
+          f"the serve path launched the bucket kernel {launches} times in {rec.calls} calls")
+    shapes = []
+    for (m, K, _), (keys, vals, valid) in sorted(rec.first.items()):
+        shapes.append(kernel_shape_report(keys, vals, valid, K))
+        log(f"kernel vs plain at a serve shape ({shapes[-1]['shape']}): byte-equal; kernel "
+            f"{shapes[-1]['kernel_ms']:.3f} ms, plain {shapes[-1]['plain_ms']:.3f} ms, "
+            f"{shapes[-1]['library']} {shapes[-1]['library_ms']:.3f} ms, bound "
+            f"{shapes[-1]['bound_ms']:.4f} ms")
+    rec.first.clear()
+    free_card()
+    res.update(launches=launches, kernel_shapes=shapes, phase_s=time.perf_counter() - t_phase)
+    log(f"serve phase [{card}]: {res['phase_s']:.1f} s, bucket kernel launches {launches} "
+        f"at {len(shapes)} shapes")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument(
         "--phases",
         default="env,kernel,wordcount,dense,terasort,terasort_hot,groupby_sort,"
                 "join_shuffle,join_broadcast,pagerank,decomposable,ordered_ops,cpu_parity,stores,"
-                "stream")
+                "stream,serve")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     if not torch.cuda.is_available():
@@ -2289,6 +2834,8 @@ def main(argv=None) -> int:
         results["stores"] = phase_stores(dev, card)
     if "stream" in phases:
         results["stream"] = phase_stream(dev, card)
+    if "serve" in phases:
+        results["serve"] = phase_serve(dev, card)
     print("results: " + json.dumps(results))
 
     kern = results.get("kernel", {})
@@ -2303,6 +2850,7 @@ def main(argv=None) -> int:
         "ordered_ops": results.get("ordered_ops", {}).get("bucket_sum_count_launches"),
         "stores": results.get("stores", {}).get("wordcount", {}).get("launches"),
         "stream": results.get("stream", {}).get("launches"),
+        "serve": results.get("serve", {}).get("launches"),
     }
     ran = [n for n in per_path.values() if n is not None]
     jb = kern.get("join_broadcast", {})
@@ -2335,6 +2883,7 @@ def main(argv=None) -> int:
         "join_broadcast_library_ms": jb.get("library_ms"),
         "join_broadcast_bound_ms": jb.get("bound_ms"),
         "stream_shapes": results.get("stream", {}).get("wordcount", {}).get("kernel_shapes"),
+        "serve_shapes": results.get("serve", {}).get("kernel_shapes"),
     }]}
     print(json.dumps(line))
     print(card)

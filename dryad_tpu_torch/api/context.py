@@ -8,8 +8,15 @@ out-of-core stream inputs (``from_stream``, ``text_stream``,
 ``store_stream``), whose plans run through ``exec/outofcore.py``, the
 asynchronous result fetches of that driver (``run_to_host_async``,
 ``run_many_to_host_async``), the
-tables pinned by ``Query.cache()`` (and ``release``), and the subplans
-of a ``do_while``.  A context owns one device (CUDA unless the caller
+tables pinned by ``Query.cache()`` (and ``release``), the subplans
+of a ``do_while``, and the serving tier's surface: ``append_arrays``
+(continuous ingest into a ``from_arrays`` table), ``query_fingerprint``
+(the result-cache key), ``query_input_bytes`` (the admission cost) and
+``is_stream_query``.  With ``config.checkpoint_dir`` set, jobs save and
+resume stage outputs keyed by the inputs' content fingerprints
+(``exec/checkpoint.py``).  Each ``run_*`` entry point runs under a
+query trace context (``obs/tracectx.py``) when ``config.query_trace``
+is on, so the job's spans and dispatch gaps carry its ``qid``.  A context owns one device (CUDA unless the caller
 passes ``device="cpu"``; it never falls back by itself), P logical
 partitions on it, the string dictionary, the job event log
 (``exec/events.py``: a JSONL file under ``event_log_dir``, or memory
@@ -33,9 +40,10 @@ import torch
 
 from dryad_tpu_torch.api.query import JobHandle, Query
 from dryad_tpu_torch.columnar.batch import ColumnBatch, decode_physical_table
-from dryad_tpu_torch.columnar.schema import ColumnType, Schema, StringDictionary
+from dryad_tpu_torch.columnar.schema import ColumnType, Schema, StringDictionary, unique_strings
 from dryad_tpu_torch.exec.events import EventLog
 from dryad_tpu_torch.exec.executor import GraphExecutor
+from dryad_tpu_torch.obs import flightrec, tracectx
 from dryad_tpu_torch.parallel.partition import block_layout
 from dryad_tpu_torch.plan.lower import lower
 from dryad_tpu_torch.plan.nodes import Node, PartitionInfo
@@ -103,10 +111,27 @@ class DryadContext:
         # input node id -> (binding tuple, batch, bytes); the stored
         # binding identity invalidates the entry when a node is rebound
         self._device_cache: "OrderedDict[int, tuple]" = OrderedDict()
+        # input node id -> content fingerprint of its binding (None: not
+        # fingerprintable); dropped when the node is rebound
+        self._binding_fp_cache: Dict[int, Optional[str]] = {}
         path = None
         if self.config.event_log_dir:
             path = os.path.join(self.config.event_log_dir, f"job-{int(time.time() * 1000)}.jsonl")
         self.events = EventLog(path, mem_cap=self.config.obs_events_mem_cap)
+        # the flight recorder's ring taps this context's stream (dumped
+        # when a job fails); a recorder already installed in the process
+        # keeps its place and gains this stream as a tap
+        if self.config.obs_flight_recorder:
+            rec = flightrec.get_recorder()
+            if rec is not None:
+                self.events.add_tap(rec.record)
+            else:
+                flightrec.install_recorder(
+                    capacity=self.config.flightrec_events,
+                    snapshot_s=self.config.flightrec_snapshot_s,
+                    dump_dir=self.config.flightrec_dir or self.config.event_log_dir or ".",
+                    role="driver", events=self.events,
+                )
         self.executor = GraphExecutor(self.num_partitions, self.config, self.device, self.events)
         # one job at a time: the executor keeps per-job state, and the
         # stream driver runs jobs from its prefetch threads too (a
@@ -147,10 +172,7 @@ class DryadContext:
         if self.config.auto_dense_strings:
             for name in schema.names:
                 if schema.field(name).ctype is ColumnType.STRING and name in arrays:
-                    hs = [
-                        self.dictionary.add(str(s))
-                        for s in np.unique(np.asarray(arrays[name], object))
-                    ]
+                    hs = [self.dictionary.add(str(s)) for s in unique_strings(arrays[name])]
                     str_vocab[name] = np.sort(np.asarray(hs, dtype=np.uint64))
         col_stats = {}
         if self.config.auto_dense_ints:
@@ -165,6 +187,76 @@ class DryadContext:
         )
         self._bindings[node.id] = ("host", arrays, partition_capacity)
         return Query(self, node)
+
+    def append_arrays(self, query: Query, arrays: Dict[str, np.ndarray]) -> Optional[str]:
+        """Append host rows to a ``from_arrays`` table in place: the
+        continuous-ingest write path.  The node keeps its identity
+        (registered views and prepared queries keep pointing at it); its
+        binding is rebound to the concatenated columns, so the device
+        copy and the binding fingerprint drop, and the auto-dense
+        metadata (string vocabulary, int key ranges) widens to the grown
+        domain.  Returns the fingerprint the table had before the append
+        (None when unfingerprintable): the key of every result cached
+        over the old contents.  Takes the job lock, so an append never
+        lands while a job binds or reads the table."""
+        node = query.node
+        with self._job_lock:
+            binding = self._bindings.get(node.id)
+            if node.kind != "input" or binding is None or binding[0] != "host":
+                raise ValueError(
+                    "append_arrays() takes a from_arrays table; got a "
+                    f"{node.kind!r} node bound as "
+                    f"{binding[0] if binding else None!r}"
+                )
+            if self._codecs and any(c in self._codecs for c in arrays):
+                from dryad_tpu_torch.columnar.codecs import expand_arrays
+
+                arrays = expand_arrays(
+                    arrays, {c: self._codecs[c] for c in arrays if c in self._codecs}
+                )
+            _, old_arrays, cap = binding
+            if set(arrays) != set(old_arrays):
+                raise ValueError(
+                    f"append columns {sorted(arrays)} != table columns "
+                    f"{sorted(old_arrays)}"
+                )
+            old_fp = self._binding_fp(node)
+            merged = {}
+            for name, old in old_arrays.items():
+                old = np.asarray(old)
+                new = np.asarray(arrays[name])
+                if old.dtype == object or old.dtype.kind in ("U", "S"):
+                    new = np.asarray(new, object)
+                elif new.dtype != old.dtype:
+                    raise TypeError(
+                        f"column {name!r}: append dtype {new.dtype} != "
+                        f"table dtype {old.dtype}"
+                    )
+                merged[name] = np.concatenate(
+                    [np.asarray(old, object) if old.dtype == object else old, new]
+                )
+            # widen the auto-dense gates for the new rows (a widened
+            # vocabulary or range only loosens the gate)
+            if self.config.auto_dense_strings:
+                vocab = node.params.get("str_vocab") or {}
+                for name in vocab:
+                    if name in arrays:
+                        hs = [self.dictionary.add(str(v)) for v in unique_strings(arrays[name])]
+                        vocab[name] = np.unique(np.concatenate(
+                            [vocab[name], np.asarray(hs, dtype=np.uint64)]
+                        ))
+                node.params["str_vocab"] = vocab
+            if self.config.auto_dense_ints:
+                stats = node.params.get("col_stats") or {}
+                for name, (lo, hi) in list(stats.items()):
+                    a = np.asarray(arrays.get(name, ()))
+                    if a.size:
+                        stats[name] = (min(lo, int(a.min())), max(hi, int(a.max())))
+                node.params["col_stats"] = stats
+            self._bindings[node.id] = ("host", merged, cap)
+            self._binding_fp_cache.pop(node.id, None)
+            self._device_cache.pop(node.id, None)
+        return old_fp
 
     def _tokenize_buf(self, buf: bytes):
         """Tokenize a byte buffer, registering tokens in the dictionary;
@@ -364,6 +456,7 @@ class DryadContext:
         with self._job_lock:
             del self._bindings[query.node.id]
             self._device_cache.pop(query.node.id, None)
+            self._binding_fp_cache.pop(query.node.id, None)
 
     # -- execution -------------------------------------------------------------
     def _bind_device(self, node: Node) -> ColumnBatch:
@@ -455,12 +548,109 @@ class DryadContext:
         )
         return batch
 
+    def _binding_fp(self, node: Node) -> Optional[str]:
+        """Content SHA-1 of a plan input's binding (the checkpoint and
+        result-cache identity); None for device and stream bindings,
+        which cannot be fingerprinted without a copy.  Cached per input
+        node until it is rebound."""
+        if node.id in self._binding_fp_cache:
+            return self._binding_fp_cache[node.id]
+        from dryad_tpu_torch.exec.checkpoint import content_fingerprint
+
+        kind, *rest = self._bindings[node.id]
+        fp = None
+        if kind == "host":
+            arrays, cap = rest
+            fp = content_fingerprint({str(k): np.asarray(v) for k, v in arrays.items()}) + f":{cap}"
+        elif kind == "host_physical":
+            phys, *opt = rest
+            fp = content_fingerprint(phys) + (f":{opt[0]}" if opt else "")
+        elif kind == "store":
+            parts, _schema = rest
+            fp = content_fingerprint(
+                {f"p{i}/{c}": v for i, cols in enumerate(parts) for c, v in cols.items()}
+            )
+        self._binding_fp_cache[node.id] = fp
+        return fp
+
+    # -- serving-tier surface --------------------------------------------------
+    def is_stream_query(self, query: Query) -> bool:
+        """True when the plan draws on a chunk-stream binding: such
+        plans run through the stream driver, not the asynchronous
+        dispatch path, and are not cacheable."""
+        from dryad_tpu_torch.exec.outofcore import has_stream_input
+
+        return has_stream_input(self, query.node)
+
+    def query_fingerprint(self, query: Query):
+        """The result-cache key of a query: ``(graph_key, (position,
+        output), binding fingerprints)``, or None when it is uncacheable
+        (a stream input, or a binding whose content cannot be
+        fingerprinted without a copy).  Plan structure is the executor's
+        ``graph_key``: value-hashable params match across rebuilt
+        queries, function-valued ones only when run again from the same
+        ``Query``.  The output is named by its stage's position in the
+        lowered graph (stage ids are fresh per lowering); the inputs by
+        their content fingerprints in plan creation order."""
+        if self.is_stream_query(query):
+            return None
+        with self._job_lock:
+            graph = lower([query.node], self.config, self.dictionary, P=self.num_partitions)
+            fps = []
+            for nid in sorted(graph.inputs):
+                fp = self._binding_fp(graph.inputs[nid])
+                if fp is None:
+                    return None
+                fps.append(fp)
+        sid, oidx = graph.outputs[query.node.id]
+        pos = {s.id: i for i, s in enumerate(graph.stages)}[sid]
+        return (self.executor.graph_key(graph), (pos, oidx), tuple(fps))
+
+    def query_input_bytes(self, query: Query) -> int:
+        """Host bytes bound under the plan: the admission cost of a
+        query (device and stream bindings count zero: no host copy is
+        admitted on their behalf).  The reference's rule, so a host
+        table costs the same bytes in both packages."""
+        total = 0
+        seen = set()
+        stack = [query.node]
+        while stack:
+            node = stack.pop()
+            if node.id in seen:
+                continue
+            seen.add(node.id)
+            stack.extend(node.inputs)
+            binding = self._bindings.get(node.id)
+            if binding is None:
+                continue
+            kind, *rest = binding
+            if kind == "host":
+                total += sum(np.asarray(v).nbytes for v in rest[0].values())
+            elif kind == "host_physical":
+                total += sum(np.asarray(v).nbytes for v in rest[0].values())
+            elif kind == "store":
+                total += sum(np.asarray(v).nbytes for cols in rest[0] for v in cols.values())
+        return total
+
+    def _trace_ctx(self):
+        """The active trace context, or a fresh one for a job outside
+        any query scope; None (a no-op under ``tracectx.activate``) when
+        ``config.query_trace`` is off."""
+        ctx = tracectx.current()
+        if ctx is None and self.config.query_trace:
+            ctx = tracectx.mint()
+        return ctx
+
     def _run_graph(self, queries, defer_miss: bool = False):
         with self._job_lock:
             graph = lower([q.node for q in queries], self.config, self.dictionary, P=self.num_partitions)
             bindings = {nid: self._bind_device(n) for nid, n in graph.inputs.items()}
+            binding_fps = None
+            if self.config.checkpoint_dir:
+                binding_fps = {nid: self._binding_fp(n) for nid, n in graph.inputs.items()}
             out = self.executor.execute(
                 graph, bindings, subquery_runner=self._run_subquery, defer_miss=defer_miss,
+                binding_fps=binding_fps,
             )
         results, deferred = out if defer_miss else (out, None)
         return [results[graph.outputs[q.node.id]] for q in queries], deferred
@@ -481,24 +671,32 @@ class DryadContext:
         return table
 
     def run_to_host(self, query: Query) -> Dict[str, np.ndarray]:
+        # the job's spans and dispatch gaps carry this context's qid
+        with tracectx.activate(self._trace_ctx()):
+            return self._run_to_host(query)
+
+    def _run_to_host(self, query: Query) -> Dict[str, np.ndarray]:
         from dryad_tpu_torch.exec.outofcore import StreamExecutor, has_stream_input
 
         if has_stream_input(self, query.node):
             return StreamExecutor(self).run_to_host(query.node)
         return self._host_table(query, self.execute(query))
 
-    def _fetch(self, query: Query, batch: ColumnBatch, deferred):
+    def _fetch(self, query: Query, batch: ColumnBatch, deferred, tctx):
         """A zero-arg closure that runs ``deferred``'s miss check (when
-        given) and copies ``batch`` to the host as ``query``'s table."""
+        given) and copies ``batch`` to the host as ``query``'s table,
+        under the trace context ``tctx`` (a fetch drained on another
+        thread still stamps its spans with the query's qid)."""
         def fetch() -> Dict[str, np.ndarray]:
-            if deferred is not None:
-                deferred.finish()
-            try:
-                return self._host_table(query, batch)
-            except Exception as e:  # the copy failed: close the job out
+            with tracectx.activate(tctx):
                 if deferred is not None:
-                    deferred.abort(f"output transfer failed: {e!r}")
-                raise
+                    deferred.finish()
+                try:
+                    return self._host_table(query, batch)
+                except Exception as e:  # the copy failed: close the job out
+                    if deferred is not None:
+                        deferred.abort(f"output transfer failed: {e!r}")
+                    raise
 
         return fetch
 
@@ -508,8 +706,10 @@ class DryadContext:
         host (the streaming driver's dispatch/drain split: bucket k+1's
         job is queued while bucket k's result copies).  Not for plans
         over a stream input."""
-        batch, deferred = self.execute(query, defer_miss=True)
-        return self._fetch(query, batch, deferred)
+        tctx = self._trace_ctx()
+        with tracectx.activate(tctx):
+            batch, deferred = self.execute(query, defer_miss=True)
+        return self._fetch(query, batch, deferred, tctx)
 
     def run_many_to_host_async(self, queries):
         """Lower SEVERAL independent queries as one job (cross-chunk
@@ -517,9 +717,11 @@ class DryadContext:
         Each query stays its own computation, so results equal separate
         runs.  The miss check rides the FIRST fetch: a miss anywhere in
         the group raises there, before any result is committed."""
-        batches, deferred = self._run_graph(list(queries), defer_miss=True)
+        tctx = self._trace_ctx()
+        with tracectx.activate(tctx):
+            batches, deferred = self._run_graph(list(queries), defer_miss=True)
         return [
-            self._fetch(q, b, deferred if i == 0 else None)
+            self._fetch(q, b, deferred if i == 0 else None, tctx)
             for i, (q, b) in enumerate(zip(queries, batches))
         ]
 
@@ -534,6 +736,10 @@ class DryadContext:
         ``config.intermediate_compression``.  A plan over a stream input
         writes a local store as it streams, one part file per non-empty
         piece; its handle's table holds the row count."""
+        with tracectx.activate(self._trace_ctx()):
+            return self._to_store(query, path)
+
+    def _to_store(self, query: Query, path: str) -> JobHandle:
         from dryad_tpu_torch.columnar.uri import write_store_uri
         from dryad_tpu_torch.exec.outofcore import StreamExecutor, has_stream_input
         from dryad_tpu_torch.runtime import bindings as RB

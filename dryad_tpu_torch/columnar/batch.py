@@ -27,6 +27,7 @@ from dryad_tpu_torch.columnar.schema import (
     Schema,
     StringDictionary,
     f64_to_ordered_i64,
+    factorize_strings,
     join64,
     ordered_i64_to_f64,
     split64,
@@ -50,6 +51,21 @@ def encode_physical(
     if field.ctype == ColumnType.STRING:
         if dictionary is None:
             raise ValueError(f"STRING column {field.name} needs a dictionary")
+        f = factorize_strings(a)
+        if f is not None:
+            # encode each distinct value once, then gather by row: the
+            # same words as the per-row encode below
+            values, codes = f
+            sarr = np.array(values, object)
+            hashes = dictionary.add_all(values)
+            lo, hi = split64(hashes)
+            r0, r1 = string_prefix_rank(sarr), string_prefix_rank(sarr, offset=4)
+            return {
+                f"{field.name}#h0": lo[codes],
+                f"{field.name}#h1": hi[codes],
+                f"{field.name}#r0": r0[codes],
+                f"{field.name}#r1": r1[codes],
+            }
         strs = [str(s) for s in a]
         hashes = dictionary.add_all(strs)
         lo, hi = split64(hashes)

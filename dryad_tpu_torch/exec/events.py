@@ -388,6 +388,18 @@ EVENT_PAYLOADS: Dict[str, Tuple[Tuple[str, ...], Tuple[str, ...]]] = {
 }
 
 
+# Event kinds scoped to one query: their emit sites stamp the active
+# trace context's query id as an explicit ``qid=`` keyword
+# (``obs.tracectx.current_qid()``; None outside any query scope).
+QUERY_SCOPED_KINDS: Tuple[str, ...] = (
+    "diagnosis",
+    "dispatch_gap",
+    "exchange_round",
+    "gang_window",
+    "span",
+    "view_snapshot",
+)
+
 def _to_native(v: Any) -> Any:
     """Normalize numpy scalars/arrays (and containers of them) to
     native Python types so JSON round-trips preserve numbers — the

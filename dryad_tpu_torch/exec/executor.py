@@ -50,7 +50,17 @@ ported stages need:
   its clean prefix; ``do_while_*`` and ``apply_host_*`` for the driver
   stages; ``job_complete`` after the miss check (``dict_miss`` and
   ``job_failed`` on the failure paths).  A unit's ``stage`` id is its
-  region's id in that decision.
+  region's id in that decision.  Each dispatch attempt is one ``span``
+  (cat=execute) stamped with the active query's ``qid``.
+- :meth:`GraphExecutor.graph_key` is the structural identity of a
+  lowered graph (the reference's compile-cache key), which the serving
+  tier's result cache keys on.
+- With ``config.checkpoint_dir`` set, each unit's outputs are saved
+  under a Merkle fingerprint of its ops, input shapes and input
+  fingerprints (``exec/checkpoint.py``) and a later run with the same
+  fingerprint loads them instead of dispatching (``stage_checkpoint_hit``,
+  no ``stage_start``).  A unit with a dictionary-miss guard saves only
+  after the job's miss check passed (at ``DeferredFinish.finish``).
 """
 
 from __future__ import annotations
@@ -63,35 +73,91 @@ import numpy as np
 import torch
 
 from dryad_tpu_torch.columnar.batch import ColumnBatch, to_host_column
+from dryad_tpu_torch.exec.checkpoint import CheckpointStore, stage_fingerprint
 from dryad_tpu_torch.exec.events import EventLog
+from dryad_tpu_torch.exec.failure import StageFailedError
 from dryad_tpu_torch.exec.kernels import NON_OVERFLOW_OPS, StageContext, _round8, run_ops
 from dryad_tpu_torch.ops import shuffle as SH
 from dryad_tpu_torch.exec.operands import DeviceTables
+from dryad_tpu_torch.obs import flightrec
 from dryad_tpu_torch.obs.metrics import MetricsRegistry
+from dryad_tpu_torch.obs.span import Tracer
 from dryad_tpu_torch.plan.fuse import (
     DRIVER_OPS, SHRINKING_OPS, FuseReport, _adaptable_shape as _adaptable, fuse,
 )
 from dryad_tpu_torch.plan.lower import Stage, StageGraph, StageOp, tail_width
+from dryad_tpu_torch.utils.logging import get_logger
+
+_log = get_logger("dryad_tpu_torch.exec")
+
+__all__ = ["DeferredFinish", "GraphExecutor", "StageFailedError", "retry_regions"]
+
+# (op kind, param) pairs the reference binds as call-time operands: its
+# compile key holds their shape tier (``operand_signature``), not their
+# content, so every table of a tier shares one key
+OPERAND_PARAMS = frozenset({
+    ("string_code", "table"),
+    ("group_reduce_dense", "decode"),
+})
 
 
-class StageFailedError(RuntimeError):
-    """A stage reached a terminal failure (budget, capacity, guard)."""
+def _has_miss_guard(ops) -> bool:
+    """Ops whose dense domain counts rows it would drop: STRING
+    dictionary coding, or the guarded int auto-dense reduce."""
+    return any(
+        op.kind == "string_code"
+        or (op.kind == "group_reduce_dense" and op.params.get("guard"))
+        for op in ops
+    )
+
+
+class _UnitStage:
+    """A run of stages seen as one stage by the checkpoint store (the
+    reference's ``FusedStage`` surface): its id is the region's, its
+    name the members' tokens, its ops the members' chained, its
+    ``out_slots`` one per export; ``fingerprint_extra`` adds the run's
+    member boundaries, wiring and exports to the identity."""
+
+    def __init__(self, uid: int, name: str, unit: List[Stage], exports):
+        self.id = uid
+        self.name = name
+        self.ops = [op for m in unit for op in m.ops]
+        self.out_slots = list(range(len(exports)))
+        pos = {m.id: i for i, m in enumerate(unit)}
+        ext: Dict[Tuple, int] = {}
+        wiring = []
+        for m in unit:
+            w = []
+            for ref, idx in m.input_refs:
+                if ref != "plan_input" and ref in pos:
+                    w.append(("mem", pos[ref], idx))
+                else:
+                    w.append(("ext", ext.setdefault((ref, idx), len(ext))))
+            wiring.append(tuple(w))
+        self.fingerprint_extra = (
+            f"fused:members={[(len(m.ops), tuple(m.out_slots)) for m in unit]!r}"
+            f":wiring={wiring!r}:exports={[(pos[sid], i) for sid, i in exports]!r}"
+        )
 
 
 class DeferredFinish:
     """Tail of an ``execute(defer_miss=True)`` job: its dictionary-miss
-    counters, read when the caller fetches the result.  ``finish()``
-    raises ``StageFailedError`` on a nonzero counter (``job_failed``
-    and ``dict_miss`` logged, as the reference's) and logs
-    ``job_complete`` otherwise; ``abort(reason)`` closes a job whose
-    result copy failed."""
+    counters, read when the caller fetches the result, and the
+    checkpoint saves of miss-guarded units, which wait for them.
+    ``finish()`` raises ``StageFailedError`` on a nonzero counter
+    (``job_failed`` and ``dict_miss`` logged, as the reference's; the
+    gated checkpoints are dropped) and otherwise writes them and logs
+    ``job_complete``; ``abort(reason)`` closes a job whose result copy
+    failed, persisting nothing."""
 
-    def __init__(self, executor: "GraphExecutor", pending):
+    def __init__(self, executor: "GraphExecutor", pending, ckpts=()):
         self._executor = executor
         self._pending = pending
+        self._ckpts = list(ckpts)
 
     def abort(self, reason: str) -> None:
         self._pending = []
+        self._ckpts = []
         self._executor.event_log.emit("job_failed", reason=reason, failure_kind="transient")
 
     def finish(self, deferred: bool = True) -> None:
@@ -103,11 +169,15 @@ class DeferredFinish:
             counts = torch.stack([m for _, m in pending]).cpu().tolist()
             for (name, _), m in zip(pending, counts):
                 if m:
+                    self._ckpts = []  # poisoned results: never persist
                     if deferred:
                         log.emit("job_failed", reason=f"dict miss in {name}",
                                  failure_kind="deterministic")
                     log.emit("dict_miss", stage_name=name, rows=int(m))
                     raise StageFailedError(_miss_message(name, int(m)))
+        ckpts, self._ckpts = self._ckpts, []
+        for stage, fp, outs in ckpts:
+            self._executor._write_checkpoint(stage, fp, outs)
         log.emit("job_complete")
 
 
@@ -232,14 +302,60 @@ class GraphExecutor:
         # context (and its device tables) alive in a reference cycle
         self.subquery_runner = None
         self._depth = 0  # do_while subplans re-enter execute()
+        # one execute span (cat=execute) per dispatch attempt
+        self.tracer = Tracer(self.event_log)
+        # content-addressed stage outputs, when a directory is set
+        self.checkpoints = (
+            CheckpointStore(config.checkpoint_dir, events=self.event_log)
+            if getattr(config, "checkpoint_dir", None) else None
+        )
+
+    # -- structural identity -------------------------------------------------
+    def _stage_key(self, stage: Stage) -> Tuple:
+        """Structural stage identity: op kinds + static params.  A
+        value-hashable param keys by value, so a rebuilt query shares
+        the key; any other hashable object (a user function, an
+        ``AggSpec``) keys by reference, held alive by the key, so a
+        closure-bearing plan shares it only when run again from the same
+        ``Query``; an unhashable param keys by its repr.  The string
+        tables of ``OPERAND_PARAMS`` key by their shape tier, as the
+        reference's runtime operands do
+        (``config.stringcode_runtime_tables``)."""
+        split = bool(getattr(self.config, "stringcode_runtime_tables", True))
+        parts = []
+        for op in stage.ops:
+            items = []
+            for k, v in sorted(op.params.items()):
+                if split and (op.kind, k) in OPERAND_PARAMS and hasattr(v, "operand_signature"):
+                    items.append((k, ("operand", v.operand_signature())))
+                    continue
+                if isinstance(v, list):
+                    v = tuple(v)
+                try:
+                    hash(v)
+                except TypeError:
+                    v = repr(v)
+                items.append((k, v))
+            parts.append((op.kind, tuple(items)))
+        return (tuple(parts), tuple(stage.out_slots))
+
+    def graph_key(self, graph: StageGraph) -> Tuple:
+        """Structural identity of a lowered graph, one ``_stage_key``
+        per stage in graph order: the serving tier's result-cache key
+        (the reference's ``graph_key``).  Lowerings share a key iff
+        their stages match under ``_stage_key``'s rules."""
+        return tuple(self._stage_key(s) for s in graph.stages)
 
     def execute(
         self, graph: StageGraph, bindings: Dict[int, ColumnBatch], subquery_runner=None,
-        defer_miss: bool = False,
+        defer_miss: bool = False, binding_fps: Optional[Dict[int, Optional[str]]] = None,
     ):
         """Run the graph; returns its results by ``(stage id, output)``,
         or with ``defer_miss`` ``(results, DeferredFinish)``, whose
-        ``finish()`` the caller runs when it reads the result."""
+        ``finish()`` the caller runs when it reads the result.
+        ``binding_fps``: plan-input node id -> content fingerprint (None:
+        not fingerprintable), the inputs' part of each checkpoint
+        identity."""
         if self._depth == 0:
             self.events = []
         # the adaptation state is per graph: a nested run keeps its own
@@ -248,27 +364,34 @@ class GraphExecutor:
         self.subquery_runner = subquery_runner or saved_runner
         self._depth += 1
         try:
-            results, misses = self._execute(graph, bindings)
+            results, misses, ckpts = self._execute(graph, bindings, binding_fps or {})
         finally:
             self._depth -= 1
             self.subquery_runner = saved_runner
             for a, v in zip(_ADAPT_STATE, saved):
                 setattr(self, a, v)
-        deferred = DeferredFinish(self, misses)
+        deferred = DeferredFinish(self, misses, ckpts)
         if defer_miss:
             return results, deferred
         deferred.finish(deferred=False)
         return results
 
-    def _execute(self, graph: StageGraph, bindings):
+    def _execute(self, graph: StageGraph, bindings, binding_fps):
         results: Dict[Tuple[int, int], ColumnBatch] = {}
         misses: List[Tuple[str, torch.Tensor]] = []  # (unit name, miss counter)
+        # (unit stage, fp, outputs) saves that wait for the miss check
+        self._gated_ckpts: List[tuple] = []
         report = fuse(graph, self.config)
         units = retry_regions(graph, report)
         self._start_job(graph, report, units)
         self._prepare_width_adapt(graph, units)
         depth = max(1, self.config.overflow_sync_depth)
         window: List[dict] = []
+        # (member stage id, output) -> its unit's fingerprint and export
+        # position, the upstream part of a consumer's identity
+        self._out_fp: Dict[Tuple[int, int], Optional[str]] = {}
+        self._unit_fp: Dict[int, Optional[str]] = {}  # id(unit) -> fingerprint
+        self._binding_fps = binding_fps
         for unit in units:
             driver = _driver_kind(unit[0])
             if driver:
@@ -277,6 +400,7 @@ class GraphExecutor:
                 (current,) = self._inputs(stage, bindings, results)
                 run = self._run_do_while if driver == "do_while" else self._run_apply_host
                 results[(stage.id, 0)] = run(stage, current)
+                self._out_fp[(stage.id, 0)] = None  # loop state / host fn: opaque
                 continue
             if window and self._drain_for_adapt(unit, window):
                 # a count this stage could adapt from sits in the window
@@ -285,7 +409,84 @@ class GraphExecutor:
             if len(window) >= depth:
                 self._drain(window, bindings, results, misses)
         self._drain(window, bindings, results, misses)
-        return results, misses
+        return results, misses, self._gated_ckpts
+
+    # -- checkpoints -----------------------------------------------------------
+    def _unit_stage(self, unit: List[Stage]):
+        """The stage the checkpoint store sees for ``unit``: the stage
+        itself, or for a run of stages its :class:`_UnitStage`."""
+        if len(unit) == 1:
+            return unit[0]
+        return _UnitStage(self._unit_id[id(unit)], _unit_name(unit), unit,
+                          self._exports[id(unit)])
+
+    def _unit_fingerprint(self, unit: List[Stage], bindings, results) -> Optional[str]:
+        """Merkle identity of a unit: its ops and out slots, its
+        external inputs' shapes (columns and capacity) and their
+        fingerprints (a binding's content digest, or the producing
+        unit's fingerprint and export position).  None when an input
+        cannot be fingerprinted (a device binding, a loop state)."""
+        members = {m.id for m in unit}
+        refs: List[Tuple] = []
+        for m in unit:
+            for ref, idx in m.input_refs:
+                if (ref == "plan_input" or ref not in members) and (ref, idx) not in refs:
+                    refs.append((ref, idx))
+        fps, shapes = [], []
+        for ref, idx in refs:
+            b = bindings[idx] if ref == "plan_input" else results[(ref, idx)]
+            shapes.append((tuple(sorted(b.data.keys())), b.capacity))
+            fps.append(self._binding_fps.get(idx) if ref == "plan_input"
+                       else self._out_fp.get((ref, idx)))
+        fp = stage_fingerprint(self._unit_stage(unit), tuple(shapes), tuple(fps))
+        self._unit_fp[id(unit)] = fp
+        for pos, e in enumerate(self._exports[id(unit)]):
+            self._out_fp[e] = f"{fp}:{pos}" if fp is not None else None
+        return fp
+
+    def _load_checkpoint(self, unit: List[Stage], bindings, results) -> bool:
+        """Publish a unit's outputs from its checkpoint, when one with
+        its fingerprint exists and reads clean."""
+        fp = self._unit_fingerprint(unit, bindings, results)
+        if fp is None:
+            return False
+        stage = self._unit_stage(unit)
+        exports = self._exports[id(unit)]
+        hit = self.checkpoints.load(stage, fp, self.device, self.P)
+        if hit is None or len(hit) != len(exports):
+            return False
+        self.event_log.emit("stage_checkpoint_hit", stage=stage.id, name=stage.name)
+        for e, b in zip(exports, hit):
+            results[e] = b
+        return True
+
+    def _save_checkpoint(self, unit: List[Stage], results) -> None:
+        """Save a clean unit's exports; a unit with a miss guard waits
+        for the job's miss check (its saves ride ``DeferredFinish``), so
+        a result whose dense domain dropped rows is never persisted."""
+        if self.checkpoints is None:
+            return
+        fp = self._unit_fp.get(id(unit))
+        if fp is None:
+            return
+        stage = self._unit_stage(unit)
+        outs = tuple(results[e] for e in self._exports[id(unit)])
+        if _has_miss_guard(stage.ops):
+            self._gated_ckpts.append((stage, fp, outs))
+            return
+        self._write_checkpoint(stage, fp, outs)
+
+    def _write_checkpoint(self, stage, fp: str, outs) -> None:
+        if self.config.checkpoint_retain_seconds is not None:
+            n = self.checkpoints.gc(self.config.checkpoint_retain_seconds)
+            if n:
+                self.event_log.emit("checkpoint_gc", removed=n)
+        try:
+            path = self.checkpoints.save(stage, fp, tuple(outs[: len(stage.out_slots)]))
+            self.event_log.emit("stage_checkpoint_saved", stage=stage.id, name=stage.name,
+                                path=path)
+        except OSError as e:
+            _log.warning("checkpoint save failed for %s: %s", stage.name, e)
 
     def _note(self, kind: str, label: str, value: int, **fields) -> None:
         """Log an event and keep its ``(kind, name, value)`` record."""
@@ -327,7 +528,10 @@ class GraphExecutor:
         """Run a unit.  Inside an open window (``window`` a list) it is
         dispatched once and its flag and counts wait for the drain;
         otherwise an overflow-capable unit reads its flag (and wanted
-        counts) at once and retries until clean."""
+        counts) at once and retries until clean.  With checkpoints on,
+        a unit whose fingerprint has a checkpoint is loaded instead."""
+        if self.checkpoints is not None and self._load_checkpoint(unit, bindings, results):
+            return
         solo = unit[0] if len(unit) == 1 else None
         name = solo.name if solo else _unit_name(unit)
         sid = self._unit_id[id(unit)]
@@ -355,35 +559,45 @@ class GraphExecutor:
             # escalated boosts drop the reduced width first: the
             # concentration itself may be what overflowed
             fan = adapt_fan if adapt_fan and boost < 4 else None
-            overflow, dict_miss = self._dispatch(unit, bindings, results, fan, boost)
-            counts = [results[e].valid.sum() for e in exports] if want_count else []
-            if window is not None and (can_overflow or window):
-                window.append(dict(
-                    unit=unit, name=name, sid=sid, ops=ops, boost=boost, miss=dict_miss,
-                    flag=overflow if can_overflow else None, counts=counts,
-                    version=version, t0=t0,
-                ))
-                log.emit("stage_dispatched", stage=sid, name=name, version=version,
-                         boost=boost, inflight=len(window))
+            host = None
+            with self.tracer.span(name, cat="execute", stage=sid, version=version, boost=boost):
+                overflow, dict_miss = self._dispatch(unit, bindings, results, fan, boost)
+                counts = [results[e].valid.sum() for e in exports] if want_count else []
+                windowed = window is not None and (can_overflow or bool(window))
+                if windowed:
+                    window.append(dict(
+                        unit=unit, name=name, sid=sid, ops=ops, boost=boost, miss=dict_miss,
+                        flag=overflow if can_overflow else None, counts=counts,
+                        version=version, t0=t0, fan=fan,
+                    ))
+                    log.emit("stage_dispatched", stage=sid, name=name, version=version,
+                             boost=boost, inflight=len(window))
+                elif can_overflow:
+                    host = torch.stack([overflow.to(torch.int64)] + counts).cpu().tolist()
+            if windowed:
                 return
             if not can_overflow:
                 misses.append((name, dict_miss))
                 # overflow-free units report their dispatch time
                 log.emit("stage_complete", stage=sid, name=name, version=version,
                          seconds=time.time() - t0, **{"async": True})
+                if not fan:  # a reduced-width layout is not what the fingerprint says
+                    self._save_checkpoint(unit, results)
                 return
-            host = torch.stack([overflow.to(torch.int64)] + counts).cpu().tolist()
             if not host[0]:
                 self._record(exports, host[1:])
                 misses.append((name, dict_miss))
                 log.emit("stage_complete", stage=sid, name=name, version=version,
                          seconds=time.time() - t0)
+                if not fan:
+                    self._save_checkpoint(unit, results)
                 return
             self._note("stage_overflow", name, boost, stage=sid, name=name,
                        version=version, boost=boost)
             if boost >= 2 ** self.config.max_shuffle_retries:
                 log.emit("job_failed", stage=sid, name=name, failure_kind="resource",
                          reason="shuffle overflow at max boost")
+                flightrec.dump_now(f"overflow_exhausted:{name}")
                 raise StageFailedError(_exhausted_message(name, ops, boost))
             boost *= 2
 
@@ -430,6 +644,8 @@ class GraphExecutor:
             self.event_log.emit("stage_complete", stage=w["sid"], name=w["name"],
                                 version=w["version"], seconds=time.time() - w["t0"],
                                 deferred=True)
+            if not w["fan"]:
+                self._save_checkpoint(w["unit"], results)
         if bad == len(entries):
             return
         for w in entries[bad:]:
@@ -607,5 +823,9 @@ class GraphExecutor:
         return fan if fan < self.P else None
 
 
-# the per-graph adaptation state a nested execute() saves and restores
-_ADAPT_STATE = ("_observed_rows", "_count_wanted", "_adapt_safe", "_exports", "_unit_of", "_unit_id")
+# the per-graph state (adaptation, checkpoint identities) a nested
+# execute() saves and restores
+_ADAPT_STATE = (
+    "_observed_rows", "_count_wanted", "_adapt_safe", "_exports", "_unit_of", "_unit_id",
+    "_out_fp", "_unit_fp", "_binding_fps", "_gated_ckpts",
+)

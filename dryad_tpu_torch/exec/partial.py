@@ -155,14 +155,69 @@ def key_hash64(cols, keys):
     return h
 
 
+def _key_groups(cols, keys):
+    """Rows grouped by their key tuple, or None when a key column is
+    neither integer/bool nor all-``str`` (those keep the tuple dict:
+    its float and mixed-object equality is what the reference's merge
+    does).  Returns ``(order, spans)``: the row indices sorted stably by
+    group, and per group, in order of its first row, the ``(start,
+    end)`` of its rows in ``order`` (in row order: the reference's
+    per-key index list)."""
+    import numpy as np
+
+    from dryad_tpu_torch.columnar.schema import factorize_strings
+
+    codes, card = None, 1
+    for k in keys:
+        a = np.asarray(cols[k])
+        if a.dtype == object:
+            f = factorize_strings(a)
+            if f is None:
+                return None
+            c, m = f[1], len(f[0])
+        elif a.dtype.kind in "iub":
+            u, c = np.unique(a, return_inverse=True)
+            c, m = c.reshape(-1), len(u)
+        else:
+            return None
+        if codes is None:
+            codes, card = c, m
+        else:  # re-compact after each column: codes stay below the row count
+            u, codes = np.unique(codes * m + c, return_inverse=True)
+            codes, card = codes.reshape(-1), len(u)
+    # a stable sort of small codes is a radix sort
+    narrow = np.uint8 if card <= 1 << 8 else np.uint16 if card <= 1 << 16 else np.int64
+    order = np.argsort(codes.astype(narrow), kind="stable")
+    bounds = np.concatenate([[0], np.cumsum(np.bincount(codes, minlength=card))])
+    first = order[bounds[:-1]]  # every code occurs: its segment's first row
+    spans = [(bounds[c], bounds[c + 1]) for c in np.argsort(first, kind="stable").tolist()]
+    return order, spans
+
+
 def merge_state_rows(cols, keys, red):
     """Fold partial STATE rows by key with the plan's associative
     reductions (:func:`state_reductions`) — no finalize, so the result
     is itself a valid partial table: one host fold step of the
-    aggregation tree."""
+    aggregation tree.  Groups come out in order of their first row and
+    each reduction runs over the group's rows in row order, as the
+    reference's fold; integer, bool and string keys are grouped by
+    sorting codes instead of a dict of Python tuples (the same groups,
+    rows and bytes, several times faster on millions of rows)."""
     import numpy as np
 
     n = len(cols[keys[0]]) if keys else 0
+    grouped = _key_groups(cols, keys) if n else None
+    if grouped is not None:
+        order, spans = grouped
+        first = order[[a for a, _ in spans]]
+        res = {k: np.asarray(cols[k])[first] for k in keys}
+        for c, op in red.items():
+            vs = np.asarray(cols[c])[order]
+            fold = {"sum": np.sum, "min": np.min, "max": np.max, "any": np.any}.get(op, np.all)
+            # each group's rows, contiguous and in row order: the same
+            # reduction over the same sequence as a fancy-indexed copy
+            res[c] = np.asarray([fold(vs[a:b]) for a, b in spans])
+        return res
     tups = list(zip(*[np.asarray(cols[k]).tolist() for k in keys])) if n \
         else []
     index = {}

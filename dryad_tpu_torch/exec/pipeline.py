@@ -1,6 +1,6 @@
-"""Bounded chunk pipeline of the out-of-core driver (a copy of
-``dryad_tpu/exec/pipeline.py``; its flight-recorder probes and query
-trace context come with ROADMAP queue 1 item 14).
+"""Bounded chunk pipeline of the out-of-core driver and the serving
+tier (a copy of ``dryad_tpu/exec/pipeline.py``, with its flight-recorder
+probes and query trace handoffs).
 
 Host threads overlap ingest, device compute and readback for the
 streaming driver (``exec/outofcore.py``):
@@ -32,7 +32,7 @@ import threading
 import time
 from typing import Any, Iterator, Optional
 
-from dryad_tpu_torch.obs import telemetry
+from dryad_tpu_torch.obs import flightrec, telemetry, tracectx
 from dryad_tpu_torch.obs.span import Tracer
 
 __all__ = [
@@ -98,6 +98,9 @@ class ChunkPrefetcher:
         # producer-thread spans (cat=prefetch): each source pull is one
         # slice on the prefetch track of the Perfetto export
         self._tracer = Tracer(events)
+        # the producer thread works FOR the query that built this
+        # prefetcher: its cat=prefetch spans carry the qid
+        self._tctx = tracectx.current()
         self.stats = PipelineStats()
         self._source = source
         self._sem = threading.Semaphore(depth)  # in-flight budget
@@ -108,11 +111,23 @@ class ChunkPrefetcher:
         self._thread = threading.Thread(
             target=self._feed, name=f"dryad-{name}", daemon=True
         )
+        flightrec.probe(
+            f"pipeline:{name}",
+            lambda: {
+                "queued": len(self._items),
+                "in_flight": self.stats.produced - self.stats.consumed,
+                "depth": self.depth,
+            },
+        )
         self._thread.start()
 
     # -- producer ----------------------------------------------------------
 
     def _feed(self) -> None:
+        with tracectx.activate(self._tctx):
+            self._feed_traced()
+
+    def _feed_traced(self) -> None:
         tail: Any = _Done()
         try:
             it = iter(self._source)
@@ -192,6 +207,7 @@ class ChunkPrefetcher:
         # unblock a producer waiting on the semaphore
         self._sem.release()
         self._thread.join(timeout=30.0)
+        flightrec.unprobe(f"pipeline:{self.name}")
         if not closed_already:
             self._emit_summary()
 
@@ -275,7 +291,7 @@ class DispatchWindow:
         # driver CPU over the window's life: __init__/close both run on
         # the driver thread, so thread_time deltas are driver-only
         self._t0_cpu = time.thread_time()
-        self._pending: list = []  # (tag, fetch) for the collector
+        self._pending: list = []  # (tag, fetch, tctx) for the collector
         self._done: list = []  # (tag, value, error) in submit order
         self._outstanding = 0  # submitted - consumed by the driver
         self._cv = threading.Condition()
@@ -293,6 +309,14 @@ class DispatchWindow:
         self._thread = threading.Thread(
             target=self._collect, name=f"dryad-{name}", daemon=True
         )
+        flightrec.probe(
+            f"dispatch:{name}",
+            lambda: {
+                "in_flight": len(self._pending),
+                "outstanding": self._outstanding,
+                "depth": self.depth,
+            },
+        )
         self._thread.start()
 
     # -- collector thread --------------------------------------------------
@@ -304,10 +328,12 @@ class DispatchWindow:
                     self._cv.wait(0.1)
                 if not self._pending:
                     return  # closed and drained
-                tag, fetch = self._pending[0]
+                tag, fetch, tctx = self._pending[0]
             value, error = None, None
             try:
-                with self._tracer.span(
+                # the fetch works FOR the query that submitted it:
+                # readback spans on this thread carry its qid
+                with tracectx.activate(tctx), self._tracer.span(
                     "fetch", cat="readback", pipeline=self.name,
                 ):
                     value = fetch()
@@ -351,7 +377,7 @@ class DispatchWindow:
             # driver is the one blocked here)
             while len(self._pending) >= self.depth and not self._closed:
                 self._cv.wait(0.1)
-            self._pending.append((tag, fetch))
+            self._pending.append((tag, fetch, tracectx.current()))
             self._outstanding += 1
             self.dispatches += 1
             self._idle_since = None
@@ -360,11 +386,28 @@ class DispatchWindow:
             self.events.emit(
                 "dispatch_gap", pipeline=self.name,
                 gap_s=round(gap, 6), in_flight=in_flight,
+                qid=tracectx.current_qid(),
             )
 
     def note_retry(self) -> None:
         """Record one drain-time chunk retry (re-entered the window)."""
         self.retries += 1
+
+    def wait(self, timeout: float = 0.1) -> bool:
+        """Block until at least one outcome is ready for :meth:`ready`
+        (True), or the window is idle or closed, or ``timeout`` elapses
+        (False): the serving driver parks here when its tenant queues
+        hold nothing runnable."""
+        deadline = time.monotonic() + timeout
+        with self._cv:
+            while not self._done:
+                if self._closed or (not self._pending and self._outstanding == 0):
+                    return False
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    return False
+                self._cv.wait(min(remaining, 0.1))
+            return True
 
     def ready(self):
         """Yield completed ``(tag, value, error)`` triples in submit
@@ -409,6 +452,7 @@ class DispatchWindow:
             self._pending.clear()
             self._cv.notify_all()
         self._thread.join(timeout=30.0)
+        flightrec.unprobe(f"dispatch:{self.name}")
         if self.events is not None:
             self.events.emit(
                 "dispatch_window", pipeline=self.name, depth=self.depth,

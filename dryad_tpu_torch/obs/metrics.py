@@ -1,6 +1,6 @@
-"""Counters, histograms and key-range histograms of the stream path
-(``MetricsRegistry`` and ``KeyRangeHistogram`` of
-``dryad_tpu/obs/metrics.py``).
+"""Counters, histograms, key-range histograms and the job-level
+attribution snapshot (``MetricsRegistry``, ``KeyRangeHistogram`` and
+``JobMetrics`` of ``dryad_tpu/obs/metrics.py``).
 
 - :class:`MetricsRegistry`: thread-safe labeled counters and
   histograms (spill bytes, transfer bytes, per-piece rows).  A
@@ -10,16 +10,24 @@
 - :class:`KeyRangeHistogram`: per hash-derived key range, a row count
   and a HyperLogLog-style distinct estimate; the combine tree places
   partials by the counts and degrades ranges by the estimates.
+- :class:`JobMetrics`: where the time and bytes went, folded from any
+  event stream: leaf span time by category, dispatches (one per
+  ``stage_start``), the dispatch windows, the combine tree, and the
+  serving tier's admission, cache and view counters with their
+  per-tenant folds.  The reference's compile, gang, coded-redundancy,
+  exchange-round and rewrite fields have no events in the port and
+  are left out.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import threading
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Iterable, Tuple
 
 import numpy as np
 
-__all__ = ["MetricsRegistry", "KeyRangeHistogram"]
+__all__ = ["MetricsRegistry", "KeyRangeHistogram", "JobMetrics"]
 
 
 def _labels_key(labels: Dict[str, Any]) -> Tuple:
@@ -198,3 +206,209 @@ class KeyRangeHistogram:
             "distinct": est,
             "reduction_ratios": ratios,
         }
+
+
+# -- job-level attribution snapshot -----------------------------------------
+
+# span categories that count as LEAF time (mutually exclusive regions);
+# structural cats (chunk, driver) group spans and must not double-count
+_LEAF_CATS = {
+    "execute": "execute_s",
+    "prefetch": "ingest_s",
+    "spill": "spill_write_s",
+    "checkpoint": "checkpoint_s",
+}
+
+
+@dataclasses.dataclass
+class JobMetrics:
+    """Where the time (and bytes) went, foldable from any event stream.
+
+    Seconds: ``execute_s`` (stage attempts, ``span`` cat=execute),
+    ``ingest_s`` / ``spill_write_s`` / ``checkpoint_s`` (background
+    prefetch pulls, spill piece writes, checkpoint I/O), and the
+    stream pipeline's ``ingest_stall_s`` (the driver waiting on the
+    prefetch thread) and ``compute_stall_s`` (the reverse).  Counts:
+    ``dispatch_count`` (one per ``stage_start``: a cache hit adds
+    none), fused-region dispatches, the dispatch windows, the combine
+    tree, and the serving tier's admission, result-cache and view
+    counters with a per-tenant fold in ``tenants``.
+    """
+
+    execute_s: float = 0.0
+    ingest_s: float = 0.0
+    ingest_stall_s: float = 0.0
+    compute_stall_s: float = 0.0
+    spill_write_s: float = 0.0
+    checkpoint_s: float = 0.0
+    spill_bytes: int = 0
+    spill_rows: int = 0
+    d2h_bytes: int = 0
+    h2d_bytes: int = 0
+    layout_rows: int = 0
+    valid_rows: int = 0
+    rows_in: int = 0
+    rows_out: int = 0
+    spans: int = 0
+    dispatch_count: int = 0
+    fused_dispatches: int = 0
+    fused_member_stages: int = 0
+    dcn_bytes: int = 0
+    ici_bytes: int = 0
+    tree_combines: int = 0
+    tree_depth: int = 0
+    degraded_ranges: int = 0
+    degraded_fraction: float = 0.0
+    dispatch_windows: int = 0
+    window_dispatches: int = 0
+    dispatch_gap_s: float = 0.0
+    dispatch_retries: int = 0
+    driver_cpu_s: float = 0.0
+    driver_wall_s: float = 0.0
+    # serving tier: service-level totals plus tenant -> counter dict
+    # (admitted/completed/rejected/cache_hits/failed/seconds and the
+    # latest quota_state)
+    queries_admitted: int = 0
+    queries_completed: int = 0
+    queries_rejected: int = 0
+    result_cache_hits: int = 0
+    tenants: Dict[str, Dict[str, Any]] = dataclasses.field(default_factory=dict)
+    # materialized views: registrations vs refusals, delta-fold volume,
+    # and how reads resolved (fresh: zero dispatches; finalized: one)
+    views_registered: int = 0
+    view_fallbacks: int = 0
+    view_deltas: int = 0
+    view_delta_rows: int = 0
+    view_delta_bytes: int = 0
+    view_snapshots_fresh: int = 0
+    view_snapshots_finalized: int = 0
+
+    @property
+    def driver_cpu_fraction(self) -> float:
+        """Driver-thread CPU seconds per wall second across dispatch
+        windows (0 without window summaries)."""
+        if self.driver_wall_s <= 0:
+            return 0.0
+        return min(1.0, self.driver_cpu_s / self.driver_wall_s)
+
+    @property
+    def padding_waste(self) -> float:
+        """Fraction of device layout rows that were padding."""
+        if self.layout_rows <= 0:
+            return 0.0
+        return max(0.0, 1.0 - self.valid_rows / self.layout_rows)
+
+    def _tenant(self, ev: Dict[str, Any]) -> Dict[str, Any]:
+        """The per-tenant record of an event's tenant, made on first
+        contact."""
+        t = self.tenants.get(ev.get("tenant", "?"))
+        if t is None:
+            t = self.tenants[ev.get("tenant", "?")] = {
+                "admitted": 0, "completed": 0, "rejected": 0,
+                "cache_hits": 0, "failed": 0, "seconds": 0.0,
+                "quota_state": "ok",
+            }
+        return t
+
+    # counters of ``metrics`` snapshot events folded into the fields above
+    _COUNTER_FIELDS = {
+        "d2h_bytes": "d2h_bytes",
+        "h2d_bytes": "h2d_bytes",
+        "layout_rows": "layout_rows",
+        "valid_rows": "valid_rows",
+        "rows_in": "rows_in",
+        "rows_out": "rows_out",
+        "spill_bytes": "spill_bytes",
+    }
+
+    @classmethod
+    def from_events(cls, events: Iterable[Dict[str, Any]]) -> "JobMetrics":
+        """Fold an event stream (live or loaded) into one snapshot.
+        ``metrics`` events are cumulative per registry, so only the last
+        value of each counter contributes."""
+        m = cls()
+        last_counter: Dict[str, float] = {}
+        for ev in events:
+            kind = ev.get("kind")
+            if kind == "span":
+                m.spans += 1
+                field = _LEAF_CATS.get(ev.get("cat"))
+                if field is not None:
+                    setattr(m, field, getattr(m, field) + ev.get("dur", 0.0))
+                if ev.get("cat") == "spill":
+                    m.spill_bytes += int(ev.get("bytes", 0) or 0)
+            elif kind == "stage_start":
+                m.dispatch_count += 1
+            elif kind == "fused_dispatch":
+                m.fused_dispatches += 1
+                m.fused_member_stages += int(ev.get("members", 0) or 0)
+            elif kind == "stream_pipeline":
+                m.ingest_stall_s += ev.get("consumer_wait_s", 0.0)
+                m.compute_stall_s += ev.get("producer_wait_s", 0.0)
+            elif kind == "stream_spill":
+                m.spill_rows += int(ev.get("rows", 0) or 0)
+            elif kind == "stream_combine":
+                m.dcn_bytes += int(ev.get("dcn_bytes", 0) or 0)
+                m.ici_bytes += int(ev.get("ici_bytes", 0) or 0)
+            elif kind == "stream_chunk":
+                m.rows_in += int(ev.get("rows", 0) or 0)
+            elif kind == "combine_tree_level":
+                m.tree_combines += 1
+                m.tree_depth = max(m.tree_depth, int(ev.get("level", 0)) + 1)
+                m.dcn_bytes += int(ev.get("dcn_bytes", 0) or 0)
+                m.ici_bytes += int(ev.get("ici_bytes", 0) or 0)
+            elif kind == "combine_tree_degrade":
+                m.degraded_ranges = max(m.degraded_ranges, int(ev.get("degraded", 0) or 0))
+                m.degraded_fraction = max(
+                    m.degraded_fraction, float(ev.get("fraction", 0.0) or 0.0)
+                )
+            elif kind == "dispatch_window":
+                # the close-time summary carries the window's cumulative
+                # gap_s: only the summary is folded
+                m.dispatch_windows += 1
+                m.window_dispatches += int(ev.get("dispatches", 0) or 0)
+                m.dispatch_gap_s += float(ev.get("gap_s", 0.0) or 0.0)
+                m.dispatch_retries += int(ev.get("retries", 0) or 0)
+                m.driver_cpu_s += float(ev.get("driver_cpu_s", 0.0) or 0.0)
+                m.driver_wall_s += float(ev.get("wall_s", 0.0) or 0.0)
+            elif kind == "query_admitted":
+                m.queries_admitted += 1
+                m._tenant(ev)["admitted"] += 1
+            elif kind == "query_rejected":
+                m.queries_rejected += 1
+                m._tenant(ev)["rejected"] += 1
+            elif kind == "query_complete":
+                m.queries_completed += 1
+                t = m._tenant(ev)
+                t["completed"] += 1
+                t["seconds"] += float(ev.get("seconds", 0.0) or 0.0)
+                if not ev.get("ok", True):
+                    t["failed"] += 1
+            elif kind == "result_cache_hit":
+                m.result_cache_hits += 1
+                m._tenant(ev)["cache_hits"] += 1
+            elif kind == "tenant_quota":
+                # state transitions: the last one is the live state
+                m._tenant(ev)["quota_state"] = ev.get("state", "ok")
+            elif kind == "view_register":
+                m.views_registered += 1
+            elif kind == "view_fallback":
+                m.view_fallbacks += 1
+            elif kind == "view_delta":
+                m.view_deltas += 1
+                m.view_delta_rows += int(ev.get("rows", 0) or 0)
+                m.view_delta_bytes += int(ev.get("bytes", 0) or 0)
+            elif kind == "view_snapshot":
+                if ev.get("fresh"):
+                    m.view_snapshots_fresh += 1
+                else:
+                    m.view_snapshots_finalized += 1
+            elif kind == "metrics":
+                for c in ev.get("counters", []):
+                    name = c.get("name")
+                    if name in cls._COUNTER_FIELDS:
+                        last_counter[name] = c.get("value", 0.0)
+        for name, v in last_counter.items():
+            field = cls._COUNTER_FIELDS[name]
+            setattr(m, field, getattr(m, field) + int(v))
+        return m

@@ -1,11 +1,11 @@
 """Hierarchical spans over the ``EventLog`` stream (a copy of
-``dryad_tpu/obs/span.py`` without the query-trace context, which the
-port does not have yet: its span events carry no ``qid``).
+``dryad_tpu/obs/span.py``).
 
 A span measures one timed region (chunk, pipeline pull, spill write)
 on monotonic clocks and serializes into the event stream as ONE
 ``span`` event at close: ``{"kind": "span", "name", "cat", "span_id",
-"parent_id", "dur", "thread", ...fields}``.  Its start is ``mono -
+"parent_id", "dur", "thread", "qid", ...fields}``; ``qid`` is the
+active query's (``obs/tracectx.py``), None outside any query.  Its start is ``mono -
 dur``, so the stream never holds an unmatched begin.  Parenting is
 implicit per thread (a thread-local stack).  Span ids are unique
 process-wide (one shared counter).
@@ -17,6 +17,8 @@ import itertools
 import threading
 import time
 from typing import Any
+
+from dryad_tpu_torch.obs import tracectx
 
 __all__ = ["Span", "Tracer"]
 
@@ -59,9 +61,11 @@ class Span:
         if exc_type is not None and exc_type is not StopIteration:
             # StopIteration ends a prefetch pull's stream: not a fault
             self.fields.setdefault("error", f"{exc_type.__name__}: {exc}")
+        # a field passed at construction wins over the thread's scope
+        qid = self.fields.pop("qid", None) or tracectx.current_qid()
         self._tracer._events.emit(
             "span", name=self.name, cat=self.cat, span_id=self.span_id,
-            parent_id=self.parent_id, dur=round(dur, 6),
+            parent_id=self.parent_id, dur=round(dur, 6), qid=qid,
             thread=threading.current_thread().name, **self.fields,
         )
 

@@ -30,6 +30,13 @@ def _env_bool(name: str, default: bool) -> bool:
     return v.lower() in ("1", "true", "yes", "on")
 
 
+class StaticConfig:
+    """Process-wide defaults read once at import (the reference's
+    ``StaticConfig``, reduced to what the port reads)."""
+
+    logging_level: str = os.environ.get("DRYAD_TPU_LOGGING_LEVEL", "INFO")
+
+
 @dataclasses.dataclass
 class DryadConfig:
     """Context knobs of the ported path (see the reference for history).
@@ -94,6 +101,25 @@ class DryadConfig:
       dispatch window's collector thread (1: dispatch then read; -1:
       adaptive, which resolves to 2 without a memory measurement);
       ``chunk_fuse``: chunk plans lowered together into one job.
+    - Stage checkpoints (``exec/checkpoint.py``): ``checkpoint_dir``
+      holds each stage's output keyed by its content fingerprint (None
+      disables); ``checkpoint_retain_seconds`` is the retention lease
+      (None keeps them).
+    - Flight recorder (``obs/flightrec.py``): ``obs_flight_recorder``
+      taps the event log into a bounded ring of ``flightrec_events``
+      events with health snapshots every ``flightrec_snapshot_s``,
+      dumped under ``flightrec_dir`` (None: ``event_log_dir`` or the
+      working directory) when a job fails.
+    - Serving (``serve/``): ``serve_max_inflight`` and
+      ``serve_max_bytes`` are each tenant's admission budgets (queries
+      admitted and unresolved, their summed host-input bytes; 0: no
+      byte budget); ``serve_result_cache_bytes`` the result cache's
+      budget (0 disables); ``serve_drr_quantum_bytes`` the input bytes
+      per fair-share cost unit; ``serve_cache_admission`` ("cost" or
+      "all") and ``serve_cache_min_sec_per_gb`` the cache's admission
+      rule.  ``telemetry_window_s`` is the rolling window of the SLO
+      store; ``query_trace`` stamps each query's events with its
+      ``qid`` (``obs/tracectx.py``).
     """
 
     shuffle_slack: float = _env_float("DRYAD_TPU_SHUFFLE_SLACK", 2.0)
@@ -134,6 +160,24 @@ class DryadConfig:
     stream_host_reprobe: int = _env_int("DRYAD_TPU_STREAM_HOST_REPROBE", 2)
     dispatch_depth: int = _env_int("DRYAD_TPU_DISPATCH_DEPTH", 2)
     chunk_fuse: int = _env_int("DRYAD_TPU_CHUNK_FUSE", 1)
+    checkpoint_dir: Optional[str] = None
+    checkpoint_retain_seconds: Optional[float] = None
+    obs_flight_recorder: bool = _env_bool("DRYAD_TPU_FLIGHT_RECORDER", True)
+    flightrec_events: int = _env_int("DRYAD_TPU_FLIGHTREC_EVENTS", 2048)
+    flightrec_snapshot_s: float = _env_float("DRYAD_TPU_FLIGHTREC_SNAPSHOT_S", 1.0)
+    flightrec_dir: Optional[str] = os.environ.get("DRYAD_TPU_FLIGHTREC_DIR") or None
+    serve_max_inflight: int = _env_int("DRYAD_TPU_SERVE_MAX_INFLIGHT", 32)
+    serve_max_bytes: int = _env_int("DRYAD_TPU_SERVE_MAX_BYTES", 1 << 30)
+    serve_result_cache_bytes: int = _env_int(
+        "DRYAD_TPU_SERVE_CACHE_BYTES", 256 * 1024 * 1024
+    )
+    serve_drr_quantum_bytes: int = _env_int("DRYAD_TPU_SERVE_DRR_QUANTUM", 1 << 22)
+    serve_cache_admission: str = os.environ.get("DRYAD_TPU_SERVE_CACHE_ADMISSION", "cost")
+    serve_cache_min_sec_per_gb: float = _env_float(
+        "DRYAD_TPU_SERVE_CACHE_MIN_SEC_PER_GB", 0.5
+    )
+    telemetry_window_s: float = _env_float("DRYAD_TPU_TELEMETRY_WINDOW_S", 60.0)
+    query_trace: bool = _env_bool("DRYAD_TPU_QUERY_TRACE", True)
 
     def validate(self) -> None:
         if self.shuffle_slack < 1.0:
@@ -183,3 +227,23 @@ class DryadConfig:
             )
         if self.chunk_fuse < 1:
             raise ValueError("chunk_fuse must be >= 1")
+        if self.flightrec_events < 16:
+            raise ValueError("flightrec_events must be >= 16")
+        if self.flightrec_snapshot_s <= 0:
+            raise ValueError("flightrec_snapshot_s must be > 0")
+        if self.serve_max_inflight < 1:
+            raise ValueError("serve_max_inflight must be >= 1")
+        if self.serve_max_bytes < 0:
+            raise ValueError("serve_max_bytes must be >= 0")
+        if self.serve_result_cache_bytes < 0:
+            raise ValueError("serve_result_cache_bytes must be >= 0")
+        if self.serve_drr_quantum_bytes < 1:
+            raise ValueError("serve_drr_quantum_bytes must be >= 1")
+        if self.serve_cache_admission not in ("cost", "all"):
+            raise ValueError(
+                "serve_cache_admission must be 'cost' or 'all'"
+            )
+        if self.serve_cache_min_sec_per_gb < 0:
+            raise ValueError("serve_cache_min_sec_per_gb must be >= 0")
+        if self.telemetry_window_s <= 0:
+            raise ValueError("telemetry_window_s must be > 0")

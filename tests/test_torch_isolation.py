@@ -60,8 +60,10 @@ def test_scan_covers_every_module_of_the_port():
     operators (ops/join.py), the decomposable aggregates
     (api/decomposable.py), the stage kernels and executor that drive
     them, and the stores, codecs, providers, event log, fusion decision,
-    explain, the WebHDFS stub, the samples and the out-of-core stream
-    path (obs/, spill, pipeline, partial, combine tree, the driver)
+    explain, the WebHDFS stub, the samples, the out-of-core stream
+    path (obs/, spill, pipeline, partial, combine tree, the driver) and
+    the serving slice (serve/, views/, checkpoints, the failure types,
+    the trace context, critical path, flight recorder and logging)
     included."""
     scanned = {os.path.relpath(p, ROOT) for p in _port_files()}
     for mod in ("ops/join.py", "ops/segmented.py", "exec/kernels.py", "exec/executor.py",
@@ -74,7 +76,11 @@ def test_scan_covers_every_module_of_the_port():
                 "samples/pagerank_dowhile.py", "samples/top_words.py",
                 "samples/topk_per_key_hdfs.py", "obs/span.py", "obs/metrics.py",
                 "obs/telemetry.py", "exec/spill.py", "exec/pipeline.py", "exec/partial.py",
-                "exec/combinetree.py", "exec/outofcore.py"):
+                "exec/combinetree.py", "exec/outofcore.py",
+                "serve/__init__.py", "serve/admission.py", "serve/cache.py", "serve/router.py",
+                "serve/service.py", "views/__init__.py", "views/matview.py",
+                "exec/checkpoint.py", "exec/failure.py", "exec/faults.py", "obs/tracectx.py",
+                "obs/critpath.py", "obs/flightrec.py", "utils/logging.py"):
         assert os.path.join("dryad_tpu_torch", mod) in scanned, mod
     assert "chip_smoke.py" in scanned
 
@@ -92,6 +98,11 @@ def test_import_in_fresh_process_loads_no_jax():
         "import dryad_tpu_torch.exec.pipeline, dryad_tpu_torch.exec.spill\n"
         "import dryad_tpu_torch.exec.partial, dryad_tpu_torch.obs.span\n"
         "import dryad_tpu_torch.obs.metrics, dryad_tpu_torch.obs.telemetry\n"
+        "import dryad_tpu_torch.serve, dryad_tpu_torch.serve.service, dryad_tpu_torch.views\n"
+        "import dryad_tpu_torch.exec.checkpoint, dryad_tpu_torch.exec.failure\n"
+        "import dryad_tpu_torch.exec.faults, dryad_tpu_torch.obs.tracectx\n"
+        "import dryad_tpu_torch.obs.critpath, dryad_tpu_torch.obs.flightrec\n"
+        "import dryad_tpu_torch.utils.logging\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "print(bad); sys.exit(1 if bad else 0)\n"
@@ -128,3 +139,20 @@ def test_collect_stream_is_ported():
     chunks = [{"x": np.arange(i, i + 3, dtype=np.int32)} for i in (0, 3)]
     pieces = list(ctx.from_stream(iter(chunks)).collect_stream())
     assert [p["x"].tolist() for p in pieces] == [[0, 1, 2], [3, 4, 5]]
+
+
+@pytest.mark.parametrize("name", ["FleetClient", "ReplicaRunner", "ServeFleet"])
+def test_serving_fleet_names_raise_naming_their_item(name):
+    """The serve package exports the reference's names but the fleet's,
+    which need the cluster service: reaching one raises
+    NotImplementedError naming ROADMAP queue 1 item 13."""
+    from dryad_tpu_torch import serve
+
+    assert name not in serve.__all__
+    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
+        getattr(serve, name)
+    with pytest.raises(AttributeError):
+        serve.NoSuchName  # noqa: B018
+    for kept in ("QueryService", "TenantSession", "QueryFuture", "QueryRejected",
+                 "TenantQuota", "ResultCache"):
+        assert kept in serve.__all__ and getattr(serve, kept)
