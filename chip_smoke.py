@@ -18,19 +18,24 @@ UserVisits, the ordered and user-function operators over a 2^26-row
 event log (sliding_window, reverse, take_while/skip_while, zip_,
 select_many, default_if_empty, apply with the partition index, fork),
 the parity queries of the CPU tests on the card and on the CPU, and the
-stores (TeraSort of 2^28 rows from a store into a store, a zlib store,
+stores (TeraSort of 2^27 rows from a store into a store, a zlib store,
 WordCount through 8 text files and a STRING store, ``submit``, the JSONL
 event log, and the six ported samples), and out-of-core streaming (an
-external TeraSort of 2^29 rows whose peak device memory stays within
-1.5x of the same query's at 2^27, streaming WordCount through
-``text_stream``, a 2^28-row group_by through the combine tree, and the
+external TeraSort of 2^27 rows whose peak device memory stays within
+1.5x of the same query's at 2^26, streaming WordCount through
+``text_stream``, a 2^26-row group_by through the combine tree, and the
 Join Task as a Grace join of two ``store_stream``s into a stream
 ``to_store``), and serving (16 and 64 closed-loop clients over 4 tenants
-of 2^24 rows on one resident context through ``QueryService``, result
-cache off and on; materialized views under three 2^22-row appends in the
-views, recompute and epoch modes; stage checkpoints of the 2^26-row
+of 2^23 rows on one resident context through ``QueryService``, result
+cache off and on; materialized views under two 2^21-row appends in the
+views, recompute and epoch modes; stage checkpoints of the 2^25-row
 group_by written, resumed in a new context and recomputed past a
-corrupted column file), checks every result against a numpy oracle, and
+corrupted column file), and the local cluster (4 worker processes
+sharing the card through ``LocalJobSubmission.submit_partitioned``:
+WordCount as 16 vertex tasks, then with a 20 s straggler and with a
+worker killed mid-job; an int auto-dense group_by as coded k-of-n
+partials, clean and after seeded kills of 2 workers; seeded stage chaos
+in one context), checks every result against a numpy oracle, and
 prints:
 
 - a ``{"kernels": [...]}`` line (each kernel's launches on the main
@@ -44,7 +49,7 @@ Any failed check raises, so the script exits non-zero and prints no
 result line.  Without a CUDA device it exits non-zero at once.
 ``--phases`` runs a subset (env, kernel, wordcount, dense, terasort,
 terasort_hot, groupby_sort, join_shuffle, join_broadcast, pagerank,
-decomposable, ordered_ops, cpu_parity, stores, stream, serve), for short first
+decomposable, ordered_ops, cpu_parity, stores, stream, serve, cluster), for short first
 runs of a changed kernel.  The WordCount, TeraSort, sort-path group_by, join,
 PageRank, decomposable and ordered phases also profile one warm query
 with torch.profiler and print device time by op, the device's busy
@@ -1574,11 +1579,12 @@ def phase_cpu_parity(dev, card: str) -> dict:
 
 # -- phase 14: stores, submit, the event log and the samples ------------------
 
-ST_ROWS = 1 << 28  # TeraSort through stores: 2 GiB of int32 keys and f32 payloads
+ST_ROWS = 1 << 27  # TeraSort through stores: 1 GiB of int32 keys and f32 payloads (cut from 2^28)
 ST_ZLIB_ROWS = 1 << 26  # the compressed store (zlib's host time; PERF.md section 4)
 ST_WC_FILES = 8
+ST_WC_WORDS = 1 << 25  # the stores' WordCount corpus (cut from 2^26; PERF.md section 4)
 # Disk peaks while the sorted TeraSort store is written beside its input
-# (2 x 2 GiB); both go once checked.  The later files (the 0.47 GiB zlib
+# (2 x 1 GiB); both go once checked.  The later files (the 0.47 GiB zlib
 # store, the 0.5 GiB corpus, its 8 pieces of 0.5 GiB in all, the 1 GiB
 # words store) hold about 2.5 GiB.  One GiB more for the event logs.
 ST_FREE_BYTES = 5 << 30
@@ -1602,7 +1608,7 @@ def _read_back(path: str) -> dict:
 
 
 def phase_stores(dev, card: str) -> dict:
-    """TeraSort through stores (2^28 rows), a zlib store (2^26 rows),
+    """TeraSort through stores (ST_ROWS rows), a zlib store (2^26 rows),
     WordCount through 8 text files and a STRING store, ``submit``, the
     event log, and the six ported samples on the card.  Every context of
     the phase logs its events to a JSONL file."""
@@ -1715,7 +1721,7 @@ def phase_stores(dev, card: str) -> dict:
 
         # -- WordCount through files and a STRING store -----------------------
         rng = np.random.default_rng(SEED + 15)
-        ids = zipf_ids(rng, WC_WORDS)
+        ids = zipf_ids(rng, ST_WC_WORDS)
         tab = vocab_table()
         words = np.array([bytes(r).split()[0].decode() for r in tab], object)
         one = os.path.join(root, "corpus.txt")
@@ -1766,12 +1772,12 @@ def phase_stores(dev, card: str) -> dict:
         check(all(oracle_wc[w_] == c for w_, c in zip(top["word"], top["n"])), "a top-20 word has a wrong count")
         h = qs.submit()
         check(digest(h.result()) == digest(qs.collect()), "submit(q).result() differs from collect()")
-        res["wordcount"] = {"words": WC_WORDS, "files": ST_WC_FILES, "from_text_files_s": multi_s,
+        res["wordcount"] = {"words": ST_WC_WORDS, "files": ST_WC_FILES, "from_text_files_s": multi_s,
                             "from_text_one_file_s": single_s,
                             "words_store_bytes": wst["write_bytes"], "words_to_store_write_s": wst["write_s"],
                             "first_query_s": first_s, "launches": launches}
         log(f"stores wordcount [{card}]: from_text (tokenize and register) of {ST_WC_FILES} files "
-            f"({WC_WORDS} words) {multi_s:.3f} s, of one file {single_s:.3f} s; counts equal; the words' STRING store "
+            f"({ST_WC_WORDS} words) {multi_s:.3f} s, of one file {single_s:.3f} s; counts equal; the words' STRING store "
             f"{wst['write_bytes'] / 2**20:.0f} MiB written in {wst['write_s']:.3f} s; from_store + "
             f"group_by first query {first_s:.3f} s; table and top-20 equal the oracle; explain shows "
             f"string_code and no exchange_hash; submit equals collect; bucket kernel launches {launches}")
@@ -1821,21 +1827,23 @@ def phase_stores(dev, card: str) -> dict:
 
 # -- phase 15: out-of-core streaming ---------------------------------------------
 
-# the external TeraSort: 4 GiB of int32 keys and f32 payloads (cut from
-# 2^30 rows so that every phase, the serve phase included, fits the
-# run's time limit with room: PERF.md section 4)
-SM_TS_ROWS = 1 << 29
-SM_TS_SMALL_ROWS = 1 << 27  # the same query first, for the peak it must stay within 1.5x of
-SM_TS_CHUNK = 1 << 26  # rows a from_stream chunk
-SM_GB_ROWS = 1 << 28  # the combine-tree group_by
+# the external TeraSort: 1 GiB of int32 keys and f32 payloads in two
+# chunks (cut from 2^30 rows, then 2^29 and 2^28, so that every phase,
+# the serve and cluster phases included, fits the run's time limit with
+# room: PERF.md section 4)
+SM_TS_ROWS = 1 << 27
+SM_TS_SMALL_ROWS = 1 << 26  # the same query first, for the peak it must stay within 1.5x of
+SM_TS_CHUNK = 1 << 24  # rows a from_stream chunk: 4 and 8 chunks for the peak check
+SM_GB_ROWS = 1 << 26  # the combine-tree group_by (cut from 2^28 for the same limit)
 SM_GB_CHUNK = 1 << 24
 SM_PEAK_RATIO = 1.5
 # streaming WordCount's bucket-kernel launches: 16 chunk partials (the
 # corpus in 2^25-byte chunks), the combine tree's merges and its root
 ST_WC_LAUNCHES = 22
-# The TeraSort's spill peaks at its whole table (8 GiB) plus one bucket's
-# re-split (1/32 of it); the corpus, the Join Task's stores and the
-# event logs take about 2 GiB more, after the sort's spill is gone.
+# The TeraSort's spill peaks at its whole table (1 GiB at 2^27 rows) plus
+# one bucket's re-split (1/32 of it); the corpus, the Join Task's stores
+# and the event logs take about 2 GiB more, after the sort's spill is
+# gone.
 SM_FREE_BYTES = 10 << 30
 _MIX1 = np.uint64(0x9E3779B97F4A7C15)
 
@@ -1855,7 +1863,7 @@ class DeviceBusy:
     ``nvidia-smi`` on the card torch uses (NVML's ``utilization.gpu``:
     the share of each sample period in which a kernel ran; copies alone
     count as idle).  Cheap at
-    any length, where a torch.profiler trace of the 2^29-row sort's
+    any length, where a torch.profiler trace of the 2^27-row sort's
     thousands of bucket jobs takes minutes to read back."""
 
     def __enter__(self):
@@ -2292,25 +2300,26 @@ def phase_stream(dev, card: str) -> dict:
 # -- phase 16: serving tenants from one resident engine -------------------------
 
 SV_TENANTS = 4
-SV_ROWS = 1 << 24  # each tenant's table: 2^26 rows in all
+SV_ROWS = 1 << 23  # each tenant's table (the bench's 2^24, cut for the run's time limit)
 SV_WORDS = 1024  # each tenant's STRING keys t{t}w{i:04d}
 SV_CELLS = (16, 64)  # closed-loop client threads
 SV_PER_CLIENT = 6
 SV_CACHE_BYTES = 256 << 20
 # the tables stay resident: 4 tenants' device tables (~0.85 GB each at
-# 2^24 rows) pass the 2 GiB default and would re-upload every query
+# the bench's 2^24 rows) pass the 2 GiB default and would re-upload
+# every query
 SV_DEVICE_CACHE = 16 << 30
 SV_MAX_CLIENTS_PER_TENANT = max(SV_CELLS) // SV_TENANTS
-MV_ROWS = 1 << 24  # the hot tenant's table, and the unrelated tenant's
+MV_ROWS = 1 << 23  # the hot tenant's table, and the unrelated tenant's (the bench's 2^24)
 MV_KEYS = 512
 # the bench's chunk-to-table ratio, 1/4; the writer's appends set each
-# mode's wall time (about 10 s each at 2^24 rows on the card: the grown
-# table's fingerprint and the views' folds), so 3 of the bench's 6 fit
-# the run's time limit (PERF.md section 4)
-MV_APPENDS = 3
-MV_APPEND_ROWS = 1 << 22
+# mode's wall time (about 5 s each at 2^24 rows on the card: the grown
+# table's fingerprint and the views' folds), so 2 of the bench's 6 fit
+# the run's time limit beside the cluster phase (PERF.md section 4)
+MV_APPENDS = 2
+MV_APPEND_ROWS = 1 << 21
 MV_READERS = 8
-MV_READS = 12
+MV_READS = 8  # the bench's 12, cut for the run's time limit
 MV_OTHER_READERS = MV_READERS // 2
 MV_STALENESS_S = 0.05
 MV_MODES = ("views", "recompute", "epoch")
@@ -2478,7 +2487,7 @@ def serve_cell(ctx, plans, refs, plan_dispatches, clients: int, cache_on: bool, 
 
 
 def serve_tenants(card: str) -> dict:
-    """4 tenants of 2^24 rows on one resident context; each plan run
+    """4 tenants of SV_ROWS rows on one resident context; each plan run
     serially (cold, then warm: the warm result is the reference), then
     the cells of SV_CELLS clients with the result cache off and on."""
     from dryad_tpu_torch import DryadConfig, DryadContext
@@ -2687,8 +2696,11 @@ def serve_matviews(card: str) -> dict:
     return res
 
 
+CK_ROWS = 1 << 25  # groupby_sort's 2^26, cut for the run's time limit (PERF.md section 4)
+
+
 def serve_checkpoints(card: str) -> dict:
-    """The groupby_sort phase's query (2^26 rows, 2^22 keys) with stage
+    """The groupby_sort phase's query (CK_ROWS rows, 2^22 keys) with stage
     checkpoints: a cold run writes them, a new context on the directory
     resumes (byte-equal, no stage dispatched), and with one column file
     corrupted a third context logs checkpoint_corrupt, recomputes and
@@ -2704,7 +2716,7 @@ def serve_checkpoints(card: str) -> dict:
     if free < CK_FREE_BYTES:
         raise RuntimeError(f"the checkpoint part needs {CK_FREE_BYTES / 2**30:.0f} GiB free under "
                            f"{root}; {free / 2**30:.1f} GiB free")
-    t = groupby_table(np.random.default_rng(SEED + 6), GB_ROWS, GB_KEYS)
+    t = groupby_table(np.random.default_rng(SEED + 6), CK_ROWS, GB_KEYS)
 
     def run():
         ctx = DryadContext(num_partitions_=P, config=DryadConfig(checkpoint_dir=root))
@@ -2747,10 +2759,10 @@ def serve_checkpoints(card: str) -> dict:
               "a corrupted checkpoint was not detected and recomputed")
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    res = {"rows": GB_ROWS, "keys": GB_KEYS, "checkpoints": saved, "bytes": nbytes,
+    res = {"rows": CK_ROWS, "keys": GB_KEYS, "checkpoints": saved, "bytes": nbytes,
            "cold_s": cold_s, "save_s": save_s, "resume_s": resume_s, "load_s": load_s,
            "corrupt_rerun_s": again_s, "card": card}
-    log(f"checkpoints [{card}]: group_by of {GB_ROWS} rows, {GB_KEYS} keys: cold run {cold_s:.3f} s "
+    log(f"checkpoints [{card}]: group_by of {CK_ROWS} rows, {GB_KEYS} keys: cold run {cold_s:.3f} s "
         f"with {saved} checkpoints written ({nbytes / 1e9:.3f} GB, save {save_s:.3f} s); resume in a "
         f"new context {resume_s:.3f} s (load {load_s:.3f} s), byte-equal, no stage dispatched; a "
         f"corrupted column file recomputed in {again_s:.3f} s, byte-equal")
@@ -2789,13 +2801,320 @@ def phase_serve(dev, card: str) -> dict:
     return res
 
 
+# -- phase 17: vertex tasks over worker processes sharing the card ------------
+
+CL_WORKERS = 4
+CL_DEVICE = "cuda"  # where the workers run their vertices
+CL_NPARTS = 16
+CL_DELAY_S = 20.0
+CL_KILL_AFTER_S = 3.0
+CL_DENSE_ROWS = 1 << 26
+CL_DENSE_K = 65536
+CL_CHAOS = dict(seed=0, stage_failure_prob=0.3)
+CL_CHAOS_RUNS = 8  # the seeded plan's 4th draw fails: at most this many runs to see it
+
+
+def _since(sub, mark: int, kind=None) -> list:
+    return [e for e in sub.events.events()[mark:] if kind is None or e["kind"] == kind]
+
+
+def _kinds(sub, mark: int) -> list:
+    return [e["kind"] for e in _since(sub, mark)]
+
+
+def worker_launches(sub, mark: int) -> int:
+    """Bucket-kernel launches the workers made since event ``mark``: each
+    worker counts its own and ships the new ones as a ``metrics`` event
+    (counter ``kernel_launches``) with the telemetry of every command."""
+    return int(sum(
+        c["value"] for e in _since(sub, mark, "metrics") for c in e.get("counters", ())
+        if c["name"] == "kernel_launches" and c["labels"].get("kernel") == "bucket_sum_count"))
+
+
+def _sorted_by(t: dict, key: str) -> dict:
+    order = np.argsort(t[key], kind="stable")
+    return {c: np.asarray(v)[order] for c, v in t.items()}
+
+
+def _package(sub, mark: int, kind: str) -> str:
+    """The job package of the job that logged ``kind`` (with its ``seq``)
+    since ``mark``, under the submission's root."""
+    seq = _since(sub, mark, kind)[-1]["seq"]
+    return os.path.join(sub.root, sub.job_id, f"r{seq}", "job.pkg")
+
+
+def vertex_shape(pkg_path: str, dev) -> tuple:
+    """The inputs of the bucket kernel's first launch in vertex 0 of a
+    job: its package loaded into a one-partition context on the card and
+    run over input partition 0 of ``CL_NPARTS``, as a worker runs it."""
+    from dryad_tpu_torch.exec.jobpackage import load_query, slice_binding
+
+    q = load_query(pkg_path, device=dev, num_partitions=1)
+    for nid, b in list(q.ctx._bindings.items()):
+        q.ctx._bindings[nid] = slice_binding(b, 0, CL_NPARTS)
+    with LaunchRecorder() as rec:
+        q.ctx.execute(q)
+    check(len(rec.first) == 1, f"a vertex ran the kernel at {len(rec.first)} shapes, expected 1")
+    ((_m, K, _cap), inputs), = rec.first.items()
+    return inputs, K
+
+
+def _wait_for_workers(sub, n: int, timeout: float = 300.0) -> dict:
+    deadline = time.monotonic() + timeout
+    while True:
+        devs = sub.worker_devices()
+        if len(devs) >= n:
+            return devs
+        check(time.monotonic() < deadline, f"only {len(devs)}/{n} workers announced")
+        time.sleep(0.05)
+
+
+def phase_cluster(dev, card: str) -> dict:
+    """Independent vertex tasks (``LocalJobSubmission.submit_partitioned``)
+    on 4 worker processes sharing the card, each with its own CUDA
+    context: WordCount as 16 vertex tasks (duplicate path), the same job
+    with a 20 s straggler (speculative duplication) and with a worker
+    killed mid-job (re-execution), an int auto-dense group_by as coded
+    k-of-n partials, clean and after seeded kills of 2 workers (parity
+    reconstructs, nothing re-executes), then seeded stage chaos in one
+    context (versioned re-execution).  The bucket kernel's launches are
+    the workers' own, shipped with their telemetry; the kernel is held
+    against its plain version at each vertex shape."""
+    import shutil
+    import threading
+
+    from dryad_tpu_torch import DryadConfig, DryadContext
+    from dryad_tpu_torch.cluster.localjob import LocalJobSubmission
+    from dryad_tpu_torch.exec import faults
+    from dryad_tpu_torch.exec.failure import JobFailedError
+
+    free_card()
+    t_phase = time.perf_counter()
+    res = {"card": card, "workers": CL_WORKERS, "nparts": CL_NPARTS}
+    root = os.path.join(WORK_DIR, "cluster")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+
+    # WordCount's input: the wordcount phase's 2^26 Zipf words
+    rng = np.random.default_rng(SEED + 2)
+    ids = zipf_ids(rng, WC_WORDS)
+    tab = vocab_table()
+    words = np.array([bytes(r).split()[0].decode() for r in tab], object)
+    uid, ucnt = np.unique(ids, return_counts=True)
+    oracle = dict(zip(words[uid].tolist(), ucnt.tolist()))
+    text = os.path.join(root, "words.txt")
+    with open(text, "wb") as fh:
+        fh.write(tab[ids].tobytes())
+    wctx = DryadContext(num_partitions_=1)
+    wq = wctx.from_text(text).group_by("word", {"n": ("count", None)})
+    os.remove(text)
+    del ids
+
+    with DeviceBusy() as busy:
+        t0 = time.perf_counter()
+        sub = LocalJobSubmission(num_workers=CL_WORKERS, root=os.path.join(root, "job"),
+                                 device=CL_DEVICE)
+        try:
+            devs = _wait_for_workers(sub, CL_WORKERS)
+            res["workers_start_s"] = time.perf_counter() - t0
+            check(all(d.get("device", "").startswith(CL_DEVICE) and "device_error" not in d
+                      for d in devs.values()), f"a worker is not on the card: {devs}")
+            res["worker_devices"] = {str(i): d.get("device_name") for i, d in sorted(devs.items())}
+            log(f"cluster: {CL_WORKERS} workers on the card in {res['workers_start_s']:.2f} s: "
+                f"{sorted(set(res['worker_devices'].values()))}")
+            mark0 = len(sub.events.events())  # the cluster path starts here
+
+            # 1. WordCount as vertex tasks (the duplicate path: a STRING key)
+            mark = len(sub.events.events())
+            t0 = time.perf_counter()
+            out1 = sub.submit_partitioned(wq, nparts=CL_NPARTS)
+            wc_s = time.perf_counter() - t0
+            kinds = _kinds(sub, mark)
+            check("coded_fallback" in kinds and "coded_job_start" not in kinds,
+                  "WordCount did not fall back from the coded path")
+            got = dict(zip(out1["word"].tolist(), out1["n"].tolist()))
+            check(got == oracle, "cluster WordCount differs from the numpy oracle")
+            pkg = _package(sub, mark, "vertex_job_start")
+            fetch = sorted(e["dur"] for e in _since(sub, mark, "span")
+                           if e.get("name") == "fetch_package")
+            (asm,) = _since(sub, mark, "assemble_fetch")
+            res["wordcount"] = {
+                "job_s": wc_s, "package_bytes": os.path.getsize(pkg), "fetch_s": fetch,
+                "assemble_wire_bytes": asm["wire_bytes"], "assemble_raw_bytes": asm["raw_bytes"],
+                "launches": worker_launches(sub, mark),
+            }
+            check(len(fetch) == CL_WORKERS, f"{len(fetch)} package fetches, expected one a worker")
+            log(f"cluster WordCount [{card}]: {len(oracle)} words equal the oracle; job "
+                f"{wc_s:.2f} s; package {res['wordcount']['package_bytes'] / 2**30:.2f} GiB, "
+                f"fetched in {', '.join(f'{x:.2f}' for x in fetch)} s; assembly "
+                f"{asm['wire_bytes']} wire bytes ({asm['raw_bytes']} raw); "
+                f"{res['wordcount']['launches']} kernel launches in the workers")
+            wc_inputs, wc_K = vertex_shape(pkg, dev)
+
+            # 2. a straggler: speculative duplication
+            sub.inject_delay(worker=1, seconds=CL_DELAY_S, count=1)
+            mark = len(sub.events.events())
+            t0 = time.perf_counter()
+            out2 = sub.submit_partitioned(wq, nparts=CL_NPARTS)
+            s2 = time.perf_counter() - t0
+            kinds = _kinds(sub, mark)
+            check("vertex_duplicate" in kinds and "vertex_duplicate_win" in kinds,
+                  "the straggler was not duplicated")
+            # without the duplicate the job would take the clean job's
+            # time plus the delay (each job fetches its package anew, 8-14
+            # s a worker on the card): the straggler may cost under half
+            # its delay, and the job ends inside the delay
+            check(s2 < wc_s + CL_DELAY_S / 2 and s2 < CL_DELAY_S,
+                  f"the straggling job took {s2:.2f} s, the clean one {wc_s:.2f} s, "
+                  f"under a {CL_DELAY_S} s delay")
+            check(digest(out2) == digest(out1), "straggler WordCount differs from step 1's")
+            res["straggler"] = {"job_s": s2, "duplicates": kinds.count("vertex_duplicate"),
+                                "launches": worker_launches(sub, mark)}
+            log(f"cluster straggler: job {s2:.2f} s under a {CL_DELAY_S:.0f} s delay (step 1 "
+                f"{wc_s:.2f} s), {kinds.count('vertex_duplicate')} duplicate(s), bytes equal "
+                f"step 1's")
+            # the stalled worker still sleeps: replace it, so step 3 starts with four
+            sub.launcher.stop(sub._handles[1])
+            t0 = time.perf_counter()
+            sub.start_worker(1)
+            _wait_for_workers(sub, CL_WORKERS)
+            restarts = [time.perf_counter() - t0]
+
+            # 3. a worker killed mid-job: re-execution on the survivors
+            sub.inject_delay(worker=1, seconds=600.0, count=1)
+            mark = len(sub.events.events())
+            killer = threading.Timer(CL_KILL_AFTER_S, lambda: sub._handles[1].kill())
+            killer.start()
+            t0 = time.perf_counter()
+            try:
+                out3 = sub.submit_partitioned(wq, nparts=CL_NPARTS, speculation=False)
+            finally:
+                killer.join()
+            s3 = time.perf_counter() - t0
+            kinds = _kinds(sub, mark)
+            check("worker_dead" in kinds and "vertex_retry" in kinds,
+                  "the dead worker's vertex was not re-executed")
+            check(digest(out3) == digest(out1), "dead-worker WordCount differs from step 1's")
+            res["dead_worker"] = {"job_s": s3, "retries": kinds.count("vertex_retry"),
+                                  "launches": worker_launches(sub, mark)}
+            log(f"cluster dead worker: job {s3:.2f} s, {kinds.count('vertex_retry')} vertex "
+                f"retries, bytes equal step 1's")
+            t0 = time.perf_counter()
+            sub.start_worker(1)
+            _wait_for_workers(sub, CL_WORKERS)
+            restarts.append(time.perf_counter() - t0)
+            del out2, out3, wctx, wq
+
+            # 4. coded partials: an int auto-dense group_by, then seeded kills
+            rng = np.random.default_rng(SEED + 31)
+            ct = {"k": rng.integers(0, CL_DENSE_K, CL_DENSE_ROWS, dtype=np.int32),
+                  "v": rng.integers(-1000, 1000, CL_DENSE_ROWS, dtype=np.int32)}
+            aggs = {"c": ("count", None), "s": ("sum", "v")}
+            cq = DryadContext(num_partitions_=1).from_arrays(ct).group_by("k", aggs)
+            mark = len(sub.events.events())
+            t0 = time.perf_counter()
+            outa = sub.submit_partitioned(cq, nparts=CL_NPARTS)
+            sa = time.perf_counter() - t0
+            check("coded_job_start" in _kinds(sub, mark), "the int group_by did not run coded")
+            coded_pkg = _package(sub, mark, "coded_job_start")
+            launches_a = worker_launches(sub, mark)
+            one = DryadContext(num_partitions_=P)
+            ref = one.from_arrays(ct).group_by("k", aggs).collect()
+            del one
+            check(digest(_sorted_by(outa, "k")) == digest(_sorted_by(ref, "k")),
+                  "coded group_by differs from one context's collect")
+            sub.inject_fault(None, plan={"seed": 7, "worker_kill_prob": 1.0,
+                                         "max_worker_kills": 1}, workers=[1, 2])
+            mark = len(sub.events.events())
+            t0 = time.perf_counter()
+            outb = sub.submit_partitioned(cq, nparts=CL_NPARTS)
+            sb = time.perf_counter() - t0
+            kinds = _kinds(sub, mark)
+            check(digest(outb) == digest(outa), "coded group_by after two kills differs")
+            check(kinds.count("coded_retry") == 0 and kinds.count("vertex_retry") == 0,
+                  "a killed coded vertex was re-executed")
+            rec = _since(sub, mark, "coded_reconstruct")[-1]
+            check(rec["exact"] is True, "the coded reconstruction was not exact")
+            check(kinds.count("worker_dead") == 2, f"{kinds.count('worker_dead')} workers died, expected 2")
+            res["coded"] = {
+                "rows": CL_DENSE_ROWS, "keys": CL_DENSE_K, "job_s": sa, "killed_job_s": sb,
+                "parity_used": rec["parity_used"], "amplification": rec["amplification"],
+                "launches": launches_a + worker_launches(sub, mark),
+            }
+            log(f"cluster coded group_by [{card}]: {CL_DENSE_ROWS} rows in {sa:.2f} s, equal to "
+                f"one context's collect; after 2 seeded kills {sb:.2f} s, byte-equal, "
+                f"{rec['parity_used']} parity partials used, exact, no re-execution")
+            dense_inputs, dense_K = vertex_shape(coded_pkg, dev)
+            t0 = time.perf_counter()
+            for i in (1, 2):  # both replacements start at once
+                sub.start_worker(i)
+            _wait_for_workers(sub, CL_WORKERS)
+            restarts.append(time.perf_counter() - t0)
+            res["worker_restart_s"] = restarts
+            res["launches"] = worker_launches(sub, mark0)
+            check(res["launches"] >= 1, "the workers launched no bucket kernel")
+            del outa, outb, ref, ct, cq
+        finally:
+            sub.shutdown()
+
+        # 5. seeded stage chaos in one context: versioned re-execution
+        rng = np.random.default_rng(SEED + 6)
+        t = groupby_table(rng, GB_ROWS, GB_KEYS)
+        ctx = DryadContext(num_partitions_=P, config=DryadConfig(
+            max_stage_failures=4, retry_backoff_base=0.002))
+        q = ctx.from_arrays(t).group_by("key", GB_AGGS)
+        clean = q.collect()
+        failed = runs = 0
+        faults.install_plan(faults.FaultPlan(**CL_CHAOS))
+        try:
+            while not failed and runs < CL_CHAOS_RUNS:
+                runs += 1
+                mark = len(ctx.events.events())
+                check(digest(q.collect()) == digest(clean), "stage chaos group_by differs from a clean run")
+                failed = sum(1 for e in ctx.events.events()[mark:] if e["kind"] == "stage_failed")
+        finally:
+            faults.clear_faults()
+        check(failed >= 1, f"the seeded plan failed no stage in {runs} runs")
+        faults.set_fake_stage_failure("group_by", -1)
+        try:
+            q.collect()
+            check(False, "a deterministic stage failure did not fail the job")
+        except JobFailedError as e:
+            check(len(e.attempts) == 2 and e.attempts[-1].kind == "deterministic",
+                  f"deterministic failure history {e.attempts}")
+        finally:
+            faults.clear_faults()
+        res["chaos"] = {"runs": runs, "stage_failed": failed}
+        log(f"cluster stage chaos: {failed} injected stage failure(s) in {runs} runs of the "
+            f"{GB_ROWS}-row group_by under FaultPlan({CL_CHAOS}), each byte-equal to the clean run; "
+            f"a deterministic failure raised JobFailedError after 2 attempts")
+        del ctx, q, clean, t
+
+    res.update(device_idle=busy.idle, device_busy_s=busy.busy_s, wall_s=busy.wall_s)
+    shapes = []
+    for (keys, vals, valid), K in ((wc_inputs, wc_K), (dense_inputs, dense_K)):
+        shapes.append(kernel_shape_report(keys, vals, valid, K))
+        log(f"kernel vs plain at a vertex shape ({shapes[-1]['shape']}): byte-equal; kernel "
+            f"{shapes[-1]['kernel_ms']:.3f} ms, plain {shapes[-1]['plain_ms']:.3f} ms, "
+            f"{shapes[-1]['library']} {shapes[-1]['library_ms']:.3f} ms, bound "
+            f"{shapes[-1]['bound_ms']:.4f} ms")
+    shutil.rmtree(root, ignore_errors=True)
+    free_card()
+    res.update(kernel_shapes=shapes, phase_s=time.perf_counter() - t_phase)
+    log(f"cluster phase [{card}]: {res['phase_s']:.1f} s (workers start "
+        f"{res['workers_start_s']:.2f} s, restarts {', '.join(f'{x:.2f}' for x in restarts)} s); "
+        f"{res['launches']} bucket kernel launches in the workers; card idle "
+        f"{busy.idle:.3f} of {busy.wall_s:.1f} s (NVML, every process)")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument(
         "--phases",
         default="env,kernel,wordcount,dense,terasort,terasort_hot,groupby_sort,"
                 "join_shuffle,join_broadcast,pagerank,decomposable,ordered_ops,cpu_parity,stores,"
-                "stream,serve")
+                "stream,serve,cluster")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     if not torch.cuda.is_available():
@@ -2836,6 +3155,8 @@ def main(argv=None) -> int:
         results["stream"] = phase_stream(dev, card)
     if "serve" in phases:
         results["serve"] = phase_serve(dev, card)
+    if "cluster" in phases:
+        results["cluster"] = phase_cluster(dev, card)
     print("results: " + json.dumps(results))
 
     kern = results.get("kernel", {})
@@ -2851,6 +3172,7 @@ def main(argv=None) -> int:
         "stores": results.get("stores", {}).get("wordcount", {}).get("launches"),
         "stream": results.get("stream", {}).get("launches"),
         "serve": results.get("serve", {}).get("launches"),
+        "cluster": results.get("cluster", {}).get("launches"),
     }
     ran = [n for n in per_path.values() if n is not None]
     jb = kern.get("join_broadcast", {})
@@ -2884,6 +3206,7 @@ def main(argv=None) -> int:
         "join_broadcast_bound_ms": jb.get("bound_ms"),
         "stream_shapes": results.get("stream", {}).get("wordcount", {}).get("kernel_shapes"),
         "serve_shapes": results.get("serve", {}).get("kernel_shapes"),
+        "cluster_shapes": results.get("cluster", {}).get("kernel_shapes"),
     }]}
     print(json.dumps(line))
     print(card)

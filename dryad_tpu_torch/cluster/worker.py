@@ -1,0 +1,527 @@
+"""Worker process for N-process local jobs — the VertexHost analog (the
+vertex-task half of ``dryad_tpu/cluster/worker.py``).
+
+The reference's worker node runs a long-lived daemon whose children poll
+a versioned property mailbox for a ``DVertexCommand``, execute the
+vertex, and post ``DVertexStatus`` back (``dvertexpncontrol.h:38-70``;
+mailbox ``ProcessService.cs:42-126``).  This worker:
+
+1. opens its device (``--device``, CUDA unless the submission names the
+   CPU).  A worker that cannot open it announces the reason and answers
+   every vertex command with a failed status carrying it; it never goes
+   on on the CPU;
+2. announces itself on the driver's ProcessService control plane
+   (membership with its device, heartbeats; ``parallel/multihost.py``);
+3. loops on its ``cmd/<pid>`` mailbox property: ``runpart`` runs the
+   packaged plan over one input partition of ``nparts`` in a
+   one-partition context on its device and writes the valid rows as a
+   partition file (``part<p>.dpf``); ``runcoded`` runs the plan over a
+   coded vertex's support and writes the coded partial
+   (``cpart<j>.dpf``); ``combineparts`` folds the partial state of the
+   parts this worker won (level -1 of the combine tree); ``set_fault``
+   and ``set_delay`` inject faults; ``exit`` ends the loop.  Each
+   status is posted to ``status/<pid>`` after the worker's telemetry
+   (spans, the job context's events, and the hand kernels' launch
+   counts as a ``metrics`` event) was shipped.
+
+The gang commands ``run`` and ``runbatch`` (one program across
+processes) come with the multi-GPU work (ROADMAP queue 1 item 11); a
+worker answers them with a failed status naming that item.
+
+Run as ``python -m dryad_tpu_torch.cluster.worker --service-port P
+--job J --pid I --nproc N --root DIR [--device cuda|cpu]`` (spawned by
+``cluster.localjob.LocalJobSubmission``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import tempfile
+import time
+import traceback
+from typing import Dict, Optional
+
+from dryad_tpu_torch.obs import tracectx
+
+GANG_PENDING = (
+    "gang command {kind!r} (one program across processes) is not "
+    "ported yet: ROADMAP queue 1 item 11"
+)
+
+
+def _open_device(name: str):
+    """``(torch.device, description)`` for the worker's device; raises
+    when it cannot be used (no CUDA, a bad ordinal)."""
+    import torch
+
+    dev = torch.device(name)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device available")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        torch.zeros(1, device=dev)  # opens the context: fail here, not mid-task
+        return dev, torch.cuda.get_device_name(dev)
+    return dev, dev.type
+
+
+class _PackageCache:
+    """Per-process cache of loaded job packages for vertex tasks.
+
+    A ``runpart`` stream re-uses one loaded plan + context across
+    partitions — the reference's VertexHost similarly keeps the vertex
+    DLL loaded across vertex executions."""
+
+    def __init__(self, device=None, tracer=None) -> None:
+        from dryad_tpu_torch.obs.span import Tracer
+
+        self.key: str = ""
+        self.query = None
+        self.pristine: Dict = {}
+        self.device = device
+        self.tracer = tracer if tracer is not None else Tracer(None)
+
+    def load(self, rel: str, client):
+        if self.key == rel and self.query is not None:
+            return self.query, self.pristine
+        from dryad_tpu_torch.exec.jobpackage import load_query
+
+        # the whole package crosses the driver's file server once per
+        # worker and job: its seconds are the ``fetch_package`` span
+        with self.tracer.span("fetch_package", cat="worker", package=rel) as sp:
+            blob = client.read_whole_file(rel)
+            sp.add(bytes=len(blob))
+        with tempfile.NamedTemporaryFile(suffix=".pkg", delete=False) as fh:
+            fh.write(blob)
+            pkg_path = fh.name
+        try:
+            # Vertex tasks run as ONE partition on this worker's device:
+            # independent work, not a gang (DrStorageVertex-style
+            # per-partition channels).
+            q = load_query(pkg_path, device=self.device, num_partitions=1)
+        finally:
+            os.unlink(pkg_path)
+        self.key = rel
+        self.query = q
+        self.pristine = dict(q.ctx._bindings)
+        return q, self.pristine
+
+
+def _rebind(q, pristine: Dict, part: int, nparts: int) -> None:
+    from dryad_tpu_torch.exec.jobpackage import slice_binding
+
+    for nid, binding in pristine.items():
+        q.ctx._bindings[nid] = slice_binding(binding, part, nparts)
+    # rebinding invalidates cached binding fingerprints — a stale part-0
+    # fingerprint would make checkpointing restore part 0 for every part
+    q.ctx._binding_fp_cache.clear()
+
+
+def _run_part(cmd: Dict, args, client, pkgs: _PackageCache,
+              pcache=None) -> Dict:
+    """Execute ONE vertex task: the plan restricted to input partition
+    ``part`` of ``nparts``, on this worker's device, writing the result
+    as a partition file (the independent re-executable vertex of the
+    reference, ``DrVertex.h:49`` — duplicate-safe: every attempt
+    writes identical bytes and the rename is atomic)."""
+    from dryad_tpu_torch.cluster.partcache import content_fp
+    from dryad_tpu_torch.columnar.io import write_partition_file
+
+    q, pristine = pkgs.load(cmd["package"], client)
+    part, nparts = int(cmd["part"]), int(cmd["nparts"])
+    _rebind(q, pristine, part, nparts)
+    batch = q.ctx.execute(q)
+    host = batch.fetch_valid_rows()
+    cols = {c: host[c] for c in sorted(host)}
+    out_dir = os.path.join(args.root, cmd["result_dir"])
+    os.makedirs(out_dir, exist_ok=True)
+    final = os.path.join(out_dir, f"part{part}.dpf")
+    tmp = f"{final}.w{args.pid}.tmp"
+    write_partition_file(tmp, cols)
+    # fingerprint the serialized bytes BEFORE the rename (duplicates
+    # write identical bytes, so every attempt reports the same fp) and
+    # keep them resident: a later combineparts naming this partition by
+    # fp reads it from memory instead of the job root
+    with open(tmp, "rb") as fh:
+        blob = fh.read()
+    fp = content_fp(blob)
+    os.replace(tmp, final)
+    if pcache is not None:
+        pcache.put(fp, blob)
+    return {"state": "completed", "parts": [part], "fp": fp}
+
+
+def _combine_parts(cmd: Dict, args, client, pkgs: _PackageCache,
+                   pcache=None, wlog=None) -> Dict:
+    """Level -1 of the combine tree: fold the un-finalized partial STATE
+    of the vertex parts THIS worker won into one partial table
+    (``exec.partial.merge_state_rows``) before anything ships to the
+    driver (``DrDynamicAggregateManager.h:117-168`` pushed into the
+    worker).  Ships one ``wpart<w>.dpf`` plus a KeyRangeHistogram
+    snapshot over deterministic key hashes (``exec.partial.key_hash64``:
+    snapshots must mean the same ranges in every process).  Part bytes
+    resolve through the :class:`~dryad_tpu_torch.cluster.partcache.PartitionCache`
+    by content fingerprint, else from the job root."""
+    import numpy as np
+
+    from dryad_tpu_torch.cluster.partcache import content_fp
+    from dryad_tpu_torch.columnar.batch import decode_physical_table
+    from dryad_tpu_torch.columnar.io import (
+        parse_partition_bytes,
+        write_partition_file,
+    )
+    from dryad_tpu_torch.exec import faults
+    from dryad_tpu_torch.exec.partial import key_hash64, merge_state_rows
+    from dryad_tpu_torch.obs.metrics import KeyRangeHistogram
+
+    faults.registry.maybe_fail("combineparts")
+    if faults.registry.maybe_kill("combineparts"):
+        # mid-level-(-1) chaos: the process dies between winning its
+        # parts and shipping the folded partial — the driver falls back
+        # to flat assembly (the part files are durable)
+        from dryad_tpu_torch.obs import flightrec
+
+        if wlog is not None:
+            wlog.emit(
+                "worker_killed_injected", stage=-1, name="combineparts"
+            )
+        flightrec.dump_now("worker_killed:combineparts")
+        os._exit(113)
+
+    q, _pristine = pkgs.load(cmd["package"], client)
+    keys = list(cmd["keys"])
+    red = dict(cmd["red"])
+    tables = []
+    read_bytes = 0
+    hits = misses = 0
+    for spec in cmd["parts"]:
+        blob = None
+        fp = spec.get("fp")
+        if pcache is not None and fp:
+            blob = pcache.get(fp)
+        if blob is None:
+            misses += 1
+            blob = client.read_whole_file(
+                f"{cmd['result_dir']}/part{spec['part']}.dpf"
+            )
+            read_bytes += len(blob)
+            if pcache is not None:
+                pcache.put(fp or content_fp(blob), blob)
+        else:
+            hits += 1
+        host = parse_partition_bytes(blob)
+        # decode to logical columns WITHOUT the dictionary: string keys
+        # stay raw Hash64 codes (cross-process deterministic), so the
+        # fold groups on codes and the driver decodes once at assembly
+        tables.append(
+            decode_physical_table(q.schema, slice(None), host, None)
+        )
+    cols = {c: np.concatenate([t[c] for t in tables]) for c in tables[0]}
+    in_rows = int(len(next(iter(cols.values()), [])))
+    merged = merge_state_rows(cols, keys, red)
+    out_rows = int(len(merged[keys[0]])) if keys else 0
+    kr = KeyRangeHistogram(int(cmd.get("ranges", 64) or 64))
+    if keys and out_rows:
+        kr.observe(key_hash64(merged, keys))
+    out_dir = os.path.join(args.root, cmd["result_dir"])
+    os.makedirs(out_dir, exist_ok=True)
+    wname = f"wpart{int(cmd['wid'])}.dpf"
+    final = os.path.join(out_dir, wname)
+    tmp = f"{final}.w{args.pid}.tmp"
+    write_partition_file(tmp, merged)
+    with open(tmp, "rb") as fh:
+        out_blob = fh.read()
+    out_fp = content_fp(out_blob)
+    os.replace(tmp, final)
+    if pcache is not None:
+        pcache.put(out_fp, out_blob)
+    snap = {
+        k: (v.tolist() if hasattr(v, "tolist") else v)
+        for k, v in kr.snapshot().items()
+    }
+    return {
+        "state": "completed", "wfile": wname, "fp": out_fp,
+        "parts": [int(s["part"]) for s in cmd["parts"]],
+        "rows": out_rows, "in_rows": in_rows,
+        "bytes": len(out_blob), "read_bytes": read_bytes,
+        "cache_hits": hits, "cache_misses": misses,
+        "snapshot": snap,
+    }
+
+
+def _run_coded(cmd: Dict, args, client, pkgs: _PackageCache) -> Dict:
+    """Execute ONE CODED vertex (``dryad_tpu_torch.redundancy``): run
+    the partial plan over each shard in the vertex's support, linearly
+    combine the partial tables with the generator coefficients
+    (``exec.partial.coded_combine`` — exact int64 for integer states),
+    and write the coded partial as ``cpart<j>.dpf``.  A systematic
+    vertex (support of one shard, coefficient 1) does exactly one
+    shard's work; a parity vertex pays the full-support redundancy
+    work that buys any-k-of-n reconstruction."""
+    from dryad_tpu_torch.columnar.io import write_partition_file
+    from dryad_tpu_torch.exec.partial import coded_combine
+
+    q, pristine = pkgs.load(cmd["package"], client)
+    nparts = int(cmd["nparts"])
+    tables = []
+    for part in cmd["parts"]:
+        _rebind(q, pristine, int(part), nparts)
+        batch = q.ctx.execute(q)
+        tables.append(batch.to_numpy(q.schema, q.ctx.dictionary))
+    combined = coded_combine(
+        tables, [int(c) for c in cmd["coeffs"]],
+        list(cmd["keys"]), list(cmd["state"]),
+    )
+    out_dir = os.path.join(args.root, cmd["result_dir"])
+    os.makedirs(out_dir, exist_ok=True)
+    j = int(cmd["coded"])
+    final = os.path.join(out_dir, f"cpart{j}.dpf")
+    tmp = f"{final}.w{args.pid}.tmp"
+    write_partition_file(tmp, combined)
+    os.replace(tmp, final)
+    return {"state": "completed", "coded": [j]}
+
+
+def _absorb_ctx_events(wlog, ctx) -> None:
+    """Move the job context's engine events (stage spans and events)
+    into the worker's telemetry log so they ship to the driver with
+    the next batch."""
+    if wlog is None or ctx is None:
+        return
+    for ev in ctx.events.drain():
+        wlog.absorb(ev)
+
+
+def _ship_launches(wlog, shipped: Dict[str, int]) -> None:
+    """Log the hand kernels' launches since the last shipment as one
+    ``metrics`` event (counter ``kernel_launches`` labelled by kernel):
+    the launches happen in this process, and the driver sums them from
+    the telemetry it absorbs."""
+    from dryad_tpu_torch.ops.bucket import bucket_sum_count
+
+    now = {"bucket_sum_count": int(bucket_sum_count.launches)}
+    counters = []
+    for name, n in now.items():
+        delta = n - shipped.get(name, 0)
+        if delta:
+            counters.append({
+                "name": "kernel_launches", "labels": {"kernel": name},
+                "value": delta,
+            })
+        shipped[name] = n
+    if counters:
+        wlog.emit("metrics", counters=counters, hists=[])
+
+
+def _resolve_pcache(pstate: Dict, cmd: Dict, args):
+    """Lazily build this worker's :class:`PartitionCache` the first time
+    a command carries a ``cache_bytes`` budget (the driver forwards
+    ``config.gang_partition_cache_bytes``); a zero/absent budget runs
+    the command cache-less without disturbing an existing cache."""
+    budget = int(cmd.get("cache_bytes", 0) or 0)
+    if budget <= 0:
+        return None
+    pc = pstate.get("pcache")
+    if pc is None:
+        from dryad_tpu_torch.cluster.partcache import PartitionCache
+
+        pc = PartitionCache(
+            budget,
+            spill_dir=os.path.join(args.root, f".pcache-w{args.pid}"),
+        )
+        pstate["pcache"] = pc
+    return pc
+
+
+def _exec_one(cmd: Dict, args, client, cp, pkgs, delay, wtracer, wlog,
+              pstate=None, device_error: Optional[str] = None) -> Dict:
+    """Execute one runpart/runcoded/combineparts command and return its
+    status dict (no cseq — the caller stamps the mailbox echo).
+    Failures are reported per command: a failed status carries the
+    error, and the worker keeps serving."""
+    pstate = pstate if pstate is not None else {}
+    try:
+        if device_error is not None:
+            raise RuntimeError(device_error)
+        # Re-activate the query's trace context from the mailbox
+        # envelope: every span this command produces (and the engine
+        # events absorbed from the job context) ships back qid-stamped.
+        with tracectx.activate(
+            tracectx.TraceContext.from_wire(cmd.get("trace"))
+        ), wtracer.span(
+            cmd["kind"], cat="worker", seq=cmd.get("seq"),
+            part=cmd.get("part", cmd.get("coded")),
+        ):
+            if cmd["kind"] in ("runpart", "runcoded"):
+                # injected straggler applies to coded vertices too, so
+                # coded-vs-duplicate comparisons stall the same way
+                if delay["count"] > 0:
+                    delay["count"] -= 1
+                    time.sleep(delay["seconds"])
+                status = (
+                    _run_part(cmd, args, client, pkgs,
+                              pcache=_resolve_pcache(pstate, cmd, args))
+                    if cmd["kind"] == "runpart"
+                    else _run_coded(cmd, args, client, pkgs)
+                )
+                _absorb_ctx_events(
+                    wlog,
+                    pkgs.query.ctx if pkgs.query is not None else None,
+                )
+            elif cmd["kind"] == "combineparts":
+                status = _combine_parts(
+                    cmd, args, client, pkgs,
+                    pcache=_resolve_pcache(pstate, cmd, args), wlog=wlog,
+                )
+            else:
+                raise NotImplementedError(GANG_PENDING.format(kind=cmd["kind"]))
+    except Exception as e:  # noqa: BLE001 — report, keep serving
+        traceback.print_exc()
+        info = {"error": f"{type(e).__name__}: {e}", "cmd": cmd}
+        cp.report_failure(info)
+        status = {"state": "failed", "error": info["error"]}
+    return status
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--service-host", default="127.0.0.1")
+    ap.add_argument("--service-port", type=int, required=True)
+    ap.add_argument("--job", required=True)
+    ap.add_argument("--pid", type=int, required=True)
+    ap.add_argument("--nproc", type=int, required=True)
+    ap.add_argument("--root", required=True)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    from dryad_tpu_torch.cluster.service import ServiceClient
+    from dryad_tpu_torch.parallel.multihost import ControlPlane
+
+    client = ServiceClient(args.service_host, args.service_port)
+    cp = ControlPlane(args.job, args.pid, client=client)
+    # the device first: a worker that cannot reach it says why, and
+    # every vertex command it is sent fails with that reason
+    device = None
+    device_error = None
+    meta = {"ospid": os.getpid(), "device": args.device}
+    try:
+        device, desc = _open_device(args.device)
+        meta.update(device=str(device), device_name=desc)
+    except Exception as e:  # noqa: BLE001 — reported, never a fallback
+        device_error = (
+            f"worker {args.pid} cannot open device {args.device!r}: "
+            f"{type(e).__name__}: {e}"
+        )
+        meta["device_error"] = device_error
+        print(device_error, file=sys.stderr, flush=True)
+    cp.announce(meta)
+    cp.start_heartbeat()
+
+    # Worker-local telemetry: spans around command execution plus the
+    # job context's engine events and the kernels' launch counts,
+    # shipped to the driver through the ControlPlane mailbox after
+    # every command.
+    from dryad_tpu_torch.exec.events import EventLog
+    from dryad_tpu_torch.obs.span import Tracer
+
+    wlog = EventLog(None, mem_cap=8192)
+    wtracer = Tracer(wlog)
+
+    # Flight recorder: the worker's ring survives what telemetry
+    # shipping cannot — a process death takes un-shipped events with
+    # it, so the ring dumps to the SHARED job root
+    # (blackbox-<ospid>.json) on any exit, the chaos os._exit path
+    # included (dumped explicitly before _exit).
+    from dryad_tpu_torch.obs import flightrec
+
+    flightrec.install_recorder(
+        capacity=2048,
+        snapshot_s=1.0,
+        dump_dir=os.path.join(args.root, "blackbox"),
+        role=f"worker-{args.pid}",
+        worker=args.pid,
+        events=wlog,
+        atexit_dump=True,
+        signals=True,
+    )
+    flightrec.get_recorder().set_info(job=args.job, nproc=args.nproc)
+
+    after = 0
+    pkgs = _PackageCache(device=device, tracer=wtracer)
+    pstate: Dict = {}  # lazy PartitionCache
+    shipped: Dict[str, int] = {}  # kernel launches already shipped
+    delay = {"seconds": 0.0, "count": 0}  # injected straggler behavior
+    while True:
+        got = client.get_prop(args.job, f"cmd/{args.pid}", after, timeout=2.0)
+        if got is None:
+            continue
+        after, body = got
+        cmd = json.loads(body)
+        # Every status echoes the command's unique id ("cseq") so the
+        # driver can discard stale statuses from a command it already
+        # gave up on.
+        cseq = cmd.get("cseq")
+        if cmd["kind"] == "exit":
+            client.set_prop(
+                args.job, f"status/{args.pid}",
+                json.dumps({"state": "exited", "cseq": cseq}).encode(),
+            )
+            cp.stop_heartbeat()
+            return 0
+        if cmd["kind"] == "set_fault":
+            # Remote fault injection (SetFakeVertexFailure over the
+            # command mailbox); a seeded FaultPlan may carry
+            # worker_kill_prob process kills.
+            from dryad_tpu_torch.exec import faults
+
+            if cmd.get("plan"):
+                faults.install_plan(faults.FaultPlan(**cmd["plan"]))
+            elif cmd.get("stage"):
+                faults.set_fake_stage_failure(
+                    cmd["stage"], int(cmd.get("count", 1))
+                )
+            else:
+                faults.clear_faults()
+            client.set_prop(
+                args.job, f"status/{args.pid}",
+                json.dumps({"state": "fault_set", "cseq": cseq}).encode(),
+            )
+            continue
+        if cmd["kind"] == "set_delay":
+            # Injected straggler: the next ``count`` vertex tasks on
+            # THIS worker stall ``seconds`` before executing — the
+            # slow-machine scenario speculative duplication exists for
+            # (``DrStageStatistics.cpp:93`` outlier model).
+            delay["seconds"] = float(cmd.get("seconds", 0.0))
+            delay["count"] = int(cmd.get("count", 0))
+            client.set_prop(
+                args.job, f"status/{args.pid}",
+                json.dumps({"state": "delay_set", "cseq": cseq}).encode(),
+            )
+            continue
+        if cmd["kind"] in ("run", "runbatch", "runpart", "runcoded", "combineparts"):
+            status = _exec_one(cmd, args, client, cp, pkgs, delay,
+                               wtracer, wlog, pstate=pstate,
+                               device_error=device_error)
+        else:
+            continue  # unknown command kind: ignore, keep serving
+        # telemetry ships BEFORE the status post: the driver drains
+        # right after it sees the status, so shipping after would race
+        # the batch against the drain
+        try:
+            _ship_launches(wlog, shipped)
+            cp.ship_telemetry(wlog.drain())
+        except Exception:  # noqa: BLE001 — telemetry is best-effort
+            pass
+        status["cseq"] = cseq
+        client.set_prop(
+            args.job, cmd.get("skey") or f"status/{args.pid}",
+            json.dumps(status).encode(),
+        )
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -52,6 +52,20 @@ ported stages need:
   ``job_failed`` on the failure paths).  A unit's ``stage`` id is its
   region's id in that decision.  Each dispatch attempt is one ``span``
   (cat=execute) stamped with the active query's ``qid``.
+- Versioned re-execution under injected faults, as the reference:
+  before each dispatch attempt the fault registry
+  (``exec/faults.py``) may fail the unit (``InjectedFault``), kill the
+  process (a seeded plan on a worker) or delay it.  A failure is
+  classified against the unit's attempt history
+  (``exec/failure.py::classify``): a transient one logs
+  ``stage_failed``, waits the seeded backoff of ``RetryPolicy`` and
+  reruns the unit as the next version (``stage_start`` again); a
+  deterministic repeat, or the ``max_stage_failures`` budget spent,
+  logs ``job_failed`` and raises :class:`JobFailedError` carrying
+  every :class:`Attempt`.  Fault tokens match the unit's name (the
+  fused op name, ``group_by``).  Each synchronous attempt feeds the
+  unit name's :class:`StageStatistics`; an outlier logs
+  ``stage_straggler``.
 - :meth:`GraphExecutor.graph_key` is the structural identity of a
   lowered graph (the reference's compile-cache key), which the serving
   tier's result cache keys on.
@@ -66,8 +80,9 @@ ported stages need:
 from __future__ import annotations
 
 import math
+import os
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -75,10 +90,14 @@ import torch
 from dryad_tpu_torch.columnar.batch import ColumnBatch, to_host_column
 from dryad_tpu_torch.exec.checkpoint import CheckpointStore, stage_fingerprint
 from dryad_tpu_torch.exec.events import EventLog
-from dryad_tpu_torch.exec.failure import StageFailedError
+from dryad_tpu_torch.exec import faults
+from dryad_tpu_torch.exec.failure import (
+    Attempt, FailureKind, JobFailedError, RetryPolicy, StageFailedError, classify,
+)
 from dryad_tpu_torch.exec.kernels import NON_OVERFLOW_OPS, StageContext, _round8, run_ops
 from dryad_tpu_torch.ops import shuffle as SH
 from dryad_tpu_torch.exec.operands import DeviceTables
+from dryad_tpu_torch.exec.stats import StageStatistics
 from dryad_tpu_torch.obs import flightrec
 from dryad_tpu_torch.obs.metrics import MetricsRegistry
 from dryad_tpu_torch.obs.span import Tracer
@@ -90,7 +109,7 @@ from dryad_tpu_torch.utils.logging import get_logger
 
 _log = get_logger("dryad_tpu_torch.exec")
 
-__all__ = ["DeferredFinish", "GraphExecutor", "StageFailedError", "retry_regions"]
+__all__ = ["DeferredFinish", "GraphExecutor", "JobFailedError", "StageFailedError", "retry_regions"]
 
 # (op kind, param) pairs the reference binds as call-time operands: its
 # compile key holds their shape tier (``operand_signature``), not their
@@ -309,6 +328,19 @@ class GraphExecutor:
             CheckpointStore(config.checkpoint_dir, events=self.event_log)
             if getattr(config, "checkpoint_dir", None) else None
         )
+        # per-unit-name duration models (straggler events)
+        self.stats: Dict[str, StageStatistics] = {}
+        # injected failures: seeded backoff under the per-stage budget;
+        # deterministic repeats fail fast
+        self.retry_policy = RetryPolicy(
+            max_attempts=config.max_stage_failures,
+            backoff_base=config.retry_backoff_base,
+            backoff_max=config.retry_backoff_max,
+            jitter=config.retry_jitter,
+            seed=config.retry_seed,
+        )
+        # injectable sleep: backoff-timing tests record instead of wait
+        self._sleep: Callable[[float], None] = time.sleep
 
     # -- structural identity -------------------------------------------------
     def _stage_key(self, stage: Stage) -> Tuple:
@@ -548,6 +580,9 @@ class GraphExecutor:
                        nparts=adapt_fan, of=self.P, observed_rows=observed)
         exports = self._exports[id(unit)]
         want_count = id(unit) in self._count_wanted and (can_overflow or bool(window))
+        st = self.stats.setdefault(name, StageStatistics(self.config.outlier_sigmas))
+        failures = 0
+        attempts: List[Attempt] = []  # failed-attempt history (post-mortem)
         version = 0
         while True:
             version += 1
@@ -556,6 +591,12 @@ class GraphExecutor:
                 log.emit("fused_dispatch", stage=sid, name=name, members=len(unit),
                          version=version, boost=boost)
             t0 = time.time()
+            try:
+                self._inject_faults(sid, name)
+            except faults.InjectedFault as e:
+                failures += 1
+                self._stage_failed(sid, name, version, e, failures, attempts)
+                continue  # versioned re-execution (after the backoff)
             # escalated boosts drop the reduced width first: the
             # concentration itself may be what overflowed
             fan = adapt_fan if adapt_fan and boost < 4 else None
@@ -576,19 +617,23 @@ class GraphExecutor:
                     host = torch.stack([overflow.to(torch.int64)] + counts).cpu().tolist()
             if windowed:
                 return
+            dt = time.time() - t0
+            st.record(dt)
+            if st.is_outlier(dt):
+                log.emit("stage_straggler", stage=sid, name=name, version=version,
+                         seconds=dt, threshold=st.outlier_threshold())
             if not can_overflow:
                 misses.append((name, dict_miss))
                 # overflow-free units report their dispatch time
                 log.emit("stage_complete", stage=sid, name=name, version=version,
-                         seconds=time.time() - t0, **{"async": True})
+                         seconds=dt, **{"async": True})
                 if not fan:  # a reduced-width layout is not what the fingerprint says
                     self._save_checkpoint(unit, results)
                 return
             if not host[0]:
                 self._record(exports, host[1:])
                 misses.append((name, dict_miss))
-                log.emit("stage_complete", stage=sid, name=name, version=version,
-                         seconds=time.time() - t0)
+                log.emit("stage_complete", stage=sid, name=name, version=version, seconds=dt)
                 if not fan:
                     self._save_checkpoint(unit, results)
                 return
@@ -600,6 +645,59 @@ class GraphExecutor:
                 flightrec.dump_now(f"overflow_exhausted:{name}")
                 raise StageFailedError(_exhausted_message(name, ops, boost))
             boost *= 2
+
+    def _inject_faults(self, sid: int, name: str) -> None:
+        """The fault registry's consultation points before a dispatch
+        (``exec/faults.py``): an injected failure raises, a seeded kill
+        ends this process (after logging ``worker_killed_injected`` and
+        dumping the flight recorder: ``os._exit`` skips atexit), an
+        injected delay stalls the attempt."""
+        faults.registry.maybe_fail(name)
+        if faults.registry.maybe_kill(name):
+            self.event_log.emit("worker_killed_injected", stage=sid, name=name)
+            flightrec.dump_now(f"worker_killed:{name}")
+            os._exit(113)
+        delay = faults.registry.maybe_delay(name)
+        if delay:
+            self.event_log.emit("stage_delay_injected", stage=sid, name=name, seconds=delay)
+            self._sleep(delay)
+
+    def _stage_failed(self, sid: int, name: str, version: int, e: Exception,
+                      failures: int, attempts: List[Attempt]) -> None:
+        """Account one injected failure of a unit: classify it against
+        the history, log ``stage_failed``, and either back off (seeded)
+        before the next version or, on a deterministic repeat or an
+        exhausted budget, log ``job_failed`` and raise
+        :class:`JobFailedError` with the attempt history."""
+        kind = classify(e, attempts)
+        exhausted = self.retry_policy.exhausted(failures)
+        # deterministic repeats fail fast: identical class + message
+        # means elsewhere/later cannot help
+        terminal = exhausted or kind is FailureKind.DETERMINISTIC
+        backoff = 0.0 if terminal else self.retry_policy.backoff(name, failures)
+        attempts.append(Attempt(
+            number=version, error_type=type(e).__name__, error=str(e),
+            kind=kind.value, backoff=backoff,
+        ))
+        self.event_log.emit(
+            "stage_failed", stage=sid, name=name, version=version, error=str(e),
+            failures=failures, failure_kind=kind.value, backoff=round(backoff, 4),
+        )
+        if terminal:
+            self.event_log.emit("job_failed", stage=sid, name=name,
+                                failure_kind=kind.value, reason=str(e))
+            why = (
+                "failed deterministically (identical error reproduced; "
+                "retrying cannot help)"
+                if kind is FailureKind.DETERMINISTIC and not exhausted
+                else f"exceeded failure budget ({self.config.max_stage_failures})"
+            )
+            flightrec.dump_now(f"job_failed:{name}")
+            raise JobFailedError(
+                f"stage {name!r} {why}: {e}", stage=name, attempts=attempts,
+            ) from e
+        if backoff:
+            self._sleep(backoff)
 
     def _dispatch(self, unit: List[Stage], bindings, results, fan, boost: int):
         """Run a unit's member stages once; returns its overflow flag and

@@ -1,24 +1,39 @@
-"""Failure taxonomy and structured job failure (a part of
-``dryad_tpu/exec/failure.py``).
+"""Failure taxonomy, retry policy, and structured job failure.
 
-- :class:`FailureKind`: the failure domains — ``TRANSIENT`` (unreadable
-  or corrupt checkpoints: recomputing is expected to succeed),
-  ``DETERMINISTIC`` (the same error reproduces: fail fast),
-  ``RESOURCE`` (capacity: the executor's boost palette handles it).
-- :class:`StageFailedError`: a stage reached a terminal failure;
-  :class:`CheckpointCorruptionError`, a checkpoint failed its CRC
-  check; :class:`JobFailedError`, a terminal job failure carrying its
-  :class:`Attempt` history.
+The reference's job manager distinguishes *where* a failure came from
+before deciding what to do about it: vertices re-execute under a
+version budget (``DrVertexRecord.h:164-194``), machines that repeatedly
+produce failures are blacklisted so the retries land elsewhere
+(``DrGraph.h:42`` failure accounting), and capacity problems re-shape
+the graph rather than retrying blindly.  This module is that decision
+layer for this framework:
 
-The reference's retry policy and failure classifier (``RetryPolicy``,
-``classify``) drive its stage-failure retries, which come with the
-cluster and fault-injection work (ROADMAP queue 1 item 13).
+- :class:`FailureKind` — the failure domains:
+
+  * ``TRANSIENT``: injected faults, worker death, unreadable or
+    corrupt checkpoints — re-execution on (possibly different)
+    resources is expected to succeed;
+  * ``DETERMINISTIC``: the same exception class + message reproduced
+    on a *different* computer — retrying elsewhere cannot help, fail
+    fast with the history instead of burning the budget;
+  * ``RESOURCE``: capacity-shaped outcomes (shuffle/join overflow) —
+    handled by the executor's boost palette, never by blind retry.
+
+- :class:`RetryPolicy` — exponential backoff with **seeded** jitter
+  (deterministic per (seed, key, attempt), so chaos runs replay
+  bit-identically) and a per-stage attempt budget.
+
+- :class:`JobFailedError` — the structured terminal error carrying the
+  full :class:`Attempt` history, so a failed job is post-mortem
+  inspectable (the event log's ``stage_failed`` and ``job_failed``
+  events hold the same history).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import enum
+import random
 from typing import List, Optional, Sequence
 
 
@@ -32,7 +47,7 @@ class FailureKind(enum.Enum):
 
 @dataclasses.dataclass
 class Attempt:
-    """Record of one failed attempt."""
+    """Record of one failed attempt (the DrVertexRecord version entry)."""
 
     number: int
     error_type: str
@@ -75,3 +90,59 @@ class JobFailedError(StageFailedError):
                 "  " + a.describe() for a in self.attempts
             )
         super().__init__(message)
+
+
+def classify(
+    error: BaseException,
+    history: Sequence[Attempt],
+    computer: Optional[str] = None,
+) -> FailureKind:
+    """Classify a new failure against the attempt history so far.
+
+    A failure whose exception class AND message reproduce an earlier
+    attempt's is DETERMINISTIC when the earlier attempt ran on a
+    different computer (or when neither side names a computer — the
+    single-driver executor, where "elsewhere" does not exist and an
+    identical repeat is already proof).  Everything else is TRANSIENT;
+    RESOURCE failures (overflow) never reach this function — the
+    executor's boost palette owns them.
+    """
+    et, em = type(error).__name__, str(error)
+    for a in history:
+        if a.error_type != et or a.error != em:
+            continue
+        if computer is None or a.computer is None or a.computer != computer:
+            return FailureKind.DETERMINISTIC
+    return FailureKind.TRANSIENT
+
+
+@dataclasses.dataclass(frozen=True)
+class RetryPolicy:
+    """Exponential backoff with seeded jitter and an attempt budget.
+
+    ``backoff(key, failures)`` is deterministic in (seed, key,
+    failures): chaos suites replay the exact same schedule per seed,
+    and two stages with the same failure count still spread out
+    (the jitter term de-correlates their retry storms).
+    """
+
+    max_attempts: int = 3
+    backoff_base: float = 0.05
+    backoff_max: float = 2.0
+    jitter: float = 0.5
+    seed: int = 0
+
+    def backoff(self, key: str, failures: int) -> float:
+        """Seconds to wait before the retry after ``failures`` (>= 1)
+        consecutive failures of ``key``."""
+        raw = min(
+            self.backoff_base * (2 ** max(failures - 1, 0)),
+            self.backoff_max,
+        )
+        # random.Random(str) seeds via sha512: stable across processes
+        # (hash() is salted per-process and would break replay)
+        rng = random.Random(f"{self.seed}:{key}:{failures}")
+        return raw * (1.0 + self.jitter * rng.random())
+
+    def exhausted(self, failures: int) -> bool:
+        return failures >= self.max_attempts

@@ -41,7 +41,8 @@ from dryad_tpu_torch.exec.combinetree import (
     layout_rows,
     neutral_snapshot,
 )
-from dryad_tpu_torch.exec.executor import StageFailedError
+from dryad_tpu_torch.exec.executor import JobFailedError, StageFailedError
+from dryad_tpu_torch.exec.faults import InjectedFault
 from dryad_tpu_torch.exec.partial import MERGEABLE_AGGS, finalize_fn, merge_agg_spec, partial_plan
 from dryad_tpu_torch.exec.pipeline import DispatchWindow, prefetched
 from dryad_tpu_torch.exec.spill import SpillDir, SpillWriter
@@ -287,7 +288,13 @@ class _AsyncDispatcher:
             yield tag, value
 
     def _retry_one(self, tag, error):
-        if self.retry is None or not isinstance(error, StageFailedError):
+        """A failed fetch reruns serially at the drain site when its
+        failure is transient: a stage failure or an injected fault, not
+        a job that already spent its retry budget."""
+        transient = isinstance(
+            error, (StageFailedError, InjectedFault)
+        ) and not isinstance(error, JobFailedError)
+        if self.retry is None or not transient:
             raise error
         self.win.note_retry()
         return self.retry(tag)

@@ -5,8 +5,8 @@ A GroupBy's builtin aggregates split into per-chunk partials and an
 associative merge, so partial combines run close to the data and merge
 up an aggregation tree.  The streaming driver (``exec/outofcore.py``)
 uses the decomposition for its per-chunk partials; the host-side state
-folds and the coded combine serve the vertex-task and coded-redundancy
-callers that come with ROADMAP queue 1 items 12 and 13.
+folds and the coded combine serve the vertex tasks and coded partials
+of ``cluster/localjob.py`` and ``cluster/worker.py``, and the views.
 """
 
 from __future__ import annotations

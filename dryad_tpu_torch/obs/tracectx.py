@@ -11,8 +11,8 @@ admission, or at ``DryadContext.run_*`` for other jobs, when
   (``DispatchWindow.submit``, ``ChunkPrefetcher`` construction) and
   re-activating it inside the worker thread;
 - across processes by :meth:`TraceContext.to_wire` /
-  :meth:`from_wire` (kept for the multi-process driver, ROADMAP queue
-  1 item 13).
+  :meth:`from_wire` (a vertex command's envelope carries it to the
+  worker, ``cluster/localjob.py`` and ``cluster/worker.py``).
 
 The event kinds that carry ``qid`` are ``QUERY_SCOPED_KINDS`` in
 :mod:`dryad_tpu_torch.exec.events`.  :func:`current_qid` on the hot

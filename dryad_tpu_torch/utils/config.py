@@ -120,6 +120,24 @@ class DryadConfig:
       rule.  ``telemetry_window_s`` is the rolling window of the SLO
       store; ``query_trace`` stamps each query's events with its
       ``qid`` (``obs/tracectx.py``).
+    - Fault tolerance (``exec/failure.py``, ``exec/faults.py``):
+      ``max_stage_failures`` is a stage's attempt budget; transient
+      failures wait ``retry_backoff_base * 2^(failures-1)`` seconds
+      (capped at ``retry_backoff_max``) times ``1 + retry_jitter *
+      U(0,1)``, drawn from ``retry_seed``.  ``outlier_sigmas`` and
+      ``straggler_floor_ratio`` shape the straggler model
+      (``exec/stats.py``).
+    - Vertex tasks (``cluster/localjob.py``): ``rows_per_vertex`` sizes
+      an unpinned ``submit_partitioned`` fan-out;
+      ``coded_redundancy``, ``coded_parity_tasks`` and
+      ``coded_max_amplification`` drive the coded k-of-n path
+      (``redundancy/``); ``gang_combine_tree`` folds each worker's won
+      partials worker-side (level -1), with a
+      ``gang_partition_cache_bytes`` cache of the parts it wrote.
+    - Diagnosis (``obs/diagnose.py``): ``obs_diagnosis`` turns the
+      online rules on; ``diagnose_skew_ratio``,
+      ``diagnose_recompile_burst`` and ``diagnose_cooldown_s`` are
+      their triggers.
     """
 
     shuffle_slack: float = _env_float("DRYAD_TPU_SHUFFLE_SLACK", 2.0)
@@ -178,6 +196,25 @@ class DryadConfig:
     )
     telemetry_window_s: float = _env_float("DRYAD_TPU_TELEMETRY_WINDOW_S", 60.0)
     query_trace: bool = _env_bool("DRYAD_TPU_QUERY_TRACE", True)
+    max_stage_failures: int = 3
+    outlier_sigmas: float = 3.0
+    straggler_floor_ratio: float = _env_float("DRYAD_TPU_STRAGGLER_FLOOR", 1.5)
+    coded_redundancy: bool = _env_bool("DRYAD_TPU_CODED_REDUNDANCY", True)
+    coded_parity_tasks: int = _env_int("DRYAD_TPU_CODED_PARITY", 2)
+    coded_max_amplification: float = _env_float("DRYAD_TPU_CODED_MAX_AMP", 1e6)
+    retry_backoff_base: float = _env_float("DRYAD_TPU_RETRY_BACKOFF", 0.05)
+    retry_backoff_max: float = 2.0
+    retry_jitter: float = 0.5
+    retry_seed: int = _env_int("DRYAD_TPU_RETRY_SEED", 0)
+    rows_per_vertex: int = _env_int("DRYAD_TPU_ROWS_PER_VERTEX", 1 << 18)
+    obs_diagnosis: bool = _env_bool("DRYAD_TPU_OBS_DIAGNOSIS", True)
+    diagnose_skew_ratio: float = _env_float("DRYAD_TPU_DIAGNOSE_SKEW_RATIO", 4.0)
+    diagnose_recompile_burst: int = _env_int("DRYAD_TPU_DIAGNOSE_RECOMPILE_BURST", 4)
+    diagnose_cooldown_s: float = _env_float("DRYAD_TPU_DIAGNOSE_COOLDOWN_S", 5.0)
+    gang_combine_tree: bool = _env_bool("DRYAD_TPU_GANG_COMBINE_TREE", False)
+    gang_partition_cache_bytes: int = _env_int(
+        "DRYAD_TPU_GANG_PARTITION_CACHE", 64 * 1024 * 1024
+    )
 
     def validate(self) -> None:
         if self.shuffle_slack < 1.0:
@@ -247,3 +284,31 @@ class DryadConfig:
             raise ValueError("serve_cache_min_sec_per_gb must be >= 0")
         if self.telemetry_window_s <= 0:
             raise ValueError("telemetry_window_s must be > 0")
+        if self.max_stage_failures < 1:
+            raise ValueError("max_stage_failures must be >= 1")
+        if self.outlier_sigmas <= 0:
+            raise ValueError("outlier_sigmas must be > 0")
+        if self.straggler_floor_ratio < 1.0:
+            raise ValueError("straggler_floor_ratio must be >= 1.0")
+        if self.coded_parity_tasks < 1:
+            raise ValueError("coded_parity_tasks must be >= 1")
+        if self.coded_max_amplification <= 0:
+            raise ValueError("coded_max_amplification must be > 0")
+        if self.retry_backoff_base < 0:
+            raise ValueError("retry_backoff_base must be >= 0")
+        if self.retry_backoff_max < self.retry_backoff_base:
+            raise ValueError(
+                "retry_backoff_max must be >= retry_backoff_base"
+            )
+        if self.retry_jitter < 0:
+            raise ValueError("retry_jitter must be >= 0")
+        if self.rows_per_vertex < 1:
+            raise ValueError("rows_per_vertex must be >= 1")
+        if self.diagnose_skew_ratio < 1.0:
+            raise ValueError("diagnose_skew_ratio must be >= 1.0")
+        if self.diagnose_recompile_burst < 2:
+            raise ValueError("diagnose_recompile_burst must be >= 2")
+        if self.diagnose_cooldown_s < 0:
+            raise ValueError("diagnose_cooldown_s must be >= 0")
+        if self.gang_partition_cache_bytes < 0:
+            raise ValueError("gang_partition_cache_bytes must be >= 0")

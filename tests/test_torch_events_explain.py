@@ -40,15 +40,23 @@ _ID = re.compile(r"(#|\bin|\bstage ?|\bf|\bs)(\d+)")
 
 @pytest.fixture(autouse=True)
 def same_id_width(monkeypatch):
-    """Both packages draw node ids from counters of the same width:
-    explain pads its columns to the longest label, ids included, so ids
-    of different digit counts (each counter advanced by whatever ran
-    before in the process) would shift the padding."""
+    """Both packages draw node and stage ids from counters of the same
+    width: explain pads its columns to the longest label, ids included,
+    so ids of different digit counts (each counter advanced by whatever
+    ran before in the process) would shift the padding."""
+    from dryad_tpu.plan import fuse as jfuse_mod
+    from dryad_tpu.plan import lower as jlower_mod
     from dryad_tpu.plan import nodes as jnodes
+    from dryad_tpu_torch.plan import fuse as tfuse_mod
+    from dryad_tpu_torch.plan import lower as tlower_mod
     from dryad_tpu_torch.plan import nodes as tnodes
 
     for mod in (jnodes, tnodes):
         monkeypatch.setattr(mod, "_ids", itertools.count(10**12))
+    # fuse imports the stage counter by name: one counter for all four
+    stage_ids = itertools.count(10**6)
+    for mod in (jlower_mod, jfuse_mod, tlower_mod, tfuse_mod):
+        monkeypatch.setattr(mod, "_stage_ids", stage_ids)
 
 
 def renumber(text: str) -> str:
@@ -238,12 +246,18 @@ def _spans(events):
     return out
 
 
+# kinds decided by each package's own wall clock, as ``seconds`` is:
+# ``stage_straggler`` flags an attempt slower than the unit's duration
+# model (both packages run it; which attempt crosses it is timing)
+CLOCK_KINDS = {"span", "stage_straggler"}
+
+
 def _assert_streams_equal(tc, jc, kinds):
     """The port's stream equals the reference's executor stream in the
     given kinds, and its spans equal the reference's, which its tracer
     writes to the context's own log (the harness swaps the executor's)."""
-    assert _comparable(tc.events.events(), kinds - {"span"}) == \
-        _comparable(jc.executor.events.events(), kinds - {"span"})
+    assert _comparable(tc.events.events(), kinds - CLOCK_KINDS) == \
+        _comparable(jc.executor.events.events(), kinds - CLOCK_KINDS)
     spans = _spans(tc.events.events())
     assert spans and all(s["qid"] is not None for s in spans)
     assert spans == _spans(jc.events.events())

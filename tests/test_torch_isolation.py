@@ -64,7 +64,9 @@ def test_scan_covers_every_module_of_the_port():
     path (obs/, spill, pipeline, partial, combine tree, the driver) and
     the serving slice (serve/, views/, checkpoints, the failure types,
     the trace context, critical path, flight recorder and logging)
-    included."""
+    and the fault-tolerance and cluster slice (stats, job packages,
+    cluster/, the control plane, redundancy/, diagnosis, gang
+    telemetry) included."""
     scanned = {os.path.relpath(p, ROOT) for p in _port_files()}
     for mod in ("ops/join.py", "ops/segmented.py", "exec/kernels.py", "exec/executor.py",
                 "parallel/partition.py", "plan/lower.py", "plan/infer.py", "api/query.py",
@@ -80,7 +82,12 @@ def test_scan_covers_every_module_of_the_port():
                 "serve/__init__.py", "serve/admission.py", "serve/cache.py", "serve/router.py",
                 "serve/service.py", "views/__init__.py", "views/matview.py",
                 "exec/checkpoint.py", "exec/failure.py", "exec/faults.py", "obs/tracectx.py",
-                "obs/critpath.py", "obs/flightrec.py", "utils/logging.py"):
+                "obs/critpath.py", "obs/flightrec.py", "utils/logging.py",
+                "exec/stats.py", "exec/jobpackage.py", "cluster/interfaces.py",
+                "cluster/scheduler.py", "cluster/service.py", "cluster/partcache.py",
+                "cluster/worker.py", "cluster/localjob.py", "parallel/multihost.py",
+                "redundancy/coding.py", "redundancy/policy.py", "redundancy/reconstruct.py",
+                "obs/diagnose.py", "obs/gang.py"):
         assert os.path.join("dryad_tpu_torch", mod) in scanned, mod
     assert "chip_smoke.py" in scanned
 
@@ -102,7 +109,11 @@ def test_import_in_fresh_process_loads_no_jax():
         "import dryad_tpu_torch.exec.checkpoint, dryad_tpu_torch.exec.failure\n"
         "import dryad_tpu_torch.exec.faults, dryad_tpu_torch.obs.tracectx\n"
         "import dryad_tpu_torch.obs.critpath, dryad_tpu_torch.obs.flightrec\n"
-        "import dryad_tpu_torch.utils.logging\n"
+        "import dryad_tpu_torch.utils.logging, dryad_tpu_torch.exec.stats\n"
+        "import dryad_tpu_torch.exec.jobpackage, dryad_tpu_torch.cluster.localjob\n"
+        "import dryad_tpu_torch.cluster.worker, dryad_tpu_torch.cluster.partcache\n"
+        "import dryad_tpu_torch.parallel.multihost, dryad_tpu_torch.redundancy\n"
+        "import dryad_tpu_torch.obs.diagnose, dryad_tpu_torch.obs.gang\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "print(bad); sys.exit(1 if bad else 0)\n"
@@ -156,3 +167,59 @@ def test_serving_fleet_names_raise_naming_their_item(name):
     for kept in ("QueryService", "TenantSession", "QueryFuture", "QueryRejected",
                  "TenantQuota", "ResultCache"):
         assert kept in serve.__all__ and getattr(serve, kept)
+
+
+def test_worker_process_loads_neither_jax_nor_the_jax_package(tmp_path):
+    """A port worker process, after announcing and running a vertex task,
+    holds neither ``jax`` nor ``dryad_tpu`` in ``sys.modules`` (it writes
+    the forbidden names it holds at exit)."""
+    import numpy as np
+
+    import dryad_tpu_torch as T
+    from dryad_tpu_torch.cluster.localjob import LocalJobSubmission, SubprocessLauncher
+
+    report = str(tmp_path / "modules.txt")
+
+    class Reporting(SubprocessLauncher):
+        def start(self, spec):
+            code = (
+                "import atexit, runpy, sys\n"
+                "def _report():\n"
+                f"    open({report!r}, 'w').write(repr(sorted(m for m in sys.modules "
+                f"if m.split('.')[0] in {FORBIDDEN!r})))\n"
+                "atexit.register(_report)\n"
+                f"sys.argv = ['worker'] + {spec['argv'][3:]!r}\n"
+                "runpy.run_module('dryad_tpu_torch.cluster.worker', run_name='__main__')\n"
+            )
+            assert spec["argv"][1:3] == ["-m", "dryad_tpu_torch.cluster.worker"]
+            return super().start(dict(spec, argv=[sys.executable, "-c", code]))
+
+    with LocalJobSubmission(num_workers=1, device="cpu", launcher=Reporting()) as sub:
+        ctx = T.DryadContext(num_partitions_=1, device="cpu")
+        q = ctx.from_arrays({"k": np.arange(64, dtype=np.int32) % 4}).group_by(
+            "k", {"c": ("count", None)})
+        out = sub.submit_partitioned(q, nparts=2)
+        assert sorted(out["c"].tolist()) == [16] * 4
+    assert open(report).read() == "[]"
+
+
+def test_worker_without_its_device_fails_the_job_naming_why():
+    """Workers asked for CUDA where there is none announce the reason
+    and fail every vertex with it: the job fails, nothing falls back to
+    the CPU."""
+    import numpy as np
+    import torch
+
+    import dryad_tpu_torch as T
+    from dryad_tpu_torch.cluster.localjob import LocalJobSubmission
+    from dryad_tpu_torch.exec.failure import JobFailedError
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the failure path needs none")
+    with LocalJobSubmission(num_workers=1, device="cuda") as sub:
+        ctx = T.DryadContext(num_partitions_=1, device="cpu")
+        q = ctx.from_arrays({"k": np.arange(16, dtype=np.int32)}).project(["k"])
+        with pytest.raises(JobFailedError, match="cannot open device 'cuda'"):
+            sub.submit_partitioned(q, nparts=1)
+        (meta,) = sub.worker_devices().values()
+        assert "cannot open device 'cuda'" in meta["device_error"]

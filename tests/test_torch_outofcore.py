@@ -405,3 +405,96 @@ def test_wordcount_chunk_partial_takes_the_dense_kernel_path(tmp_path):
         ops.append([op.kind for s in graph.stages for op in s.ops])
     assert ops[0] == ops[1]
     assert "string_code" in ops[1] and "group_reduce_dense" in ops[1]
+
+
+def _stream_chaos_run(depth, fuse, plan):
+    """A stream group_by under a seeded chaos plan (the reference's
+    tests/test_chaos.py async-window case, integer sums)."""
+    from dryad_tpu_torch.exec import faults as TX
+
+    rng = np.random.default_rng(6)
+    chunks = [{"k": rng.integers(0, 13, 600).astype(np.int32),
+               "v": rng.integers(-9, 9, 600).astype(np.int32)} for _ in range(4)]
+    tc = T.DryadContext(num_partitions_=P, device="cpu", config=T.DryadConfig(**_cfg(
+        stream_pipeline_depth=1, dispatch_depth=depth, chunk_fuse=fuse, stream_combine_rows=20,
+        max_stage_failures=4, retry_backoff_base=0.002, retry_backoff_max=0.02)))
+    TX.install_plan(plan)
+    try:
+        out = (tc.from_stream(iter(_copy(chunks)))
+               .group_by("k", {"s": ("sum", "v"), "n": ("count", None)}).collect())
+    finally:
+        TX.clear_faults()
+    return out, tc
+
+
+def test_stream_under_seeded_faults_equals_a_clean_run():
+    """Injected stage failures and delays land while the dispatch window
+    holds chunks in flight: each is retried inside its budget and the
+    result is byte-equal to a clean serial run."""
+    from dryad_tpu_torch.exec import faults as TX
+
+    plan = TX.FaultPlan(seed=2, stage_failure_prob=0.25, max_failures_per_stage=2,
+                        stage_delay_prob=0.2, stage_delay_seconds=0.005)
+    chaos, tc = _stream_chaos_run(3, 2, plan)
+    clean, _ = _stream_chaos_run(1, 1, None)
+    kinds = [e["kind"] for e in tc.events.events()]
+    assert "stage_failed" in kinds, "the chaos plan should have fired"
+    assert "job_failed" not in kinds
+    assert set(chaos) == set(clean)
+    for c in clean:
+        assert chaos[c].dtype == clean[c].dtype and chaos[c].tobytes() == clean[c].tobytes(), c
+
+
+def test_drain_site_retries_injected_faults_like_the_reference():
+    """The dispatcher reruns a fetch that failed with an injected
+    (transient) fault serially at the drain site, in submit order, and
+    re-raises a terminal ``JobFailedError`` without a rerun
+    (``dryad_tpu/exec/outofcore.py:341-352``)."""
+    from dryad_tpu_torch.exec.failure import JobFailedError
+    from dryad_tpu_torch.exec.faults import InjectedStageFailure
+    from dryad_tpu_torch.exec.outofcore import _AsyncDispatcher
+
+    class _FakeCtx:
+        # the dispatcher hands each query straight back as its fetch
+        def run_to_host_async(self, fetch):
+            return fetch
+
+        def run_many_to_host_async(self, fetches):
+            return list(fetches)
+
+    def ok(i):
+        return lambda: {"i": np.array([i])}
+
+    def boom(exc):
+        def fetch():
+            raise exc
+
+        return fetch
+
+    retried = []
+
+    def retry(tag):
+        retried.append(tag)
+        return {"i": np.array([tag])}
+
+    got = []
+    dsp = _AsyncDispatcher(_FakeCtx(), 3, 2, retry=retry)
+    try:
+        for i in range(7):
+            dsp.submit(i, boom(InjectedStageFailure("mid-window")) if i == 3 else ok(i))
+            got.extend(dsp.ready())
+        got.extend(dsp.drain())
+    finally:
+        dsp.close()
+    assert retried == [3]
+    assert [(tag, int(t["i"][0])) for tag, t in got] == [(i, i) for i in range(7)]
+    assert dsp.win.retries == 1
+
+    dsp2 = _AsyncDispatcher(_FakeCtx(), 3, 1, retry=retry)
+    try:
+        dsp2.submit(0, boom(JobFailedError("retry budget burned")))
+        with pytest.raises(JobFailedError):
+            list(dsp2.drain())
+    finally:
+        dsp2.close()
+    assert retried == [3], "terminal failures must not re-dispatch"
