@@ -12,31 +12,38 @@ hot key), the sort-path group_by with distinct and range_partition
 pages by shuffle, then a sort-path group_by and a top-1), the broadcast
 join of samples/join_groupby.py (2^26 orders, then the dense group_by
 on the bucket kernel), PageRank by do_while on a Graph500 Kronecker
-graph (scale 22, edgefactor 16, 10 rounds), the decomposable group_by,
+graph (scale 21, edgefactor 16, 10 rounds), the decomposable group_by,
 its built-in twin and aggregate_decomposable over the Join Task's
 UserVisits, the ordered and user-function operators over a 2^26-row
 event log (sliding_window, reverse, take_while/skip_while, zip_,
 select_many, default_if_empty, apply with the partition index, fork),
 the parity queries of the CPU tests on the card and on the CPU, and the
-stores (TeraSort of 2^27 rows from a store into a store, a zlib store,
+stores (TeraSort of 2^26 rows from a store into a store, a zlib store,
 WordCount through 8 text files and a STRING store, ``submit``, the JSONL
 event log, and the six ported samples), and out-of-core streaming (an
-external TeraSort of 2^27 rows whose peak device memory stays within
-1.5x of the same query's at 2^26, streaming WordCount through
+external TeraSort of 2^26 rows whose peak device memory stays within
+1.5x of the same query's at 2^25, streaming WordCount through
 ``text_stream``, a 2^26-row group_by through the combine tree, and the
 Join Task as a Grace join of two ``store_stream``s into a stream
 ``to_store``), and serving (16 and 64 closed-loop clients over 4 tenants
-of 2^23 rows on one resident context through ``QueryService``, result
-cache off and on; materialized views under two 2^21-row appends in the
-views, recompute and epoch modes; stage checkpoints of the 2^25-row
+of 2^22 rows on one resident context through ``QueryService``, result
+cache off and on; materialized views under two 2^20-row appends in the
+views, recompute and epoch modes; stage checkpoints of the 2^24-row
 group_by written, resumed in a new context and recomputed past a
 corrupted column file), and the local cluster (4 worker processes
 sharing the card through ``LocalJobSubmission.submit_partitioned``:
 WordCount as 16 vertex tasks, then with a 20 s straggler and with a
 worker killed mid-job; an int auto-dense group_by as coded k-of-n
 partials, clean and after seeded kills of 2 workers; seeded stage chaos
-in one context), checks every result against a numpy oracle, and
-prints:
+in one context), the runtime plan rewriter at the default config (a
+2^26-row drift sort and a skewed Grace join whose hot buckets split
+mid-stream, a thrashing streaming combine pinned to the host and the
+next stream flipped to the combine tree, an overflowing group_by
+pre-widened; each against its rewriter-off run), and the serving fleet
+(a front door before 4 replica processes on the card, 4 tenants of
+2^20 rows, 16 closed-loop client processes, a replica killed with
+queries in flight and replayed), checks every result against a numpy
+oracle, and prints:
 
 - a ``{"kernels": [...]}`` line (each kernel's launches on the main
   path, its error against the plain version, its time, the plain
@@ -49,7 +56,8 @@ Any failed check raises, so the script exits non-zero and prints no
 result line.  Without a CUDA device it exits non-zero at once.
 ``--phases`` runs a subset (env, kernel, wordcount, dense, terasort,
 terasort_hot, groupby_sort, join_shuffle, join_broadcast, pagerank,
-decomposable, ordered_ops, cpu_parity, stores, stream, serve, cluster), for short first
+decomposable, ordered_ops, cpu_parity, stores, stream, serve, cluster,
+rewrite, fleet), for short first
 runs of a changed kernel.  The WordCount, TeraSort, sort-path group_by, join,
 PageRank, decomposable and ordered phases also profile one warm query
 with torch.profiler and print device time by op, the device's busy
@@ -108,8 +116,9 @@ JOIN_CACHE_BYTES = 16 << 30
 F32_REL = 2.0 ** -23  # the sort path's float sums: n_g * 2^-23 * sum |v|
 
 # PageRank (samples/pagerank_dowhile.py) on a Graph500 Kronecker graph:
-# scale 22, edgefactor 16, A/B/C/D = 0.57/0.19/0.19/0.05
-PR_SCALE = 22
+# scale 21 (22 to PR 9; cut for the run's time limit, PERF.md section 4),
+# edgefactor 16, A/B/C/D = 0.57/0.19/0.19/0.05
+PR_SCALE = 21
 PR_EDGEFACTOR = 16
 PR_A, PR_B, PR_C = 0.57, 0.19, 0.19
 PR_DAMP = 0.85
@@ -1055,7 +1064,7 @@ def loop_rounds(ctx) -> int:
 
 
 def phase_pagerank(dev, card: str) -> dict:
-    """PageRank by do_while on a Graph500 Kronecker graph, scale 22,
+    """PageRank by do_while on a Graph500 Kronecker graph, scale 21,
     edgefactor 16 (2^22 vertices, 2^26 edges before self loops go):
     exactly 10 rounds (eps = 0), checked against a float64 oracle."""
     from dryad_tpu_torch import DryadConfig, DryadContext
@@ -1579,7 +1588,7 @@ def phase_cpu_parity(dev, card: str) -> dict:
 
 # -- phase 14: stores, submit, the event log and the samples ------------------
 
-ST_ROWS = 1 << 27  # TeraSort through stores: 1 GiB of int32 keys and f32 payloads (cut from 2^28)
+ST_ROWS = 1 << 26  # TeraSort through stores: 512 MiB of int32 keys and f32 payloads (2^28 to PR 5, 2^27 to PR 9)
 ST_ZLIB_ROWS = 1 << 26  # the compressed store (zlib's host time; PERF.md section 4)
 ST_WC_FILES = 8
 ST_WC_WORDS = 1 << 25  # the stores' WordCount corpus (cut from 2^26; PERF.md section 4)
@@ -1831,9 +1840,9 @@ def phase_stores(dev, card: str) -> dict:
 # chunks (cut from 2^30 rows, then 2^29 and 2^28, so that every phase,
 # the serve and cluster phases included, fits the run's time limit with
 # room: PERF.md section 4)
-SM_TS_ROWS = 1 << 27
-SM_TS_SMALL_ROWS = 1 << 26  # the same query first, for the peak it must stay within 1.5x of
-SM_TS_CHUNK = 1 << 24  # rows a from_stream chunk: 4 and 8 chunks for the peak check
+SM_TS_ROWS = 1 << 26  # 2^27 to PR 9 (cut for the run's time limit)
+SM_TS_SMALL_ROWS = 1 << 25  # the same query first, for the peak it must stay within 1.5x of
+SM_TS_CHUNK = 1 << 24  # rows a from_stream chunk: 2 and 4 chunks for the peak check
 SM_GB_ROWS = 1 << 26  # the combine-tree group_by (cut from 2^28 for the same limit)
 SM_GB_CHUNK = 1 << 24
 SM_PEAK_RATIO = 1.5
@@ -2300,7 +2309,7 @@ def phase_stream(dev, card: str) -> dict:
 # -- phase 16: serving tenants from one resident engine -------------------------
 
 SV_TENANTS = 4
-SV_ROWS = 1 << 23  # each tenant's table (the bench's 2^24, cut for the run's time limit)
+SV_ROWS = 1 << 22  # each tenant's table (the bench's 2^24; 2^23 to PR 9; cut for the run's time limit)
 SV_WORDS = 1024  # each tenant's STRING keys t{t}w{i:04d}
 SV_CELLS = (16, 64)  # closed-loop client threads
 SV_PER_CLIENT = 6
@@ -2310,14 +2319,14 @@ SV_CACHE_BYTES = 256 << 20
 # every query
 SV_DEVICE_CACHE = 16 << 30
 SV_MAX_CLIENTS_PER_TENANT = max(SV_CELLS) // SV_TENANTS
-MV_ROWS = 1 << 23  # the hot tenant's table, and the unrelated tenant's (the bench's 2^24)
+MV_ROWS = 1 << 22  # the hot tenant's table, and the unrelated tenant's (the bench's 2^24; 2^23 to PR 9)
 MV_KEYS = 512
 # the bench's chunk-to-table ratio, 1/4; the writer's appends set each
 # mode's wall time (about 5 s each at 2^24 rows on the card: the grown
 # table's fingerprint and the views' folds), so 2 of the bench's 6 fit
 # the run's time limit beside the cluster phase (PERF.md section 4)
 MV_APPENDS = 2
-MV_APPEND_ROWS = 1 << 21
+MV_APPEND_ROWS = 1 << 20
 MV_READERS = 8
 MV_READS = 8  # the bench's 12, cut for the run's time limit
 MV_OTHER_READERS = MV_READERS // 2
@@ -2326,18 +2335,20 @@ MV_MODES = ("views", "recompute", "epoch")
 CK_FREE_BYTES = 10 << 30  # the group_by's checkpoint (4.4 GB) twice: a rerun writes its new copy before removing the old
 
 
-def serve_tables(rng) -> list:
+def serve_tables(rng, rows: int = None) -> list:
     """The reference's serve bench schema: per tenant a STRING key over
     its 1024 words (indexed from a vocabulary array), int64 v in [0,
-    1000) and f32 w; each with its word ids for the oracle."""
+    1000) and f32 w; each with its word ids for the oracle.  ``rows``
+    a table (default SV_ROWS)."""
+    rows = SV_ROWS if rows is None else rows
     out = []
     for t in range(SV_TENANTS):
         vocab = np.array([f"t{t}w{i:04d}" for i in range(SV_WORDS)], object)
-        ids = rng.integers(0, SV_WORDS, SV_ROWS)
+        ids = rng.integers(0, SV_WORDS, rows)
         out.append((vocab, ids, {
             "k": vocab[ids],
-            "v": rng.integers(0, 1000, SV_ROWS).astype(np.int64),
-            "w": rng.random(SV_ROWS).astype(np.float32),
+            "v": rng.integers(0, 1000, rows).astype(np.int64),
+            "w": rng.random(rows).astype(np.float32),
         }))
     return out
 
@@ -2696,7 +2707,7 @@ def serve_matviews(card: str) -> dict:
     return res
 
 
-CK_ROWS = 1 << 25  # groupby_sort's 2^26, cut for the run's time limit (PERF.md section 4)
+CK_ROWS = 1 << 24  # groupby_sort's 2^26 (2^25 to PR 9), cut for the run's time limit (PERF.md section 4)
 
 
 def serve_checkpoints(card: str) -> dict:
@@ -2808,7 +2819,10 @@ CL_DEVICE = "cuda"  # where the workers run their vertices
 CL_NPARTS = 16
 CL_DELAY_S = 20.0
 CL_KILL_AFTER_S = 3.0
-CL_DENSE_ROWS = 1 << 26
+# the cluster's WordCount corpus and coded group_by (the wordcount phase's
+# 2^26 words and 2^26 rows to PR 9; cut for the run's time limit)
+CL_WORDS = 1 << 25
+CL_DENSE_ROWS = 1 << 25
 CL_DENSE_K = 65536
 CL_CHAOS = dict(seed=0, stage_failure_prob=0.3)
 CL_CHAOS_RUNS = 8  # the seeded plan's 4th draw fails: at most this many runs to see it
@@ -2895,9 +2909,9 @@ def phase_cluster(dev, card: str) -> dict:
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
 
-    # WordCount's input: the wordcount phase's 2^26 Zipf words
+    # WordCount's input: CL_WORDS of the wordcount phase's Zipf words
     rng = np.random.default_rng(SEED + 2)
-    ids = zipf_ids(rng, WC_WORDS)
+    ids = zipf_ids(rng, CL_WORDS)
     tab = vocab_table()
     words = np.array([bytes(r).split()[0].decode() for r in tab], object)
     uid, ucnt = np.unique(ids, return_counts=True)
@@ -3108,13 +3122,662 @@ def phase_cluster(dev, card: str) -> dict:
     return res
 
 
+# -- phase 18: runtime plan rewriting at the default config ---------------------
+
+RW_SORT_ROWS = 1 << 26
+RW_SORT_CHUNK = 1 << 24  # four chunks: the first uniform in [0, 2^20), the rest in [0, 2^14)
+RW_JOIN_LEFT = 1 << 25
+RW_JOIN_RIGHT = 1 << 23
+RW_JOIN_CHUNK = 1 << 23
+RW_JOIN_HOT = 0.01  # the left's later chunks fall on this share of the keys
+RW_GB_ROWS = 1 << 26
+RW_GB_CHUNK = 1 << 21
+RW_GB_KEYS = 1 << 20  # the thrashing stream's int64 keys
+RW_DENSE_KEYS = 1 << 16  # the flipped stream's int32 keys: auto-dense, on the bucket kernel
+RW_OV_ROWS = 1 << 26
+RW_OV_RUNS = 4
+RW_FREE_BYTES = 10 << 30
+
+
+def _rw_ctx(spill_root: str, rewrite: bool, **cfg):
+    """A context on the default config (the diagnosis engine and the plan
+    rewriter on) or with ``plan_rewrite=False``, spilling under
+    ``spill_root`` and keeping every event in memory."""
+    from dryad_tpu_torch import DryadConfig, DryadContext
+
+    if rewrite:
+        check(DryadConfig().plan_rewrite and DryadConfig().obs_diagnosis,
+              "the rewriter is not on by default")
+    else:
+        cfg["plan_rewrite"] = False
+    ctx = DryadContext(num_partitions_=P, config=DryadConfig(
+        stream_spill_dir=spill_root, obs_events_mem_cap=0, **cfg))
+    check((ctx.rewriter is not None) == rewrite and ctx.diagnosis is not None,
+          "the context's diagnosis engine or rewriter is not wired as configured")
+    return ctx
+
+
+def _rewrites(ctx, action: str, phase: str, mark: int = 0) -> list:
+    return [e for e in ctx.events.events()[mark:] if e["kind"] == "plan_rewrite"
+            and e["action"] == action and e["phase"] == phase]
+
+
+def _rw_run(label: str, ctx, build, card: str) -> tuple:
+    """``build(ctx).collect()`` timed, with its peak device memory."""
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = build(ctx).collect()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    log(f"rewrite {label} [{card}]: {secs:.3f} s, peak device memory {peak / 1e9:.3f} GB")
+    return out, secs, peak
+
+
+def rw_sort_chunks(seed: int):
+    """The drift fixture of tests/test_rewrite_differential.py at size:
+    the splitters sample a chunk uniform in [0, 2^20); the later chunks
+    fall in [0, 2^14), all inside the static partition's lowest bucket."""
+    rng = np.random.default_rng(seed)
+    for i in range(RW_SORT_ROWS // RW_SORT_CHUNK):
+        hi = 1 << 20 if i == 0 else 1 << 14
+        yield {"x": rng.integers(0, hi, RW_SORT_CHUNK).astype(np.int64),
+               "v": rng.random(RW_SORT_CHUNK, dtype=np.float32)}
+
+
+def rewrite_sort(spill_root: str, card: str) -> dict:
+    """order_by(["x", "v"]) over the drift stream, rewriter on and off:
+    the hot bucket splits mid-stream (decided, applied, a ``rewrite``
+    split), and both runs equal numpy's sort byte for byte (x below
+    2^20 and v in [0, 1) pack into one uint64 whose order is the rows')."""
+    t0 = time.perf_counter()
+    chunks = list(rw_sort_chunks(SEED + 41))
+    packed = np.sort(np.concatenate([(c["x"].astype(np.uint64) << np.uint64(32))
+                                     | c["v"].view(np.uint32).astype(np.uint64) for c in chunks]))
+    res, outs = {"oracle_s": time.perf_counter() - t0}, {}
+    for on in (True, False):
+        ctx = _rw_ctx(spill_root, on)
+        out, secs, peak = _rw_run(f"sort ({'on' if on else 'off'})", ctx, lambda c: c.from_stream(
+            iter(chunks)).order_by(["x", "v"]), card)
+        got = (out["x"].astype(np.uint64) << np.uint64(32)) | out["v"].view(np.uint32).astype(np.uint64)
+        check(np.array_equal(got, packed), f"rewrite sort ({on}): rows differ from numpy's sort")
+        del got
+        splits = [e["mode"] for e in ctx.events.events() if e["kind"] == "stream_bucket_split"]
+        res["on" if on else "off"] = {"seconds": secs, "peak_bytes": peak, "splits": splits}
+        if on:
+            dec, app = _rewrites(ctx, "split_bucket", "decided"), _rewrites(ctx, "split_bucket", "applied")
+            check(dec and app and "rewrite" in splits,
+                  f"rewrite sort: split_bucket decided {len(dec)}, applied {len(app)}, splits {splits}")
+            res["on"].update(decided=len(dec), applied=len(app),
+                             applied_at=[(e["depth"], e["bucket"], e.get("fan")) for e in app])
+        else:
+            check(not [e for e in ctx.events.events() if e["kind"] == "plan_rewrite"],
+                  "rewrite sort: the rewriter-off run rewrote")
+        outs[on] = out
+        del ctx
+    check(digest(outs[True]) == digest(outs[False]), "rewrite sort: on and off differ")
+    log(f"rewrite sort [{card}]: {RW_SORT_ROWS} rows, split_bucket decided "
+        f"{res['on']['decided']} applied {res['on']['applied']} at (depth, bucket, fan) "
+        f"{res['on']['applied_at']}; splits on {res['on']['splits']}, off {res['off']['splits']}; "
+        f"on {res['on']['seconds']:.2f} s, off {res['off']['seconds']:.2f} s; byte-equal to each "
+        f"other and to numpy's sort (data and oracle {res['oracle_s']:.2f} s)")
+    return res
+
+
+def rw_join_tables(ctx) -> tuple:
+    """Right: every page id in [0, 2^23) once, with b; left: 2^25 visits,
+    the first chunk uniform over the pages, the later ones on the 1% of
+    page ids whose salt-0 host hash falls in the stream driver's bucket
+    0 (a skew its static hash partition does not spread)."""
+    from dryad_tpu_torch.exec.outofcore import _host_hash_buckets
+
+    rng = np.random.default_rng(SEED + 43)
+    pages = np.arange(RW_JOIN_RIGHT, dtype=np.int64)
+    bids = _host_hash_buckets({"k": pages}, ["k"], ctx.config.stream_buckets,
+                              dictionary=ctx.dictionary)
+    hot = pages[bids == 0][: int(RW_JOIN_RIGHT * RW_JOIN_HOT)]
+    right = {"k": rng.permutation(pages), "b": rng.integers(0, 1 << 20, RW_JOIN_RIGHT).astype(np.int32)}
+    left = []
+    for i in range(RW_JOIN_LEFT // RW_JOIN_CHUNK):
+        k = (rng.integers(0, RW_JOIN_RIGHT, RW_JOIN_CHUNK) if i == 0
+             else hot[rng.integers(0, len(hot), RW_JOIN_CHUNK)]).astype(np.int64)
+        left.append({"k": k, "a": rng.integers(0, 1 << 20, RW_JOIN_CHUNK).astype(np.int32)})
+    return left, right, len(hot)
+
+
+def _join_canonical(t: dict) -> np.ndarray:
+    """The rows (k, a) packed and sorted; b rides along checked by key."""
+    return np.sort((np.asarray(t["k"]).astype(np.int64) << 20) | np.asarray(t["a"]).astype(np.int64))
+
+
+def rewrite_join(spill_root: str, card: str) -> dict:
+    """The Grace join of a skewed visit stream with the page stream,
+    rewriter on and off: the hot hash bucket re-hashes at salt 1
+    mid-stream; both equal numpy as row multisets."""
+    t0 = time.perf_counter()
+    left, right, nhot = rw_join_tables(_rw_ctx(spill_root, False))
+    half = RW_JOIN_RIGHT // 2
+    rchunks = [{c: a[i:i + half] for c, a in right.items()} for i in (0, half)]
+    b_of = np.empty(RW_JOIN_RIGHT, np.int32)
+    b_of[right["k"]] = right["b"]
+    want = _join_canonical({"k": np.concatenate([t["k"] for t in left]),
+                            "a": np.concatenate([t["a"] for t in left])})
+    res, canon = {"hot_keys": nhot, "oracle_s": time.perf_counter() - t0}, {}
+    for on in (True, False):
+        ctx = _rw_ctx(spill_root, on)
+        out, secs, peak = _rw_run(f"join ({'on' if on else 'off'})", ctx, lambda c: c.from_stream(
+            iter(left)).join(c.from_stream(iter(rchunks)), ["k"], ["k"]), card)
+        check(len(out["k"]) == RW_JOIN_LEFT and np.array_equal(out["b"], b_of[out["k"]]),
+              f"rewrite join ({on}): a row's b is not its page's")
+        canon[on] = _join_canonical(out)
+        check(np.array_equal(canon[on], want), f"rewrite join ({on}): rows differ from numpy's")
+        del out
+        splits = [e["mode"] for e in ctx.events.events() if e["kind"] == "stream_bucket_split"]
+        res["on" if on else "off"] = {"seconds": secs, "peak_bytes": peak, "splits": splits}
+        if on:
+            app = _rewrites(ctx, "split_bucket", "applied")
+            check(app and "rewrite" in splits, f"rewrite join: split_bucket applied {len(app)}, splits {splits}")
+            res["on"].update(applied=len(app), decided=len(_rewrites(ctx, "split_bucket", "decided")))
+        del ctx
+    check(np.array_equal(canon[True], canon[False]), "rewrite join: on and off differ")
+    log(f"rewrite join [{card}]: {RW_JOIN_LEFT} visits (later chunks on {nhot} page ids of hash "
+        f"bucket 0) x {RW_JOIN_RIGHT} pages; split_bucket applied {res['on']['applied']}, splits on "
+        f"{res['on']['splits']}, off {res['off']['splits']}; on {res['on']['seconds']:.2f} s, off "
+        f"{res['off']['seconds']:.2f} s; equal to each other and to numpy as row multisets (data "
+        f"and oracle {res['oracle_s']:.2f} s)")
+    return res
+
+
+def rw_group_chunks(seed: int, dense: bool):
+    """2^26 rows in 2^21-row chunks: int64 keys over 2^20 (the flat
+    combiner's layout rule then degrades and re-probes in turn: the
+    reference's combine_thrash), or int32 keys over 2^16 (auto-dense)."""
+    rng = np.random.default_rng(seed)
+    for _ in range(RW_GB_ROWS // RW_GB_CHUNK):
+        if dense:
+            yield {"k": rng.integers(0, RW_DENSE_KEYS, RW_GB_CHUNK).astype(np.int32),
+                   "v": rng.integers(-1000, 1000, RW_GB_CHUNK).astype(np.int32)}
+        else:
+            yield {"k": rng.integers(0, RW_GB_KEYS, RW_GB_CHUNK).astype(np.int64),
+                   "v": rng.integers(0, 100, RW_GB_CHUNK).astype(np.int64)}
+
+
+def _group_oracle(chunks: list, nk: int) -> tuple:
+    """Per-key counts and integer sums of the stream, by numpy."""
+    cnt = np.zeros(nk, np.int64)
+    sums = np.zeros(nk, np.int64)
+    for c in chunks:
+        cnt += np.bincount(c["k"], minlength=nk)
+        sums += np.bincount(c["k"], weights=c["v"].astype(np.float64), minlength=nk).astype(np.int64)
+    return cnt, sums
+
+
+def _check_group(out: dict, oracle: tuple, label: str) -> None:
+    cnt, sums = oracle
+    k = np.asarray(out["k"]).astype(np.int64)
+    check(np.array_equal(np.sort(k), np.flatnonzero(cnt)), f"{label}: keys differ from numpy")
+    check(np.array_equal(out["c"].astype(np.int64), cnt[k]), f"{label}: counts differ from numpy")
+    check(np.array_equal(out["s"].astype(np.int64), sums[k]), f"{label}: sums differ from numpy")
+
+
+def rewrite_combine(spill_root: str, card: str) -> tuple:
+    """Two stream group_bys on the flat combiner (``combine_tree=False``,
+    ``stream_host_reprobe=2``), rewriter on and off: A (sum, count,
+    first; int64 keys) thrashes between the host and the device until
+    the combine_thrash diagnosis pins it to the host mid-stream; B
+    (sum, count; auto-dense int32 keys) then starts flipped to the
+    combine tree.  Keys, counts and sums equal the rewriter-off run's and
+    numpy's; A's ``first`` is a row of its key.  Returns the results and
+    the bucket kernel's first inputs at B's shapes."""
+    aggs_a = {"s": ("sum", "v"), "c": ("count", None), "f": ("first", "v")}
+    aggs_b = {"s": ("sum", "v"), "c": ("count", None)}
+    t0 = time.perf_counter()
+    chunks_a = list(rw_group_chunks(SEED + 45, False))
+    chunks_b = list(rw_group_chunks(SEED + 46, True))
+    oracle_a, oracle_b = _group_oracle(chunks_a, RW_GB_KEYS), _group_oracle(chunks_b, RW_DENSE_KEYS)
+    # (key, v) pairs present in A's stream: each key's "first" must be one
+    seen = np.zeros((RW_GB_KEYS, 128), bool)
+    for c in chunks_a:
+        seen[c["k"], c["v"]] = True
+    res, outs, rec_first = {"oracle_s": time.perf_counter() - t0}, {}, {}
+    for on in (True, False):
+        ctx = _rw_ctx(spill_root, on, combine_tree=False, stream_host_reprobe=2)
+        tag = "on" if on else "off"
+        a, sa, pa = _rw_run(f"combine A ({tag})", ctx, lambda c: c.from_stream(
+            iter(chunks_a)).group_by("k", aggs_a), card)
+        mark = len(ctx.events.events())
+        with LaunchRecorder() as rec:
+            b, sb, pb = _rw_run(f"combine B ({tag})", ctx, lambda c: c.from_stream(
+                iter(chunks_b)).group_by("k", aggs_b), card)
+        if on:
+            rec_first = rec.first
+        modes = [e["mode"] for e in ctx.events.events()[:mark] if e["kind"] == "stream_combine_policy"]
+        thrash = [e for e in ctx.events.events() if e["kind"] == "diagnosis" and e["rule"] == "combine_thrash"]
+        res[tag] = {"a_seconds": sa, "a_peak_bytes": pa, "b_seconds": sb, "b_peak_bytes": pb,
+                    "a_modes": modes, "thrash_diagnoses": len(thrash), "b_kernel_calls": rec.calls}
+        if on:
+            pin = _rewrites(ctx, "pin_combine", "applied")
+            flip = _rewrites(ctx, "flip_combine", "applied", mark)
+            check(thrash and pin and pin[0]["mode"] == "host",
+                  f"combine A: no pin (modes {modes}, {len(thrash)} thrash diagnoses)")
+            check(flip and flip[0]["tree"] is True, "combine B: the combiner was not flipped to the tree")
+            check(any(e["kind"] == "combine_tree_level" for e in ctx.events.events()[mark:]),
+                  "combine B: the flipped stream ran no tree level")
+            res[tag].update(pin_applied=len(pin), flip_applied=len(flip))
+        else:
+            check(not [e for e in ctx.events.events() if e["kind"] == "plan_rewrite"],
+                  "combine: the rewriter-off runs rewrote")
+        _check_group(a, oracle_a, f"combine A ({tag})")
+        _check_group(b, oracle_b, f"combine B ({tag})")
+        check(bool(seen[a["k"], a["f"]].all()), f"combine A ({tag}): a first is no row of its key")
+        outs[on] = (_sorted_by(a, "k"), _sorted_by(b, "k"))
+        del ctx, a, b
+    # "first" names the first row in the engine's order, which the pin
+    # changes (a host fold instead of a device merge), in the reference
+    # as in the port: the count of keys whose pick moved is reported
+    res["first_moved"] = int((outs[True][0]["f"] != outs[False][0]["f"]).sum())
+    exact = ("k", "s", "c")
+    check(digest({c: outs[True][0][c] for c in exact}) == digest({c: outs[False][0][c] for c in exact}),
+          "combine A: on and off differ")
+    check(digest(outs[True][1]) == digest(outs[False][1]), "combine B: on and off differ")
+    log(f"rewrite combine [{card}]: A {RW_GB_ROWS} rows, modes {res['on']['a_modes']} then pinned "
+        f"to the host ({res['on']['thrash_diagnoses']} thrash diagnosis); A on "
+        f"{res['on']['a_seconds']:.2f} s, off {res['off']['a_seconds']:.2f} s; B flipped to the "
+        f"tree, on {res['on']['b_seconds']:.2f} s, off {res['off']['b_seconds']:.2f} s; keys, counts and "
+        f"sums equal to the off run and to numpy (A's first moved on {res['first_moved']} keys; data "
+        f"and oracle {res['oracle_s']:.2f} s)")
+    return res, rec_first
+
+
+def rewrite_prewiden(card: str) -> dict:
+    """A group_by whose exchange overflows on every run (slack 1.0 over
+    2^26 distinct keys; the -1 keeps the int auto-dense rewrite off):
+    after the overflow_loop diagnosis the next dispatch starts at the
+    boost floor, with fewer retries, and the rows stay byte-equal."""
+    from dryad_tpu_torch import DryadConfig, DryadContext
+
+    rng = np.random.default_rng(SEED + 47)
+    keys = (rng.permutation(RW_OV_ROWS) - 1).astype(np.int32)
+    res = {}
+    for on in (True, False):
+        ctx = DryadContext(num_partitions_=P, config=DryadConfig(shuffle_slack=1.0, plan_rewrite=on))
+        q = ctx.from_arrays({"k": keys}).group_by("k", {"c": ("count", None)})
+        runs, digests = [], []
+        for i in range(RW_OV_RUNS if on else 2):
+            mark = len(ctx.events.events())
+            t0 = time.perf_counter()
+            out = q.collect()
+            secs = time.perf_counter() - t0
+            evs = ctx.events.events()[mark:]
+            starts = [(e["name"], e["boost"]) for e in evs if e["kind"] == "stage_start"]
+            over = [(e["name"], e["boost"]) for e in evs if e["kind"] == "stage_overflow"]
+            runs.append({"seconds": secs, "starts": starts, "overflows": over})
+            o = _sorted_by(out, "k")
+            if not digests:
+                check(np.array_equal(o["k"], np.arange(-1, RW_OV_ROWS - 1, dtype=np.int32))
+                      and bool((o["c"] == 1).all()), "prewiden: rows differ from numpy")
+            digests.append(digest(o))
+            del out, o
+        check(len(set(digests)) == 1, "prewiden: the runs' rows differ")
+        check(runs[0]["overflows"], "prewiden: the first run did not overflow")
+        res["on" if on else "off"] = runs
+        if on:
+            name = runs[0]["overflows"][0][0]
+            app = _rewrites(ctx, "prewiden_palette", "applied")
+            check(app and ctx.rewriter.boost_floor(name) >= 2, "prewiden: no boost floor was applied")
+            first = next(b for n, b in runs[-1]["starts"] if n == name)
+            check(first >= 2 and len(runs[-1]["overflows"]) < len(runs[0]["overflows"]),
+                  f"prewiden: the last run started at boost {first} with {runs[-1]['overflows']}")
+        del ctx, q
+    on, off = res["on"], res["off"]
+    log(f"rewrite prewiden [{card}]: {RW_OV_ROWS} rows; on: retries by run "
+        f"{[len(r['overflows']) for r in on]}, seconds {[round(r['seconds'], 3) for r in on]}, last run "
+        f"starts {on[-1]['starts']}; off: retries {[len(r['overflows']) for r in off]}, seconds "
+        f"{[round(r['seconds'], 3) for r in off]}; every run byte-equal")
+    return res
+
+
+def phase_rewrite(dev, card: str) -> dict:
+    """The runtime plan rewriter at the default config (one context on the
+    card per run; its rewriter-off twin beside it): a drift sort whose
+    hot range bucket splits mid-stream, a skewed Grace join whose hot
+    hash bucket re-hashes, a thrashing streaming combine pinned to the
+    host and the next stream flipped to the combine tree, and an
+    overflowing group_by pre-widened.  The bucket kernel's launches are
+    counted from 0 before the phase; it is held against its plain
+    version at the flipped stream's shapes."""
+    import shutil
+
+    from dryad_tpu_torch.ops.bucket import bucket_sum_count
+
+    t_phase = time.perf_counter()
+    root = os.path.join(WORK_DIR, "rewrite")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    free = shutil.disk_usage(root).free
+    if free < RW_FREE_BYTES:
+        raise RuntimeError(f"rewrite phase needs {RW_FREE_BYTES / 2**30:.0f} GiB free under {root}; "
+                           f"{free / 2**30:.1f} GiB free")
+    spill_root = os.path.join(root, "spill")
+    res = {"card": card}
+    bucket_sum_count.launches = 0
+    try:
+        with DeviceBusy() as busy:
+            res["sort"] = rewrite_sort(spill_root, card)
+            res["join"] = rewrite_join(spill_root, card)
+            res["combine"], shapes_in = rewrite_combine(spill_root, card)
+            res["prewiden"] = rewrite_prewiden(card)
+        res["launches"] = int(bucket_sum_count.launches)
+        check(not os.listdir(spill_root), "the rewrite phase left spill directories behind")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    check(res["launches"] >= 1, "the rewrite phase launched no bucket kernel")
+    shapes = []
+    for (_m, K, _cap), (keys, vals, valid) in sorted(shapes_in.items()):
+        shapes.append(kernel_shape_report(keys, vals, valid, K))
+        log(f"kernel vs plain at a rewrite shape ({shapes[-1]['shape']}): byte-equal; kernel "
+            f"{shapes[-1]['kernel_ms']:.3f} ms, plain {shapes[-1]['plain_ms']:.3f} ms, "
+            f"{shapes[-1]['library']} {shapes[-1]['library_ms']:.3f} ms, bound "
+            f"{shapes[-1]['bound_ms']:.4f} ms")
+    free_card()
+    res.update(kernel_shapes=shapes, device_idle=busy.idle, device_busy_s=busy.busy_s,
+               phase_s=time.perf_counter() - t_phase)
+    log(f"rewrite phase [{card}]: {res['phase_s']:.1f} s; {res['launches']} bucket kernel launches; "
+        f"card idle {busy.idle:.3f} of {busy.wall_s:.1f} s")
+    return res
+
+
+# -- phase 19: the serving fleet -------------------------------------------------
+
+FL_REPLICAS = 4
+FL_ROWS = 1 << 20  # a tenant's table: each envelope carries it (PERF.md section 4)
+FL_CLIENTS = 16
+FL_PER_CLIENT = 6
+FL_HB_S = 0.25
+# a replica's heartbeat may stall for seconds while the front door moves
+# the envelopes' tables (a 3 s timeout reaped a live replica on the card)
+FL_STALE_S = 10.0
+FL_DEVICE = None  # the replicas' DryadContext device (None: the card)
+FL_KILL_QUERIES = 4
+
+# A closed-loop fleet client: its own OS process speaking the mailbox
+# HTTP wire with the stdlib alone (the reference bench's client); it
+# reports each query's qid, plan, latency and header.
+FLEET_CLIENT = r"""
+import http.client, json, os, pickle, struct, sys, time
+
+host, port, payload, tenant, tier = sys.argv[1], int(sys.argv[2]), sys.argv[3], sys.argv[4], sys.argv[5]
+per_client, idx = int(sys.argv[6]), int(sys.argv[7])
+with open(payload, "rb") as fh:
+    items = pickle.load(fh)
+conn = http.client.HTTPConnection(host, port, timeout=300)
+nonce = os.urandom(6).hex()
+
+
+def post(name, body):
+    conn.request("POST", "/prop/fleet/" + name, body=body)
+    r = conn.getresponse()
+    r.read()
+    assert r.status == 200, r.status
+
+
+def poll(name, timeout):
+    conn.request("GET", "/prop/fleet/%s?after=0&timeout=%s" % (name, timeout))
+    r = conn.getresponse()
+    body = r.read()
+    return body if r.status == 200 else None
+
+
+done = []
+t_start = time.perf_counter()
+for j in range(per_client):
+    plan = (idx + j) % len(items)
+    blob, fp = items[plan]
+    qid = "%s-%s-%d" % (tenant, nonce, j)
+    env = {"qid": qid, "tenant": tenant, "tier": tier, "weight": 1, "package": blob,
+           "fingerprint": fp, "trace": {"qid": qid, "tenant": tenant}}
+    t0 = time.perf_counter()
+    post("rq/" + qid, pickle.dumps(env, protocol=pickle.HIGHEST_PROTOCOL))
+    body = poll("res/" + qid, 300)
+    dt = time.perf_counter() - t0
+    assert body is not None and body[:2] == b"F1", "no result for " + qid
+    hlen = struct.unpack("<II", body[2:10])[0]
+    h = pickle.loads(body[10:10 + hlen])
+    assert h.get("ok") and h.get("rejected") is None, h
+    done.append({"qid": qid, "plan": plan, "lat": dt, "cached": bool(h.get("cached")),
+                 "replica": h.get("replica")})
+print(json.dumps({"tenant": tenant, "tier": tier, "done": done,
+                  "elapsed": time.perf_counter() - t_start}))
+"""
+
+
+def _tier(t: int) -> str:
+    return "latency" if t < SV_TENANTS // 2 else "batch"
+
+
+def phase_fleet(dev, card: str) -> dict:
+    """The serving fleet: a front door (``ServeFleet``) in this process
+    before FL_REPLICAS replica processes on the card (``python -m
+    dryad_tpu_torch.serve.replica``, a bootstrap building
+    ``DryadContext()``), 4 tenants of FL_ROWS rows (tenants 0-1 in the
+    latency tier, 2-3 in the batch tier) and the reference bench's four
+    plans each, every plan warmed on its rendezvous owner; FL_CLIENTS
+    closed-loop stdlib client processes, FL_PER_CLIENT queries each over
+    the wire; then a replica killed with queries in flight.  Every
+    result is byte-equal to a direct run in one port context (itself
+    held to numpy), repeats land on their owners, and the dead replica's
+    queries replay byte-identical on the failover replica.  The bucket
+    kernel's launches are the replicas' own, posted with their stats."""
+    import pickle
+    import shutil
+    import threading
+
+    from dryad_tpu_torch import DryadContext
+    from dryad_tpu_torch.serve.fleet import FLEET_PID, ServeFleet, decode_result, pack_for_fleet
+    from dryad_tpu_torch.serve.router import rendezvous_rank
+
+    free_card()
+    t_phase = time.perf_counter()
+    root = os.path.join(WORK_DIR, "fleet")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    res = {"card": card, "replicas": FL_REPLICAS, "rows": FL_ROWS, "clients": FL_CLIENTS}
+
+    # the tenants' tables, their plans' direct results (numpy-checked)
+    # and kernel inputs, and the packages
+    rng = np.random.default_rng(SEED + 51)
+    tables = serve_tables(rng, FL_ROWS)
+    direct = DryadContext(num_partitions_=P)
+    plans, refs, packs = [], [], []
+    with LaunchRecorder() as rec:
+        for t, (vocab, ids, data) in enumerate(tables):
+            tab = direct.from_arrays(data)
+            plans.append(serve_plans(tab))
+            refs.append([])
+            for i, q in enumerate(plans[t]):
+                out = q.collect()
+                serve_oracle(i, out, vocab, ids, data)
+                refs[t].append(digest(out))
+            packs.append([pack_for_fleet(q) for q in plans[t]])
+    shapes_in = rec.first
+    for t in range(SV_TENANTS):
+        with open(os.path.join(root, f"payload{t}.pkl"), "wb") as fh:
+            pickle.dump(packs[t], fh, protocol=pickle.HIGHEST_PROTOCOL)
+    res["package_bytes"] = max(len(b) for p in packs for b, _ in p)
+    client = os.path.join(root, "client.py")
+    with open(client, "w") as fh:
+        fh.write(FLEET_CLIENT)
+    boot = os.path.join(root, "bootstrap.py")
+    with open(boot, "w") as fh:
+        fh.write("from dryad_tpu_torch import DryadContext\n\n\ndef build_context():\n"
+                 f"    return DryadContext(device={FL_DEVICE!r})\n")
+
+    def result_of(fleet, qid):
+        got = fleet.mailbox.get_prop(FLEET_PID, f"res/{qid}")
+        check(got is not None, f"fleet: no result for {qid}")
+        header, table = decode_result(got[1])
+        check(header["ok"], f"fleet: {qid} failed: {header.get('error')}")
+        return header, table
+
+    os.makedirs(os.path.join(root, "door"))
+    fleet = ServeFleet(root=os.path.join(root, "door"), hb_interval=FL_HB_S, stale_after=FL_STALE_S,
+                       res_gc_s=3600.0)
+    try:
+        errs = []
+
+        def spawn(rid):
+            try:
+                fleet.spawn_process(rid, boot, timeout=600.0)
+            except BaseException as e:  # noqa: BLE001 - raised below
+                errs.append(repr(e))
+
+        rids = [f"r{i}" for i in range(FL_REPLICAS)]
+        ths = [threading.Thread(target=spawn, args=(rid,)) for rid in rids]
+        t0 = time.perf_counter()
+        for th in ths:
+            th.start()
+        for th in ths:
+            th.join()
+        check(not errs, f"fleet: a replica did not start: {errs[:1]}")
+        res["boot_s"] = time.perf_counter() - t0
+        owners = {fp: rendezvous_rank(fp, rids)[0] for p in packs for _b, fp in p}
+        res["owners"] = sorted(owners.values())
+        log(f"fleet: {FL_REPLICAS} replica processes on the card in {res['boot_s']:.2f} s; "
+            f"{len(owners)} plans over owners {dict((r, res['owners'].count(r)) for r in rids)}")
+
+        # warm every plan on its owner (package load, first run, cache fill)
+        t0 = time.perf_counter()
+        for t in range(SV_TENANTS):
+            for i, (blob, fp) in enumerate(packs[t]):
+                qid = fleet.submit(tenant=f"tenant{t}", package=blob, fingerprint=fp, tier=_tier(t))
+                fleet.result(qid, timeout=600)
+                header, table = result_of(fleet, qid)
+                check(header["replica"] == owners[fp], f"fleet warm-up: {qid} ran off its owner")
+                check(digest(table) == refs[t][i], f"fleet warm-up: tenant{t} plan {i} differs from "
+                      "the direct run")
+        res["warm_s"] = time.perf_counter() - t0
+
+        # the load: closed-loop client processes over the wire
+        with DeviceBusy() as busy:
+            t0 = time.perf_counter()
+            procs = [subprocess.Popen(
+                [sys.executable, client, fleet.host, str(fleet.port),
+                 os.path.join(root, f"payload{i % SV_TENANTS}.pkl"), f"tenant{i % SV_TENANTS}",
+                 _tier(i % SV_TENANTS), str(FL_PER_CLIENT), str(i // SV_TENANTS)],
+                stdout=subprocess.PIPE, text=True) for i in range(FL_CLIENTS)]
+            reports = []
+            for p in procs:
+                out, _ = p.communicate(timeout=900)
+                check(p.returncode == 0, f"fleet client exited {p.returncode}")
+                reports.append(json.loads(out.strip().splitlines()[-1]))
+            elapsed = time.perf_counter() - t0
+        done = [(int(r["tenant"][6:]), q) for r in reports for q in r["done"]]
+        check(len(done) == FL_CLIENTS * FL_PER_CLIENT, "fleet: a client query went missing")
+        cached = 0
+        for t, q in done:
+            header, table = result_of(fleet, q["qid"])
+            check(digest(table) == refs[t][q["plan"]],
+                  f"fleet: tenant{t} plan {q['plan']} ({'cached' if header['cached'] else 'run'}) "
+                  "differs from the direct run")
+            check(header["replica"] == owners[packs[t][q["plan"]][1]], f"fleet: {q['qid']} ran off its owner")
+            cached += bool(header["cached"])
+        lat = {tier: sorted(q["lat"] for r in reports if r["tier"] == tier for q in r["done"])
+               for tier in ("latency", "batch")}
+        time.sleep(2 * max(FL_HB_S, 0.5))  # each replica posts its stats once more
+        stats = fleet.stats()
+        rates = {}
+        for rid in rids:
+            c = (stats["replicas"].get(rid) or {}).get("cache", {})
+            looked = c.get("hits", 0) + c.get("misses", 0)
+            rates[rid] = c.get("hits", 0) / looked if looked else None
+        known = [v for v in rates.values() if v is not None]
+        res.update(
+            queries=len(done), seconds=elapsed, queries_per_s=len(done) / elapsed, cached=cached,
+            p50_ms={k: 1e3 * _pct(v, 0.5) for k, v in lat.items()},
+            p99_ms={k: 1e3 * _pct(v, 0.99) for k, v in lat.items()},
+            hit_rate=cached / len(done), replica_hit_rates=rates,
+            hit_rate_spread=(max(known) - min(known)) if known else None,
+            device_idle=busy.idle, device_busy_s=busy.busy_s,
+        )
+        log(f"fleet cell [{card}]: {len(done)} queries from {FL_CLIENTS} client processes in "
+            f"{elapsed:.3f} s = {res['queries_per_s']:.2f} queries/s; p50/p99 latency tier "
+            f"{res['p50_ms']['latency']:.1f}/{res['p99_ms']['latency']:.1f} ms, batch tier "
+            f"{res['p50_ms']['batch']:.1f}/{res['p99_ms']['batch']:.1f} ms; hit rate "
+            f"{res['hit_rate']:.3f}, by replica {rates}; card idle {busy.idle:.3f} (NVML, every "
+            f"process); every result byte-equal to the direct run, each on its owner")
+
+        # a replica killed with queries in flight: fresh plans it owns
+        victim = rids[0]
+        fresh = []
+        for t in range(SV_TENANTS):
+            tab = direct.from_arrays(tables[t][2])
+            for n in range(65, 4096):
+                q = tab.order_by("v").take(n)
+                blob, fp = pack_for_fleet(q)
+                if rendezvous_rank(fp, rids)[0] == victim:
+                    fresh.append((t, q, blob, fp))
+                    break
+            if len(fresh) == FL_KILL_QUERIES:
+                break
+        want = {id(q): digest(q.collect()) for _t, q, _b, _f in fresh}
+        routed0 = fleet.stats()["router"]["routed"]
+        qids = [(fleet.submit(tenant=f"tenant{t}", package=b, fingerprint=fp, tier=_tier(t)), q)
+                for t, q, b, fp in fresh]
+        deadline = time.monotonic() + 60
+        while fleet.stats()["router"]["routed"] < routed0 + len(qids):
+            check(time.monotonic() < deadline, "fleet: the kill cell's queries were not routed")
+            time.sleep(0.001)
+        t_kill = time.perf_counter()
+        fleet.kill_replica(victim)
+        in_flight = sum(fleet.mailbox.get_prop(FLEET_PID, f"res/{qid}") is None for qid, _q in qids)
+        for qid, q in qids:
+            fleet.result(qid, timeout=600)
+            header, table = result_of(fleet, qid)
+            check(digest(table) == want[id(q)], f"fleet: the replayed {qid} differs from the direct run")
+        recover_s = time.perf_counter() - t_kill
+        router = fleet.stats()["router"]
+        check(router["dead"] == [victim], f"fleet: dead replicas {router['dead']}")
+        check(in_flight >= 1 and router["replayed"] >= in_flight,
+              f"fleet: {in_flight} queries in flight at the kill, {router['replayed']} replayed")
+        res.update(killed=victim, in_flight_at_kill=in_flight, replayed=router["replayed"],
+                   recover_s=recover_s)
+        log(f"fleet kill [{card}]: {victim} killed with {in_flight} of {len(qids)} queries in flight; "
+            f"{router['replayed']} replayed on the failover replica, byte-identical to the direct "
+            f"runs; recovered in {recover_s:.3f} s (heartbeat stale after {FL_STALE_S} s)")
+    finally:
+        fleet.close()
+    launches = {}
+    for rid in rids:
+        got = fleet.mailbox.get_prop(FLEET_PID, f"stats/{rid}")
+        launches[rid] = pickle.loads(got[1])["kernel_launches"]["bucket_sum_count"] if got else 0
+    res["replica_launches"] = launches
+    res["launches"] = sum(launches.values())
+    check(res["launches"] >= 1, "the fleet's replicas launched no bucket kernel")
+    shapes = []
+    for (_m, K, _cap), (keys, vals, valid) in sorted(shapes_in.items()):
+        shapes.append(kernel_shape_report(keys, vals, valid, K))
+        log(f"kernel vs plain at a fleet shape ({shapes[-1]['shape']}): byte-equal; kernel "
+            f"{shapes[-1]['kernel_ms']:.3f} ms, plain {shapes[-1]['plain_ms']:.3f} ms, "
+            f"{shapes[-1]['library']} {shapes[-1]['library_ms']:.3f} ms, bound "
+            f"{shapes[-1]['bound_ms']:.4f} ms")
+    del direct, plans
+    shutil.rmtree(root, ignore_errors=True)
+    free_card()
+    res.update(kernel_shapes=shapes, phase_s=time.perf_counter() - t_phase)
+    log(f"fleet phase [{card}]: {res['phase_s']:.1f} s (boot {res['boot_s']:.2f} s, warm "
+        f"{res['warm_s']:.2f} s); {res['launches']} bucket kernel launches in the replicas {launches}")
+    return res
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument(
         "--phases",
         default="env,kernel,wordcount,dense,terasort,terasort_hot,groupby_sort,"
                 "join_shuffle,join_broadcast,pagerank,decomposable,ordered_ops,cpu_parity,stores,"
-                "stream,serve,cluster")
+                "stream,serve,cluster,rewrite,fleet")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     if not torch.cuda.is_available():
@@ -3157,6 +3820,10 @@ def main(argv=None) -> int:
         results["serve"] = phase_serve(dev, card)
     if "cluster" in phases:
         results["cluster"] = phase_cluster(dev, card)
+    if "rewrite" in phases:
+        results["rewrite"] = phase_rewrite(dev, card)
+    if "fleet" in phases:
+        results["fleet"] = phase_fleet(dev, card)
     print("results: " + json.dumps(results))
 
     kern = results.get("kernel", {})
@@ -3173,6 +3840,8 @@ def main(argv=None) -> int:
         "stream": results.get("stream", {}).get("launches"),
         "serve": results.get("serve", {}).get("launches"),
         "cluster": results.get("cluster", {}).get("launches"),
+        "rewrite": results.get("rewrite", {}).get("launches"),
+        "fleet": results.get("fleet", {}).get("launches"),
     }
     ran = [n for n in per_path.values() if n is not None]
     jb = kern.get("join_broadcast", {})
@@ -3207,6 +3876,8 @@ def main(argv=None) -> int:
         "stream_shapes": results.get("stream", {}).get("wordcount", {}).get("kernel_shapes"),
         "serve_shapes": results.get("serve", {}).get("kernel_shapes"),
         "cluster_shapes": results.get("cluster", {}).get("kernel_shapes"),
+        "rewrite_shapes": results.get("rewrite", {}).get("kernel_shapes"),
+        "fleet_shapes": results.get("fleet", {}).get("kernel_shapes"),
     }]}
     print(json.dumps(line))
     print(card)

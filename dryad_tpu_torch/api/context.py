@@ -44,9 +44,11 @@ from dryad_tpu_torch.columnar.schema import ColumnType, Schema, StringDictionary
 from dryad_tpu_torch.exec.events import EventLog
 from dryad_tpu_torch.exec.executor import GraphExecutor
 from dryad_tpu_torch.obs import flightrec, tracectx
+from dryad_tpu_torch.obs.diagnose import DiagnosisEngine
 from dryad_tpu_torch.parallel.partition import block_layout
 from dryad_tpu_torch.plan.lower import lower
 from dryad_tpu_torch.plan.nodes import Node, PartitionInfo
+from dryad_tpu_torch.rewrite import RewriteController
 from dryad_tpu_torch.utils.config import DryadConfig
 
 DEFAULT_PARTITIONS = 8
@@ -93,9 +95,13 @@ class DryadContext:
         num_partitions_: Optional[int] = None,
         config: Optional[DryadConfig] = None,
         device: Union[None, str, torch.device] = None,
+        local_debug: bool = False,
     ):
         self.config = config or DryadConfig()
         self.config.validate()
+        # collect() runs the NumPy interpreter of exec/localdebug.py over
+        # the logical plan instead of the engine (differential debugging)
+        self.local_debug = local_debug
         self.device = resolve_device(device)
         self.num_partitions = num_partitions_ or DEFAULT_PARTITIONS
         if self.num_partitions < 1:
@@ -132,7 +138,21 @@ class DryadContext:
                     dump_dir=self.config.flightrec_dir or self.config.event_log_dir or ".",
                     role="driver", events=self.events,
                 )
+        # the online diagnosis engine folds pathologies over the same
+        # stream (obs/diagnose.py) and emits its diagnoses back into it;
+        # the runtime plan rewriter folds those diagnoses into actions
+        # the drivers poll at safe boundaries (rewrite/controller.py),
+        # so it needs the engine upstream
+        self.diagnosis: Optional[DiagnosisEngine] = None
+        self.rewriter: Optional[RewriteController] = None
+        if self.config.obs_diagnosis:
+            self.diagnosis = DiagnosisEngine(config=self.config, events=self.events)
+            self.events.add_tap(self.diagnosis.observe)
+        if self.config.obs_diagnosis and self.config.plan_rewrite:
+            self.rewriter = RewriteController(config=self.config, events=self.events)
+            self.events.add_tap(self.rewriter.observe)
         self.executor = GraphExecutor(self.num_partitions, self.config, self.device, self.events)
+        self.executor.rewriter = self.rewriter
         # one job at a time: the executor keeps per-job state, and the
         # stream driver runs jobs from its prefetch threads too (a
         # group_by over a join's bucket stream); re-entrant for do_while
@@ -679,7 +699,17 @@ class DryadContext:
         from dryad_tpu_torch.exec.outofcore import StreamExecutor, has_stream_input
 
         if has_stream_input(self, query.node):
+            if self.local_debug:
+                raise RuntimeError(
+                    "from_stream inputs are not supported in local_debug "
+                    "mode (the NumPy interpreter holds whole tables); "
+                    "materialize the chunks and use from_arrays"
+                )
             return StreamExecutor(self).run_to_host(query.node)
+        if self.local_debug:
+            from dryad_tpu_torch.exec.localdebug import LocalDebugInterpreter
+
+            return LocalDebugInterpreter(self).run_to_logical(query.node)
         return self._host_table(query, self.execute(query))
 
     def _fetch(self, query: Query, batch: ColumnBatch, deferred, tctx):

@@ -17,11 +17,14 @@ The reference maps URI schemes to pluggable storage providers
 - ``wasb://container@host[:port]/<path>``, ``abfs://`` — REAL Azure
   Blob REST (``columnar/azblob.py``).
 
-``http://`` (a store on a remote node's ProcessService file server) and
-the framework file gateway (``DRYAD_TPU_DFS_GATEWAY``, or a ``wasb://``
-URI without a ``container@`` authority) need the cluster's
-``ServiceClient``; the port raises ``NotImplementedError`` naming
-ROADMAP.md queue 1 item 13 for them.
+- ``http://host:port/<rel>`` — a store on a remote node's
+  ProcessService file server (``cluster/service.py``'s
+  ``ServiceClient``: range reads and writes with zlib on the wire).
+- the framework file gateway: with ``DRYAD_TPU_DFS_GATEWAY=host:port``
+  set, ``hdfs://``, ``wasb://`` and ``abfs://`` stores live under
+  ``<gateway>/<scheme>/<authority>/<path>`` on such a file server, as
+  does a ``wasb://``/``abfs://`` URI without a ``container@`` authority
+  (whose authority is then the file server itself).
 
 Register custom providers with ``register_provider``.
 """
@@ -212,38 +215,80 @@ def _write_store_via(
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-GATEWAY_PENDING = (
-    "dryad_tpu_torch does not port the cluster's ServiceClient yet "
-    "(ROADMAP.md, queue 1 item 13: cluster)"
-)
-
-
 class HttpStoreProvider(DataProvider):
-    """``http://host:port/<rel>``: a store on a remote ProcessService file
-    server.  Its client is the cluster's ``ServiceClient`` (queue 1 item
-    13), so reads and writes raise ``NotImplementedError``."""
+    """A partitioned store on a remote ProcessService FileServer:
+    ``http://host:port/<relative store dir>`` — the bulk remote-store
+    scheme (the reference's HDFS/Azure stream role,
+    ``GraphManager/filesystem/DrHdfsClient.h:29,63``,
+    ``channelbufferhdfs.cpp``).  Reads are 2MB HTTP range reads with
+    zlib wire compression (``managedchannel/HttpReader.cs:78-110``;
+    transform ``dryadvertex.h:33-48``); writes PUT each store file,
+    compressed, so TB-scale ingest/egress rides the DCN file plane.
+    Partition fetches run on a small thread pool (the async
+    channel-reader analog)."""
+
+    THREADS = 4
+
+    def _client(self, rest: str):
+        from dryad_tpu_torch.cluster.service import ServiceClient
+
+        netloc, _, rel = rest.partition("/")
+        host, _, port = netloc.partition(":")
+        return ServiceClient(host, int(port or 80)), rel.strip("/")
 
     def read(self, rest: str) -> ReadResult:
-        raise NotImplementedError(f"http:// stores: {GATEWAY_PENDING}")
+        client, prefix = self._client(rest)
+        return _read_store_via(
+            lambda name: client.read_whole_file(
+                f"{prefix}/{name}" if prefix else name, compress=True
+            ),
+            self.THREADS,
+        )
 
     def write(self, rest, partitions, schema, dictionary, compression):
-        raise NotImplementedError(f"http:// stores: {GATEWAY_PENDING}")
+        client, prefix = self._client(rest)
+        _write_store_via(
+            lambda name, data: client.write_file(
+                f"{prefix}/{name}" if prefix else name, data, compress=True
+            ),
+            partitions, schema, dictionary, compression, self.THREADS,
+        )
 
 
 class DfsGatewayProvider(DataProvider):
-    """The framework file gateway route of ``hdfs://``, ``wasb://`` and
-    ``abfs://`` (``DRYAD_TPU_DFS_GATEWAY``): it speaks the ProcessService
-    file-plane protocol, so it raises ``NotImplementedError`` naming
-    queue 1 item 13."""
+    """Cloud-DFS scheme adapter: ``hdfs://``, ``wasb://``, ``abfs://``
+    URIs route through a cluster file gateway speaking the
+    ProcessService file-plane protocol (2MB range reads + zlib wire
+    compression).  The reference reads these schemes through a managed
+    WebHDFS/Azure REST bridge (``DrHdfsClient.cpp:32-69``,
+    ``DrAzureBlobClient.h:25``) — the same gateway-REST pattern; here
+    the gateway is any ProcessService-compatible file server.
 
-    def __init__(self, scheme: str):
+    Routing: with ``DRYAD_TPU_DFS_GATEWAY=host:port`` set, the store
+    lives under ``<gateway>/<scheme>/<authority>/<path>`` (one gateway
+    fronts many DFS namespaces); without it, the URI authority itself
+    must be a reachable ``host:port`` file server (an "HDFS namenode"
+    that IS the gateway)."""
+
+    def __init__(self, scheme: str, via: "HttpStoreProvider"):
         self.scheme = scheme
+        self.via = via
+
+    def _route(self, rest: str) -> str:
+        gw = os.environ.get("DRYAD_TPU_DFS_GATEWAY")
+        if not gw:
+            return rest
+        netloc, _, rel = rest.partition("/")
+        path = f"{self.scheme}/{netloc}/{rel}".rstrip("/")
+        return f"{gw}/{path}"
 
     def read(self, rest: str) -> ReadResult:
-        raise NotImplementedError(f"{self.scheme}:// through the file gateway: {GATEWAY_PENDING}")
+        return self.via.read(self._route(rest))
 
     def write(self, rest, partitions, schema, dictionary, compression):
-        raise NotImplementedError(f"{self.scheme}:// through the file gateway: {GATEWAY_PENDING}")
+        self.via.write(
+            self._route(rest), partitions, schema, dictionary, compression
+        )
 
 
 class WebHdfsProvider(DataProvider):
@@ -263,7 +308,7 @@ class WebHdfsProvider(DataProvider):
 
     def _gateway(self) -> Optional["DfsGatewayProvider"]:
         if os.environ.get("DRYAD_TPU_DFS_GATEWAY"):
-            return DfsGatewayProvider("hdfs")
+            return DfsGatewayProvider("hdfs", _HTTP)
         return None
 
     def _client(self, rest: str):
@@ -354,10 +399,11 @@ class AzureBlobProvider(DataProvider):
         )
 
 
+_HTTP = HttpStoreProvider()
 register_provider("partfile", PartfileProvider())
 register_provider("file", TextFileProvider())
 register_provider("mem", MemProvider())
-register_provider("http", HttpStoreProvider())
+register_provider("http", _HTTP)
 register_provider("hdfs", WebHdfsProvider())
 for _scheme in ("wasb", "abfs"):
-    register_provider(_scheme, AzureBlobProvider(_scheme, DfsGatewayProvider(_scheme)))
+    register_provider(_scheme, AzureBlobProvider(_scheme, DfsGatewayProvider(_scheme, _HTTP)))

@@ -1,7 +1,7 @@
 """Topology- and distribution-aware combine trees, on one device (the
 single-device parts of ``dryad_tpu/exec/combinetree.py``; the
-multi-device tree exchange and the gang merge come with ROADMAP queue 1
-items 11 and 13).
+multi-device tree exchange and the gang merge come with the multi-GPU
+work, ROADMAP queue 1 item 11).
 
 Two observations shape the streaming group_by's combine path:
 

@@ -341,6 +341,14 @@ class GraphExecutor:
         )
         # injectable sleep: backoff-timing tests record instead of wait
         self._sleep: Callable[[float], None] = time.sleep
+        # the runtime plan rewriter (rewrite/controller.py), wired by the
+        # context after construction; consulted for per-unit starting
+        # boost floors (overflow pre-widening).  The reference also reads
+        # its exchange-window hint; the port has no staged exchange whose
+        # window it could set (ROADMAP queue 1 item 11), so the hint's
+        # ``retune_exchange`` decisions are logged and applied nowhere.
+        self.rewriter = None
+        self._rewrites_applied: set = set()
 
     # -- structural identity -------------------------------------------------
     def _stage_key(self, stage: Stage) -> Tuple:
@@ -581,6 +589,16 @@ class GraphExecutor:
         exports = self._exports[id(unit)]
         want_count = id(unit) in self._count_wanted and (can_overflow or bool(window))
         st = self.stats.setdefault(name, StageStatistics(self.config.outlier_sigmas))
+        if self.rewriter is not None and can_overflow:
+            # an overflow_loop diagnosis raised this unit's starting
+            # boost: the next dispatch skips the narrow attempts
+            floor = self.rewriter.boost_floor(name)
+            if floor > boost:
+                boost = floor
+                if (name, floor) not in self._rewrites_applied:
+                    self._rewrites_applied.add((name, floor))
+                    log.emit("plan_rewrite", phase="applied", action="prewiden_palette",
+                             rule="overflow_loop", subject=name, stage=name, boost=floor)
         failures = 0
         attempts: List[Attempt] = []  # failed-attempt history (post-mortem)
         version = 0

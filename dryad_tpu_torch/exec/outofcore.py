@@ -15,10 +15,11 @@ partials stay on the device and fold through a combiner (by default
 the combine tree of ``exec/combinetree.py``).  Oversized buckets
 re-split from their observed volume.
 
-The reference's runtime plan rewriter (its hot-bucket splits and
-combine pins, polled at chunk boundaries) comes with ``rewrite/``
-(ROADMAP queue 1 item 13); without it those branches never run, so the
-port leaves them out.  The port also releases the device tables of the
+The runtime plan rewriter (``rewrite/``), when the context has one,
+is polled at chunk boundaries: a ``split_bucket`` refines a hot sort
+bucket into sub-ranges or re-hashes a hot join bucket at the next salt,
+and a ``combine_thrash`` diagnosis pins or flips the streaming combiner.
+The port also releases the device tables of the
 chunks, buckets and partials it binds once their job ran, so device
 memory does not grow with the stream.
 """
@@ -461,6 +462,10 @@ class StreamExecutor:
         self.chunk_fuse = max(1, int(cfg.chunk_fuse))
         self.max_split_depth = 3
         self.events = ctx.executor.event_log
+        # the runtime plan rewriter (rewrite/controller.py), polled at
+        # chunk boundaries for hot-bucket splits and combine pins; None
+        # when diagnosis or rewriting is off
+        self.rewriter = getattr(ctx, "rewriter", None)
         # driver-loop spans (cat=chunk); engine jobs run inside them
         self.tracer = Tracer(self.events)
         self.metrics = ctx.executor.metrics
@@ -883,9 +888,24 @@ class StreamExecutor:
         through the combine tree; the flat combiner stays as the
         baseline and takes order-sensitive aggregates (``first``),
         which the tree's similarity routing would reorder."""
-        if self.ctx.config.combine_tree and not any(op == "first" for op, _c, _o in agg_list):
+        tree = bool(self.ctx.config.combine_tree)
+        ov = self.rewriter.combine_tree_override() if self.rewriter is not None else None
+        if ov is not None and bool(ov) != tree:
+            # combine_thrash rewrite: flip the strategy for streams that
+            # START after the diagnosis (both compute the same groups;
+            # only the merge cadence differs)
+            tree = bool(ov)
+            self._emit("plan_rewrite", phase="applied", action="flip_combine",
+                       rule="combine_thrash", subject="stream_combine", tree=tree)
+        if tree and not any(op == "first" for op, _c, _o in agg_list):
             return self._group_partial_tree(node, stream, keys, agg_list)
         return self._group_partial_flat(node, stream, keys, agg_list)
+
+    def _combine_pinned(self) -> bool:
+        """True when a combine_thrash rewrite pinned the streaming
+        combine to host accumulation (the always-correct side of the
+        oscillation)."""
+        return self.rewriter is not None and self.rewriter.combine_pin() == "host"
 
     def _first_chunk_irreducible(self, table, stream, keys, batch, n):
         """Static high-cardinality signal for the first chunk: count the
@@ -928,6 +948,15 @@ class StreamExecutor:
         host_rows = 0
         reduce_streak = 0  # consecutive host combines that DID reduce
         nchunks = 0
+        pin_applied = False
+        if self._combine_pinned():
+            # pin_combine rewrite: start (and stay) on host accumulation,
+            # no probe merge, no reprobe oscillation
+            host_acc = []
+            pin_applied = True
+            self._emit("stream_combine_policy", mode="host", chunks=0, pinned=True)
+            self._emit("plan_rewrite", phase="applied", action="pin_combine",
+                       rule="combine_thrash", subject="stream_combine", mode="host")
         for table in self._iter_base(stream):
             n = _chunk_rows(table)
             pq = self._chunk_partial_query(scope, stream, table, node, keys, partial)
@@ -960,7 +989,15 @@ class StreamExecutor:
                 # un-stick the degrade: host combines that keep reducing
                 # mean the keys DO collapse
                 reduce_streak = reduce_streak + 1 if host_rows < 0.75 * pre_rows else 0
-                if reprobe_after and reduce_streak >= reprobe_after and host_rows > 0:
+                if self._combine_pinned():
+                    # a combine_thrash diagnosis mid-stream pins the
+                    # degrade: stop re-probing the device path
+                    reduce_streak = 0
+                    if not pin_applied:
+                        pin_applied = True
+                        self._emit("plan_rewrite", phase="applied", action="pin_combine",
+                                   rule="combine_thrash", subject="stream_combine", mode="host")
+                elif reprobe_after and reduce_streak >= reprobe_after and host_rows > 0:
                     merged = host_acc[0]
                     back = self._device(mscope.ingest(merged, st["pschema"]))
                     self.metrics.add("h2d_bytes", sum(int(np.asarray(v).nbytes) for v in merged.values()))
@@ -1089,6 +1126,13 @@ class StreamExecutor:
             self._emit("combine_tree_level", level=comb.max_level + 1, fan_in=1,
                        cap_rows=layout_rows(root), bytes=in_bytes, ici_bytes=ici,
                        dcn_bytes=dcn, device=True)
+            # the root's exchange may run at a tail fan-out width
+            # (``tail_fanout_rows``); a compacted layout too narrow for it
+            # would overflow into retries the reference's padded layout
+            # never takes, so a small root holds all its rows a partition
+            rows = int(root.valid.sum())
+            if rows <= cfg.tail_fanout_rows and root.capacity < rows:
+                root = root.pad_to(-(-rows // 8) * 8)
             q = self._from_batch(root, st["pschema"]).group_by(keys, merge_spec)
             out = self._host(self._finalize_query(q, plan, keys, node.schema))
         else:
@@ -1317,6 +1361,11 @@ class StreamExecutor:
         primary, pdesc = keys[0]
         spill = self._spill_dir()
         writer = self._spill_writer()
+        # rewrite-split hot buckets: bucket -> {"splitters", "spill",
+        # "extent", "rows"}; rows landing in a refined bucket route
+        # straight into its sub-range spill at depth+1 (the controller's
+        # split_bucket action, claimed at chunk boundaries)
+        refined: Dict[int, dict] = {}
         try:
             scope = self._scope()
             if pieces is not None:
@@ -1333,8 +1382,15 @@ class StreamExecutor:
                 col = _sort_key_view(t[primary])
                 if splitters is None:
                     splitters = _sample_splitters(col, self.num_buckets)
+                # chunk boundary = safe application point: no partial
+                # chunk is in flight, bucket contents are self-contained
+                if self.rewriter is not None:
+                    self._apply_sort_splits(spill, writer, refined, primary, depth)
                 bids = _range_bucket_ids(splitters, col)
                 for b, piece in _split_by_bucket(bids, t):
+                    if b in refined:
+                        self._route_refined(refined[b], piece, primary, depth)
+                        continue
                     kcol = _sort_key_view(piece[primary])
                     mn, mx = kcol.min(), kcol.max()
                     if b in extent:
@@ -1350,15 +1406,69 @@ class StreamExecutor:
             if writer is not None:
                 writer.flush()  # phase barrier: bucket metadata is final
             order = spill.buckets()
+            if refined:
+                order = sorted(set(order) | set(refined))
             if pdesc:
                 order = list(reversed(order))
-            yield from self._sort_buckets(node, spill, order, extent, keys, depth)
+            yield from self._sort_buckets(node, spill, order, extent, keys, depth,
+                                          refined=refined or None)
         finally:
             if writer is not None:
                 writer.close(drain=False)
+            for rec in refined.values():
+                rec["spill"].cleanup()
             spill.cleanup()
 
-    def _sort_buckets(self, node, spill, order, extent, keys, depth):
+    def _apply_sort_splits(self, spill, writer, refined, primary, depth):
+        """Claim the pending split_bucket rewrites of this depth and
+        turn each into a range refinement: sub-splitters from the
+        bucket's spilled sample, its spilled pieces re-routed now, later
+        rows routed on arrival (``_route_refined``).  Sub-buckets nest
+        inside the parent range and emit in range order, so the sorted
+        order, and every byte of it, stays as it was."""
+        acts = [a for a in self.rewriter.claim_splits(depth)
+                if int(a.params["bucket"]) not in refined]
+        if not acts or depth >= self.max_split_depth:
+            return
+        if writer is not None:
+            writer.flush()  # bucket piece lists must be final to reroute
+        for act in acts:
+            b = int(act.params["bucket"])
+            if b not in spill.buckets():
+                continue  # a diagnosis about another spill at this depth
+            sample = _bucket_sample(spill, b, primary)
+            sub = _splitters_from_sample(sample, int(act.params.get("fan", 8) or 8))
+            if len(sub) == 0:
+                continue  # single-valued: a range split cannot help
+            rec = {"splitters": sub, "spill": self._spill_dir(), "extent": {}, "rows": 0}
+            for piece in spill.read_bucket_pieces(b):
+                self._route_refined(rec, piece, primary, depth)
+            spill.drop_bucket(b)
+            refined[b] = rec
+            self._emit("plan_rewrite", phase="applied", action="split_bucket",
+                       rule=act.rule, subject=act.subject, bucket=b, depth=depth,
+                       fan=int(len(sub)) + 1)
+
+    def _route_refined(self, rec, piece, primary, depth):
+        """Route one piece of a rewrite-split bucket into its sub-range
+        spill at ``depth + 1``, tracking exact sub-extents (the invariant
+        phase 1 keeps for the parent buckets)."""
+        col = _sort_key_view(piece[primary])
+        bids = _range_bucket_ids(rec["splitters"], col)
+        rspill = rec["spill"]
+        for sb, sub in _split_by_bucket(bids, piece):
+            kcol = _sort_key_view(sub[primary])
+            mn, mx = kcol.min(), kcol.max()
+            if sb in rec["extent"]:
+                pmn, pmx = rec["extent"][sb]
+                mn, mx = min(mn, pmn), max(mx, pmx)
+            rec["extent"][sb] = (mn, mx)
+            self.metrics.observe("partition_rows", len(kcol), depth=depth + 1)
+            n = rspill.append(sb, sub)
+            self._emit("stream_spill", bucket=sb, rows=n, depth=depth + 1)
+            rec["rows"] += n
+
+    def _sort_buckets(self, node, spill, order, extent, keys, depth, refined=None):
         """Phase 2 of the external sort: per-bucket device sorts in key
         order, with read-ahead and a bounded dispatch window when
         pipelined."""
@@ -1371,6 +1481,11 @@ class StreamExecutor:
 
         def reads():
             for b in order:
+                if refined and b in refined:
+                    # rewrite-split: its rows live in the sub-spill, the
+                    # driver recurses below (never read whole)
+                    yield b, refined[b]["rows"], None
+                    continue
                 rows = spill.bucket_rows(b)
                 # oversized buckets are re-split by the driver, which
                 # streams their pieces: don't read them whole ahead
@@ -1424,12 +1539,25 @@ class StreamExecutor:
                         yield out
                         spill.drop_bucket(b)
                     continue
-                # oversized: results must stay in key order, so the
-                # dispatch window drains before the recursion
+                # refined or oversized: results must stay in key order,
+                # so the dispatch window drains before the recursion
                 if dsp is not None:
                     yield from committed(dsp.drain())
                 while inflight:
                     yield drain_one()
+                if refined and b in refined:
+                    # rewrite-split bucket: its sub-ranges nest inside the
+                    # parent range, so emitting them in range order here
+                    # keeps the global sorted order exactly
+                    rec = refined[b]
+                    rorder = sorted(rec["spill"].buckets())
+                    if _pdesc:
+                        rorder = list(reversed(rorder))
+                    self._emit("stream_bucket_split", bucket=b, rows=rows, depth=depth,
+                               mode="rewrite", fanout=len(rorder))
+                    yield from self._sort_buckets(node, rec["spill"], rorder, rec["extent"],
+                                                  keys, depth + 1)
+                    continue
                 if depth >= self.max_split_depth:
                     raise RuntimeError(
                         f"sort bucket {b} still holds {rows} rows at "
@@ -1503,29 +1631,80 @@ class StreamExecutor:
         lspill = self._spill_dir()
         rspill = self._spill_dir()
         writer = self._spill_writer()
+        # rewrite-split hot buckets: bucket -> (left sub-spill, right
+        # sub-spill), re-hashed at salt depth+1 on BOTH sides so matching
+        # keys stay co-bucketed (split_bucket, claimed at the chunk
+        # boundaries of either side's spill loop)
+        jrefined: Dict[int, Tuple[SpillDir, SpillDir]] = {}
         try:
             lscope = self._scope()
             rscope = self._scope()
-            for t in (self._realize_table(x, ls, lscope) for x in self._iter_base(ls)):
-                self._spill_by_hash(lspill, t, lk, depth, writer=writer)
-            for t in (self._realize_table(x, rs, rscope) for x in self._iter_base(rs)):
-                self._spill_by_hash(rspill, t, rk, depth, writer=writer)
+            for side, (st, keys, spill, scope) in enumerate(
+                ((ls, lk, lspill, lscope), (rs, rk, rspill, rscope))
+            ):
+                for t in (self._realize_table(x, st, scope) for x in self._iter_base(st)):
+                    if self.rewriter is not None:
+                        self._apply_join_splits(jrefined, lspill, rspill, lk, rk, writer, depth)
+                    self._spill_by_hash(spill, t, keys, depth, writer=writer,
+                                        refined=jrefined, side=side)
             if writer is not None:
                 writer.flush()
-            yield from self._join_buckets(node, lspill, rspill, lk, rk, depth)
+            yield from self._join_buckets(node, lspill, rspill, lk, rk, depth,
+                                          refined=jrefined or None)
         finally:
             if writer is not None:
                 writer.close(drain=False)
+            for l2, r2 in jrefined.values():
+                l2.cleanup()
+                r2.cleanup()
             lspill.cleanup()
             rspill.cleanup()
 
-    def _join_buckets(self, node, lspill, rspill, lk, rk, depth):
+    def _apply_join_splits(self, jrefined, lspill, rspill, lk, rk, writer, depth):
+        """Claim the pending split_bucket rewrites of this depth and
+        re-hash each hot bucket into per-side sub-spills at depth+1: the
+        salt and fan-out the oversized re-hash would use, so every key's
+        co-bucketing, and so the join's output, is the same; only when
+        the work happens changes."""
+        acts = [a for a in self.rewriter.claim_splits(depth)
+                if int(a.params["bucket"]) not in jrefined]
+        if not acts or depth >= self.max_split_depth:
+            return
+        if writer is not None:
+            writer.flush()  # bucket piece lists must be final to reroute
+        for act in acts:
+            b = int(act.params["bucket"])
+            l2, r2 = self._spill_dir(), self._spill_dir()
+            jrefined[b] = (l2, r2)
+            for spill, sub, keys in ((lspill, l2, lk), (rspill, r2, rk)):
+                if b in spill.buckets():
+                    for piece in spill.read_bucket_pieces(b):
+                        self._spill_by_hash(sub, piece, keys, depth + 1)
+                    spill.drop_bucket(b)
+            self._emit("plan_rewrite", phase="applied", action="split_bucket",
+                       rule=act.rule, subject=act.subject, bucket=b, depth=depth)
+
+    def _join_buckets(self, node, lspill, rspill, lk, rk, depth, refined=None):
         jkind = node.params.get("join_kind", "inner")
         # shared per-side scopes: the pow2 capacity palette keeps
         # repeated bucket sizes on the same join plan
         lscope = self._scope()
         rscope = self._scope()
-        for b in sorted(set(lspill.buckets()) | set(rspill.buckets())):
+        allb = set(lspill.buckets()) | set(rspill.buckets())
+        if refined:
+            allb |= set(refined)
+        for b in sorted(allb):
+            if refined and b in refined:
+                # rewrite-split: both sides already re-hashed at depth+1;
+                # join the sub-buckets in the parent's slot (where the
+                # oversized re-hash would emit them)
+                l2, r2 = refined[b]
+                rows2 = (sum(l2.bucket_rows(x) for x in l2.buckets())
+                         + sum(r2.bucket_rows(x) for x in r2.buckets()))
+                self._emit("stream_bucket_split", bucket=b, rows=rows2, depth=depth,
+                           mode="rewrite")
+                yield from self._join_buckets(node, l2, r2, lk, rk, depth + 1)
+                continue
             lrows = lspill.bucket_rows(b)
             rrows = rspill.bucket_rows(b)
             if lrows == 0 and jkind in ("inner", "left", "semi", "anti", "count", "ranked"):
@@ -1592,10 +1771,15 @@ class StreamExecutor:
                 writer.close(drain=False)
             spill.cleanup()
 
-    def _spill_by_hash(self, spill, table, keys, depth, writer=None):
+    def _spill_by_hash(self, spill, table, keys, depth, writer=None, refined=None, side=0):
         bids = _host_hash_buckets(table, keys, self.num_buckets, salt=depth,
                                   dictionary=self.ctx.dictionary)
         for b, piece in _split_by_bucket(bids, table):
+            if refined and b in refined:
+                # rewrite-split hot bucket: straight into this side's
+                # sub-spill at depth+1 (the re-hash's salt)
+                self._spill_by_hash(refined[b][side], piece, keys, depth + 1, writer=writer)
+                continue
             # per-piece row histogram: the skew signal
             self.metrics.observe("partition_rows", _chunk_rows(piece), depth=depth)
             if writer is not None:

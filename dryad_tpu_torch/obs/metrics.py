@@ -232,7 +232,8 @@ class JobMetrics:
     ``dispatch_count`` (one per ``stage_start``: a cache hit adds
     none), fused-region dispatches, the dispatch windows, the combine
     tree, and the serving tier's admission, result-cache and view
-    counters with a per-tenant fold in ``tenants``.
+    counters with a per-tenant fold in ``tenants``, and the runtime
+    plan rewriter's decided and applied ``plan_rewrite`` events.
     """
 
     execute_s: float = 0.0
@@ -282,6 +283,12 @@ class JobMetrics:
     view_delta_bytes: int = 0
     view_snapshots_fresh: int = 0
     view_snapshots_finalized: int = 0
+    # runtime plan rewriting (rewrite/controller.py): decisions folded
+    # from the diagnosis stream against those a driver honored at a
+    # safe point, and the decided count of each action
+    rewrites_decided: int = 0
+    rewrites_applied: int = 0
+    rewrite_actions: Dict[str, int] = dataclasses.field(default_factory=dict)
 
     @property
     def driver_cpu_fraction(self) -> float:
@@ -403,6 +410,13 @@ class JobMetrics:
                     m.view_snapshots_fresh += 1
                 else:
                     m.view_snapshots_finalized += 1
+            elif kind == "plan_rewrite":
+                if ev.get("phase") == "applied":
+                    m.rewrites_applied += 1
+                else:
+                    m.rewrites_decided += 1
+                    act = str(ev.get("action", "?"))
+                    m.rewrite_actions[act] = m.rewrite_actions.get(act, 0) + 1
             elif kind == "metrics":
                 for c in ev.get("counters", []):
                     name = c.get("name")

@@ -1,10 +1,9 @@
 """ctypes bindings for the port's host tokenizer and host I/O, each
 with a Python twin.
 
-The counterpart of ``dryad_tpu/runtime/bindings.py`` for ``tokenize``,
-``hash64``, ``decompress_batch``, ``write_partition``, ``Fifo`` and
-``PrefetchChannel`` (its TLV routines belong to the cluster, ROADMAP.md
-queue 1 item 13).  Two libraries are built at first use by
+The counterpart of ``dryad_tpu/runtime/bindings.py``: ``tokenize``,
+``hash64``, ``decompress_batch``, ``write_partition``, ``Fifo``,
+``PrefetchChannel``, ``tlv_encode`` and ``tlv_decode``.  Two libraries are built at first use by
 :mod:`dryad_tpu_torch.utils.build`: the tokenizer from
 ``runtime/native/dryadtok.cpp`` and the I/O routines from
 ``runtime/native/dryadio.cpp`` (linked with zlib).  Where one cannot be
@@ -17,6 +16,7 @@ from __future__ import annotations
 
 import ctypes
 import logging
+import struct
 import threading
 from typing import List, Optional, Tuple
 
@@ -176,6 +176,19 @@ def _load_io() -> Optional[ctypes.CDLL]:
         lib.dn_fifo_close.argtypes = [vp]
         lib.dn_fifo_destroy.restype = None
         lib.dn_fifo_destroy.argtypes = [vp]
+        u32p = ctypes.POINTER(ctypes.c_uint32)
+        lib.dn_tlv_encoded_size.restype = ctypes.c_size_t
+        lib.dn_tlv_encoded_size.argtypes = [ctypes.c_size_t, u32p]
+        lib.dn_tlv_encode.restype = ctypes.c_size_t
+        lib.dn_tlv_encode.argtypes = [
+            ctypes.c_size_t, ctypes.POINTER(ctypes.c_uint16), ctypes.POINTER(vp), u32p,
+            ctypes.c_char_p, ctypes.c_size_t,
+        ]
+        lib.dn_tlv_decode.restype = ctypes.c_size_t
+        lib.dn_tlv_decode.argtypes = [
+            ctypes.c_char_p, ctypes.c_size_t, ctypes.c_size_t,
+            ctypes.POINTER(ctypes.c_uint16), ctypes.POINTER(u64), u32p,
+        ]
         _io_lib = lib
         return _io_lib
 
@@ -338,3 +351,52 @@ class PrefetchChannel:
 
     def __exit__(self, *exc):
         self.close()
+
+
+def tlv_encode(entries: List[Tuple[int, bytes]]) -> bytes:
+    """Encode (tag, value) pairs as the TLV property wire format (the
+    reference's property blocks): tag u16 LE + len u32 LE + value."""
+    for tag, val in entries:
+        if not 0 <= tag <= 0xFFFF:
+            raise ValueError(f"TLV tag {tag} outside u16 range")
+        if len(val) > 0xFFFFFFFF:
+            raise ValueError("TLV value exceeds u32 length")
+    lib = _load_io()
+    if lib is not None and entries:
+        vals = [bytes(v) for _, v in entries]
+        tags = (ctypes.c_uint16 * len(entries))(*[t for t, _ in entries])
+        lens = (ctypes.c_uint32 * len(vals))(*[len(v) for v in vals])
+        ptrs = (ctypes.c_void_p * len(vals))(
+            *[ctypes.cast(ctypes.c_char_p(v), ctypes.c_void_p).value for v in vals]
+        )
+        size = lib.dn_tlv_encoded_size(len(vals), lens)
+        out = ctypes.create_string_buffer(size)
+        if lib.dn_tlv_encode(len(vals), tags, ptrs, lens, out, size) != size:
+            raise ValueError("tlv encode overflow")
+        return out.raw
+    return b"".join(struct.pack("<HI", tag, len(val)) + bytes(val) for tag, val in entries)
+
+
+def tlv_decode(buf: bytes) -> List[Tuple[int, bytes]]:
+    """Decode a TLV property block; raises ValueError on malformed input."""
+    lib = _load_io()
+    if lib is not None and buf:
+        max_n = max(1, len(buf) // 6)
+        tags = (ctypes.c_uint16 * max_n)()
+        offs = (ctypes.c_uint64 * max_n)()
+        lens = (ctypes.c_uint32 * max_n)()
+        n = lib.dn_tlv_decode(buf, len(buf), max_n, tags, offs, lens)
+        if n == ctypes.c_size_t(-1).value:
+            raise ValueError("malformed TLV block")
+        return [(int(tags[i]), buf[offs[i] : offs[i] + lens[i]]) for i in range(n)]
+    out = []
+    at = 0
+    while at < len(buf):
+        if at + 6 > len(buf):
+            raise ValueError("malformed TLV block")
+        tag, ln = struct.unpack_from("<HI", buf, at)
+        if at + 6 + ln > len(buf):
+            raise ValueError("malformed TLV block")
+        out.append((tag, buf[at + 6 : at + 6 + ln]))
+        at += 6 + ln
+    return out

@@ -1,9 +1,9 @@
 // Host I/O routines of the PyTorch port: the zlib column codec, the
-// prefetch channel reader, the partition file writer and the bounded
-// FIFO.
+// prefetch channel reader, the partition file writer, the bounded FIFO
+// and the TLV property block codec.
 //
 // A copy of the I/O part of dryad_tpu/runtime/native/dryadnative.cpp
-// (dn_compress .. dn_fifo_destroy), so the port never loads the JAX
+// (dn_compress .. dn_tlv_decode), so the port never loads the JAX
 // package's library.  The partition writer's JSON header must stay byte
 // for byte the one columnar/io.py::write_partition_file writes (key
 // order, ", " and ": " separators, dtype strings), so a store written by
@@ -337,5 +337,55 @@ void dn_fifo_close(void* handle) {
 }
 
 void dn_fifo_destroy(void* handle) { delete (Fifo*)handle; }
+
+// -------------------------------------------- TLV property wire format
+// The reference's tag-length-value property block (GM property/metadata
+// serialization, gang/DrProperty.cpp; vertex twin dryadmetadata.cpp):
+// each entry is tag(u16 LE) + len(u32 LE) + value bytes.  Used for
+// binary mailbox payloads (vertex command/status analogs).
+size_t dn_tlv_encoded_size(size_t n, const uint32_t* lens) {
+  size_t total = 0;
+  for (size_t i = 0; i < n; ++i) total += 6 + (size_t)lens[i];
+  return total;
+}
+
+size_t dn_tlv_encode(size_t n, const uint16_t* tags, const uint8_t** vals,
+                     const uint32_t* lens, uint8_t* out, size_t out_cap) {
+  size_t at = 0;
+  for (size_t i = 0; i < n; ++i) {
+    size_t need = 6 + (size_t)lens[i];
+    if (at + need > out_cap) return 0;
+    out[at] = (uint8_t)(tags[i] & 0xFF);
+    out[at + 1] = (uint8_t)(tags[i] >> 8);
+    uint32_t l = lens[i];
+    out[at + 2] = (uint8_t)(l & 0xFF);
+    out[at + 3] = (uint8_t)((l >> 8) & 0xFF);
+    out[at + 4] = (uint8_t)((l >> 16) & 0xFF);
+    out[at + 5] = (uint8_t)((l >> 24) & 0xFF);
+    memcpy(out + at + 6, vals[i], l);
+    at += need;
+  }
+  return at;
+}
+
+// Walk a TLV buffer: fills tags/offsets/lens up to max entries; returns
+// the entry count, or (size_t)-1 on malformed input.
+size_t dn_tlv_decode(const uint8_t* buf, size_t len, size_t max,
+                     uint16_t* tags, uint64_t* offs, uint32_t* lens) {
+  size_t at = 0, n = 0;
+  while (at < len) {
+    if (at + 6 > len || n >= max) return (size_t)-1;
+    uint16_t tag = (uint16_t)(buf[at] | (buf[at + 1] << 8));
+    uint32_t l = (uint32_t)buf[at + 2] | ((uint32_t)buf[at + 3] << 8) |
+                 ((uint32_t)buf[at + 4] << 16) | ((uint32_t)buf[at + 5] << 24);
+    if (at + 6 + (size_t)l > len) return (size_t)-1;
+    tags[n] = tag;
+    offs[n] = (uint64_t)(at + 6);
+    lens[n] = l;
+    ++n;
+    at += 6 + (size_t)l;
+  }
+  return n;
+}
 
 }  // extern "C"

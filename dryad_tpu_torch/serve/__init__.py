@@ -9,11 +9,11 @@ deficit round robin inside strict priority tiers) onto a single shared
 repeat queries from a plan-fingerprint result cache.  Client threads
 only build plans, submit, and block on :class:`QueryFuture`.
 
-The multi-process serving fleet (``FleetClient``, ``ReplicaRunner``,
-``ServeFleet``) needs the cluster service and job packages: ROADMAP
-queue 1 item 13.  Its names raise ``NotImplementedError`` here; the
-router's pure functions (:mod:`~dryad_tpu_torch.serve.router`) are
-ported.
+The multi-process serving fleet (:mod:`~dryad_tpu_torch.serve.fleet`:
+``ServeFleet``, ``FleetClient``, ``ReplicaRunner``; replica processes
+through ``python -m dryad_tpu_torch.serve.replica``) puts one front-door
+``ProcessService`` before N such engines and routes each plan to its
+rendezvous owner (:mod:`~dryad_tpu_torch.serve.router`).
 """
 
 from dryad_tpu_torch.serve.admission import (
@@ -23,6 +23,7 @@ from dryad_tpu_torch.serve.admission import (
     TenantQuota,
 )
 from dryad_tpu_torch.serve.cache import ResultCache
+from dryad_tpu_torch.serve.fleet import FleetClient, ReplicaRunner, ServeFleet
 from dryad_tpu_torch.serve.router import (
     NegativeQuotaMemo,
     ReplicaSet,
@@ -33,27 +34,17 @@ from dryad_tpu_torch.serve.router import (
 )
 from dryad_tpu_torch.serve.service import QueryFuture, QueryService, TenantSession
 
-# the serving fleet of the reference's serve/fleet.py and serve/replica.py
-_PENDING_FLEET = ("FleetClient", "ReplicaRunner", "ServeFleet")
-
-
-def __getattr__(name):
-    if name in _PENDING_FLEET:
-        raise NotImplementedError(
-            f"dryad_tpu_torch.serve.{name}: the multi-process serving fleet "
-            "is not ported yet (ROADMAP.md queue 1 item 13)"
-        )
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
-
-
 __all__ = [
     "DEFAULT_TIER",
+    "FleetClient",
     "NegativeQuotaMemo",
     "QueryFuture",
     "QueryRejected",
     "QueryService",
+    "ReplicaRunner",
     "ReplicaSet",
     "ResultCache",
+    "ServeFleet",
     "TIERS",
     "TenantSession",
     "TenantQuota",

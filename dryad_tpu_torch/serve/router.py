@@ -1,6 +1,6 @@
 """Plan-fingerprint-affine routing for the serving fleet (a copy of
-``dryad_tpu/serve/router.py``; the fleet itself is ROADMAP queue 1
-item 13).
+``dryad_tpu/serve/router.py``; the fleet itself is
+:mod:`~dryad_tpu_torch.serve.fleet`).
 
 Pure logic — no sockets, no threads — so every property the fleet
 depends on is testable in isolation:

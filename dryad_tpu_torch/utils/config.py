@@ -138,6 +138,11 @@ class DryadConfig:
       online rules on; ``diagnose_skew_ratio``,
       ``diagnose_recompile_burst`` and ``diagnose_cooldown_s`` are
       their triggers.
+    - Runtime plan rewriting (``rewrite/``): ``plan_rewrite`` turns on
+      the diagnosis-driven, byte-identity-preserving rewriter; the
+      controller taps the event stream, folds ``diagnosis`` events into
+      ``RewriteAction`` objects, and the drivers apply them at chunk and
+      dispatch boundaries.  It needs ``obs_diagnosis``.
     """
 
     shuffle_slack: float = _env_float("DRYAD_TPU_SHUFFLE_SLACK", 2.0)
@@ -211,6 +216,7 @@ class DryadConfig:
     diagnose_skew_ratio: float = _env_float("DRYAD_TPU_DIAGNOSE_SKEW_RATIO", 4.0)
     diagnose_recompile_burst: int = _env_int("DRYAD_TPU_DIAGNOSE_RECOMPILE_BURST", 4)
     diagnose_cooldown_s: float = _env_float("DRYAD_TPU_DIAGNOSE_COOLDOWN_S", 5.0)
+    plan_rewrite: bool = _env_bool("DRYAD_TPU_PLAN_REWRITE", True)
     gang_combine_tree: bool = _env_bool("DRYAD_TPU_GANG_COMBINE_TREE", False)
     gang_partition_cache_bytes: int = _env_int(
         "DRYAD_TPU_GANG_PARTITION_CACHE", 64 * 1024 * 1024

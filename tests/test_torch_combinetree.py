@@ -3,10 +3,12 @@ the port (``exec/combinetree.py``, ``exec/partial.py``,
 ``obs/metrics.py``) against the JAX package.
 
 The tree's streaming group_by runs in both packages on the same seeded
-chunks at P=8 (the reference on its 8-device CPU mesh, without its
-diagnosis engine and rewriter): equal groups, byte-equal integer
-aggregates, equal ``combine_tree_*``/``stream_*`` event counts, and
-intermediate merges that move no exchange bytes.  The placement,
+chunks at P=8 (the reference on its 8-device CPU mesh), each case at the
+default config (the diagnosis engine and the runtime plan rewriter on in
+both packages) and with both off: equal groups, byte-equal integer
+aggregates, equal ``combine_tree_*``/``stream_*`` event counts, equal
+``diagnosis`` and ``plan_rewrite`` events, and intermediate merges that
+move no exchange bytes.  The placement,
 planner, histogram and partial-state helpers are held against the
 reference's on the same inputs.
 """
@@ -29,16 +31,33 @@ from dryad_tpu_torch.obs.metrics import MetricsRegistry
 P = 8
 
 
-def _ctxs(**cfg):
-    jc = J.DryadContext(num_partitions_=P, config=J.DryadConfig(
-        obs_diagnosis=False, plan_rewrite=False, **cfg))
+# the reference's config, and the port's beside it: the defaults (the
+# diagnosis engine and the plan rewriter on) or both off
+REF = pytest.mark.parametrize("ref", ["default", "off"])
+# diagnosis rules that follow the wall clock
+WALL_CLOCK_RULES = ("straggler", "stall_dominance", "recompile_storm")
+
+
+def _ctxs(ref="off", **cfg):
+    if ref == "off":
+        cfg = dict(cfg, obs_diagnosis=False, plan_rewrite=False)
+    jc = J.DryadContext(num_partitions_=P, config=J.DryadConfig(**cfg))
     tc = T.DryadContext(num_partitions_=P, config=T.DryadConfig(**cfg), device="cpu")
     return jc, tc
 
 
 def _counts(events):
-    return collections.Counter(
+    """Counts of the streaming kinds, the diagnoses (rule and subject;
+    wall-clock rules left out) and the rewriter's events."""
+    out = collections.Counter(
         e["kind"] for e in events if e["kind"].startswith(("stream_", "combine_tree_")))
+    for e in events:
+        if e["kind"] == "diagnosis" and e["rule"] not in WALL_CLOCK_RULES:
+            out[("diagnosis", e["rule"], e["evidence"].get("subject"))] += 1
+        elif e["kind"] == "plan_rewrite":
+            out[("plan_rewrite",) + tuple(e.get(f) for f in ("action", "phase", "rule",
+                                                              "subject", "mode"))] += 1
+    return out
 
 
 def _sorted(out):
@@ -46,9 +65,9 @@ def _sorted(out):
     return {c: np.asarray(v)[o] for c, v in out.items()}
 
 
-def _run(chunks, aggs, **cfg):
+def _run(chunks, aggs, ref="off", **cfg):
     outs, evs = [], []
-    for c in _ctxs(**cfg):
+    for c in _ctxs(ref, **cfg):
         q = c.from_stream(iter([{k: v.copy() for k, v in ch.items()} for ch in chunks]))
         outs.append(_sorted(q.group_by("k", aggs).collect()))
         evs.append(c.executor.events.events() if isinstance(c, J.DryadContext) else c.events.events())
@@ -92,11 +111,13 @@ CASES = {
 }
 
 
+@REF
 @pytest.mark.parametrize("case", list(CASES))
-def test_tree_group_matches_reference(case):
+def test_tree_group_matches_reference(case, ref):
     gen, cfg = CASES[case]
     chunks = _chunks(**gen)
-    out, evs = _run(chunks, {"c": ("count", None), "s": ("sum", "v"), "mn": ("min", "v")}, **cfg)
+    out, evs = _run(chunks, {"c": ("count", None), "s": ("sum", "v"), "mn": ("min", "v")}, ref,
+                    **cfg)
     _oracle(chunks, out)
     levels = [e for e in evs if e["kind"] == "combine_tree_level"]
     deg = [e for e in evs if e["kind"] == "combine_tree_degrade"]
@@ -114,13 +135,14 @@ def test_tree_group_matches_reference(case):
         assert deg and deg[-1]["fraction"] < 1.0
 
 
-def test_host_reprobe_returns_to_device_like_reference():
+@REF
+def test_host_reprobe_returns_to_device_like_reference(ref):
     rng = np.random.default_rng(11)
     first = {"k": np.arange(3000, dtype=np.int64), "v": np.ones(3000, np.int64)}
     rest = [{"k": rng.integers(0, 3000, 4000).astype(np.int64), "v": np.ones(4000, np.int64)}
             for _ in range(6)]
     chunks = [first] + rest
-    out, evs = _run(chunks, {"c": ("count", None)}, combine_tree=False,
+    out, evs = _run(chunks, {"c": ("count", None)}, ref, combine_tree=False,
                     stream_combine_rows=500, stream_host_reprobe=2)
     _oracle(chunks, out)
     pol = [e for e in evs if e["kind"] == "stream_combine_policy"]
@@ -128,16 +150,18 @@ def test_host_reprobe_returns_to_device_like_reference():
     assert any(e["mode"] == "device" and e.get("reprobe") for e in pol)
 
 
-def test_first_aggregate_stays_flat_like_reference():
+@REF
+def test_first_aggregate_stays_flat_like_reference(ref):
     rng = np.random.default_rng(5)
     chunks = [{"k": rng.integers(0, 30, 800).astype(np.int32),
                "v": rng.integers(0, 100, 800).astype(np.int64)} for _ in range(4)]
-    out, evs = _run(chunks, {"f": ("first", "v"), "c": ("count", None)})
+    out, evs = _run(chunks, {"f": ("first", "v"), "c": ("count", None)}, ref)
     assert len(out["k"]) == 30
     assert not [e for e in evs if e["kind"] == "combine_tree_level"]
 
 
-def test_group_by_a_computed_key():
+@REF
+def test_group_by_a_computed_key(ref):
     """A group key that a row-local node computes cannot be hashed on
     the raw chunk: the port's tree takes a neutral snapshot for it and
     groups correctly, where the reference's driver raises KeyError
@@ -147,7 +171,7 @@ def test_group_by_a_computed_key():
     rng = np.random.default_rng(3)
     chunks = [{"x": rng.integers(0, 10**6, 1500).astype(np.int32)} for _ in range(4)]
     allx = np.concatenate([c["x"] for c in chunks])
-    jc, tc = _ctxs(stream_combine_rows=500)
+    jc, tc = _ctxs(ref, stream_combine_rows=500)
     with pytest.raises(KeyError):
         jc.from_stream(iter([dict(c) for c in chunks])).select(
             lambda cols: {"k": cols["x"] % 97},
@@ -361,7 +385,8 @@ def test_metrics_registry():
     assert ev["counters"] == snap["counters"]
 
 
-def test_tree_batches_are_compacted_on_the_same_cadence():
+@REF
+def test_tree_batches_are_compacted_on_the_same_cadence(ref):
     """The reference's partials keep their exchange's padding (twice the
     chunk's rows) and its elided merges the sum of their inputs', so its
     tree's batches grow with the stream.  The port compacts each partial
@@ -372,16 +397,16 @@ def test_tree_batches_are_compacted_on_the_same_cadence():
     chunks = [{"k": rng.integers(0, 64, 4096).astype(np.int64),
                "v": rng.integers(0, 9, 4096).astype(np.int64)} for _ in range(8)]
     levels = []
-    for c in _ctxs(stream_combine_rows=2000):
+    for c in _ctxs(ref, stream_combine_rows=2000):
         c.from_stream(iter([dict(ch) for ch in chunks])).group_by(
             "k", {"c": ("count", None), "s": ("sum", "v")}).collect()
         evs = c.executor.events.events() if isinstance(c, J.DryadContext) else c.events.events()
         levels.append([e for e in evs if e["kind"] == "combine_tree_level"])
-    ref, port = levels
+    jlv, port = levels
     assert [(e["level"], e["fan_in"], e["cap_rows"]) for e in port] == \
-        [(e["level"], e["fan_in"], e["cap_rows"]) for e in ref]
-    assert ref[-1]["cap_rows"] >= 2 * 8 * 4096  # the reference's padding, summed
+        [(e["level"], e["fan_in"], e["cap_rows"]) for e in jlv]
+    assert jlv[-1]["cap_rows"] >= 2 * 8 * 4096  # the reference's padding, summed
     # each input holds at most 64 keys: a few rows a partition after
     # compaction, against the reference's thousands of padded slots
-    for r, t in zip(ref, port):
+    for r, t in zip(jlv, port):
         assert t["bytes"] * 20 <= r["bytes"]

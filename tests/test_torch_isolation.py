@@ -154,14 +154,14 @@ def test_collect_stream_is_ported():
 
 @pytest.mark.parametrize("name", ["FleetClient", "ReplicaRunner", "ServeFleet"])
 def test_serving_fleet_names_raise_naming_their_item(name):
-    """The serve package exports the reference's names but the fleet's,
-    which need the cluster service: reaching one raises
-    NotImplementedError naming ROADMAP queue 1 item 13."""
+    """The serve package exports the reference's names, the fleet's
+    among them (``serve/fleet.py``); an unknown name raises
+    AttributeError."""
     from dryad_tpu_torch import serve
+    from dryad_tpu_torch.serve import fleet
 
-    assert name not in serve.__all__
-    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
-        getattr(serve, name)
+    assert name in serve.__all__
+    assert getattr(serve, name) is getattr(fleet, name)
     with pytest.raises(AttributeError):
         serve.NoSuchName  # noqa: B018
     for kept in ("QueryService", "TenantSession", "QueryFuture", "QueryRejected",

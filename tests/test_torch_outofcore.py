@@ -3,12 +3,14 @@ against the JAX package on its 8-device CPU mesh.
 
 Both packages get the same seeded chunks at P=8 with the reference
 tests' small stream config (``stream_bucket_rows=4000``,
-``stream_combine_rows=2000``, ``stream_buckets=8``); the reference runs
-without its diagnosis engine and plan rewriter, which the port does not
-have.  Integer results and sort outputs must be byte-equal, float sums
-within the sort path's ``n_g * 2^-23 * sum|v|`` of the reference (the
-port sums in fixed point), and the streaming driver's events
-(``stream_*`` and ``combine_tree_*`` kinds) equal in kind and count.
+``stream_combine_rows=2000``, ``stream_buckets=8``), each case twice:
+at the default config (the diagnosis engine and the runtime plan
+rewriter on in both packages) and with both off.  Integer results and
+sort outputs must be byte-equal, float sums within the sort path's
+``n_g * 2^-23 * sum|v|`` of the reference (the port sums in fixed
+point), the streaming driver's events (``stream_*`` and
+``combine_tree_*`` kinds) equal in kind and count, and the ``diagnosis``
+and ``plan_rewrite`` events equal (``rewrite_trail``).
 """
 
 import collections
@@ -32,14 +34,37 @@ def _cfg(**kw):
     return cfg
 
 
-def _ctxs(**kw):
+# the reference's config, and the port's beside it: the defaults (the
+# diagnosis engine and the plan rewriter on) or both off
+REF = pytest.mark.parametrize("ref", ["default", "off"])
+_OFF = dict(obs_diagnosis=False, plan_rewrite=False)
+# diagnosis rules that follow the wall clock
+WALL_CLOCK_RULES = ("straggler", "stall_dominance", "recompile_storm")
+
+
+def _ctxs(ref="off", **kw):
     cfg = _cfg(**kw)
-    jc = J.DryadContext(
-        num_partitions_=P,
-        config=J.DryadConfig(obs_diagnosis=False, plan_rewrite=False, **cfg),
-    )
+    if ref == "off":
+        cfg.update(_OFF)
+    jc = J.DryadContext(num_partitions_=P, config=J.DryadConfig(**cfg))
     tc = T.DryadContext(num_partitions_=P, config=T.DryadConfig(**cfg), device="cpu")
     return jc, tc
+
+
+def rewrite_trail(events):
+    """The diagnoses (rule, subject; wall-clock rules left out) and the
+    rewriter's decisions and applications (action, phase, rule, subject,
+    mode) with their counts, and the ``stream_bucket_split`` modes."""
+    out = collections.Counter()
+    for e in events:
+        if e["kind"] == "diagnosis" and e["rule"] not in WALL_CLOCK_RULES:
+            out[("diagnosis", e["rule"], e["evidence"].get("subject"))] += 1
+        elif e["kind"] == "plan_rewrite":
+            out[("plan_rewrite",) + tuple(e.get(f) for f in ("action", "phase", "rule",
+                                                              "subject", "mode"))] += 1
+        elif e["kind"] == "stream_bucket_split":
+            out[("stream_bucket_split", e["mode"])] += 1
+    return out
 
 
 def _jevents(jc):
@@ -58,13 +83,15 @@ def _copy(chunks):
     return [{k: np.array(v, copy=True) for k, v in c.items()} for c in chunks]
 
 
-def run_both(build, skip=(), **kw):
+def run_both(build, skip=(), ref="off", **kw):
     """``build(ctx)`` -> a query over fresh copies of the chunks; runs
-    it in both packages and holds their streaming events equal."""
-    jc, tc = _ctxs(**kw)
+    it in both packages and holds their streaming, diagnosis and
+    rewrite events equal."""
+    jc, tc = _ctxs(ref, **kw)
     jout = build(jc).collect()
     tout = build(tc).collect()
     assert stream_counts(tc.events.events(), skip) == stream_counts(_jevents(jc), skip)
+    assert rewrite_trail(tc.events.events()) == rewrite_trail(_jevents(jc))
     return jout, tout, jc, tc
 
 
@@ -101,12 +128,13 @@ GROUP_CONFIGS = {
 }
 
 
+@REF
 @pytest.mark.parametrize("combine_rows", [2000, 50], ids=["plain", "compacting"])
 @pytest.mark.parametrize("mode", list(GROUP_CONFIGS))
-def test_group_partials_match_reference(mode, combine_rows):
+def test_group_partials_match_reference(mode, combine_rows, ref):
     chunks = _group_chunks()
     aggs = {"s": ("sum", "v"), "c": ("count", None), "mx": ("max", "v"), "mu": ("mean", "v")}
-    jout, tout, jc, tc = run_both(
+    jout, tout, jc, tc = run_both(ref=ref, build=
         lambda c: c.from_stream(iter(_copy(chunks))).group_by("k", aggs),
         stream_combine_rows=combine_rows, **GROUP_CONFIGS[mode],
     )
@@ -124,8 +152,9 @@ def test_group_partials_match_reference(mode, combine_rows):
         assert kinds["stream_combine"] or kinds["combine_tree_level"]
 
 
+@REF
 @pytest.mark.parametrize("mode", ["flat", "tree"])
-def test_high_cardinality_degrade_matches_reference(mode):
+def test_high_cardinality_degrade_matches_reference(mode, ref):
     rng = np.random.default_rng(4)
     if mode == "flat":
         chunks = [{"k": rng.integers(0, 1 << 22, 1200).astype(np.int32),
@@ -135,7 +164,7 @@ def test_high_cardinality_degrade_matches_reference(mode):
         chunks = [{"k": rng.integers(0, 5_000_000, 8000).astype(np.int64),
                    "v": rng.integers(0, 100, 8000).astype(np.int64)} for _ in range(4)]
         kw = dict(stream_combine_rows=4000)
-    jout, tout, jc, tc = run_both(
+    jout, tout, jc, tc = run_both(ref=ref, build=
         lambda c: c.from_stream(iter(_copy(chunks))).group_by(
             "k", {"c": ("count", None), "s": ("sum", "v")}),
         **kw,
@@ -171,10 +200,11 @@ def _sort_case(name):
     raise AssertionError(name)
 
 
+@REF
 @pytest.mark.parametrize("name", ["resplit", "desc_secondary", "equal_keys", "string", "payload"])
-def test_external_sort_matches_reference(name):
+def test_external_sort_matches_reference(name, ref):
     chunks, keys, kw = _sort_case(name)
-    jout, tout, jc, tc = run_both(
+    jout, tout, jc, tc = run_both(ref=ref, build=
         lambda c: c.from_stream(iter(_copy(chunks))).order_by(keys), **kw)
     assert_byte_equal(jout, tout)
     first = keys[0][0] if isinstance(keys[0], tuple) else keys[0]
@@ -190,13 +220,14 @@ def test_external_sort_matches_reference(name):
         assert any(e["mode"] == "equal_keys" for e in splits)
 
 
-def test_grace_join_hot_key_rehash_matches_reference():
+@REF
+def test_grace_join_hot_key_rehash_matches_reference(ref):
     rng = np.random.default_rng(5)
     L = [{"k": np.where(rng.random(2000) < 0.5, 7, rng.integers(0, 100, 2000)).astype(np.int32),
           "a": rng.integers(0, 3, 2000).astype(np.int32)} for _ in range(2)]
     R = [{"k": rng.integers(0, 100, 500).astype(np.int32),
           "b": rng.integers(0, 3, 500).astype(np.int32)} for _ in range(2)]
-    jout, tout, jc, tc = run_both(
+    jout, tout, jc, tc = run_both(ref=ref, build=
         lambda c: c.from_stream(iter(_copy(L))).join(c.from_stream(iter(_copy(R))), ["k"], ["k"]),
         stream_bucket_rows=2500, stream_buckets=4,
     )
@@ -214,11 +245,12 @@ def test_grace_join_hot_key_rehash_matches_reference():
                if e["kind"] == "stream_bucket_split")
 
 
-def test_left_join_small_right_matches_reference():
+@REF
+def test_left_join_small_right_matches_reference(ref):
     rng = np.random.default_rng(6)
     chunks = [{"k": rng.integers(0, 20, 800).astype(np.int32)} for _ in range(3)]
     right = {"k": np.arange(10, dtype=np.int32), "w": np.arange(10, dtype=np.int32) * 3}
-    jout, tout, _, _ = run_both(
+    jout, tout, _, _ = run_both(ref=ref, build=
         lambda c: c.from_stream(iter(_copy(chunks))).left_join(
             c.from_arrays({k: v.copy() for k, v in right.items()}), ["k"], ["k"],
             right_defaults={"w": -1}),
@@ -229,12 +261,13 @@ def test_left_join_small_right_matches_reference():
     assert sorted(zip(tout["k"].tolist(), tout["w"].tolist())) == exp
 
 
+@REF
 @pytest.mark.parametrize("depth", [1, 4])
-def test_scalar_aggregate_and_take_match_reference(depth):
+def test_scalar_aggregate_and_take_match_reference(depth, ref):
     rng = np.random.default_rng(7)
     chunks = [{"x": rng.integers(0, 1000, 900).astype(np.int32)} for _ in range(4)]
     xs = np.concatenate([c["x"] for c in chunks])
-    jout, tout, _, _ = run_both(
+    jout, tout, _, _ = run_both(ref=ref, build=
         lambda c: c.from_stream(iter(_copy(chunks))).aggregate_as_query(
             {"s": ("sum", "x"), "mn": ("min", "x"), "mu": ("mean", "x"), "c": ("count", None)}),
         stream_pipeline_depth=depth, stream_combine_rows=3,
@@ -244,7 +277,7 @@ def test_scalar_aggregate_and_take_match_reference(depth):
     assert int(tout["s"][0]) == int(xs.sum()) and int(tout["mn"][0]) == int(xs.min())
     assert tout["mu"].tobytes() == jout["mu"].tobytes()
     # a take stops the stream early: the prefetcher's pulls are racy
-    jt, tt, _, _ = run_both(
+    jt, tt, _, _ = run_both(ref=ref, build=
         lambda c: c.from_stream(iter(_copy(chunks))).take(1234),
         skip=("stream_prefetch", "stream_pipeline"), stream_pipeline_depth=depth,
     )
@@ -252,10 +285,11 @@ def test_scalar_aggregate_and_take_match_reference(depth):
     assert np.array_equal(tt["x"], xs[:1234])
 
 
-def test_distinct_high_cardinality_spills_like_reference():
+@REF
+def test_distinct_high_cardinality_spills_like_reference(ref):
     rng = np.random.default_rng(8)
     chunks = [{"x": rng.integers(0, 100_000, 1200).astype(np.int32)} for _ in range(5)]
-    jout, tout, jc, tc = run_both(
+    jout, tout, jc, tc = run_both(ref=ref, build=
         lambda c: c.from_stream(iter(_copy(chunks))).distinct(),
         stream_bucket_rows=1500, stream_combine_rows=800, stream_buckets=4,
     )
@@ -269,13 +303,14 @@ def _store_bytes(path):
     return {f: open(os.path.join(path, f), "rb").read() for f in sorted(os.listdir(path))}
 
 
-def test_text_stream_and_store_stream_wordcount_match_reference(tmp_path):
+@REF
+def test_text_stream_and_store_stream_wordcount_match_reference(tmp_path, ref):
     rng = np.random.default_rng(9)
     vocab = [f"word{i}" for i in range(50)]
     words = rng.choice(vocab, 20000)
     path = tmp_path / "corpus.txt"
     path.write_text(" ".join(words.tolist()))
-    jout, tout, jc, tc = run_both(
+    jout, tout, jc, tc = run_both(ref=ref, build=
         lambda c: c.text_stream(str(path), chunk_bytes=2048).group_by("word", {"c": ("count", None)}))
     assert_byte_equal(by_key(jout, "word"), by_key(tout, "word"))
     got = {str(w): int(c) for w, c in zip(tout["word"], tout["c"])}
@@ -283,7 +318,7 @@ def test_text_stream_and_store_stream_wordcount_match_reference(tmp_path):
     # a stream's to_store writes the reference's bytes, and each
     # package streams the other's store back
     chunks = [{"k": rng.integers(0, 60, 1000).astype(np.int32)} for _ in range(4)]
-    jc, tc = _ctxs()
+    jc, tc = _ctxs(ref)
     js, ts = str(tmp_path / "j"), str(tmp_path / "t")
     jc.to_store(jc.from_stream(iter(_copy(chunks))).order_by(["k"]), js)
     h = tc.to_store(tc.from_stream(iter(_copy(chunks))).order_by(["k"]), ts)
@@ -292,7 +327,7 @@ def test_text_stream_and_store_stream_wordcount_match_reference(tmp_path):
     assert stream_counts(tc.events.events()) == stream_counts(_jevents(jc))
     allk = np.concatenate([ch["k"] for ch in chunks])
     for path_ in (js, ts):
-        jc2, tc2 = _ctxs()
+        jc2, tc2 = _ctxs(ref)
         aggs = {"c": ("count", None), "s": ("sum", "k")}
         a = jc2.store_stream(path_).aggregate_as_query(aggs).collect()
         b = tc2.store_stream(path_).aggregate_as_query(aggs).collect()
@@ -301,11 +336,12 @@ def test_text_stream_and_store_stream_wordcount_match_reference(tmp_path):
     assert np.array_equal(tc2.from_store(js).collect()["k"], np.sort(allk))
 
 
-def test_concat_and_select_many_match_reference():
+@REF
+def test_concat_and_select_many_match_reference(ref):
     rng = np.random.default_rng(10)
     a = [{"x": rng.integers(0, 50, 600).astype(np.int32)} for _ in range(2)]
     b = [{"x": rng.integers(50, 99, 600).astype(np.int32)} for _ in range(2)]
-    jout, tout, _, _ = run_both(
+    jout, tout, _, _ = run_both(ref=ref, build=
         lambda c: c.from_stream(iter(_copy(a))).concat(c.from_stream(iter(_copy(b))))
         .aggregate_as_query({"c": ("count", None), "s": ("sum", "x")}),
     )
@@ -327,14 +363,15 @@ def test_concat_and_select_many_match_reference():
         return c.from_stream(iter(_copy(a))).select_many(fn, 2, schema=c.from_arrays(
             {"x": np.zeros(1, np.int32)}).schema).order_by(["x"])
 
-    jout, tout, _, _ = run_both(build)
+    jout, tout, _, _ = run_both(ref=ref, build=build)
     assert_byte_equal(jout, tout)
     xs = np.concatenate([c["x"] for c in a])
     assert tout["x"].tolist() == sorted(xs[xs % 2 == 0].tolist() + (xs + 1000).tolist())
 
 
-def test_stream_errors_match_reference():
-    jc, tc = _ctxs()
+@REF
+def test_stream_errors_match_reference(ref):
+    jc, tc = _ctxs(ref)
     msgs = []
     for c, exc in ((jc, JStreamNotSupported), (tc, TStreamNotSupported)):
         q = c.from_stream(iter([{"x": np.arange(10, dtype=np.int32)}]))
@@ -353,8 +390,9 @@ def test_stream_errors_match_reference():
     assert len(outs[1]["x"]) == 0
 
 
-def test_tee_and_second_collect_raise_like_reference():
-    for c in _ctxs():
+@REF
+def test_tee_and_second_collect_raise_like_reference(ref):
+    for c in _ctxs(ref):
         s = c.from_stream(iter([{"x": np.arange(8, dtype=np.int32)},
                                 {"x": np.arange(8, 16, dtype=np.int32)}]))
         a = s.where(lambda cols: cols["x"] % 2 == 0)
@@ -368,11 +406,12 @@ def test_tee_and_second_collect_raise_like_reference():
             q.collect()
 
 
-def test_collect_stream_yields_bounded_pieces_like_reference():
+@REF
+def test_collect_stream_yields_bounded_pieces_like_reference(ref):
     rng = np.random.default_rng(11)
     chunks = [{"x": rng.integers(0, 10**6, 2000).astype(np.int32)} for _ in range(4)]
     pieces = {}
-    for name, c in zip("jt", _ctxs()):
+    for name, c in zip("jt", _ctxs(ref)):
         pieces[name] = list(c.from_stream(iter(_copy(chunks))).order_by(["x"]).collect_stream())
     assert len(pieces["t"]) == len(pieces["j"]) > 1
     for a, b in zip(pieces["j"], pieces["t"]):
@@ -385,7 +424,8 @@ def test_collect_stream_yields_bounded_pieces_like_reference():
     assert np.array_equal(piece["x"], np.arange(5))
 
 
-def test_wordcount_chunk_partial_takes_the_dense_kernel_path(tmp_path):
+@REF
+def test_wordcount_chunk_partial_takes_the_dense_kernel_path(tmp_path, ref):
     """Each chunk's partial of a streaming WordCount lowers, in both
     packages, to ``string_code`` and ``group_reduce_dense`` (the bucket
     kernel's op)."""
@@ -397,7 +437,7 @@ def test_wordcount_chunk_partial_takes_the_dense_kernel_path(tmp_path):
     path = tmp_path / "c.txt"
     path.write_text("a b a c a b " * 300)
     ops = []
-    for c, scope_cls, lower in zip(_ctxs(), (JScope, TScope), (jlower, tlower)):
+    for c, scope_cls, lower in zip(_ctxs(ref), (JScope, TScope), (jlower, tlower)):
         q = c.text_stream(str(path), chunk_bytes=512)
         chunk = next(iter(c._bindings[q.node.id][1].chunks))
         pq = scope_cls(c).ingest(chunk, q.schema).group_by("word", {"c__p": ("count", None)})

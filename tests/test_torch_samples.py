@@ -33,6 +33,7 @@ def _run(args, **env):
         ("pagerank_dowhile", [], "top node matches numpy PageRank: OK"),
         ("topk_per_key_hdfs", [], "ranked reviews considered: 100"),
         ("top_words", [], "== fusion =="),
+        ("analytics_cached", [], "rows persisted+reread via hdfs:// gateway: 2000"),
     ],
 )
 def test_port_sample_runs_on_the_cpu(name, args, expect):

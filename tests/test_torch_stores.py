@@ -293,18 +293,138 @@ def test_azure_blob_round_trip_through_the_reference_stub(tmp_path, monkeypatch,
 
 
 def test_http_and_the_gateway_name_their_roadmap_item(tmp_path, monkeypatch):
-    tc = T.DryadContext(num_partitions_=P, device="cpu")
-    q = tc.from_arrays({"k": np.arange(8, dtype=np.int32)})
-    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
-        q.to_store("http://127.0.0.1:1/x")
-    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
-        tc.from_store("http://127.0.0.1:1/x")
+    """``http://`` and the file gateway route of ``hdfs://``, ``wasb://``
+    and ``abfs://`` resolve to the ``ServiceClient`` providers, as the
+    reference's do; an unknown scheme raises ValueError in both."""
+    from dryad_tpu.columnar import uri as juri
+
     monkeypatch.setenv("DRYAD_TPU_DFS_GATEWAY", "127.0.0.1:1")
-    for uri in ("hdfs://nn:1/x", "wasb://c@h:1/x", "abfs://c@h:1/x"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 13"):
-            q.to_store(uri)
-    with pytest.raises(ValueError, match="no data provider"):
-        tc.from_store("s3://bucket/x")
+    for mod in (turi, juri):
+        assert isinstance(mod.get_provider("http://127.0.0.1:1/x")[0], mod.HttpStoreProvider)
+        assert mod.WebHdfsProvider()._gateway().scheme == "hdfs"
+        for scheme in ("wasb", "abfs"):
+            p = mod.get_provider(f"{scheme}://c@h:1/x")[0]
+            assert p._route("c@h:1/x") is None and p.gateway.scheme == scheme
+        with pytest.raises(ValueError, match="no data provider"):
+            mod.get_provider("s3://bucket/x")
+
+
+@pytest.fixture()
+def file_server(tmp_path):
+    from dryad_tpu_torch.cluster.service import ProcessService
+
+    with ProcessService(str(tmp_path / "fs")) as svc:
+        yield svc
+
+
+def _server_files(root, rel):
+    d = os.path.join(root, rel)
+    return {f: open(os.path.join(d, f), "rb").read() for f in sorted(os.listdir(d))}
+
+
+@pytest.mark.parametrize("name", ["table", "group_by"])
+def test_http_store_files_byte_equal_to_the_reference(tmp_path, file_server, name):
+    """Each package writes the same query to ``http://`` stores on one
+    port ``ProcessService``: the files on the server are byte-equal, and
+    each package reads the other's store back."""
+    t = _table(11, n=1500)
+    jc, tc = _ctxs()
+    base = f"http://127.0.0.1:{file_server.port}"
+    STORE_QUERIES[name](jc, t).to_store(f"{base}/stores/j")
+    STORE_QUERIES[name](tc, t).to_store(f"{base}/stores/t")
+    root = str(tmp_path / "fs")
+    assert _server_files(root, "stores/j") == _server_files(root, "stores/t")
+    a = J.DryadContext(num_partitions_=P).from_store(f"{base}/stores/t").collect()
+    b = T.DryadContext(num_partitions_=P, device="cpu").from_store(f"{base}/stores/j").collect()
+    _assert_tables_equal(b, a)
+
+
+def test_terasort_from_to_http_store(file_server):
+    """The reference's remote-store TeraSort: read the input from
+    ``http://``, sort, write the output to ``http://``, read it back."""
+    rng = np.random.default_rng(3)
+    n = 4000
+    tbl = {"key": rng.integers(-(2 ** 31), 2 ** 31 - 1, n).astype(np.int32),
+           "payload": rng.standard_normal(n).astype(np.float32)}
+    base = f"http://127.0.0.1:{file_server.port}"
+    T.DryadContext(num_partitions_=P, device="cpu").from_arrays(tbl).to_store(f"{base}/in")
+    T.DryadContext(num_partitions_=P, device="cpu").from_store(f"{base}/in").order_by(
+        ["key"]).to_store(f"{base}/sorted")
+    out = T.DryadContext(num_partitions_=P, device="cpu").from_store(f"{base}/sorted").collect()
+    np.testing.assert_array_equal(out["key"], np.sort(tbl["key"]))
+    assert len(out["payload"]) == n
+
+
+@pytest.mark.parametrize("scheme", ["hdfs", "wasb", "abfs"])
+def test_dfs_gateway_round_trip_byte_equal_to_the_reference(tmp_path, file_server, monkeypatch,
+                                                            scheme):
+    """With ``DRYAD_TPU_DFS_GATEWAY`` set, a DFS URI's store lives under
+    ``<gateway>/<scheme>/<authority>/<path>``: the same files as the
+    reference's, read back by either package."""
+    monkeypatch.setenv("DRYAD_TPU_DFS_GATEWAY", f"127.0.0.1:{file_server.port}")
+    rng = np.random.default_rng(4)
+    tbl = {"k": rng.integers(0, 50, 400).astype(np.int32)}
+    jc, tc = _ctxs()
+    auth = "nn.example:9000" if scheme == "hdfs" else "c@acct.example"
+    juri_, turi_ = f"{scheme}://{auth}/warehouse/j", f"{scheme}://{auth}/warehouse/t"
+    jc.from_arrays(tbl).group_by("k", {"c": ("count", None)}).to_store(juri_)
+    tc.from_arrays(tbl).group_by("k", {"c": ("count", None)}).to_store(turi_)
+    root = str(tmp_path / "fs")
+    assert _server_files(root, f"{scheme}/{auth}/warehouse/j") == \
+        _server_files(root, f"{scheme}/{auth}/warehouse/t")
+    out = T.DryadContext(num_partitions_=P, device="cpu").from_store(juri_).collect()
+    got = dict(zip(out["k"].tolist(), out["c"].tolist()))
+    want = np.bincount(tbl["k"], minlength=50)
+    assert got == {int(k): int(c) for k, c in enumerate(want) if c}
+    _assert_tables_equal(out, J.DryadContext(num_partitions_=P).from_store(turi_).collect())
+
+
+def test_wasb_without_a_container_uses_its_authority_as_the_gateway(tmp_path, file_server,
+                                                                  monkeypatch):
+    monkeypatch.delenv("DRYAD_TPU_DFS_GATEWAY", raising=False)
+    tbl = {"v": np.arange(64, dtype=np.int32)}
+    uri = f"wasb://127.0.0.1:{file_server.port}/container/blob"
+    T.DryadContext(num_partitions_=P, device="cpu").from_arrays(tbl).to_store(uri)
+    assert os.path.isdir(str(tmp_path / "fs" / "container" / "blob"))
+    for ctx in (T.DryadContext(num_partitions_=P, device="cpu"), J.DryadContext(num_partitions_=P)):
+        assert sorted(ctx.from_store(uri).collect()["v"].tolist()) == list(range(64))
+
+
+def test_tlv_blocks_equal_the_reference_binding():
+    """The TLV property block codec (native, and its Python twin) gives
+    the reference binding's bytes and entries, and rejects what the
+    reference rejects."""
+    from dryad_tpu.runtime import bindings as JB
+
+    rng = np.random.default_rng(5)
+    cases = [
+        [(1, b"hello"), (42, b""), (65535, bytes(range(256)))],
+        [],
+        [(int(t), rng.integers(0, 256, int(n), dtype=np.uint8).tobytes())
+         for t, n in zip(rng.integers(0, 65536, 50), rng.integers(0, 300, 50))],
+    ]
+    for entries in cases:
+        buf = RB.tlv_encode(entries)
+        assert buf == JB.tlv_encode(entries)
+        assert RB.tlv_decode(buf) == JB.tlv_decode(buf) == entries
+    buf = RB.tlv_encode(cases[0])
+    for bad in (buf[:-1], b"\x01\x00"):
+        with pytest.raises(ValueError):
+            RB.tlv_decode(bad)
+    for tag in (0x10000, -1):
+        with pytest.raises(ValueError):
+            RB.tlv_encode([(tag, b"x")])
+    assert RB.io_native_loaded()
+
+
+def test_tlv_python_twin_equals_the_native_routines(monkeypatch):
+    entries = [(7, b"abc"), (0, b""), (300, bytes(range(200)))]
+    native = RB.tlv_encode(entries)
+    monkeypatch.setattr(RB, "_load_io", lambda: None)
+    assert RB.tlv_encode(entries) == native
+    assert RB.tlv_decode(native) == entries
+    with pytest.raises(ValueError):
+        RB.tlv_decode(native[:-2])
 
 
 # -- codecs, ingest, results ---------------------------------------------------------

@@ -1,7 +1,7 @@
 """Materialized views under continuous ingest: the port (dryad_tpu_torch,
 device="cpu") against the JAX package on its 8-device CPU mesh, at P=8,
-after tests/test_views.py (its fleet case waits for the serving fleet,
-ROADMAP queue 1 item 13).
+after tests/test_views.py, its fleet case included (two thread replicas
+of ``serve/fleet.py``, each with its own port context).
 
 Every float column holds integer values (cast to float32), so a view's
 host fold and a device recompute add exactly: the tolerance is zero.  At
@@ -368,3 +368,61 @@ def test_a_read_between_two_finalize_commits_sees_every_delta():
     _byte_equal(outs[0], _recompute(build, _concat([base, one])))
     _byte_equal(outs[1], _recompute(build, _concat([base, one, two])))
     _byte_equal(outs[2], _recompute(build, _concat([base, one, two])))
+
+
+# -- fleet: replicated views + chaos ---------------------------------------------------
+
+
+def _wait_router(fleet, pred, timeout=10.0):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        st = fleet.stats()["router"]
+        if pred(st):
+            return st
+        time.sleep(0.01)
+    return fleet.stats()["router"]
+
+
+def test_fleet_view_survives_replica_death_byte_identical():
+    """Every replica registers the same view (the prepared statement of
+    the package's sha) and folds the same append; the rendezvous owner
+    is killed and the replay finalizes the survivor's state to the bytes
+    the owner served, a fresh recompute's, and the reference's."""
+    from dryad_tpu_torch.api.query import Query
+    from dryad_tpu_torch.serve.fleet import ServeFleet, pack_for_fleet
+    from dryad_tpu_torch.serve.router import rendezvous_rank
+
+    def factory():
+        return T.DryadContext(num_partitions_=4, device="cpu")
+
+    rng = np.random.default_rng(7)
+    base, extra = _mk_exact(rng, 256), _mk_exact(rng, 64)
+    q = _shape_group(factory().from_arrays(base))
+    blob, fp = pack_for_fleet(q)
+    # the oracles at the replicas' P: a fresh port context and the reference
+    tctx, jctx = factory(), J.DryadContext(num_partitions_=4)
+    ref = tctx.run_to_host(_shape_group(tctx.from_arrays(_concat([base, extra]))))
+    jref = jctx.run_to_host(_shape_group(jctx.from_arrays(_concat([base, extra]))))
+    _byte_equal(ref, jref)
+    with ServeFleet(hb_interval=0.15, stale_after=0.8) as fleet:
+        runners = {rid: fleet.spawn_thread(rid, factory) for rid in ("r0", "r1")}
+        for runner in runners.values():
+            pq = runner._prepared_query({"package": blob})
+            sess = runner.svc.session("mv")
+            sess.register_view(pq)
+            sess.append(Query(runner.ctx, pq.node.inputs[0]), extra)
+        owner = rendezvous_rank(fp, fleet.replicas.alive())[0]
+        survivor = next(r for r in ("r0", "r1") if r != owner)
+        _byte_equal(ref, fleet.result(fleet.submit(tenant="mv", package=blob, fingerprint=fp),
+                                      timeout=120))
+        _byte_equal(ref, fleet.result(fleet.submit(tenant="mv", package=blob, fingerprint=fp),
+                                      timeout=120))
+        owner_snaps = [e for e in runners[owner].svc.events.events() if e["kind"] == "view_snapshot"]
+        assert [e["fresh"] for e in owner_snaps] == [False, True]
+        fleet.kill_replica(owner)
+        _byte_equal(ref, fleet.result(fleet.submit(tenant="mv", package=blob, fingerprint=fp),
+                                      timeout=120))
+        st = _wait_router(fleet, lambda st: st["delivered"] >= 3)
+        assert st["replayed"] == 1 and st["dead"] == [owner], st
+        surv = [e for e in runners[survivor].svc.events.events() if e["kind"] == "view_snapshot"]
+        assert surv and surv[-1]["fresh"] is False
