@@ -42,8 +42,14 @@ next stream flipped to the combine tree, an overflowing group_by
 pre-widened; each against its rewriter-off run), and the serving fleet
 (a front door before 4 replica processes on the card, 4 tenants of
 2^20 rows, 16 closed-loop client processes, a replica killed with
-queries in flight and replayed), checks every result against a numpy
-oracle, and prints:
+queries in flight and replayed, then one killed by a seeded fault whose
+flight-recorder dump ``tools/blackbox`` merges), and the telemetry plane
+(WordCount at 2^26 words in a default context: its device samples held
+to ``torch.cuda.mem_get_info``, ``explain(analyze=True)``, a
+``profile_dir`` trace naming the bucket kernel, the sampler's cost on the
+warm median, the span export, jobview and metricsd over its JSONL log,
+and a 2^26-row stream sort at ``dispatch_depth=-1`` beside depth 2,
+each twice, in the order -1, 2, 2, -1), checks every result against a numpy oracle, and prints:
 
 - a ``{"kernels": [...]}`` line (each kernel's launches on the main
   path, its error against the plain version, its time, the plain
@@ -57,7 +63,7 @@ result line.  Without a CUDA device it exits non-zero at once.
 ``--phases`` runs a subset (env, kernel, wordcount, dense, terasort,
 terasort_hot, groupby_sort, join_shuffle, join_broadcast, pagerank,
 decomposable, ordered_ops, cpu_parity, stores, stream, serve, cluster,
-rewrite, fleet), for short first
+rewrite, fleet, obs), for short first
 runs of a changed kernel.  The WordCount, TeraSort, sort-path group_by, join,
 PageRank, decomposable and ordered phases also profile one warm query
 with torch.profiler and print device time by op, the device's busy
@@ -133,8 +139,13 @@ KERNEL_CASES_VALS = ((), ("f32",), ("i32", "f32"))
 FLOAT_REL = 2.0 ** -16  # the reference's per-element bound for float sums
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """One line of the run's log, led by the seconds since the script
+    started (where the run's time goes, phase by phase and inside one)."""
+    print(f"[{time.perf_counter() - _T0:7.1f} s] {msg}", flush=True)
 
 
 def card_id() -> str:
@@ -494,9 +505,15 @@ def profile_query(q, path: str) -> dict:
     )
     from torch.autograd import DeviceType
 
-    # device busy time: the kernels', copies' and fills' own spans
+    # device busy time: the kernels', copies' and fills' own spans.  The
+    # executor's record_function range round each stage attempt also
+    # shows on the CUDA timeline (a gpu_user_annotation spanning the
+    # kernels it covers): it is no work of its own, and is left out
     busy = sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == DeviceType.CUDA) / 1e6
+               if e.device_type == DeviceType.CUDA and not e.is_user_annotation) / 1e6
+    # the port issues all its work on one stream: its spans cannot
+    # overlap, so more busy time than wall means something else counted
+    check(busy <= wall, f"profile: device busy {busy:.4f} s exceeds the profiled wall {wall:.4f} s")
     return {"top_ops_ms": [r for r in ops if r[1] > 0][:15], "device_busy_s": busy,
             "profiled_wall_s": wall}
 
@@ -705,12 +722,13 @@ def check_terasort(out: dict, key: np.ndarray, pay: np.ndarray, label: str, orac
     multiset (both packed to int64 and sorted).  ``oracle``: the input's
     ``terasort_oracle``, when computed ahead (numpy sorts release the
     GIL, so a phase can sort the input while the card works).  The
-    output's pairs are sorted stably: they are already in key order, so
-    the merge sort only orders payloads of equal keys."""
+    output's pairs are sorted by numpy's default sort: where one key
+    holds most rows (the hot-key input), the stable merge sort of pairs
+    already in key order is several times slower."""
     sorted_key, sorted_pairs = oracle if oracle is not None else terasort_oracle(key, pay)
     check(len(out["key"]) == len(key), f"{label}: {len(out['key'])} rows out of {len(key)}")
     check(np.array_equal(out["key"], sorted_key), f"{label}: keys are not sorted as np.sort")
-    check(np.array_equal(np.sort(_pack(out["key"], out["payload"]), kind="stable"), sorted_pairs),
+    check(np.array_equal(np.sort(_pack(out["key"], out["payload"])), sorted_pairs),
           f"{label}: (key, payload) pairs differ from the input's")
 
 
@@ -761,7 +779,9 @@ def phase_groupby_sort(dev, card: str) -> dict:
     res, out = timed_runs(ctx, q, "groupby_sort", card, GB_ROWS)
 
     # the oracle: float64 and exact int64 sums over the key-sorted rows
-    order = np.argsort(t["key"], kind="stable")
+    # (the order within a key moves the float64 sums by far less than
+    # the bound, so the faster unstable argsort serves)
+    order = np.argsort(t["key"])
     ks = t["key"][order]
     starts = np.flatnonzero(np.r_[True, ks[1:] != ks[:-1]])
     uniq = ks[starts]
@@ -977,26 +997,30 @@ def phase_join_broadcast(dev, card: str) -> dict:
 
 # -- phases 11-13: iteration, decomposable aggregates, ordered operators --------
 
-def kronecker_edges(rng, scale: int, edgefactor: int = 16):
+def kronecker_edges(seed: int, scale: int, edgefactor: int = 16, device: str = "cuda"):
     """The Graph500 Kronecker generator (graph500.org benchmark
     specification): ``edgefactor * 2^scale`` edges over ``2^scale``
     vertices, each edge's bits drawn with A=0.57, B=0.19, C=0.19
     (D=0.05), the vertex labels randomly permuted; then self loops
     removed (as samples/pagerank_dowhile.py does) and duplicate edges
-    kept."""
+    kept.  Drawn on ``device`` from a torch generator seeded with
+    ``seed`` (at scale 21, 2^31 draws: numpy took 18.7 s of set-up),
+    returned on the host."""
     n, m = 1 << scale, edgefactor << scale
     ab, c_norm, a_norm = PR_A + PR_B, PR_C / (1.0 - (PR_A + PR_B)), PR_A / (PR_A + PR_B)
-    src = np.zeros(m, np.int32)
-    dst = np.zeros(m, np.int32)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    src = torch.zeros(m, dtype=torch.int32, device=device)
+    dst = torch.zeros(m, dtype=torch.int32, device=device)
+    c_t, a_t = (torch.tensor(x, dtype=torch.float32, device=device) for x in (c_norm, a_norm))
     for bit in range(scale):
-        ii = rng.random(m, dtype=np.float32) > ab
-        jj = rng.random(m, dtype=np.float32) > np.where(ii, np.float32(c_norm), np.float32(a_norm))
-        src |= ii.astype(np.int32) << bit
-        dst |= jj.astype(np.int32) << bit
-    perm = rng.permutation(n).astype(np.int32)
-    src, dst = perm[src], perm[dst]
+        ii = torch.rand(m, generator=gen, device=device) > ab
+        jj = torch.rand(m, generator=gen, device=device) > torch.where(ii, c_t, a_t)
+        src |= ii.to(torch.int32) << bit
+        dst |= jj.to(torch.int32) << bit
+    perm = torch.randperm(n, generator=gen, device=device).to(torch.int32)
+    src, dst = perm[src.long()], perm[dst.long()]
     keep = src != dst
-    return src[keep], dst[keep]
+    return src[keep].cpu().numpy(), dst[keep].cpu().numpy()
 
 
 # PageRank rows (module level: a do_while's subplans are built once per
@@ -1069,9 +1093,8 @@ def phase_pagerank(dev, card: str) -> dict:
     exactly 10 rounds (eps = 0), checked against a float64 oracle."""
     from dryad_tpu_torch import DryadConfig, DryadContext
 
-    rng = np.random.default_rng(SEED + 11)
     t0 = time.perf_counter()
-    src, dst = kronecker_edges(rng, PR_SCALE)
+    src, dst = kronecker_edges(SEED + 11, PR_SCALE)
     n = 1 << PR_SCALE
     deg = np.bincount(src, minlength=n).astype(np.float32)
     w = (1.0 / np.maximum(deg, 1.0))[src].astype(np.float32)
@@ -1204,12 +1227,17 @@ def phase_decomposable(dev, card: str) -> dict:
     t0 = time.perf_counter()
     best = best_q.collect()
     res["argmax_warm_s"] = time.perf_counter() - t0
-    last = np.lexsort((visits["visitDate"], visits["adRevenue"], inv))
-    ends = np.r_[np.flatnonzero(np.diff(inv[last])), len(last) - 1]
+    # the oracle: each sourceIP's highest revenue, then the latest date
+    # among its rows at that revenue (two unbuffered maxima, not a sort)
+    top_rev = np.full(len(uk), -np.inf, np.float32)
+    np.maximum.at(top_rev, inv, visits["adRevenue"])
+    at_top = visits["adRevenue"] == top_rev[inv]
+    top_day = np.full(len(uk), np.iinfo(np.int32).min, np.int32)
+    np.maximum.at(top_day, inv[at_top], visits["visitDate"][at_top])
     ob = np.argsort(best["sourceIP"])
     check(np.array_equal(best["sourceIP"][ob], uk)
-          and np.array_equal(best["rev"][ob], visits["adRevenue"][last[ends]])
-          and np.array_equal(best["day"][ob], visits["visitDate"][last[ends]]),
+          and np.array_equal(best["rev"][ob], top_rev)
+          and np.array_equal(best["day"][ob], top_day),
           "decomposable argmax: not the oracle's highest revenue and latest date")
     check(overflow_retries(ctx) == 0, "decomposable argmax retried an overflow")
 
@@ -1413,8 +1441,7 @@ PARITY_SCALAR_QUERIES = {  # the queries of tests/test_torch_scalar.py
 
 
 def _parity_pagerank(ctx, t):
-    rng = np.random.default_rng(SEED + 13)
-    src, dst = kronecker_edges(rng, PR_PARITY_SCALE)
+    src, dst = kronecker_edges(SEED + 13, PR_PARITY_SCALE)
     n = 1 << PR_PARITY_SCALE
     deg = np.bincount(src, minlength=n).astype(np.float32)
     w = (1.0 / np.maximum(deg, 1.0))[src].astype(np.float32)
@@ -2964,6 +2991,24 @@ def phase_cluster(dev, card: str) -> dict:
                 f"{asm['wire_bytes']} wire bytes ({asm['raw_bytes']} raw); "
                 f"{res['wordcount']['launches']} kernel launches in the workers")
             wc_inputs, wc_K = vertex_shape(pkg, dev)
+            # each worker's own resource sampler reads the card device-wide
+            # (its job contexts' resource_sample events ship with its
+            # telemetry): the card's total, and the headroom all four
+            # processes leave
+            total = torch.cuda.mem_get_info(dev)[1]
+            ran = {int(e["computer"][6:]) for e in _since(sub, mark, "vertex_complete")}
+            heads = {e["worker"]: e for e in _since(sub, mark, "resource_sample")
+                     if "worker" in e and e["source"] == "device"}
+            check(ran and ran <= set(heads), f"device samples from workers {sorted(heads)}, "
+                  f"vertices ran on {sorted(ran)}")
+            for w, e in sorted(heads.items()):
+                check(e["hbm_limit_bytes"] == total and 0 < e["hbm_headroom_bytes"] <= total,
+                      f"worker {w}'s sample {e} against the card's {total} bytes")
+            res["wordcount"]["worker_headroom_bytes"] = {
+                str(w): e["hbm_headroom_bytes"] for w, e in sorted(heads.items())}
+            log(f"cluster WordCount: each worker's last headroom reading (GB of "
+                f"{total / 1e9:.2f}): " + ", ".join(
+                    f"worker{w} {e['hbm_headroom_bytes'] / 1e9:.2f}" for w, e in sorted(heads.items())))
 
             # 2. a straggler: speculative duplication
             sub.inject_delay(worker=1, seconds=CL_DELAY_S, count=1)
@@ -3745,6 +3790,44 @@ def phase_fleet(dev, card: str) -> dict:
         log(f"fleet kill [{card}]: {victim} killed with {in_flight} of {len(qids)} queries in flight; "
             f"{router['replayed']} replayed on the failover replica, byte-identical to the direct "
             f"runs; recovered in {recover_s:.3f} s (heartbeat stale after {FL_STALE_S} s)")
+
+        # a replica that dies through the chaos hook (a seeded FaultPlan
+        # kill at a command batch) dumps its flight recorder first:
+        # tools/blackbox merges the dump into the timeline of its death
+        dumps = os.path.join(root, "dumps")
+        cboot = os.path.join(root, "bootstrap_chaos.py")
+        with open(cboot, "w") as fh:
+            fh.write("from dryad_tpu_torch import DryadConfig, DryadContext\n\n\ndef build_context():\n"
+                     f"    return DryadContext(device={FL_DEVICE!r}, "
+                     f"config=DryadConfig(flightrec_dir={dumps!r}))\n")
+        fleet.spawn_process("rc", cboot, fault=json.dumps(
+            {"seed": 0, "worker_kill_prob": 1.0, "stages": ["replica:rc"]}), timeout=600.0)
+        live = [r for r in rids if r != victim] + ["rc"]
+        tab = direct.from_arrays(tables[0][2])
+        for n in range(4096, 8192):
+            q = tab.order_by("v").take(n)
+            blob, fp = pack_for_fleet(q)
+            if rendezvous_rank(fp, live)[0] == "rc":
+                break
+        t0 = time.perf_counter()
+        qid = fleet.submit(tenant="tenant0", package=blob, fingerprint=fp, tier=_tier(0))
+        fleet.result(qid, timeout=600)
+        header, table = result_of(fleet, qid)
+        check(digest(table) == digest(q.collect()), "fleet: the chaos replica's replayed query differs")
+        check("rc" in fleet.stats()["router"]["dead"], "fleet: the chaos replica was not reaped")
+        trace = os.path.join(root, "blackbox_trace.json")
+        bb = subprocess.run(
+            [sys.executable, "-m", "dryad_tpu_torch.tools.blackbox", dumps, "--window", "0",
+             "--diagnose", "--trace", trace], capture_output=True, text=True, cwd=ROOT, timeout=300)
+        check(bb.returncode == 0, f"blackbox exited {bb.returncode}: {bb.stderr[-2000:]}")
+        kill_lines = [ln for ln in bb.stdout.splitlines() if "worker_killed_injected" in ln]
+        check("reason=replica_chaos_kill" in bb.stdout and len(kill_lines) == 1,
+              "fleet: the blackbox timeline does not hold the chaos kill")
+        check(bool(json.load(open(trace))["traceEvents"]), "fleet: the blackbox trace is empty")
+        res["chaos_kill"] = {"recover_s": time.perf_counter() - t0}
+        log(f"fleet chaos kill: replica rc died at its first command batch after dumping its "
+            f"flight recorder; its query replayed byte-identical in {res['chaos_kill']['recover_s']:.3f} s; "
+            f"tools/blackbox merged the dump: {kill_lines[0].strip()}")
     finally:
         fleet.close()
     launches = {}
@@ -3770,6 +3853,354 @@ def phase_fleet(dev, card: str) -> dict:
     return res
 
 
+# -- phase 20: the telemetry plane, the profiler hook and the job tools ---------
+
+OBS_SORT_ROWS = 1 << 26  # the adaptive-depth stream sort, in SM_TS_CHUNK-row chunks
+OBS_COST_PAIRS = 60  # WordCount warm queries with the sampler on and off, interleaved
+
+
+def obs_stream_sort(spill_root: str, **cfg) -> dict:
+    """order_by(key) over a from_stream of OBS_SORT_ROWS seeded rows (the
+    stream phase's TeraSort input) read with collect_stream: the output's
+    key and payload digests (byte-equal runs have equal digests), its row
+    count and order-free checksum against the input's, the seconds, the
+    peak device memory and the dispatch depth its driver resolved."""
+    import hashlib
+
+    from dryad_tpu_torch.obs.telemetry import resolve_depth
+
+    rng = np.random.default_rng(SEED + 16)
+    made = {"sum": 0}
+
+    def chunks():
+        for _ in range(OBS_SORT_ROWS // SM_TS_CHUNK):
+            key = rng.integers(-2**31, 2**31, SM_TS_CHUNK, dtype=np.int32)
+            pay = rng.random(SM_TS_CHUNK, dtype=np.float32)
+            made["sum"] = (made["sum"] + row_checksum(key, pay)) % (1 << 64)
+            yield {"key": key, "payload": pay}
+
+    ctx = _stream_ctx(spill_root, **cfg)
+    # a fresh context's first sample comes with its first event, after
+    # the stream's driver resolved its depth: take one first, as a
+    # resident context's sampler would have
+    ctx.telemetry.sample()
+    headroom = ctx.headroom.headroom_bytes()
+    want = resolve_depth(ctx.config.dispatch_depth, ctx.headroom)
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    hk, hp = hashlib.sha256(), hashlib.sha256()
+    rows, total, last = 0, 0, None
+    t0 = time.perf_counter()
+    for piece in ctx.from_stream(chunks()).order_by([("key", False)]).collect_stream():
+        k = piece["key"]
+        if len(k) == 0:
+            continue
+        check(bool((k[1:] >= k[:-1]).all()) and (last is None or int(k[0]) >= last),
+              "obs stream sort: a piece is out of order")
+        last = int(k[-1])
+        hk.update(k.tobytes())
+        hp.update(piece["payload"].tobytes())
+        rows += len(k)
+        total = (total + row_checksum(k, piece["payload"])) % (1 << 64)
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    check(rows == OBS_SORT_ROWS and total == made["sum"],
+          f"obs stream sort: {rows} rows, checksum equal to the input's: {total == made['sum']}")
+    depths = {e["depth"] for e in ctx.events.events() if e["kind"] == "dispatch_window"}
+    check(depths == {want}, f"obs stream sort: dispatch windows at depths {depths}, resolved {want}")
+    out = {"digest": hk.hexdigest() + hp.hexdigest(), "seconds": secs, "peak_bytes": peak,
+           "depth": want, "headroom_bytes": headroom}
+    del ctx
+    free_card()
+    return out
+
+
+def phase_obs(dev, card: str) -> dict:
+    """The continuous telemetry plane, the profiler hook and the job tools
+    on WordCount at the wordcount phase's size, in a default context (the
+    resource sampler on) logging to a JSONL file: device-source samples
+    held to ``torch.cuda.mem_get_info`` around the query, no
+    ``hbm_pressure``; ``explain(analyze=True)``; ``profile_dir`` (a
+    torch.profiler trace naming the bucket kernel and one
+    ``record_function`` range per stage attempt; under a caller's
+    profiler the executor opens none and says so); the sampler's cost on
+    the warm median (its event tap on and off, interleaved); the span
+    export (``obs/trace.py``); the bucket kernel held against its plain
+    version at the inputs of its first launch at each shape on the path;
+    jobview and metricsd over the log; then a 2^26-row stream sort at
+    ``dispatch_depth=-1`` beside the default depth of 2, in the order
+    -1, 2, 2, -1."""
+    import json as _json
+    import shutil
+
+    from dryad_tpu_torch import DryadConfig, DryadContext
+    from dryad_tpu_torch.api.query import Query
+    from dryad_tpu_torch.obs.trace import write_chrome_trace
+    from dryad_tpu_torch.ops.bucket import bucket_sum_count
+    from dryad_tpu_torch.serve.service import QueryService
+
+    free_card()
+    t_phase = time.perf_counter()
+    root = os.path.join(WORK_DIR, "obs")
+    shutil.rmtree(root, ignore_errors=True)
+    logs, prof_dir = os.path.join(root, "events"), os.path.join(root, "profile")
+    os.makedirs(logs)
+    res = {"card": card, "words": WC_WORDS}
+    steps = res["steps_s"] = {}
+    t_step = [time.perf_counter()]
+
+    def step(name):
+        now = time.perf_counter()
+        steps[name] = now - t_step[0]
+        t_step[0] = now
+
+    rng = np.random.default_rng(SEED + 2)
+    ids = zipf_ids(rng, WC_WORDS)
+    tab = vocab_table()
+    words = np.array([bytes(r).split()[0].decode() for r in tab], object)
+    path = os.path.join(root, "wordcount.txt")
+    with open(path, "wb") as fh:
+        fh.write(tab[ids].tobytes())
+    cnt = np.bincount(ids, minlength=WC_VOCAB)
+    oracle = {w: c for w, c in zip(words.tolist(), cnt.tolist()) if c}
+    del ids
+
+    def rows_ok(table, what):
+        check(dict(zip(table["word"].tolist(), table["n"].tolist())) == oracle,
+              f"obs WordCount ({what}) differs from the numpy oracle")
+
+    ctx = DryadContext(num_partitions_=P, config=DryadConfig(event_log_dir=logs))
+    check(ctx.telemetry is not None and ctx.executor.headroom is ctx.headroom,
+          "the default context has no resource sampler")
+    q = ctx.from_text(path).group_by("word", {"n": ("count", None)})
+    os.remove(path)
+    step("input_and_tokenize")
+    bucket_sum_count.launches = 0  # the obs path starts here
+    # the inputs of the kernel's first launch at each shape on the path,
+    # held against its plain version after it (uninstalled at its end)
+    rec = LaunchRecorder().__enter__()
+    rows_ok(q.collect(), "first query")
+    step("first_query")
+
+    # 1. device samples during a warm query, inside what mem_get_info
+    # reads around it: free + the allocator's cached bytes
+    time.sleep(ctx.config.telemetry_sample_s)  # a sample is due at its first event
+    mark = len(ctx.events.events())
+    torch.cuda.synchronize()
+    free0, total = torch.cuda.mem_get_info(dev)
+    reserved0 = torch.cuda.memory_reserved(dev)
+    rows_ok(q.collect(), "sampled")
+    torch.cuda.synchronize()
+    free1, _ = torch.cuda.mem_get_info(dev)
+    reserved1 = torch.cuda.memory_reserved(dev)
+    samples = [e for e in ctx.events.events()[mark:] if e["kind"] == "resource_sample"]
+    check(bool(samples) and all(e["source"] == "device" for e in samples),
+          f"obs: the warm query's samples {samples}")
+    lo, hi = min(free0, free1), max(free0, free1) + max(reserved0, reserved1)
+    for e in samples:
+        check(e["hbm_limit_bytes"] == total, f"obs: sample limit {e['hbm_limit_bytes']} != {total}")
+        check(lo <= e["hbm_headroom_bytes"] <= hi,
+              f"obs: sample headroom {e['hbm_headroom_bytes']} outside [{lo}, {hi}]")
+        check(e["hbm_used_bytes"] + e["hbm_headroom_bytes"] == total, f"obs: sample {e}")
+    res["sample"] = {k: samples[-1][k] for k in ("hbm_used_bytes", "hbm_limit_bytes", "hbm_headroom_bytes")}
+    log(f"obs [{card}]: {len(samples)} device sample(s) in the warm query: limit {total} B "
+        f"(= mem_get_info's total), headroom {samples[-1]['hbm_headroom_bytes'] / 1e9:.3f} GB within "
+        f"[{lo / 1e9:.3f}, {hi / 1e9:.3f}] GB (free before/after, widened by the cached bytes)")
+
+    step("samples")
+
+    # 2. explain(analyze=True): the same query, its rows kept
+    kept = []
+    q.collect = lambda: kept.append(Query.collect(q)) or kept[-1]
+    text = q.explain(analyze=True)
+    del q.collect
+    rows_ok(kept[0], "explain(analyze=True)")
+    check("\n  phases: " in text and "\n-- critical path --\n" in text,
+          "obs: explain(analyze=True) lacks its phases line or critical path")
+    log("obs explain(analyze=True), its runtime panels:\n" + text.split("== runtime diagnosis ==")[1])
+
+    step("explain_analyze")
+
+    # 3. profile_dir: one trace per top-level job (the executor reads the
+    # directory from the context's config at each job)
+    ctx.config.profile_dir = prof_dir
+    mark = len(ctx.events.events())
+    rows_ok(q.collect(), "profile_dir")
+    evs = ctx.events.events()[mark:]
+    (written,) = [e["path"] for e in evs if e["kind"] == "profile_trace"]
+    check(os.path.dirname(written) == prof_dir, f"obs: trace written to {written}")
+    doc = _json.load(open(written))
+    kern = [e for e in doc["traceEvents"] if e.get("cat") == "kernel"]
+    check(any("bucket_cluster" in e["name"] for e in kern), "obs: the trace does not name the bucket kernel")
+    attempts = [e["name"] for e in evs if e["kind"] == "span" and e["cat"] == "execute"]
+    ranges = [e["name"] for e in doc["traceEvents"] if e.get("cat") == "user_annotation"]
+    check(bool(attempts) and all(ranges.count(n) == attempts.count(n) for n in set(attempts)),
+          f"obs: record_function ranges {sorted(set(ranges))[:8]} against attempts {attempts}")
+    by_op = {}
+    for e in kern + [e for e in doc["traceEvents"] if e.get("cat") in ("gpu_memcpy", "gpu_memset")]:
+        by_op[e["name"]] = by_op.get(e["name"], 0.0) + e.get("dur", 0.0) / 1e3
+    top = sorted(by_op.items(), key=lambda kv: -kv[1])[:15]
+    res["profile"] = {"trace_bytes": os.path.getsize(written), "attempts": len(attempts),
+                      "device_ms_by_op": top, "device_ms": sum(by_op.values())}
+    for name, ms in top:
+        log(f"  obs profile_dir trace [{card}] {ms:9.3f} ms  {name[:90]}")
+    log(f"obs profile_dir: {os.path.getsize(written) / 1e6:.1f} MB trace, the bucket kernel named, "
+        f"{len(attempts)} stage attempt range(s); device time {res['profile']['device_ms']:.3f} ms "
+        "(kernels, copies, fills)")
+    from torch.profiler import ProfilerActivity, profile
+
+    mark = len(ctx.events.events())
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        rows_ok(q.collect(), "under a caller's profiler")
+    (skipped,) = [e for e in ctx.events.events()[mark:] if e["kind"] == "profile_trace"]
+    check(skipped["path"] is None and skipped["skipped"] == "profiler_active"
+          and os.listdir(prof_dir) == [os.path.basename(written)],
+          "obs: the executor opened a session under a caller's profiler")
+    ctx.config.profile_dir = None
+    step("profile_dir")
+
+    # 4. the sampler's cost on the warm median: its tap off and on in
+    # turn (obs_telemetry=False builds no sampler; the tap is all it adds)
+    tap = ctx.telemetry.observe
+    times = {"on": [], "off": []}
+    mark = len(ctx.events.events())
+    for i in range(OBS_COST_PAIRS):
+        for mode in (("on", "off") if i % 2 == 0 else ("off", "on")):
+            if mode == "off":
+                ctx.events.remove_tap(tap)
+            t0 = time.perf_counter()
+            q.collect()
+            times[mode].append(time.perf_counter() - t0)
+            if mode == "off":
+                ctx.events.add_tap(tap)
+    evs = ctx.events.events()[mark:]
+    per_query = sum(e["kind"] != "resource_sample" for e in evs) / (2 * OBS_COST_PAIRS)
+    sampled = sum(e["kind"] == "resource_sample" for e in evs)
+    med = {m: float(np.median(v)) for m, v in times.items()}
+    spread = {m: float(np.percentile(v, 75) - np.percentile(v, 25)) for m, v in times.items()}
+    # the sampler's own work, apart: one tap call that samples nothing,
+    # and one sample of the card (no event log)
+    from dryad_tpu_torch.obs.telemetry import ResourceMonitor, device_memory_probe
+
+    probe = ResourceMonitor(interval_s=1e9, device_memory_fn=device_memory_probe(dev))
+    probe.sample()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        probe.sample()
+    sample_us = (time.perf_counter() - t0) / 200 * 1e6
+    probe.observe({"kind": "note"})
+    t0 = time.perf_counter()
+    for _ in range(10000):
+        probe.observe({"kind": "note"})
+    tap_us = (time.perf_counter() - t0) / 10000 * 1e6
+    res["sampler_cost"] = {"pairs": OBS_COST_PAIRS, "median_on_s": med["on"], "median_off_s": med["off"],
+                           "iqr_on_s": spread["on"], "iqr_off_s": spread["off"],
+                           "ratio": med["on"] / med["off"], "events_per_query": per_query,
+                           "samples_taken": sampled, "sample_us": sample_us, "tap_us": tap_us}
+    log(f"obs sampler cost [{card}]: WordCount warm median {med['on']:.4f} s with the sampler, "
+        f"{med['off']:.4f} s without ({OBS_COST_PAIRS} each, interleaved; IQR {spread['on']:.4f} / "
+        f"{spread['off']:.4f} s): ratio {med['on'] / med['off']:.4f}; apart: a tap call {tap_us:.2f} us "
+        f"x {per_query:.1f} events a query, a sample of the card {sample_us:.1f} us ({sampled} taken "
+        f"in the {OBS_COST_PAIRS} sampled queries)")
+
+    step("sampler_cost")
+
+    # 5. one served query (the query counters), the span export
+    with QueryService(ctx) as svc:
+        rows_ok(svc.session("obs").run(q), "served")
+    del svc
+    evs = ctx.events.events()
+    check(not [e for e in evs if e["kind"] == "diagnosis" and e["rule"] == "hbm_pressure"],
+          "obs: a clean run diagnosed hbm_pressure")
+    spans_path = os.path.join(root, "spans.json")
+    write_chrome_trace(evs, spans_path)
+    doc = _json.load(open(spans_path))
+    n_exec = sum(e["kind"] == "span" and e["cat"] == "execute" for e in evs)
+    n_x = sum(e["ph"] == "X" and e["cat"] == "execute" for e in doc["traceEvents"])
+    check(n_exec > 0 and n_x == n_exec, f"obs: {n_x} execute slices for {n_exec} execute spans")
+    launches = bucket_sum_count.launches  # the obs path ends here
+    rec.__exit__(None, None, None)
+    check(launches >= 1 and launches == rec.calls,
+          f"obs: the path launched the bucket kernel {launches} times in {rec.calls} calls")
+    step("serve_and_span_export")
+    shapes = []
+    for (m, K, _), (keys, vals, valid) in sorted(rec.first.items()):
+        shapes.append(kernel_shape_report(keys, vals, valid, K))
+        log(f"kernel vs plain at an obs shape ({shapes[-1]['shape']}): byte-equal; kernel "
+            f"{shapes[-1]['kernel_ms']:.3f} ms, plain {shapes[-1]['plain_ms']:.3f} ms, "
+            f"{shapes[-1]['library']} {shapes[-1]['library_ms']:.3f} ms, bound "
+            f"{shapes[-1]['bound_ms']:.4f} ms")
+    rec.first.clear()
+    res["kernel_shapes"] = shapes
+    step("kernel_shapes")
+
+    # 6. the job tools over the JSONL log, through their command lines
+    import contextlib
+    import io
+
+    from dryad_tpu_torch.exec.events import EventLog
+    from dryad_tpu_torch.tools import jobview, metricsd
+
+    (log_path,) = [os.path.join(logs, f) for f in os.listdir(logs)]
+    html = os.path.join(root, "job.html")
+    tools = {}
+    for name, mod, argv in (("jobview", jobview, ["--html", html, log_path]),
+                            ("metricsd", metricsd, [log_path])):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = mod.main(argv)
+        check(rc == 0, f"obs: {name} exited {rc}")
+        tools[name] = out.getvalue()
+    check("job: OK" in tools["jobview"] and "-- time attribution --" in tools["jobview"],
+          "obs: jobview's report:\n" + tools["jobview"])
+    check("<svg" in open(html).read(), "obs: jobview's HTML has no stage DAG")
+    # the live view's panels (``--follow``), rendered from the same log
+    logged = EventLog.load(log_path)
+    panels = jobview.render_telemetry(logged) + "\n" + jobview.render_queries(logged)
+    check("hbm: used=" in panels and "\n-- queries --\n" in panels,
+          "obs: jobview's telemetry or queries panel is missing:\n" + panels)
+    prom = tools["metricsd"]
+    check("\ndryad_hbm_headroom_bytes " in prom and 'dryad_queries_completed_total{tenant="obs"} 1' in prom
+          and 'dryad_queries_admitted_total{tenant="obs"} 1' in prom,
+          "obs: metricsd's Prometheus text lacks the headroom gauge or the query counters")
+    log("obs jobview panels:\n" + "\n".join(panels.splitlines()[:8]))
+    log("obs metricsd: " + "; ".join(ln for ln in prom.splitlines()
+                                    if ln.startswith(("dryad_hbm_", "dryad_queries_completed"))))
+    del ctx, q, kept
+    free_card()
+    step("job_tools")
+
+    # 7. the adaptive dispatch depth: a 2^26-row stream sort at -1 beside
+    # 2, in the order -1, 2, 2, -1 so that neither depth always runs first
+    spill = os.path.join(root, "spill")
+    runs = {"-1": [], "2": []}
+    for depth in ("-1", "2", "2", "-1"):
+        runs[depth].append(obs_stream_sort(spill, **({"dispatch_depth": -1} if depth == "-1" else {})))
+    step("adaptive_depth_sorts")
+    deep, base = runs["-1"][0], runs["2"][0]
+    check(all(r["depth"] == 2 for r in runs["2"]), f"obs: the default depth resolved to {base['depth']}")
+    check(all(r["depth"] == deep["depth"] for r in runs["-1"]),
+          f"obs: dispatch_depth=-1 resolved to {[r['depth'] for r in runs['-1']]}")
+    check(all(r["digest"] == base["digest"] for r in runs["-1"] + runs["2"]),
+          "obs: the depth -1 sort's rows differ from depth 2's")
+    res["adaptive_depth"] = {"rows": OBS_SORT_ROWS, "resolved": deep["depth"], "order": "-1, 2, 2, -1",
+                             "headroom_bytes": deep["headroom_bytes"],
+                             "seconds": {d: [r["seconds"] for r in v] for d, v in runs.items()},
+                             "peak_bytes": {d: [r["peak_bytes"] for r in v] for d, v in runs.items()}}
+    log(f"obs adaptive depth [{card}]: dispatch_depth=-1 resolved to {deep['depth']} from "
+        f"{deep['headroom_bytes'] / 1e9:.2f} GB headroom; the {OBS_SORT_ROWS}-row stream sort, run "
+        f"in the order -1, 2, 2, -1: depth -1 "
+        + ", ".join(f"{r['seconds']:.3f} s (peak {r['peak_bytes'] / 1e9:.3f} GB)" for r in runs["-1"])
+        + "; depth 2 "
+        + ", ".join(f"{r['seconds']:.3f} s (peak {r['peak_bytes'] / 1e9:.3f} GB)" for r in runs["2"])
+        + "; rows byte-equal")
+    shutil.rmtree(root, ignore_errors=True)
+    res.update(launches=launches, phase_s=time.perf_counter() - t_phase)
+    log(f"obs phase [{card}]: {res['phase_s']:.1f} s ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in steps.items())
+        + f" s); {launches} bucket kernel launches on the obs path")
+    return res
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -3777,7 +4208,7 @@ def main(argv=None) -> int:
         "--phases",
         default="env,kernel,wordcount,dense,terasort,terasort_hot,groupby_sort,"
                 "join_shuffle,join_broadcast,pagerank,decomposable,ordered_ops,cpu_parity,stores,"
-                "stream,serve,cluster,rewrite,fleet")
+                "stream,serve,cluster,rewrite,fleet,obs")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     if not torch.cuda.is_available():
@@ -3788,42 +4219,34 @@ def main(argv=None) -> int:
     card = card_line()
     results = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda}
     results["env"] = phase_env(card)  # always: the build is needed by every phase
-    if "kernel" in phases:
-        results["kernel"] = phase_kernel(dev)
-    if "wordcount" in phases:
-        results["wordcount"] = phase_wordcount(dev, card)
-    if "dense" in phases:
-        results["dense"] = phase_dense(dev, card)
-    if "terasort" in phases:
-        results["terasort"] = phase_terasort(dev, card, TS_ROWS, hot=False)
-    if "terasort_hot" in phases:
-        results["terasort_hot"] = phase_terasort(dev, card, TS_HOT_ROWS, hot=True)
-    if "groupby_sort" in phases:
-        results["groupby_sort"] = phase_groupby_sort(dev, card)
-    if "join_shuffle" in phases:
-        results["join_shuffle"] = phase_join_shuffle(dev, card)
-    if "join_broadcast" in phases:
-        results["join_broadcast"] = phase_join_broadcast(dev, card)
-    if "pagerank" in phases:
-        results["pagerank"] = phase_pagerank(dev, card)
-    if "decomposable" in phases:
-        results["decomposable"] = phase_decomposable(dev, card)
-    if "ordered_ops" in phases:
-        results["ordered_ops"] = phase_ordered_ops(dev, card)
-    if "cpu_parity" in phases:
-        results["cpu_parity"] = phase_cpu_parity(dev, card)
-    if "stores" in phases:
-        results["stores"] = phase_stores(dev, card)
-    if "stream" in phases:
-        results["stream"] = phase_stream(dev, card)
-    if "serve" in phases:
-        results["serve"] = phase_serve(dev, card)
-    if "cluster" in phases:
-        results["cluster"] = phase_cluster(dev, card)
-    if "rewrite" in phases:
-        results["rewrite"] = phase_rewrite(dev, card)
-    if "fleet" in phases:
-        results["fleet"] = phase_fleet(dev, card)
+    steps = (
+        ("kernel", lambda: phase_kernel(dev)),
+        ("wordcount", lambda: phase_wordcount(dev, card)),
+        ("dense", lambda: phase_dense(dev, card)),
+        ("terasort", lambda: phase_terasort(dev, card, TS_ROWS, hot=False)),
+        ("terasort_hot", lambda: phase_terasort(dev, card, TS_HOT_ROWS, hot=True)),
+        ("groupby_sort", lambda: phase_groupby_sort(dev, card)),
+        ("join_shuffle", lambda: phase_join_shuffle(dev, card)),
+        ("join_broadcast", lambda: phase_join_broadcast(dev, card)),
+        ("pagerank", lambda: phase_pagerank(dev, card)),
+        ("decomposable", lambda: phase_decomposable(dev, card)),
+        ("ordered_ops", lambda: phase_ordered_ops(dev, card)),
+        ("cpu_parity", lambda: phase_cpu_parity(dev, card)),
+        ("stores", lambda: phase_stores(dev, card)),
+        ("stream", lambda: phase_stream(dev, card)),
+        ("serve", lambda: phase_serve(dev, card)),
+        ("cluster", lambda: phase_cluster(dev, card)),
+        ("rewrite", lambda: phase_rewrite(dev, card)),
+        ("fleet", lambda: phase_fleet(dev, card)),
+        ("obs", lambda: phase_obs(dev, card)),
+    )
+    wall = results["phase_wall_s"] = {}
+    for name, run in steps:
+        if name in phases:
+            t0 = time.perf_counter()
+            results[name] = run()
+            wall[name] = time.perf_counter() - t0
+            log(f"phase {name}: {wall[name]:.1f} s")
     print("results: " + json.dumps(results))
 
     kern = results.get("kernel", {})
@@ -3842,6 +4265,7 @@ def main(argv=None) -> int:
         "cluster": results.get("cluster", {}).get("launches"),
         "rewrite": results.get("rewrite", {}).get("launches"),
         "fleet": results.get("fleet", {}).get("launches"),
+        "obs": results.get("obs", {}).get("launches"),
     }
     ran = [n for n in per_path.values() if n is not None]
     jb = kern.get("join_broadcast", {})
@@ -3878,6 +4302,7 @@ def main(argv=None) -> int:
         "cluster_shapes": results.get("cluster", {}).get("kernel_shapes"),
         "rewrite_shapes": results.get("rewrite", {}).get("kernel_shapes"),
         "fleet_shapes": results.get("fleet", {}).get("kernel_shapes"),
+        "obs_shapes": results.get("obs", {}).get("kernel_shapes"),
     }]}
     print(json.dumps(line))
     print(card)

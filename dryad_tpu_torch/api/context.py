@@ -45,6 +45,7 @@ from dryad_tpu_torch.exec.events import EventLog
 from dryad_tpu_torch.exec.executor import GraphExecutor
 from dryad_tpu_torch.obs import flightrec, tracectx
 from dryad_tpu_torch.obs.diagnose import DiagnosisEngine
+from dryad_tpu_torch.obs.telemetry import ResourceMonitor, device_memory_probe
 from dryad_tpu_torch.parallel.partition import block_layout
 from dryad_tpu_torch.plan.lower import lower
 from dryad_tpu_torch.plan.nodes import Node, PartitionInfo
@@ -151,8 +152,23 @@ class DryadContext:
         if self.config.obs_diagnosis and self.config.plan_rewrite:
             self.rewriter = RewriteController(config=self.config, events=self.events)
             self.events.add_tap(self.rewriter.observe)
+        # the resource sampler (obs/telemetry.py), paced by the event
+        # flow (resident processes call ctx.telemetry.start()): its
+        # samples feed the hbm_pressure rule upstream and the measured
+        # headroom the adaptive dispatch depths read; None (local_debug,
+        # obs_telemetry=False): the default depth
+        self.telemetry: Optional[ResourceMonitor] = None
+        self.headroom = None
+        if self.config.obs_telemetry and not local_debug:
+            self.telemetry = ResourceMonitor(
+                interval_s=self.config.telemetry_sample_s, events=self.events,
+                device_memory_fn=device_memory_probe(self.device),
+            )
+            self.headroom = self.telemetry.headroom
+            self.events.add_tap(self.telemetry.observe)
         self.executor = GraphExecutor(self.num_partitions, self.config, self.device, self.events)
         self.executor.rewriter = self.rewriter
+        self.executor.headroom = self.headroom
         # one job at a time: the executor keeps per-job state, and the
         # stream driver runs jobs from its prefetch threads too (a
         # group_by over a join's bucket stream); re-entrant for do_while
@@ -683,6 +699,9 @@ class DryadContext:
         return (batch, deferred) if defer_miss else batch
 
     def _host_table(self, query: Query, batch: ColumnBatch) -> Dict[str, np.ndarray]:
+        # device->host byte accounting (obs/metrics.py): every result
+        # fetch funnels through here or the stream driver
+        self.executor.metrics.add("d2h_bytes", batch.nbytes())
         table = batch.to_numpy(query.schema, self.dictionary)
         if self._codecs:
             from dryad_tpu_torch.columnar.codecs import collapse_table

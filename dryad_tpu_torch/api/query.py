@@ -978,16 +978,26 @@ class Query:
 
     def explain(self, analyze: bool = False) -> str:
         """The logical plan, the stage graph and the fusion decision as
-        text (``tools/explain.py``).  ``analyze=True`` needs the
-        runtime-diagnosis panel of ``obs/``, not ported yet."""
-        if analyze:
-            raise NotImplementedError(
-                "dryad_tpu_torch does not port Query.explain(analyze=True) yet "
-                "(ROADMAP.md, queue 1 item 14: obs)"
-            )
-        from dryad_tpu_torch.tools.explain import explain
+        text (``tools/explain.py``).  ``analyze=True`` EXECUTES the
+        query first and appends the runtime-diagnosis panel (phase
+        attribution plus any pathologies the online engine,
+        ``obs/diagnose.py``, caught during the run) and the run's
+        critical path (``obs/critpath.py``)."""
+        from dryad_tpu_torch.obs import critpath, tracectx
+        from dryad_tpu_torch.tools.explain import explain, explain_diagnoses
 
-        return explain(self)
+        text = explain(self)
+        if analyze:
+            # mint (or adopt) a trace context so the run's events are
+            # qid-stamped, then fold them into the critical-path panel
+            tctx = tracectx.current() or tracectx.mint()
+            with tracectx.activate(tctx):
+                self.collect()
+            text += "\n\n" + explain_diagnoses(self.ctx)
+            bd = critpath.fold_query(self.ctx.events.events(), tctx.qid)
+            if bd is not None and bd.phases:
+                text += "\n\n-- critical path --\n" + bd.format()
+        return text
 
     def __iter__(self):
         """Execute and yield the result's rows as dicts."""

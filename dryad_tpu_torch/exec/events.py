@@ -16,7 +16,9 @@ serialization.
 
 The full event schema lives in :data:`EVENT_KINDS` below, copied whole
 from the reference (kinds of modules the port has not ported yet
-included, so the registry is one schema).
+included, so the registry is one schema), plus the port's one kind of
+its own, ``profile_trace`` (the torch.profiler session of
+``config.profile_dir``).
 ``tests/test_torch_events_explain.py`` checks that every ``emit(...)``
 kind in the port is registered.
 
@@ -100,6 +102,8 @@ EVENT_KINDS: Dict[str, str] = {
     "telemetry_merged": "driver absorbed worker span/counter batches",
     # -- diagnosis / flight recorder (obs.diagnose / exec.events) ---------
     "resource_sample": "continuous telemetry sample; hbm/rss/probes",
+    "profile_trace": "profiler trace of a top-level job written (path), "
+                     "or skipped under another active profiler (port only)",
     "diagnosis": "online pathology detected; rule/severity/evidence/hint",
     "plan_rewrite": "runtime plan rewrite decided/applied; "
                     "action/rule/phase (rewrite.controller)",
@@ -333,6 +337,7 @@ EVENT_PAYLOADS: Dict[str, Tuple[Tuple[str, ...], Tuple[str, ...]]] = {
     "worker_killed_injected": (("name", "stage"), ()),
     "quarantine_delta": (("computer", "count", "src"), ()),
     "quarantine_absorbed": (("deltas", "source"), ()),
+    "profile_trace": (("path",), ("skipped",)),
     "resource_sample": (
         ("source",),
         ("hbm_headroom_bytes", "hbm_limit_bytes", "hbm_used_bytes",

@@ -75,10 +75,21 @@ ported stages need:
   fingerprint loads them instead of dispatching (``stage_checkpoint_hit``,
   no ``stage_start``).  A unit with a dictionary-miss guard saves only
   after the job's miss check passed (at ``DeferredFinish.finish``).
+- With ``config.profile_dir`` set, a top-level job runs inside a
+  ``torch.profiler`` session (CUDA activity recorded when the device
+  is the card) and writes one Chrome trace into the directory on exit
+  (``profile_trace`` names it); each dispatch attempt is a
+  ``record_function`` range named after its unit, the reference's
+  per-stage step marker.  A nested run (a ``do_while`` subplan) records
+  into the open session, and a job that starts while another profiler
+  is active (a caller's own) records into that one and logs
+  ``profile_trace`` with ``skipped``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import itertools
 import math
 import os
 import time
@@ -108,6 +119,9 @@ from dryad_tpu_torch.plan.lower import Stage, StageGraph, StageOp, tail_width
 from dryad_tpu_torch.utils.logging import get_logger
 
 _log = get_logger("dryad_tpu_torch.exec")
+
+# trace files of ``config.profile_dir``, numbered within the process
+_PROFILE_SEQ = itertools.count()
 
 __all__ = ["DeferredFinish", "GraphExecutor", "JobFailedError", "StageFailedError", "retry_regions"]
 
@@ -349,6 +363,14 @@ class GraphExecutor:
         # ``retune_exchange`` decisions are logged and applied nowhere.
         self.rewriter = None
         self._rewrites_applied: set = set()
+        # the measured headroom of the context's resource sampler
+        # (obs/telemetry.py), wired by the context; the reference's
+        # executor reads it for the staged exchange's window, which the
+        # port does not have (ROADMAP queue 1 item 11)
+        self.headroom = None
+        # True while this executor's profiler session is open: a nested
+        # execute (a do_while subplan) records into it
+        self._profiling = False
 
     # -- structural identity -------------------------------------------------
     def _stage_key(self, stage: Stage) -> Tuple:
@@ -404,7 +426,8 @@ class GraphExecutor:
         self.subquery_runner = subquery_runner or saved_runner
         self._depth += 1
         try:
-            results, misses, ckpts = self._execute(graph, bindings, binding_fps or {})
+            with self._profile():
+                results, misses, ckpts = self._execute(graph, bindings, binding_fps or {})
         finally:
             self._depth -= 1
             self.subquery_runner = saved_runner
@@ -415,6 +438,39 @@ class GraphExecutor:
             return results, deferred
         deferred.finish(deferred=False)
         return results
+
+    def _profile(self):
+        """The profiler session of a top-level job under
+        ``config.profile_dir``, or a null context: without the
+        directory, inside this executor's own session, or while another
+        profiler is active (it records the same work)."""
+        pdir = getattr(self.config, "profile_dir", None)
+        if not pdir or self._profiling:
+            return contextlib.nullcontext()
+        if torch._C._autograd._profiler_enabled():
+            self.event_log.emit("profile_trace", path=None, skipped="profiler_active")
+            return contextlib.nullcontext()
+        return self._profile_session(pdir)
+
+    @contextlib.contextmanager
+    def _profile_session(self, pdir: str):
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        os.makedirs(pdir, exist_ok=True)
+        path = os.path.join(
+            pdir, f"job-{int(time.time() * 1000)}-{os.getpid()}-{next(_PROFILE_SEQ)}.json")
+        self._profiling = True
+        prof = profile(activities=acts)
+        try:
+            with prof:
+                yield
+        finally:
+            self._profiling = False
+            prof.export_chrome_trace(path)
+            self.event_log.emit("profile_trace", path=path)
 
     def _execute(self, graph: StageGraph, bindings, binding_fps):
         results: Dict[Tuple[int, int], ColumnBatch] = {}
@@ -619,7 +675,8 @@ class GraphExecutor:
             # concentration itself may be what overflowed
             fan = adapt_fan if adapt_fan and boost < 4 else None
             host = None
-            with self.tracer.span(name, cat="execute", stage=sid, version=version, boost=boost):
+            with torch.profiler.record_function(name), \
+                    self.tracer.span(name, cat="execute", stage=sid, version=version, boost=boost):
                 overflow, dict_miss = self._dispatch(unit, bindings, results, fan, boost)
                 counts = [results[e].valid.sum() for e in exports] if want_count else []
                 windowed = window is not None and (can_overflow or bool(window))

@@ -456,8 +456,11 @@ class StreamExecutor:
         self.pipeline_depth = max(1, int(cfg.stream_pipeline_depth))
         self.writer_queue = int(cfg.stream_writer_queue)
         # chunk and bucket dispatches in flight behind the dispatch
-        # window's collector; any depth gives the serial loop's bytes
-        self.dispatch_depth = max(1, telemetry.resolve_depth(int(cfg.dispatch_depth)))
+        # window's collector (-1: the measured headroom's tier, read
+        # from the context's sampler); any depth gives the serial
+        # loop's bytes
+        self.dispatch_depth = max(1, telemetry.resolve_depth(
+            int(cfg.dispatch_depth), getattr(ctx, "headroom", None)))
         # cross-chunk fusion: K chunk partial-plans lowered as one job
         self.chunk_fuse = max(1, int(cfg.chunk_fuse))
         self.max_split_depth = 3

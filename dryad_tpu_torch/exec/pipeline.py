@@ -272,10 +272,12 @@ class DispatchWindow:
         depth: int,
         events=None,
         name: str = "dispatch",
+        headroom=None,
     ):
-        # -1: the adaptive depth (``obs/telemetry.py``); any depth is
-        # byte-identical, the collector drains in submit order
-        depth = telemetry.resolve_depth(depth)
+        # -1: the adaptive depth, a tier of the measured headroom
+        # (``obs/telemetry.py``); any depth is byte-identical, the
+        # collector drains in submit order
+        depth = telemetry.resolve_depth(depth, headroom)
         if depth < 1:
             raise ValueError("dispatch depth must be >= 1")
         self.depth = depth

@@ -20,9 +20,9 @@ residual, never silently redistributed).
 
 Phases (:data:`PHASES`): admission_wait / cache_probe / compile /
 ingest / dispatch / exchange / collective / readback / other.
-Surface: ``QueryService.stats()["slo"]`` per-tenant phase totals
-(``explain(analyze=True)`` and the jobview panel are ROADMAP queue 1
-item 14).
+Surfaces: ``QueryService.stats()["slo"]`` per-tenant phase totals, the
+``-- critical path --`` panel of ``Query.explain(analyze=True)`` and
+jobview's queries panel.
 """
 
 from __future__ import annotations

@@ -13,8 +13,8 @@ atomically to ``blackbox-<pid>.json`` when the process is about to die:
 ``record`` is an ``EventLog`` tap (called on every event, outside the
 log lock), so it never raises and never blocks.  Microsnapshots are
 sampled inside ``record`` when ``snapshot_s`` has elapsed: no
-background thread, no idle cost.  The dump merger (``tools/blackbox.py``)
-is ROADMAP queue 1 item 14.
+background thread, no idle cost.  ``tools/blackbox.py`` merges the
+dumps into one timeline.
 """
 
 from __future__ import annotations

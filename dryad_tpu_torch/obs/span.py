@@ -7,16 +7,18 @@ on monotonic clocks and serializes into the event stream as ONE
 "parent_id", "dur", "thread", "qid", ...fields}``; ``qid`` is the
 active query's (``obs/tracectx.py``), None outside any query.  Its start is ``mono -
 dur``, so the stream never holds an unmatched begin.  Parenting is
-implicit per thread (a thread-local stack).  Span ids are unique
+implicit per thread (a thread-local stack); work handed to another
+thread passes ``parent=`` (:meth:`Tracer.current_id`).  Span ids are unique
 process-wide (one shared counter).
 """
 
 from __future__ import annotations
 
+import functools
 import itertools
 import threading
 import time
-from typing import Any
+from typing import Any, Optional
 
 from dryad_tpu_torch.obs import tracectx
 
@@ -29,6 +31,9 @@ _ids_lock = threading.Lock()
 def _next_id() -> int:
     with _ids_lock:
         return next(_ids)
+
+
+_UNSET = object()
 
 
 class Span:
@@ -115,10 +120,32 @@ class Tracer:
         elif span in st:  # mis-nested exit: drop it and everything above
             del st[st.index(span):]
 
-    def span(self, name: str, cat: str = "driver", **fields: Any):
-        """Open a span as a context manager, the child of this thread's
-        innermost open span."""
+    def current_id(self) -> Optional[int]:
+        """Id of this thread's innermost open span (to pass as
+        ``parent=`` into work handed to another thread)."""
+        st = self._stack()
+        return st[-1].span_id if st else None
+
+    def span(self, name: str, cat: str = "driver", parent=_UNSET, **fields: Any):
+        """Open a span as a context manager.  ``parent`` defaults to
+        this thread's innermost open span; pass an explicit id (or
+        None) when the logical parent lives on another thread."""
         if self._events is None:
             return _NULL
-        st = self._stack()
-        return Span(self, name, cat, st[-1].span_id if st else None, dict(fields))
+        pid = self.current_id() if parent is _UNSET else parent
+        return Span(self, name, cat, pid, dict(fields))
+
+    def traced(self, name: Optional[str] = None, cat: str = "driver", **fields: Any):
+        """Decorator form: the wrapped call body runs inside a span."""
+
+        def deco(fn):
+            sname = name or fn.__name__
+
+            @functools.wraps(fn)
+            def wrapper(*a, **k):
+                with self.span(sname, cat=cat, **fields):
+                    return fn(*a, **k)
+
+            return wrapper
+
+        return deco

@@ -1,16 +1,44 @@
-"""Telemetry (a part of ``dryad_tpu/obs/telemetry.py``): the rolling
-metric store behind the serving tier's per-tenant SLO readouts, its
-Prometheus text export, and dispatch-depth resolution.
+"""The continuous telemetry plane (a copy of ``dryad_tpu/obs/telemetry.py``):
+live resource monitoring, rolling SLO metrics, and measured-headroom
+adaptive policies.
 
 - :class:`RollingStore`: windowed counters, last-write gauges and pow2
   latency histograms with p50/p95/p99 readouts, labeled (per tenant,
   per phase).  The window is a ring of ``buckets`` sub-windows rotated
   by an injectable clock.  Every metric name written anywhere in the
   port appears in :data:`METRIC_KEYS`.
-- :func:`resolve_depth`: the reference's adaptive depth (-1) picks a
-  tier from measured device headroom; the port has no resource monitor
-  yet (``HeadroomProvider`` and ``ResourceMonitor`` are ROADMAP queue 1
-  item 14), so -1 takes the reference's no-measurement default.
+- :class:`ResourceMonitor`: the live resource sampler.  It reads device
+  memory through :func:`device_memory_probe` (below), falls back to the
+  host (process RSS from ``/proc`` via ``obs/flightrec.py``), and adds
+  every probe of the flightrec shared registry (the serve queue, the
+  dispatch windows).  Samples land in a bounded ring, as
+  ``resource_sample`` events (the ``hbm_pressure`` diagnosis, the
+  jobview telemetry panel, the Chrome-trace counter track) and as
+  gauges on a RollingStore.  Sampling is opportunistic (an EventLog
+  tap paced by ``interval_s``: no idle cost); :meth:`ResourceMonitor.start`
+  adds a background thread for resident processes.
+- :class:`HeadroomProvider`: the measured headroom that the adaptive
+  dispatch depth (:func:`resolve_depth`, ``dispatch_depth=-1``)
+  consults.  Any depth gives the serial loop's bytes, so a bad
+  measurement can cost time, never correctness.
+
+The device probe.  The reference reads its allocator's ``bytes_in_use``
+and ``bytes_limit``.  Here the limit is the card's total memory from
+``torch.cuda.mem_get_info``, and the headroom is the card's free memory
+plus the blocks this process's caching allocator holds unused
+(``memory_reserved - memory_allocated``: free to reuse); used is the
+limit minus the headroom.  Read device-wide like this, the headroom
+stays honest when several worker processes or serving replicas share
+one card: a per-process reading would show each of them the whole card
+free.  The probe never creates a CUDA context (it reads only a CUDA
+device of a process whose CUDA state is initialized, else the host
+fallback is taken, as on the CPU), and it adds no stream sync; it names
+the device explicitly, because the tap runs on whichever thread emits
+(the spill writer, the prefetcher).
+
+Export surfaces: :func:`prometheus_text` / :meth:`RollingStore.snapshot`
+(``tools/metricsd.py``), ``resource_sample`` counter tracks in
+``obs/trace.py``, and the jobview telemetry panel.
 """
 
 from __future__ import annotations
@@ -18,11 +46,17 @@ from __future__ import annotations
 import math
 import threading
 import time
+from collections import deque
 from typing import Any, Callable, Dict, List, Optional, Tuple
+
+from dryad_tpu_torch.obs import flightrec
 
 __all__ = [
     "METRIC_KEYS",
     "RollingStore",
+    "ResourceMonitor",
+    "HeadroomProvider",
+    "device_memory_probe",
     "resolve_depth",
     "latency_bucket",
     "bucket_upper",
@@ -44,6 +78,10 @@ METRIC_KEYS: Dict[str, str] = {
     "query_phase_s": "critical-path phase time per completed query, "
                      "per tenant+phase (obs.critpath fold)",
     "serve_queue_depth": "queued-and-unpicked queries across tenants",
+    "hbm_used_bytes": "device HBM in use (summed over local devices)",
+    "hbm_limit_bytes": "device HBM capacity (summed over local devices)",
+    "hbm_headroom_bytes": "limit - used; the adaptive policies' input",
+    "host_rss_kb": "driver process resident set size (CPU fallback)",
 }
 
 _QUANTILES = (0.5, 0.95, 0.99)
@@ -349,13 +387,216 @@ def prometheus_text(
     return "\n".join(lines) + ("\n" if lines else "")
 
 
-# the window drains in submit order, so any depth gives the serial
-# loop's bytes
+class HeadroomProvider:
+    """The measured-headroom handle the adaptive policies consult.
+
+    ``headroom_bytes()`` returns the latest measured free-HBM figure,
+    or None when no measurement is available — in which case every
+    consumer falls back to its configured behavior (the default
+    depth).  Thread-safe; the sampler writes, the
+    driver reads."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._headroom: Optional[int] = None
+
+    def update(self, headroom_bytes: Optional[int]) -> None:
+        with self._lock:
+            self._headroom = (
+                None if headroom_bytes is None else int(headroom_bytes)
+            )
+
+    def headroom_bytes(self) -> Optional[int]:
+        with self._lock:
+            return self._headroom
+
+
+# deterministic headroom -> depth tiers for dispatch_depth == -1; the
+# window collector drains strictly in submit order, so ANY resolved
+# depth is byte-identical to the serial loop — the tiers only trade
+# in-flight host result memory against device idle gaps
+_DEPTH_TIERS = ((4 << 30, 4), (1 << 30, 3), (256 << 20, 2))
 _DEFAULT_ADAPTIVE_DEPTH = 2
 
 
-def resolve_depth(config_depth: int) -> int:
-    """``config_depth >= 1`` is returned as is; ``-1`` (adaptive) is
-    the reference's no-measurement default, 2."""
+def resolve_depth(config_depth: int, provider=None) -> int:
+    """The effective dispatch-window depth for one driver.
+
+    ``config_depth >= 1`` is a static override, returned verbatim;
+    ``-1`` is the adaptive mode — measured headroom picks the tier
+    (>=4GB -> 4, >=1GB -> 3, >=256MB -> 2, else 1), and with no
+    measurement available the default (2) applies.  Any other value
+    returns verbatim for the caller's own validation to reject.
+    Deterministic in its inputs."""
     d = int(config_depth)
-    return _DEFAULT_ADAPTIVE_DEPTH if d == -1 else d
+    if d != -1:
+        return d
+    h = provider.headroom_bytes() if provider is not None else None
+    if h is None:
+        return _DEFAULT_ADAPTIVE_DEPTH
+    h = int(h)
+    for floor, depth in _DEPTH_TIERS:
+        if h >= floor:
+            return depth
+    return 1
+
+
+def _no_device_memory() -> Optional[Tuple[int, int]]:
+    return None
+
+
+def device_memory_probe(device) -> Callable[[], Optional[Tuple[int, int]]]:
+    """The ``device_memory_fn`` of a context on ``device``: a reader of
+    ``(used, limit)`` bytes of that card (see the module doc), which
+    returns None (the host fallback) off CUDA, or while the process's
+    CUDA state is uninitialized, so that sampling never creates a
+    context."""
+    import torch  # noqa: PLC0415 - keeps this module light to import
+
+    device = torch.device(device)
+    if device.type != "cuda":
+        return _no_device_memory
+
+    def read() -> Optional[Tuple[int, int]]:
+        if not torch.cuda.is_initialized():
+            return None
+        free, total = torch.cuda.mem_get_info(device)
+        cached = torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+        headroom = min(total, free + max(0, cached))
+        return total - headroom, total
+
+    return read
+
+
+class ResourceMonitor:
+    """Live resource sampler; see the module doc.
+
+    ``observe`` is an EventLog tap (opportunistic sampling on event
+    flow — the flightrec discipline, zero idle cost); :meth:`start`
+    adds a background daemon thread for resident processes that must
+    keep sampling while the event stream is idle.  Both paths funnel
+    through :meth:`sample`, which is also the manual test surface.
+
+    ``device_memory_fn`` is injectable (tests fake HBM readings; a
+    context passes ``device_memory_probe(ctx.device)``, and without
+    one every sample takes the host fallback); ``clock`` paces
+    opportunistic sampling deterministically."""
+
+    def __init__(
+        self,
+        interval_s: float = 1.0,
+        events=None,
+        store: Optional[RollingStore] = None,
+        clock: Callable[[], float] = time.monotonic,
+        history: int = 256,
+        device_memory_fn: Callable[
+            [], Optional[Tuple[int, int]]
+        ] = _no_device_memory,
+    ):
+        if interval_s <= 0:
+            raise ValueError("interval_s must be > 0")
+        self.interval_s = float(interval_s)
+        self.events = events
+        self.store = store
+        self.headroom = HeadroomProvider()
+        self.samples: deque = deque(maxlen=max(1, int(history)))
+        self._clock = clock
+        self._device_memory = device_memory_fn
+        self._last = float("-inf")
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    # -- sampling ------------------------------------------------------------
+
+    def sample(self) -> Dict[str, Any]:
+        """Take one sample now: device HBM (or the host fallback),
+        plus every shared flightrec probe.  Retains it in the ring,
+        updates the headroom provider and gauges, and emits one
+        ``resource_sample`` event."""
+        snap: Dict[str, Any] = {"mono": self._clock()}
+        mem = self._device_memory()
+        store = self.store
+        if mem is not None:
+            used, limit = mem
+            headroom = max(0, limit - used)
+            snap.update(
+                source="device",
+                hbm_used_bytes=used,
+                hbm_limit_bytes=limit,
+                hbm_headroom_bytes=headroom,
+            )
+            self.headroom.update(headroom)
+            if store is not None:
+                store.set_gauge("hbm_used_bytes", used)
+                store.set_gauge("hbm_limit_bytes", limit)
+                store.set_gauge("hbm_headroom_bytes", headroom)
+        else:
+            snap["source"] = "host"
+            rss = flightrec._rss_kb()
+            if rss is not None:
+                snap["rss_kb"] = rss
+                if store is not None:
+                    store.set_gauge("host_rss_kb", rss)
+            # no device measurement: the adaptive consumers must fall
+            # back to their configured budgets, not act on a stale one
+            self.headroom.update(None)
+        probes = flightrec.sample_shared_probes()
+        if probes:
+            snap["probes"] = probes
+        with self._lock:
+            self.samples.append(snap)
+        if self.events is not None:
+            fields = {k: v for k, v in snap.items() if k != "mono"}
+            self.events.emit("resource_sample", **fields)
+        return snap
+
+    def observe(self, ev: Dict[str, Any]) -> None:
+        """EventLog tap: sample when ``interval_s`` has elapsed since
+        the last one.  Never raises; ignores its own samples (no
+        self-sustaining feedback)."""
+        try:
+            if ev.get("kind") == "resource_sample":
+                return
+            now = self._clock()
+            if now - self._last >= self.interval_s:
+                self._last = now
+                self.sample()
+        except Exception:
+            pass  # observability must never fail the job
+
+    def recent(self) -> List[Dict[str, Any]]:
+        with self._lock:
+            return list(self.samples)
+
+    # -- background thread (resident processes) ------------------------------
+
+    def start(self) -> "ResourceMonitor":
+        """Spawn the background sampler thread (idempotent)."""
+        with self._lock:
+            if self._thread is not None:
+                return self
+            self._stop.clear()
+            self._thread = threading.Thread(
+                target=self._run, name="dryad-telemetry", daemon=True
+            )
+            self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        """Stop and join the sampler thread (no-op when not started)."""
+        with self._lock:
+            thread = self._thread
+            self._thread = None
+        if thread is None:
+            return
+        self._stop.set()
+        thread.join(timeout=10.0)
+
+    def _run(self) -> None:
+        while not self._stop.wait(self.interval_s):
+            try:
+                self._last = self._clock()
+                self.sample()
+            except Exception:
+                pass  # keep sampling; one bad read is not fatal

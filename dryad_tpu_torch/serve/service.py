@@ -251,7 +251,7 @@ class QueryService:
         self.views = ViewRegistry(ctx, events=self.events)
         self._window = DispatchWindow(
             depth=self.config.dispatch_depth, events=self.events,
-            name="serve",
+            name="serve", headroom=getattr(ctx, "headroom", None),
         )
         # per-tenant SLO plane: admission->completion latency
         # percentiles and windowed admission/completion/rejection

@@ -9,9 +9,9 @@ logical node DAG with partition metadata, (2) the stage graph the
 executor will run and (3) the fusion decision (``plan/fuse.py``), plus
 DOT and SVG drawings of the stage graph.  For the same query both
 packages print the same text but for node and stage ids, which each
-package draws from its own counters.  The runtime-diagnosis and lint
-panels (``explain_diagnoses``, ``explain_lint``) need ``obs/`` and
-``analysis/``, ROADMAP.md queue 1 item 14.
+package draws from its own counters.  ``explain_diagnoses`` is the
+runtime-diagnosis panel of ``Query.explain(analyze=True)``; the lint
+panel (``explain_lint``) needs ``analysis/``, ROADMAP.md queue 1 item 15.
 """
 
 from __future__ import annotations
@@ -270,17 +270,42 @@ def explain_svg(query) -> str:
     return "\n".join(out)
 
 
-_OBS_PENDING = "ROADMAP.md, queue 1 item 14: obs and analysis"
-
-
 def explain_diagnoses(ctx) -> str:
-    """The runtime-diagnosis panel of ``Query.explain(analyze=True)``:
-    it folds the online diagnosis engine (``obs/diagnose.py``), which
-    the port does not have yet."""
-    raise NotImplementedError(f"dryad_tpu_torch does not port explain_diagnoses yet ({_OBS_PENDING})")
+    """Runtime-health panel for ``Query.explain(analyze=True)``: the
+    online pathologies (``obs/diagnose.py``) the context's engine
+    caught, plus the phase attribution of the stream it watched."""
+    lines = ["== runtime diagnosis =="]
+    eng = getattr(ctx, "diagnosis", None)
+    if eng is None:
+        lines.append("  (diagnosis engine off: config.obs_diagnosis)")
+        return "\n".join(lines)
+    from dryad_tpu_torch.obs.metrics import JobMetrics
+
+    attr = JobMetrics.from_events(ctx.events.events()).attribution()
+    if attr:
+        phases = "  ".join(
+            f"{k[:-2]}={v:.3f}s"
+            for k, v in sorted(attr.items())
+            if v and k.endswith("_s")
+        )
+        if phases:
+            lines.append(f"  phases: {phases}")
+    found = eng.diagnoses()
+    if not found:
+        lines.append("  no pathologies detected")
+    for d in found:
+        ev = " ".join(f"{k}={v}" for k, v in sorted(d["evidence"].items()))
+        lines.append(
+            f"  [{d['severity']}] {d['rule']} ({d['subject']}): {ev}"
+        )
+        lines.append(f"      hint: {d['hint']}")
+    return "\n".join(lines)
 
 
 def explain_lint(root=None) -> str:
     """The static-analysis panel: it runs the graftlint engine
     (``analysis/``), which the port does not have yet."""
-    raise NotImplementedError(f"dryad_tpu_torch does not port explain_lint yet ({_OBS_PENDING})")
+    raise NotImplementedError(
+        "dryad_tpu_torch does not port explain_lint yet "
+        "(ROADMAP.md, queue 1 item 15: analysis and lint)"
+    )

@@ -75,6 +75,10 @@ class DryadConfig:
     - ``event_log_dir``: directory of the context's JSONL event log
       (one ``job-<ms>.jsonl`` file per context); None keeps the log in
       memory only.
+    - ``profile_dir``: torch.profiler output directory (one Chrome
+      trace per top-level job, CUDA activity included on the card;
+      each stage attempt a ``record_function`` range named after the
+      stage); None disables.
     - ``obs_events_mem_cap``: ring cap of the event log's in-memory
       mirror; 0 = unbounded (the file keeps the full stream).
     - Out-of-core streaming (``exec/outofcore.py``):
@@ -99,7 +103,7 @@ class DryadConfig:
       which the flat combiner retries the device (0: never).
     - ``dispatch_depth``: chunk and bucket jobs in flight behind the
       dispatch window's collector thread (1: dispatch then read; -1:
-      adaptive, which resolves to 2 without a memory measurement);
+      adaptive: the measured headroom's tier, 2 without a measurement);
       ``chunk_fuse``: chunk plans lowered together into one job.
     - Stage checkpoints (``exec/checkpoint.py``): ``checkpoint_dir``
       holds each stage's output keyed by its content fingerprint (None
@@ -138,6 +142,11 @@ class DryadConfig:
       online rules on; ``diagnose_skew_ratio``,
       ``diagnose_recompile_burst`` and ``diagnose_cooldown_s`` are
       their triggers.
+    - Continuous telemetry (``obs/telemetry.py``): ``obs_telemetry``
+      turns on the resource sampler and its measured headroom (the
+      ``dispatch_depth=-1`` tiers and the ``hbm_pressure`` rule read
+      it; off: the default depth); ``telemetry_sample_s`` is the least
+      time between two samples.
     - Runtime plan rewriting (``rewrite/``): ``plan_rewrite`` turns on
       the diagnosis-driven, byte-identity-preserving rewriter; the
       controller taps the event stream, folds ``diagnosis`` events into
@@ -166,6 +175,7 @@ class DryadConfig:
     overflow_sync_depth: int = _env_int("DRYAD_TPU_OVERFLOW_SYNC_DEPTH", 4)
     intermediate_compression: Optional[str] = None  # None | "zlib"
     event_log_dir: Optional[str] = None
+    profile_dir: Optional[str] = None
     obs_events_mem_cap: int = _env_int("DRYAD_TPU_OBS_EVENTS_MEM_CAP", 1 << 16)
     stream_bucket_rows: int = _env_int("DRYAD_TPU_STREAM_BUCKET_ROWS", 1 << 21)
     stream_combine_rows: int = _env_int("DRYAD_TPU_STREAM_COMBINE_ROWS", 1 << 20)
@@ -199,6 +209,8 @@ class DryadConfig:
     serve_cache_min_sec_per_gb: float = _env_float(
         "DRYAD_TPU_SERVE_CACHE_MIN_SEC_PER_GB", 0.5
     )
+    obs_telemetry: bool = _env_bool("DRYAD_TPU_OBS_TELEMETRY", True)
+    telemetry_sample_s: float = _env_float("DRYAD_TPU_TELEMETRY_SAMPLE_S", 1.0)
     telemetry_window_s: float = _env_float("DRYAD_TPU_TELEMETRY_WINDOW_S", 60.0)
     query_trace: bool = _env_bool("DRYAD_TPU_QUERY_TRACE", True)
     max_stage_failures: int = 3
@@ -288,6 +300,8 @@ class DryadConfig:
             )
         if self.serve_cache_min_sec_per_gb < 0:
             raise ValueError("serve_cache_min_sec_per_gb must be >= 0")
+        if self.telemetry_sample_s <= 0:
+            raise ValueError("telemetry_sample_s must be > 0")
         if self.telemetry_window_s <= 0:
             raise ValueError("telemetry_window_s must be > 0")
         if self.max_stage_failures < 1:

@@ -388,3 +388,27 @@ def test_registered_finalize_without_keys_fails_in_one_context_like_the_referenc
             ctx.from_arrays(t).group_by("k", decomposable=lin["moments"]).collect()
         errs.append(str(ei.value))
     assert errs[0] == errs[1] == "'k'"
+
+
+def test_job_metrics_fold_coded_and_cluster_events_like_the_reference(submission):
+    """The events of a coded ``submit_partitioned`` job, folded by both
+    packages' ``JobMetrics``, give equal fields: the coded launches,
+    reconstructions and waste, retries, quarantines and workers."""
+    import dataclasses
+
+    from dryad_tpu.obs.metrics import JobMetrics as JMetrics
+    from dryad_tpu.obs.metrics import format_attribution as jformat
+    from dryad_tpu_torch.obs.metrics import JobMetrics as TMetrics
+    from dryad_tpu_torch.obs.metrics import format_attribution as tformat
+
+    mark = len(submission.events.events())
+    submission.submit_partitioned(
+        _ctx("port").from_arrays(_int_table(17)).group_by("k", {"c": ("count", None)}),
+        nparts=4, coded=True)
+    evs = submission.events.events()[mark:]
+    t, j = TMetrics.from_events(evs), JMetrics.from_events(evs)
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    assert t.attribution() == j.attribution() and tformat(t) == jformat(j)
+    assert t.coded_reconstructs == 1
+    assert t.coded_launches == sum(e["kind"] == "coded_launch" for e in evs)
+    assert t.retries == sum(e["kind"] in ("stage_failed", "vertex_retry", "coded_retry") for e in evs)

@@ -84,11 +84,11 @@ def _ctxs(**cfg):
 
 def _swap_executor_log(jc):
     """Give the reference's executor a log of its own (its stream apart
-    from the context's spans); its diagnosis engine and plan rewriter
-    tap the context's log, so they move to the executor's, where the
-    stage events they fold now land."""
+    from the context's spans); its diagnosis engine, plan rewriter and
+    resource sampler tap the context's log, so they move to the
+    executor's, where the stage events they fold now land."""
     jc.executor.events = JEventLog(None)
-    for tap in (jc.diagnosis, jc.rewriter):
+    for tap in (jc.diagnosis, jc.rewriter, jc.telemetry):
         if tap is not None:
             tap.events = jc.executor.events
             jc.executor.events.add_tap(tap.observe)
@@ -182,14 +182,63 @@ def test_renumber_keeps_distinct_ids_distinct():
     assert a == "#0 <- #1 stage 0 <- input#0 stage1.out0 region f2: [stage0]"
 
 
+_SECS = re.compile(r"\d+\.\d+s")
+_PCT = re.compile(r"\(\d+%\)")
+_QID = re.compile(r"\bq-\d+-\d+")
+
+
+def mask_analyze(text: str) -> str:
+    """An ``explain(analyze=True)`` text with its clocks masked: seconds
+    and shares, the qid (each package draws qids from its own counter),
+    the two phases only one package or only the clock decides: the
+    reference's ``compile`` (the port has no compile step, so its
+    ``compile_s`` is 0 and drops out of the phases line) and the
+    critical path's ``other``, the residual wall time no span covers;
+    and the diagnoses of the wall-clock rules."""
+    text = _QID.sub("q-N", _PCT.sub("(X%)", _SECS.sub("Xs", text)))
+    text = re.sub(r"compile=Xs\s*", "", text)
+    text = re.sub(r"  (compile|other) Xs \(X%\)", "", renumber(text))
+    # diagnoses of the rules that fold the wall clock (and their hint
+    # lines) are the clock's; "no pathologies" then says nothing
+    lines, skip = [], False
+    for ln in text.split("\n"):
+        m = re.match(r"  \[\w+\] (\w+) ", ln)
+        if m and m.group(1) in CLOCK_RULES:
+            skip = True
+        elif not (skip and ln.startswith("      hint: ")) and ln != "  no pathologies detected":
+            skip = False
+            lines.append(ln)
+    return "\n".join(lines)
+
+
+def _overflowing(c):
+    rng = np.random.default_rng(0)
+    t = {"k": rng.integers(-5000, 5000, 4000).astype(np.int32),
+         "v": rng.standard_normal(4000).astype(np.float32)}
+    return c.from_arrays(t).group_by("k", {"c": ("count", None), "s": ("sum", "v")})
+
+
 def test_explain_analyze_and_the_obs_panels_name_their_item():
-    _, tc = _ctxs()
-    q = tc.from_text(TEXT)
-    with pytest.raises(NotImplementedError, match="queue 1 item 14"):
-        q.explain(analyze=True)
-    with pytest.raises(NotImplementedError, match="queue 1 item 14"):
-        texplain.explain_diagnoses(tc)
-    with pytest.raises(NotImplementedError, match="queue 1 item 14"):
+    """``explain(analyze=True)`` and ``explain_diagnoses`` give the
+    reference's text, clocks masked: WordCount, then a group_by whose
+    exchange overflows at ``shuffle_slack=1.0`` (the second run
+    diagnoses ``overflow_loop``); ``explain_lint`` still raises, naming
+    its queue item."""
+    for cfg, build in (({}, lambda c: c.from_text(TEXT).group_by("word", {"n": ("count", None)})),
+                       ({"shuffle_slack": 1.0}, _overflowing)):
+        jc = J.DryadContext(num_partitions_=P, config=J.DryadConfig(**cfg))
+        tc = T.DryadContext(num_partitions_=P, config=T.DryadConfig(**cfg), device="cpu")
+        for _ in range(2):
+            ref, port = (build(c).explain(analyze=True) for c in (jc, tc))
+            assert mask_analyze(port) == mask_analyze(ref)
+            assert "== runtime diagnosis ==" in port and "-- critical path --" in port
+        assert mask_analyze(texplain.explain_diagnoses(tc)) == \
+            mask_analyze(jexplain.explain_diagnoses(jc))
+    assert "[warn] overflow_loop (input+group_by)" in port
+    off = T.DryadContext(num_partitions_=P, config=T.DryadConfig(obs_diagnosis=False), device="cpu")
+    assert texplain.explain_diagnoses(off) == jexplain.explain_diagnoses(
+        J.DryadContext(num_partitions_=P, config=J.DryadConfig(obs_diagnosis=False)))
+    with pytest.raises(NotImplementedError, match="queue 1 item 15"):
         texplain.explain_lint()
 
 
@@ -272,10 +321,17 @@ def _spans(events):
 
 # kinds decided by each package's own wall clock, as ``seconds`` is:
 # ``stage_straggler`` flags an attempt slower than the unit's duration
-# model (both packages run it; which attempt crosses it is timing)
-CLOCK_KINDS = {"span", "stage_straggler"}
+# model (both packages run it; which attempt crosses it is timing), and
+# the resource sampler samples at most once a ``telemetry_sample_s``,
+# so its ``resource_sample`` count follows the clock (compared by kind
+# and source instead)
+CLOCK_KINDS = {"span", "stage_straggler", "resource_sample"}
 # diagnosis rules that fold durations or rates of the wall clock
 CLOCK_RULES = {"straggler", "stall_dominance", "recompile_storm"}
+
+
+def _samples(events):
+    return {(e["kind"], e["source"]) for e in events if e["kind"] == "resource_sample"}
 
 
 def _assert_streams_equal(tc, jc, kinds):
@@ -284,6 +340,7 @@ def _assert_streams_equal(tc, jc, kinds):
     writes to the context's own log (the harness swaps the executor's)."""
     assert _comparable(tc.events.events(), kinds - CLOCK_KINDS) == \
         _comparable(jc.executor.events.events(), kinds - CLOCK_KINDS)
+    assert _samples(tc.events.events()) == _samples(jc.executor.events.events())
     spans = _spans(tc.events.events())
     assert spans and all(s["qid"] is not None for s in spans)
     assert spans == _spans(jc.events.events())

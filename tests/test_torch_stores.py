@@ -26,7 +26,7 @@ import dryad_tpu_torch as T
 from dryad_tpu.columnar import codecs as jcodecs
 from dryad_tpu.columnar import io as jio
 from dryad_tpu.exec.events import EventLog
-from dryad_tpu.tools.azblob_stub import AzureBlobStubServer
+from dryad_tpu_torch.tools.azblob_stub import AzureBlobStubServer
 from dryad_tpu_torch.columnar import codecs as tcodecs
 from dryad_tpu_torch.columnar import io as tio
 from dryad_tpu_torch.columnar import uri as turi

@@ -185,8 +185,16 @@ def test_unported_shapes_raise_not_implemented():
     unknown = Node("bogus", [q.node, k.node], q.schema, PartitionInfo())
     with pytest.raises(NotImplementedError, match="lowering for node kind 'bogus'"):
         tlower([unknown], tc.config, tc.dictionary)
-    with pytest.raises(NotImplementedError, match=r"Query.explain\(analyze=True\) .*queue 1 item 14"):
-        q.explain(analyze=True)
+    # explain(analyze=True) is ported: its runtime panels are the
+    # reference's, clocks masked (the plan text is compared, ids
+    # renumbered, in tests/test_torch_events_explain.py)
+    from tests.test_torch_events_explain import mask_analyze
+
+    jc, _ = _ctxs()
+    port, ref = (c.from_text("b a c a").group_by("word", {"n": ("count", None)}).explain(analyze=True)
+                 for c in (tc, jc))
+    panel = "== runtime diagnosis =="
+    assert mask_analyze(port.split(panel)[1]) == mask_analyze(ref.split(panel)[1])
     # collect_stream is ported: a plan without a stream input yields
     # its whole result as one piece
     (piece,) = list(k.collect_stream())
