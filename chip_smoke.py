@@ -2,7 +2,10 @@
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
-It builds the port's native code from the checkout (the CUDA bucket
+It first runs the port's static-analysis gate (graftlint, the whole
+registry of ``dryad_tpu_torch/analysis/`` over the checkout: any
+unsuppressed finding fails the run before anything is built), then
+builds the port's native code from the checkout (the CUDA bucket
 kernel for sm_90a, the host tokenizer and the host I/O routines, the
 compilers started together), holds the kernel against its plain PyTorch version on the
 card, drives through the port's entry points WordCount at full size,
@@ -60,7 +63,7 @@ each twice, in the order -1, 2, 2, -1), checks every result against a numpy orac
 
 Any failed check raises, so the script exits non-zero and prints no
 result line.  Without a CUDA device it exits non-zero at once.
-``--phases`` runs a subset (env, kernel, wordcount, dense, terasort,
+``--phases`` runs a subset (lint, env, kernel, wordcount, dense, terasort,
 terasort_hot, groupby_sort, join_shuffle, join_broadcast, pagerank,
 decomposable, ordered_ops, cpu_parity, stores, stream, serve, cluster,
 rewrite, fleet, obs), for short first
@@ -190,6 +193,32 @@ def free_card() -> None:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+# -- phase 0: the static-analysis gate ----------------------------------------
+
+def phase_lint(card: str) -> dict:
+    """The port's whole graftlint registry over this checkout, through
+    ``explain_lint`` (the counterpart of the reference's ``bench.py
+    --lint-gate``).  It parses source only: no card, a few seconds.  One
+    line gives the panel's per-rule counts and the phase's seconds
+    beside the card; an unsuppressed finding raises."""
+    from dryad_tpu_torch.tools.explain import explain_lint
+
+    t0 = time.perf_counter()
+    panel = explain_lint(root=ROOT).split("\n")
+    seconds = time.perf_counter() - t0
+    rules = {}
+    for ln in panel[1:]:
+        parts = ln.split()
+        if len(parts) >= 2 and (parts[1] == "ok" or parts[1].startswith("FINDINGS=")):
+            rules[parts[0]] = " ".join(parts[1:])
+    n_sup = sum(1 for ln in panel if ln.startswith("    dryad_tpu_torch/"))
+    log("lint: " + ", ".join(f"{r} {v}" for r, v in rules.items())
+        + f"; {n_sup} suppressions; {panel[-1].strip()}; {seconds:.2f} s on {card}")
+    check(len(rules) == 20, f"lint: expected 20 rules in the panel, got {len(rules)}")
+    check(panel[-1] == "  tree clean", "lint: unsuppressed findings\n" + "\n".join(panel))
+    return {"rules": rules, "suppressions": n_sup, "seconds": seconds, "card": card}
 
 
 # -- phase 1: environment and build ------------------------------------------
@@ -4206,7 +4235,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument(
         "--phases",
-        default="env,kernel,wordcount,dense,terasort,terasort_hot,groupby_sort,"
+        default="lint,env,kernel,wordcount,dense,terasort,terasort_hot,groupby_sort,"
                 "join_shuffle,join_broadcast,pagerank,decomposable,ordered_ops,cpu_parity,stores,"
                 "stream,serve,cluster,rewrite,fleet,obs")
     args = ap.parse_args(argv)
@@ -4218,6 +4247,12 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     card = card_line()
     results = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda}
+    wall = results["phase_wall_s"] = {}
+    if "lint" in phases:  # first: a dirty tree fails before the build
+        t0 = time.perf_counter()
+        results["lint"] = phase_lint(card)
+        wall["lint"] = time.perf_counter() - t0
+        log(f"phase lint: {wall['lint']:.1f} s")
     results["env"] = phase_env(card)  # always: the build is needed by every phase
     steps = (
         ("kernel", lambda: phase_kernel(dev)),
@@ -4240,7 +4275,6 @@ def main(argv=None) -> int:
         ("fleet", lambda: phase_fleet(dev, card)),
         ("obs", lambda: phase_obs(dev, card)),
     )
-    wall = results["phase_wall_s"] = {}
     for name, run in steps:
         if name in phases:
             t0 = time.perf_counter()

@@ -96,6 +96,7 @@ def register_linear(name: str, dec: Decomposable) -> Decomposable:
     """Register a linear Decomposable exemplar (validates the flag)."""
     if not dec.linear:
         raise ValueError(f"{name!r} is not declared linear=True")
+    # graftlint: disable=kernel-determinism -- import-time registration API; the table is fixed before any vertex runs
     LINEAR_DECOMPOSABLES[name] = dec
     return dec
 

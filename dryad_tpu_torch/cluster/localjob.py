@@ -434,7 +434,8 @@ class LocalJobSubmission:
             return "<no log>"
 
     def _check_workers_alive(self) -> None:
-        for i, h in self._handles.items():
+        # a copy: start_worker may insert a late worker meanwhile
+        for i, h in list(self._handles.items()):
             rc = self.launcher.poll(h)
             if rc is not None:
                 raise RuntimeError(
@@ -2031,7 +2032,7 @@ class LocalJobSubmission:
     # -- teardown ------------------------------------------------------------
     def shutdown(self, graceful_timeout: float = 15.0) -> None:
         try:
-            for i, h in self._handles.items():
+            for i, h in list(self._handles.items()):
                 if self.launcher.poll(h) is None:
                     self.service.mailbox.set_prop(
                         self.job_id, f"cmd/{i}",
@@ -2040,7 +2041,7 @@ class LocalJobSubmission:
                         ).encode(),
                     )
             deadline = time.monotonic() + graceful_timeout
-            for h in self._handles.values():
+            for h in list(self._handles.values()):
                 left = max(0.1, deadline - time.monotonic())
                 try:
                     self.launcher.wait(h, timeout=left)

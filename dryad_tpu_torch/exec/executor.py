@@ -105,7 +105,9 @@ from dryad_tpu_torch.exec import faults
 from dryad_tpu_torch.exec.failure import (
     Attempt, FailureKind, JobFailedError, RetryPolicy, StageFailedError, classify,
 )
-from dryad_tpu_torch.exec.kernels import NON_OVERFLOW_OPS, StageContext, _round8, run_ops
+from dryad_tpu_torch.exec.kernels import (
+    NON_OVERFLOW_OPS, OPERAND_PARAMS, StageContext, _round8, run_ops,
+)
 from dryad_tpu_torch.ops import shuffle as SH
 from dryad_tpu_torch.exec.operands import DeviceTables
 from dryad_tpu_torch.exec.stats import StageStatistics
@@ -114,6 +116,7 @@ from dryad_tpu_torch.obs.metrics import MetricsRegistry
 from dryad_tpu_torch.obs.span import Tracer
 from dryad_tpu_torch.plan.fuse import (
     DRIVER_OPS, SHRINKING_OPS, FuseReport, _adaptable_shape as _adaptable, fuse,
+    unfused,
 )
 from dryad_tpu_torch.plan.lower import Stage, StageGraph, StageOp, tail_width
 from dryad_tpu_torch.utils.logging import get_logger
@@ -124,15 +127,6 @@ _log = get_logger("dryad_tpu_torch.exec")
 _PROFILE_SEQ = itertools.count()
 
 __all__ = ["DeferredFinish", "GraphExecutor", "JobFailedError", "StageFailedError", "retry_regions"]
-
-# (op kind, param) pairs the reference binds as call-time operands: its
-# compile key holds their shape tier (``operand_signature``), not their
-# content, so every table of a tier shares one key
-OPERAND_PARAMS = frozenset({
-    ("string_code", "table"),
-    ("group_reduce_dense", "decode"),
-})
-
 
 def _has_miss_guard(ops) -> bool:
     """Ops whose dense domain counts rows it would drop: STRING
@@ -477,7 +471,7 @@ class GraphExecutor:
         misses: List[Tuple[str, torch.Tensor]] = []  # (unit name, miss counter)
         # (unit stage, fp, outputs) saves that wait for the miss check
         self._gated_ckpts: List[tuple] = []
-        report = fuse(graph, self.config)
+        report = fuse(graph, self.config) if self.config.plan_fuse else unfused(graph)
         units = retry_regions(graph, report)
         self._start_job(graph, report, units)
         self._prepare_width_adapt(graph, units)

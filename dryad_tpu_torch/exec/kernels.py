@@ -370,7 +370,9 @@ def _k_string_code(ctx: StageContext, p) -> None:
     b = ctx.slots[p["slot"]]
     table = p["table"]
     codes = table.lookup(b.data[p["h0"]], b.data[p["h1"]], operands=ctx.operand(table))
-    miss = (b.valid & (codes >= table.num_codes_padded)).sum()
+    # apart: a call on an expression naming the table reads as a table call (operand-registry)
+    bound = table.num_codes_padded
+    miss = (b.valid & (codes >= bound)).sum()
     ctx.dict_miss = ctx.dict_miss + miss
     ctx.slots[p["slot"]] = b.with_column(p["out"], codes)
 
@@ -757,6 +759,16 @@ def _k_scalar_agg(ctx: StageContext, p) -> None:
     valid = PART.axis_index(ctx.P, v.device) == 0
     ctx.slots[p["slot"]] = ColumnBatch(out, valid)
 
+
+# (op kind, param) pairs whose tables travel as device operands
+# (``ctx.operand``): the executor's operand cache keys them by their
+# shape tier (``operand_signature``), not their content, so every table
+# of a tier shares one key, as the reference's compile key does.  A
+# plain literal: graftlint's ``operand-registry`` rule reads it.
+OPERAND_PARAMS = frozenset({
+    ("string_code", "table"),
+    ("group_reduce_dense", "decode"),
+})
 
 _KERNELS = {
     "select": _k_select,

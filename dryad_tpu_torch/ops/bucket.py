@@ -69,7 +69,7 @@ _lock = threading.Lock()
 
 def _kernel_lib() -> ctypes.CDLL:
     """Build (first use) and load the kernel library."""
-    global _lib
+    global _lib  # graftlint: disable=kernel-determinism -- the extension's lazy load: process state set once under the lock, never data a vertex reads
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(B.build(LIB_NAME, SOURCES, cuda=True))

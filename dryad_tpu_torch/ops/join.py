@@ -203,7 +203,7 @@ def hash_join_outer(
             continue
         out_name = _suffixed(name, suffix) if name in data else name
         dflt = right_defaults.get(name, 0)
-        dflt = dflt.item() if hasattr(dflt, "item") else dflt  # numpy scalar
+        dflt = dflt.item() if hasattr(dflt, "item") else dflt  # graftlint: disable=host-transfer -- dflt is a numpy scalar from right_defaults, not a tensor
         tail = torch.full(left.valid.shape, dflt, dtype=col.dtype, device=col.device)
         data[out_name] = torch.cat([col.gather(-1, ri), tail], -1)
     return ColumnBatch(data, torch.cat([exact, unmatched], -1)), overflow

@@ -172,3 +172,17 @@ def fuse(graph: StageGraph, config) -> FuseReport:
         enabled=True, regions=regions, breaks=breaks,
         n_stages=len(graph.stages), n_dispatch_units=len(regions),
     )
+
+
+def unfused(graph: StageGraph) -> FuseReport:
+    """The decision with ``plan_fuse`` off: every stage is its own unit
+    and no seam is reported, as in the reference's per-stage path."""
+    regions = [
+        {"id": s.id, "members": [s.id], "names": [s.name],
+         "fused": False, "reason": None}
+        for s in graph.stages
+    ]
+    return FuseReport(
+        enabled=False, regions=regions, breaks=[],
+        n_stages=len(graph.stages), n_dispatch_units=len(regions),
+    )

@@ -10,8 +10,9 @@ executor will run and (3) the fusion decision (``plan/fuse.py``), plus
 DOT and SVG drawings of the stage graph.  For the same query both
 packages print the same text but for node and stage ids, which each
 package draws from its own counters.  ``explain_diagnoses`` is the
-runtime-diagnosis panel of ``Query.explain(analyze=True)``; the lint
-panel (``explain_lint``) needs ``analysis/``, ROADMAP.md queue 1 item 15.
+runtime-diagnosis panel of ``Query.explain(analyze=True)``;
+``explain_lint`` is the static-analysis panel of the port's graftlint
+(``analysis/``).
 """
 
 from __future__ import annotations
@@ -303,9 +304,34 @@ def explain_diagnoses(ctx) -> str:
 
 
 def explain_lint(root=None) -> str:
-    """The static-analysis panel: it runs the graftlint engine
-    (``analysis/``), which the port does not have yet."""
-    raise NotImplementedError(
-        "dryad_tpu_torch does not port explain_lint yet "
-        "(ROADMAP.md, queue 1 item 15: analysis and lint)"
+    """Static-analysis panel: per-rule finding counts and the tree's
+    reasoned suppressions, so lint state is visible alongside the
+    logical/fusion/SVG panels (and before every card run: the ``lint``
+    phase of ``chip_smoke.py`` enforces the same registry)."""
+    from dryad_tpu_torch.analysis import engine
+
+    report = engine.run_repo(root=root)
+    sup_by_rule: Dict[str, int] = {}
+    for f in report.suppressed():
+        sup_by_rule[f.rule] = sup_by_rule.get(f.rule, 0) + 1
+    counts = report.counts()
+    lines = ["== static analysis (graftlint) =="]
+    for rule in sorted(set(report.rules_run) | set(counts) | set(sup_by_rule)):
+        n = counts.get(rule, 0)
+        s = sup_by_rule.get(rule, 0)
+        state = f"FINDINGS={n}" if n else "ok"
+        extra = f"  suppressed={s}" if s else ""
+        lines.append(f"  {rule:<22} {state}{extra}")
+    if report.suppressions:
+        lines.append(f"  suppressions ({len(report.suppressions)}):")
+        for s in report.suppressions:
+            lines.append(
+                f"    {s.path}:{s.line} [{','.join(s.rules)}] -- {s.reason}"
+            )
+    lines.append(
+        "  tree clean"
+        if report.ok
+        else f"  TREE DIRTY: {len(report.unsuppressed())} unsuppressed "
+        "finding(s) — run python -m dryad_tpu_torch.tools.lint"
     )
+    return "\n".join(lines)

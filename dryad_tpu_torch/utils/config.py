@@ -1,9 +1,11 @@
-"""Per-context configuration: the subset of ``dryad_tpu/utils/config.py``
-that the ported path reads.
+"""Per-context configuration: the fields of ``dryad_tpu/utils/config.py``
+that the port has.
 
 Field names, defaults and environment overrides match the reference, so
-a configuration means the same thing to both packages.  Fields of the
-reference that no ported module reads yet are absent on purpose.
+a configuration means the same thing to both packages.  The reference's
+fields whose part is not ported yet are absent on purpose; each stands
+in :data:`PENDING_CONFIG_KEYS` with the ROADMAP item that brings it,
+and the three that nothing reads stand in :data:`UNREAD_CONFIG_KEYS`.
 """
 
 from __future__ import annotations
@@ -41,6 +43,10 @@ class StaticConfig:
 class DryadConfig:
     """Context knobs of the ported path (see the reference for history).
 
+    - ``plan_fuse``: the executor runs and retries the fusion decision's
+      regions as units (``plan/fuse.py``, ``exec/executor.py::
+      retry_regions``); off, every stage is its own unit and no
+      ``fuse_break`` is logged, as in the reference's per-stage path.
     - ``auto_dense_strings``: a single-STRING-key group_by with
       sum/count/mean aggregates lowers to the dense bucket path keyed on
       dictionary codes.
@@ -176,6 +182,7 @@ class DryadConfig:
     intermediate_compression: Optional[str] = None  # None | "zlib"
     event_log_dir: Optional[str] = None
     profile_dir: Optional[str] = None
+    plan_fuse: bool = _env_bool("DRYAD_TPU_PLAN_FUSE", True)
     obs_events_mem_cap: int = _env_int("DRYAD_TPU_OBS_EVENTS_MEM_CAP", 1 << 16)
     stream_bucket_rows: int = _env_int("DRYAD_TPU_STREAM_BUCKET_ROWS", 1 << 21)
     stream_combine_rows: int = _env_int("DRYAD_TPU_STREAM_COMBINE_ROWS", 1 << 20)
@@ -332,3 +339,108 @@ class DryadConfig:
             raise ValueError("diagnose_cooldown_s must be >= 0")
         if self.gang_partition_cache_bytes < 0:
             raise ValueError("gang_partition_cache_bytes must be >= 0")
+
+
+# Schema of DryadConfig's fields: key -> one-line doc of what the port
+# does with it (the keys are the reference's; the class docstring says
+# more).  graftlint's ``config-key`` rule holds it against the
+# dataclass both ways and against every ``config.<attr>`` read in the
+# package.
+CONFIG_KEYS = {
+    "max_stage_failures": "GM failure budget per stage before job failure",
+    "shuffle_slack": "padded shuffle-bucket slack over uniform expectation",
+    "max_shuffle_retries": "bounded shape palette for overflow retries",
+    "intermediate_compression": "channel compression: None or 'zlib'",
+    "sample_rate": "range-partition sampler rate (reference 0.1%)",
+    "event_log_dir": "JSONL event-log directory (Calypso); None disables",
+    "profile_dir": "torch.profiler Chrome-trace directory; None disables",
+    "checkpoint_dir": "stage-output checkpoint directory; None disables",
+    "checkpoint_retain_seconds": "checkpoint retention lease; None keeps",
+    "outlier_sigmas": "speculative-duplication outlier threshold (sigmas)",
+    "straggler_floor_ratio": "straggler-threshold floor over trimmed mean",
+    "coded_redundancy": "k-of-n coded spares for linear partial aggregates",
+    "coded_parity_tasks": "max parity spares r per coded stage",
+    "coded_max_amplification": "float-decode rounding amplification guard",
+    "retry_backoff_base": "transient-retry backoff base seconds",
+    "retry_backoff_max": "transient-retry backoff cap seconds",
+    "retry_jitter": "seeded retry-backoff jitter fraction",
+    "retry_seed": "retry-jitter RNG seed",
+    "broadcast_limit": "broadcast-join max replicated right-side rows",
+    "topk_limit": "order_by+take fuses to shuffle-free top-k at or below",
+    "auto_dense_strings":
+        "single-STRING-key group_by lowers to the CUDA bucket kernel",
+    "auto_dense_ints": "bounded-INT32-key group_by rides the dense path",
+    "auto_dense_limit": "dense-key domain cap for the CUDA bucket path",
+    "stringcode_runtime_tables":
+        "code tables bind as operands keyed by their power-of-two tier",
+    "device_cache_bytes": "device-resident ingest cache budget; 0 off",
+    "rows_per_vertex": "target rows per independent vertex task",
+    "plan_fuse": "runs of fusable stages dispatch and retry as one unit",
+    "overflow_sync_depth": "speculative dispatches per overflow readback",
+    "tail_fanout_rows": "static row bound enabling tail fan-out; 0 off",
+    "tail_rows_per_partition": "rows per partition after tail fan-out",
+    "stream_bucket_rows": "max rows per phase-2 bucket before re-split",
+    "stream_combine_rows": "partial-accumulator compaction threshold",
+    "stream_buckets": "phase-1 spill fan-out (bucket count)",
+    "stream_spill_dir": "spill directory; None = fresh tempdir",
+    "stream_pipeline_depth": "chunks in flight across the ooc pipeline",
+    "stream_writer_queue": "background spill-writer queue, in pieces",
+    "combine_tree": "topology-aware hierarchical streaming combines",
+    "combine_tree_fan": "max batches folded per tree-group flush",
+    "combine_tree_ranges": "key-range histogram resolution (power of two)",
+    "combine_tree_groups": "level-0 tree groups; 0 = auto from topology",
+    "combine_tree_degrade_ratio": "per-range host-degrade distinct ratio",
+    "stream_host_reprobe": "reducing host combines before device re-probe",
+    "obs_events_mem_cap": "EventLog in-memory ring cap; 0 unbounded",
+    "obs_flight_recorder": "crash-forensics ring + blackbox dump hooks",
+    "flightrec_events": "flight-recorder ring capacity in events",
+    "flightrec_snapshot_s": "min seconds between health microsnapshots",
+    "flightrec_dir": "blackbox dump dir; None = event_log_dir or cwd",
+    "obs_diagnosis": "online pathology detection over the live stream",
+    "diagnose_skew_ratio": "partition-skew max/mean row-ratio trigger",
+    "diagnose_recompile_burst":
+        "per-tier compile events in window = storm (none logged yet)",
+    "diagnose_cooldown_s": "per-(rule, subject) re-diagnosis cooldown",
+    "dispatch_depth": "ooc chunk dispatches in flight; 1 = serial "
+                      "driver, -1 = adaptive from measured headroom",
+    "chunk_fuse": "chunk partial-plans lowered per dispatch; 1 = legacy",
+    "gang_combine_tree": "worker-side level -1 partial pre-merge",
+    "gang_partition_cache_bytes": "worker partition cache budget; 0 off",
+    "serve_max_inflight": "per-tenant admitted-query cap (QueryRejected)",
+    "serve_max_bytes": "per-tenant admitted host-input byte budget; 0 off",
+    "serve_result_cache_bytes": "plan-fingerprint result cache; 0 off",
+    "serve_drr_quantum_bytes": "input bytes per fair-share cost unit",
+    "serve_cache_admission":
+        "result-cache admission: 'cost' (amortizing only) or 'all'",
+    "serve_cache_min_sec_per_gb":
+        "cost admission floor: saved seconds per cached GB",
+    "plan_rewrite": "runtime plan rewriter (dryad_tpu_torch.rewrite); "
+                    "diagnosis-driven, byte-identity-preserving",
+    "obs_telemetry": "continuous resource sampler + measured headroom",
+    "telemetry_sample_s": "min seconds between resource samples",
+    "telemetry_window_s": "rolling metric window for SLO readouts",
+    "query_trace": "query-scoped trace propagation (obs.tracectx); "
+                   "qid-stamps events for critical-path attribution",
+}
+
+
+# The reference's keys whose part is not ported yet, each with the
+# ROADMAP item that brings it; with CONFIG_KEYS they make the
+# reference's schema (tests/test_torch_graftlint.py holds them to it).
+PENDING_CONFIG_KEYS = {
+    "do_while_device_auto": "ROADMAP queue 1 item 8",
+    "command_batch": "ROADMAP queue 1 item 11",
+    "gang_batch_depth": "ROADMAP queue 1 item 11",
+    "exchange_window": "ROADMAP queue 1 item 11",
+    "exchange_hbm_budget_mb": "ROADMAP queue 1 item 11",
+}
+
+
+# The reference's keys that no module of either package reads; they
+# are left out of DryadConfig, so a configuration that sets one fails
+# to build here instead of being silently ignored.
+UNREAD_CONFIG_KEYS = {
+    "partition_count": "no reader in either package",
+    "enable_speculative_duplication": "no reader in either package",
+    "io_threads": "no reader in either package",
+}

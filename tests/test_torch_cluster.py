@@ -35,6 +35,7 @@ from dryad_tpu_torch.cluster.localjob import (
     CommandLauncher,
     LocalJobSubmission,
     SubprocessLauncher,
+    WorkerLauncher,
 )
 from dryad_tpu_torch.exec import jobpackage as TP
 
@@ -357,6 +358,53 @@ def test_late_worker_join_completes_job():
         assert sorted(devs) == [0, 1] and all(d["device"] == "cpu" for d in devs.values())
         with pytest.raises(ValueError, match="already started"):
             sub.start_worker(1)
+
+
+class JoiningLauncher(WorkerLauncher):
+    """Starts no process; each ``poll`` that finds a deferred slot
+    starts that worker, as a thread calling ``start_worker`` would
+    between two polls of a loop over the workers."""
+
+    def __init__(self):
+        self.sub = None
+        self.started = []
+        self.waited = []
+
+    def start(self, spec):
+        self.started.append(spec["index"])
+        return spec["index"]
+
+    def poll(self, handle):
+        late = [i for i in range(self.sub.n) if i not in self.started] if self.sub else []
+        if late:
+            self.sub.start_worker(late[0])
+        return None
+
+    def wait(self, handle, timeout):
+        self.waited.append(handle)
+
+    def stop(self, handle, timeout=5.0):
+        pass
+
+
+def test_late_join_during_a_loop_over_the_workers():
+    """A worker that joins while the liveness check or ``shutdown``
+    walks the workers does not break the walk (``dictionary changed
+    size during iteration``): the walk covers the workers it started
+    with, and ``shutdown`` still waits for the one that joined."""
+    launcher = JoiningLauncher()
+    sub = LocalJobSubmission(num_workers=3, device="cpu", launcher=launcher,
+                             defer_workers=2)
+    try:
+        assert launcher.started == [0]
+        launcher.sub = sub
+        sub._check_workers_alive()
+        assert launcher.started == [0, 1]
+    finally:
+        sub.shutdown(graceful_timeout=0.1)
+    assert launcher.started == [0, 1, 2]
+    exits = [i for i in range(3) if sub.service.mailbox.get_prop(sub.job_id, f"cmd/{i}")]
+    assert exits == [0, 1] and launcher.waited == [0, 1, 2]
 
 
 def test_dead_worker_leaves_scheduling_before_its_task_fails():

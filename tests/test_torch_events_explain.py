@@ -222,8 +222,8 @@ def test_explain_analyze_and_the_obs_panels_name_their_item():
     """``explain(analyze=True)`` and ``explain_diagnoses`` give the
     reference's text, clocks masked: WordCount, then a group_by whose
     exchange overflows at ``shuffle_slack=1.0`` (the second run
-    diagnoses ``overflow_loop``); ``explain_lint`` still raises, naming
-    its queue item."""
+    diagnoses ``overflow_loop``); ``explain_lint`` gives the static-
+    analysis panel of the port's tree, clean."""
     for cfg, build in (({}, lambda c: c.from_text(TEXT).group_by("word", {"n": ("count", None)})),
                        ({"shuffle_slack": 1.0}, _overflowing)):
         jc = J.DryadContext(num_partitions_=P, config=J.DryadConfig(**cfg))
@@ -238,8 +238,9 @@ def test_explain_analyze_and_the_obs_panels_name_their_item():
     off = T.DryadContext(num_partitions_=P, config=T.DryadConfig(obs_diagnosis=False), device="cpu")
     assert texplain.explain_diagnoses(off) == jexplain.explain_diagnoses(
         J.DryadContext(num_partitions_=P, config=J.DryadConfig(obs_diagnosis=False)))
-    with pytest.raises(NotImplementedError, match="queue 1 item 15"):
-        texplain.explain_lint()
+    panel = texplain.explain_lint().split("\n")
+    assert panel[0] == "== static analysis (graftlint) ==" and panel[-1] == "  tree clean"
+    assert len([ln for ln in panel if re.match(r"  [a-z-]+ +ok", ln)]) == 20
 
 
 # -- events ------------------------------------------------------------------------
@@ -384,6 +385,122 @@ def test_event_stream_of_a_retrying_query_equals_the_reference(name):
     view = [(e["kind"], e["name"], e.get("boost", e.get("nparts"))) for e in port
             if e["kind"] in ("stage_overflow", "stage_width_adapt")]
     assert tc.executor.events == view
+
+
+UNFUSED = {
+    "aggregations_feed_join": lambda c: QUERIES["aggregations_feed_join"](c, _table()),
+    "join_auto_then_group": lambda c: QUERIES["join_auto_then_group"](c, _table()),
+    "wordcount_top10": lambda c: QUERIES["wordcount_top10"](c, _table()),
+    "undersized_join": lambda c: RETRYING["undersized_join"](c, *_rng_tables()),
+    "width_adapt": lambda c: RETRYING["width_adapt"](c, *_rng_tables()),
+}
+
+
+@pytest.mark.parametrize("name", sorted(UNFUSED))
+def test_plan_fuse_off_equals_the_reference(name):
+    """``DryadConfig(plan_fuse=False)``: every stage is its own unit and
+    no seam is logged; rows, the explain text (its fusion panel the
+    reference's ``plan_fuse=off`` line) and the event stream equal the
+    reference's."""
+    jc, tc = _ctxs(plan_fuse=False)
+    jq, tq = UNFUSED[name](jc), UNFUSED[name](tc)
+    port = tq.explain()
+    assert renumber(port) == renumber(jexplain.explain(jq))
+    assert "plan_fuse=off: every stage dispatches as its own program" in port
+    outs = [q.collect() for q in (jq, tq)]
+    for c in outs[0]:
+        np.testing.assert_array_equal(outs[1][c], outs[0][c])
+    events = tc.events.events()
+    kinds = {e["kind"] for e in events}
+    assert "fuse_break" not in kinds
+    (start,) = [e for e in events if e["kind"] == "job_start"]
+    stages = tlower([tq.node], tc.config, tc.dictionary, P=P).stages
+    assert [u["name"] for u in start["topology"]] == [s.name for s in stages]
+    _assert_streams_equal(tc, jc, kinds)
+
+
+def _fuse_fact(seed, n=3000):
+    rng = np.random.default_rng(seed)
+    # a wide key domain keeps the int auto-dense rewrite off, so the
+    # group_by keeps its hash exchange inside the region
+    return {"k": rng.integers(0, 1 << 20, n).astype(np.int32),
+            "v": rng.standard_normal(n).astype(np.float32)}
+
+
+def _fuse_pipeline(c):
+    fact = _fuse_fact(1)
+    a = c.from_arrays(fact).select(lambda t: {"k": t["k"], "v": t["v"] * 2.0}).group_by(
+        "k", {"s": ("sum", "v"), "c": ("count", None)})
+    d = c.from_arrays({"k": fact["k"][:64].copy(), "w": np.arange(64, dtype=np.int32)})
+    return a.join(d, "k").order_by([("s", True), ("k", False)])
+
+
+def _fuse_strings(c):
+    rng = np.random.default_rng(2)
+    n = 1500
+    g = c.from_arrays({
+        "s": np.array([f"w{int(i):03d}" for i in rng.integers(0, 97, n)], object),
+        "v": rng.standard_normal(n).astype(np.float32),
+    }).group_by("s", {"c": ("count", None), "sv": ("sum", "v")})
+    return g.zip_(g.project(["s"])).order_by([("c", True), ("sv", False)])
+
+
+def _fuse_seam_overflow(c):
+    n = 4096
+    g = c.from_arrays({"k": np.arange(n, dtype=np.int32) - 1, "w": np.ones(n, np.int64)}).group_by(
+        "k", {"c": ("count", None), "ws": ("sum", "w")})
+    return g.join(c.from_arrays({"k": np.arange(0, n, 7, dtype=np.int32) - 1,
+                                 "t": np.arange(0, n, 7).astype(np.int32)}), "k")
+
+
+def _fuse_host_seam(c):
+    return c.from_arrays(_fuse_fact(3, 2000)).group_by("k", {"s": ("sum", "v")}).apply_host(
+        lambda cols, i: {"k": cols["k"], "s": cols["s"] * 2.0}).order_by([("s", True)]).take(50)
+
+
+# the reference's fused/staged differential (tests/test_fuse.py): each
+# query, the config it runs under, and the seam it keeps (None: it
+# fuses into a region)
+FUSED = {
+    "pipeline": (_fuse_pipeline, {}, None),
+    "string_operands": (_fuse_strings, {}, None),
+    "seam_overflow": (_fuse_seam_overflow, {"shuffle_slack": 1.0}, None),
+    "apply_host_seam": (_fuse_host_seam, {}, "host_boundary:apply_host"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FUSED))
+def test_fused_regions_equal_plan_fuse_off(name):
+    """``plan_fuse=False`` runs every stage as its own unit: the
+    baseline the fused regions must match byte for byte, overflow
+    retries of a whole region included, with fewer units dispatched;
+    a query whose seam stays runs the same units both ways."""
+    query, cfg, seam = FUSED[name]
+
+    def run(plan_fuse):
+        tc = T.DryadContext(num_partitions_=P, device="cpu", config=T.DryadConfig(
+            tail_fanout_rows=0, plan_fuse=plan_fuse, **cfg))
+        out = query(tc).collect()
+        events = tc.events.events()
+        starts = {e["stage"] for e in events if e["kind"] == "stage_start"}
+        return out, events, len(starts)
+
+    (on, ev_on, units_on), (off, ev_off, units_off) = run(True), run(False)
+    assert list(on) == list(off)
+    for c in on:
+        assert on[c].dtype == off[c].dtype, c
+        if on[c].dtype == object:
+            assert on[c].tolist() == off[c].tolist(), c
+        else:
+            assert on[c].tobytes() == off[c].tobytes(), c
+    assert not any(e["kind"] in ("fused_dispatch", "fuse_break") for e in ev_off)
+    if seam:
+        assert seam in [e["reason"] for e in ev_on if e["kind"] == "fuse_break"]
+    else:
+        assert any(e["kind"] == "fused_dispatch" for e in ev_on)
+        assert units_on < units_off
+    if cfg.get("shuffle_slack") == 1.0:
+        assert max(e["boost"] for e in ev_on if e["kind"] == "fused_dispatch") >= 2
 
 
 def test_do_while_and_apply_host_events_equal_the_reference():

@@ -39,8 +39,7 @@ _PORT_FIELDS = {f.name for f in dataclasses.fields(T.DryadConfig)}
 
 
 def _ctx(pkg, **cfg):
-    """A context; the port takes the config keys it has (it has no
-    ``plan_fuse``: it always runs the reference's fused regions)."""
+    """A context; the port takes the config keys it has."""
     mod, _, kw = PKGS[pkg]
     if pkg == "port":
         cfg = {k: v for k, v in cfg.items() if k in _PORT_FIELDS}
