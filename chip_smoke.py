@@ -6,16 +6,21 @@ It first runs the port's static-analysis gate (graftlint, the whole
 registry of ``dryad_tpu_torch/analysis/`` over the checkout: any
 unsuppressed finding fails the run before anything is built), then
 builds the port's native code from the checkout (the CUDA bucket
-kernel for sm_90a, the host tokenizer and the host I/O routines, the
-compilers started together), holds the kernel against its plain PyTorch version on the
+kernel and the do_while loop-control kernel for sm_90a, the host
+tokenizer and the host I/O routines, the compilers started together),
+holds the kernels against their plain PyTorch versions on the
 card, drives through the port's entry points WordCount at full size,
 the dense integer group_by, TeraSort (2^28 rows, and 2^26 rows with a
 hot key), the sort-path group_by with distinct and range_partition
-(2^26 rows), the Join Task of Pavlo et al. (2^26 visits joined to 2^23
+(2^26 rows), the same group_by on the fused sort path
+(DRYAD_TPU_SORT_FUSED=1) beside the default, the Join Task of Pavlo et al. (2^26 visits joined to 2^23
 pages by shuffle, then a sort-path group_by and a top-1), the broadcast
 join of samples/join_groupby.py (2^26 orders, then the dense group_by
 on the bucket kernel), PageRank by do_while on a Graph500 Kronecker
-graph (scale 21, edgefactor 16, 10 rounds), the decomposable group_by,
+graph (scale 21, edgefactor 16, 10 rounds; its multi-stage body falls
+back from the on-device loop), the on-device do_while as one CUDA graph
+(a per-row Newton iteration over 2^26 rows against a numpy oracle, the
+driver loop and its plain version), the decomposable group_by,
 its built-in twin and aggregate_decomposable over the Join Task's
 UserVisits, the ordered and user-function operators over a 2^26-row
 event log (sliding_window, reverse, take_while/skip_while, zip_,
@@ -64,9 +69,9 @@ each twice, in the order -1, 2, 2, -1), checks every result against a numpy orac
 Any failed check raises, so the script exits non-zero and prints no
 result line.  Without a CUDA device it exits non-zero at once.
 ``--phases`` runs a subset (lint, env, kernel, wordcount, dense, terasort,
-terasort_hot, groupby_sort, join_shuffle, join_broadcast, pagerank,
-decomposable, ordered_ops, cpu_parity, stores, stream, serve, cluster,
-rewrite, fleet, obs), for short first
+terasort_hot, groupby_sort, groupby_sort_fused, join_shuffle,
+join_broadcast, pagerank, devloop, decomposable, ordered_ops, cpu_parity,
+stores, stream, serve, cluster, rewrite, fleet, obs), for short first
 runs of a changed kernel.  The WordCount, TeraSort, sort-path group_by, join,
 PageRank, decomposable and ordered phases also profile one warm query
 with torch.profiler and print device time by op, the device's busy
@@ -79,6 +84,7 @@ from __future__ import annotations
 
 import argparse
 import gc
+import itertools
 import json
 import os
 import subprocess
@@ -224,7 +230,7 @@ def phase_lint(card: str) -> dict:
 # -- phase 1: environment and build ------------------------------------------
 
 def phase_env(card: str) -> dict:
-    from dryad_tpu_torch.ops import bucket
+    from dryad_tpu_torch.ops import bucket, loopctl
     from dryad_tpu_torch.runtime import bindings
     from dryad_tpu_torch.utils import build
 
@@ -233,14 +239,16 @@ def phase_env(card: str) -> dict:
     t0 = time.perf_counter()
     build.build_many({
         bucket.LIB_NAME: (bucket.SOURCES, True),
+        loopctl.LIB_NAME: (loopctl.SOURCES, True),
         bindings.LIB_NAME: (bindings.SOURCES, False),
         bindings.IO_LIB_NAME: (bindings.IO_SOURCES, False, bindings.IO_LIBS),
     })
     secs = time.perf_counter() - t0
     bucket._kernel_lib()
+    log(f"loop-control library built against CUDA runtime {loopctl.runtime_version()}")
     check(bindings.native_loaded(), "native tokenizer did not load")
     check(bindings.io_native_loaded(), "native I/O routines did not load")
-    log(f"build (set-up, not measured work): {secs:.1f} s for kernel + tokenizer + I/O")
+    log(f"build (set-up, not measured work): {secs:.1f} s for the two kernels + tokenizer + I/O")
     return {"build_s": secs}
 
 
@@ -797,45 +805,68 @@ GB_AGGS = {"c": ("count", None), "sv": ("sum", "v"), "mv": ("mean", "v"),
            "mnw": ("min", "w"), "mxw": ("max", "w"), "sL": ("sum", "L")}
 
 
+def groupby_oracle(t: dict) -> dict:
+    """float64 and exact int64 sums over the key-sorted rows (the order
+    within a key moves the float64 sums by far less than the bound, so
+    the faster unstable argsort serves)."""
+    order = np.argsort(t["key"])
+    ks = t["key"][order]
+    starts = np.flatnonzero(np.r_[True, ks[1:] != ks[:-1]])
+    v = t["v"][order].astype(np.float64)
+    w = t["w"][order]
+    return {"ks": ks, "uniq": ks[starts], "cnt": np.diff(np.r_[starts, len(ks)]),
+            "sv": np.add.reduceat(v, starts), "av": np.add.reduceat(np.abs(v), starts),
+            "mnw": np.minimum.reduceat(w, starts), "mxw": np.maximum.reduceat(w, starts),
+            "sL": np.add.reduceat(t["L"][order], starts)}
+
+
+def check_groupby(out: dict, oracle: dict, label: str) -> float:
+    """GB_AGGS's result against the oracle: keys, counts, min/max and
+    int64 sums exact, f32 sums and means within n_g * 2^-23 * sum|v|;
+    returns the largest |err| / sum|v| of the sums."""
+    got = np.argsort(out["key"])
+    o = {c: a[got] for c, a in out.items()}
+    cnt, av, sv = oracle["cnt"], oracle["av"], oracle["sv"]
+    check(np.array_equal(o["key"], oracle["uniq"]), f"{label}: keys differ from the oracle's")
+    check(np.array_equal(o["c"], cnt.astype(np.int32)), f"{label}: counts differ")
+    check(np.array_equal(o["mnw"], oracle["mnw"]), f"{label}: min differs")
+    check(np.array_equal(o["mxw"], oracle["mxw"]), f"{label}: max differs")
+    check(np.array_equal(o["sL"], oracle["sL"]), f"{label}: int64 sums differ")
+    bound = cnt * F32_REL * av
+    err = np.abs(o["sv"] - sv)
+    check(bool((err <= bound).all()), f"{label}: f32 sums past n_g * 2^-23 * sum|v|")
+    merr = np.abs(o["mv"] - sv / cnt)
+    check(bool((merr <= bound / cnt).all()), f"{label}: f32 means past the bound")
+    return float((err / np.maximum(av, 1e-30)).max())
+
+
+_GB_INPUTS: dict = {}
+
+
+def groupby_inputs() -> tuple:
+    """The groupby_sort table and its oracle, made once for the phases
+    that share them (set-up, not measured work)."""
+    if not _GB_INPUTS:
+        t = groupby_table(np.random.default_rng(SEED + 6), GB_ROWS, GB_KEYS)
+        _GB_INPUTS.update(t=t, oracle=groupby_oracle(t))
+    return _GB_INPUTS["t"], _GB_INPUTS["oracle"]
+
+
 def phase_groupby_sort(dev, card: str) -> dict:
     from dryad_tpu_torch import DryadContext
 
-    rng = np.random.default_rng(SEED + 6)
-    t = groupby_table(rng, GB_ROWS, GB_KEYS)
+    t, oracle = groupby_inputs()
     ctx = DryadContext(num_partitions_=P)
     src = ctx.from_arrays(t)
     q = src.group_by("key", GB_AGGS)
     res, out = timed_runs(ctx, q, "groupby_sort", card, GB_ROWS)
 
-    # the oracle: float64 and exact int64 sums over the key-sorted rows
-    # (the order within a key moves the float64 sums by far less than
-    # the bound, so the faster unstable argsort serves)
-    order = np.argsort(t["key"])
-    ks = t["key"][order]
-    starts = np.flatnonzero(np.r_[True, ks[1:] != ks[:-1]])
-    uniq = ks[starts]
-    cnt = np.diff(np.r_[starts, len(ks)])
-    v = t["v"][order].astype(np.float64)
-    sv, av = np.add.reduceat(v, starts), np.add.reduceat(np.abs(v), starts)
-    w = t["w"][order]
-    sL = np.add.reduceat(t["L"][order], starts)
-    got = np.argsort(out["key"])
-    o = {c: a[got] for c, a in out.items()}
-    check(np.array_equal(o["key"], uniq), "groupby_sort: keys differ from the oracle's")
-    check(np.array_equal(o["c"], cnt.astype(np.int32)), "groupby_sort: counts differ")
-    check(np.array_equal(o["mnw"], np.minimum.reduceat(w, starts)), "groupby_sort: min differs")
-    check(np.array_equal(o["mxw"], np.maximum.reduceat(w, starts)), "groupby_sort: max differs")
-    check(np.array_equal(o["sL"], sL), "groupby_sort: int64 sums differ")
-    bound = cnt * F32_REL * av
-    err = np.abs(o["sv"] - sv)
-    check(bool((err <= bound).all()), "groupby_sort: f32 sums past n_g * 2^-23 * sum|v|")
-    merr = np.abs(o["mv"] - sv / cnt)
-    check(bool((merr <= bound / cnt).all()), "groupby_sort: f32 means past the bound")
+    uniq, ks = oracle["uniq"], oracle["ks"]
+    res["max_rel_err_sum"] = check_groupby(out, oracle, "groupby_sort")
+    del out
     res["distinct_keys"] = int(len(uniq))
-    res["max_rel_err_sum"] = float((err / np.maximum(av, 1e-30)).max())
     log(f"groupby_sort: {len(uniq)} groups; keys, counts, min/max, int64 sums exact; f32 sums "
         f"within n_g*2^-23*sum|v| (max |err|/sum|v| {res['max_rel_err_sum']:.3g})")
-    del out, o
 
     # distinct over the key
     t0 = time.perf_counter()
@@ -1141,6 +1172,9 @@ def phase_pagerank(dev, card: str) -> dict:
     check(any(e[0] == "do_while_max_iter" for e in ctx.executor.events),
           "pagerank: the loop did not stop at max_iter")
     check(res["bucket_sum_count_launches"] == 0, "pagerank reached the bucket kernel")
+    dev_kinds = [e[0] for e in ctx.executor.events if e[0].startswith("do_while_device")]
+    check(dev_kinds == ["do_while_device_fallback"],
+          f"pagerank: device-loop events {dev_kinds}, expected one fallback (a multi-stage body)")
     boosts = [e[2] for e in ctx.executor.events if e[0] == "do_while_state_boost"]
     oracle = pagerank_oracle(src, dst, w, n, PR_ROUNDS)
     check(np.array_equal(np.sort(out["node"]), np.arange(n)), "pagerank: vertices differ")
@@ -1165,6 +1199,331 @@ def phase_pagerank(dev, card: str) -> dict:
         f"ranks within {res['max_abs_err_over_max_rank']:.3g} * max(r) of the float64 oracle "
         f"(bound {PR_REL}); top-100 in the oracle's order where not tied; state boosts {boosts}")
     del ctx, q, out, src, dst, w
+    free_card()
+    return res
+
+
+# -- phase: the on-device do_while (one CUDA graph a run) -----------------------
+
+DL_ROWS = 1 << 26  # per-row Newton steps over 2^26 rows {id, a, x}: 768 MiB of state
+DL_EPS = 2.0 ** -17  # the condition: max relative residual |x^3 - a| / a above this
+DL_MAX_ITER = 100
+DL_PAIRS = 10  # warm device-loop / driver-loop pairs, interleaved
+
+
+def _dl_row(c):
+    x = c["x"]
+    return {"id": c["id"], "a": c["a"], "x": x - (x * x * x - c["a"]) / (3 * x * x)}
+
+
+def _dl_res(c):
+    x = c["x"]
+    return {"r": abs(x * x * x - c["a"]) / c["a"]}
+
+
+def _dl_go(c):
+    return {"go": c["m"] > DL_EPS}
+
+
+def _dl_body(q):
+    return q.select(_dl_row)
+
+
+def _dl_cond(q):
+    return q.select(_dl_res).aggregate_as_query({"m": ("max", "r")}).select(_dl_go)
+
+
+def _dl_host_row(c):
+    s = float(c["x"].sum())  # a device value read on the host
+    return {"id": c["id"], "a": c["a"], "x": c["x"] * 0.5 + s * 0.0}
+
+
+def newton_oracle(a: np.ndarray, max_iter: int):
+    """The loop's float32 steps in numpy, in the body's order of
+    operations (each rounded once, as each PyTorch op rounds), and the
+    condition's max residual read after every step: (x, rounds).  The
+    rows are independent, so 8 threads step 8 slices (numpy's ufuncs
+    let go of the GIL) and the round's max is the slices' max."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    x = a.copy()
+    three = np.float32(3)
+    cut = np.linspace(0, len(a), 9).astype(np.int64)
+    parts = [(x[lo:hi], a[lo:hi]) for lo, hi in zip(cut[:-1], cut[1:])]  # views of x
+
+    def step(xa):
+        xs, as_ = xa
+        t = xs * xs
+        t *= xs
+        t -= as_
+        u = three * xs
+        u *= xs
+        t /= u
+        xs -= t  # x - (x*x*x - a) / (3*x*x), in place on this slice of x
+        t = xs * xs
+        t *= xs
+        t -= as_
+        np.abs(t, out=t)
+        t /= as_
+        return float(t.max())
+
+    it = 0
+    with ThreadPoolExecutor(8) as pool:
+        while True:
+            m = max(pool.map(step, parts))
+            it += 1
+            if not (it < max_iter and m > DL_EPS):
+                return x, it
+
+
+def profile_run(fn) -> dict:
+    """``fn()`` and a synchronize under torch.profiler: the device's busy
+    time (kernels, copies, fills; user ranges left out) over the wall,
+    the device-to-host copies, and the top ops by device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    avgs = prof.key_averages()
+    busy = sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA and not e.is_user_annotation) / 1e6
+    d2h = sum(e.count for e in avgs if "DtoH" in e.key or "Device -> Host" in e.key)
+    ops = sorted(((e.key, getattr(e, "device_time_total", 0) / 1e3) for e in avgs
+                  if getattr(e, "device_time_total", 0) > 0 and not e.key.startswith("ProfilerStep")),
+                 key=lambda r: -r[1])
+    return {"device_busy_s": busy, "wall_s": wall, "busy_share": busy / wall, "d2h": d2h,
+            "top_ops_ms": ops[:10]}
+
+
+def loopctl_report(dev) -> dict:
+    """The loop-control kernel against its plain twin on the card, over
+    every combination of its flags (byte-equal loop states: error 0),
+    then both timed one launch at a time (the loop's shape: one step)."""
+    from dryad_tpu_torch.ops import loopctl as LC
+
+    err = 0
+    before = LC.loop_step.launches
+    for go, bovf, covf, old, i in itertools.product((0, 1), (False, True), (False, True), (0, 1), (0, 4, 9)):
+        args = [torch.tensor(bovf, device=dev), torch.tensor(3, dtype=torch.int64, device=dev),
+                torch.full((P, 1), go, dtype=torch.bool, device=dev), torch.tensor(covf, device=dev), 5]
+        a = torch.tensor([i, old, 7, 1], dtype=torch.int64, device=dev)
+        b = a.clone()
+        LC.loop_step(a, *args)
+        LC.loop_step_plain(b, *args)
+        err = max(err, int((a - b).abs().max()))
+    st = torch.zeros(4, dtype=torch.int64, device=dev)
+    args = [torch.tensor(False, device=dev), torch.tensor(0, dtype=torch.int64, device=dev),
+            torch.ones((P, 1), dtype=torch.bool, device=dev), torch.tensor(False, device=dev), 1 << 40]
+    kernel_ms = cuda_time_ms(lambda: LC.loop_step(st, *args), iters=2000, warmup=10)
+    plain_ms = cuda_time_ms(lambda: LC.loop_step_plain(st, *args), iters=2000, warmup=10)
+    LC.loop_step.launches = before  # comparison launches are not the main path's
+    # the work: 4 state words + 2 flags + 1 miss word + 1 go byte read,
+    # 4 state words written; a dozen integer operations
+    nbytes = 4 * 8 + 2 + 8 + 1 + 4 * 8
+    bound_ms = max(nbytes / HBM_BYTES_PER_S, 12 / 67e12) * 1e3
+    check(err == 0, f"loop-control kernel differs from its plain version by {err}")
+    return {"max_abs_err": err, "kernel_ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes", "bytes": nbytes}
+
+
+def phase_devloop(dev, card: str) -> dict:
+    """The on-device do_while at 2^26 rows: a per-row Newton iteration
+    for cube roots (x <- x - (x^3 - a) / (3 x^2), x from a, a uniform in
+    [1, 10^6) made from the seed) until the largest relative residual
+    is at most 2^-17, about 27 rounds.  Its rows equal a numpy oracle
+    that takes the same float32 steps, the same query under the driver
+    loop (do_while_device_auto=False) and the loop program's plain
+    version on the card, byte for byte; its rounds equal the driver
+    loop's; its events are start then done.  Prints the capture's
+    seconds and pool bytes, the warm medians of both loops over
+    DL_PAIRS interleaved pairs, the device's busy share, and the
+    device-to-host copies of one run of each loop, which for the device
+    loop must not grow with the rounds.  A body that reads a device
+    value on the host falls back to the driver loop."""
+    from dryad_tpu_torch import DryadConfig, DryadContext
+    from dryad_tpu_torch.ops import loopctl as LC
+
+    rng = np.random.default_rng(SEED + 13)
+    a = rng.uniform(1.0, 1e6, DL_ROWS).astype(np.float32)
+    t = {"id": np.arange(DL_ROWS, dtype=np.int32), "a": a, "x": a.copy()}
+    t0 = time.perf_counter()
+    x_ref, rounds_ref = newton_oracle(a, DL_MAX_ITER)
+    oracle_s = time.perf_counter() - t0
+    dctx = DryadContext(num_partitions_=P)
+    rctx = DryadContext(num_partitions_=P, config=DryadConfig(do_while_device_auto=False))
+    src = dctx.from_arrays(t)
+    qd = src.do_while(_dl_body, _dl_cond, max_iter=DL_MAX_ITER)
+    qr = rctx.from_arrays(t).do_while(_dl_body, _dl_cond, max_iter=DL_MAX_ITER)
+
+    def rows(out):
+        o = np.argsort(out["id"])
+        return out["x"][o]
+
+    # the main path: the count of loop-control launches from 0
+    LC.loop_step.launches = 0
+    t0 = time.perf_counter()
+    out = qd.collect()
+    first_s = time.perf_counter() - t0
+    launches = LC.loop_step.launches
+    kinds = [(k, v) for k, _n, v in dctx.executor.events if k.startswith("do_while")]
+    check([k for k, _ in kinds] == ["do_while_device_start", "do_while_device_done"],
+          f"devloop: events {kinds}, expected start then done")
+    iters = kinds[-1][1]
+    (prog,) = dctx.executor._loops.values()
+    check(prog.graph is not None, "devloop: the loop ran without its CUDA graph")
+    check(launches == iters, f"devloop: {launches} loop-control launches for {iters} rounds")
+    check(iters == rounds_ref, f"devloop: {iters} rounds, the oracle took {rounds_ref}")
+    check(np.array_equal(rows(out).view(np.uint32), x_ref.view(np.uint32)),
+          "devloop: rows differ from the numpy oracle")
+    ref = qr.collect()
+    drv_rounds = sum(1 for e in rctx.executor.events if e[0] == "do_while_iter")
+    check(drv_rounds == iters, f"devloop: the driver loop ran {drv_rounds} rounds, the device loop {iters}")
+    check(np.array_equal(rows(ref).view(np.uint32), x_ref.view(np.uint32)),
+          "devloop: the driver loop's rows differ from the oracle")
+    del out, ref
+    # the graph against its plain version on the card, from the same input
+    cur = dctx._bind_device(src.node)
+    g = prog.run(cur)
+    p = prog.run_plain(cur)
+    check(g.iters == p.iters == iters and g.overflow == p.overflow is False,
+          "devloop: graph and plain version ran different rounds")
+    for c in g.batch.data:
+        check(torch.equal(g.batch.data[c].view(torch.int32) if g.batch.data[c].dtype == torch.float32
+                          else g.batch.data[c],
+                          p.batch.data[c].view(torch.int32) if p.batch.data[c].dtype == torch.float32
+                          else p.batch.data[c]), f"devloop: column {c} of the graph differs from the plain loop")
+    check(torch.equal(g.batch.valid, p.batch.valid), "devloop: valid mask differs from the plain loop")
+    del g, p
+    # warm medians, interleaved
+    dev_s, drv_s = [], []
+    for _ in range(DL_PAIRS):
+        for q, ctx, acc in ((qd, dctx, dev_s), (qr, rctx, drv_s)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            b = ctx.execute(q)
+            torch.cuda.synchronize()
+            acc.append(time.perf_counter() - t0)
+            del b
+    dev_med, drv_med = float(np.median(dev_s)), float(np.median(drv_s))
+    # one profiled run of each loop: the device's busy share, and the
+    # device-to-host copies, which for the device loop do not grow with
+    # the rounds (a second input that converges sooner replays the graph)
+    pd = profile_run(lambda: dctx.execute(qd))
+    fast = dctx.from_arrays({"id": t["id"], "a": a % np.float32(7.0) + np.float32(1.0),
+                             "x": a % np.float32(7.0) + np.float32(1.0)})
+    qf = fast.do_while(_dl_body, _dl_cond, max_iter=DL_MAX_ITER)
+    dctx.execute(qf)  # ingest
+    pf = profile_run(lambda: dctx.execute(qf))
+    fast_iters = [v for k, _n, v in dctx.executor.events if k == "do_while_device_done"][-1]
+    pr = profile_run(lambda: rctx.execute(qr))
+    d2h_dev, d2h_fast, d2h_drv = pd["d2h"], pf["d2h"], pr["d2h"]
+    check(len(dctx.executor._loops) == 1, "devloop: the second input did not replay the same graph")
+    check(fast_iters < iters, f"devloop: the short input ran {fast_iters} rounds, not fewer than {iters}")
+    check(d2h_fast == d2h_dev, f"devloop: {d2h_dev} device-to-host copies at {iters} rounds, "
+          f"{d2h_fast} at {fast_iters}: they grow with the rounds")
+    check(d2h_drv > d2h_dev, f"devloop: the driver loop made {d2h_drv} copies, the device loop {d2h_dev}")
+    # a body that reads a device value on the host falls back (the sync check)
+    small = {c: v[:4096] for c, v in t.items()}
+    hctx = DryadContext(num_partitions_=P)
+    hout = hctx.from_arrays(small).do_while(lambda q: q.select(_dl_host_row, schema=q.schema),
+                                            _dl_cond, max_iter=3).collect()
+    hk = [k for k, _n, _v in hctx.executor.events if k.startswith("do_while")]
+    check(hk[:2] == ["do_while_device_start", "do_while_device_fallback"] and "do_while_iter" in hk,
+          f"devloop: a host-reading body gave {hk}, expected start, fallback, driver rounds")
+    check(len(hout["x"]) == 4096, "devloop: the host-reading body lost rows")
+    res = {
+        "rows": DL_ROWS, "rounds": iters, "first_run_s": first_s, "capture_s": prog.capture_s,
+        "pool_bytes": prog.pool_bytes, "device_loop_warm_median_s": dev_med,
+        "driver_loop_warm_median_s": drv_med, "device_loop_warm_s": dev_s, "driver_loop_warm_s": drv_s,
+        "speedup": drv_med / dev_med, "profile_device_loop": pd, "profile_driver_loop": pr,
+        "d2h_device_loop": d2h_dev, "d2h_device_loop_short": d2h_fast, "short_rounds": fast_iters,
+        "d2h_driver_loop": d2h_drv, "loopctl_launches": launches, "oracle_s": oracle_s,
+        "loopctl": loopctl_report(dev), "card": card,
+    }
+    lc = res["loopctl"]
+    log(f"devloop [{card}]: {DL_ROWS} rows, {iters} rounds; rows equal the numpy oracle, the driver "
+        f"loop and the plain loop byte for byte; first run {first_s:.3f} s (ingest, lowering, check "
+        f"and capture {prog.capture_s:.3f} s), graph pool {prog.pool_bytes / 2**20:.1f} MiB")
+    log(f"devloop [{card}]: warm medians over {DL_PAIRS} interleaved pairs (execute + synchronize): "
+        f"device loop {dev_med:.4f} s, driver loop {drv_med:.4f} s ({drv_med / dev_med:.2f}x); device "
+        f"busy {pd['device_busy_s']:.4f} s of a profiled {pd['wall_s']:.4f} s device-loop run "
+        f"({pd['busy_share']:.3f}), {pr['device_busy_s']:.4f} s of {pr['wall_s']:.4f} s for the driver "
+        f"loop ({pr['busy_share']:.3f})")
+    log(f"devloop [{card}]: device-to-host copies a run: device loop {d2h_dev} at {iters} rounds and "
+        f"{d2h_fast} at {fast_iters}; driver loop {d2h_drv}; a host-reading body fell back")
+    log(f"devloop [{card}]: loop-control kernel launches {launches} (one a round), error 0 against "
+        f"its plain twin; one launch {lc['kernel_ms'] * 1e3:.2f} us, plain {lc['plain_ms'] * 1e3:.2f} us, "
+        f"bound {lc['bound_ms'] * 1e3:.5f} us ({lc['bytes']} bytes): launch-bound")
+    for name, ms in pd["top_ops_ms"][:8]:
+        log(f"  profile devloop [{card}] {ms:9.3f} ms  {name[:90]}")
+    del dctx, rctx, hctx, src, qd, qr, qf, fast, cur, prog
+    free_card()
+    return res
+
+
+def phase_groupby_sort_fused(dev, card: str) -> dict:
+    """The groupby_sort phase's query (2^26 rows, 2^22 keys, GB_AGGS)
+    with DRYAD_TPU_SORT_FUSED=1 (the fused sort path: one scan, one
+    scatter), set and restored within the phase, beside the default
+    path, in the order default, fused, fused, default (twice): integers
+    byte-equal to the default's, floats within the numpy oracle's bound,
+    the fused reruns byte-equal; both warm medians and the fused run's
+    top ops."""
+    from dryad_tpu_torch import DryadContext
+
+    t, oracle = groupby_inputs()
+    ctx = DryadContext(num_partitions_=P)
+    q = ctx.from_arrays(t).group_by("key", GB_AGGS)
+    prev = os.environ.get("DRYAD_TPU_SORT_FUSED")
+
+    def run(fused: bool):
+        if fused:
+            os.environ["DRYAD_TPU_SORT_FUSED"] = "1"
+        else:
+            os.environ.pop("DRYAD_TPU_SORT_FUSED", None)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = q.collect()
+        return out, time.perf_counter() - t0
+
+    times = {False: [], True: []}
+    digests = {False: set(), True: set()}
+    outs = {}
+    try:
+        run(False), run(True)  # warm both
+        for fused in (False, True, True, False) * 2:
+            out, s = run(fused)
+            times[fused].append(s)
+            digests[fused].add(digest(out))
+            outs[fused] = out
+        os.environ["DRYAD_TPU_SORT_FUSED"] = "1"
+        prof = profile_query(q, os.path.join(WORK_DIR, "profile_groupby_sort_fused.txt"))
+    finally:
+        if prev is None:
+            os.environ.pop("DRYAD_TPU_SORT_FUSED", None)
+        else:
+            os.environ["DRYAD_TPU_SORT_FUSED"] = prev
+    check(overflow_retries(ctx) == 0, "groupby_sort_fused retried an overflow")
+    check(len(digests[True]) == 1 and len(digests[False]) == 1, "groupby_sort_fused: reruns differ")
+    f, d = ({c: a[np.argsort(o["key"])] for c, a in o.items()} for o in (outs[True], outs[False]))
+    for c in ("key", "c", "mnw", "mxw", "sL"):
+        check(f[c].dtype == d[c].dtype and np.array_equal(f[c], d[c]),
+              f"groupby_sort_fused: {c} differs from the default path")
+    err = check_groupby(outs[True], oracle, "groupby_sort_fused")
+    fused_med, base_med = float(np.median(times[True])), float(np.median(times[False]))
+    res = {"rows": GB_ROWS, "keys": GB_KEYS, "fused_warm_median_s": fused_med,
+           "default_warm_median_s": base_med, "fused_s": times[True], "default_s": times[False],
+           "max_rel_err_sum": err, "profile": prof, "card": card}
+    log(f"groupby_sort_fused [{card}]: {GB_ROWS} rows, {len(oracle['uniq'])} groups; integers equal the "
+        f"default path byte for byte, f32 sums within n_g*2^-23*sum|v| (max |err|/sum|v| {err:.3g}), "
+        f"reruns byte-equal; warm medians fused {fused_med:.4f} s, default {base_med:.4f} s")
+    print_profile("groupby_sort_fused", card, prof, fused_med)
+    del ctx, q, outs, f, d
+    _GB_INPUTS.clear()
     free_card()
     return res
 
@@ -2164,6 +2523,14 @@ def stream_wordcount(root: str, spill_root: str, card: str) -> dict:
             f"{shapes[-1]['library_ms']:.3f} ms, bound {shapes[-1]['bound_ms']:.4f} ms")
     rec.first.clear()
     chunks = sum(e["kind"] == "stream_chunk" for e in ctx.events.events())
+    pool = ctx.executor.operand_pool
+    operands = {"hits": pool.hits, "full_uploads": pool.full_uploads,
+                "delta_scatters": pool.delta_scatters,
+                "operand_h2d_bytes": metric_total(ctx, "operand_h2d_bytes")}
+    check(pool.delta_scatters >= 1, f"streaming WordCount: the widening vocabulary scattered no "
+          f"delta (operand pool {operands})")
+    log(f"stream wordcount [{card}]: operand pool hits {pool.hits}, full uploads {pool.full_uploads}, "
+        f"delta scatters {pool.delta_scatters}, operand_h2d_bytes {operands['operand_h2d_bytes']:.0f}")
     del ctx
     free_card()
     incore = DryadContext(num_partitions_=P)
@@ -2185,7 +2552,7 @@ def stream_wordcount(root: str, spill_root: str, card: str) -> dict:
     check(all(got[w] == c for w, c in zip(top["word"], top["n"])), "a streaming top-20 word has a wrong count")
     res = {"words": WC_WORDS, "files": len(paths), "chunks": chunks, "wall_s": busy.wall_s,
            "words_per_s": WC_WORDS / busy.wall_s, "incore_s": incore_s, "launches": launches,
-           "kernel_shapes": shapes,
+           "kernel_shapes": shapes, "operand_pool": operands,
            "peak_bytes": peak, "device_busy_s": busy.busy_s, "device_idle": busy.idle, "card": card}
     log(f"stream wordcount [{card}]: {WC_WORDS} words in {len(paths)} files, {chunks} chunks of "
         f"2^25 bytes, text_stream + group_by {busy.wall_s:.2f} s = {WC_WORDS / busy.wall_s:.4g} words/s "
@@ -4231,13 +4598,33 @@ def phase_obs(dev, card: str) -> dict:
     return res
 
 
+def loopctl_line(dl) -> dict:
+    """The loop-control kernel's entry of the kernels line (the devloop
+    phase's numbers; None where it did not run)."""
+    lc = (dl or {}).get("loopctl", {})
+    return {
+        "name": "loop_step",
+        "route": "cuda",
+        "source": "dryad_tpu_torch/ops/csrc/loop_control.cu",
+        "replaces": "none: dryad_tpu/exec/executor.py:1551 (the lax.while_loop condition and carry update)",
+        "launches": (dl or {}).get("loopctl_launches"),
+        "max_abs_err": lc.get("max_abs_err"),
+        "ms": lc.get("kernel_ms"),
+        "plain_ms": lc.get("plain_ms"),
+        "bound_ms": lc.get("bound_ms"),
+        "bound_by": lc.get("bound_by", "bytes"),
+        "library_ms": None,
+        "note": "launch-bound: one thread, 75 bytes; bound_ms is the work's, not the launch's",
+    }
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument(
         "--phases",
         default="lint,env,kernel,wordcount,dense,terasort,terasort_hot,groupby_sort,"
-                "join_shuffle,join_broadcast,pagerank,decomposable,ordered_ops,cpu_parity,stores,"
-                "stream,serve,cluster,rewrite,fleet,obs")
+                "groupby_sort_fused,join_shuffle,join_broadcast,pagerank,devloop,decomposable,"
+                "ordered_ops,cpu_parity,stores,stream,serve,cluster,rewrite,fleet,obs")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     if not torch.cuda.is_available():
@@ -4261,9 +4648,11 @@ def main(argv=None) -> int:
         ("terasort", lambda: phase_terasort(dev, card, TS_ROWS, hot=False)),
         ("terasort_hot", lambda: phase_terasort(dev, card, TS_HOT_ROWS, hot=True)),
         ("groupby_sort", lambda: phase_groupby_sort(dev, card)),
+        ("groupby_sort_fused", lambda: phase_groupby_sort_fused(dev, card)),
         ("join_shuffle", lambda: phase_join_shuffle(dev, card)),
         ("join_broadcast", lambda: phase_join_broadcast(dev, card)),
         ("pagerank", lambda: phase_pagerank(dev, card)),
+        ("devloop", lambda: phase_devloop(dev, card)),
         ("decomposable", lambda: phase_decomposable(dev, card)),
         ("ordered_ops", lambda: phase_ordered_ops(dev, card)),
         ("cpu_parity", lambda: phase_cpu_parity(dev, card)),
@@ -4337,7 +4726,7 @@ def main(argv=None) -> int:
         "rewrite_shapes": results.get("rewrite", {}).get("kernel_shapes"),
         "fleet_shapes": results.get("fleet", {}).get("kernel_shapes"),
         "obs_shapes": results.get("obs", {}).get("kernel_shapes"),
-    }]}
+    }, loopctl_line(results.get("devloop"))]}
     print(json.dumps(line))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -2,8 +2,8 @@
 
 ``exec/kernels.py`` registers (op kind, param name) pairs whose tables
 travel as device operands (``ctx.operand``, the executor's
-``exec/operands.py::DeviceTables``, keyed by the table's shape tier)
-instead of being built per call.  The registry is only honest if the
+``exec/operands.py::DeviceOperandPool``, keyed by the table's buffer
+layout) instead of being built per call.  The registry is only honest if the
 kernels obey it, enforced in BOTH directions:
 
 - a kernel registered for an operand param must never materialize that

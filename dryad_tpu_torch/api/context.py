@@ -686,7 +686,7 @@ class DryadContext:
                 binding_fps = {nid: self._binding_fp(n) for nid, n in graph.inputs.items()}
             out = self.executor.execute(
                 graph, bindings, subquery_runner=self._run_subquery, defer_miss=defer_miss,
-                binding_fps=binding_fps,
+                binding_fps=binding_fps, loop_lowerer=self._lower_loop_stage,
             )
         results, deferred = out if defer_miss else (out, None)
         return [results[graph.outputs[q.node.id]] for q in queries], deferred
@@ -822,6 +822,28 @@ class DryadContext:
         return JobHandle(table, path)
 
     # -- do_while support ------------------------------------------------------
+    def _lower_loop_stage(self, plan_fn, schema: Schema, example: ColumnBatch):
+        """Lower a do_while body or condition subplan to ONE stage for the
+        on-device loop; returns ``(stage, output schema)``.  Raises
+        ValueError when the subplan needs more than one stage or its
+        stage is not one input to one output: the executor then runs its
+        driver loop."""
+        q0 = self._from_device_batch(example, schema)
+        try:
+            out_q = plan_fn(q0)
+            graph = lower([out_q.node], self.config, self.dictionary, P=self.num_partitions)
+        finally:  # lowering reads the node, not its binding: pin nothing
+            del self._bindings[q0.node.id]
+        if len(graph.stages) != 1:
+            raise ValueError(
+                f"subplan lowers to {len(graph.stages)} stages; device "
+                f"loop needs exactly one"
+            )
+        stage = graph.stages[0]
+        if stage.input_refs != [("plan_input", q0.node.id)] or len(stage.out_slots) != 1:
+            raise ValueError("subplan stage shape unsupported for device loop")
+        return stage, out_q.schema
+
     def _run_subquery(self, plan_fn, schema: Schema, current: ColumnBatch, scalar: bool = False):
         """Run a do_while body (-> the new state batch) or condition (->
         its one bool value, read on the host) on ``current``.  Each plan

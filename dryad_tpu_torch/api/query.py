@@ -865,13 +865,18 @@ class Query:
     ) -> "Query":
         """Iterate ``body`` until ``cond`` (the current dataset -> a
         one-row bool query) yields False, at most ``max_iter`` rounds;
-        the body runs before the first check (DoWhile).  Each round
-        the driver runs the body's plan, built once and rebound to the
-        new state, compacts the state, then runs the condition and reads
-        its value on the host.  ``device=True`` is accepted and runs
-        this same driver loop on the card: the reference's on-device
-        loop (one ``lax.while_loop`` for a one-stage body) has no port
-        yet (ROADMAP.md queue 1 item 8)."""
+        the body runs before the first check (DoWhile).
+
+        ``device=True``, and every loop under the default
+        ``config.do_while_device_auto``, runs the WHOLE loop on the
+        device when body and condition each lower to one stage and the
+        body keeps the batch's columns, types and capacity: on the card
+        one CUDA graph a run (``exec/devloop.py``), whose host reads the
+        loop's flags once; on the CPU the same stages in a Python loop.
+        Otherwise the driver loop runs it (a ``do_while_device_fallback``
+        event is logged): each round runs the body's plan, built once
+        and rebound to the new state, compacts the state, then runs the
+        condition and reads its value on the host."""
         return Query(self.ctx, Node(
             "do_while", [self.node], self.schema, PartitionInfo(),
             body=body, cond=cond, max_iter=max_iter, device=device,

@@ -65,7 +65,7 @@ EVENT_KINDS: Dict[str, str] = {
     "do_while_iter": "driver-loop iteration began; iter",
     "do_while_max_iter": "loop stopped at the iteration budget",
     "do_while_state_boost": "loop state outgrew capacity; boost",
-    "do_while_device_start": "whole loop compiled on device; boost",
+    "do_while_device_start": "whole loop on the device as one graph; boost",
     "do_while_device_done": "device loop finished; iters",
     "do_while_device_fallback": "device lowering rejected; driver loop",
     # -- apply_host (exec.executor) ---------------------------------------
@@ -413,9 +413,6 @@ QUERY_SCOPED_KINDS: Tuple[str, ...] = (
 # rule lets these kinds go without an emit site and reports one that
 # gains a site, so this list only shrinks.
 PENDING_KINDS: Dict[str, str] = {
-    "do_while_device_start": "ROADMAP queue 1 item 8",
-    "do_while_device_done": "ROADMAP queue 1 item 8",
-    "do_while_device_fallback": "ROADMAP queue 1 item 8",
     "xla_compile": "ROADMAP queue 1 item 10",
     "command_batch": "ROADMAP queue 1 item 11",
     "exchange_round": "ROADMAP queue 1 item 11",

@@ -30,9 +30,23 @@ ported stages need:
   drop the reduced width first.  Counts are those of units read
   synchronously or drained from the window, so a stage adapts exactly
   when the reference's does.
-- ``do_while`` is the reference's driver loop (body, then condition,
-  the state compacted after every round, its capacity boosted on
-  overflow); ``apply_host`` is its host round trip per partition.
+- ``do_while`` first tries the reference's on-device loop (with
+  ``device=True``, and always under the default
+  ``config.do_while_device_auto``): body and condition lowered to one
+  stage each (the context's ``loop_lowerer``) run as one loop program
+  (``exec/devloop.py``: one CUDA graph a run on the card), logging
+  ``do_while_device_start`` and ``do_while_device_done``; an overflow
+  reruns it at twice the boost.  A lowering refusal (``ValueError``),
+  or a body that changes the carry or reads a value to the host
+  (``TypeError``), logs ``do_while_device_fallback`` and runs the
+  reference's driver loop (body, then condition, the state compacted
+  after every round, its capacity boosted on overflow).  ``apply_host``
+  is its host round trip per partition.
+- The string coding tables of each dispatch attempt come from the
+  content-addressed operand pool (``exec/operands.py``), which scatters
+  a widened table's delta and counts its bytes into ``h2d_bytes`` and
+  ``operand_h2d_bytes``; the flight recorder's ``operand_pool`` probe
+  reads its counters.
 - After the job, the deferred dictionary/range-miss counters of every
   unit are read in ONE copy; a nonzero count raises, as the
   reference's ``_raise_miss``.  ``execute(defer_miss=True)`` hands
@@ -93,6 +107,8 @@ import itertools
 import math
 import os
 import time
+import weakref
+from collections import OrderedDict
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -109,7 +125,8 @@ from dryad_tpu_torch.exec.kernels import (
     NON_OVERFLOW_OPS, OPERAND_PARAMS, StageContext, _round8, run_ops,
 )
 from dryad_tpu_torch.ops import shuffle as SH
-from dryad_tpu_torch.exec.operands import DeviceTables
+from dryad_tpu_torch.exec.devloop import LoopProgram
+from dryad_tpu_torch.exec.operands import BakedOperands, DeviceOperandPool, DispatchOperands
 from dryad_tpu_torch.exec.stats import StageStatistics
 from dryad_tpu_torch.obs import flightrec
 from dryad_tpu_torch.obs.metrics import MetricsRegistry
@@ -122,6 +139,8 @@ from dryad_tpu_torch.plan.lower import Stage, StageGraph, StageOp, tail_width
 from dryad_tpu_torch.utils.logging import get_logger
 
 _log = get_logger("dryad_tpu_torch.exec")
+
+LOOP_PROGRAMS = 8  # on-device do_while programs an executor keeps
 
 # trace files of ``config.profile_dir``, numbered within the process
 _PROFILE_SEQ = itertools.count()
@@ -310,12 +329,30 @@ class GraphExecutor:
         self.P = P
         self.config = config
         self.device = torch.device(device)
-        self.tables = DeviceTables(self.device)
         # every job's events, the reference's kinds and fields
         self.event_log = event_log if event_log is not None else EventLog(None)
         # counters and histograms of the stream driver (spill and
-        # transfer bytes, per-piece rows), written as ``metrics`` events
+        # transfer bytes, per-piece rows) and of the operand pool,
+        # written as ``metrics`` events
         self.metrics = MetricsRegistry()
+        # string coding tables: the pool feeds each dispatch (runtime
+        # tables, the default); baked tables feed the device loop and
+        # the ``stringcode_runtime_tables=False`` path, as the
+        # reference's compiled constants do
+        self.runtime_operands = bool(getattr(config, "stringcode_runtime_tables", True))
+        self.operand_pool = DeviceOperandPool(self.device, metrics=self.metrics)
+        self.baked_operands = BakedOperands(self.device)
+        pool = weakref.ref(self.operand_pool)  # the probe must not pin the executor
+        flightrec.probe("operand_pool", lambda: _pool_probe(pool()))
+        # on-device do_while programs by the reference's key, the
+        # LOOP_PROGRAMS most recent: a plan built with fresh lambdas is a
+        # new key each run, and each graph holds a private pool; the
+        # rest are freed when the executor goes
+        self._loops: "OrderedDict[Tuple, LoopProgram]" = OrderedDict()
+        weakref.finalize(self, _release_loops, self._loops)
+        # lowers a do_while subplan to one stage, during a job only (the
+        # context's method; see ``subquery_runner``)
+        self.loop_lowerer = None
         # the last job's retries, adaptations and loop rounds, as (kind,
         # name, value): ("stage_overflow", name, boost) for each
         # overflowed attempt, ("stage_width_adapt", name, fan) for each
@@ -367,7 +404,7 @@ class GraphExecutor:
         self._profiling = False
 
     # -- structural identity -------------------------------------------------
-    def _stage_key(self, stage: Stage) -> Tuple:
+    def _stage_key(self, stage: Stage, split_operands: bool = True) -> Tuple:
         """Structural stage identity: op kinds + static params.  A
         value-hashable param keys by value, so a rebuilt query shares
         the key; any other hashable object (a user function, an
@@ -376,8 +413,9 @@ class GraphExecutor:
         ``Query``; an unhashable param keys by its repr.  The string
         tables of ``OPERAND_PARAMS`` key by their shape tier, as the
         reference's runtime operands do
-        (``config.stringcode_runtime_tables``)."""
-        split = bool(getattr(self.config, "stringcode_runtime_tables", True))
+        (``config.stringcode_runtime_tables``); ``split_operands=False``
+        keys them by content (the device loop holds its tables)."""
+        split = split_operands and self.runtime_operands
         parts = []
         for op in stage.ops:
             items = []
@@ -405,26 +443,30 @@ class GraphExecutor:
     def execute(
         self, graph: StageGraph, bindings: Dict[int, ColumnBatch], subquery_runner=None,
         defer_miss: bool = False, binding_fps: Optional[Dict[int, Optional[str]]] = None,
+        loop_lowerer=None,
     ):
         """Run the graph; returns its results by ``(stage id, output)``,
         or with ``defer_miss`` ``(results, DeferredFinish)``, whose
         ``finish()`` the caller runs when it reads the result.
         ``binding_fps``: plan-input node id -> content fingerprint (None:
         not fingerprintable), the inputs' part of each checkpoint
-        identity."""
+        identity.  ``loop_lowerer``: lowers a do_while subplan to one
+        stage (the on-device loop's; without it every loop runs the
+        driver loop)."""
         if self._depth == 0:
             self.events = []
         # the adaptation state is per graph: a nested run keeps its own
         saved = tuple(getattr(self, a, None) for a in _ADAPT_STATE)
-        saved_runner = self.subquery_runner
+        saved_runner, saved_lowerer = self.subquery_runner, self.loop_lowerer
         self.subquery_runner = subquery_runner or saved_runner
+        self.loop_lowerer = loop_lowerer or saved_lowerer
         self._depth += 1
         try:
             with self._profile():
                 results, misses, ckpts = self._execute(graph, bindings, binding_fps or {})
         finally:
             self._depth -= 1
-            self.subquery_runner = saved_runner
+            self.subquery_runner, self.loop_lowerer = saved_runner, saved_lowerer
             for a, v in zip(_ADAPT_STATE, saved):
                 setattr(self, a, v)
         deferred = DeferredFinish(self, misses, ckpts)
@@ -488,8 +530,10 @@ class GraphExecutor:
                 self._drain(window, bindings, results, misses)
                 stage = unit[0]
                 (current,) = self._inputs(stage, bindings, results)
-                run = self._run_do_while if driver == "do_while" else self._run_apply_host
-                results[(stage.id, 0)] = run(stage, current)
+                if driver == "do_while":
+                    results[(stage.id, 0)] = self._run_do_while(stage, current, misses)
+                else:
+                    results[(stage.id, 0)] = self._run_apply_host(stage, current)
                 self._out_fp[(stage.id, 0)] = None  # loop state / host fn: opaque
                 continue
             if window and self._drain_for_adapt(unit, window):
@@ -772,9 +816,14 @@ class GraphExecutor:
         """Run a unit's member stages once; returns its overflow flag and
         dictionary-miss counter (or-ed and summed over the members)."""
         overflow = dict_miss = None
+        # the attempt's tables, each fetched from the pool once
+        operands = (
+            DispatchOperands(self.operand_pool, [op for m in unit for op in m.ops], OPERAND_PARAMS)
+            if self.runtime_operands else self.baked_operands
+        )
         for m in unit:
             run = _fan_adapted_stage(m, fan) if fan else m
-            ctx = StageContext(self.P, self.device, self.tables, self.config.shuffle_slack, boost)
+            ctx = StageContext(self.P, self.device, operands, self.config.shuffle_slack, boost)
             ctx.bind_inputs(self._inputs(m, bindings, results))
             run_ops(ctx, run.ops)
             for i, slot in enumerate(m.out_slots):
@@ -847,15 +896,28 @@ class GraphExecutor:
         return shrinker
 
     # -- driver stages -------------------------------------------------------
-    def _run_do_while(self, stage: Stage, current: ColumnBatch) -> ColumnBatch:
-        """The reference's driver loop (DoWhile): each round runs the
-        body subplan on the current state, compacts the state back to
-        ``base_pp * boost`` rows a partition (doubling ``boost`` while it
-        overflows, up to ``2 ** max_shuffle_retries``), then runs the
-        condition subplan, whose one value is read on the host."""
+    def _run_do_while(self, stage: Stage, current: ColumnBatch, misses) -> ColumnBatch:
+        """DoWhile.  With ``device=True`` or ``do_while_device_auto``,
+        first the on-device loop (:meth:`_run_do_while_device`); on its
+        refusal, or otherwise, the reference's driver loop: each round
+        runs the body subplan on the current state, compacts the state
+        back to ``base_pp * boost`` rows a partition (doubling ``boost``
+        while it overflows, up to ``2 ** max_shuffle_retries``), then
+        runs the condition subplan, whose one value is read on the
+        host."""
         if self.subquery_runner is None:
             raise RuntimeError("do_while requires a subquery_runner (use DryadContext)")
         p = stage.ops[0].params
+        auto = bool(getattr(self.config, "do_while_device_auto", False))
+        if (p.get("device") or auto) and self.loop_lowerer is not None:
+            try:
+                return self._run_do_while_device(stage, p, current, misses)
+            except (ValueError, TypeError) as e:
+                # ValueError: the lowerer refused the subplan (more than
+                # one stage); TypeError: the body changes the carry or a
+                # function reads a device value on the host
+                self._note("do_while_device_fallback", stage.name, 0, stage=stage.id,
+                           reason=str(e))
         base_pp = max(8, current.capacity)
         boost, it = 1, 0
         while True:
@@ -880,6 +942,56 @@ class GraphExecutor:
             if not self.subquery_runner(p["cond"], p["schema"], current, scalar=True):
                 break
         return current
+
+    def _run_do_while_device(self, stage: Stage, p, current: ColumnBatch, misses) -> ColumnBatch:
+        """The reference's on-device DoWhile: body and condition lowered
+        to one stage each run as one loop program (``exec/devloop.py``),
+        cached under the reference's key (the stages, the carry layout,
+        ``max_iter`` and the boost).  ``do_while_device_start`` comes
+        before the carry check, as the reference's comes before the
+        trace that raises; an overflow logs ``stage_overflow`` and reruns
+        at twice the boost, up to ``2 ** max_shuffle_retries``.  The
+        body's dictionary misses join the job's deferred miss check when
+        a stage codes strings."""
+        body_stage, body_schema = self.loop_lowerer(p["body"], p["schema"], current)
+        cond_stage, cond_schema = self.loop_lowerer(p["cond"], body_schema, current)
+        cond_col = cond_schema.device_names()[0]
+        max_iter = int(p["max_iter"])
+        layout = (
+            tuple(sorted((n, str(t.dtype), tuple(t.shape)) for n, t in current.data.items())),
+            tuple(current.valid.shape),
+        )
+        boost = 1
+        while True:
+            key = ("do_while_device", self._stage_key(body_stage, split_operands=False),
+                   self._stage_key(cond_stage, split_operands=False), layout, max_iter, boost)
+            self._note("do_while_device_start", stage.name, boost, stage=stage.id, boost=boost)
+            prog = self._loops.get(key)
+            first = None
+            if prog is not None:
+                self._loops.move_to_end(key)
+            else:
+                fns = [_loop_stage_fn(s, self.P, self.device, self.baked_operands,
+                                      self.config.shuffle_slack, boost, with_miss=m)
+                       for s, m in ((body_stage, True), (cond_stage, False))]
+                prog = LoopProgram(*fns, cond_col, max_iter, self.device)
+                first = prog.check(current)  # TypeError: the driver loop runs it
+                self._loops[key] = prog
+                while len(self._loops) > LOOP_PROGRAMS:
+                    self._loops.popitem(last=False)[1].release()
+            res = prog.run(current, first)
+            if not res.overflow:
+                if any(op.kind == "string_code" for s in (body_stage, cond_stage) for op in s.ops):
+                    misses.append((stage.name, res.miss))
+                self._note("do_while_device_done", stage.name, res.iters, stage=stage.id,
+                           iters=res.iters)
+                return res.batch
+            self._note("stage_overflow", stage.name, boost, stage=stage.id, name=stage.name,
+                       version=1, boost=boost)
+            if boost >= 2 ** self.config.max_shuffle_retries:
+                raise StageFailedError(f"device do_while still overflowing at boost {boost}")
+            boost *= 2
+
 
     def _run_apply_host(self, stage: Stage, b: ColumnBatch) -> ColumnBatch:
         """Host-callback Apply: each partition's valid rows go to the
@@ -988,6 +1100,35 @@ class GraphExecutor:
             return None
         fan = 1 << (w - 1).bit_length()  # power-of-two widths
         return fan if fan < self.P else None
+
+
+def _loop_stage_fn(stage: Stage, P: int, device, operands, slack: float, boost: int,
+                   with_miss: bool):
+    """One lowered stage as a function of the loop state: its ops at
+    ``boost`` over ``operands`` (baked tables); returns the output batch
+    and its overflow flag (and, for the body, its miss count).  It holds
+    no reference to the executor, whose loops outlive no executor."""
+    def fn(batch: ColumnBatch):
+        ctx = StageContext(P, device, operands, slack, boost)
+        ctx.bind_inputs((batch,))
+        run_ops(ctx, stage.ops)
+        out = ctx.slots[stage.out_slots[0]]
+        return (out, ctx.overflow, ctx.dict_miss) if with_miss else (out, ctx.overflow)
+    return fn
+
+
+def _pool_probe(pool: Optional[DeviceOperandPool]) -> dict:
+    """The flight recorder's ``operand_pool`` microsnapshot."""
+    if pool is None:
+        return {}
+    return {"tiers": len(pool._tiers), "hits": pool.hits,
+            "full_uploads": pool.full_uploads, "delta_scatters": pool.delta_scatters}
+
+
+def _release_loops(loops: Dict[Tuple, LoopProgram]) -> None:
+    for prog in loops.values():
+        prog.release()
+    loops.clear()
 
 
 # the per-graph state (adaptation, checkpoint identities) a nested

@@ -50,10 +50,11 @@ class StageContext:
     slots, the overflow flag the executor reads after the stage, and the
     dictionary-miss counter it reads once after the job."""
 
-    def __init__(self, P: int, device, tables=None, slack: float = 2.0, boost: int = 1):
+    def __init__(self, P: int, device, operands=None, slack: float = 2.0, boost: int = 1):
         self.P = P
         self.device = torch.device(device)
-        self.tables = tables  # exec.operands.DeviceTables
+        # the dispatch's tables (exec/operands.py: DispatchOperands, BakedOperands)
+        self.operands = operands
         self.slack = slack
         self.boost = boost
         self.slots: Dict[int, ColumnBatch] = {}
@@ -75,8 +76,8 @@ class StageContext:
         return self.entry_caps.get(slot, max(self.entry_caps.values() or [64]))
 
     def operand(self, obj) -> Tuple[torch.Tensor, ...]:
-        """Device tensors of a coding table (uploaded once per context)."""
-        return self.tables.get(obj)
+        """Device tensors of a coding table (``exec/operands.py``)."""
+        return self.operands.get(obj)
 
 
 def apply_op(ctx: StageContext, kind: str, p: Dict[str, Any]) -> None:

@@ -35,13 +35,21 @@ through :func:`associative_scan`, which copies JAX's own recursion
 (``lax.associative_scan``), so every merge sees the operands the
 reference's sees and float states come out with the same bytes.
 
-``group_reduce_fused`` (an opt-in environment switch of the reference,
-off by default) is not ported yet (ROADMAP.md queue 1 item 5).
+``group_reduce_fused`` is the reference's opt-in sort path
+(``DRYAD_TPU_SORT_FUSED=1`` routes ``group_reduce`` to it; off by
+default, as there): one multi-channel flagged segmented scan through
+:func:`associative_scan`, counts from the positions of each segment's
+last row, and every output bitcast to a 32-bit word and written by one
+stacked scatter.  Float sums and means there are the reference's fused
+path byte for byte (the same f32 additions in JAX's scan order, with
+subnormals flushed as its backends flush them), not the fixed-point
+sums above.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -271,7 +279,11 @@ def group_reduce(
     """Group each partition's rows by the key columns and reduce; the
     output keeps the input's capacity, with one valid row per distinct
     key at the front (rows ``0..nseg-1``): the key columns plus one
-    column per AggSpec (two words for the pair ops)."""
+    column per AggSpec (two words for the pair ops).
+    ``DRYAD_TPU_SORT_FUSED=1`` routes to :func:`group_reduce_fused`, as
+    in the reference."""
+    if os.environ.get("DRYAD_TPU_SORT_FUSED") == "1":  # graftlint: disable=kernel-determinism -- the reference's opt-in switch, off by default; constant within a run
+        return group_reduce_fused(batch, key_cols, aggs)
     cap = batch.capacity
     sb, v, start, seg, nseg = _segment_layout(batch, key_cols)
     out: Dict[str, torch.Tensor] = {}
@@ -319,6 +331,184 @@ def group_reduce(
         else:
             raise ValueError(f"unknown agg op {a.op!r}")
 
+    valid = torch.arange(cap, device=v.device) < nseg[:, None]
+    return ColumnBatch(out, valid)
+
+
+def _to_word32(t: torch.Tensor) -> torch.Tensor:
+    """A column's 32 bits as int32: float32 and int32 bit for bit, bool
+    as 0/1, uint32 words (int64 carrier) wrapped."""
+    if t.dtype == torch.float32:
+        return t.view(torch.int32)
+    return t.to(torch.int32)
+
+
+def _from_word32(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    if dtype == torch.float32:
+        return w.view(torch.float32)
+    if dtype == WORD:
+        return w.to(WORD) & MASK32
+    return w.to(dtype)
+
+
+def _pair_combine(op: str):
+    """The reference's 64-bit word-pair combine: carry-propagating add
+    for ``sum64``, signed lexicographic select for ``min64``/``max64``."""
+    if op == "sum64":
+        def combine(alo, ahi, blo, bhi):
+            slo = (alo + blo) & MASK32
+            return slo, (ahi + bhi + (slo < blo).to(WORD)) & MASK32
+    else:
+        def combine(alo, ahi, blo, bhi):
+            ahs = torch.where(ahi >= SIGN32, ahi - (1 << 32), ahi)
+            bhs = torch.where(bhi >= SIGN32, bhi - (1 << 32), bhi)
+            a_less = (ahs < bhs) | ((ahs == bhs) & (alo < blo))
+            take_a = a_less if op == "min64" else ~a_less
+            return torch.where(take_a, alo, blo), torch.where(take_a, ahi, bhi)
+    return combine
+
+
+def _elem_combine(kind: str, ea: torch.Tensor, eb: torch.Tensor) -> torch.Tensor:
+    """One channel group's combine, as the reference's: int32 sums wrap,
+    uint32 words wrap mod 2^32, f32 sums flush subnormals."""
+    if kind == "sum":
+        m = ea + eb
+        if m.dtype == torch.float32:
+            return flush_subnormal(m)
+        return m & MASK32 if m.dtype == WORD else m
+    if kind == "min":
+        return torch.minimum(ea, eb)
+    if kind == "max":
+        return torch.maximum(ea, eb)
+    return ea  # first: keep the left (earlier) value
+
+
+def group_reduce_fused(
+    batch: ColumnBatch, key_cols: Sequence[str], aggs: Sequence[AggSpec]
+) -> ColumnBatch:
+    """The reference's fused sort path: :func:`group_reduce`'s output
+    from ONE multi-channel flagged segmented scan and ONE stacked
+    scatter.  Every aggregate with per-segment state is a channel of the
+    scan (channels grouped by combine kind and dtype, one combine a
+    group); counts are the differences of the positions of consecutive
+    segments' last rows; keys, aggregates and positions are bitcast to
+    32-bit words and written together at the rows that end a segment
+    (the positions are unique, so the result is deterministic).
+
+    Integers, keys and counts equal :func:`group_reduce`'s byte for
+    byte.  Float32 sums and means are f32 additions in JAX's scan order
+    (:func:`associative_scan`, subnormals flushed in and out of every
+    addition as the reference's backends flush them): the reference's
+    fused path byte for byte, within ``n_g * 2^-23 * sum |v|`` of the
+    exact sum of a group of ``n_g`` values."""
+    cap = batch.capacity
+    sb, v, start, seg, nseg = _segment_layout(batch, key_cols)
+    nxt_start = torch.nn.functional.pad(start[..., 1:], (0, 1), value=True)
+    nxt_valid = torch.nn.functional.pad(v[..., 1:], (0, 1), value=False)
+    last = v & (nxt_start | ~nxt_valid)
+
+    # scan channels, grouped so one combine handles a whole stack
+    elem_groups: Dict[Tuple[str, str], List[Tuple[str, torch.Tensor]]] = {}
+    pair_groups: Dict[str, List[Tuple[str, torch.Tensor, torch.Tensor]]] = {}
+
+    def elem(kind: str, name: str, arr: torch.Tensor) -> None:
+        if arr.dtype == torch.float32:
+            arr = flush_subnormal(arr)
+        elem_groups.setdefault((kind, str(arr.dtype)), []).append((name, arr))
+
+    need_count = any(a.op in ("count", "mean") for a in aggs)
+    for a in aggs:
+        if a.op == "count":
+            continue
+        if a.op in PAIR_OPS:
+            hi_col = a.col[: -len("#h0")] + "#h1"
+            pair_groups.setdefault(a.op, []).append((a.out, sb.data[a.col], sb.data[hi_col]))
+            continue
+        col = sb.data[a.col]
+        if a.op in ("sum", "min", "max", "first"):
+            elem(a.op, a.out, col)
+        elif a.op == "mean":
+            elem("sum", a.out, col.to(torch.float32))
+        elif a.op == "any":
+            elem("max", a.out, col.to(torch.int32))
+        elif a.op == "all":
+            elem("min", a.out, col.to(torch.int32))
+        else:
+            raise ValueError(f"unknown agg op {a.op!r}")
+
+    ekeys = sorted(elem_groups)
+    pkeys = sorted(pair_groups)
+    scanned: List[torch.Tensor] = []
+    if ekeys or pkeys:
+        # channel stacks as (P, C, cap): the scan runs along the last axis
+        stacks = [torch.stack([x for _n, x in elem_groups[k]], -2) for k in ekeys]
+        for k in pkeys:
+            stacks.append(torch.stack([lo for _n, lo, _h in pair_groups[k]], -2))
+            stacks.append(torch.stack([hi for _n, _l, hi in pair_groups[k]], -2))
+
+        def combine(a, b):
+            keep_b = b[0][..., None, :]
+            out = [a[0] | b[0]]
+            for i, (kind, _dt) in enumerate(ekeys):
+                out.append(torch.where(keep_b, b[1 + i], _elem_combine(kind, a[1 + i], b[1 + i])))
+            at = 1 + len(ekeys)
+            for j, k in enumerate(pkeys):
+                alo, ahi = a[at + 2 * j], a[at + 2 * j + 1]
+                blo, bhi = b[at + 2 * j], b[at + 2 * j + 1]
+                mlo, mhi = _pair_combine(k)(alo, ahi, blo, bhi)
+                out += [torch.where(keep_b, blo, mlo), torch.where(keep_b, bhi, mhi)]
+            return out
+
+        scanned = associative_scan(combine, [start] + stacks)[1:]
+
+    # ONE stacked scatter at the segments' last rows
+    chans: List[torch.Tensor] = []
+    names: List[Tuple[str, torch.dtype]] = []  # (out name, dtype to restore)
+    for k in key_cols:  # keys are constant within a segment
+        chans.append(_to_word32(sb.data[k]))
+        names.append((k, sb.data[k].dtype))
+    for i, gk in enumerate(ekeys):
+        for c, (name, arr) in enumerate(elem_groups[gk]):
+            chans.append(_to_word32(scanned[i][..., c, :]))
+            names.append((f"#chan/{gk[0]}/{name}", arr.dtype))
+    at = len(ekeys)
+    for j, pk in enumerate(pkeys):
+        slo, shi = scanned[at + 2 * j], scanned[at + 2 * j + 1]
+        for c, (name, _lo, _hi) in enumerate(pair_groups[pk]):
+            chans += [_to_word32(slo[..., c, :]), _to_word32(shi[..., c, :])]
+            names += [(f"{name}#h0", WORD), (f"{name}#h1", WORD)]
+    if need_count:
+        chans.append(torch.arange(cap, dtype=torch.int32, device=v.device).expand_as(v))
+        names.append(("#chan/pos", torch.int32))
+    stacked = torch.stack(chans, -1)  # (P, cap, C) int32
+    # rows that end no segment land in the dump slots past cap
+    idx = torch.where(last, seg, _dump(cap, v.device))
+    out3 = torch.zeros(v.shape[:-1] + (cap + DUMP, stacked.shape[-1]), dtype=torch.int32,
+                       device=v.device)
+    out3 = out3.scatter_(-2, idx[..., None].expand_as(stacked), stacked)[..., :cap, :]
+    fetched = {name: _from_word32(out3[..., i], dt) for i, (name, dt) in enumerate(names)}
+
+    out: Dict[str, torch.Tensor] = {k: fetched[k] for k in key_cols}
+    seg_count = None
+    if need_count:
+        pos_last = fetched["#chan/pos"]
+        prev = torch.nn.functional.pad(pos_last[..., : cap - 1], (1, 0), value=-1)
+        seg_count = pos_last - prev
+    for a in aggs:
+        if a.op == "count":
+            out[a.out] = seg_count
+        elif a.op in PAIR_OPS:
+            out[f"{a.out}#h0"] = fetched[f"{a.out}#h0"]
+            out[f"{a.out}#h1"] = fetched[f"{a.out}#h1"]
+        elif a.op == "mean":
+            s = fetched[f"#chan/sum/{a.out}"]
+            out[a.out] = flush_subnormal(s / torch.clamp(seg_count.to(torch.float32), min=1.0))
+        elif a.op in ("sum", "min", "max", "first"):
+            out[a.out] = fetched[f"#chan/{a.op}/{a.out}"]
+        elif a.op == "any":
+            out[a.out] = fetched[f"#chan/max/{a.out}"].to(torch.bool)
+        else:  # all
+            out[a.out] = fetched[f"#chan/min/{a.out}"].to(torch.bool)
     valid = torch.arange(cap, device=v.device) < nseg[:, None]
     return ColumnBatch(out, valid)
 

@@ -3,8 +3,8 @@
 The counterpart of ``dryad_tpu/ops/stringcode.py``: the host-side table
 builds are the reference's, line for line, so both packages assign the
 same codes and probe slots; the device lookup and decode gather are
-PyTorch.  Device tables arrive as tensors from the context's
-``exec.operands.DeviceTables`` (uploaded once per context).
+PyTorch.  Device tables arrive as tensors from the executor's
+``exec.operands.DeviceOperandPool`` (a widening scatters its delta).
 
 Reference notes follow.
 

@@ -73,6 +73,11 @@ class DryadConfig:
     - ``device_cache_bytes``: budget of the device-resident ingest
       cache; 0 turns it off.  A table pinned by ``Query.cache()`` is
       not an entry of it.
+    - ``do_while_device_auto``: every ``do_while`` first tries the
+      on-device loop (``exec/devloop.py``: one CUDA graph a run on the
+      card), as ``device=True`` does; a body or condition that lowers to
+      more than one stage, changes the loop carry or reads a value to
+      the host falls back to the driver loop.
     - ``overflow_sync_depth``: units (stages or runs of stages)
       dispatched before their overflow flags are read in one batched
       copy (the speculative dispatch window); 1 reads each at once.
@@ -200,6 +205,7 @@ class DryadConfig:
     stream_host_reprobe: int = _env_int("DRYAD_TPU_STREAM_HOST_REPROBE", 2)
     dispatch_depth: int = _env_int("DRYAD_TPU_DISPATCH_DEPTH", 2)
     chunk_fuse: int = _env_int("DRYAD_TPU_CHUNK_FUSE", 1)
+    do_while_device_auto: bool = _env_bool("DRYAD_TPU_DO_WHILE_DEVICE_AUTO", True)
     checkpoint_dir: Optional[str] = None
     checkpoint_retain_seconds: Optional[float] = None
     obs_flight_recorder: bool = _env_bool("DRYAD_TPU_FLIGHT_RECORDER", True)
@@ -404,6 +410,8 @@ CONFIG_KEYS = {
     "dispatch_depth": "ooc chunk dispatches in flight; 1 = serial "
                       "driver, -1 = adaptive from measured headroom",
     "chunk_fuse": "chunk partial-plans lowered per dispatch; 1 = legacy",
+    "do_while_device_auto":
+        "every do_while tries the one-graph device loop before the driver loop",
     "gang_combine_tree": "worker-side level -1 partial pre-merge",
     "gang_partition_cache_bytes": "worker partition cache budget; 0 off",
     "serve_max_inflight": "per-tenant admitted-query cap (QueryRejected)",
@@ -428,7 +436,6 @@ CONFIG_KEYS = {
 # ROADMAP item that brings it; with CONFIG_KEYS they make the
 # reference's schema (tests/test_torch_graftlint.py holds them to it).
 PENDING_CONFIG_KEYS = {
-    "do_while_device_auto": "ROADMAP queue 1 item 8",
     "command_batch": "ROADMAP queue 1 item 11",
     "gang_batch_depth": "ROADMAP queue 1 item 11",
     "exchange_window": "ROADMAP queue 1 item 11",

@@ -3,10 +3,11 @@ port (dryad_tpu_torch, device="cpu") against the JAX package at P=8.
 
 - ``do_while``: the reference's driver loop (body before condition,
   ``max_iter``, the state compacted after every round and its capacity
-  boosted on overflow), rows byte for byte and the ``do_while_iter`` /
-  ``do_while_state_boost`` events equal to the reference's driver loop;
-  the rows also equal the reference's on-device loop, which the port
-  does not have (``device=True`` runs the driver loop).
+  boosted on overflow, ``do_while_device_auto=False`` in both), rows
+  byte for byte and the ``do_while_iter`` / ``do_while_state_boost``
+  events equal to the reference's driver loop; at the default settings
+  the port's on-device loop gives the reference's on-device loop's rows
+  and events (``tests/test_torch_devloop.py`` has the rest).
 - ``cache``/``release``: a cached result is read by later queries
   without rerunning its pipeline, keeps its partition claim (a
   consumer on the same keys elides its exchange), is not evicted by the
@@ -37,10 +38,11 @@ LOOP_EVENTS = ("do_while_iter", "do_while_state_boost", "do_while_max_iter")
 
 
 def _ctxs(**cfg):
-    # the reference's driver loop: its on-device loop logs no rounds
+    # both driver loops: the on-device loops log no rounds
     jc = J.DryadContext(num_partitions_=P, config=J.DryadConfig(do_while_device_auto=False, **cfg))
     jc.executor.events = EventLog(None)
-    tc = T.DryadContext(num_partitions_=P, config=T.DryadConfig(**cfg), device="cpu")
+    tc = T.DryadContext(num_partitions_=P, config=T.DryadConfig(do_while_device_auto=False, **cfg),
+                        device="cpu")
     return jc, tc
 
 
@@ -126,9 +128,9 @@ def test_do_while_matches_reference_driver_loop(name):
 
 @pytest.mark.parametrize("device", [False, True])
 def test_do_while_rows_equal_reference_device_loop(device):
-    """The reference's default runs a one-stage body as one on-device
-    loop; the port runs its driver loop (also for device=True): the
-    same rows."""
+    """At the default settings both packages run a one-stage body as
+    one on-device loop (``device=True`` or not): the same rows and the
+    same ``do_while_device_*`` events."""
     jc = J.DryadContext(num_partitions_=P)
     tc = T.DryadContext(num_partitions_=P, device="cpu")
     outs = [c.from_arrays({"v": np.array([1.0, 2.0, 3.0], np.float32)}).do_while(
@@ -138,6 +140,10 @@ def test_do_while_rows_equal_reference_device_loop(device):
         max_iter=20, device=device).collect() for c in (jc, tc)]
     _assert_same(outs[1], outs[0])
     assert max(outs[1]["v"]) == 192.0
+    kinds = ("do_while_device_start", "do_while_device_done", "do_while_iter")
+    ref = [(e["kind"], e.get("boost"), e.get("iters")) for e in jc.events.events() if e["kind"] in kinds]
+    port = [(e["kind"], e.get("boost"), e.get("iters")) for e in tc.events.events() if e["kind"] in kinds]
+    assert port == ref == [("do_while_device_start", 1, None), ("do_while_device_done", None, 6)]
 
 
 def test_do_while_state_past_the_retry_budget_fails_as_the_reference():

@@ -512,9 +512,11 @@ def test_do_while_and_apply_host_events_equal_the_reference():
     def cond(q):
         return q.aggregate_as_query({"m": ("max", "x")}).select(lambda c: {"go": c["m"] < 70})
 
+    # both driver loops (the device loops log no rounds)
     jc = J.DryadContext(num_partitions_=P, config=J.DryadConfig(do_while_device_auto=False))
     _swap_executor_log(jc)
-    tc = T.DryadContext(num_partitions_=P, device="cpu")
+    tc = T.DryadContext(num_partitions_=P, config=T.DryadConfig(do_while_device_auto=False),
+                        device="cpu")
     for c in (jc, tc):
         c.from_arrays(t).do_while(body, cond, max_iter=10).apply_host(
             lambda cols, i: cols, schema=None).collect()

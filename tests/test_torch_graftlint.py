@@ -219,7 +219,7 @@ def test_explain_lint_over_the_port_is_clean(cached_gate):
     assert panel[0] == "== static analysis (graftlint) ==" and panel[-1] == "  tree clean"
     assert len([ln for ln in panel if re.match(r"  [a-z-]+ +ok", ln)]) == 20
     sup = [ln for ln in panel if ln.startswith("    dryad_tpu_torch/")]
-    assert len(sup) == 3 and all(" -- " in ln for ln in sup)
+    assert len(sup) == 5 and all(" -- " in ln for ln in sup)
 
 
 # -- configuration schema ------------------------------------------------------
@@ -235,7 +235,6 @@ def test_config_keys_mirror_the_dataclass_and_the_reference():
     assert sum(map(len, parts)) == len(set().union(*parts))
     assert set().union(*parts) == set(RCFG.CONFIG_KEYS)
     assert TCFG.PENDING_CONFIG_KEYS == {
-        "do_while_device_auto": "ROADMAP queue 1 item 8",
         "command_batch": "ROADMAP queue 1 item 11",
         "gang_batch_depth": "ROADMAP queue 1 item 11",
         "exchange_window": "ROADMAP queue 1 item 11",

@@ -13,7 +13,7 @@ from dryad_tpu.ops import stringcode as JC
 from dryad_tpu_torch import interop
 from dryad_tpu_torch.columnar.batch import to_device_column, to_host_column
 from dryad_tpu_torch.columnar.schema import StringDictionary as TDict, split64
-from dryad_tpu_torch.exec.operands import DeviceTables
+from dryad_tpu_torch.exec.operands import DeviceOperandPool
 from dryad_tpu_torch.ops import stringcode as TC
 
 
@@ -63,7 +63,7 @@ def test_lookup_codes_hits_and_misses(rng):
     probe = np.concatenate([rng.choice(known, 300), fake])
     h0, h1 = split64(probe)
     ref = np.asarray(jc.lookup(jnp.asarray(h0), jnp.asarray(h1)))
-    tables = DeviceTables("cpu")
+    tables = DeviceOperandPool("cpu")
     got = tc.lookup(
         to_device_column(h0.reshape(2, -1), "cpu"),
         to_device_column(h1.reshape(2, -1), "cpu"),
@@ -72,7 +72,7 @@ def test_lookup_codes_hits_and_misses(rng):
     np.testing.assert_array_equal(got.numpy().reshape(-1), ref)
     assert (ref[300:] == jc.num_codes_padded).all()
     tables.get(tc)
-    assert tables.uploads == 1
+    assert (tables.full_uploads, tables.hits) == (1, 1)
 
 
 def test_mul32_wraps_like_uint32():
@@ -91,7 +91,7 @@ def test_decode_slices_with_clamped_start(rng, count):
     starts = [0, 2, R - count, R - count + 1, R + 5]  # the last two clamp
     got = tdec.slice_rows(
         torch.tensor(starts).reshape(-1, 1), count,
-        operands=DeviceTables("cpu").get(tdec),
+        operands=DeviceOperandPool("cpu").get(tdec),
     )
     for i, s in enumerate(starts):
         ref = np.asarray(jdec.slice_rows(jnp.int32(s), count))
