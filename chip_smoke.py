@@ -17,7 +17,7 @@ hot key), the sort-path group_by with distinct and range_partition
 pages by shuffle, then a sort-path group_by and a top-1), the broadcast
 join of samples/join_groupby.py (2^26 orders, then the dense group_by
 on the bucket kernel), PageRank by do_while on a Graph500 Kronecker
-graph (scale 21, edgefactor 16, 10 rounds; its multi-stage body falls
+graph (scale 20, edgefactor 16, 10 rounds; its multi-stage body falls
 back from the on-device loop), the on-device do_while as one CUDA graph
 (a per-row Newton iteration over 2^26 rows against a numpy oracle, the
 driver loop and its plain version), the decomposable group_by,
@@ -36,14 +36,21 @@ Join Task as a Grace join of two ``store_stream``s into a stream
 ``to_store``), and serving (16 and 64 closed-loop clients over 4 tenants
 of 2^22 rows on one resident context through ``QueryService``, result
 cache off and on; materialized views under two 2^20-row appends in the
-views, recompute and epoch modes; stage checkpoints of the 2^24-row
+views, recompute and epoch modes; stage checkpoints of the 2^23-row
 group_by written, resumed in a new context and recomputed past a
 corrupted column file), and the local cluster (4 worker processes
 sharing the card through ``LocalJobSubmission.submit_partitioned``:
 WordCount as 16 vertex tasks, then with a 20 s straggler and with a
 worker killed mid-job; an int auto-dense group_by as coded k-of-n
 partials, clean and after seeded kills of 2 workers; seeded stage chaos
-in one context), the runtime plan rewriter at the default config (a
+in one context), the gang (one plan as one program across 2 worker
+processes sharing the card, 4 partitions each, their collectives over
+gloo, through ``LocalJobSubmission.submit``: the dense group_by at 2^26
+rows, TeraSort of 2^26 rows and WordCount of the cluster's corpus, each
+held to one process at P = 8; ``submit_many`` through the dispatch
+window; a worker killed mid-job and the gang rebuilt on 1 worker; then
+the dense group_by over a one-rank NCCL group, and NCCL's answer to two
+ranks on one card), the runtime plan rewriter at the default config (a
 2^26-row drift sort and a skewed Grace join whose hot buckets split
 mid-stream, a thrashing streaming combine pinned to the host and the
 next stream flipped to the combine tree, an overflowing group_by
@@ -52,11 +59,11 @@ pre-widened; each against its rewriter-off run), and the serving fleet
 2^20 rows, 16 closed-loop client processes, a replica killed with
 queries in flight and replayed, then one killed by a seeded fault whose
 flight-recorder dump ``tools/blackbox`` merges), and the telemetry plane
-(WordCount at 2^26 words in a default context: its device samples held
+(WordCount at 2^25 words in a default context: its device samples held
 to ``torch.cuda.mem_get_info``, ``explain(analyze=True)``, a
 ``profile_dir`` trace naming the bucket kernel, the sampler's cost on the
 warm median, the span export, jobview and metricsd over its JSONL log,
-and a 2^26-row stream sort at ``dispatch_depth=-1`` beside depth 2,
+and a 2^25-row stream sort at ``dispatch_depth=-1`` beside depth 2,
 each twice, in the order -1, 2, 2, -1), checks every result against a numpy oracle, and prints:
 
 - a ``{"kernels": [...]}`` line (each kernel's launches on the main
@@ -71,7 +78,7 @@ result line.  Without a CUDA device it exits non-zero at once.
 ``--phases`` runs a subset (lint, env, kernel, wordcount, dense, terasort,
 terasort_hot, groupby_sort, groupby_sort_fused, join_shuffle,
 join_broadcast, pagerank, devloop, decomposable, ordered_ops, cpu_parity,
-stores, stream, serve, cluster, rewrite, fleet, obs), for short first
+stores, stream, serve, cluster, gang, rewrite, fleet, obs), for short first
 runs of a changed kernel.  The WordCount, TeraSort, sort-path group_by, join,
 PageRank, decomposable and ordered phases also profile one warm query
 with torch.profiler and print device time by op, the device's busy
@@ -131,9 +138,9 @@ JOIN_CACHE_BYTES = 16 << 30
 F32_REL = 2.0 ** -23  # the sort path's float sums: n_g * 2^-23 * sum |v|
 
 # PageRank (samples/pagerank_dowhile.py) on a Graph500 Kronecker graph:
-# scale 21 (22 to PR 9; cut for the run's time limit, PERF.md section 4),
+# scale 20 (cut from 22, then 21, for the run's time limit, PERF.md section 4),
 # edgefactor 16, A/B/C/D = 0.57/0.19/0.19/0.05
-PR_SCALE = 21
+PR_SCALE = 20
 PR_EDGEFACTOR = 16
 PR_A, PR_B, PR_C = 0.57, 0.19, 0.19
 PR_DAMP = 0.85
@@ -1148,7 +1155,7 @@ def loop_rounds(ctx) -> int:
 
 
 def phase_pagerank(dev, card: str) -> dict:
-    """PageRank by do_while on a Graph500 Kronecker graph, scale 21,
+    """PageRank by do_while on a Graph500 Kronecker graph, scale PR_SCALE,
     edgefactor 16 (2^22 vertices, 2^26 edges before self loops go):
     exactly 10 rounds (eps = 0), checked against a float64 oracle."""
     from dryad_tpu_torch import DryadConfig, DryadContext
@@ -2004,9 +2011,9 @@ def phase_cpu_parity(dev, card: str) -> dict:
 # -- phase 14: stores, submit, the event log and the samples ------------------
 
 ST_ROWS = 1 << 26  # TeraSort through stores: 512 MiB of int32 keys and f32 payloads (2^28 to PR 5, 2^27 to PR 9)
-ST_ZLIB_ROWS = 1 << 26  # the compressed store (zlib's host time; PERF.md section 4)
+ST_ZLIB_ROWS = 1 << 25  # the compressed store (zlib's host time; cut from 2^26; PERF.md section 4)
 ST_WC_FILES = 8
-ST_WC_WORDS = 1 << 25  # the stores' WordCount corpus (cut from 2^26; PERF.md section 4)
+ST_WC_WORDS = 1 << 24  # the stores' WordCount corpus (cut from 2^26, then 2^25; PERF.md section 4)
 # Disk peaks while the sorted TeraSort store is written beside its input
 # (2 x 1 GiB); both go once checked.  The later files (the 0.47 GiB zlib
 # store, the 0.5 GiB corpus, its 8 pieces of 0.5 GiB in all, the 1 GiB
@@ -2032,7 +2039,7 @@ def _read_back(path: str) -> dict:
 
 
 def phase_stores(dev, card: str) -> dict:
-    """TeraSort through stores (ST_ROWS rows), a zlib store (2^26 rows),
+    """TeraSort through stores (ST_ROWS rows), a zlib store (ST_ZLIB_ROWS rows),
     WordCount through 8 text files and a STRING store, ``submit``, the
     event log, and the six ported samples on the card.  Every context of
     the phase logs its events to a JSONL file."""
@@ -3130,7 +3137,7 @@ def serve_matviews(card: str) -> dict:
     return res
 
 
-CK_ROWS = 1 << 24  # groupby_sort's 2^26 (2^25 to PR 9), cut for the run's time limit (PERF.md section 4)
+CK_ROWS = 1 << 23  # groupby_sort's 2^26 (cut to 2^25, 2^24, then 2^23 for the run's time limit; PERF.md section 4)
 
 
 def serve_checkpoints(card: str) -> dict:
@@ -3242,10 +3249,12 @@ CL_DEVICE = "cuda"  # where the workers run their vertices
 CL_NPARTS = 16
 CL_DELAY_S = 20.0
 CL_KILL_AFTER_S = 3.0
-# the cluster's WordCount corpus and coded group_by (the wordcount phase's
-# 2^26 words and 2^26 rows to PR 9; cut for the run's time limit)
-CL_WORDS = 1 << 25
+# the cluster's WordCount corpus and coded group_by (cut from 2^26 words
+# and 2^26 rows; the corpus from 2^25 too) and its stage-chaos table: cut
+# for the run's time limit
+CL_WORDS = 1 << 24
 CL_DENSE_ROWS = 1 << 25
+CL_CHAOS_ROWS = 1 << 24  # the sort-path group_by of GB_KEYS keys (cut from GB_ROWS)
 CL_DENSE_K = 65536
 CL_CHAOS = dict(seed=0, stage_failure_prob=0.3)
 CL_CHAOS_RUNS = 8  # the seeded plan's 4th draw fails: at most this many runs to see it
@@ -3514,7 +3523,7 @@ def phase_cluster(dev, card: str) -> dict:
 
         # 5. seeded stage chaos in one context: versioned re-execution
         rng = np.random.default_rng(SEED + 6)
-        t = groupby_table(rng, GB_ROWS, GB_KEYS)
+        t = groupby_table(rng, CL_CHAOS_ROWS, GB_KEYS)
         ctx = DryadContext(num_partitions_=P, config=DryadConfig(
             max_stage_failures=4, retry_backoff_base=0.002))
         q = ctx.from_arrays(t).group_by("key", GB_AGGS)
@@ -3541,7 +3550,7 @@ def phase_cluster(dev, card: str) -> dict:
             faults.clear_faults()
         res["chaos"] = {"runs": runs, "stage_failed": failed}
         log(f"cluster stage chaos: {failed} injected stage failure(s) in {runs} runs of the "
-            f"{GB_ROWS}-row group_by under FaultPlan({CL_CHAOS}), each byte-equal to the clean run; "
+            f"{CL_CHAOS_ROWS}-row group_by under FaultPlan({CL_CHAOS}), each byte-equal to the clean run; "
             f"a deterministic failure raised JobFailedError after 2 attempts")
         del ctx, q, clean, t
 
@@ -3575,7 +3584,7 @@ RW_GB_ROWS = 1 << 26
 RW_GB_CHUNK = 1 << 21
 RW_GB_KEYS = 1 << 20  # the thrashing stream's int64 keys
 RW_DENSE_KEYS = 1 << 16  # the flipped stream's int32 keys: auto-dense, on the bucket kernel
-RW_OV_ROWS = 1 << 26
+RW_OV_ROWS = 1 << 25  # the pre-widened group_by (cut from 2^26)
 RW_OV_RUNS = 4
 RW_FREE_BYTES = 10 << 30
 
@@ -3833,7 +3842,7 @@ def rewrite_combine(spill_root: str, card: str) -> tuple:
 
 def rewrite_prewiden(card: str) -> dict:
     """A group_by whose exchange overflows on every run (slack 1.0 over
-    2^26 distinct keys; the -1 keeps the int auto-dense rewrite off):
+    RW_OV_ROWS distinct keys; the -1 keeps the int auto-dense rewrite off):
     after the overflow_loop diagnosis the next dispatch starts at the
     boost floor, with fewer retries, and the rows stay byte-equal."""
     from dryad_tpu_torch import DryadConfig, DryadContext
@@ -4251,7 +4260,8 @@ def phase_fleet(dev, card: str) -> dict:
 
 # -- phase 20: the telemetry plane, the profiler hook and the job tools ---------
 
-OBS_SORT_ROWS = 1 << 26  # the adaptive-depth stream sort, in SM_TS_CHUNK-row chunks
+OBS_SORT_ROWS = 1 << 25  # the adaptive-depth stream sort, in SM_TS_CHUNK-row chunks (cut from 2^26)
+OBS_WORDS = 1 << 25  # the obs path's WordCount corpus (cut from WC_WORDS)
 OBS_COST_PAIRS = 60  # WordCount warm queries with the sampler on and off, interleaved
 
 
@@ -4323,7 +4333,7 @@ def phase_obs(dev, card: str) -> dict:
     the warm median (its event tap on and off, interleaved); the span
     export (``obs/trace.py``); the bucket kernel held against its plain
     version at the inputs of its first launch at each shape on the path;
-    jobview and metricsd over the log; then a 2^26-row stream sort at
+    jobview and metricsd over the log; then a 2^25-row stream sort at
     ``dispatch_depth=-1`` beside the default depth of 2, in the order
     -1, 2, 2, -1."""
     import json as _json
@@ -4341,7 +4351,7 @@ def phase_obs(dev, card: str) -> dict:
     shutil.rmtree(root, ignore_errors=True)
     logs, prof_dir = os.path.join(root, "events"), os.path.join(root, "profile")
     os.makedirs(logs)
-    res = {"card": card, "words": WC_WORDS}
+    res = {"card": card, "words": OBS_WORDS}
     steps = res["steps_s"] = {}
     t_step = [time.perf_counter()]
 
@@ -4351,7 +4361,7 @@ def phase_obs(dev, card: str) -> dict:
         t_step[0] = now
 
     rng = np.random.default_rng(SEED + 2)
-    ids = zipf_ids(rng, WC_WORDS)
+    ids = zipf_ids(rng, OBS_WORDS)
     tab = vocab_table()
     words = np.array([bytes(r).split()[0].decode() for r in tab], object)
     path = os.path.join(root, "wordcount.txt")
@@ -4566,7 +4576,7 @@ def phase_obs(dev, card: str) -> dict:
     free_card()
     step("job_tools")
 
-    # 7. the adaptive dispatch depth: a 2^26-row stream sort at -1 beside
+    # 7. the adaptive dispatch depth: a 2^25-row stream sort at -1 beside
     # 2, in the order -1, 2, 2, -1 so that neither depth always runs first
     spill = os.path.join(root, "spill")
     runs = {"-1": [], "2": []}
@@ -4598,6 +4608,443 @@ def phase_obs(dev, card: str) -> dict:
     return res
 
 
+# -- phase 22: the gang data plane (one program across worker processes) ------------
+
+GANG_WORKERS = 2
+GANG_PARTS = 4  # partitions a worker holds: P = 8 over the gang
+GANG_DEVICE = "cuda"  # where the gang's workers run
+GANG_TS_ROWS = 1 << 26  # the gang's TeraSort (uniform int32 keys, f32 payloads)
+GANG_WORDS = 1 << 25  # the gang's WordCount corpus: the cluster phase's before its cut
+GANG_MANY = 4  # submit_many's queries ...
+GANG_MANY_ROWS = 1 << 20  # ... of this many rows
+GANG_KILL_ROWS = 1 << 24  # the group_by whose gang loses a worker mid-job
+GANG_CHILD_TIMEOUT_S = 240.0
+GANG_DL_ROWS = 1 << 22  # the devloop phase's Newton loop, run over the one-rank NCCL group
+
+
+def _dense_table() -> dict:
+    """The dense phase's table: 2^26 rows, K = 65536 int keys, f32 and
+    int32 values."""
+    rng = np.random.default_rng(SEED + 3)
+    return {
+        "k": rng.integers(0, DENSE_K, DENSE_ROWS).astype(np.int32),
+        "v": (rng.standard_normal(DENSE_ROWS) * 100).astype(np.float32),
+        "w": rng.integers(-100, 100, DENSE_ROWS).astype(np.int32),
+    }
+
+
+GANG_DENSE_AGGS = {"c": ("count", None), "sv": ("sum", "v"), "mv": ("mean", "v"), "sw": ("sum", "w")}
+
+
+def check_dense_gang(out: dict, one: dict, tbl: dict, label: str) -> float:
+    """``out`` against the one-process result ``one`` at the same P:
+    keys, counts and integer sums byte-equal, float sums and means
+    within 2^-16 * sum|v| of each other and of the float64 oracle."""
+    for c in ("k", "c", "sw"):
+        check(out[c].dtype == one[c].dtype and out[c].tobytes() == one[c].tobytes(),
+              f"{label}: {c} differs from the one-process result")
+    a = np.bincount(tbl["k"], weights=np.abs(tbl["v"].astype(np.float64)), minlength=DENSE_K)[out["k"]]
+    ref = np.bincount(tbl["k"], weights=tbl["v"].astype(np.float64), minlength=DENSE_K)[out["k"]]
+    err = np.abs(out["sv"].astype(np.float64) - one["sv"])
+    check(bool((err <= FLOAT_REL * a).all()), f"{label}: float sums past 2^-16 sum|v| of one process's")
+    check(bool((np.abs(out["sv"] - ref) <= FLOAT_REL * a + 1e-3).all()), f"{label}: float sums past the oracle")
+    merr = np.abs(out["mv"].astype(np.float64) - one["mv"])
+    check(bool((merr <= FLOAT_REL * a / out["c"]).all()), f"{label}: means past the bound")
+    return float(err.max())
+
+
+def _gang_counters(sub, mark: int, name: str) -> dict:
+    """A worker-shipped counter since event ``mark``, by worker."""
+    out = {}
+    for e in _since(sub, mark, "metrics"):
+        for c in e.get("counters", ()):
+            if c["name"] == name:
+                out[e.get("worker")] = out.get(e.get("worker"), 0) + c["value"]
+    return out
+
+
+def _gang_peaks(sub, mark: int) -> dict:
+    out = {}
+    for e in _since(sub, mark, "metrics"):
+        for c in e.get("counters", ()):
+            if c["name"] == "device_peak_bytes":
+                out[e.get("worker")] = max(out.get(e.get("worker"), 0), c["value"])
+    return out
+
+
+def _gang_backends(sub) -> list:
+    """The backend each worker's log says its process group took."""
+    import re
+
+    found = []
+    for i in range(sub.n):
+        with open(os.path.join(sub.root, f"worker{i}.log"), errors="replace") as fh:
+            m = re.findall(r"joined process group \S+ as rank \d+/\d+ on \S+ \((\w+)\)", fh.read())
+        found.append(m[-1] if m else None)
+    return found
+
+
+def gang_job(sub, q, label: str, card: str) -> tuple:
+    """One gang submission: (table, its numbers), logged."""
+    mark = len(sub.events.events())
+    t0 = time.perf_counter()
+    out = sub.submit(q)
+    secs = time.perf_counter() - t0
+    pkg = _package(sub, mark, "gang_run_start")
+    fetch = sorted(e["dur"] for e in _since(sub, mark, "span") if e.get("name") == "fetch_package")
+    res = {
+        "job_s": secs, "package_bytes": os.path.getsize(pkg), "fetch_s": fetch,
+        "collective_bytes": _gang_counters(sub, mark, "collective_bytes"),
+        "launches": worker_launches(sub, mark),
+        "launches_by_worker": _gang_counters(sub, mark, "kernel_launches"),
+        "peak_bytes": _gang_peaks(sub, mark),
+    }
+    log(f"gang {label} [{card}]: job {secs:.2f} s; package {res['package_bytes'] / 2**20:.1f} MiB, "
+        f"fetched in {', '.join(f'{x:.2f}' for x in fetch)} s; bytes to the group by worker "
+        f"{res['collective_bytes']}; bucket kernel launches {res['launches']} "
+        f"{res['launches_by_worker']}; device peak by worker (GB) "
+        f"{ {w: round(b / 1e9, 3) for w, b in res['peak_bytes'].items()} }")
+    return out, res
+
+
+def _kill_mid_job(sub, worker: int) -> "threading.Thread":
+    """Kill ``worker`` once both gang members passed the next run's start
+    barrier: the job is then under way in both."""
+    import threading
+
+    seq = sub._seq + 1
+
+    def run():
+        mb = sub.service.mailbox
+        while not all(mb.get_prop(sub.job_id, f"barrier/start/{seq}/{i}") is not None
+                      for i in range(sub.n)):
+            time.sleep(0.005)
+        sub._handles[worker].kill()
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    return t
+
+
+def _start_child(args: list) -> subprocess.Popen:
+    """This script as a child process (its ``--nccl-*`` modes)."""
+    return subprocess.Popen([sys.executable, os.path.abspath(__file__)] + args,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT)
+
+
+def _finish_child(proc: subprocess.Popen, timeout: float) -> tuple:
+    """``(returncode, stdout, stderr)`` of a child, killed past ``timeout``."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+        err += f"\n(killed after {timeout} s)"
+    return proc.returncode, out, err
+
+
+def nccl_two_ranks_one_card() -> dict:
+    """Two processes join one NCCL group on the same card and all-reduce
+    once: NCCL's answer, recorded as it gives it."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = [_start_child(["--nccl-probe", str(r), str(port)]) for r in range(2)]
+    outs = [_finish_child(p, 120.0) for p in procs]
+    ok = all(rc == 0 and "ALLREDUCE 3" in o for rc, o, _ in outs)
+    msg = "" if ok else next((e.strip().splitlines()[-1] for rc, _, e in outs if rc and e.strip()),
+                             "no error text")
+    return {"accepted": ok, "message": msg, "rcs": [rc for rc, _, _ in outs]}
+
+
+def phase_gang(dev, card: str) -> dict:
+    """One plan as one program across worker processes
+    (``LocalJobSubmission.submit``): 2 workers sharing the card, 4
+    partitions each (P = 8), their collectives over gloo (CUDA tensors
+    through the host).  (a) the dense phase's group_by, bucket kernel in
+    each worker then the cross-process psum_scatter, against one process
+    at P = 8; (b) TeraSort of 2^26 rows, rows and placement byte-equal to
+    one process's; (c) WordCount of the cluster phase's corpus, the
+    dictionary back as dictionary.pkl; (d) submit_many of 4 queries
+    through the dispatch window, equal to serial submits; (e) a worker
+    killed mid-job, the gang rebuilt on 1 worker, the re-run equal to
+    the clean run.  Then query (a) in one process over a one-rank NCCL
+    group, and NCCL's answer to two ranks on one card."""
+    import shutil
+
+    from dryad_tpu_torch import DryadConfig, DryadContext
+    from dryad_tpu_torch.cluster.localjob import LocalJobSubmission
+    from dryad_tpu_torch.columnar.io import parse_partition_bytes
+
+    free_card()
+    t_phase = time.perf_counter()
+    res = {"card": card, "workers": GANG_WORKERS, "partitions_per_worker": GANG_PARTS}
+    root = os.path.join(WORK_DIR, "gang")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+
+    # beside the gang's work: NCCL's answer to two ranks on one card, and
+    # query (a) in one process over a one-rank NCCL group (a child each)
+    import concurrent.futures
+
+    probe_pool = concurrent.futures.ThreadPoolExecutor(1)
+    probe = probe_pool.submit(nccl_two_ranks_one_card)
+    out_path = os.path.join(root, "nccl_world1.npz")
+    world1 = _start_child(["--nccl-world1", out_path])
+    try:
+        # the one-process results the gang is held to, and the kernel's inputs
+        tbl = _dense_table()
+        one_ctx = DryadContext(num_partitions_=P)
+        with LaunchRecorder() as rec:
+            dense_one = one_ctx.from_arrays(tbl).group_by("k", GANG_DENSE_AGGS, dense=DENSE_K).collect()
+        ((_m, K, _cap), (keys, vals, valid)), = rec.first.items()
+        rng = np.random.default_rng(SEED + 4)
+        ts = {"key": rng.integers(-2**31, 2**31, GANG_TS_ROWS, dtype=np.int32),
+              "payload": rng.random(GANG_TS_ROWS, dtype=np.float32)}
+        tq = one_ctx.from_arrays(ts).order_by([("key", False)])
+        b = one_ctx.execute(tq)
+        ts_counts = b.valid.sum(-1).cpu().numpy()
+        ts_one = one_ctx._host_table(tq, b)
+        del b, tq, one_ctx
+        free_card()
+
+        rng = np.random.default_rng(SEED + 2)
+        ids = zipf_ids(rng, GANG_WORDS)
+        tab = vocab_table()
+        words = np.array([bytes(r).split()[0].decode() for r in tab], object)
+        uid, ucnt = np.unique(ids, return_counts=True)
+        wc_oracle = dict(zip(words[uid].tolist(), ucnt.tolist()))
+        text = os.path.join(root, "words.txt")
+        with open(text, "wb") as fh:
+            fh.write(tab[ids].tobytes())
+        del ids
+
+        with DeviceBusy() as busy:
+            t0 = time.perf_counter()
+            sub = LocalJobSubmission(num_workers=GANG_WORKERS, devices_per_worker=GANG_PARTS,
+                                     root=os.path.join(root, "job"), device=GANG_DEVICE)
+            try:
+                devs = _wait_for_workers(sub, GANG_WORKERS)
+                res["workers_start_s"] = time.perf_counter() - t0
+                check(all(d.get("device", "").startswith(GANG_DEVICE) for d in devs.values()),
+                      f"a gang worker is not on the card: {devs}")
+                mark0 = len(sub.events.events())
+                ctx = DryadContext(num_partitions_=P)
+
+                # (a) the dense group_by: the bucket kernel in each worker, then
+                # the cross-process psum_scatter
+                out, res["dense"] = gang_job(sub, ctx.from_arrays(tbl).group_by(
+                    "k", GANG_DENSE_AGGS, dense=DENSE_K), "dense group_by", card)
+                res["backends"] = _gang_backends(sub)
+                log(f"gang: the process group's backend by worker: {res['backends']}")
+                check(res["backends"] == ["gloo"] * GANG_WORKERS, f"gang backends {res['backends']}")
+                res["dense"]["max_abs_err_sum"] = check_dense_gang(out, dense_one, tbl, "gang dense")
+                by_worker = res["dense"]["launches_by_worker"]
+                check(sorted(by_worker) == list(range(GANG_WORKERS)) and min(by_worker.values()) >= 1,
+                      f"bucket kernel launches by worker {by_worker}")
+                log(f"gang dense group_by: {DENSE_ROWS} rows, K={DENSE_K}: keys, counts and int sums "
+                    f"byte-equal to one process at P={P}; float sums within 2^-16 sum|v| (max |err| "
+                    f"{res['dense']['max_abs_err_sum']:.3g})")
+                del out
+
+                # (b) TeraSort: rows and placement byte-equal to one process's
+                out, res["terasort"] = gang_job(sub, ctx.from_arrays(ts).order_by([("key", False)]),
+                                                "TeraSort", card)
+                check(digest(out) == digest(ts_one), "gang TeraSort differs from one process's rows")
+                seq = _since(sub, mark0, "gang_run_start")[-1]["seq"]
+                part_dir = os.path.join(sub.root, sub.job_id, f"r{seq}", "result")
+                counts = []
+                for g in range(P):
+                    with open(os.path.join(part_dir, f"part{g}.dpf"), "rb") as fh:
+                        counts.append(len(parse_partition_bytes(fh.read())["key"]))
+                check(counts == ts_counts.tolist(), f"gang TeraSort placement {counts}, one process "
+                      f"{ts_counts.tolist()}")
+                log(f"gang TeraSort: {GANG_TS_ROWS} rows byte-equal to one process at P={P}, each "
+                    f"partition's rows too (so its splitters): {counts}")
+                del out, ts, ts_one
+
+                # (c) WordCount: the dictionary comes back as dictionary.pkl
+                wq = ctx.from_text(text).group_by("word", {"n": ("count", None)})
+                out, res["wordcount"] = gang_job(sub, wq, "WordCount", card)
+                check(dict(zip(out["word"].tolist(), out["n"].tolist())) == wc_oracle,
+                      "gang WordCount differs from the numpy oracle")
+                check(res["wordcount"]["launches"] >= GANG_WORKERS, "gang WordCount ran no bucket kernel")
+                log(f"gang WordCount: {GANG_WORDS} words, {len(wc_oracle)} equal to the oracle")
+                del out, wq
+                os.remove(text)
+
+                # (d) submit_many through the dispatch window, against serial submits
+                rng = np.random.default_rng(SEED + 41)
+                cfg = DryadConfig(command_batch=2, gang_batch_depth=2)
+                qs = []
+                for i in range(GANG_MANY):
+                    t = {"k": rng.integers(-5000, 5000, GANG_MANY_ROWS).astype(np.int32),
+                         "v": rng.integers(-1000, 1000, GANG_MANY_ROWS).astype(np.int32)}
+                    qs.append(DryadContext(num_partitions_=P, config=cfg).from_arrays(t).group_by(
+                        "k", {"c": ("count", None), "s": ("sum", "v")}))
+                t0 = time.perf_counter()
+                serial = [sub.submit(q) for q in qs]
+                serial_s = time.perf_counter() - t0
+                mark = len(sub.events.events())
+                t0 = time.perf_counter()
+                many = sub.submit_many(qs)
+                many_s = time.perf_counter() - t0
+                check([digest(o) for o in many] == [digest(o) for o in serial],
+                      "submit_many differs from serial submits")
+                (win,) = _since(sub, mark, "gang_window")
+                check(win["peak_in_flight"] >= 2 and win["depth"] == 2,
+                      f"the dispatch window held {win['peak_in_flight']} envelopes")
+                res["submit_many"] = {"serial_s": serial_s, "windowed_s": many_s,
+                                      "peak_in_flight": win["peak_in_flight"],
+                                      "dispatches": win["dispatches"]}
+                log(f"gang submit_many: {GANG_MANY} queries of {GANG_MANY_ROWS} rows, command_batch 2, "
+                    f"depth 2: {many_s:.2f} s (serial submits {serial_s:.2f} s), byte-equal, "
+                    f"{win['peak_in_flight']} envelopes in flight at peak")
+                del serial, many, qs
+
+                # (e) a worker killed mid-job: the gang rebuilds on 1 worker
+                rng = np.random.default_rng(SEED + 43)
+                kt = {"k": rng.integers(-2**20, 2**20, GANG_KILL_ROWS).astype(np.int32),
+                      "v": rng.integers(-1000, 1000, GANG_KILL_ROWS).astype(np.int32)}
+                kq = ctx.from_arrays(kt).group_by("k", {"c": ("count", None), "s": ("sum", "v")})
+                clean, res["kill_clean"] = gang_job(sub, kq, "group_by (clean)", card)
+                mark = len(sub.events.events())
+                killer = _kill_mid_job(sub, 1)
+                t0 = time.perf_counter()
+                again = sub.submit(kq)
+                kill_s = time.perf_counter() - t0
+                killer.join(timeout=60)
+                kinds = _kinds(sub, mark)
+                check("gang_member_lost_mid_job" in kinds and "gang_rebuild" in kinds,
+                      f"the lost worker was not seen: {sorted(set(kinds))}")
+                check(sub.n == 1, f"the gang has {sub.n} workers after the kill")
+                check(digest(_sorted_by(again, "k")) == digest(_sorted_by(clean, "k")),
+                      "the re-run on 1 worker differs from the clean run")
+                res["kill"] = {"job_s": kill_s, "workers_after": sub.n,
+                               "launches": worker_launches(sub, mark)}
+                log(f"gang kill: worker 1 killed past the start barrier; gang_member_lost_mid_job, "
+                    f"gang_rebuild, re-run on 1 worker in {kill_s:.2f} s (clean "
+                    f"{res['kill_clean']['job_s']:.2f} s), equal to the clean run")
+                res["launches"] = worker_launches(sub, mark0)
+                del clean, again, kq, kt, ctx
+            finally:
+                sub.shutdown()
+        res.update(device_idle=busy.idle, device_busy_s=busy.busy_s, wall_s=busy.wall_s)
+        res["nccl_two_ranks_one_card"] = nccl = probe.result()
+        probe_pool.shutdown()
+        log(f"gang: NCCL with two ranks on one card: "
+            f"{'accepted' if nccl['accepted'] else 'refused: ' + nccl['message']}")
+    except BaseException:  # a failed phase leaves no child running
+        world1.kill()
+        world1.communicate()
+        raise
+
+    rc, stdout, stderr = _finish_child(world1, GANG_CHILD_TIMEOUT_S)
+    check(rc == 0, f"the NCCL world-1 run failed: {stderr[-2000:]}")
+    info = json.loads(stdout.strip().splitlines()[-1])
+    with np.load(out_path, allow_pickle=False) as z:
+        out = {c: z[c] for c in z.files}
+    res["nccl_world1"] = info
+    res["nccl_world1"]["max_abs_err_sum"] = check_dense_gang(out, dense_one, tbl, "NCCL world 1")
+    check(info["backend"] == "nccl" and info["world"] == 1 and info["launches"] >= 1,
+          f"NCCL world-1 run {info}")
+    log(f"gang NCCL world 1 [{card}]: query (a) over a one-rank {info['backend']} group in "
+        f"{info['warm_s']:.3f} s warm; {info['collective_bytes']} bytes to the group; "
+        f"{info['launches']} bucket kernel launches; keys, counts, int sums byte-equal to one "
+        f"process; the Newton do_while over {GANG_DL_ROWS} rows as one CUDA graph with the group's "
+        f"collectives, {info['devloop_rounds']} rounds, byte-equal to the loop without a group")
+
+    shape = kernel_shape_report(keys[:GANG_PARTS], [v[:GANG_PARTS] for v in vals],
+                                valid[:GANG_PARTS], K)
+    log(f"kernel vs plain at a gang worker's shape ({shape['shape']}): byte-equal; kernel "
+        f"{shape['kernel_ms']:.3f} ms, plain {shape['plain_ms']:.3f} ms, {shape['library']} "
+        f"{shape['library_ms']:.3f} ms, bound {shape['bound_ms']:.4f} ms")
+    shutil.rmtree(root, ignore_errors=True)
+    free_card()
+    res.update(kernel_shapes=[shape], phase_s=time.perf_counter() - t_phase)
+    log(f"gang phase [{card}]: {res['phase_s']:.1f} s (workers start {res['workers_start_s']:.2f} s); "
+        f"{res['launches']} bucket kernel launches in the workers; card idle {busy.idle:.3f} of "
+        f"{busy.wall_s:.1f} s (NVML, every process)")
+    return res
+
+
+def nccl_probe(rank: int, port: int) -> int:
+    """Child: rank ``rank`` of a two-rank NCCL group on card 0, one
+    all-reduce."""
+    import datetime
+
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=2,
+                            rank=rank, timeout=datetime.timedelta(seconds=60))
+    try:
+        t = torch.ones(1, device="cuda") * (rank + 1)
+        dist.all_reduce(t)
+        torch.cuda.synchronize()
+        print(f"ALLREDUCE {int(t.item())}", flush=True)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def nccl_world1(out_path: str) -> int:
+    """Child: query (a) in one process whose mesh is a one-rank NCCL group
+    (``make_mesh`` takes the initialized group), written to ``out_path``;
+    then the devloop phase's Newton do_while at GANG_DL_ROWS rows over the
+    same group: one CUDA graph with the group's collectives in it, equal
+    to the same loop in a context without a group.  It runs beside the
+    gang's jobs, so its warm time shares the card and the host with
+    them."""
+    import datetime
+    import socket
+
+    import torch.distributed as dist
+
+    from dryad_tpu_torch import DryadContext
+    from dryad_tpu_torch.ops.bucket import bucket_sum_count
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        ctx = DryadContext(num_partitions_=P)
+        check(ctx.mesh.group is not None and ctx.mesh.world == 1, f"mesh {ctx.mesh}")
+        q = ctx.from_arrays(_dense_table()).group_by("k", GANG_DENSE_AGGS, dense=DENSE_K)
+        q.collect()
+        bucket_sum_count.launches = 0
+        sent0 = ctx.mesh.sent_bytes
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = q.collect()
+        warm = time.perf_counter() - t0
+        sent = ctx.mesh.sent_bytes - sent0
+        np.savez(out_path, **out)
+        from dryad_tpu_torch.parallel.mesh import PartitionMesh
+
+        a = np.random.default_rng(SEED + 13).uniform(1.0, 1e6, GANG_DL_ROWS).astype(np.float32)
+        t = {"id": np.arange(GANG_DL_ROWS, dtype=np.int32), "a": a, "x": a.copy()}
+        loops = []
+        for c in (ctx, DryadContext(mesh=PartitionMesh(P, ctx.device))):
+            loops.append(c.from_arrays(t).do_while(_dl_body, _dl_cond, max_iter=DL_MAX_ITER).collect())
+            kinds = [k for k, _n, _v in c.executor.events if k.startswith("do_while")]
+            check(kinds == ["do_while_device_start", "do_while_device_done"], f"do_while events {kinds}")
+            check(all(p.graph is not None for p in c.executor._loops.values()), "no graph captured")
+        check(digest(loops[0]) == digest(loops[1]), "the loop over the group differs")
+        rounds = [v for k, _n, v in ctx.executor.events if k == "do_while_device_done"][0]
+        print(json.dumps({"backend": ctx.mesh.backend, "world": ctx.mesh.world, "warm_s": warm,
+                          "launches": bucket_sum_count.launches,
+                          "collective_bytes": sent, "devloop_rounds": rounds}), flush=True)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
 def loopctl_line(dl) -> dict:
     """The loop-control kernel's entry of the kernels line (the devloop
     phase's numbers; None where it did not run)."""
@@ -4624,13 +5071,20 @@ def main(argv=None) -> int:
         "--phases",
         default="lint,env,kernel,wordcount,dense,terasort,terasort_hot,groupby_sort,"
                 "groupby_sort_fused,join_shuffle,join_broadcast,pagerank,devloop,decomposable,"
-                "ordered_ops,cpu_parity,stores,stream,serve,cluster,rewrite,fleet,obs")
+                "ordered_ops,cpu_parity,stores,stream,serve,cluster,gang,rewrite,fleet,obs")
+    # the gang phase's child processes (not for direct use)
+    ap.add_argument("--nccl-probe", nargs=2, type=int, metavar=("RANK", "PORT"), help=argparse.SUPPRESS)
+    ap.add_argument("--nccl-world1", metavar="OUT", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
               file=sys.stderr)
         return 2
+    if args.nccl_probe:
+        return nccl_probe(*args.nccl_probe)
+    if args.nccl_world1:
+        return nccl_world1(args.nccl_world1)
     dev = torch.device("cuda", 0)
     card = card_line()
     results = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda}
@@ -4660,6 +5114,7 @@ def main(argv=None) -> int:
         ("stream", lambda: phase_stream(dev, card)),
         ("serve", lambda: phase_serve(dev, card)),
         ("cluster", lambda: phase_cluster(dev, card)),
+        ("gang", lambda: phase_gang(dev, card)),
         ("rewrite", lambda: phase_rewrite(dev, card)),
         ("fleet", lambda: phase_fleet(dev, card)),
         ("obs", lambda: phase_obs(dev, card)),
@@ -4686,6 +5141,7 @@ def main(argv=None) -> int:
         "stream": results.get("stream", {}).get("launches"),
         "serve": results.get("serve", {}).get("launches"),
         "cluster": results.get("cluster", {}).get("launches"),
+        "gang": results.get("gang", {}).get("launches"),
         "rewrite": results.get("rewrite", {}).get("launches"),
         "fleet": results.get("fleet", {}).get("launches"),
         "obs": results.get("obs", {}).get("launches"),
@@ -4723,6 +5179,7 @@ def main(argv=None) -> int:
         "stream_shapes": results.get("stream", {}).get("wordcount", {}).get("kernel_shapes"),
         "serve_shapes": results.get("serve", {}).get("kernel_shapes"),
         "cluster_shapes": results.get("cluster", {}).get("kernel_shapes"),
+        "gang_shapes": results.get("gang", {}).get("kernel_shapes"),
         "rewrite_shapes": results.get("rewrite", {}).get("kernel_shapes"),
         "fleet_shapes": results.get("fleet", {}).get("kernel_shapes"),
         "obs_shapes": results.get("obs", {}).get("kernel_shapes"),

@@ -13,8 +13,9 @@ different order park in different collectives and the group hangs.  A
 fixed class order per function body makes any two fused members'
 sequences mutually consistent by construction — the prerequisite for
 trusting the exchange planner's multi-round schedules across cards
-(ROADMAP queue 1 item 11; the port has no collective before it, so the
-rule guards that item and is proven on synthetic trees).
+(ROADMAP queue 1 item 11).  Over the port's tree it ranks the partition
+layer's calls (``parallel/partition.py``), and its cases also run on
+synthetic trees.
 
 The check is purely syntactic and per-scope: within one function body
 (nested functions and lambdas are separate scopes — they run when
@@ -44,9 +45,11 @@ COLLECTIVE_RANK = {
     "all_to_all_single": 1,
     "all_gather": 2,
     "all_gather_into_tensor": 2,
+    "all_gather_single": 2,
     "all_reduce": 3,
     "reduce_scatter": 3,
     "reduce_scatter_tensor": 3,
+    "reduce_scatter_single": 3,
 }
 
 _SCOPES = (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)

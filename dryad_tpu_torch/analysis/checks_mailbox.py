@@ -24,9 +24,9 @@ defined in the feed loop is exactly the drain half being handed to the
 collector, where blocking is the job.  As a structural-drift guard, a
 ``cluster/gangwindow.py`` that no longer defines ``GangDispatchWindow``
 is itself a finding — the rule must not go silent because its anchor
-moved.  The port has no ``cluster/gangwindow.py`` yet (ROADMAP queue 1
-item 11), so over the port's tree the rule is quiet, and its cases run
-on synthetic trees until then.
+moved.  Over the port's tree it anchors on the port's
+``cluster/gangwindow.py`` and checks ``LocalJobSubmission``'s windowed
+feed loop; its cases also run on synthetic trees.
 """
 
 from __future__ import annotations

@@ -46,7 +46,9 @@ from dryad_tpu_torch.exec.executor import GraphExecutor
 from dryad_tpu_torch.obs import flightrec, tracectx
 from dryad_tpu_torch.obs.diagnose import DiagnosisEngine
 from dryad_tpu_torch.obs.telemetry import ResourceMonitor, device_memory_probe
-from dryad_tpu_torch.parallel.partition import block_layout
+from dryad_tpu_torch.parallel.distribute import from_host_table, from_physical_table, own_rows
+from dryad_tpu_torch.parallel.mesh import HYBRID_PENDING, PartitionMesh, make_mesh, resolve_device
+from dryad_tpu_torch.parallel.partition import first_valid
 from dryad_tpu_torch.plan.lower import lower
 from dryad_tpu_torch.plan.nodes import Node, PartitionInfo
 from dryad_tpu_torch.rewrite import RewriteController
@@ -62,19 +64,6 @@ _NP_TYPE_MAP = {
     np.dtype(np.bool_): ColumnType.BOOL,
     np.dtype(np.uint32): ColumnType.UINT32,
 }
-
-
-def resolve_device(device: Union[None, str, torch.device]) -> torch.device:
-    """``None`` -> the current CUDA device; raises when there is none.
-    The CPU is used only when asked for by name."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "dryad_tpu_torch: no CUDA device available; pass "
-                "device='cpu' to run on the CPU"
-            )
-        return torch.device("cuda", torch.cuda.current_device())
-    return torch.device(device)
 
 
 def _infer_schema(arrays: Dict[str, np.ndarray]) -> Schema:
@@ -97,16 +86,43 @@ class DryadContext:
         config: Optional[DryadConfig] = None,
         device: Union[None, str, torch.device] = None,
         local_debug: bool = False,
+        mesh: Optional[PartitionMesh] = None,
+        dcn_slices: Optional[int] = None,
     ):
+        """``mesh``: the partitions' mesh (``parallel/mesh.py``), for
+        instance a gang worker's, whose ranks each hold ``P / world``
+        partitions; it fixes the partition count and the device.
+        Without one, ``make_mesh(num_partitions_)`` on ``device``, which
+        spans the process group this process joined
+        (``init_distributed``), if any."""
         self.config = config or DryadConfig()
         self.config.validate()
         # collect() runs the NumPy interpreter of exec/localdebug.py over
         # the logical plan instead of the engine (differential debugging)
         self.local_debug = local_debug
-        self.device = resolve_device(device)
-        self.num_partitions = num_partitions_ or DEFAULT_PARTITIONS
-        if self.num_partitions < 1:
-            raise ValueError("num_partitions_ must be >= 1")
+        if dcn_slices is not None:
+            raise NotImplementedError(HYBRID_PENDING)
+        if mesh is not None:
+            if num_partitions_ is not None and num_partitions_ != mesh.P:
+                raise ValueError(
+                    f"pass either num_partitions_ or mesh (num_partitions_="
+                    f"{num_partitions_}, mesh of {mesh.P} partitions)"
+                )
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError(f"device {device} is not the mesh's {mesh.device}")
+            self.device = mesh.device
+            self.mesh = mesh
+        else:
+            self.device = resolve_device(device)
+            if (num_partitions_ or DEFAULT_PARTITIONS) < 1:
+                raise ValueError("num_partitions_ must be >= 1")
+            self.mesh = make_mesh(num_partitions_ or DEFAULT_PARTITIONS, self.device)
+        self.num_partitions = self.mesh.P
+        if self.mesh.world > 1 and self.config.checkpoint_dir:
+            raise NotImplementedError(
+                "stage checkpoints of a gang (a mesh over several ranks) are "
+                "not ported: ROADMAP queue 1 item 11"
+            )
         self.dictionary = StringDictionary()
         self._bindings: Dict[int, tuple] = {}
         # True once a stream binding exists: the fast gate of the
@@ -166,7 +182,9 @@ class DryadContext:
             )
             self.headroom = self.telemetry.headroom
             self.events.add_tap(self.telemetry.observe)
-        self.executor = GraphExecutor(self.num_partitions, self.config, self.device, self.events)
+        self.executor = GraphExecutor(
+            self.num_partitions, self.config, self.device, self.events, mesh=self.mesh
+        )
         self.executor.rewriter = self.rewriter
         self.executor.headroom = self.headroom
         # one job at a time: the executor keeps per-job state, and the
@@ -524,15 +542,14 @@ class DryadContext:
         kind, *rest = binding
         if kind == "host":
             arrays, cap = rest
-            return ColumnBatch.from_numpy(
-                node.schema, arrays, self.num_partitions, self.device,
-                partition_capacity=cap, dictionary=self.dictionary,
+            return from_host_table(
+                node.schema, arrays, self.mesh, partition_capacity=cap,
+                dictionary=self.dictionary,
             )
         if kind == "host_physical":
             # a stream chunk carries the capacity its scope fixed
             cap = rest[1] if len(rest) > 1 else None
-            data, valid = block_layout(rest[0], self.num_partitions, cap)
-            return ColumnBatch.from_host_layout(data, valid, self.device)
+            return from_physical_table(rest[0], self.mesh, cap)
         if kind == "store":
             return self._ingest_store(*rest)
         if kind == "stream":
@@ -557,11 +574,13 @@ class DryadContext:
             folded[i % P].append(cols)
         rows_per = [sum(_rows(c) for c in group) for group in folded]
         cap = math.ceil(max(max(rows_per, default=1), 1) / 8) * 8
+        folded = folded[own_rows(self.mesh)]  # a gang rank uploads its partitions only
         pin = self.device.type == "cuda"
+        L = len(folded)
         data = {
-            c: torch.zeros((P, cap), dtype=_carrier(c, schema), pin_memory=pin) for c in phys
+            c: torch.zeros((L, cap), dtype=_carrier(c, schema), pin_memory=pin) for c in phys
         }
-        valid = torch.zeros((P, cap), dtype=torch.bool, pin_memory=pin)
+        valid = torch.zeros((L, cap), dtype=torch.bool, pin_memory=pin)
         host = {c: t.numpy() for c, t in data.items()}
         vhost = valid.numpy()
         for p, group in enumerate(folded):
@@ -698,7 +717,20 @@ class DryadContext:
         (batch,), deferred = self._run_graph([query], defer_miss)
         return (batch, deferred) if defer_miss else batch
 
+    def _refuse_gang(self, what: str) -> None:
+        """A rank of a gang holds only its own partitions: results leave
+        as partition files (``cluster/worker.py``), never as one table."""
+        if self.mesh.world > 1:
+            raise RuntimeError(
+                f"{what} on a context whose mesh spans {self.mesh.world} ranks: "
+                "this rank holds partitions "
+                f"{self.mesh.base}..{self.mesh.base + self.mesh.local - 1} of "
+                f"{self.mesh.P}; the gang writes each rank's partitions as "
+                "partition files instead (LocalJobSubmission.submit)"
+            )
+
     def _host_table(self, query: Query, batch: ColumnBatch) -> Dict[str, np.ndarray]:
+        self._refuse_gang("collect()")
         # device->host byte accounting (obs/metrics.py): every result
         # fetch funnels through here or the stream driver
         self.executor.metrics.add("d2h_bytes", batch.nbytes())
@@ -717,6 +749,7 @@ class DryadContext:
     def _run_to_host(self, query: Query) -> Dict[str, np.ndarray]:
         from dryad_tpu_torch.exec.outofcore import StreamExecutor, has_stream_input
 
+        self._refuse_gang("collect()")
         if has_stream_input(self, query.node):
             if self.local_debug:
                 raise RuntimeError(
@@ -793,6 +826,7 @@ class DryadContext:
         from dryad_tpu_torch.exec.outofcore import StreamExecutor, has_stream_input
         from dryad_tpu_torch.runtime import bindings as RB
 
+        self._refuse_gang("to_store()")
         if has_stream_input(self, query.node):
             # results stream into the store one part file per piece
             rows = StreamExecutor(self).to_store(query.node, path)
@@ -861,9 +895,9 @@ class DryadContext:
             del self._bindings[input_id]
         if not scalar:
             return batch
-        col = next(iter(batch.data.values())).reshape(-1)
-        vals = col[batch.valid.reshape(-1)][:1].cpu()
-        return bool(vals[0]) if len(vals) else False
+        # the first valid row in global order: every gang rank reads the same
+        first = first_valid(next(iter(batch.data.values())), batch.valid, self.mesh)
+        return bool(first) if first is not None else False
 
 
 def _rows(cols: Dict[str, np.ndarray]) -> int:

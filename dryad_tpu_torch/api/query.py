@@ -17,8 +17,8 @@ the scalar and decomposable aggregates, ``collect``,
 ``collect_stream``, ``submit``, ``to_store`` and ``explain``.  Node
 construction, validation and the auto-dense gates are the reference's,
 so both packages build the same logical plan.  ``explain(analyze=True)``
-raises ``NotImplementedError`` naming the ROADMAP.md item that will
-port it.
+runs the query and adds the runtime panels (the last job's phases,
+diagnoses and critical path), as the reference's does.
 """
 
 from __future__ import annotations

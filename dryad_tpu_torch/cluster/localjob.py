@@ -1,5 +1,5 @@
-"""LocalJobSubmission — an N-process local job of independent vertex
-tasks (the vertex-task half of ``dryad_tpu/cluster/localjob.py``).
+"""LocalJobSubmission — an N-process local job, end to end
+(``dryad_tpu/cluster/localjob.py``).
 
 The reference's minimum distributed bar (``LinqToDryad/
 LocalJobSubmission.cs:97-147``): one job-manager process plus N worker
@@ -11,9 +11,20 @@ uses:
 - ``LocalScheduler`` places the per-worker command round trips on the
   workers' computer slots with soft and hard affinities and quarantine;
 - N ``cluster.worker`` OS processes announce on the ``ControlPlane``
-  and run vertex tasks on their device (CUDA unless the submission
-  names the CPU: several workers share one card, each with its own
-  context);
+  and run on their device (CUDA unless the submission names the CPU:
+  several workers share one card, each with its own context);
+- ``submit`` runs a plan as ONE program across the worker gang: the
+  workers join one ``torch.distributed`` group (``init_distributed``;
+  ``nccl`` when each has a card of its own, ``gloo`` on the CPU or when
+  they share a card), each holds ``devices_per_worker`` of the
+  ``num_workers * devices_per_worker`` partitions, and the plan's
+  collectives cross processes (``parallel/partition.py``);
+  ``submit_many`` batches several such runs into ``runbatch``
+  envelopes, overlapped through a ``GangDispatchWindow`` at
+  ``gang_batch_depth > 1``; a gang that lost a member mid-job restarts
+  under a fresh coordinator (``rebuild_gang``) and re-runs;
+- ``ControlPlane`` barriers gate the gang's stage boundaries (start,
+  durable output) and carry membership, heartbeats and failure reports;
 - job packages ship the plan (``exec/jobpackage.py``); result
   partitions come back as partition files read through the file
   server's ranged GETs with zlib wire compression.
@@ -22,20 +33,20 @@ uses:
 tasks with speculative duplication of stragglers, coded k-of-n partial
 aggregation (``redundancy/``), dead-worker re-execution, fault and
 delay injection (``inject_fault``, ``inject_delay``) and level -1
-worker combines.  The gang entry points (``submit``, ``submit_many``,
-``rebuild_gang``: one program across processes) raise
-``NotImplementedError`` naming ROADMAP queue 1 item 11.
+worker combines.
 
 Usage::
 
-    with LocalJobSubmission(num_workers=4) as sub:
-        table = sub.submit_partitioned(query, nparts=16)
+    with LocalJobSubmission(num_workers=2, devices_per_worker=4) as sub:
+        table = sub.submit(query)
 """
 
 from __future__ import annotations
 
 import json
 import os
+import pickle
+import socket
 import subprocess
 import sys
 import tempfile
@@ -112,11 +123,23 @@ def _host_call(fn, *tables) -> Dict[str, np.ndarray]:
     }
 
 
-GANG_PENDING = (
-    "LocalJobSubmission.{name} runs one program across the worker "
-    "processes (cross-process collectives), which is not ported yet: "
-    "ROADMAP queue 1 item 11; submit_partitioned runs vertex tasks"
-)
+def _free_port() -> int:
+    """Pick a coordinator port from a pid-derived candidate sequence so
+    concurrent LocalJobSubmissions on one machine probe DIFFERENT ports
+    (the bind-check-close window lasts until worker 0 rebinds it — a
+    kernel-assigned port 0 can't be reserved across processes)."""
+    base = 21000 + (os.getpid() * 131) % 20000
+    for off in range(64):
+        port = base + off
+        try:
+            with socket.socket() as s:
+                s.bind(("127.0.0.1", port))
+                return port
+        except OSError:
+            continue
+    with socket.socket() as s:  # fall back to a kernel-assigned port
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
 
 
 class WorkerLauncher:
@@ -237,11 +260,13 @@ class CommandLauncher(SubprocessLauncher):
 
 
 class LocalJobSubmission:
-    """Driver for N worker processes running submitted vertex tasks.
+    """Driver for N worker processes jointly executing submitted queries
+    (a gang program, ``submit``) or their vertex tasks
+    (``submit_partitioned``).
 
-    ``device``: where the workers run their vertices (``"cuda"``, the
-    default, or ``"cpu"``); N workers on one card each hold a context
-    of their own.  ``defer_workers``: leave that many workers
+    ``device``: where the workers run (``"cuda"``, the default, or
+    ``"cpu"``); N workers on one card each hold a context of their own.
+    ``devices_per_worker``: the partitions each worker holds in a gang.  ``defer_workers``: leave that many workers
     unstarted; they may join LATE via :meth:`start_worker` —
     submissions block in ``_sync_membership`` until a worker announced
     (elastic membership, ``LocalScheduler.cs:88``
@@ -252,6 +277,7 @@ class LocalJobSubmission:
     def __init__(
         self,
         num_workers: int = 2,
+        devices_per_worker: int = 2,
         root: Optional[str] = None,
         worker_timeout: float = 300.0,
         launcher: Optional[WorkerLauncher] = None,
@@ -267,6 +293,7 @@ class LocalJobSubmission:
         from dryad_tpu_torch.parallel.multihost import ControlPlane
 
         self.n = num_workers
+        self.k = devices_per_worker
         self.device = str(device)
         self.timeout = worker_timeout
         self.root = root or tempfile.mkdtemp(prefix="dryad-localjob-")
@@ -305,6 +332,10 @@ class LocalJobSubmission:
         self._status_ver: Dict[int, int] = {}
         # per-worker telemetry read cursors + clock offsets (obs.gang)
         self._telemetry_state: Dict[int, Dict] = {}
+        # per-plan-signature duration models: the outlier fit assumes
+        # repeated attempts of the SAME work (DrStageStatistics), so
+        # heterogeneous queries must not share one model
+        self._gang_stats: Dict[Tuple, StageStatistics] = {}
         self._seq = 0
         self._cseq = 0  # unique per driver command; echoed in statuses
         # mailbox round trips actually paid (one per command posted)
@@ -314,6 +345,12 @@ class LocalJobSubmission:
         self._registered: set = set()
         self._dead: set = set()
         self._reap_lock = threading.Lock()
+        self._coord = f"{self.advertise}:{_free_port()}"
+        self._base_job_id = self.job_id
+        self._gen = 0  # gang generation (bumped by rebuild_gang)
+        # set when a gang run failed in a collective: the group's ranks
+        # may be out of step, so the next gang submission rebuilds first
+        self._gang_out_of_step = False
         for i in range(self.n - max(defer_workers, 0)):
             self.start_worker(i)
 
@@ -337,7 +374,12 @@ class LocalJobSubmission:
                 "--job", self.job_id,
                 "--pid", str(i),
                 "--nproc", str(self.n),
+                "--devices-per-proc", str(self.k),
+                "--coordinator", self._coord,
                 "--root", self.root,
+                # a gang collective gives up before the driver does, so
+                # the driver reads the error naming the stage
+                "--timeout", str(max(1.0, self.timeout / 2)),
                 "--device", self.device,
             ],
             "env": env,
@@ -357,8 +399,8 @@ class LocalJobSubmission:
         self._handles[i] = self.launcher.start(spec)
         self.events.emit("worker_started", worker=i)
         log.info(
-            "started worker %d/%d on %s (job %s, psvc :%d)",
-            i, self.n, self.device, self.job_id, self.service.port,
+            "started worker %d/%d x %d partitions on %s (job %s, psvc :%d)",
+            i, self.n, self.k, self.device, self.job_id, self.service.port,
         )
 
     def _clear_slot(self, i: int) -> None:
@@ -504,6 +546,7 @@ class LocalJobSubmission:
                 if st.get("cseq") != cmd["cseq"]:
                     continue  # stale status from an abandoned command
                 if st.get("state") == "failed":
+                    self._note_gang_status(st)
                     raise RuntimeError(
                         f"worker {i} failed: {st.get('error')}"
                     )
@@ -549,21 +592,526 @@ class LocalJobSubmission:
 
         return fn
 
-    def rebuild_gang(self, num_workers: Optional[int] = None) -> int:
-        """Gang elasticity (restart under a fresh coordinator): needs
-        one program across processes."""
-        raise NotImplementedError(GANG_PENDING.format(name="rebuild_gang"))
+    def _note_gang_status(self, st: Dict) -> None:
+        """Mark the gang out of step when a status (or one of a batch's
+        sub-statuses) failed in a collective: a rank that timed out
+        inside an exchange its peer never entered leaves the group's
+        collective sequences misaligned, and no later collective on it
+        can be trusted."""
+        errs = [st.get("error")] + [r.get("error") for r in st.get("results") or []]
+        if any(e and "GangStageError" in e for e in errs):
+            self._gang_out_of_step = True
 
-    def submit(self, query, auto_recover: bool = True) -> Dict[str, np.ndarray]:
-        """The gang SPMD submission: one program across the workers,
-        with cross-process collectives."""
-        raise NotImplementedError(GANG_PENDING.format(name="submit"))
+    def _heal_gang(self) -> None:
+        """Before a gang submission: restart a gang whose group is out of
+        step (:meth:`rebuild_gang` at the same size)."""
+        if self._gang_out_of_step:
+            log.warning("the gang's group is out of step after a collective failure; rebuilding")
+            self.rebuild_gang(self.n)
+
+    def rebuild_gang(self, num_workers: Optional[int] = None) -> int:
+        """Mid-job gang elasticity (the reference's mutable computer
+        set, ``ClusterInterface/Interfaces.cs:336-343``,
+        ``LocalScheduler.cs:88``): reshape the gang to ``num_workers``
+        (default: the current survivors) and restart it under a fresh
+        coordinator + announce namespace.  A ``torch.distributed``
+        group pins its membership at init (it cannot shrink), so a gang
+        that lost a member RESTARTS rather than limping — survivors
+        (possibly blocked in collectives with the dead peer) are
+        stopped, every slot respawns, and the caller re-runs its
+        submission."""
+        dead = set(self._dead) | {
+            i for i, h in self._handles.items()
+            if self.launcher.poll(h) is not None
+        }
+        target = num_workers if num_workers is not None else max(
+            1, self.n - len(dead)
+        )
+        self.events.emit(
+            "gang_rebuild", dead=sorted(dead), workers=target,
+            generation=self._gen + 1,
+        )
+        for h in self._handles.values():
+            try:
+                if self.launcher.poll(h) is None:
+                    self.launcher.stop(h)
+            except Exception:  # noqa: BLE001 — best-effort teardown
+                pass
+        for i in list(self._registered):
+            self.scheduler.remove_computer(f"worker{i}")
+        self._handles.clear()
+        self._logs.clear()
+        self._registered.clear()
+        self._dead.clear()
+        self._status_ver.clear()
+        self.n = target
+        self._gen += 1
+        self._gang_out_of_step = False
+        # Fresh namespace: stale announce/status props from the old
+        # generation must not satisfy the new gang's membership wait.
+        from dryad_tpu_torch.parallel.multihost import ControlPlane
+
+        self.job_id = f"{self._base_job_id}-g{self._gen}"
+        self._cp = ControlPlane(self.job_id, -1, mailbox=self.service.mailbox)
+        self._cseq += 1  # statuses of the old namespace stay unread
+        self._telemetry_state = {}  # fresh namespace, fresh cursors
+        self._coord = f"{self.advertise}:{_free_port()}"
+        for i in range(self.n):
+            self.start_worker(i)
+        return target
+
+    def submit(
+        self, query, auto_recover: bool = True
+    ) -> Dict[str, np.ndarray]:
+        """Pack the query, run it across the worker gang, assemble the
+        result table (reference SubmitAndWait).
+
+        ``auto_recover``: a gang member dying MID-JOB no longer fails
+        the submission — the gang auto-shrinks to the survivors
+        (:meth:`rebuild_gang`) and the job re-runs, up to two
+        reshapes (the elastic computer-set semantics of the
+        reference's scheduler)."""
+        attempts = 0
+        while True:
+            try:
+                return self._submit_gang(query)
+            except (RuntimeError, TimeoutError):
+                dead = {
+                    i for i, h in self._handles.items()
+                    if self.launcher.poll(h) is not None
+                }
+                if (
+                    not auto_recover
+                    or not dead
+                    or attempts >= 2
+                    or self.n - len(dead) < 1
+                ):
+                    raise
+                attempts += 1
+                self.events.emit(
+                    "gang_member_lost_mid_job", dead=sorted(dead),
+                    attempt=attempts,
+                )
+                # Forensics checkpoint: the dead worker already left
+                # its own dump (or not, if it was SIGKILLed); the
+                # driver's view of the fatal window must survive the
+                # recovery that is about to rewrite gang state.
+                flightrec.dump_now(
+                    f"gang_member_lost:{','.join(map(str, sorted(dead)))}"
+                )
+                log.warning(
+                    "gang member(s) %s died mid-job; shrinking to %d "
+                    "workers and re-running", sorted(dead),
+                    self.n - len(dead),
+                )
+                self.rebuild_gang()
+
+    def _submit_gang(self, query) -> Dict[str, np.ndarray]:
+        self._heal_gang()
+        self._check_workers_alive()
+        self._sync_membership()
+        self._seq += 1
+        seq = self._seq
+        job_dir = os.path.join(self.root, self.job_id, f"r{seq}")
+        os.makedirs(job_dir, exist_ok=True)
+        pkg_rel = f"{self.job_id}/r{seq}/job.pkg"
+        with self.tracer.span("pack", cat="driver", seq=seq):
+            pack_query(query, os.path.join(self.root, pkg_rel))
+        result_rel = f"{self.job_id}/r{seq}/result"
+
+        cmd = {
+            "kind": "run", "package": pkg_rel,
+            "result_dir": result_rel, "seq": seq, "cseq": self._next_cseq(),
+        }
+        t_run0 = time.monotonic()
+        self.events.emit("gang_run_start", seq=seq, workers=self.n)
+        procs = []
+        terminal = (
+            ProcessState.COMPLETED, ProcessState.FAILED,
+            ProcessState.CANCELED,
+        )
+        try:
+            for i in range(self.n):
+                p = ClusterProcess(
+                    self._command_round_trip(i, cmd),
+                    name=f"run{seq}-w{i}",
+                    affinities=[Affinity(f"worker{i}", hard=True)],
+                )
+                self.scheduler.schedule(p)
+                procs.append(p)
+            for i, p in enumerate(procs):
+                if not p.wait(self.timeout + 30.0):
+                    raise TimeoutError(
+                        f"worker {i} command round-trip hung"
+                    )
+            failed = [
+                p for p in procs if p.state is not ProcessState.COMPLETED
+            ]
+            if failed:
+                errs = "; ".join(f"{p.name}: {p.error}" for p in failed)
+                raise RuntimeError(f"local job failed: {errs}")
+        except BaseException:
+            # a failed/auto-recovering gang run must not leak queued
+            # commands into the (possibly rebuilt) gang's mailboxes
+            for p in procs:
+                if p.state not in terminal:
+                    self.scheduler.cancel(p)
+            raise
+        # Gang runs are lockstep (a mid-program straggler cannot be
+        # duplicated), so the duration model here SURFACES outliers for
+        # the jobview diagnosis rather than acting (the stage-level half
+        # of DrStageStatistics; the acting half lives in
+        # submit_partitioned).  Keyed by plan structure: only repeats
+        # of the same pipeline feed one model.
+        from dryad_tpu_torch.plan.nodes import walk
+
+        sig = tuple(nd.kind for nd in walk([query.node]))
+        st = self._gang_stats.setdefault(sig, StageStatistics())
+        dt = time.monotonic() - t_run0
+        if st.is_outlier(dt):
+            self.events.emit(
+                "gang_straggler", seq=seq, seconds=round(dt, 3),
+                threshold=round(st.outlier_threshold(), 3),
+            )
+        st.record(dt)
+        self.events.emit(
+            "gang_run_complete", seq=seq, seconds=round(dt, 3)
+        )
+        self._collect_telemetry()
+
+        part_ids = sorted(
+            {g for p in procs for g in p.result.get("parts", [])}
+        )
+        return self._assemble(query, result_rel, part_ids)
 
     def submit_many(self, queries, batch: Optional[int] = None) -> List[
         Dict[str, np.ndarray]
     ]:
-        """Batched gang submissions (``runbatch`` envelopes)."""
-        raise NotImplementedError(GANG_PENDING.format(name="submit_many"))
+        """Run several gang SPMD queries with BATCHED worker command
+        streams: one ``runbatch`` mailbox round trip per worker
+        carries up to ``batch`` run sub-commands (default: the first
+        query's ``config.command_batch``; <= 1 falls back to per-query
+        :meth:`submit`).  Workers execute the sub-commands
+        back-to-back — the per-command start/done barriers stay
+        aligned because every gang member runs the same list in the
+        same order — and ship ONE aggregated status, so mailbox round
+        trips per gang job drop from ``n`` to ``n / K``.  Results
+        return in query order; any sub-command failure fails the batch
+        with the first error (per-command classification preserved in
+        the aggregated status)."""
+        queries = list(queries)
+        cfgs = [getattr(q.ctx, "config", None) for q in queries]
+        if batch is None:
+            # the gang executes ONE envelope per worker, so the most
+            # conservative query governs the whole batch — reading only
+            # queries[0] would silently over-batch a stricter peer
+            sizes = [int(getattr(c, "command_batch", 0) or 0) for c in cfgs]
+            batch = min(sizes) if sizes else 0
+            if sizes and batch != max(sizes):
+                self.events.emit(
+                    "command_batch", worker=-1, commands=batch,
+                    round_trips_saved=0, clamped_from=max(sizes),
+                )
+        depths = [int(getattr(c, "gang_batch_depth", 1) or 1) for c in cfgs]
+        depth = min(depths) if depths else 1
+        if batch <= 1 or len(queries) <= 1:
+            return [self.submit(q) for q in queries]
+        if depth > 1:
+            return self._submit_gang_windowed(queries, batch, depth)
+        out: List[Dict[str, np.ndarray]] = []
+        for at in range(0, len(queries), batch):
+            out.extend(self._submit_gang_batch(queries[at:at + batch]))
+        return out
+
+    def _pack_batch(self, queries) -> Tuple[List[Dict], List[str]]:
+        """Pack each query of one batch; returns the run sub-commands
+        (each with its own seq — the start/done barrier keys; the batch
+        envelope owns the cseq echo) and the per-query result dirs."""
+        subs: List[Dict] = []
+        result_rels: List[str] = []
+        for query in queries:
+            self._seq += 1
+            seq = self._seq
+            os.makedirs(
+                os.path.join(self.root, self.job_id, f"r{seq}"),
+                exist_ok=True,
+            )
+            pkg_rel = f"{self.job_id}/r{seq}/job.pkg"
+            with self.tracer.span("pack", cat="driver", seq=seq):
+                pack_query(query, os.path.join(self.root, pkg_rel))
+            result_rel = f"{self.job_id}/r{seq}/result"
+            result_rels.append(result_rel)
+            subs.append({
+                "kind": "run", "package": pkg_rel,
+                "result_dir": result_rel, "seq": seq,
+            })
+        return subs, result_rels
+
+    def _record_sub_durations(self, queries, per_worker_results) -> None:
+        """Fold the workers' per-sub-command wall clocks into the
+        per-plan duration models.  The batch path used to smear ONE
+        batch-wide dt over K plans, poisoning every model with K-1
+        foreign commands' time; workers now ship each sub-command's own
+        duration, and the gang sample is the max across members (a gang
+        command is as slow as its slowest member)."""
+        from dryad_tpu_torch.plan.nodes import walk
+
+        for j, query in enumerate(queries):
+            secs = [
+                r[j].get("seconds")
+                for r in per_worker_results
+                if j < len(r) and r[j].get("seconds") is not None
+            ]
+            if not secs:
+                continue
+            sig = tuple(nd.kind for nd in walk([query.node]))
+            st = self._gang_stats.setdefault(sig, StageStatistics())
+            st.record(max(secs))
+
+    def _submit_gang_batch(self, queries) -> List[Dict[str, np.ndarray]]:
+        self._heal_gang()
+        self._check_workers_alive()
+        self._sync_membership()
+        subs, result_rels = self._pack_batch(queries)
+        seqs = [s["seq"] for s in subs]
+        cmd = {"kind": "runbatch", "cmds": subs, "cseq": self._next_cseq()}
+        t_run0 = time.monotonic()
+        self.events.emit("gang_run_start", seq=seqs[0], workers=self.n)
+        for i in range(self.n):
+            self.events.emit(
+                "command_batch", worker=i, commands=len(subs),
+                round_trips_saved=len(subs) - 1, seqs=seqs,
+            )
+        procs = []
+        terminal = (
+            ProcessState.COMPLETED, ProcessState.FAILED,
+            ProcessState.CANCELED,
+        )
+        try:
+            for i in range(self.n):
+                p = ClusterProcess(
+                    self._command_round_trip(i, cmd),
+                    name=f"runbatch{seqs[0]}-w{i}",
+                    affinities=[Affinity(f"worker{i}", hard=True)],
+                )
+                self.scheduler.schedule(p)
+                procs.append(p)
+            for i, p in enumerate(procs):
+                if not p.wait(self.timeout + 30.0):
+                    raise TimeoutError(
+                        f"worker {i} batch command round-trip hung"
+                    )
+            failed = [
+                p for p in procs if p.state is not ProcessState.COMPLETED
+            ]
+            if failed:
+                errs = "; ".join(f"{p.name}: {p.error}" for p in failed)
+                raise RuntimeError(f"local job failed: {errs}")
+        except BaseException:
+            for p in procs:
+                if p.state not in terminal:
+                    self.scheduler.cancel(p)
+            raise
+        dt = time.monotonic() - t_run0
+        self.events.emit(
+            "gang_run_complete", seq=seqs[0], seconds=round(dt, 3)
+        )
+        self._collect_telemetry()
+        self._record_sub_durations(
+            queries, [p.result.get("results") or [] for p in procs]
+        )
+        out: List[Dict[str, np.ndarray]] = []
+        for j, (query, result_rel) in enumerate(zip(queries, result_rels)):
+            part_ids: set = set()
+            for p in procs:
+                sub_sts = p.result.get("results") or []
+                if j < len(sub_sts):
+                    part_ids.update(sub_sts[j].get("parts") or [])
+            out.append(self._assemble(query, result_rel, sorted(part_ids)))
+        return out
+
+    def _submit_gang_windowed(
+        self, queries, batch: int, depth: int
+    ) -> List[Dict[str, np.ndarray]]:
+        """Overlapped command streams: keep up to ``depth`` runbatch
+        envelopes in flight per worker (``config.gang_batch_depth``).
+        The driver thread only FEEDS — it packs each batch, posts its
+        envelope to every worker's command mailbox, and hands the
+        blocking status drain to the :class:`GangDispatchWindow`
+        collector — so the gang starts batch k+1 the moment it finishes
+        batch k instead of idling through a driver round trip.
+
+        Two distinct keys make the overlap safe on a latest-value
+        mailbox: each envelope posts its status to its OWN per-envelope
+        key (``wstatus/<i>/c<cseq>``), and the worker ACKS the dequeue
+        itself (``ack/<i>/c<cseq>``) so the feed never overwrites the
+        shared ``cmd/<i>`` slot while an unread envelope sits in it.
+        Results commit strictly in submit order; a batch with failed
+        sub-commands re-runs those queries SERIALLY at its commit
+        position (fresh seqs — consumed barrier keys are never reused),
+        so the output is byte-identical to the depth-1 serial loop."""
+        from dryad_tpu_torch.cluster.gangwindow import GangDispatchWindow
+
+        mb = self.service.mailbox
+        self._heal_gang()
+        self._check_workers_alive()
+        self._sync_membership()
+        chunks = [
+            queries[at:at + batch] for at in range(0, len(queries), batch)
+        ]
+        results: List[Optional[List[Dict[str, np.ndarray]]]] = (
+            [None] * len(chunks)
+        )
+        posted = [0] * self.n
+        statused = [0] * self.n
+        # (job id, key) of each worker's last envelope: a rebuild's fresh
+        # namespace leaves the old generation's acks unread
+        last_ack: List[Optional[Tuple[str, str]]] = [None] * self.n
+        # tag -> (job id, cseq, status keys) of each posted envelope
+        envelopes: Dict[int, Tuple[str, int, List[str]]] = {}
+
+        def await_acks() -> None:
+            for i, ack in enumerate(last_ack):
+                if ack is not None and ack[0] == self.job_id:
+                    await_ack(i, ack[1])
+
+        def await_ack(i: int, key: str) -> None:
+            deadline = time.monotonic() + self.timeout
+            while True:
+                if mb.get_prop(self.job_id, key, 0, timeout=0.5) is not None:
+                    return
+                self._check_workers_alive()
+                if time.monotonic() > deadline:
+                    raise TimeoutError(
+                        f"worker {i}: envelope never dequeued "
+                        f"(no ack on {key}); log tail:\n"
+                        + self._worker_log_tail(i)
+                    )
+
+        def await_status(i: int, jid: str, skey: str, cseq: int, deadline) -> Dict:
+            while True:
+                got = mb.get_prop(jid, skey, 0, timeout=1.0)
+                if got is not None:
+                    st = json.loads(got[1])
+                    if st.get("cseq") == cseq:
+                        self._note_gang_status(st)
+                        return st
+                self._check_workers_alive()
+                if time.monotonic() > deadline:
+                    raise TimeoutError(
+                        f"worker {i}: no windowed status after "
+                        f"{self.timeout}s; log tail:\n"
+                        + self._worker_log_tail(i)
+                    )
+
+        def commit(tag, value, error, win) -> None:
+            """Consume one drained batch at its commit position (submit
+            order): surface drain-site errors, re-run failed queries
+            serially, record durations, assemble."""
+            if error is not None:
+                raise error
+            chunk, sts = value["chunk"], value["statuses"]
+            per_worker = [st.get("results") or [] for st in sts]
+            self.events.emit(
+                "gang_run_complete", seq=value["seqs"][0],
+                seconds=round(time.monotonic() - value["t_post"], 3),
+            )
+            self._collect_telemetry()
+            self._record_sub_durations(chunk, per_worker)
+            out: List[Dict[str, np.ndarray]] = []
+            for j, query in enumerate(chunk):
+                failed = any(
+                    j < len(r) and r[j].get("state") != "completed"
+                    for r in per_worker
+                ) or any(j >= len(r) for r in per_worker)
+                if failed:
+                    win.note_retry()
+                    if self._gang_out_of_step:
+                        # the re-run rebuilds the gang: every later
+                        # envelope still runs on the old one (each fails
+                        # fast there), so wait for their statuses first
+                        deadline = time.monotonic() + self.timeout
+                        for t in sorted(envelopes):
+                            jid, c, skeys = envelopes[t]
+                            if t > tag and jid == self.job_id:
+                                for i, skey in enumerate(skeys):
+                                    await_status(i, jid, skey, c, deadline)
+                    # the shared cmd slot may still hold a later unread
+                    # envelope — wait for its dequeue ack before the
+                    # serial re-run posts into the same slot
+                    await_acks()
+                    out.append(self.submit(query, auto_recover=False))
+                    continue
+                part_ids: set = set()
+                for r in per_worker:
+                    part_ids.update(r[j].get("parts") or [])
+                out.append(
+                    self._assemble(
+                        query, value["result_rels"][j], sorted(part_ids)
+                    )
+                )
+            results[tag] = out
+
+        win = GangDispatchWindow(
+            depth, events=self.events, name="submit_many"
+        )
+        try:
+            for k, chunk in enumerate(chunks):
+                subs, result_rels = self._pack_batch(chunk)
+                seqs = [s["seq"] for s in subs]
+                cseq = self._next_cseq()
+                self.events.emit(
+                    "gang_run_start", seq=seqs[0], workers=self.n
+                )
+                t_post = time.monotonic()
+                skeys: List[str] = []
+                jid = self.job_id
+                for i in range(self.n):
+                    self.events.emit(
+                        "command_batch", worker=i, commands=len(subs),
+                        round_trips_saved=len(subs) - 1, seqs=seqs,
+                    )
+                    if last_ack[i] is not None and last_ack[i][0] == jid:
+                        await_ack(i, last_ack[i][1])
+                    ack = f"ack/{i}/c{cseq}"
+                    skey = f"wstatus/{i}/c{cseq}"
+                    env = self._stamp_trace({
+                        "kind": "runbatch", "cmds": subs, "cseq": cseq,
+                        "ack": ack, "skey": skey,
+                    })
+                    self.round_trips += 1
+                    mb.set_prop(jid, f"cmd/{i}", json.dumps(env).encode())
+                    last_ack[i] = (jid, ack)
+                    posted[i] += 1
+                    win.note_in_flight(posted[i] - statused[i])
+                    skeys.append(skey)
+                envelopes[k] = (jid, cseq, skeys)
+
+                def drain(cseq=cseq, skeys=skeys, chunk=chunk,
+                          result_rels=result_rels, seqs=seqs,
+                          t_post=t_post, jid=jid) -> Dict:
+                    deadline = time.monotonic() + self.timeout
+                    sts = []
+                    for i, skey in enumerate(skeys):
+                        sts.append(await_status(i, jid, skey, cseq, deadline))
+                        statused[i] += 1
+                    return {
+                        "statuses": sts, "chunk": chunk,
+                        "result_rels": result_rels, "seqs": seqs,
+                        "t_post": t_post,
+                    }
+
+                win.submit(k, drain)
+                for tag, value, error in win.ready():
+                    commit(tag, value, error, win)
+            for tag, value, error in win.drain():
+                commit(tag, value, error, win)
+        finally:
+            win.close(workers=self.n)
+        out: List[Dict[str, np.ndarray]] = []
+        for res in results:
+            out.extend(res or [])
+        return out
 
     def _collect_telemetry(self) -> int:
         """Absorb worker span/counter batches into the driver's event
@@ -628,8 +1176,7 @@ class LocalJobSubmission:
         re-execution cover real aggregation work.  A join or
         ``order_by`` over host inputs qualifies by driver-side routing.
         Other shuffling plans are refused with a message naming
-        :meth:`submit` (the gang program across processes, ROADMAP
-        queue 1 item 11).
+        :meth:`submit` (the gang program across processes).
 
         **Coded redundancy** (``dryad_tpu_torch.redundancy``): when the
         terminal partial's combiner is LINEAR (sum/count/mean, or a
@@ -1942,14 +2489,14 @@ class LocalJobSubmission:
 
     def _assemble(
         self, query, result_rel: str, part_ids: List[int],
-        dictionary: StringDictionary,
+        dictionary: Optional[StringDictionary] = None,
         part_rows: Optional[List[int]] = None,
     ) -> Dict[str, np.ndarray]:
         """Fetch result partitions through the file server (HTTP range
         reads via the block cache) and decode to a host table (the
         workers wrote valid rows only, so every row decodes; STRING
-        columns through the driver's ``dictionary``, where
-        ``_register_strings`` put every host token)."""
+        columns through ``dictionary``, where ``_register_strings`` put
+        every host token, or else the gang's ``dictionary.pkl``)."""
         from concurrent.futures import ThreadPoolExecutor
 
         from dryad_tpu_torch.columnar.batch import decode_physical_table
@@ -1978,6 +2525,11 @@ class LocalJobSubmission:
             wire_bytes=self._client.wire_bytes - w0,
             raw_bytes=self._client.raw_bytes - r0,
         )
+        if dictionary is None:
+            dictionary = StringDictionary()
+            dictionary._map.update(
+                pickle.loads(self._client.read_whole_file(f"{result_rel}/dictionary.pkl"))
+            )
         phys = query.schema.device_names()
         if not cols_parts:
             return {n: np.zeros(0) for n in query.schema.names}

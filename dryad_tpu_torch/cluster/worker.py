@@ -1,5 +1,5 @@
-"""Worker process for N-process local jobs — the VertexHost analog (the
-vertex-task half of ``dryad_tpu/cluster/worker.py``).
+"""Worker process for N-process local jobs — the VertexHost analog
+(``dryad_tpu/cluster/worker.py``).
 
 The reference's worker node runs a long-lived daemon whose children poll
 a versioned property mailbox for a ``DVertexCommand``, execute the
@@ -12,7 +12,18 @@ mailbox ``ProcessService.cs:42-126``).  This worker:
    on on the CPU;
 2. announces itself on the driver's ProcessService control plane
    (membership with its device, heartbeats; ``parallel/multihost.py``);
-3. loops on its ``cmd/<pid>`` mailbox property: ``runpart`` runs the
+3. loops on its ``cmd/<pid>`` mailbox property: ``run`` runs the
+   packaged plan as one program across the gang: every worker holds
+   ``--devices-per-proc`` of the ``nproc * devices-per-proc``
+   partitions on its device, the plan's collectives cross processes
+   through the gang's ``torch.distributed`` group (joined at the first
+   gang command, ``parallel/multihost.py::init_distributed``: vertex
+   tasks need none), and each worker writes the partitions it owns as
+   ``part<gid>.dpf`` (worker 0 also the ``dictionary.pkl``) between a
+   start and a done barrier; ``runbatch`` runs a list of ``run``
+   sub-commands back to back under one aggregated status (posted to
+   the envelope's own status key when the driver's dispatch window
+   sent it, after acknowledging the dequeue); ``runpart`` runs the
    packaged plan over one input partition of ``nparts`` in a
    one-partition context on its device and writes the valid rows as a
    partition file (``part<p>.dpf``); ``runcoded`` runs the plan over a
@@ -24,12 +35,9 @@ mailbox ``ProcessService.cs:42-126``).  This worker:
    (spans, the job context's events, and the hand kernels' launch
    counts as a ``metrics`` event) was shipped.
 
-The gang commands ``run`` and ``runbatch`` (one program across
-processes) come with the multi-GPU work (ROADMAP queue 1 item 11); a
-worker answers them with a failed status naming that item.
-
 Run as ``python -m dryad_tpu_torch.cluster.worker --service-port P
---job J --pid I --nproc N --root DIR [--device cuda|cpu]`` (spawned by
+--job J --pid I --nproc N --devices-per-proc K --coordinator H:P
+--root DIR [--device cuda|cpu] [--timeout S]`` (spawned by
 ``cluster.localjob.LocalJobSubmission``).
 """
 
@@ -38,6 +46,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import pickle
 import sys
 import tempfile
 import time
@@ -45,12 +54,6 @@ import traceback
 from typing import Dict, Optional
 
 from dryad_tpu_torch.obs import tracectx
-
-GANG_PENDING = (
-    "gang command {kind!r} (one program across processes) is not "
-    "ported yet: ROADMAP queue 1 item 11"
-)
-
 
 def _open_device(name: str):
     """``(torch.device, description)`` for the worker's device; raises
@@ -88,20 +91,16 @@ class _PackageCache:
         if self.key == rel and self.query is not None:
             return self.query, self.pristine
         from dryad_tpu_torch.exec.jobpackage import load_query
+        from dryad_tpu_torch.parallel.mesh import PartitionMesh
 
         # the whole package crosses the driver's file server once per
-        # worker and job: its seconds are the ``fetch_package`` span
-        with self.tracer.span("fetch_package", cat="worker", package=rel) as sp:
-            blob = client.read_whole_file(rel)
-            sp.add(bytes=len(blob))
-        with tempfile.NamedTemporaryFile(suffix=".pkg", delete=False) as fh:
-            fh.write(blob)
-            pkg_path = fh.name
+        # worker and job
+        pkg_path = _fetch_package(rel, client, self.tracer)
         try:
             # Vertex tasks run as ONE partition on this worker's device:
-            # independent work, not a gang (DrStorageVertex-style
-            # per-partition channels).
-            q = load_query(pkg_path, device=self.device, num_partitions=1)
+            # independent work, not the gang's mesh (DrStorageVertex-style
+            # per-partition channels, not cohort collectives).
+            q = load_query(pkg_path, mesh=PartitionMesh(1, self.device))
         finally:
             os.unlink(pkg_path)
         self.key = rel
@@ -295,6 +294,86 @@ def _absorb_ctx_events(wlog, ctx) -> None:
         wlog.absorb(ev)
 
 
+def _fetch_package(rel: str, client, tracer) -> str:
+    """The package through the driver's file server (the managed-channel
+    read path), as a local temporary file; its seconds are the
+    ``fetch_package`` span."""
+    with tracer.span("fetch_package", cat="worker", package=rel) as sp:
+        blob = client.read_whole_file(rel)
+        sp.add(bytes=len(blob))
+    with tempfile.NamedTemporaryFile(suffix=".pkg", delete=False) as fh:
+        fh.write(blob)
+        return fh.name
+
+
+def _join_gang(args) -> None:
+    """Join the gang's process group (idempotent): at the first gang
+    command, when every member is about to run the same program."""
+    from dryad_tpu_torch.parallel.multihost import init_distributed
+
+    init_distributed(args.coordinator, args.nproc, args.pid, device=args.device,
+                     timeout=args.timeout)
+
+
+def _run_command(cmd: Dict, args, client, cp, device, wtracer, wlog=None) -> Dict:
+    """Execute one ``run`` command: fetch the package, run the plan as
+    one program over the gang's mesh, write the owned result
+    partitions."""
+    from dryad_tpu_torch.columnar.io import write_partition_file
+    from dryad_tpu_torch.exec.jobpackage import load_query
+    from dryad_tpu_torch.parallel.mesh import make_mesh
+
+    import torch
+
+    _join_gang(args)
+    pkg_path = _fetch_package(cmd["package"], client, wtracer)
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(device)
+    try:
+        mesh = make_mesh(args.nproc * args.devices_per_proc, device)
+        q = load_query(pkg_path, mesh=mesh)
+        ctx = q.ctx
+        # Everyone present before ingest: a member joining mid-collective
+        # would stall the gang, so gate here where the failure is a clean
+        # timeout instead (DrStartClique semantics).
+        cp.barrier(f"start/{cmd['seq']}", args.nproc)
+        batch = ctx.execute(q)
+        host, counts = batch.fetch_valid_rows(with_counts=True)
+        bounds = [0]
+        for c in counts:
+            bounds.append(bounds[-1] + int(c))
+        out_dir = os.path.join(args.root, cmd["result_dir"])
+        os.makedirs(out_dir, exist_ok=True)
+        # each local partition IS one owned partition of the global mesh
+        parts = []
+        for j in range(mesh.local):
+            gid = mesh.base + j
+            cols = {c: host[c][bounds[j]:bounds[j + 1]] for c in sorted(host)}
+            write_partition_file(os.path.join(out_dir, f"part{gid}.dpf"), cols)
+            parts.append(gid)
+        if args.pid == 0:
+            # The dictionary is built at ingest (identically in every
+            # worker); ship one copy so the driver can decode strings.
+            with open(os.path.join(out_dir, "dictionary.pkl"), "wb") as fh:
+                pickle.dump(dict(ctx.dictionary._map), fh)
+        # All partitions durable before anyone reports success: the
+        # driver may start reading as soon as one status arrives.
+        cp.barrier(f"done/{cmd['seq']}", args.nproc)
+        _absorb_ctx_events(wlog, ctx)
+        if wlog is not None:
+            # what this run handed to the group, and its device peak
+            labels = {"backend": mesh.backend or "none"}
+            counters = [{"name": "collective_bytes", "labels": labels, "value": mesh.sent_bytes}]
+            if on_card:
+                counters.append({"name": "device_peak_bytes", "labels": labels,
+                                 "value": int(torch.cuda.max_memory_allocated(device))})
+            wlog.emit("metrics", counters=counters, hists=[])
+        return {"state": "completed", "parts": parts}
+    finally:
+        os.unlink(pkg_path)
+
+
 def _ship_launches(wlog, shipped: Dict[str, int]) -> None:
     """Log the hand kernels' launches since the last shipment as one
     ``metrics`` event (counter ``kernel_launches`` labelled by kernel):
@@ -338,10 +417,14 @@ def _resolve_pcache(pstate: Dict, cmd: Dict, args):
 
 def _exec_one(cmd: Dict, args, client, cp, pkgs, delay, wtracer, wlog,
               pstate=None, device_error: Optional[str] = None) -> Dict:
-    """Execute one runpart/runcoded/combineparts command and return its
-    status dict (no cseq — the caller stamps the mailbox echo).
+    """Execute one run/runpart/runcoded/combineparts command and return
+    its status dict (no cseq — the caller stamps the mailbox echo).
     Failures are reported per command: a failed status carries the
-    error, and the worker keeps serving."""
+    error, and the worker keeps serving; once a gang run failed in a
+    collective (:class:`GangStageError`), every later gang run fails
+    at once, because the group's ranks may be out of step."""
+    from dryad_tpu_torch.parallel.stage import GangStageError
+
     pstate = pstate if pstate is not None else {}
     try:
         if device_error is not None:
@@ -377,9 +460,18 @@ def _exec_one(cmd: Dict, args, client, cp, pkgs, delay, wtracer, wlog,
                     pcache=_resolve_pcache(pstate, cmd, args), wlog=wlog,
                 )
             else:
-                raise NotImplementedError(GANG_PENDING.format(kind=cmd["kind"]))
+                if pstate.get("out_of_step"):
+                    # no collective may run on a group whose ranks
+                    # diverged: the driver restarts the gang
+                    raise GangStageError(
+                        "the gang's group is out of step since "
+                        f"{pstate['out_of_step']}; the gang must be rebuilt"
+                    )
+                status = _run_command(cmd, args, client, cp, pkgs.device, wtracer, wlog=wlog)
     except Exception as e:  # noqa: BLE001 — report, keep serving
         traceback.print_exc()
+        if isinstance(e, GangStageError) and not pstate.get("out_of_step"):
+            pstate["out_of_step"] = str(e)
         info = {"error": f"{type(e).__name__}: {e}", "cmd": cmd}
         cp.report_failure(info)
         status = {"state": "failed", "error": info["error"]}
@@ -393,12 +485,22 @@ def main(argv=None) -> int:
     ap.add_argument("--job", required=True)
     ap.add_argument("--pid", type=int, required=True)
     ap.add_argument("--nproc", type=int, required=True)
+    ap.add_argument("--devices-per-proc", type=int, default=1,
+                    help="partitions this worker holds in a gang")
+    ap.add_argument("--coordinator", default=None,
+                    help="host:port of the gang's process group (rank 0 hosts it)")
     ap.add_argument("--root", required=True)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--timeout", type=float, default=None,
+                    help="seconds a gang collective may wait for its peers")
     args = ap.parse_args(argv)
 
     from dryad_tpu_torch.cluster.service import ServiceClient
-    from dryad_tpu_torch.parallel.multihost import ControlPlane
+    from dryad_tpu_torch.parallel.multihost import ControlPlane, local_index, rank_device
+
+    if args.coordinator and args.nproc > 1:
+        # a gang member's device is the one its rank takes in the group
+        args.device = str(rank_device(args.device, *local_index(args.pid, args.nproc)))
 
     client = ServiceClient(args.service_host, args.service_port)
     cp = ControlPlane(args.job, args.pid, client=client)
@@ -464,6 +566,15 @@ def main(argv=None) -> int:
         # driver can discard stale statuses from a command it already
         # gave up on.
         cseq = cmd.get("cseq")
+        if cmd.get("ack"):
+            # Windowed envelope: acknowledge the DEQUEUE itself, before
+            # executing — the command mailbox is a latest-value slot,
+            # and the overlapped feed may only overwrite it once this
+            # envelope has provably left it.
+            try:
+                client.set_prop(args.job, str(cmd["ack"]), b"1")
+            except Exception:  # noqa: BLE001 — driver timeout surfaces it
+                pass
         if cmd["kind"] == "exit":
             client.set_prop(
                 args.job, f"status/{args.pid}",
@@ -502,7 +613,34 @@ def main(argv=None) -> int:
                 json.dumps({"state": "delay_set", "cseq": cseq}).encode(),
             )
             continue
-        if cmd["kind"] in ("run", "runbatch", "runpart", "runcoded", "combineparts"):
+        if cmd["kind"] == "runbatch":
+            # Batched command stream: execute the sub-commands back to
+            # back and ship ONE aggregated status — K mailbox round trips
+            # become one (the cseq echo covers the batch).  A failed
+            # sub-command does NOT stop the batch: every gang member runs
+            # the same list in the same order, keeping the per-command
+            # start/done barriers aligned, and the per-command statuses
+            # keep their failure.
+            results = []
+            first_error = None
+            for sub in cmd["cmds"]:
+                # the envelope's trace context covers sub-commands that
+                # carry none of their own
+                if cmd.get("trace") and not sub.get("trace"):
+                    sub["trace"] = cmd["trace"]
+                sub_t0 = time.perf_counter()
+                st = _exec_one(sub, args, client, cp, pkgs, delay, wtracer, wlog,
+                               pstate=pstate, device_error=device_error)
+                # each sub-command's own wall clock, for the driver's
+                # per-plan duration models
+                st["seconds"] = round(time.perf_counter() - sub_t0, 6)
+                results.append(st)
+                if st.get("state") == "failed" and first_error is None:
+                    first_error = st.get("error")
+            status = {"state": "failed" if first_error else "completed", "results": results}
+            if first_error:
+                status["error"] = first_error
+        elif cmd["kind"] in ("run", "runpart", "runcoded", "combineparts"):
             status = _exec_one(cmd, args, client, cp, pkgs, delay,
                                wtracer, wlog, pstate=pstate,
                                device_error=device_error)

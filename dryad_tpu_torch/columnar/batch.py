@@ -231,9 +231,11 @@ class ColumnBatch:
         device,
         partition_capacity: Optional[int] = None,
         dictionary: Optional[StringDictionary] = None,
+        rows: Optional[slice] = None,
     ) -> "ColumnBatch":
         """Encode host logical columns and block-partition them over P
-        partitions (``parallel.partition.block_layout``)."""
+        partitions (``parallel.partition.block_layout``); with ``rows``,
+        only those partitions of the layout (a gang rank's own)."""
         from dryad_tpu_torch.parallel.partition import block_layout
 
         n = None
@@ -245,7 +247,7 @@ class ColumnBatch:
         phys: Dict[str, np.ndarray] = {}
         for f in schema.fields:
             phys.update(encode_physical(f, np.asarray(arrays[f.name]), dictionary))
-        data, valid = block_layout(phys, num_partitions, partition_capacity)
+        data, valid = block_layout(phys, num_partitions, partition_capacity, rows)
         return ColumnBatch.from_host_layout(data, valid, device)
 
     def fetch_valid_rows(self, with_counts: bool = False):

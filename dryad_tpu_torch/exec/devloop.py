@@ -22,6 +22,13 @@ once more on the final state, so that an overflow in it is not lost.
 - Its plain version (:meth:`LoopProgram.run_plain`) runs the same stage
   functions and the kernel's plain twin in a Python loop that reads the
   predicate each round: the CPU's path, and the card's comparison.
+- A gang's loop (``eager``, a mesh over several ranks) runs the plain
+  version on every device: its stage functions cross ranks through
+  ``torch.distributed`` collectives (gloo stages them through the
+  host), which a CUDA graph cannot hold.  The executor decides this from
+  the mesh before any capture (a one-rank group keeps the graph, its
+  collectives captured in it), and logs ``do_while_device_start`` and
+  ``_done`` as for the graph.
 
 :meth:`LoopProgram.check` is the trace-time check of the reference: it
 applies the body and the condition once and raises ``TypeError`` when
@@ -98,12 +105,17 @@ def _thread_to_pool(device: torch.device, pool):
 class LoopProgram:
     """One do_while loop over a fixed carry layout."""
 
-    def __init__(self, body: BodyFn, cond: CondFn, cond_col: str, max_iter: int, device):
+    def __init__(self, body: BodyFn, cond: CondFn, cond_col: str, max_iter: int, device,
+                 eager: bool = False):
         self.body = body
         self.cond = cond
         self.cond_col = cond_col
         self.max_iter = int(max_iter)
         self.device = torch.device(device)
+        # the Python round loop on every device: a gang's stage
+        # functions cross ranks through collectives, which a CUDA graph
+        # cannot hold (set from the mesh before any capture)
+        self.eager = bool(eager)
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.carry: Optional[ColumnBatch] = None
         self.state: Optional[torch.Tensor] = None
@@ -117,7 +129,7 @@ class LoopProgram:
         when the body changes the carry or either reads a value to the
         host (CUDA).  Returns the body's ``(batch, overflow, miss)``."""
         try:
-            with _sync_is_error(self.device):
+            with _sync_is_error(torch.device("cpu") if self.eager else self.device):
                 out = self.body(current)
                 self.cond(out[0])
         except RuntimeError as e:
@@ -151,8 +163,8 @@ class LoopProgram:
     # -- the graph ------------------------------------------------------------------
     def run(self, current: ColumnBatch, first=None) -> LoopResult:
         """The loop on the loop's device: one graph replay on CUDA, the
-        plain version on the CPU."""
-        if self.device.type == "cpu":
+        plain version on the CPU and for an eager (gang) loop."""
+        if self.device.type == "cpu" or self.eager:
             return self.run_plain(current, first)
         if self.device.type != "cuda":
             raise ValueError(f"do_while device loop: unsupported device {self.device}")

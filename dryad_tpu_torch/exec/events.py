@@ -414,14 +414,7 @@ QUERY_SCOPED_KINDS: Tuple[str, ...] = (
 # gains a site, so this list only shrinks.
 PENDING_KINDS: Dict[str, str] = {
     "xla_compile": "ROADMAP queue 1 item 10",
-    "command_batch": "ROADMAP queue 1 item 11",
     "exchange_round": "ROADMAP queue 1 item 11",
-    "gang_member_lost_mid_job": "ROADMAP queue 1 item 11",
-    "gang_rebuild": "ROADMAP queue 1 item 11",
-    "gang_run_complete": "ROADMAP queue 1 item 11",
-    "gang_run_start": "ROADMAP queue 1 item 11",
-    "gang_straggler": "ROADMAP queue 1 item 11",
-    "gang_window": "ROADMAP queue 1 item 11",
 }
 
 

@@ -131,6 +131,8 @@ from dryad_tpu_torch.exec.stats import StageStatistics
 from dryad_tpu_torch.obs import flightrec
 from dryad_tpu_torch.obs.metrics import MetricsRegistry
 from dryad_tpu_torch.obs.span import Tracer
+from dryad_tpu_torch.parallel import partition as PART
+from dryad_tpu_torch.parallel import stage as STAGE
 from dryad_tpu_torch.plan.fuse import (
     DRIVER_OPS, SHRINKING_OPS, FuseReport, _adaptable_shape as _adaptable, fuse,
     unfused,
@@ -325,8 +327,12 @@ def _phys_np_dtype(col: str, schema) -> np.dtype:
 
 
 class GraphExecutor:
-    def __init__(self, P: int, config, device, event_log: Optional[EventLog] = None):
+    def __init__(self, P: int, config, device, event_log: Optional[EventLog] = None, mesh=None):
         self.P = P
+        # the partitions' mesh (parallel/mesh.py); over a process group
+        # every stage's flags, misses and counts are reduced across the
+        # ranks (parallel/stage.py), so every rank decides alike
+        self.mesh = mesh
         self.config = config
         self.device = torch.device(device)
         # every job's events, the reference's kinds and fields
@@ -530,10 +536,11 @@ class GraphExecutor:
                 self._drain(window, bindings, results, misses)
                 stage = unit[0]
                 (current,) = self._inputs(stage, bindings, results)
-                if driver == "do_while":
-                    results[(stage.id, 0)] = self._run_do_while(stage, current, misses)
-                else:
-                    results[(stage.id, 0)] = self._run_apply_host(stage, current)
+                with STAGE.named_failures(self.mesh, stage.name):
+                    if driver == "do_while":
+                        results[(stage.id, 0)] = self._run_do_while(stage, current, misses)
+                    else:
+                        results[(stage.id, 0)] = self._run_apply_host(stage, current)
                 self._out_fp[(stage.id, 0)] = None  # loop state / host fn: opaque
                 continue
             if window and self._drain_for_adapt(unit, window):
@@ -714,9 +721,12 @@ class GraphExecutor:
             fan = adapt_fan if adapt_fan and boost < 4 else None
             host = None
             with torch.profiler.record_function(name), \
-                    self.tracer.span(name, cat="execute", stage=sid, version=version, boost=boost):
+                    self.tracer.span(name, cat="execute", stage=sid, version=version, boost=boost), \
+                    STAGE.named_failures(self.mesh, name):
                 overflow, dict_miss = self._dispatch(unit, bindings, results, fan, boost)
                 counts = [results[e].valid.sum() for e in exports] if want_count else []
+                overflow, dict_miss, counts = STAGE.reduce_replicated(
+                    self.mesh, overflow, dict_miss, counts)
                 windowed = window is not None and (can_overflow or bool(window))
                 if windowed:
                     window.append(dict(
@@ -823,7 +833,8 @@ class GraphExecutor:
         )
         for m in unit:
             run = _fan_adapted_stage(m, fan) if fan else m
-            ctx = StageContext(self.P, self.device, operands, self.config.shuffle_slack, boost)
+            ctx = StageContext(self.P, self.device, operands, self.config.shuffle_slack, boost,
+                               mesh=self.mesh)
             ctx.bind_inputs(self._inputs(m, bindings, results))
             run_ops(ctx, run.ops)
             for i, slot in enumerate(m.out_slots):
@@ -929,7 +940,7 @@ class GraphExecutor:
             current = self.subquery_runner(p["body"], p["schema"], current)
             while True:
                 compacted, ovf = SH.resize(current, _round8(base_pp * boost))
-                if not bool(ovf):
+                if not bool(PART.any_(ovf, self.mesh)):  # every rank boosts alike
                     current = compacted
                     break
                 if boost >= 2 ** self.config.max_shuffle_retries:
@@ -972,9 +983,11 @@ class GraphExecutor:
                 self._loops.move_to_end(key)
             else:
                 fns = [_loop_stage_fn(s, self.P, self.device, self.baked_operands,
-                                      self.config.shuffle_slack, boost, with_miss=m)
+                                      self.config.shuffle_slack, boost, with_miss=m,
+                                      mesh=self.mesh)
                        for s, m in ((body_stage, True), (cond_stage, False))]
-                prog = LoopProgram(*fns, cond_col, max_iter, self.device)
+                eager = self.mesh is not None and self.mesh.world > 1
+                prog = LoopProgram(*fns, cond_col, max_iter, self.device, eager=eager)
                 first = prog.check(current)  # TypeError: the driver loop runs it
                 self._loops[key] = prog
                 while len(self._loops) > LOOP_PROGRAMS:
@@ -1006,10 +1019,11 @@ class GraphExecutor:
         expected = {n: _phys_np_dtype(n, schema) for n in phys}
         valid = b.valid.cpu().numpy()
         host = {n: to_host_column(v) for n, v in b.data.items()}
+        base = self.mesh.base if self.mesh is not None else 0
         out_parts = []
-        for i in range(self.P):
-            m = valid[i]
-            out = p["fn"]({n: v[i][m] for n, v in host.items()}, i)
+        for j in range(valid.shape[0]):  # this rank's partitions
+            i, m = base + j, valid[j]
+            out = p["fn"]({n: v[j][m] for n, v in host.items()}, i)
             if set(out.keys()) != set(phys):
                 raise ValueError(
                     f"apply_host fn output columns {sorted(out)} != "
@@ -1023,9 +1037,10 @@ class GraphExecutor:
                 )
             out_parts.append(out)
         rows = [len(next(iter(op.values()), [])) for op in out_parts]
-        new_cap = max(8, int(math.ceil(max(rows, default=1) / 8.0)) * 8)
-        data = {n: np.zeros((self.P, new_cap), expected[n]) for n in phys}
-        vbuf = np.zeros((self.P, new_cap), np.bool_)
+        most = PART.allreduce(torch.tensor(max(rows, default=1)), "max", self.mesh)
+        new_cap = max(8, int(math.ceil(int(most) / 8.0)) * 8)  # one capacity on every rank
+        data = {n: np.zeros((len(out_parts), new_cap), expected[n]) for n in phys}
+        vbuf = np.zeros((len(out_parts), new_cap), np.bool_)
         for i, op in enumerate(out_parts):
             for n in phys:
                 data[n][i, : rows[i]] = op[n]
@@ -1103,18 +1118,19 @@ class GraphExecutor:
 
 
 def _loop_stage_fn(stage: Stage, P: int, device, operands, slack: float, boost: int,
-                   with_miss: bool):
+                   with_miss: bool, mesh=None):
     """One lowered stage as a function of the loop state: its ops at
     ``boost`` over ``operands`` (baked tables); returns the output batch
-    and its overflow flag (and, for the body, its miss count).  It holds
-    no reference to the executor, whose loops outlive no executor."""
+    and its overflow flag (and, for the body, its miss count), reduced
+    over ``mesh``'s group.  It holds no reference to the executor, whose
+    loops outlive no executor."""
     def fn(batch: ColumnBatch):
-        ctx = StageContext(P, device, operands, slack, boost)
+        ctx = StageContext(P, device, operands, slack, boost, mesh=mesh)
         ctx.bind_inputs((batch,))
         run_ops(ctx, stage.ops)
         out = ctx.slots[stage.out_slots[0]]
         return (out, ctx.overflow, ctx.dict_miss) if with_miss else (out, ctx.overflow)
-    return fn
+    return STAGE.compile_stage(mesh, fn)
 
 
 def _pool_probe(pool: Optional[DeviceOperandPool]) -> dict:

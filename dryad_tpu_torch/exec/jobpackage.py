@@ -77,27 +77,28 @@ def pack_query(
     }
 
 
-def load_query(path: str, ctx=None, device=None, num_partitions: Optional[int] = None):
+def load_query(path: str, ctx=None, mesh=None, device=None,
+               num_partitions: Optional[int] = None):
     """Load a job package into a (possibly provided) context and return
-    the lazy Query, NOT yet executed.  ``device`` and
-    ``num_partitions`` build the fresh context (from the packaged
-    config) when ``ctx`` is None: a worker runs its vertex tasks in a
-    one-partition context on its own device (the reference passes a
-    one-device mesh)."""
+    the lazy Query, NOT yet executed.  ``mesh`` lets a worker run the
+    plan over a specific mesh (a gang's, spanning processes, or a
+    one-partition mesh for a vertex task); ``device`` and
+    ``num_partitions`` build the fresh context otherwise (from the
+    packaged config) when ``ctx`` is None."""
     from dryad_tpu_torch.api.context import DryadContext
     from dryad_tpu_torch.api.query import Query
 
-    if ctx is not None and (device is not None or num_partitions is not None):
+    if ctx is not None and (mesh is not None or device is not None or num_partitions is not None):
         raise ValueError(
-            "pass either ctx or device/num_partitions, not both (a "
-            "provided ctx already owns its device and partitions)"
+            "pass either ctx or device/num_partitions/mesh, not both (a "
+            "provided ctx already owns its mesh, device and partitions)"
         )
     with open(path, "rb") as fh:
         blob = pickle.load(fh)
     if blob.get("version") != PACKAGE_VERSION:
         raise ValueError(f"unsupported package version {blob.get('version')}")
     if ctx is None:
-        ctx = DryadContext(num_partitions, config=blob["config"], device=device)
+        ctx = DryadContext(num_partitions, config=blob["config"], device=device, mesh=mesh)
     ctx.dictionary._map.update(blob["dictionary"])
     # Re-key the loaded DAG onto THIS process's node-id counter: ids are
     # process-local, and a loaded DAG carrying the packer's ids collides

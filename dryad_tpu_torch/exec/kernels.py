@@ -12,14 +12,16 @@ of the reference (the row-wise ops and user functions ``select``,
 ``tail``, ``take_while``, ``skip_while``, ``reverse``,
 ``default_if_empty``, ``zip``, ``sliding_window``; ``scalar_agg``).
 The reference composes them into one traced SPMD program per stage;
-PyTorch runs eagerly, so each op runs as it is applied, on all P
-partitions at once, and a user function of ``apply`` or ``fork`` runs
-once per partition on a one-partition view, as the reference's does.
-Collectives are the partition layer's tensor ops
-(``parallel/partition.py``).  Capacities derive from the stage's entry
+PyTorch runs eagerly, so each op runs as it is applied, on all of a
+rank's partitions at once (all P in one process, ``P / world`` of a
+gang), and a user function of ``apply`` or ``fork`` runs once per
+partition on a one-partition view, as the reference's does.  Every
+partition-axis operation goes through the partition layer's collectives
+(``parallel/partition.py``) over the stage's mesh: tensor ops in one
+process, ``torch.distributed`` calls across a gang's ranks.  Capacities derive from the stage's entry
 capacities, its growth and the executor's retry ``boost``, as in the
 reference.  The hybrid-mesh ``tree`` exchange (ROADMAP.md queue 1 item
-11) is not ported: on one device the ``tree`` param of
+11) is not ported: on the port's flat mesh the ``tree`` param of
 ``exchange_hash`` is ignored, as the reference ignores it on a one-axis
 mesh.
 """
@@ -50,9 +52,14 @@ class StageContext:
     slots, the overflow flag the executor reads after the stage, and the
     dictionary-miss counter it reads once after the job."""
 
-    def __init__(self, P: int, device, operands=None, slack: float = 2.0, boost: int = 1):
-        self.P = P
+    def __init__(self, P: int, device, operands=None, slack: float = 2.0, boost: int = 1,
+                 mesh=None):
+        self.P = P  # global partitions
         self.device = torch.device(device)
+        # the partitions' mesh (parallel/mesh.py): None or a mesh without
+        # a group in one process; this rank holds partitions base.. of P
+        self.mesh = mesh
+        self.base = mesh.base if mesh is not None else 0
         # the dispatch's tables (exec/operands.py: DispatchOperands, BakedOperands)
         self.operands = operands
         self.slack = slack
@@ -174,7 +181,7 @@ def _k_apply(ctx: StageContext, p) -> None:
     """Per-partition user function over a one-partition ColumnBatch
     (with ``with_index``, also the partition's index)."""
     outs = []
-    for i, view in enumerate(_partition_views(ctx.slots[p["slot"]])):
+    for i, view in enumerate(_partition_views(ctx.slots[p["slot"]]), ctx.base):
         out = p["fn"](view, i) if p.get("with_index") else p["fn"](view)
         if not isinstance(out, ColumnBatch):
             raise TypeError("apply fn must return a ColumnBatch")
@@ -210,7 +217,7 @@ def _fanout(ctx: StageContext, nparts) -> int:
 def _exchange(ctx: StageContext, slot: int, dest: torch.Tensor, P_eff: int) -> None:
     b = ctx.slots[slot]
     B = SH.bucket_capacity(b.capacity, P_eff, ctx.slack * ctx.boost)
-    out, ovf = SH.exchange(b, dest, ctx.P, B, capacity=ctx.resize_to)
+    out, ovf = SH.exchange(b, dest, ctx.P, B, capacity=ctx.resize_to, mesh=ctx.mesh)
     ctx.slots[slot] = out
     ctx.overflow = ctx.overflow | ovf
 
@@ -236,10 +243,10 @@ def _k_exchange_range(ctx: StageContext, p) -> None:
     P_eff = _fanout(ctx, p.get("nparts"))
     if p.get("spread"):
         words = list(operands) + [SORT.spread_word(b.capacity, b.device).expand_as(b.valid)]
-        splitters = SORT.sample_splitters_multi(words, b.valid, P_eff, m)
+        splitters = SORT.sample_splitters_multi(words, b.valid, P_eff, m, ctx.mesh)
         dest = SORT.range_dest_multi(words, splitters)
     else:
-        splitters = SORT.sample_splitters(operands[0], b.valid, P_eff, m)
+        splitters = SORT.sample_splitters(operands[0], b.valid, P_eff, m, ctx.mesh)
         dest = SORT.range_dest(operands[0], splitters)
     _exchange(ctx, p["slot"], dest, P_eff)
 
@@ -332,11 +339,11 @@ def _k_group_reduce_dense(ctx: StageContext, p) -> None:
             val_cols.append(a.col)
     vals = [_kernel_value(b.data[c]) for c in val_cols]
     sums, cnt = bucket_sum_count(key.contiguous(), vals, in_range.contiguous(), Kp)
-    cnt = PART.psum_scatter(torch.round(cnt).to(torch.int32))  # (P, per)
-    by_col = {c: PART.psum_scatter(s) for c, s in zip(val_cols, sums)}
+    cnt = PART.psum_scatter(torch.round(cnt).to(torch.int32), ctx.mesh)  # (local, per)
+    by_col = {c: PART.psum_scatter(s, ctx.mesh) for c, s in zip(val_cols, sums)}
 
-    me = PART.axis_index(ctx.P, key.device)
-    codes = me * per + torch.arange(per, device=key.device)  # (P, per) int64
+    me = PART.axis_index(ctx.P, key.device, ctx.mesh)
+    codes = me * per + torch.arange(per, device=key.device)  # (local, per) int64
     decode = p.get("decode")
     if decode is None:
         out: Dict[str, torch.Tensor] = {p["key"]: codes.to(key.dtype)}
@@ -383,7 +390,8 @@ def _k_topk(ctx: StageContext, p) -> None:
     gathered, one sort of the gathered heads, and partition i keeps
     rows ``[i*n_pad, (i+1)*n_pad)`` of that order, those past n invalid.
     The reference sorts the gathered heads on every device; every
-    partition would hold the same array, so here it is sorted once."""
+    partition would hold the same array, so here it is sorted once a
+    rank."""
     b = ctx.slots[p["slot"]]
     sb = SORT.sort_batch_by_operands(b, p["operands_fn"](b))
     n = int(p["n"])
@@ -392,14 +400,15 @@ def _k_topk(ctx: StageContext, p) -> None:
         {c: v[:, :n_pad] for c, v in sb.data.items()}, sb.valid[:, :n_pad]
     )
     gb = ColumnBatch(
-        {c: PART.all_gather(v)[:1] for c, v in head.data.items()},
-        PART.all_gather(head.valid)[:1],
+        {c: PART.all_gather(v, ctx.mesh)[:1] for c, v in head.data.items()},
+        PART.all_gather(head.valid, ctx.mesh)[:1],
     )  # one (1, P * n_pad) copy of every partition's view
     gsb = SORT.sort_batch_by_operands(gb, p["operands_fn"](gb))
     P = ctx.P
     pos = torch.arange(P * n_pad, device=b.device).reshape(P, n_pad)
-    data = {c: v.reshape(P, n_pad) for c, v in gsb.data.items()}
-    valid = gsb.valid.reshape(P, n_pad) & (pos < n)
+    mine = lambda v: PART.local_rows(v.reshape(P, n_pad), ctx.mesh)
+    data = {c: mine(v) for c, v in gsb.data.items()}
+    valid = mine(gsb.valid.reshape(P, n_pad) & (pos < n))
     ctx.slots[p["slot"]] = ColumnBatch(data, valid)
 
 
@@ -460,7 +469,7 @@ def _apply_join_strategy(ctx: StageContext, p) -> int:
                 if tight < right.capacity:
                     right, ovf = SH.resize(right, tight)
                     ctx.overflow = ctx.overflow | ovf
-            ctx.slots[p["right_slot"]] = PART.gather_batch(right)
+            ctx.slots[p["right_slot"]] = PART.gather_batch(right, ctx.mesh)
         else:
             _co_partition_for_join(ctx, p)
             base = max(
@@ -535,22 +544,22 @@ def _k_join_ranked(ctx: StageContext, p) -> None:
 RANK_NONE = 0xFFFFFFFF  # the rank of an invalid row
 
 
-def _rank_column(b: ColumnBatch, P: int) -> Tuple[ColumnBatch, torch.Tensor]:
+def _rank_column(b: ColumnBatch, ctx: StageContext) -> Tuple[ColumnBatch, torch.Tensor]:
     """Compact each partition and attach every valid row's global rank
     in partition-major order as ``#rank`` (uint32 values on the int64
     carrier, ``RANK_NONE`` on invalid rows); also the total row count."""
     c = b.compact()
     # the reference's ranks are uint32: guard the global capacity
-    if P * c.capacity >= 0xFFFFFFFF:
+    if ctx.P * c.capacity >= 0xFFFFFFFF:
         raise ValueError(
-            f"rank-based operator: global capacity {P * c.capacity} "
+            f"rank-based operator: global capacity {ctx.P * c.capacity} "
             "exceeds the uint32 rank range (4.29e9 rows)"
         )
     local = c.valid.sum(-1, dtype=torch.int64)
-    offset = local.cumsum(0) - local  # rows of earlier partitions
+    offset, total = PART.exclusive_prefix(local, ctx.mesh)  # rows of earlier partitions
     pos = torch.arange(c.capacity, device=c.device)
     rank = torch.where(c.valid, offset[:, None] + pos, RANK_NONE)
-    return ColumnBatch(dict(c.data, **{"#rank": rank}), c.valid), local.sum()
+    return ColumnBatch(dict(c.data, **{"#rank": rank}), c.valid), total
 
 
 def _strip_rank(b: ColumnBatch, keep: torch.Tensor) -> ColumnBatch:
@@ -559,7 +568,7 @@ def _strip_rank(b: ColumnBatch, keep: torch.Tensor) -> ColumnBatch:
 
 def _k_with_rank(ctx: StageContext, p) -> None:
     """Attach each row's global engine-order rank as an int32 column."""
-    b, _total = _rank_column(ctx.slots[p["slot"]], ctx.P)
+    b, _total = _rank_column(ctx.slots[p["slot"]], ctx)
     out = {n: c for n, c in b.data.items() if n != "#rank"}
     out[p["out"]] = torch.where(b.valid, b.data["#rank"], 0).to(torch.int32)
     ctx.slots[p["slot"]] = ColumnBatch(out, b.valid)
@@ -567,19 +576,19 @@ def _k_with_rank(ctx: StageContext, p) -> None:
 
 def _k_take(ctx: StageContext, p) -> None:
     """The first n rows of global engine order."""
-    b, _total = _rank_column(ctx.slots[p["slot"]], ctx.P)
+    b, _total = _rank_column(ctx.slots[p["slot"]], ctx)
     ctx.slots[p["slot"]] = _strip_rank(b, b.valid & (b.data["#rank"] < int(p["n"])))
 
 
 def _k_skip(ctx: StageContext, p) -> None:
     """Drop the first n rows of global engine order."""
-    b, _total = _rank_column(ctx.slots[p["slot"]], ctx.P)
+    b, _total = _rank_column(ctx.slots[p["slot"]], ctx)
     ctx.slots[p["slot"]] = _strip_rank(b, b.valid & (b.data["#rank"] >= int(p["n"])))
 
 
 def _k_tail(ctx: StageContext, p) -> None:
     """Keep the last n rows of global engine order."""
-    b, total = _rank_column(ctx.slots[p["slot"]], ctx.P)
+    b, total = _rank_column(ctx.slots[p["slot"]], ctx)
     cut = torch.clamp(total - int(p["n"]), min=0)
     ctx.slots[p["slot"]] = _strip_rank(b, b.valid & (b.data["#rank"] >= cut))
 
@@ -587,10 +596,11 @@ def _k_tail(ctx: StageContext, p) -> None:
 def _cut_at_first_failure(ctx: StageContext, p, before: bool) -> None:
     """Rows before (TakeWhile) or from (SkipWhile) the first valid row,
     in global engine order, that fails the predicate."""
-    b, total = _rank_column(ctx.slots[p["slot"]], ctx.P)
+    b, total = _rank_column(ctx.slots[p["slot"]], ctx)
     pred = p["fn"]({n: c for n, c in b.data.items() if n != "#rank"})
     rank = b.data["#rank"]
-    cut = torch.minimum(torch.where(b.valid & ~pred, rank, RANK_NONE).amin(), total)
+    first = PART.allreduce(torch.where(b.valid & ~pred, rank, RANK_NONE).amin(), "min", ctx.mesh)
+    cut = torch.minimum(first, total)
     ctx.slots[p["slot"]] = _strip_rank(b, b.valid & ((rank < cut) if before else (rank >= cut)))
 
 
@@ -609,7 +619,7 @@ def _exchange_by_rank(ctx: StageContext, b: ColumnBatch, per: int) -> ColumnBatc
     bucket and resize overflows set the flag, then a sort by rank."""
     dest = torch.clamp(b.data["#rank"] // per, 0, ctx.P - 1)
     B = SH.bucket_capacity(b.capacity, ctx.P, ctx.slack * ctx.boost)
-    out, ovf = SH.exchange(b, dest, ctx.P, B, capacity=per)
+    out, ovf = SH.exchange(b, dest, ctx.P, B, capacity=per, mesh=ctx.mesh)
     ctx.overflow = ctx.overflow | ovf
     return SORT.sort_batch_by_operands(out, [out.data["#rank"]])
 
@@ -617,7 +627,7 @@ def _exchange_by_rank(ctx: StageContext, b: ColumnBatch, per: int) -> ColumnBatc
 def _k_reverse(ctx: StageContext, p) -> None:
     """Globally reverse engine row order: invert each row's global rank
     and repartition by it."""
-    b, total = _rank_column(ctx.slots[p["slot"]], ctx.P)
+    b, total = _rank_column(ctx.slots[p["slot"]], ctx)
     inv = torch.where(b.valid, (total - 1) - b.data["#rank"], RANK_NONE)
     b = ColumnBatch(dict(b.data, **{"#rank": inv}), b.valid)
     out = _exchange_by_rank(ctx, b, _round8(ctx.base_cap(p["slot"]) * ctx.boost))
@@ -627,9 +637,9 @@ def _k_reverse(ctx: StageContext, p) -> None:
 def _k_default_if_empty(ctx: StageContext, p) -> None:
     """If the table is empty, one row of defaults on partition 0."""
     b = ctx.slots[p["slot"]].compact()
-    emit = ~b.valid.any()
+    emit = ~PART.any_(b.valid, ctx.mesh)
     first = torch.zeros_like(b.valid)
-    first[0, 0] = True
+    first[0, 0] = ctx.base == 0  # global partition 0 only
     first = first & emit
     data = {}
     for name, col in b.data.items():
@@ -642,8 +652,8 @@ def _k_zip(ctx: StageContext, p) -> None:
     """Pair rows by global position (LINQ Zip: the shorter side's
     length): both sides exchanged by rank into the same layout."""
     per = _round8(max(ctx.base_cap(p["left_slot"]), ctx.base_cap(p["right_slot"])) * ctx.boost)
-    lb, _ = _rank_column(ctx.slots[p["left_slot"]], ctx.P)
-    rb, _ = _rank_column(ctx.slots[p["right_slot"]], ctx.P)
+    lb, _ = _rank_column(ctx.slots[p["left_slot"]], ctx)
+    rb, _ = _rank_column(ctx.slots[p["right_slot"]], ctx)
     la = _exchange_by_rank(ctx, lb, per)
     ra = _exchange_by_rank(ctx, rb, per)
     data = {n: c for n, c in la.data.items() if n != "#rank"}
@@ -663,7 +673,7 @@ def _k_sliding_window(ctx: StageContext, p) -> None:
     b = ctx.slots[p["slot"]].compact()
     w = int(p["size"])
     need = w - 1
-    P, cap = b.valid.shape
+    P, cap = ctx.P, b.capacity
     n_loc = b.valid.sum(-1)
     ext_v = torch.nn.functional.pad(b.valid, (0, max(need, 0)))
     ext = {c: torch.nn.functional.pad(b.data[c], (0, max(need, 0))) for c in p["cols"]}
@@ -671,7 +681,9 @@ def _k_sliding_window(ctx: StageContext, p) -> None:
         k = min(need, cap)  # each partition's prefix, as the reference ships it
 
         def arrivals(x):  # hop h brings partition i the prefix of i + h (none past the end)
-            return torch.cat([torch.nn.functional.pad(x[h:, :k], (0, 0, 0, h)) for h in range(1, P)], -1)
+            g = PART.gather_rows(x[:, :k], ctx.mesh)  # every partition's prefix
+            hops = [torch.nn.functional.pad(g[h:], (0, 0, 0, h)) for h in range(1, P)]
+            return PART.local_rows(torch.cat(hops, -1), ctx.mesh)
 
         arr_v = arrivals(b.valid)
         order = torch.sort((~arr_v).to(torch.uint8), dim=-1, stable=True)[1][:, :need]
@@ -699,22 +711,24 @@ def _extreme(dtype: torch.dtype, op: str):
     return bounds.max if op == "min" else bounds.min
 
 
-def _global_pair_reduce(op: str, b: ColumnBatch, lo_col: str) -> Tuple[torch.Tensor, torch.Tensor]:
+def _global_pair_reduce(op: str, b: ColumnBatch, lo_col: str, mesh) -> Tuple[torch.Tensor, torch.Tensor]:
     """Whole-table 64-bit reduce of a split column: each partition's
-    pair, then the P partial pairs reduced the same way (all-invalid
-    partitions give the identity pair), as the reference."""
+    pair, then the P partial pairs (gathered over the mesh) reduced the
+    same way (all-invalid partitions give the identity pair), as the
+    reference."""
     hi_col = lo_col[: -len("#h0")] + "#h1"
     plo, phi = SEG.pair_scalar_reduce(op, b.data[lo_col], b.data[hi_col], b.valid)
+    plo, phi = PART.gather_rows(plo, mesh), PART.gather_rows(phi, mesh)
     return SEG.pair_scalar_reduce(op, plo, phi, torch.ones_like(plo, dtype=torch.bool))
 
 
-def _scalar_sum(col: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def _scalar_sum(col: torch.Tensor, v: torch.Tensor, mesh) -> torch.Tensor:
     """Sum of the valid values: float32 by integer accumulation
     (``ops/segmented.py::f32_total``), int32 mod 2^32 as the
     reference's int32 sums wrap, uint32 words mod 2^32."""
     if col.dtype == torch.float32:
-        return SEG.f32_total(col, v)
-    s = torch.where(v, col.to(torch.int64), 0).sum()
+        return SEG.f32_total(col, v, mesh)
+    s = PART.allreduce(torch.where(v, col.to(torch.int64), 0).sum(), "sum", mesh)
     if col.dtype == WORD:
         return s & MASK32
     return (((s + (1 << 31)) & MASK32) - (1 << 31)).to(torch.int32)
@@ -728,36 +742,38 @@ def _k_scalar_agg(ctx: StageContext, p) -> None:
     is rounding only."""
     b = ctx.slots[p["slot"]]
     v = b.valid
-    one = lambda x: x.reshape(1, 1).expand(ctx.P, 1)
+    mesh = ctx.mesh
+    one = lambda x: x.reshape(1, 1).expand(v.shape[0], 1)
+    count = lambda: PART.allreduce(v.sum(dtype=torch.int64), "sum", mesh)
     out: Dict[str, torch.Tensor] = {}
     for a in p["aggs"]:
         if a.op == "count":
-            out[a.out] = one(v.sum(dtype=torch.int64).to(torch.int32))
+            out[a.out] = one(count().to(torch.int32))
         elif a.op == "sum":
-            out[a.out] = one(_scalar_sum(b.data[a.col], v))
+            out[a.out] = one(_scalar_sum(b.data[a.col], v, mesh))
         elif a.op in ("min", "max"):
             col = b.data[a.col]
             masked = torch.where(v, col, _extreme(col.dtype, a.op))
-            out[a.out] = one(masked.amin() if a.op == "min" else masked.amax())
+            red = masked.amin() if a.op == "min" else masked.amax()
+            out[a.out] = one(PART.allreduce(red, a.op, mesh))
         elif a.op == "mean":
-            s = SEG.f32_total(b.data[a.col].to(torch.float32), v)
-            c = v.sum(dtype=torch.int64).to(torch.float32)
-            out[a.out] = one(s / torch.clamp(c, min=1.0))
+            s = SEG.f32_total(b.data[a.col].to(torch.float32), v, mesh)
+            out[a.out] = one(s / torch.clamp(count().to(torch.float32), min=1.0))
         elif a.op == "mean64":
-            tlo, thi = _global_pair_reduce("sum64", b, a.col)
-            c = v.sum(dtype=torch.int64).to(torch.float32)
+            tlo, thi = _global_pair_reduce("sum64", b, a.col, mesh)
+            c = count().to(torch.float32)
             out[a.out] = one(SEG.pair_to_f32(tlo, thi) / torch.clamp(c, min=1.0))
         elif a.op in SEG.PAIR_OPS:
-            tlo, thi = _global_pair_reduce(a.op, b, a.col)
+            tlo, thi = _global_pair_reduce(a.op, b, a.col, mesh)
             out[f"{a.out}#h0"] = one(tlo)
             out[f"{a.out}#h1"] = one(thi)
         elif a.op == "any":
-            out[a.out] = one((v & b.data[a.col]).any())
+            out[a.out] = one(PART.any_(v & b.data[a.col], mesh))
         elif a.op == "all":
-            out[a.out] = one(torch.where(v, b.data[a.col], True).all())
+            out[a.out] = one(~PART.any_(~torch.where(v, b.data[a.col], True), mesh))
         else:
             raise ValueError(f"unknown scalar agg {a.op!r}")
-    valid = PART.axis_index(ctx.P, v.device) == 0
+    valid = PART.axis_index(ctx.P, v.device, mesh) == 0
     ctx.slots[p["slot"]] = ColumnBatch(out, valid)
 
 

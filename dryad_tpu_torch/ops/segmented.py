@@ -56,6 +56,7 @@ import torch
 
 from dryad_tpu_torch.columnar.batch import DUMP, MASK32, WORD, ColumnBatch, row_cumsum
 from dryad_tpu_torch.ops.sort import sort_batch_by_operands
+from dryad_tpu_torch.parallel import partition as PART
 from dryad_tpu_torch.ops.sortkeys import (
     SIGN32,
     flush_subnormal,
@@ -208,23 +209,27 @@ def _f32_sum(x: torch.Tensor, seg: torch.Tensor, cap: int) -> torch.Tensor:
     return torch.where((f_pos == 2) | ((f_pos == 1) & (f_neg == 1)), float("nan"), out)
 
 
-def f32_total(x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+def f32_total(x: torch.Tensor, valid: torch.Tensor, mesh=None) -> torch.Tensor:
     """Sum of every valid float32 value of ``x``, as a 0-d tensor: the
     integer accumulation of :func:`_f32_sum` for one segment, by
     reductions (a scatter into one slot would serialize its atomics on
-    the card).  The same bytes on every run and device."""
-    n = x.numel()
+    the card).  The same bytes on every run and device; over ``mesh``'s
+    group the exponent, the integer sum and the non-finite flags are
+    reduced across ranks, so the bytes equal one process's at the same
+    P."""
+    world = 1 if mesh is None or mesh.group is None else mesh.world
+    n = x.numel() * world
     K = 62 - max(1, n.bit_length())
     x = flush_subnormal(x)
     biased = (x.view(torch.int32) >> 23) & 0xFF
     keep = valid & (biased != 0xFF)
-    E = torch.where(keep, torch.clamp(biased, min=1), 0).amax()
+    E = PART.allreduce(torch.where(keep, torch.clamp(biased, min=1), 0).amax(), "max", mesh)
     xd = torch.where(keep, x, 0.0).to(torch.float64)
-    total = torch.round(xd * _pow2(K + 127 - E)).to(torch.int64).sum()
+    total = PART.allreduce(torch.round(xd * _pow2(K + 127 - E)).to(torch.int64).sum(), "sum", mesh)
     out = flush_subnormal((total.to(torch.float64) * _pow2(E - 127 - K)).to(torch.float32))
-    nan = (valid & torch.isnan(x)).any()
-    pinf = (valid & (x == float("inf"))).any()
-    ninf = (valid & (x == float("-inf"))).any()
+    nan = PART.any_(valid & torch.isnan(x), mesh)
+    pinf = PART.any_(valid & (x == float("inf")), mesh)
+    ninf = PART.any_(valid & (x == float("-inf")), mesh)
     out = torch.where(pinf, float("inf"), torch.where(ninf, float("-inf"), out))
     return torch.where(nan | (pinf & ninf), float("nan"), out)
 

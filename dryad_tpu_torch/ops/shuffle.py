@@ -9,11 +9,16 @@ stage with a larger ``B``.  Placement inside a destination is ordered by
 ``B``, so results are byte-identical across overflow boosts.
 
 The reference builds a ``(P, B)`` send buffer per device and moves it
-with ``all_to_all``.  All P partitions live on one device here, so each
-row is scattered straight to its place in the received layout
-``recv[dst, src * B + w]`` (``parallel/partition.py::all_to_all`` is the
-same layout as a transpose of the send buffer).  ``exchange_staged``
-waits for the exchange planner (ROADMAP.md queue 1 item 10).
+with ``all_to_all``.  In one process all P partitions live on one
+device, so each row is scattered straight to its place in the received
+layout ``recv[dst, src * B + w]`` (``parallel/partition.py::all_to_all``
+is the same layout as a transpose of the send buffer).  Over a process
+group each rank scatters its ``local`` sources into a ``(local, P, B)``
+send buffer, ``all_to_all`` moves it into that same received layout,
+and a placement into ``capacity`` rows reads every source's kept counts
+from an ``all_gather`` of the ``(local, P)`` bucket counts: the same
+bytes as the one-process exchange at the same P.  ``exchange_staged``
+waits for the exchange planner (ROADMAP.md queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from typing import Optional, Tuple
 import torch
 
 from dryad_tpu_torch.columnar.batch import DUMP, ColumnBatch
+from dryad_tpu_torch.parallel import partition as PART
 
 
 def bucket_capacity(capacity: int, num_partitions: int, slack: float) -> int:
@@ -47,6 +53,7 @@ def exchange(
     num_partitions: int,
     bucket_cap: int,
     capacity: Optional[int] = None,
+    mesh=None,
 ) -> Tuple[ColumnBatch, torch.Tensor]:
     """Move every valid row to partition ``dest`` (in ``[0, P)``).
 
@@ -59,34 +66,27 @@ def exchange(
     With ``capacity``, returns ``resize(exchange(...), capacity)`` instead,
     placing each row straight at its compacted position (the rows kept
     from earlier sources, plus its rank in its bucket): the same bytes
-    and flag, without the padded layout in between."""
+    and flag, without the padded layout in between.  ``mesh``: the
+    partitions' mesh; over a process group the rows cross ranks."""
+    if mesh is not None and mesh.group is not None:
+        return _exchange_group(batch, dest, num_partitions, bucket_cap, capacity, mesh)
     P, B = num_partitions, bucket_cap
     S, cap = batch.valid.shape
     dev = batch.device
-    d = torch.where(batch.valid, dest.to(torch.int64), P)  # invalid -> sentinel
-    # stable sort by destination (one radix pass on a byte): a row's rank
-    # among its bucket's rows
-    small = torch.uint8 if P < 255 else torch.int32
-    dsorted, order = torch.sort(d.to(small), dim=-1, stable=True)
-    dsorted = dsorted.to(torch.int64)
+    dsorted, order, counts, within = _bucket_ranks(batch, dest, P)
     src = torch.arange(S, device=dev).reshape(S, 1)
-    counts = torch.bincount((d + src * (P + 1)).reshape(-1), minlength=S * (P + 1))
-    counts = counts.reshape(S, P + 1)
-    offsets = counts.cumsum(-1) - counts
     pos = torch.arange(cap, device=dev)
-    within = pos - offsets.gather(-1, dsorted)
     keep = (dsorted < P) & (within < B)
     overflow = (counts[:, :P] > B).any()
     if capacity is None:
         width = S * B
         at = src * B + within
     else:
-        kept = counts[:, :P].clamp(max=B)  # (S, P) rows each bucket keeps
-        before = kept.cumsum(0) - kept  # kept rows of earlier sources
+        before, over = _kept_before(counts, P, B, capacity, None)
         width = capacity
         at = before.gather(-1, dsorted.clamp(max=P - 1)) + within
         keep = keep & (at < capacity)
-        overflow = overflow | (kept.sum(0) > capacity).any()
+        overflow = overflow | over
     size = P * width
     tgt_sorted = torch.where(keep, dsorted * width + at, size + pos % DUMP)
     tgt = torch.empty_like(tgt_sorted).scatter_(-1, order, tgt_sorted).reshape(-1)
@@ -98,6 +98,82 @@ def exchange(
     data = {c: place(t) for c, t in batch.data.items()}
     valid = place(torch.ones_like(batch.valid))
     return ColumnBatch(data, valid), overflow
+
+
+def _kept_before(counts: torch.Tensor, P: int, B: int, capacity: int, mesh):
+    """The placement rule of the exchange with ``capacity``: each
+    ``(source, destination)`` bucket keeps at most ``B`` rows, and its
+    rows land behind the kept rows of every earlier source.  Returns
+    ``(before, overflow)``: ``before[s, d]`` over every source in global
+    order (over a group, the sources' counts gathered from every rank),
+    and whether a destination kept more than ``capacity`` rows."""
+    kept = PART.gather_rows(counts[:, :P].clamp(max=B), mesh)
+    return kept.cumsum(0) - kept, (kept.sum(0) > capacity).any()
+
+
+def _bucket_ranks(batch: ColumnBatch, dest: torch.Tensor, P: int):
+    """Each source's rows sorted stably by destination (one radix pass
+    on a byte; invalid rows go to the sentinel P): ``(dsorted,
+    order, counts, within)``, ``counts`` the ``(S, P + 1)`` rows per
+    destination (invalid rows at P) and ``within`` a row's rank in its
+    bucket."""
+    S, cap = batch.valid.shape
+    dev = batch.device
+    d = torch.where(batch.valid, dest.to(torch.int64), P)
+    small = torch.uint8 if P < 255 else torch.int32
+    dsorted, order = torch.sort(d.to(small), dim=-1, stable=True)
+    dsorted = dsorted.to(torch.int64)
+    src = torch.arange(S, device=dev).reshape(S, 1)
+    counts = torch.bincount((d + src * (P + 1)).reshape(-1), minlength=S * (P + 1))
+    counts = counts.reshape(S, P + 1)
+    offsets = counts.cumsum(-1) - counts
+    within = torch.arange(cap, device=dev) - offsets.gather(-1, dsorted)
+    return dsorted, order, counts, within
+
+
+def _exchange_group(batch, dest, P, B, capacity, mesh):
+    """:func:`exchange` over a process group: a ``(local, P, B)`` send
+    buffer through ``all_to_all``, then, with ``capacity``, each
+    received row placed behind the kept rows of every earlier source
+    (their counts from an ``all_gather``)."""
+    S, cap = batch.valid.shape
+    dev = batch.device
+    dsorted, order, counts, within = _bucket_ranks(batch, dest, P)
+    keep = (dsorted < P) & (within < B)
+    overflow = (counts[:, :P] > B).any()
+    size = S * P * B
+    src = torch.arange(S, device=dev).reshape(S, 1)
+    pos = torch.arange(cap, device=dev)
+    tgt_sorted = torch.where(keep, (src * P + dsorted) * B + within, size + pos % DUMP)
+    tgt = torch.empty_like(tgt_sorted).scatter_(-1, order, tgt_sorted).reshape(-1)
+
+    def send(col: torch.Tensor) -> torch.Tensor:
+        out = torch.zeros(size + DUMP, dtype=col.dtype, device=dev)
+        return out.scatter_(0, tgt, col.reshape(-1))[:size].reshape(S, P, B)
+
+    data = {c: PART.all_to_all(send(t), mesh) for c, t in batch.data.items()}
+    valid = PART.all_to_all(send(torch.ones_like(batch.valid)), mesh)
+    if capacity is None:
+        return ColumnBatch(data, valid), overflow
+    # each local destination's offsets behind every source's kept rows
+    before, over = _kept_before(counts, P, B, capacity, mesh)
+    overflow = overflow | over
+    before = before[:, mesh.base : mesh.base + mesh.local]  # (P, local)
+    L = valid.shape[0]
+    at = before.t().unsqueeze(-1) + torch.arange(B, device=dev)  # (local, P, B)
+    at = at.reshape(L, P * B)
+    ok = valid & (at < capacity)
+    flat = torch.where(
+        ok, torch.arange(L, device=dev).reshape(L, 1) * capacity + at,
+        L * capacity + torch.arange(P * B, device=dev) % DUMP,
+    ).reshape(-1)
+
+    def place(col: torch.Tensor) -> torch.Tensor:
+        out = torch.zeros(L * capacity + DUMP, dtype=col.dtype, device=dev)
+        return out.scatter_(0, flat, col.reshape(-1))[: L * capacity].reshape(L, capacity)
+
+    out = ColumnBatch({c: place(t) for c, t in data.items()}, place(ok))
+    return out, overflow
 
 
 def resize(batch: ColumnBatch, capacity: int) -> Tuple[ColumnBatch, torch.Tensor]:

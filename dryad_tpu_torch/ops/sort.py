@@ -19,6 +19,7 @@ from typing import List, Sequence, Tuple
 import torch
 
 from dryad_tpu_torch.columnar.batch import MASK32, WORD, ColumnBatch
+from dryad_tpu_torch.parallel import partition as PART
 
 _HALF = 1 << 31
 _SHIFT = 1 << 32
@@ -115,25 +116,29 @@ def _elect(pool: List[torch.Tensor], pool_valid: torch.Tensor, P: int) -> List[t
 
 
 def sample_splitters_multi(
-    words: Sequence[torch.Tensor], valid: torch.Tensor, num_partitions: int, m: int
+    words: Sequence[torch.Tensor], valid: torch.Tensor, num_partitions: int, m: int,
+    mesh=None,
 ) -> List[torch.Tensor]:
     """P-1 range splitters over a lexicographic multi-word key: ``m``
     evenly spaced samples from each partition's sorted valid rows,
-    pooled over all partitions, cut at P-1 evenly spaced ranks.  Returns
-    one ``(P-1,)`` tensor per word (``num_partitions`` = P, which may be
-    below the partition count under fan-out reduction)."""
+    pooled over all partitions (an ``all_gather`` of every rank's
+    samples over ``mesh``'s group, in global partition order), cut at
+    P-1 evenly spaced ranks.  Returns one ``(P-1,)`` tensor per word
+    (``num_partitions`` = P, which may be below the partition count
+    under fan-out reduction)."""
     idx, count = _sample_index(valid, m)
     sorted_words = _sorted_words(words, valid)
-    pool = [w.gather(-1, idx).reshape(-1) for w in sorted_words]
-    pool_valid = (count > 0)[:, None].expand(-1, m).reshape(-1)
+    pool = [PART.gather_rows(w.gather(-1, idx), mesh).reshape(-1) for w in sorted_words]
+    has = PART.gather_rows(count > 0, mesh)
+    pool_valid = has[:, None].expand(-1, m).reshape(-1)
     return _elect(pool, pool_valid, num_partitions)
 
 
 def sample_splitters(
-    key_u32: torch.Tensor, valid: torch.Tensor, num_partitions: int, m: int
+    key_u32: torch.Tensor, valid: torch.Tensor, num_partitions: int, m: int, mesh=None
 ) -> torch.Tensor:
     """Single-word :func:`sample_splitters_multi`."""
-    return sample_splitters_multi([key_u32], valid, num_partitions, m)[0]
+    return sample_splitters_multi([key_u32], valid, num_partitions, m, mesh)[0]
 
 
 def range_dest(key_u32: torch.Tensor, splitters: torch.Tensor) -> torch.Tensor:

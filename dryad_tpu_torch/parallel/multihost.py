@@ -1,27 +1,135 @@
-"""Job control plane over a property mailbox (``ControlPlane`` of
-``dryad_tpu/parallel/multihost.py``).
+"""Multi-process runtime init and the job control plane over a
+property mailbox (``dryad_tpu/parallel/multihost.py``).
 
 The reference coordinates a job across processes with the job
 manager's cluster abstraction and the per-node ProcessService property
-mailbox (``ProcessService.cs:42-126``).  Here the control plane is a
-thin client of ``cluster/service.py``'s ``ProcessService``: membership,
-heartbeats, barriers, failure reports and telemetry shipping
-(``obs/gang.py``).  The reference's ``init_distributed`` (a
-multi-controller runtime spanning processes) comes with the
-multi-GPU work (ROADMAP queue 1 item 11).
+mailbox (``ProcessService.cs:42-126``).  The data plane is the gang's
+own program: :func:`init_distributed` joins this process to a
+``torch.distributed`` group, over which the stage ops' collectives
+(``parallel/partition.py``) synchronise the gang.  The control plane
+is a thin client of ``cluster/service.py``'s ``ProcessService``:
+membership, heartbeats, barriers, failure reports and telemetry
+shipping (``obs/gang.py``).
 """
 
 from __future__ import annotations
 
+import datetime
 import json
+import os
+import socket
 import threading
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence, Tuple
 
 from dryad_tpu_torch.cluster.service import Mailbox, ServiceClient
 from dryad_tpu_torch.utils.logging import get_logger
 
 log = get_logger("dryad_tpu_torch.parallel.multihost")
+
+_initialized = False
+_init_lock = threading.Lock()
+
+DEFAULT_TIMEOUT_S = 300.0
+
+
+def local_index(process_id: int, num_processes: int) -> Tuple[int, int]:
+    """``(local rank, local world size)`` of this process on its host:
+    torch's ``LOCAL_RANK``/``LOCAL_WORLD_SIZE`` where a launcher set
+    them, else every rank on this host."""
+    lr, lw = os.environ.get("LOCAL_RANK"), os.environ.get("LOCAL_WORLD_SIZE")
+    if lr and lw:
+        return int(lr), int(lw)
+    return int(process_id), int(num_processes)
+
+
+def rank_device(device, local_rank: int, local_world: int):
+    """The device of a gang's rank: ``device`` when it names one (a CPU,
+    or a card by index); for ``"cuda"`` (or None) card ``local_rank``
+    when the host has a card for each of its ``local_world`` ranks, else
+    the current card, which the host's ranks then share."""
+    import torch
+
+    dev = torch.device(device if device is not None else "cuda")
+    if dev.type != "cuda" or dev.index is not None:
+        return dev
+    if torch.cuda.device_count() >= local_world:
+        return torch.device("cuda", local_rank)
+    return dev
+
+
+def choose_backend(layout: Sequence[str]) -> str:
+    """The group's backend from every rank's ``host/device``, gathered
+    before the group exists: ``nccl`` when every rank is on a card and
+    no two ranks share one, else ``gloo`` (the CPU, or ranks sharing a
+    card: NCCL refuses two ranks on one device, and gloo stages CUDA
+    tensors through the host)."""
+    on_cards = all(d.split("/", 1)[1].startswith("cuda:") for d in layout)
+    return "nccl" if on_cards and len(set(layout)) == len(layout) else "gloo"
+
+
+def init_distributed(
+    coordinator_address: Optional[str] = None,
+    num_processes: Optional[int] = None,
+    process_id: Optional[int] = None,
+    device=None,
+    timeout: Optional[float] = None,
+) -> bool:
+    """Join this process to the gang's ``torch.distributed`` group
+    (idempotent).
+
+    The analog of the reference's multi-controller bring-up: after
+    this, ``parallel/mesh.py::make_mesh`` spans every rank, and the
+    stage ops' collectives cross processes.  Arguments default from
+    torch's standard variables (``MASTER_ADDR``:``MASTER_PORT``,
+    ``WORLD_SIZE``, ``RANK``); returns False (no group) when neither
+    arguments nor environment ask for more than one process.  The
+    rank's device and the group's backend are decided here, together:
+    the device by :func:`rank_device` from the rank's local index
+    (:func:`local_index`), made current; the backend by
+    :func:`choose_backend` from every rank's host and device, exchanged
+    through the coordinator's store before the group is made.
+    ``timeout`` (seconds, default 300) bounds every collective, so a
+    rank that never arrives fails its peers' call instead of hanging
+    them."""
+    global _initialized
+    with _init_lock:
+        if _initialized:
+            return True
+        if coordinator_address is None and os.environ.get("MASTER_ADDR"):
+            coordinator_address = (
+                f"{os.environ['MASTER_ADDR']}:{os.environ.get('MASTER_PORT', '29500')}"
+            )
+        if num_processes is None:
+            v = os.environ.get("WORLD_SIZE")
+            num_processes = int(v) if v else None
+        if process_id is None:
+            v = os.environ.get("RANK")
+            process_id = int(v) if v else None
+        if not coordinator_address or not num_processes or num_processes <= 1:
+            return False
+        import torch
+        import torch.distributed as dist
+
+        world, rank = int(num_processes), int(process_id or 0)
+        dev = rank_device(device, *local_index(rank, world))
+        if dev.type == "cuda":
+            if dev.index is None:
+                dev = torch.device("cuda", torch.cuda.current_device())
+            torch.cuda.set_device(dev)
+        td = datetime.timedelta(seconds=timeout or DEFAULT_TIMEOUT_S)
+        host, port = coordinator_address.rsplit(":", 1)
+        store = dist.TCPStore(host, int(port), world, is_master=rank == 0, timeout=td)
+        store.set(f"layout/{rank}", f"{socket.gethostname()}/{dev}")
+        layout = [store.get(f"layout/{r}").decode() for r in range(world)]
+        backend = choose_backend(layout)
+        dist.init_process_group(backend, store=store, world_size=world, rank=rank, timeout=td)
+        _initialized = True
+        log.info(
+            "joined process group %s as rank %d/%d on %s (%s)",
+            coordinator_address, rank, world, dev, backend,
+        )
+        return True
 
 
 class ControlPlane:

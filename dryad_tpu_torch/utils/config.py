@@ -149,6 +149,10 @@ class DryadConfig:
       (``redundancy/``); ``gang_combine_tree`` folds each worker's won
       partials worker-side (level -1), with a
       ``gang_partition_cache_bytes`` cache of the parts it wrote.
+    - The gang (``LocalJobSubmission.submit_many``): ``command_batch``
+      run commands ship per worker as one ``runbatch`` envelope (0 or 1
+      off), ``gang_batch_depth`` envelopes in flight per worker
+      (``cluster/gangwindow.py``; 1 serial).
     - Diagnosis (``obs/diagnose.py``): ``obs_diagnosis`` turns the
       online rules on; ``diagnose_skew_ratio``,
       ``diagnose_recompile_burst`` and ``diagnose_cooldown_s`` are
@@ -246,6 +250,8 @@ class DryadConfig:
     gang_partition_cache_bytes: int = _env_int(
         "DRYAD_TPU_GANG_PARTITION_CACHE", 64 * 1024 * 1024
     )
+    command_batch: int = _env_int("DRYAD_TPU_COMMAND_BATCH", 8)
+    gang_batch_depth: int = _env_int("DRYAD_TPU_GANG_BATCH_DEPTH", 1)
 
     def validate(self) -> None:
         if self.shuffle_slack < 1.0:
@@ -345,6 +351,10 @@ class DryadConfig:
             raise ValueError("diagnose_cooldown_s must be >= 0")
         if self.gang_partition_cache_bytes < 0:
             raise ValueError("gang_partition_cache_bytes must be >= 0")
+        if self.command_batch < 0:
+            raise ValueError("command_batch must be >= 0")
+        if self.gang_batch_depth < 1:
+            raise ValueError("gang_batch_depth must be >= 1")
 
 
 # Schema of DryadConfig's fields: key -> one-line doc of what the port
@@ -414,6 +424,8 @@ CONFIG_KEYS = {
         "every do_while tries the one-graph device loop before the driver loop",
     "gang_combine_tree": "worker-side level -1 partial pre-merge",
     "gang_partition_cache_bytes": "worker partition cache budget; 0 off",
+    "command_batch": "gang run commands per runbatch round trip; 0 off",
+    "gang_batch_depth": "runbatch envelopes in flight per worker; 1 serial",
     "serve_max_inflight": "per-tenant admitted-query cap (QueryRejected)",
     "serve_max_bytes": "per-tenant admitted host-input byte budget; 0 off",
     "serve_result_cache_bytes": "plan-fingerprint result cache; 0 off",
@@ -436,8 +448,6 @@ CONFIG_KEYS = {
 # ROADMAP item that brings it; with CONFIG_KEYS they make the
 # reference's schema (tests/test_torch_graftlint.py holds them to it).
 PENDING_CONFIG_KEYS = {
-    "command_batch": "ROADMAP queue 1 item 11",
-    "gang_batch_depth": "ROADMAP queue 1 item 11",
     "exchange_window": "ROADMAP queue 1 item 11",
     "exchange_hbm_budget_mb": "ROADMAP queue 1 item 11",
 }

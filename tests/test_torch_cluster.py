@@ -2,7 +2,7 @@
 block cache, file server, control plane, job packages, late join and
 the launcher templates, after tests/test_cluster.py,
 tests/test_quarantine.py (its scheduler, telemetry and statistics
-cases), tests/test_multihost_control.py (not ``init_distributed``),
+cases), tests/test_multihost_control.py,
 tests/test_jobpackage.py and tests/test_late_join.py.
 
 The reference's own test bodies run against the port: each named case
@@ -49,10 +49,9 @@ _PORT_COPIES = {}
 
 def _port_copy(name: str) -> types.ModuleType:
     """tests/<name>.py with every ``dryad_tpu`` import retargeted to the
-    port (``init_distributed`` stays with ROADMAP queue 1 item 11)."""
+    port."""
     if name not in _PORT_COPIES:
         src = open(os.path.join(HERE, f"{name}.py")).read()
-        src = src.replace(", init_distributed", "")
         src = re.sub(r"\bdryad_tpu\.", "dryad_tpu_torch.", src)
         src = src.replace("from dryad_tpu import", "from dryad_tpu_torch import")
         assert not re.search(r"\bdryad_tpu\b(?!_torch)", src), name
@@ -108,7 +107,7 @@ CASES = [
     ("test_multihost_control", f"test_{n}") for n in (
         "requires_exactly_one_backend", "membership_and_wait", "heartbeat_failure_detection",
         "barrier_blocks_until_all_arrive", "barrier_timeout", "failure_reporting",
-        "control_plane_over_http",
+        "control_plane_over_http", "init_distributed_noop_without_env",
     )
 ]
 
@@ -133,14 +132,14 @@ def _resolve(mod, fn, values, teardown):
 
 
 @pytest.mark.parametrize("case", CASES, ids=lambda c: f"{c[0]}::{c[1]}")
-def test_reference_case_on_the_port(case, tmp_path):
+def test_reference_case_on_the_port(case, tmp_path, monkeypatch):
     name, path = case
     mod = _port_copy(name)
     owner, _, fname = path.rpartition(".")
     fn = getattr(getattr(mod, owner), fname) if owner else getattr(mod, fname)
     teardown = []
     try:
-        kwargs = _resolve(mod, fn, {"tmp_path": tmp_path}, teardown)
+        kwargs = _resolve(mod, fn, {"tmp_path": tmp_path, "monkeypatch": monkeypatch}, teardown)
         if owner:
             fn(None, **kwargs)
         else:
@@ -468,12 +467,3 @@ def test_ssh_preset_launches_workers_via_stand_in(tmp_path):
     with LocalJobSubmission(num_workers=2, device="cpu", launcher=launcher) as sub:
         out = sub.submit_partitioned(_count_plan(60), nparts=2)
         assert sorted(out["c"].tolist()) == [12] * 5
-
-
-def test_gang_entry_points_name_queue_1_item_11():
-    with LocalJobSubmission(num_workers=1, device="cpu", defer_workers=1) as sub:
-        q = _count_plan()
-        for call in (lambda: sub.submit(q), lambda: sub.submit_many([q, q]),
-                     lambda: sub.rebuild_gang()):
-            with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-                call()

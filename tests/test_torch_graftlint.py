@@ -235,8 +235,6 @@ def test_config_keys_mirror_the_dataclass_and_the_reference():
     assert sum(map(len, parts)) == len(set().union(*parts))
     assert set().union(*parts) == set(RCFG.CONFIG_KEYS)
     assert TCFG.PENDING_CONFIG_KEYS == {
-        "command_batch": "ROADMAP queue 1 item 11",
-        "gang_batch_depth": "ROADMAP queue 1 item 11",
         "exchange_window": "ROADMAP queue 1 item 11",
         "exchange_hbm_budget_mb": "ROADMAP queue 1 item 11",
     }

@@ -451,4 +451,4 @@ def test_pending_kinds_of_the_port_are_exactly_its_unemitted_kinds():
         stale[f.rule].add(re.search(r"'(\w+)'", f.message).group(1))
     assert stale["event-schema"] == set(PENDING_KINDS)
     assert stale["trace-context"] == set(QUERY_SCOPED_KINDS) & set(PENDING_KINDS) == {
-        "exchange_round", "gang_window"}
+        "exchange_round"}
