@@ -12,7 +12,10 @@ holds the kernels against their plain PyTorch versions on the
 card, drives through the port's entry points WordCount at full size,
 the dense integer group_by, TeraSort (2^28 rows, and 2^26 rows with a
 hot key), the sort-path group_by with distinct and range_partition
-(2^26 rows), the same group_by on the fused sort path
+(2^26 rows), the hybrid DCN x ICI mesh (``DryadContext(dcn_slices=2)``,
+2 slices of 4: WordCount and the sort-path group_by through the tree
+exchange beside the flat context, TeraSort of 2^28 rows at staged
+exchange windows 0, 1, 2 and 4 and at the auto window), the same group_by on the fused sort path
 (DRYAD_TPU_SORT_FUSED=1) beside the default, the Join Task of Pavlo et al. (2^26 visits joined to 2^23
 pages by shuffle, then a sort-path group_by and a top-1), the broadcast
 join of samples/join_groupby.py (2^26 orders, then the dense group_by
@@ -46,7 +49,7 @@ partials, clean and after seeded kills of 2 workers; seeded stage chaos
 in one context), the gang (one plan as one program across 2 worker
 processes sharing the card, 4 partitions each, their collectives over
 gloo, through ``LocalJobSubmission.submit``: the dense group_by at 2^26
-rows, TeraSort of 2^26 rows and WordCount of the cluster's corpus, each
+rows, TeraSort of 2^26 rows (flat and staged one bucket a round) and WordCount of the cluster's corpus, each
 held to one process at P = 8; ``submit_many`` through the dispatch
 window; a worker killed mid-job and the gang rebuilt on 1 worker; then
 the dense group_by over a one-rank NCCL group, and NCCL's answer to two
@@ -76,7 +79,7 @@ each twice, in the order -1, 2, 2, -1), checks every result against a numpy orac
 Any failed check raises, so the script exits non-zero and prints no
 result line.  Without a CUDA device it exits non-zero at once.
 ``--phases`` runs a subset (lint, env, kernel, wordcount, dense, terasort,
-terasort_hot, groupby_sort, groupby_sort_fused, join_shuffle,
+terasort_hot, groupby_sort, hybrid, groupby_sort_fused, join_shuffle,
 join_broadcast, pagerank, devloop, decomposable, ordered_ops, cpu_parity,
 stores, stream, serve, cluster, gang, rewrite, fleet, obs), for short first
 runs of a changed kernel.  The WordCount, TeraSort, sort-path group_by, join,
@@ -618,6 +621,7 @@ def phase_wordcount(dev, card: str) -> dict:
     top_counts = sorted(ucnt.tolist(), reverse=True)[:20]
     check(top["n"].tolist() == top_counts, "top-20 counts differ from the oracle")
     check(all(oracle[w] == c for w, c in zip(top["word"], top["n"])), "a top-20 word has a wrong count")
+    _FLAT["wordcount"] = (table, warm_s)  # the hybrid phase's flat twin
     res = {
         "words": WC_WORDS, "vocab": len(oracle), "tokenize_and_register_s": tokenize_s,
         "first_query_s": cold_s, "warm_query_s": warm_s, "warm_rows_per_s": WC_WORDS / warm_s,
@@ -903,6 +907,230 @@ def phase_groupby_sort(dev, card: str) -> dict:
         f"rows per partition {n_part.tolist()}")
     del ctx, src, q, b, keys, flat
     free_card()
+    return res
+
+
+# -- the hybrid DCN x ICI mesh and the staged exchange -------------------------
+
+HY_DCN = 2  # slices of the hybrid context: 2 x 4 partitions
+HY_TS_WINDOWS = (0, 1, 2, 4)  # TeraSort's exchange windows on the flat context
+HY_TS_HYBRID_WINDOW = 2
+# each phase's flat result that the hybrid phase is held to (the
+# wordcount phase's table, kept when it ran in the same run)
+_FLAT: dict = {}
+
+
+def _exchange_rounds(ctx, mark: int) -> list:
+    """The exchange_round events the context logged since event ``mark``."""
+    return [e for e in ctx.events.events()[mark:] if e["kind"] == "exchange_round"]
+
+
+def _same_rows(a: dict, b: dict) -> bool:
+    """Every column of two host tables byte-equal (without copies)."""
+    return sorted(a) == sorted(b) and all(
+        a[c].dtype == b[c].dtype and a[c].shape == b[c].shape
+        and np.array_equal(a[c].view(np.uint8), b[c].view(np.uint8)) for c in a)
+
+
+def _round_bytes(rounds: list) -> dict:
+    return {"rounds": len(rounds), "peak_bytes": max((r["bytes"] for r in rounds), default=0),
+            "ici_bytes": sum(r["ici_bytes"] for r in rounds),
+            "dcn_bytes": sum(r["dcn_bytes"] for r in rounds),
+            "windows": sorted({r["window"] for r in rounds})}
+
+
+def _wordcount_text(path: str) -> dict:
+    """The wordcount phase's corpus written to ``path``; its numpy oracle."""
+    rng = np.random.default_rng(SEED + 2)
+    ids = zipf_ids(rng, WC_WORDS)
+    tab = vocab_table()
+    words = np.array([bytes(r).split()[0].decode() for r in tab], object)
+    with open(path, "wb") as fh:
+        fh.write(tab[ids].tobytes())
+    uid, ucnt = np.unique(ids, return_counts=True)
+    return dict(zip(words[uid].tolist(), ucnt.tolist()))
+
+
+def phase_hybrid(dev, card: str) -> dict:
+    """The hybrid DCN x ICI mesh in one process: ``DryadContext(dcn_slices=2)``,
+    2 slices of 4 partitions (P = 8), beside the flat context.
+
+    (a) WordCount over the wordcount phase's 2^26 Zipf(1.1) words: the
+    table byte-equal to the flat context's, the bucket kernel's launches
+    counted from 0 and its first launch held against its plain version.
+    (b) The sort-path group_by (2^26 rows, 2^22 keys, negatives included,
+    so it takes the tree exchange: ICI hop, per-slice reduce, DCN hop):
+    integers byte-equal to the flat context's, float sums within
+    n_g * 2^-23 * sum_g |v|; warm seconds flat, hybrid, hybrid, flat; the
+    exchange_round events' ICI and DCN bytes against flat's.
+    (c) TeraSort of 2^28 rows on the flat context at exchange_window 0, 1,
+    2 and 4 and on the hybrid context at 2: rows byte-equal to window 0,
+    warm seconds and peak device memory per window, and the events'
+    peak staged bytes times P equal to the flat peak times the window.
+    (d) exchange_window = -1 on the same table with telemetry off, at
+    budgets of 256, 4096 and 16384 MiB: the window each resolves to."""
+    from dryad_tpu_torch import DryadConfig, DryadContext
+    from dryad_tpu_torch.ops.bucket import bucket_sum_count
+    from dryad_tpu_torch.plan.xchgplan import resolve_window
+
+    free_card()
+    t_phase = time.perf_counter()
+    res = {"card": card, "dcn_slices": HY_DCN, "ici": P // HY_DCN}
+
+    def ctx_of(hybrid: bool, **cfg):
+        mesh = {"dcn_slices": HY_DCN} if hybrid else {"num_partitions_": P}
+        return DryadContext(config=DryadConfig(obs_events_mem_cap=0, **cfg), **mesh)
+
+    # (a) WordCount
+    os.makedirs(WORK_DIR, exist_ok=True)
+    path = os.path.join(WORK_DIR, "hybrid_words.txt")
+    oracle = _wordcount_text(path)
+    if "wordcount" not in _FLAT:  # the wordcount phase did not run: the flat twin here
+        fq = ctx_of(False).from_text(path).group_by("word", {"n": ("count", None)})
+        fq.collect()
+        t0 = time.perf_counter()
+        _FLAT["wordcount"] = (fq.collect(), time.perf_counter() - t0)
+        del fq
+        free_card()
+    flat_wc, flat_warm_s = _FLAT.pop("wordcount")
+    hctx = ctx_of(True)
+    check(hctx.mesh.hybrid and (hctx.mesh.dcn, hctx.mesh.ici) == (HY_DCN, P // HY_DCN),
+          f"the hybrid context's mesh is {hctx.mesh}")
+    t0 = time.perf_counter()
+    q = hctx.from_text(path).group_by("word", {"n": ("count", None)})
+    tok_s = time.perf_counter() - t0
+    os.remove(path)
+    bucket_sum_count.launches = 0  # the hybrid path starts here
+    with LaunchRecorder() as rec:
+        t0 = time.perf_counter()
+        table = q.collect()
+        cold_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        table = q.collect()
+        warm_s = time.perf_counter() - t0
+    launches = bucket_sum_count.launches
+    check(launches >= 2, f"hybrid WordCount ran the bucket kernel {launches} times, expected 2")
+    check(dict(zip(table["word"].tolist(), table["n"].tolist())) == oracle,
+          "hybrid WordCount differs from the numpy oracle")
+    check(table["word"].tolist() == flat_wc["word"].tolist()
+          and table["n"].tobytes() == flat_wc["n"].tobytes(),
+          "hybrid WordCount differs from the flat context's table")
+    ((_m, K, _cap), (keys, vals, valid)), = rec.first.items()
+    shape = kernel_shape_report(keys, vals, valid, K)
+    res["wordcount"] = {"words": WC_WORDS, "tokenize_and_register_s": tok_s, "first_query_s": cold_s,
+                        "warm_query_s": warm_s, "flat_warm_query_s": flat_warm_s,
+                        "launches": launches, "kernel_shape": shape}
+    log(f"hybrid wordcount [{card}]: {WC_WORDS} words on the {HY_DCN} x {P // HY_DCN} mesh, table "
+        f"byte-equal to the flat context's and equal to the oracle; tokenize+register {tok_s:.2f} s, "
+        f"first query {cold_s:.3f} s, warm {warm_s:.4f} s (flat {flat_warm_s:.4f} s); bucket "
+        f"kernel launches {launches}; "
+        f"kernel vs plain at {shape['shape']}: byte-equal, kernel {shape['kernel_ms']:.3f} ms, plain "
+        f"{shape['plain_ms']:.3f} ms, {shape['library']} {shape['library_ms']:.3f} ms, bound "
+        f"{shape['bound_ms']:.4f} ms")
+    del q, table, flat_wc, hctx, keys, vals, valid, rec
+    free_card()
+
+    # (b) the sort-path group_by through the tree exchange
+    t, gb_oracle = groupby_inputs()
+    ctxs = {False: ctx_of(False), True: ctx_of(True)}
+    qs = {h: c.from_arrays(t).group_by("key", GB_AGGS) for h, c in ctxs.items()}
+    outs, times, rounds = {}, {False: [], True: []}, {}
+    for h in (False, True):  # cold: ingest and first run
+        outs[h] = qs[h].collect()
+    for h in (False, True, True, False):
+        mark = len(ctxs[h].events.events())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = qs[h].collect()
+        times[h].append(time.perf_counter() - t0)
+        rounds[h] = _round_bytes(_exchange_rounds(ctxs[h], mark))
+        check(digest(out) == digest(outs[h]), f"group_by ({'hybrid' if h else 'flat'}): reruns differ")
+        del out
+    for h, c in ctxs.items():
+        check(overflow_retries(c) == 0, "the group_by retried an overflow")
+    f, hy = ({c: a[np.argsort(o["key"])] for c, a in o.items()} for o in (outs[False], outs[True]))
+    for c in ("key", "c", "mnw", "mxw", "sL"):
+        check(f[c].dtype == hy[c].dtype and f[c].tobytes() == hy[c].tobytes(),
+              f"hybrid group_by: {c} differs from the flat context's")
+    err = check_groupby(outs[True], gb_oracle, "hybrid group_by")
+    check(rounds[True]["dcn_bytes"] > 0 and rounds[False]["dcn_bytes"] == 0,
+          f"exchange bytes by fabric: flat {rounds[False]}, hybrid {rounds[True]}")
+    res["groupby"] = {"rows": GB_ROWS, "keys": GB_KEYS, "flat_warm_s": times[False],
+                      "hybrid_warm_s": times[True], "flat_rounds": rounds[False],
+                      "hybrid_rounds": rounds[True], "max_rel_err_sum": err}
+    log(f"hybrid group_by [{card}]: {GB_ROWS} rows, {len(gb_oracle['uniq'])} groups through the tree "
+        f"exchange; integers byte-equal to the flat context's, f32 sums within n_g*2^-23*sum|v| "
+        f"(max |err|/sum|v| {err:.3g}); warm flat {times[False]} s, hybrid {times[True]} s; "
+        f"exchange_round per query: flat {rounds[False]}, hybrid {rounds[True]}")
+    del ctxs, qs, outs, f, hy
+    free_card()
+
+    # (c) TeraSort at each window; (d) the auto window
+    rng = np.random.default_rng(SEED + 4)  # the terasort phase's table
+    ts = {"key": rng.integers(-2**31, 2**31, TS_ROWS, dtype=np.int32),
+          "payload": rng.random(TS_ROWS, dtype=np.float32)}
+    runs = [(False, w) for w in HY_TS_WINDOWS] + [(True, HY_TS_HYBRID_WINDOW)]
+    res["terasort"] = {}
+    base = None
+    for hybrid in (False, True):
+        ctx = ctx_of(hybrid, obs_telemetry=False)
+        q = ctx.from_arrays(ts).order_by([("key", False)])
+        q.collect()  # ingest to the device cache
+        for h, w in runs:
+            if h != hybrid:
+                continue
+            label = f"{'hybrid' if hybrid else 'flat'} window {w}"
+            ctx.config.exchange_window = w
+            q.collect()  # first run at this window
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            mark = len(ctx.events.events())
+            t0 = time.perf_counter()
+            out = q.collect()
+            secs = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            rb = _round_bytes(_exchange_rounds(ctx, mark))
+            check(overflow_retries(ctx) == 0, f"TeraSort {label} retried an overflow")
+            check(rb["windows"] == [w], f"TeraSort {label}: events at windows {rb['windows']}")
+            if base is None:
+                check(len(out["key"]) == TS_ROWS and bool((np.diff(out["key"]) >= 0).all()),
+                      "TeraSort window 0: keys not sorted")
+                base, base_rb = out, rb
+            else:
+                check(_same_rows(out, base), f"TeraSort {label} differs from window 0's rows")
+                if not hybrid:
+                    check(rb["peak_bytes"] * P == base_rb["peak_bytes"] * w,
+                          f"TeraSort {label}: peak staged bytes {rb['peak_bytes']} x P != flat "
+                          f"{base_rb['peak_bytes']} x {w}")
+            res["terasort"][label] = {"warm_s": secs, "peak_bytes": peak, **rb}
+            log(f"hybrid terasort [{card}] {label}: {TS_ROWS} rows byte-equal to window 0, warm "
+                f"{secs:.4f} s, peak device memory {peak / 1e9:.3f} GB, exchange_round {rb}")
+            del out
+        if not hybrid:  # (d) the auto window over the same table
+            res["auto_window"] = {}
+            ctx.config.exchange_window = -1
+            for mb in (256, 4096, 16384):
+                ctx.config.exchange_hbm_budget_mb = mb
+                mark = len(ctx.events.events())
+                out = q.collect()
+                rb = _round_bytes(_exchange_rounds(ctx, mark))
+                check(_same_rows(out, base),
+                      f"TeraSort at the auto window ({mb} MiB) differs from window 0's rows")
+                res["auto_window"][mb] = rb["windows"]
+                log(f"hybrid terasort [{card}] exchange_window=-1, budget {mb} MiB, telemetry off: "
+                    f"resolved window {rb['windows']}, rows byte-equal to window 0")
+                del out
+            # the executor's bucket estimate: a partition's rows x slack x
+            # 2 columns x 8 bytes (1 GiB at 2^28 rows: windows 1, 4 and 0)
+            est = int(TS_ROWS // P * ctx.config.shuffle_slack) * 2 * 8
+            want = {mb: [resolve_window(-1, P, est, mb << 20)] for mb in res["auto_window"]}
+            check(res["auto_window"] == want, f"auto windows {res['auto_window']}, expected {want}")
+        del ctx, q
+        free_card()
+    del base, ts
+    res["launches"] = launches
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"hybrid phase [{card}]: {res['phase_s']:.1f} s")
     return res
 
 
@@ -4863,7 +5091,21 @@ def phase_gang(dev, card: str) -> dict:
                       f"{ts_counts.tolist()}")
                 log(f"gang TeraSort: {GANG_TS_ROWS} rows byte-equal to one process at P={P}, each "
                     f"partition's rows too (so its splitters): {counts}")
-                del out, ts, ts_one
+                del out
+
+                # (b') the same TeraSort with its exchange staged one bucket a round
+                wctx = DryadContext(num_partitions_=P, config=DryadConfig(exchange_window=1))
+                out, res["terasort_window1"] = gang_job(
+                    sub, wctx.from_arrays(ts).order_by([("key", False)]), "TeraSort window 1", card)
+                check(digest(out) == digest(ts_one),
+                      "gang TeraSort at window 1 differs from one process's rows")
+                w0, w1 = res["terasort"], res["terasort_window1"]
+                log(f"gang TeraSort window 1 [{card}]: byte-equal to one process at P={P}; job "
+                    f"{w1['job_s']:.2f} s (window 0 {w0['job_s']:.2f} s); bytes to the group by worker "
+                    f"{w1['collective_bytes']} (window 0 {w0['collective_bytes']}); device peak by "
+                    f"worker (GB) { {w: round(b / 1e9, 3) for w, b in w1['peak_bytes'].items()} } "
+                    f"(window 0 { {w: round(b / 1e9, 3) for w, b in w0['peak_bytes'].items()} })")
+                del out, ts, ts_one, wctx
 
                 # (c) WordCount: the dictionary comes back as dictionary.pkl
                 wq = ctx.from_text(text).group_by("word", {"n": ("count", None)})
@@ -5070,7 +5312,7 @@ def main(argv=None) -> int:
     ap.add_argument(
         "--phases",
         default="lint,env,kernel,wordcount,dense,terasort,terasort_hot,groupby_sort,"
-                "groupby_sort_fused,join_shuffle,join_broadcast,pagerank,devloop,decomposable,"
+                "hybrid,groupby_sort_fused,join_shuffle,join_broadcast,pagerank,devloop,decomposable,"
                 "ordered_ops,cpu_parity,stores,stream,serve,cluster,gang,rewrite,fleet,obs")
     # the gang phase's child processes (not for direct use)
     ap.add_argument("--nccl-probe", nargs=2, type=int, metavar=("RANK", "PORT"), help=argparse.SUPPRESS)
@@ -5102,6 +5344,7 @@ def main(argv=None) -> int:
         ("terasort", lambda: phase_terasort(dev, card, TS_ROWS, hot=False)),
         ("terasort_hot", lambda: phase_terasort(dev, card, TS_HOT_ROWS, hot=True)),
         ("groupby_sort", lambda: phase_groupby_sort(dev, card)),
+        ("hybrid", lambda: phase_hybrid(dev, card)),
         ("groupby_sort_fused", lambda: phase_groupby_sort_fused(dev, card)),
         ("join_shuffle", lambda: phase_join_shuffle(dev, card)),
         ("join_broadcast", lambda: phase_join_broadcast(dev, card)),
@@ -5132,6 +5375,7 @@ def main(argv=None) -> int:
     # before its queries and read just after
     per_path = {
         "wordcount": results.get("wordcount", {}).get("launches"),
+        "hybrid": results.get("hybrid", {}).get("launches"),
         "dense": results.get("dense", {}).get("launches"),
         "join_broadcast": results.get("join_broadcast", {}).get("bucket_sum_count_launches"),
         "pagerank": results.get("pagerank", {}).get("bucket_sum_count_launches"),
@@ -5180,6 +5424,7 @@ def main(argv=None) -> int:
         "serve_shapes": results.get("serve", {}).get("kernel_shapes"),
         "cluster_shapes": results.get("cluster", {}).get("kernel_shapes"),
         "gang_shapes": results.get("gang", {}).get("kernel_shapes"),
+        "hybrid_shapes": [results["hybrid"]["wordcount"]["kernel_shape"]] if "hybrid" in results else None,
         "rewrite_shapes": results.get("rewrite", {}).get("kernel_shapes"),
         "fleet_shapes": results.get("fleet", {}).get("kernel_shapes"),
         "obs_shapes": results.get("obs", {}).get("kernel_shapes"),

@@ -12,10 +12,10 @@ NCCL communicator, so two ranks that reach the same collectives in a
 different order park in different collectives and the group hangs.  A
 fixed class order per function body makes any two fused members'
 sequences mutually consistent by construction — the prerequisite for
-trusting the exchange planner's multi-round schedules across cards
-(ROADMAP queue 1 item 11).  Over the port's tree it ranks the partition
-layer's calls (``parallel/partition.py``), and its cases also run on
-synthetic trees.
+trusting the exchange planner's multi-round schedules across ranks.
+Over the port's tree it ranks the partition layer's calls
+(``parallel/partition.py``: the staged exchange's ``batch_isend_irecv``
+rounds first), and its cases also run on synthetic trees.
 
 The check is purely syntactic and per-scope: within one function body
 (nested functions and lambdas are separate scopes — they run when

@@ -47,14 +47,15 @@ from dryad_tpu_torch.obs import flightrec, tracectx
 from dryad_tpu_torch.obs.diagnose import DiagnosisEngine
 from dryad_tpu_torch.obs.telemetry import ResourceMonitor, device_memory_probe
 from dryad_tpu_torch.parallel.distribute import from_host_table, from_physical_table, own_rows
-from dryad_tpu_torch.parallel.mesh import HYBRID_PENDING, PartitionMesh, make_mesh, resolve_device
+from dryad_tpu_torch.parallel.mesh import (
+    DEFAULT_PARTITIONS, PartitionMesh, make_hybrid_mesh, make_mesh, resolve_device,
+)
 from dryad_tpu_torch.parallel.partition import first_valid
 from dryad_tpu_torch.plan.lower import lower
 from dryad_tpu_torch.plan.nodes import Node, PartitionInfo
 from dryad_tpu_torch.rewrite import RewriteController
 from dryad_tpu_torch.utils.config import DryadConfig
 
-DEFAULT_PARTITIONS = 8
 
 _NP_TYPE_MAP = {
     np.dtype(np.int32): ColumnType.INT32,
@@ -92,7 +93,10 @@ class DryadContext:
         """``mesh``: the partitions' mesh (``parallel/mesh.py``), for
         instance a gang worker's, whose ranks each hold ``P / world``
         partitions; it fixes the partition count and the device.
-        Without one, ``make_mesh(num_partitions_)`` on ``device``, which
+        ``dcn_slices``: a hybrid mesh of that many slices
+        (``make_hybrid_mesh``), ``num_partitions_ // dcn_slices``
+        partitions each (``num_partitions_`` must divide).  Without
+        either, ``make_mesh(num_partitions_)`` on ``device``, which
         spans the process group this process joined
         (``init_distributed``), if any."""
         self.config = config or DryadConfig()
@@ -100,8 +104,6 @@ class DryadContext:
         # collect() runs the NumPy interpreter of exec/localdebug.py over
         # the logical plan instead of the engine (differential debugging)
         self.local_debug = local_debug
-        if dcn_slices is not None:
-            raise NotImplementedError(HYBRID_PENDING)
         if mesh is not None:
             if num_partitions_ is not None and num_partitions_ != mesh.P:
                 raise ValueError(
@@ -112,6 +114,15 @@ class DryadContext:
                 raise ValueError(f"device {device} is not the mesh's {mesh.device}")
             self.device = mesh.device
             self.mesh = mesh
+        elif dcn_slices is not None:
+            # the hybrid mesh: ICI within a slice, DCN across slices
+            self.device = resolve_device(device)
+            if num_partitions_ is not None and num_partitions_ % dcn_slices != 0:
+                raise ValueError(
+                    f"num_partitions_ {num_partitions_} not divisible by dcn_slices {dcn_slices}"
+                )
+            ici = num_partitions_ // dcn_slices if num_partitions_ is not None else None
+            self.mesh = make_hybrid_mesh(dcn_slices, ici, self.device)
         else:
             self.device = resolve_device(device)
             if (num_partitions_ or DEFAULT_PARTITIONS) < 1:

@@ -1,7 +1,5 @@
-"""Topology- and distribution-aware combine trees, on one device (the
-single-device parts of ``dryad_tpu/exec/combinetree.py``; the
-multi-device tree exchange and the gang merge come with the multi-GPU
-work, ROADMAP queue 1 item 11).
+"""Topology- and distribution-aware combine trees (the counterpart of
+``dryad_tpu/exec/combinetree.py``).
 
 Two observations shape the streaming group_by's combine path:
 
@@ -10,7 +8,9 @@ Two observations shape the streaming group_by's combine path:
    hash over the same P partitions), so equal keys are colocated across
    chunks and an intermediate merge needs no exchange: concat + one
    local reduce (``assume_hash_partition`` elides the exchange).  Only
-   the final fold pays one full exchange.
+   the final fold pays one full exchange, which on a hybrid mesh rides
+   the tree exchange (``exec/kernels.py::_tree_exchange_hash``): one
+   ICI hop, the per-slice combine, then exactly one DCN hop.
 2. **Distribution.** Partials are placed onto tree groups by
    key-histogram similarity: chunks with similar key distributions
    merge early because they collapse more.  The same per-key-range
@@ -27,6 +27,8 @@ from __future__ import annotations
 
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
+from dryad_tpu_torch.parallel.mesh import dcn_slice_count, ici_partitions_per_slice
+
 # evidence floor: a key range must have shown at least this many rows
 # before its reduction estimate may degrade it to host accumulation
 MIN_DEGRADE_ROWS = 512
@@ -36,17 +38,17 @@ MIN_DEGRADE_ROWS = 512
 
 
 class TreeShape:
-    """Tree geometry: level-0 group count and the extents the byte
-    estimator splits exchange traffic over.  One device holds all P
-    partitions: one slice of P partitions, as the reference's flat mesh
-    of P devices (``ici_bytes`` counts the bytes that change
-    partition, ``dcn_bytes`` is 0)."""
+    """Mesh-derived tree geometry: level-0 group count and the ICI/DCN
+    extents the byte estimator splits exchange traffic over.  A flat
+    mesh is one slice of P partitions (``ici_bytes`` counts the bytes
+    that change partition, ``dcn_bytes`` is 0); a hybrid mesh is
+    ``dcn_slices`` slices of ``ici`` partitions."""
 
     __slots__ = ("groups", "dcn_slices", "ici_partitions", "fan")
 
-    def __init__(self, P: int, config) -> None:
-        self.dcn_slices = 1
-        self.ici_partitions = int(P)
+    def __init__(self, mesh, config) -> None:
+        self.dcn_slices = dcn_slice_count(mesh)
+        self.ici_partitions = ici_partitions_per_slice(mesh)
         g = int(getattr(config, "combine_tree_groups", 0) or 0)
         # auto: one level-0 group per DCN slice keeps every pre-fold
         # merge off the DCN; flat meshes get a small similarity fan

@@ -414,7 +414,6 @@ QUERY_SCOPED_KINDS: Tuple[str, ...] = (
 # gains a site, so this list only shrinks.
 PENDING_KINDS: Dict[str, str] = {
     "xla_compile": "ROADMAP queue 1 item 10",
-    "exchange_round": "ROADMAP queue 1 item 11",
 }
 
 

@@ -53,12 +53,21 @@ ported stages need:
   that read to the caller (:class:`DeferredFinish`), who makes it
   beside the result's own copy, as the reference's asynchronous
   result fetches do.
+- The staged-exchange window of each dispatch attempt
+  (:meth:`GraphExecutor._resolve_window`): ``config.exchange_window``,
+  or under -1 the rewriter's ``retune_exchange`` hint, then the
+  measured headroom, then ``exchange_hbm_budget_mb``.  The on-device
+  ``do_while`` runs flat exchanges and logs no rounds, as the
+  reference's loop program does.  On a hybrid mesh no fan-out is
+  reduced and no width adapts, as in the reference.
 - Every job writes the reference's events to the context's
   :class:`~dryad_tpu_torch.exec.events.EventLog`, with the reference's
   fields, in its order: ``fuse_break`` per seam of ``plan/fuse.py``'s
   decision, ``job_start``, per unit ``stage_fanout`` /
   ``stage_width_adapt``, then per attempt ``stage_start`` (and
-  ``fused_dispatch`` for a run of stages) followed by
+  ``fused_dispatch`` for a run of stages), one ``exchange_round`` per
+  planned round of each of its exchanges (the planner's static byte
+  accounting, members in order), followed by
   ``stage_complete``, ``stage_overflow`` or, inside the window,
   ``stage_dispatched``; a drain logs ``overflow_drain`` and completes
   its clean prefix; ``do_while_*`` and ``apply_host_*`` for the driver
@@ -128,16 +137,18 @@ from dryad_tpu_torch.ops import shuffle as SH
 from dryad_tpu_torch.exec.devloop import LoopProgram
 from dryad_tpu_torch.exec.operands import BakedOperands, DeviceOperandPool, DispatchOperands
 from dryad_tpu_torch.exec.stats import StageStatistics
-from dryad_tpu_torch.obs import flightrec
+from dryad_tpu_torch.obs import flightrec, tracectx
 from dryad_tpu_torch.obs.metrics import MetricsRegistry
 from dryad_tpu_torch.obs.span import Tracer
 from dryad_tpu_torch.parallel import partition as PART
 from dryad_tpu_torch.parallel import stage as STAGE
+from dryad_tpu_torch.parallel.mesh import mesh_axes
 from dryad_tpu_torch.plan.fuse import (
     DRIVER_OPS, SHRINKING_OPS, FuseReport, _adaptable_shape as _adaptable, fuse,
     unfused,
 )
 from dryad_tpu_torch.plan.lower import Stage, StageGraph, StageOp, tail_width
+from dryad_tpu_torch.plan.xchgplan import resolve_window
 from dryad_tpu_torch.utils.logging import get_logger
 
 _log = get_logger("dryad_tpu_torch.exec")
@@ -310,6 +321,18 @@ def retry_regions(graph: StageGraph, report: FuseReport) -> List[List[Stage]]:
     return [[by_id[m] for m in r["members"]] for r in report.regions]
 
 
+def _unit_refs(unit: List[Stage]) -> List[Tuple]:
+    """A unit's external inputs, ``(producer or "plan_input", index)``
+    each once, in order of first use."""
+    members = {m.id for m in unit}
+    refs: List[Tuple] = []
+    for m in unit:
+        for ref, idx in m.input_refs:
+            if (ref == "plan_input" or ref not in members) and (ref, idx) not in refs:
+                refs.append((ref, idx))
+    return refs
+
+
 def _unit_name(unit: List[Stage]) -> str:
     """A run's name: its members' op-kind tokens, each once."""
     seen: Dict[str, None] = {}
@@ -394,16 +417,14 @@ class GraphExecutor:
         self._sleep: Callable[[float], None] = time.sleep
         # the runtime plan rewriter (rewrite/controller.py), wired by the
         # context after construction; consulted for per-unit starting
-        # boost floors (overflow pre-widening).  The reference also reads
-        # its exchange-window hint; the port has no staged exchange whose
-        # window it could set (ROADMAP queue 1 item 11), so the hint's
-        # ``retune_exchange`` decisions are logged and applied nowhere.
+        # boost floors (overflow pre-widening) and, under
+        # ``exchange_window=-1``, its exchange-window hint
+        # (``retune_exchange``)
         self.rewriter = None
         self._rewrites_applied: set = set()
         # the measured headroom of the context's resource sampler
-        # (obs/telemetry.py), wired by the context; the reference's
-        # executor reads it for the staged exchange's window, which the
-        # port does not have (ROADMAP queue 1 item 11)
+        # (obs/telemetry.py), wired by the context; the auto
+        # exchange-window policy reads it (None: the configured budget)
         self.headroom = None
         # True while this executor's profiler session is open: a nested
         # execute (a do_while subplan) records into it
@@ -519,7 +540,8 @@ class GraphExecutor:
         misses: List[Tuple[str, torch.Tensor]] = []  # (unit name, miss counter)
         # (unit stage, fp, outputs) saves that wait for the miss check
         self._gated_ckpts: List[tuple] = []
-        report = fuse(graph, self.config) if self.config.plan_fuse else unfused(graph)
+        report = (fuse(graph, self.config, single_axis=self._single_axis())
+                  if self.config.plan_fuse else unfused(graph))
         units = retry_regions(graph, report)
         self._start_job(graph, report, units)
         self._prepare_width_adapt(graph, units)
@@ -567,14 +589,8 @@ class GraphExecutor:
         fingerprints (a binding's content digest, or the producing
         unit's fingerprint and export position).  None when an input
         cannot be fingerprinted (a device binding, a loop state)."""
-        members = {m.id for m in unit}
-        refs: List[Tuple] = []
-        for m in unit:
-            for ref, idx in m.input_refs:
-                if (ref == "plan_input" or ref not in members) and (ref, idx) not in refs:
-                    refs.append((ref, idx))
         fps, shapes = [], []
-        for ref, idx in refs:
+        for ref, idx in _unit_refs(unit):
             b = bindings[idx] if ref == "plan_input" else results[(ref, idx)]
             shapes.append((tuple(sorted(b.data.keys())), b.capacity))
             fps.append(self._binding_fps.get(idx) if ref == "plan_input"
@@ -680,7 +696,9 @@ class GraphExecutor:
         ops = [op for m in unit for op in m.ops]
         can_overflow = any(op.kind not in NON_OVERFLOW_OPS for op in ops)
         static_fan = [op.params["nparts"] for op in ops if op.params.get("nparts")]
-        if static_fan and min(static_fan) < self.P:
+        # the kernels reduce the fan-out on a flat mesh only: the event
+        # says what runs
+        if static_fan and self._single_axis() and min(static_fan) < self.P:
             log.emit("stage_fanout", stage=sid, name=name, nparts=min(static_fan), of=self.P)
         adapt_fan = self._adapt_fan_for(solo) if solo else None
         if adapt_fan:
@@ -723,7 +741,12 @@ class GraphExecutor:
             with torch.profiler.record_function(name), \
                     self.tracer.span(name, cat="execute", stage=sid, version=version, boost=boost), \
                     STAGE.named_failures(self.mesh, name):
-                overflow, dict_miss = self._dispatch(unit, bindings, results, fan, boost)
+                overflow, dict_miss, rounds = self._dispatch(unit, bindings, results, fan, boost)
+                # the planner's static accounting: every dispatch attempt
+                # ships these bytes again
+                for rnd in rounds:
+                    log.emit("exchange_round", stage=sid, name=name,
+                             qid=tracectx.current_qid(), **rnd)
                 counts = [results[e].valid.sum() for e in exports] if want_count else []
                 overflow, dict_miss, counts = STAGE.reduce_replicated(
                     self.mesh, overflow, dict_miss, counts)
@@ -824,24 +847,75 @@ class GraphExecutor:
 
     def _dispatch(self, unit: List[Stage], bindings, results, fan, boost: int):
         """Run a unit's member stages once; returns its overflow flag and
-        dictionary-miss counter (or-ed and summed over the members)."""
+        dictionary-miss counter (or-ed and summed over the members) and
+        its exchanges' per-round accounting, in member order."""
         overflow = dict_miss = None
+        rounds: List[dict] = []
         # the attempt's tables, each fetched from the pool once
         operands = (
             DispatchOperands(self.operand_pool, [op for m in unit for op in m.ops], OPERAND_PARAMS)
             if self.runtime_operands else self.baked_operands
         )
+        window = self._resolve_window(self._unit_inputs(unit, bindings, results), boost)
         for m in unit:
             run = _fan_adapted_stage(m, fan) if fan else m
             ctx = StageContext(self.P, self.device, operands, self.config.shuffle_slack, boost,
-                               mesh=self.mesh)
+                               mesh=self.mesh, window=window)
             ctx.bind_inputs(self._inputs(m, bindings, results))
             run_ops(ctx, run.ops)
             for i, slot in enumerate(m.out_slots):
                 results[(m.id, i)] = ctx.slots[slot]
             overflow = ctx.overflow if overflow is None else overflow | ctx.overflow
             dict_miss = ctx.dict_miss if dict_miss is None else dict_miss + ctx.dict_miss
-        return overflow, dict_miss
+            rounds += ctx.xchg_log
+        return overflow, dict_miss, rounds
+
+    def _unit_inputs(self, unit: List[Stage], bindings, results) -> List[ColumnBatch]:
+        """A unit's external inputs (the region's, as the reference's
+        fused program takes them)."""
+        return [bindings[idx] if ref == "plan_input" else results[(ref, idx)]
+                for ref, idx in _unit_refs(unit)]
+
+    def _single_axis(self) -> bool:
+        """A flat mesh: fan-out reduction and width adaptation apply."""
+        return len(mesh_axes(self.mesh)) == 1
+
+    def _resolve_window(self, inputs, boost: int) -> int:
+        """The staged-exchange window of one dispatch attempt (the
+        reference's ``_resolve_window``).  ``config.exchange_window >=
+        0`` passes through; ``-1`` asks ``plan/xchgplan.py::
+        resolve_window`` with a per-destination bucket estimate from
+        the inputs' shapes (the reference's global capacity times the
+        boost over P, times slack, columns and 8 bytes), the configured
+        budget, the rewriter's ``retune_exchange`` hint, and the
+        measured headroom rounded down to a power of two (precedence:
+        hint, headroom, budget); over a gang, the narrowest window of
+        any rank.  The window is part of the dispatch's identity: the
+        stage runs the exchange it names."""
+        cfgw = int(self.config.exchange_window)
+        if cfgw >= 0:
+            return cfgw
+        slack = float(self.config.shuffle_slack)
+        bucket_bytes = 1
+        for b in inputs:
+            glob = b.capacity * self.P  # the reference's sharded capacity
+            rows = -(-glob * max(1, int(boost)) // max(1, self.P))
+            bucket_bytes = max(bucket_bytes, int(rows * slack) * max(1, len(b.data)) * 8)
+        budget = int(self.config.exchange_hbm_budget_mb) << 20
+        hint = self.rewriter.exchange_window_hint() if self.rewriter is not None else None
+        headroom = None
+        if self.headroom is not None:
+            h = self.headroom.headroom_bytes()
+            if h is not None and int(h) > 0:
+                headroom = 1 << (int(h).bit_length() - 1)
+        w = resolve_window(cfgw, self.P, bucket_bytes, budget, hint=hint, headroom_bytes=headroom)
+        if self.mesh is not None and self.mesh.group is not None:
+            # each rank measures its own headroom, and every rank must run
+            # one schedule: the narrowest window any rank resolved (flat
+            # counts as the widest)
+            w = int(PART.allreduce(torch.tensor(w or self.P), "min", self.mesh))
+            w = 0 if w >= self.P else w
+        return w
 
     def _record(self, exports, counts) -> None:
         for e, c in zip(exports, counts):
@@ -888,7 +962,8 @@ class GraphExecutor:
         """Worth draining early: this stage could adapt its width, every
         input's count is known or held by the window, and a producer in
         the window is aggregation-shaped (the reference's rule)."""
-        if len(unit) != 1 or not getattr(self.config, "tail_fanout_rows", 0):
+        if len(unit) != 1 or not getattr(self.config, "tail_fanout_rows", 0) \
+                or not self._single_axis():
             return False
         stage = unit[0]
         if not _adaptable(stage) or not self._consumers_allow_adapt(stage):
@@ -1083,7 +1158,7 @@ class GraphExecutor:
                         continue
                     ok = solo is not None and _slot_reroutes(solo, j)
                     self._adapt_safe[(ref, idx)] = self._adapt_safe.get((ref, idx), True) and ok
-            if limit and solo is not None and _adaptable(solo):
+            if limit and solo is not None and self._single_axis() and _adaptable(solo):
                 for ref, _idx in solo.input_refs:
                     if ref != "plan_input":
                         self._count_wanted.add(id(unit_of[ref]))
@@ -1098,7 +1173,8 @@ class GraphExecutor:
     def _adapt_fan_for(self, stage: Stage) -> Optional[int]:
         """Reduced width for this stage from its inputs' observed rows;
         None = run as lowered."""
-        if not getattr(self.config, "tail_fanout_rows", 0) or not _adaptable(stage):
+        if not getattr(self.config, "tail_fanout_rows", 0) or not self._single_axis() \
+                or not _adaptable(stage):
             return None
         if not self._consumers_allow_adapt(stage):
             return None  # a consumer pinned this stage to full width

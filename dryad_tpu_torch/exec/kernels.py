@@ -20,16 +20,19 @@ partition-axis operation goes through the partition layer's collectives
 (``parallel/partition.py``) over the stage's mesh: tensor ops in one
 process, ``torch.distributed`` calls across a gang's ranks.  Capacities derive from the stage's entry
 capacities, its growth and the executor's retry ``boost``, as in the
-reference.  The hybrid-mesh ``tree`` exchange (ROADMAP.md queue 1 item
-11) is not ported: on the port's flat mesh the ``tree`` param of
-``exchange_hash`` is ignored, as the reference ignores it on a one-axis
-mesh.
+reference.  Every exchange goes through :func:`_exchange`, which logs
+the planner's byte accounting (``plan/xchgplan.py``) on the context's
+``xchg_log`` (the executor's ``exchange_round`` events) and runs the
+flat exchange (window 0) or the staged one.  On a hybrid mesh the
+``tree`` param of ``exchange_hash`` runs the reference's tree exchange
+(:func:`_tree_exchange_hash`); on a flat mesh it is ignored, as the
+reference ignores it on a one-axis mesh.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -41,6 +44,8 @@ from dryad_tpu_torch.ops import sort as SORT
 from dryad_tpu_torch.ops.bucket import bucket_sum_count
 from dryad_tpu_torch.ops.hash import partition_ids
 from dryad_tpu_torch.parallel import partition as PART
+from dryad_tpu_torch.parallel.mesh import AXIS, axis_sizes, mesh_axes
+from dryad_tpu_torch.plan import xchgplan as XP
 
 
 def _round8(n: float) -> int:
@@ -53,13 +58,22 @@ class StageContext:
     dictionary-miss counter it reads once after the job."""
 
     def __init__(self, P: int, device, operands=None, slack: float = 2.0, boost: int = 1,
-                 mesh=None):
+                 mesh=None, window: int = 0):
         self.P = P  # global partitions
         self.device = torch.device(device)
         # the partitions' mesh (parallel/mesh.py): None or a mesh without
         # a group in one process; this rank holds partitions base.. of P
         self.mesh = mesh
         self.base = mesh.base if mesh is not None else 0
+        # the mesh's axes, outermost first, and their extents
+        self.axes = mesh_axes(mesh)
+        self.axis_sizes = axis_sizes(mesh) if mesh is not None else (P,)
+        # staged-exchange window (config.exchange_window, resolved by the
+        # executor); 0 = the flat exchange
+        self.window = window
+        # each exchange's per-round byte accounting, in order: the
+        # executor's exchange_round events of this dispatch
+        self.xchg_log: List[Dict[str, int]] = []
         # the dispatch's tables (exec/operands.py: DispatchOperands, BakedOperands)
         self.operands = operands
         self.slack = slack
@@ -208,24 +222,95 @@ def _k_fork(ctx: StageContext, p) -> None:
 
 def _fanout(ctx: StageContext, nparts) -> int:
     """Destination count of a fan-reduced exchange: rows concentrate on
-    the first ``nparts`` partitions, the rest run masked-empty."""
-    if not nparts:
+    the first ``nparts`` partitions, the rest run masked-empty.  On a
+    hybrid (two-axis) mesh the tree exchange ignores ``nparts``, so the
+    reduction is off there outright, as in the reference: a half-applied
+    one would inflate the paired resize while the rows spread
+    full-width."""
+    if not nparts or len(ctx.axes) != 1:
         return ctx.P
     return min(int(nparts), ctx.P)
 
 
-def _exchange(ctx: StageContext, slot: int, dest: torch.Tensor, P_eff: int) -> None:
+def _exchange(ctx: StageContext, b: ColumnBatch, dest: torch.Tensor, n: int, B: int,
+              axes: Tuple[str, ...], capacity: Optional[int] = None):
+    """Every repartition's route (the reference's ``_exchange``): log
+    the planner's accounting on ``ctx.xchg_log``, then the flat exchange
+    (window 0, or one partition) or the staged one along
+    ``plan_exchange(n, window, dcn)``.  ``axes``: the mesh axes the
+    exchange spans (all of them, or one axis of a hybrid mesh, ``n``
+    its extent); ``capacity``: the fused resize's.  Returns
+    ``(batch, overflow)``."""
+    if len(axes) == 2:
+        dcn = ctx.axis_sizes[0]
+    elif len(ctx.axes) == 2 and axes[0] == ctx.axes[0]:
+        dcn = n  # over the DCN axis alone: every hop crosses
+    else:
+        dcn = 1
+    axis = axes[0] if len(axes) < len(ctx.axes) else None
+    per_row = SH.row_bytes(b)
+    if ctx.window < 1 or n == 1:
+        ctx.xchg_log.append(XP.flat_accounting(n, dcn, B, per_row))
+        return SH.exchange(b, dest, n, B, capacity=capacity, mesh=ctx.mesh, axis=axis)
+    schedule = XP.plan_exchange(n, ctx.window, dcn)
+    ctx.xchg_log.extend(schedule.accounting(B, per_row))
+    return SH.exchange_staged(b, dest, n, B, schedule, capacity=capacity, mesh=ctx.mesh,
+                              axis=axis)
+
+
+def _exchange_slot(ctx: StageContext, slot: int, dest: torch.Tensor, P_eff: int) -> None:
+    """A full-width exchange of one slot over ``P_eff`` destinations,
+    into the fused resize's capacity when one follows."""
     b = ctx.slots[slot]
     B = SH.bucket_capacity(b.capacity, P_eff, ctx.slack * ctx.boost)
-    out, ovf = SH.exchange(b, dest, ctx.P, B, capacity=ctx.resize_to, mesh=ctx.mesh)
+    out, ovf = _exchange(ctx, b, dest, ctx.P, B, ctx.axes, ctx.resize_to)
     ctx.slots[slot] = out
     ctx.overflow = ctx.overflow | ovf
 
 
 def _k_exchange_hash(ctx: StageContext, p) -> None:
     b = ctx.slots[p["slot"]]
+    if p.get("tree") is not None and len(ctx.axes) == 2:
+        _tree_exchange_hash(ctx, p["slot"], p["keys"], p["tree"])
+        return
     P_eff = _fanout(ctx, p.get("nparts"))
-    _exchange(ctx, p["slot"], partition_ids([b.data[k] for k in p["keys"]], P_eff), P_eff)
+    _exchange_slot(ctx, p["slot"], partition_ids([b.data[k] for k in p["keys"]], P_eff), P_eff)
+
+
+def _tree_exchange_hash(ctx: StageContext, slot: int, keys, tree) -> None:
+    """Hierarchical shuffle on a hybrid mesh (the reference's
+    ``_tree_exchange_hash``): rows for global partition g first move
+    within their slice to ICI index ``g % P_ici``, resized to
+    ``round8(cap * slack)``; duplicate keys combine there (``distinct``,
+    ``group_combine`` or ``group_reduce``, as the plan's tree spec
+    says); only the per-slice partials then cross to slice
+    ``g // P_ici``.  The plan's resize after the exchange is fused into
+    that DCN hop only."""
+    D, P_in = ctx.axis_sizes
+    slack = ctx.slack * ctx.boost
+
+    def dest_global(batch):
+        return partition_ids([batch.data[k] for k in keys], ctx.P)
+
+    # hop 1: within each slice, to ICI index g % P_in
+    b = ctx.slots[slot]
+    B1 = SH.bucket_capacity(b.capacity, P_in, slack)
+    out, ovf = _exchange(ctx, b, dest_global(b) % P_in, P_in, B1, (ctx.axes[1],),
+                         capacity=_round8(b.capacity * ctx.slack))
+    ctx.overflow = ctx.overflow | ovf
+    # the per-slice combine
+    if tree.get("distinct"):
+        out = SEG.distinct(out, tree["keys"])
+    elif "merge" in tree:
+        out = SEG.group_combine(out, tree["keys"], tree["state_cols"], tree["merge"])
+    else:
+        out = SEG.group_reduce(out, tree["keys"], tree["aggs"])
+    # hop 2: across the slices, to slice g // P_in
+    B2 = SH.bucket_capacity(out.capacity, D, slack)
+    out2, ovf = _exchange(ctx, out, dest_global(out) // P_in, D, B2, (ctx.axes[0],),
+                          ctx.resize_to)
+    ctx.overflow = ctx.overflow | ovf
+    ctx.slots[slot] = out2
 
 
 def _k_exchange_range(ctx: StageContext, p) -> None:
@@ -248,7 +333,7 @@ def _k_exchange_range(ctx: StageContext, p) -> None:
     else:
         splitters = SORT.sample_splitters(operands[0], b.valid, P_eff, m, ctx.mesh)
         dest = SORT.range_dest(operands[0], splitters)
-    _exchange(ctx, p["slot"], dest, P_eff)
+    _exchange_slot(ctx, p["slot"], dest, P_eff)
 
 
 def _resize_target(ctx: StageContext, p) -> int:
@@ -436,7 +521,7 @@ def _exchange_hash_resized(ctx: StageContext, slot: int, keys) -> None:
     one placement (see :func:`run_ops`)."""
     ctx.resize_to = _resize_target(ctx, dict(slot=slot, factor=1.0))
     b = ctx.slots[slot]
-    _exchange(ctx, slot, partition_ids([b.data[k] for k in keys], ctx.P), ctx.P)
+    _exchange_slot(ctx, slot, partition_ids([b.data[k] for k in keys], ctx.P), ctx.P)
     ctx.resize_to = None
 
 
@@ -619,7 +704,7 @@ def _exchange_by_rank(ctx: StageContext, b: ColumnBatch, per: int) -> ColumnBatc
     bucket and resize overflows set the flag, then a sort by rank."""
     dest = torch.clamp(b.data["#rank"] // per, 0, ctx.P - 1)
     B = SH.bucket_capacity(b.capacity, ctx.P, ctx.slack * ctx.boost)
-    out, ovf = SH.exchange(b, dest, ctx.P, B, capacity=per, mesh=ctx.mesh)
+    out, ovf = _exchange(ctx, b, dest, ctx.P, B, ctx.axes, capacity=per)
     ctx.overflow = ctx.overflow | ovf
     return SORT.sort_batch_by_operands(out, [out.data["#rank"]])
 

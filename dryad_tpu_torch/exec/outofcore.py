@@ -449,6 +449,15 @@ class StreamExecutor:
         self.ctx = ctx
         cfg = ctx.config
         self.bucket_rows = int(cfg.stream_bucket_rows)
+        # a static staged-exchange window (plan/xchgplan.py) caps a
+        # dispatch's redistribution footprint at O(window * B) instead
+        # of O(P * B): spend it on bigger buckets (fewer device jobs and
+        # spill round trips), by the P / window shrink clamped to 4x,
+        # as the reference does; the auto window (-1) resolves per
+        # dispatch, so no static scaling applies
+        window = int(cfg.exchange_window)
+        if window > 0 and self._P() > window:
+            self.bucket_rows *= min(4, max(1, self._P() // window))
         self.combine_rows = int(cfg.stream_combine_rows)
         self.num_buckets = int(cfg.stream_buckets)
         # chunk pipeline: ingest / compute / readback-spill overlap with
@@ -793,7 +802,7 @@ class StreamExecutor:
         partial, plan = partial_plan(agg_list)
         merge_spec = merge_agg_spec(plan)
         scope = self._scope()
-        shape = TreeShape(self._P(), self.ctx.config)
+        shape = TreeShape(self.ctx.mesh, self.ctx.config)
         st = {"pschema": None}
         combine, compact = self._host_combiner(
             keys, merge_spec, plan, node.schema, shape, self._scope(), st,
@@ -832,7 +841,7 @@ class StreamExecutor:
         # one cached-input slot per fused chunk: a fused batch needs
         # all K input nodes bound at dispatch
         scope = self._scope(slots=self.chunk_fuse)
-        shape = TreeShape(self._P(), self.ctx.config)
+        shape = TreeShape(self.ctx.mesh, self.ctx.config)
         st = {"acc_rows": 0, "nchunks": 0, "pschema": None}
         combine, compact = self._host_combiner(
             keys, merge_spec, plan, node.schema, shape, self._scope(), st,
@@ -934,7 +943,7 @@ class StreamExecutor:
         merge_spec = merge_agg_spec(plan)
         scope = self._scope()
         mscope = self._scope()
-        shape = TreeShape(self._P(), self.ctx.config)
+        shape = TreeShape(self.ctx.mesh, self.ctx.config)
         reprobe_after = int(self.ctx.config.stream_host_reprobe or 0)
         st = {"pschema": None}
         host_combine, compact = self._host_combiner(
@@ -1038,7 +1047,7 @@ class StreamExecutor:
         merge_spec = merge_agg_spec(plan)
         scope = self._scope()
         cscope = self._scope()  # degraded-range (cold) chunk plans
-        shape = TreeShape(self._P(), cfg)
+        shape = TreeShape(self.ctx.mesh, cfg)
         ranges = int(cfg.combine_tree_ranges)
         planner = CombineTreePlanner(ranges, float(cfg.combine_tree_degrade_ratio))
         hist = KeyRangeHistogram(ranges)
@@ -1190,7 +1199,7 @@ class StreamExecutor:
 
             comb = _DeviceCombiner(
                 merge_many, self.combine_rows, self._emit,
-                split=TreeShape(self._P(), self.ctx.config).exchange_split,
+                split=TreeShape(self.ctx.mesh, self.ctx.config).exchange_split,
             )
             for table in self._iter_base(stream):
                 pq = chunk_query(table)

@@ -23,6 +23,8 @@ reference collective               one process           over a group
                                                           send buffer
 ``axis_index``                     ``arange(P)``          ``rank * local + arange(local)``
 exclusive prefix over partitions   ``cumsum(0) - x``      ``all_gather``, then the same
+``ppermute``                       an index of axis 0     ``batch_isend_irecv``, one send
+                                                          and one receive a peer rank
 =================================  ====================  ================================
 
 A group of the ``gloo`` backend carries CUDA tensors through the host
@@ -236,6 +238,69 @@ def all_to_all(send: torch.Tensor, mesh=None) -> torch.Tensor:
     # out: (world_src, S_src, local_dst, B, ...) -> (local_dst, P * B, ...)
     recv = out.permute((2, 0, 1, 3) + tuple(range(4, out.dim())))
     return _back(recv.reshape((L, W * S * B) + rest), send)
+
+
+def ppermute(x: torch.Tensor, perm, mesh=None) -> torch.Tensor:
+    """``(local, ...)`` rows of this rank's partitions moved along
+    ``perm``, a list of ``(source, destination)`` global partition
+    pairs: destination ``d`` receives source ``s``'s row, a partition no
+    pair names receives zeros (the reference's ``ppermute``)."""
+    return ppermute_many([(x, perm)], mesh)[0]
+
+
+def ppermute_many(items, mesh=None):
+    """Several :func:`ppermute` calls as one round: ``items`` is a list
+    of ``(x, perm)`` whose rows share one shape and dtype; returns their
+    results in order.  Over a group,
+    every row this rank sends to one peer travels in one message, and
+    every rank posts its sends and receives for the round in one
+    ``batch_isend_irecv``, peers in ascending rank, so the ranks pair
+    up alike; rows that stay on this rank are copied.  Bytes sent to
+    other ranks count in ``mesh.sent_bytes``."""
+    if not _spans(mesh):
+        out = []
+        for x, perm in items:
+            y = torch.zeros_like(x)
+            if perm:
+                src = torch.tensor([s for s, _ in perm], device=x.device)
+                dst = torch.tensor([d for _, d in perm], device=x.device)
+                y[dst] = x[src]
+            out.append(y)
+        return out
+    L, base, me = mesh.local, mesh.base, mesh.rank
+    outs = [torch.zeros_like(x) for x, _ in items]
+    sends: Dict[int, list] = {}  # peer -> [(item, local source row)]
+    recvs: Dict[int, list] = {}  # peer -> [(item, local destination row)]
+    for k, (x, perm) in enumerate(items):
+        for s, d in perm:
+            sr, dr = s // L, d // L
+            if sr == me and dr == me:
+                outs[k][d - base] = x[s - base]
+            elif sr == me:
+                sends.setdefault(dr, []).append((k, s - base))
+            elif dr == me:
+                recvs.setdefault(sr, []).append((k, d - base))
+    ops, landing = [], []
+    for peer in sorted(set(sends) | set(recvs)):
+        if peer in sends:
+            rows = torch.stack([items[k][0][i] for k, i in sends[peer]])
+            ops.append(dist.P2POp(dist.isend, _wire(mesh, rows), peer, group=mesh.group))
+        if peer in recvs:
+            k0 = recvs[peer][0][0]
+            like = items[k0][0]
+            dev = torch.device("cpu") if mesh.backend == "gloo" else mesh.device
+            dt = torch.uint8 if like.dtype == torch.bool else like.dtype
+            buf = torch.empty((len(recvs[peer]),) + tuple(like.shape[1:]), dtype=dt, device=dev)
+            ops.append(dist.P2POp(dist.irecv, buf, peer, group=mesh.group))
+            landing.append((peer, buf))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    for peer, buf in landing:
+        rows = _back(buf, outs[recvs[peer][0][0]])
+        for j, (k, i) in enumerate(recvs[peer]):
+            outs[k][i] = rows[j]
+    return outs
 
 
 def first_valid(col: torch.Tensor, valid: torch.Tensor, mesh=None):

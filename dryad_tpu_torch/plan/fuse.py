@@ -100,11 +100,12 @@ def _adaptable_shape(stage: Stage) -> bool:
     )
 
 
-def _adapt_candidate(stage: Stage, by_id: Dict[int, Stage], config) -> bool:
+def _adapt_candidate(stage: Stage, by_id: Dict[int, Stage], config, single_axis: bool) -> bool:
     """True when the executor could re-dispatch ``stage`` at an
     observed-volume-reduced width: fusing it would pin it to the static
-    full width, so the pass leaves it alone."""
-    if not getattr(config, "tail_fanout_rows", 0):
+    full width, so the pass leaves it alone.  A hybrid mesh
+    (``single_axis`` False) adapts no width."""
+    if not single_axis or not getattr(config, "tail_fanout_rows", 0):
         return False
     if not _adaptable_shape(stage):
         return False
@@ -119,17 +120,18 @@ def _adapt_candidate(stage: Stage, by_id: Dict[int, Stage], config) -> bool:
     return any(_is_shrinker(p) for p in producers)
 
 
-def fuse(graph: StageGraph, config) -> FuseReport:
+def fuse(graph: StageGraph, config, single_axis: bool = True) -> FuseReport:
     """The reference's fusion decision over ``graph`` (stages in
-    topological order, so any contiguous run is a valid region).  A
-    fused region takes a fresh id from the stage counter, as the
-    reference's ``FusedStage`` does."""
+    topological order, so any contiguous run is a valid region) on a
+    flat mesh, or with ``single_axis`` False a hybrid one.  A fused
+    region takes a fresh id from the stage counter, as the reference's
+    ``FusedStage`` does."""
     by_id = {s.id: s for s in graph.stages}
     # None = fusable; a string = unfused singleton + reason
     cls: Dict[int, Optional[str]] = {}
     for s in graph.stages:
         reason = _ineligible_reason(s)
-        if reason is None and _adapt_candidate(s, by_id, config):
+        if reason is None and _adapt_candidate(s, by_id, config, single_axis):
             reason = "width_adapt:observed-volume adaptation opportunity"
         cls[s.id] = reason
 

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Optional
+from typing import Dict, Optional
 
 
 def _env_int(name: str, default: int) -> int:
@@ -81,6 +81,11 @@ class DryadConfig:
     - ``overflow_sync_depth``: units (stages or runs of stages)
       dispatched before their overflow flags are read in one batched
       copy (the speculative dispatch window); 1 reads each at once.
+    - ``exchange_window``: destination buckets a staged exchange ships
+      per round (``plan/xchgplan.py``, ``ops/shuffle.py::
+      exchange_staged``); 0 the flat exchange, -1 the auto policy
+      (rewriter hint, then measured headroom, then
+      ``exchange_hbm_budget_mb``).
     - ``intermediate_compression``: the column codec of stores written
       by ``to_store`` (None or "zlib").
     - ``event_log_dir``: directory of the context's JSONL event log
@@ -188,6 +193,22 @@ class DryadConfig:
         "DRYAD_TPU_DEVICE_CACHE", 2 * 1024 * 1024 * 1024
     )
     overflow_sync_depth: int = _env_int("DRYAD_TPU_OVERFLOW_SYNC_DEPTH", 4)
+    # Memory-bounded staged exchange (plan/xchgplan.py): hash/range/join
+    # repartitions decompose into point-to-point rounds shipping at most
+    # this many destination buckets each, so the in-flight exchange
+    # footprint is O(window * B) instead of the flat exchange's
+    # O(P * B); ICI hops are staged first, all DCN-crossing traffic is
+    # batched into one round per remote slice.  0 = the flat
+    # one-collective path, kept as the differential baseline; -1 = auto
+    # policy: the executor picks flat while the estimated send buffer
+    # fits exchange_hbm_budget_mb (or the measured headroom), else the
+    # widest window that does (plan/xchgplan.py::resolve_window; the
+    # rewriter can pin the auto choice via
+    # RewriteController.retune_exchange).
+    exchange_window: int = _env_int("DRYAD_TPU_EXCHANGE_WINDOW", 0)
+    # Device memory the auto exchange-window policy may spend on one
+    # exchange's staging buffers (only read when exchange_window == -1).
+    exchange_hbm_budget_mb: int = _env_int("DRYAD_TPU_EXCHANGE_HBM_BUDGET_MB", 256)
     intermediate_compression: Optional[str] = None  # None | "zlib"
     event_log_dir: Optional[str] = None
     profile_dir: Optional[str] = None
@@ -355,6 +376,10 @@ class DryadConfig:
             raise ValueError("command_batch must be >= 0")
         if self.gang_batch_depth < 1:
             raise ValueError("gang_batch_depth must be >= 1")
+        if self.exchange_window < -1:
+            raise ValueError("exchange_window must be >= 0, or -1 for the auto policy")
+        if self.exchange_hbm_budget_mb < 1:
+            raise ValueError("exchange_hbm_budget_mb must be >= 1")
 
 
 # Schema of DryadConfig's fields: key -> one-line doc of what the port
@@ -393,6 +418,10 @@ CONFIG_KEYS = {
     "rows_per_vertex": "target rows per independent vertex task",
     "plan_fuse": "runs of fusable stages dispatch and retry as one unit",
     "overflow_sync_depth": "speculative dispatches per overflow readback",
+    "exchange_window":
+        "staged-exchange buckets per round (0 = flat, -1 = auto policy)",
+    "exchange_hbm_budget_mb":
+        "staging-buffer device-memory budget for the auto window policy",
     "tail_fanout_rows": "static row bound enabling tail fan-out; 0 off",
     "tail_rows_per_partition": "rows per partition after tail fan-out",
     "stream_bucket_rows": "max rows per phase-2 bucket before re-split",
@@ -445,12 +474,9 @@ CONFIG_KEYS = {
 
 
 # The reference's keys whose part is not ported yet, each with the
-# ROADMAP item that brings it; with CONFIG_KEYS they make the
-# reference's schema (tests/test_torch_graftlint.py holds them to it).
-PENDING_CONFIG_KEYS = {
-    "exchange_window": "ROADMAP queue 1 item 11",
-    "exchange_hbm_budget_mb": "ROADMAP queue 1 item 11",
-}
+# ROADMAP item that brings it (none left); with CONFIG_KEYS they make
+# the reference's schema (tests/test_torch_graftlint.py holds them to it).
+PENDING_CONFIG_KEYS: Dict[str, str] = {}
 
 
 # The reference's keys that no module of either package reads; they

@@ -1,11 +1,11 @@
-"""The combine tree on one device and the partial-aggregation algebra:
+"""The combine tree and the partial-aggregation algebra:
 the port (``exec/combinetree.py``, ``exec/partial.py``,
 ``obs/metrics.py``) against the JAX package.
 
 The tree's streaming group_by runs in both packages on the same seeded
 chunks at P=8 (the reference on its 8-device CPU mesh), each case at the
 default config (the diagnosis engine and the runtime plan rewriter on in
-both packages) and with both off: equal groups, byte-equal integer
+both packages) and with both off, and on the 2 x 4 hybrid mesh: equal groups, byte-equal integer
 aggregates, equal ``combine_tree_*``/``stream_*`` event counts, equal
 ``diagnosis`` and ``plan_rewrite`` events, and intermediate merges that
 move no exchange bytes.  The placement,
@@ -27,6 +27,7 @@ from dryad_tpu_torch.exec import combinetree as tct
 from dryad_tpu_torch.exec import partial as tpartial
 from dryad_tpu_torch.obs.metrics import KeyRangeHistogram as THist
 from dryad_tpu_torch.obs.metrics import MetricsRegistry
+from dryad_tpu_torch.parallel import mesh as TM
 
 P = 8
 
@@ -38,11 +39,14 @@ REF = pytest.mark.parametrize("ref", ["default", "off"])
 WALL_CLOCK_RULES = ("straggler", "stall_dominance", "recompile_storm")
 
 
-def _ctxs(ref="off", **cfg):
+def _ctxs(ref="off", hybrid=False, **cfg):
+    """The two packages' contexts at P=8: flat, or with ``hybrid`` on
+    the 2 x 4 DCN x ICI mesh."""
     if ref == "off":
         cfg = dict(cfg, obs_diagnosis=False, plan_rewrite=False)
-    jc = J.DryadContext(num_partitions_=P, config=J.DryadConfig(**cfg))
-    tc = T.DryadContext(num_partitions_=P, config=T.DryadConfig(**cfg), device="cpu")
+    mesh = {"dcn_slices": 2} if hybrid else {"num_partitions_": P}
+    jc = J.DryadContext(config=J.DryadConfig(**cfg), **mesh)
+    tc = T.DryadContext(config=T.DryadConfig(**cfg), device="cpu", **mesh)
     return jc, tc
 
 
@@ -65,9 +69,9 @@ def _sorted(out):
     return {c: np.asarray(v)[o] for c, v in out.items()}
 
 
-def _run(chunks, aggs, ref="off", **cfg):
+def _run(chunks, aggs, ref="off", hybrid=False, **cfg):
     outs, evs = [], []
-    for c in _ctxs(ref, **cfg):
+    for c in _ctxs(ref, hybrid, **cfg):
         q = c.from_stream(iter([{k: v.copy() for k, v in ch.items()} for ch in chunks]))
         outs.append(_sorted(q.group_by("k", aggs).collect()))
         evs.append(c.executor.events.events() if isinstance(c, J.DryadContext) else c.events.events())
@@ -238,20 +242,68 @@ def test_planner_and_placement_equal_reference():
     assert tct.neutral_snapshot(8) == jct.neutral_snapshot(8)
 
 
-def test_tree_shape_on_one_device():
-    class _Cfg:
-        combine_tree_groups = 0
-        combine_tree_fan = 16
+class _ShapeCfg:
+    combine_tree_groups = 0
+    combine_tree_fan = 16
 
-    shape = tct.TreeShape(P, _Cfg())
-    ref = jct.TreeShape(J.parallel.mesh.make_mesh(P), _Cfg())
+
+def test_tree_shape_on_one_device():
+    shape = tct.TreeShape(TM.make_mesh(P, "cpu"), _ShapeCfg())
+    ref = jct.TreeShape(J.parallel.mesh.make_mesh(P), _ShapeCfg())
     assert (shape.groups, shape.fan, shape.dcn_slices, shape.ici_partitions) == (
         ref.groups, ref.fan, ref.dcn_slices, ref.ici_partitions)
     for a, b in ((1000, 100), (8, 8), (10**9, 1)):
         assert shape.exchange_split(a, b) == ref.exchange_split(a, b)
-    _Cfg.combine_tree_groups, _Cfg.combine_tree_fan = 3, 1
-    shape = tct.TreeShape(P, _Cfg())
+
+    class _Cfg:
+        combine_tree_groups, combine_tree_fan = 3, 1
+
+    shape = tct.TreeShape(TM.make_mesh(P, "cpu"), _Cfg())
     assert shape.groups == 3 and shape.fan == 2
+
+
+@pytest.mark.parametrize("dcn", [1, 2, 4])
+def test_tree_shape_on_a_hybrid_mesh(dcn):
+    """The hybrid geometry: one level-0 group a slice, and the ICI/DCN
+    split of an exchange, equal to the reference's on its 2-D mesh."""
+    shape = tct.TreeShape(TM.make_hybrid_mesh(dcn, P // dcn, "cpu"), _ShapeCfg())
+    ref = jct.TreeShape(J.parallel.mesh.make_hybrid_mesh(dcn, P // dcn), _ShapeCfg())
+    assert (shape.groups, shape.fan, shape.dcn_slices, shape.ici_partitions) == (
+        ref.groups, ref.fan, ref.dcn_slices, ref.ici_partitions) == (
+        ref.groups, 16, dcn, P // dcn)
+    for a, b in ((1000, 100), (8, 8), (10**9, 1), (77, 10**6)):
+        assert shape.exchange_split(a, b) == ref.exchange_split(a, b)
+
+
+def test_tree_hybrid_mesh_single_dcn_crossing():
+    """The reference's case on both packages' 2 x 4 meshes: the stream's
+    intermediate merges move nothing, and exactly one level, the root,
+    crosses the DCN.  The groups, the counts and every
+    ``combine_tree_level`` event's level, fan-in and layout rows equal
+    the reference's; the root's split is the reference's rule (hop 1
+    over ICI at the input bytes, 3/4 of them crossing a 4-partition
+    slice) over the port's compacted bytes
+    (``test_tree_batches_are_compacted_on_the_same_cadence``)."""
+    rng = np.random.default_rng(3)
+    chunks = [{"k": rng.integers(0, 50, 1200).astype(np.int64), "v": np.ones(1200, np.int64)}
+              for _ in range(5)]
+    outs, levels = [], []
+    for c in _ctxs("off", hybrid=True, stream_combine_rows=2000):
+        q = c.from_stream(iter([{k: v.copy() for k, v in ch.items()} for ch in chunks]))
+        outs.append(_sorted(q.group_by("k", {"c": ("count", None)}).collect()))
+        evs = c.executor.events.events() if isinstance(c, J.DryadContext) else c.events.events()
+        levels.append([e for e in evs if e["kind"] == "combine_tree_level"])
+    _oracle(chunks, outs[1])
+    for col in outs[0]:
+        assert outs[0][col].tobytes() == outs[1][col].tobytes(), col
+    shape = [[(e["level"], e["fan_in"], e["cap_rows"]) for e in lv] for lv in levels]
+    assert shape[1] == shape[0] and shape[1]
+    for lv in levels:
+        top = max(e["level"] for e in lv)
+        crossing = [e for e in lv if e["dcn_bytes"] > 0]
+        assert len(crossing) == 1 and crossing[0]["level"] == top
+        assert crossing[0]["ici_bytes"] == crossing[0]["bytes"] * 3 // 4
+        assert all(e["dcn_bytes"] == 0 and e["ici_bytes"] == 0 for e in lv if e["level"] < top)
 
 
 def test_tree_combiner_routes_and_folds():
@@ -271,7 +323,7 @@ def test_tree_combiner_routes_and_folds():
     merges, events = [], []
     comb = tct.TreeCombiner(
         lambda bs: merges.append(len(bs)) or B(sum(b.valid.shape[1] for b in bs) // 2),
-        tct.TreeShape(P, Cfg()), 64, lambda kind, **f: events.append((kind, f)),
+        tct.TreeShape(TM.make_mesh(P, "cpu"), Cfg()), 64, lambda kind, **f: events.append((kind, f)),
     )
     lo = {"counts": [10, 0]}
     hi = {"counts": [0, 10]}

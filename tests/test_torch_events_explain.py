@@ -283,8 +283,9 @@ def test_every_emitted_kind_is_registered_with_its_fields():
 
 def _comparable(events, kinds):
     """Events of ``kinds`` without their clock and ids; diagnoses of the
-    rules that follow the wall clock left out, the others without the
-    qid (each package draws qids from its own counter)."""
+    rules that follow the wall clock left out, the others and the
+    ``exchange_round`` events without the qid (each package draws qids
+    from its own counter)."""
     drop = ("ts", "mono", "seconds", "stage", "topology", "after", "before")
     out = []
     for e in events:
@@ -293,7 +294,7 @@ def _comparable(events, kinds):
         if e["kind"] == "diagnosis" and e["rule"] in CLOCK_RULES:
             continue
         f = {k: v for k, v in e.items() if k not in drop}
-        if e["kind"] == "diagnosis":
+        if e["kind"] in ("diagnosis", "exchange_round"):
             f.pop("qid", None)
         out.append((e["kind"], f))
     return out

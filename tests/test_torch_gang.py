@@ -50,7 +50,7 @@ def test_collectives_equal_the_one_process_functions(world):
     full = {k: torch.from_numpy(v) for k, v in G.collectives_inputs(Pw, 5 + world).items()}
     one = G.collectives_apply(PART, full, None, Pw)
     per_partition = {"psum_scatter_i", "psum_scatter_f", "all_gather", "all_to_all",
-                     "axis_index", "prefix"}
+                     "axis_index", "prefix", "ppermute"}
     fabs = np.abs(full["f"].numpy().astype(np.float64))
     for k, want in one.items():
         if k in per_partition:
@@ -94,10 +94,22 @@ def test_one_process_mesh_and_flat_functions():
     assert (two.local, two.base) == (4, 4)
     with pytest.raises(ValueError, match="cannot shrink"):
         TM.exclude_devices(two, [0])
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        TM.make_hybrid_mesh(2)
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        T.DryadContext(num_partitions_=8, device="cpu", dcn_slices=2)
+    # the hybrid mesh: 2 slices of 4 in one process, as the reference's 2 x 4
+    h = TM.make_hybrid_mesh(2, device="cpu")
+    assert (h.P, h.dcn, h.ici, h.world, h.group) == (8, 2, 4, 1, None)
+    assert TM.mesh_axes(h) == (TM.DCN_AXIS, TM.AXIS) == tuple(jmesh.make_hybrid_mesh(2).axis_names)
+    assert TM.dcn_slice_count(h) == 2 and TM.ici_partitions_per_slice(h) == 4
+    hc = T.DryadContext(num_partitions_=8, device="cpu", dcn_slices=2)
+    assert (hc.num_partitions, hc.mesh.dcn, hc.mesh.ici) == (8, 2, 4)
+    # the reference's validation errors
+    with pytest.raises(ValueError, match="dcn_slices must be >= 1"):
+        TM.make_hybrid_mesh(0)
+    with pytest.raises(ValueError, match="not divisible by dcn_slices"):
+        T.DryadContext(num_partitions_=6, device="cpu", dcn_slices=4)
+    with pytest.raises(ValueError, match="no partition in a slice"):
+        TM.make_hybrid_mesh(16)
+    with pytest.raises(ValueError, match="gang keeps the flat mesh"):
+        TM.PartitionMesh(8, "cpu", rank=0, world=2, group=object(), dcn_slices=2)
 
 
 def test_init_distributed_and_the_backend_choice(monkeypatch):
@@ -263,6 +275,55 @@ def test_corpus_query_on_two_ranks_equals_the_reference(name, gang_corpus):
     floats = [c for (n, c) in FLOAT_BOUNDS if n == name]
     for (gcap, gparts), q in zip(gang_corpus[0][name], G.CORPUS[name](jc)):
         _same_partitions(name, gparts, _reference_partitions(jc, q), floats)
+
+
+@pytest.mark.parametrize("capacity", [None, 40], ids=["padded", "capacity"])
+def test_staged_exchange_on_two_ranks_equals_one_process(capacity):
+    """``exchange_staged`` over a 2-rank gloo group at windows 1-3 gives
+    the one-process flat exchange's bytes, padding cells included, and
+    its flag (the skewed input overflows into the fused resize), and a
+    rank hands the group fewer bytes than the flat exchange's send
+    buffer: its blocks for the other rank only."""
+    windows = [0, 1, 2, 3]
+    ranks = G.run_ranks(2, "staged_case", P, 3, windows, capacity)
+    one = G.staged_apply(G.staged_inputs(P, 3), P, 0, capacity, None)
+    for i, w in enumerate(windows):
+        for c in ("k", "v", "w", "b", "valid", "overflow"):
+            have = np.concatenate([r[i][c] for r in ranks]) if c != "overflow" else ranks[0][i][c]
+            assert have.dtype == one[c].dtype and have.tobytes() == one[c].tobytes(), (w, c)
+        assert ranks[1][i]["overflow"].tobytes() == one["overflow"].tobytes()
+        if w:
+            assert all(r[i]["sent"][0] < r[0]["sent"][0] for r in ranks), w
+    assert bool(one["overflow"][0]) == (capacity is not None)
+
+
+EXCHANGE_CORPUS = ["terasort", "group_by_sort_path", "hash_partition", "range_partition",
+                   "distinct", "rank_ops", "zip", "join_inner_shuffle", "do_while"]
+
+
+def test_corpus_at_window_one_on_two_ranks_equals_one_process(one_corpus):
+    """The op corpus's exchanging queries at ``exchange_window=1`` over 2
+    ranks: every exchange staged in rounds of one bucket, each partition's
+    rows and capacity byte-equal to one process's flat exchanges at
+    P = 4."""
+    ranks = G.run_ranks(2, "corpus_case", P, EXCHANGE_CORPUS, 1)
+    for name in EXCHANGE_CORPUS:
+        outs = ranks[0][0][name]
+        for j, (cap, parts) in enumerate(one_corpus[0][name]):
+            assert outs[j][0] == ranks[1][0][name][j][0] == cap, name
+            _same_partitions(name, outs[j][1] + ranks[1][0][name][j][1], parts)
+
+
+def test_auto_window_on_two_ranks_equals_one_process(one_corpus):
+    """``exchange_window=-1`` over 2 ranks: the ranks agree on one window
+    (the narrowest any resolved), so every exchange runs one schedule
+    and the rows equal one process's."""
+    names = EXCHANGE_CORPUS[:3]
+    ranks = G.run_ranks(2, "corpus_case", P, names, -1)
+    for name in names:
+        for j, (cap, parts) in enumerate(one_corpus[0][name]):
+            assert ranks[0][0][name][j][0] == cap, name
+            _same_partitions(name, ranks[0][0][name][j][1] + ranks[1][0][name][j][1], parts)
 
 
 def test_corpus_reaches_every_op_kind(gang_corpus, one_corpus):

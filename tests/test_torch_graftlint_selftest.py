@@ -449,6 +449,6 @@ def test_pending_kinds_of_the_port_are_exactly_its_unemitted_kinds():
     stale = {"event-schema": set(), "trace-context": set()}
     for f in rep.unsuppressed():
         stale[f.rule].add(re.search(r"'(\w+)'", f.message).group(1))
-    assert stale["event-schema"] == set(PENDING_KINDS)
-    assert stale["trace-context"] == set(QUERY_SCOPED_KINDS) & set(PENDING_KINDS) == {
-        "exchange_round"}
+    assert stale["event-schema"] == set(PENDING_KINDS) == {"xla_compile"}
+    # exchange_round, the last query-scoped pending kind, is emitted now
+    assert stale["trace-context"] == set(QUERY_SCOPED_KINDS) & set(PENDING_KINDS) == set()

@@ -9,11 +9,11 @@ Two kinds of jobview case:
   jobview the reference's.  The texts are equal once the clocks are
   masked (seconds, shares, MB readings, the qid and the sampler's
   sample count) and stage ids are renumbered in order of first
-  appearance.  Two kinds of the reference's log are left out before it
-  is rendered, because the port cannot emit them: ``xla_compile`` (the
-  port has no compile step) and ``exchange_round`` (the staged exchange
-  planner, ROADMAP queue 1 item 11); diagnoses of the wall-clock rules
-  are left out of both.
+  appearance.  One kind of the reference's log is left out before it
+  is rendered, because the port cannot emit it: ``xla_compile`` (the
+  port has no compile step); ``exchange_round`` is emitted by both
+  packages and compared.  Diagnoses of the wall-clock rules are left
+  out of both.
 - *Same synthetic events, both renderers.*  The event lists of the
   reference's own tests go through both packages' renderers, which
   must give byte-equal output.
@@ -58,9 +58,8 @@ def clear_port_faults():
 
 # -- same job, each package's log ------------------------------------------------
 
-# kinds only the reference emits: its XLA compiles and its staged
-# exchange planner (ROADMAP queue 1 item 11)
-REF_ONLY = {"xla_compile", "exchange_round"}
+# kinds only the reference emits: its XLA compiles
+REF_ONLY = {"xla_compile"}
 CLOCK_RULES = {"straggler", "stall_dominance", "recompile_storm"}
 
 

@@ -116,12 +116,69 @@ def collectives_apply(PART, t, mesh, P):
         "any": PART.any_(t["b"], mesh),
         "prefix": prefix,
         "total": total,
+        # a cyclic shift by 3 partitions; partition 1 receives nothing
+        "ppermute": PART.ppermute(t["send"], [(s, (s + 3) % P) for s in range(P)
+                                              if (s + 3) % P != 1], mesh),
         "first_valid": torch.tensor([
             -1 if v is None else int(v)
             for v in (PART.first_valid(t["n"], t["n"] > th, mesh) for th in (10, 40, 99))
         ]),
     }
     return {k: v.numpy().copy() for k, v in out.items()}
+
+
+# -- the staged exchange over a group -------------------------------------------------
+
+def staged_inputs(P, seed, cap=48):
+    """A seeded ``(P, cap)`` batch (an int32 key, an f32 value, a uint32
+    word on its int64 carrier, a bool) with a skewed destination."""
+    rng = np.random.default_rng(seed)
+    k = rng.integers(0, 97, (P, cap)).astype(np.int32)
+    k[rng.random((P, cap)) < 0.3] = 5  # one hot destination
+    return {
+        "k": k,
+        "v": rng.standard_normal((P, cap)).astype(np.float32),
+        "w": rng.integers(0, 2**32, (P, cap)).astype(np.int64),
+        "b": rng.random((P, cap)) < 0.5,
+        "valid": rng.random((P, cap)) < 0.85,
+    }
+
+
+def staged_apply(t, P, window, capacity, mesh, slack=1.5):
+    """``exchange`` (window 0) or ``exchange_staged`` of ``t``'s rows,
+    bound for ``k * 7 % P``; numpy columns, the valid mask, the overflow
+    flag and the bytes the rank handed to the group."""
+    import torch
+
+    from dryad_tpu_torch.columnar.batch import ColumnBatch
+    from dryad_tpu_torch.ops import shuffle as SH
+    from dryad_tpu_torch.plan.xchgplan import plan_exchange
+
+    b = ColumnBatch({c: torch.from_numpy(np.ascontiguousarray(t[c])) for c in ("k", "v", "w", "b")},
+                    torch.from_numpy(np.ascontiguousarray(t["valid"])))
+    dest = (b.data["k"].to(torch.int64) * 7) % P
+    B = SH.bucket_capacity(b.capacity, P, slack)
+    sent = 0 if mesh is None else mesh.sent_bytes
+    if window:
+        out, ovf = SH.exchange_staged(b, dest, P, B, plan_exchange(P, window), capacity, mesh)
+    else:
+        out, ovf = SH.exchange(b, dest, P, B, capacity, mesh)
+    res = {c: v.numpy() for c, v in out.data.items()}
+    res["valid"] = out.valid.numpy()
+    res["overflow"] = np.array([bool(ovf)])
+    res["sent"] = np.array([0 if mesh is None else mesh.sent_bytes - sent])
+    return res
+
+
+def staged_case(rank, world, P, seed, windows, capacity):
+    """This rank's part of :func:`staged_apply` over a P-partition gang,
+    at each of ``windows``."""
+    from dryad_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(P, "cpu")
+    rows = slice(mesh.base, mesh.base + mesh.local)
+    t = {c: v[rows] for c, v in staged_inputs(P, seed).items()}
+    return [staged_apply(t, P, w, capacity, mesh) for w in windows]
 
 
 # -- the op corpus --------------------------------------------------------------------
@@ -299,12 +356,14 @@ def run_corpus(ctx, names):
     return out, reached
 
 
-def corpus_case(rank, world, P, names):
-    """One rank's part of the op corpus over a P-partition gang."""
-    from dryad_tpu_torch import DryadContext
+def corpus_case(rank, world, P, names, window=0):
+    """One rank's part of the op corpus over a P-partition gang, its
+    exchanges staged at ``window`` (0: flat)."""
+    from dryad_tpu_torch import DryadConfig, DryadContext
     from dryad_tpu_torch.parallel.mesh import make_mesh
 
-    return run_corpus(DryadContext(mesh=make_mesh(P, "cpu")), names)
+    cfg = DryadConfig(exchange_window=window)
+    return run_corpus(DryadContext(mesh=make_mesh(P, "cpu"), config=cfg), names)
 
 
 def diverge_case(rank, world, P):
