@@ -12,7 +12,12 @@ holds the kernels against their plain PyTorch versions on the
 card, drives through the port's entry points WordCount at full size,
 the dense integer group_by, TeraSort (2^28 rows, and 2^26 rows with a
 hot key), the sort-path group_by with distinct and range_partition
-(2^26 rows), the hybrid DCN x ICI mesh (``DryadContext(dcn_slices=2)``,
+(2^26 rows), the stage programs (every unit of every phase runs as one
+CUDA graph captured once a lowering key; the ``programs`` phase holds
+the group_by, WordCount and a serve tenant's count+mean to one
+``xla_compile`` a region, byte-equal warm replays, 10 graph/eager
+pairs, the bytes the graphs hold, and a host read inside a capture
+raising ``TypeError``), the hybrid DCN x ICI mesh (``DryadContext(dcn_slices=2)``,
 2 slices of 4: WordCount and the sort-path group_by through the tree
 exchange beside the flat context, TeraSort of 2^28 rows at staged
 exchange windows 0, 1, 2 and 4 and at the auto window), the same group_by on the fused sort path
@@ -49,7 +54,7 @@ partials, clean and after seeded kills of 2 workers; seeded stage chaos
 in one context), the gang (one plan as one program across 2 worker
 processes sharing the card, 4 partitions each, their collectives over
 gloo, through ``LocalJobSubmission.submit``: the dense group_by at 2^26
-rows, TeraSort of 2^26 rows (flat and staged one bucket a round) and WordCount of the cluster's corpus, each
+rows, TeraSort of 2^25 rows (flat and staged one bucket a round) and WordCount of 2^24 words, each
 held to one process at P = 8; ``submit_many`` through the dispatch
 window; a worker killed mid-job and the gang rebuilt on 1 worker; then
 the dense group_by over a one-rank NCCL group, and NCCL's answer to two
@@ -79,10 +84,12 @@ each twice, in the order -1, 2, 2, -1), checks every result against a numpy orac
 Any failed check raises, so the script exits non-zero and prints no
 result line.  Without a CUDA device it exits non-zero at once.
 ``--phases`` runs a subset (lint, env, kernel, wordcount, dense, terasort,
-terasort_hot, groupby_sort, hybrid, groupby_sort_fused, join_shuffle,
-join_broadcast, pagerank, devloop, decomposable, ordered_ops, cpu_parity,
-stores, stream, serve, cluster, gang, rewrite, fleet, obs), for short first
-runs of a changed kernel.  The WordCount, TeraSort, sort-path group_by, join,
+terasort_hot, groupby_sort, programs, hybrid, groupby_sort_fused,
+join_shuffle, join_broadcast, pagerank, devloop, decomposable, ordered_ops,
+cpu_parity, stores, stream, serve, cluster, gang, rewrite, fleet, obs), for
+short first runs of a changed kernel; ``terasort_capacity`` (the largest
+TeraSort that fits with the stage programs as graphs and as eager
+functions) runs only when named.  The WordCount, TeraSort, sort-path group_by, join,
 PageRank, decomposable and ordered phases also profile one warm query
 with torch.profiler and print device time by op, the device's busy
 share of the warm query, and peak memory.
@@ -99,6 +106,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -204,6 +212,19 @@ def free_card() -> None:
     over its queries) until the collector runs."""
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def card_peak() -> int:
+    """What the work held on the card at most since the peak statistics
+    were last reset: the allocated peak (the stage programs' input and
+    table buffers among it) plus the bytes of the process's graph pool,
+    where a replay's working set lies.  A replay allocates nothing, so
+    the allocated peak alone misses that working set; the reserved peak
+    would count the allocator's cache of earlier work too."""
+    from dryad_tpu_torch.exec.programs import pool_bytes
+
+    return torch.cuda.max_memory_allocated() + pool_bytes(
+        torch.device("cuda", torch.cuda.current_device()))
 
 
 def check(cond: bool, what: str) -> None:
@@ -622,6 +643,8 @@ def phase_wordcount(dev, card: str) -> dict:
     check(top["n"].tolist() == top_counts, "top-20 counts differ from the oracle")
     check(all(oracle[w] == c for w, c in zip(top["word"], top["n"])), "a top-20 word has a wrong count")
     _FLAT["wordcount"] = (table, warm_s)  # the hybrid phase's flat twin
+    if _PG.get("keep"):  # the programs phase reuses the tokenized corpus
+        _PG["wordcount"] = (ctx, q, oracle)
     res = {
         "words": WC_WORDS, "vocab": len(oracle), "tokenize_and_register_s": tokenize_s,
         "first_query_s": cold_s, "warm_query_s": warm_s, "warm_rows_per_s": WC_WORDS / warm_s,
@@ -729,7 +752,7 @@ def timed_runs(ctx, q, label: str, card: str, rows: int):
     t0 = time.perf_counter()
     out = q.collect()
     warm_s = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
+    peak, peak_alloc = card_peak(), torch.cuda.max_memory_allocated()
     check(overflow_retries(ctx) == 0, f"{label}: a warm run retried an overflow")
     first = digest(out)
     del out
@@ -745,12 +768,14 @@ def timed_runs(ctx, q, label: str, card: str, rows: int):
     prof = profile_query(q, os.path.join(WORK_DIR, f"profile_{label}.txt"))
     res = {"rows": rows, "cold_s": cold_s, "warm_s": warm_s, "warm2_s": warm2_s,
            "warm_result_held_s": held_s, "rows_per_s": rows / warm_s, "peak_bytes": peak,
+           "peak_allocated_bytes": peak_alloc,
            "resident_bytes": base, "profile": prof, "card": card,
            "bucket_sum_count_launches": launches}
     log(f"{label} [{card}]: {rows} rows, first query (ingest to device + run) {cold_s:.3f} s, "
         f"warm {warm_s:.4f} s and {warm2_s:.4f} s = {rows / warm_s:.4g} rows/s, "
         f"{held_s:.4f} s with the previous result held (all byte-equal), "
-        f"peak device memory {peak / 1e9:.2f} GB ({base / 1e9:.2f} GB resident before), "
+        f"peak device memory (allocated + graph pool) {peak / 1e9:.2f} GB, allocated {peak_alloc / 1e9:.2f} GB "
+        f"({base / 1e9:.2f} GB resident before), "
         f"0 overflow retries, bucket kernel launches {launches}")
     print_profile(label, card, prof, warm_s)
     return res, out
@@ -789,14 +814,102 @@ def phase_terasort(dev, card: str, rows: int, hot: bool) -> dict:
     if hot:
         key[rng.random(rows) < 0.9] = 12345
     pay = rng.random(rows, dtype=np.float32)
+    oracle = {}
+    sorter = threading.Thread(target=lambda: oracle.update(v=terasort_oracle(key, pay)))
+    sorter.start()  # the numpy oracle sorts while the card works
     ctx = DryadContext(num_partitions_=P)
     q = ctx.from_arrays({"key": key, "payload": pay}).order_by([("key", False)])
     res, out = timed_runs(ctx, q, label, card, rows)
-    check_terasort(out, key, pay, label)
+    sorter.join()
+    check_terasort(out, key, pay, label, oracle=oracle["v"])
     log(f"{label}: output keys equal np.sort, (key, payload) pairs equal the input's")
     del ctx, q, out
     free_card()
     return res
+
+
+# TeraSort sizes the capacity phase tries, with the programs as graphs and as eager functions
+TC_ROWS = (1 << 28, 3 << 27, 1 << 29)
+
+
+def _out_of_memory(e: BaseException) -> bool:
+    return isinstance(e, torch.cuda.OutOfMemoryError) or "out of device memory" in str(e)
+
+
+def phase_terasort_capacity(dev, card: str) -> dict:
+    """The largest TeraSort that fits on the card with the stage
+    programs as CUDA graphs and as eager functions (the executor's
+    ``programs.graphs``; not in the default run: ``--phases
+    env,terasort_capacity``).  Each of TC_ROWS runs in a fresh child
+    process (:func:`terasort_capacity_child`), so no earlier size's
+    cached or fragmented memory counts against it; a mode stops at its
+    first size that runs out of device memory."""
+    res = {"card": card, "rows": list(TC_ROWS)}
+    for mode in ("eager", "graphs"):
+        res[mode] = {}
+        for rows in TC_ROWS:
+            out_path = os.path.join(WORK_DIR, f"capacity_{mode}_{rows}.json")
+            os.makedirs(WORK_DIR, exist_ok=True)
+            rc, _out, err = _finish_child(
+                _start_child(["--terasort-capacity", mode, str(rows), out_path]), 600)
+            check(rc == 0 and os.path.exists(out_path),
+                  f"terasort_capacity {mode} {rows}: the child exited {rc}: {err[-2000:]}")
+            with open(out_path) as fh:
+                cell = res[mode][rows] = json.load(fh)
+            os.remove(out_path)
+            fits = "out_of_memory" not in cell
+            log(f"terasort_capacity [{card}] {mode} {rows} rows: "
+                + (f"fits, warm {cell['warm_s']:.4f} s" if fits else
+                   f"out of device memory ({cell['out_of_memory'][:160]})")
+                + f"; peak device memory (allocated + graph pool) {cell['peak_bytes'] / 1e9:.3f} GB, allocated "
+                  f"{cell['peak_allocated_bytes'] / 1e9:.3f} GB, reserved "
+                  f"{cell['peak_reserved_bytes'] / 1e9:.3f} GB, the programs and the graph pool "
+                  f"{cell['programs_bytes'] / 1e9:.3f} GB")
+            if not fits:
+                break
+        ok = [r for r, c in res[mode].items() if "out_of_memory" not in c]
+        res[mode + "_largest_rows"] = max(ok) if ok else 0
+    log(f"terasort_capacity [{card}]: the largest TeraSort that fits of {list(TC_ROWS)} rows, each "
+        f"in a fresh process: eager {res['eager_largest_rows']}, graphs {res['graphs_largest_rows']}")
+    return res
+
+
+def terasort_capacity_child(mode: str, rows: int, out_path: str) -> int:
+    """Child: TeraSort of ``rows`` seeded rows (the first ``rows`` of
+    one 2^29-row draw) on a fresh context with the programs as graphs
+    or eager; the first collect ingests (and captures), the second is
+    timed and its keys checked sorted.  Writes to ``out_path`` the warm
+    seconds or the out-of-memory error, the reserved and allocated
+    peaks, and the bytes the programs and the graph pool hold."""
+    from dryad_tpu_torch import DryadContext
+    from dryad_tpu_torch.exec.programs import pool_bytes
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(SEED + 4)
+    key = rng.integers(-2**31, 2**31, max(TC_ROWS), dtype=np.int32)[:rows]
+    pay = rng.random(max(TC_ROWS), dtype=np.float32)[:rows]
+    ctx = DryadContext(num_partitions_=P)
+    ctx.executor.programs.graphs = mode == "graphs"
+    q = ctx.from_arrays({"key": key, "payload": pay}).order_by([("key", False)])
+    cell = {"mode": mode, "rows": rows, "total_bytes": torch.cuda.mem_get_info(dev)[1]}
+    try:
+        q.collect()  # ingest, and the capture with the graphs on
+        t0 = time.perf_counter()
+        out = q.collect()
+        cell["warm_s"] = time.perf_counter() - t0
+        check(len(out["key"]) == rows and bool((np.diff(out["key"]) >= 0).all()),
+              f"terasort_capacity {mode} {rows}: keys not sorted")
+    except (torch.cuda.OutOfMemoryError, RuntimeError) as e:
+        if not _out_of_memory(e):
+            raise
+        cell["out_of_memory"] = str(e)[:1000]
+    cell["peak_bytes"] = card_peak()
+    cell["peak_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    cell["peak_reserved_bytes"] = torch.cuda.max_memory_reserved()
+    cell["programs_bytes"] = ctx.executor.programs.held_bytes() + pool_bytes(dev)
+    with open(out_path, "w") as fh:
+        json.dump(cell, fh)
+    return 0
 
 
 def groupby_table(rng, rows: int, nkeys: int) -> dict:
@@ -910,6 +1023,203 @@ def phase_groupby_sort(dev, card: str) -> dict:
     return res
 
 
+# -- stage programs: each region one CUDA graph, captured once a key ------------
+
+PG_SERVE_ROWS = 1 << 19  # one serve tenant's table (the serve phase's cap=2^19 shape)
+PG_PAIRS = 10  # warm graph / eager pairs, alternating
+_PG: dict = {}  # the wordcount phase's tokenized corpus, for the programs phase
+
+
+def program_cell(ctx, q, label: str, card: str, check_out) -> dict:
+    """One query through its stage programs (``exec/programs.py``): the
+    first collect captures one CUDA graph a region and logs one
+    ``xla_compile`` a region (its capture seconds printed); then
+    PG_PAIRS pairs of warm collects with the executor's programs as
+    graphs and as eager functions (``executor.programs.graphs``), in
+    alternating order: every graph collect logs no compile, every
+    collect is byte-equal to the first; the medians; the last pair's
+    peak device memory (allocated and reserved, from the run's start);
+    the bytes the programs hold and their pools'."""
+    import statistics
+
+    from dryad_tpu_torch.exec.programs import pool_bytes
+
+    progs = ctx.executor.programs
+    check(progs.graphs, f"{label}: the context's programs are not CUDA graphs")
+    log_ = ctx.events
+    mark = len(log_.events())
+    cached = len(progs)  # a context that ran before may still hold some
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first = q.collect()
+    cold_s = time.perf_counter() - t0
+    new = log_.events()[mark:]
+    comp = [e for e in new if e["kind"] == "xla_compile"]
+    units = [e["name"] for e in new if e["kind"] == "stage_start"]
+    stages = [e["stage"] for e in comp]
+    # one compile a program built: every region on a fresh context, the
+    # released ones on a context that ran before
+    check(len(comp) == len(progs) - cached and all(st in units for st in stages)
+          and (cached or stages == units),
+          f"{label}: xla_compile {stages} for the regions {units} ({cached} programs cached before)")
+    check_out(first)
+    ref = digest(first)
+    del first
+    times, peaks = {True: [], False: []}, {}
+    for i in range(PG_PAIRS):
+        for graph in ((True, False) if i % 2 == 0 else (False, True)):
+            progs.graphs = graph
+            mark = len(log_.events())
+            torch.cuda.synchronize()
+            if i == PG_PAIRS - 1:
+                torch.cuda.reset_peak_memory_stats()
+                base = (torch.cuda.memory_allocated(), torch.cuda.memory_reserved())
+            t0 = time.perf_counter()
+            out = q.collect()
+            times[graph].append(time.perf_counter() - t0)
+            if i == PG_PAIRS - 1:
+                peaks[graph] = (torch.cuda.max_memory_allocated() - base[0],
+                                torch.cuda.max_memory_reserved() - base[1])
+            check(digest(out) == ref, f"{label}: a {'graph' if graph else 'eager'} collect differs "
+                  "from the first")
+            del out
+            if graph:
+                again = [e for e in log_.events()[mark:] if e["kind"] == "xla_compile"]
+                check(not again, f"{label}: a warm collect compiled {[e['stage'] for e in again]}")
+    progs.graphs = True
+    graphs = [p for p in progs._progs.values() if p.graph_mode]
+    # what a dispatch pays to copy its inputs into the graphs' buffers:
+    # the same copies, timed on the card (CUDA events, mean of 5)
+    bufs = [t for p in graphs for b in p._in for t in (*b.data.values(), b.valid)]
+    srcs = [t.clone() for t in bufs]
+    copy_ms = cuda_time_ms(lambda: [d.copy_(s_) for d, s_ in zip(bufs, srcs)], 5)
+    del srcs
+    res = {
+        "input_bytes": sum(t.numel() * t.element_size() for t in bufs), "input_copy_ms": copy_ms,
+        "regions": units, "capture_s": [e["compile_s"] for e in comp],
+        "build_s": [e["trace_s"] for e in comp], "first_query_s": cold_s,
+        "graph_warm_s": times[True], "eager_warm_s": times[False],
+        "graph_median_s": statistics.median(times[True]),
+        "eager_median_s": statistics.median(times[False]),
+        "held_bytes": sum(p.held_bytes for p in graphs),
+        "pool_bytes": sum(p.pool_bytes for p in graphs),
+        "process_pool_bytes": pool_bytes(ctx.device), "evictions": progs.evictions,
+        "graph_peak_allocated": peaks[True][0], "graph_peak_reserved": peaks[True][1],
+        "eager_peak_allocated": peaks[False][0], "eager_peak_reserved": peaks[False][1],
+        "bucket_launches_a_replay": [p._launches for p in graphs],
+    }
+    res["graph_over_eager"] = res["graph_median_s"] / res["eager_median_s"]
+    log(f"programs {label} [{card}]: first collect {cold_s:.3f} s with {len(comp)} capture(s) "
+        f"{[round(x, 4) for x in res['capture_s']]} s (build {[round(x, 5) for x in res['build_s']]} s) "
+        f"for the regions {units}; warm median graph {res['graph_median_s']:.4f} s against eager "
+        f"{res['eager_median_s']:.4f} s ({res['graph_over_eager']:.3f}x) in {PG_PAIRS} pairs (of "
+        f"it the input copy, {res['input_bytes'] / 1e9:.3f} GB, {copy_ms:.3f} ms), "
+        f"every collect byte-equal, no compile when warm; its programs' buffers hold "
+        f"{res['held_bytes'] / 1e9:.3f} GB, their captures grew the shared pool by "
+        f"{res['pool_bytes'] / 1e9:.3f} GB (the process's pool {res['process_pool_bytes'] / 1e9:.3f} "
+        f"GB), {res['evictions']} evictions; a warm run's peak above its start: graph "
+        f"{peaks[True][0] / 1e9:.3f} GB allocated / {peaks[True][1] / 1e9:.3f} GB reserved, eager "
+        f"{peaks[False][0] / 1e9:.3f} / {peaks[False][1] / 1e9:.3f} GB")
+    return res
+
+
+def phase_programs(dev, card: str) -> dict:
+    """Stage programs on the card: the sort-path group_by (2^26 rows,
+    2^22 keys), WordCount of the wordcount phase's 2^26 words and one
+    serve tenant's count+mean over PG_SERVE_ROWS rows, each through
+    :func:`program_cell`; the bucket kernel's launches counted through
+    the replays."""
+    from dryad_tpu_torch import DryadContext
+    from dryad_tpu_torch.ops.bucket import bucket_sum_count
+
+    free_card()
+    t_phase = time.perf_counter()
+    res = {"card": card, "pairs": PG_PAIRS}
+    bucket_sum_count.launches = 0  # the programs path starts here
+    # a TeraSort dispatch's input copy: the 2^28-row table's columns
+    # (int32 key, f32 payload, bool mask), device to device
+    cols = [torch.empty(TS_ROWS, dtype=d, device=dev) for d in (torch.int32, torch.float32, torch.bool)]
+    dst = [torch.empty_like(c) for c in cols]
+    res["terasort_input_copy_ms"] = cuda_time_ms(lambda: [d.copy_(c) for d, c in zip(dst, cols)], 5)
+    log(f"programs [{card}]: a {TS_ROWS}-row TeraSort table's input copy "
+        f"({sum(c.numel() * c.element_size() for c in cols) / 1e9:.3f} GB) takes "
+        f"{res['terasort_input_copy_ms']:.3f} ms a dispatch")
+    del cols, dst
+    t, oracle = groupby_inputs()
+    ctx = DryadContext(num_partitions_=P)
+    q = ctx.from_arrays(t).group_by("key", GB_AGGS)
+    res["groupby_sort"] = program_cell(ctx, q, "groupby_sort", card,
+                                       lambda out: check_groupby(out, oracle, "programs group_by"))
+    del ctx, q
+    free_card()
+
+    if "wordcount" in _PG:
+        ctx, q, wc_oracle = _PG.pop("wordcount")
+        # the wordcount phase's context sat idle since: its programs are
+        # nobody's running job's, so a capture that took the process
+        # past its byte budget (TeraSort's) released them
+        idle = ctx.executor.programs
+        kept = sum(p.graph is not None for p in idle._progs.values())
+        res["idle_wordcount"] = {"evictions": idle.evictions, "graphs_kept": kept}
+        log(f"programs [{card}]: the wordcount phase's context, idle since, lost {idle.evictions} "
+            f"programs to the byte budget and keeps {kept} graphs")
+        if "terasort" in _PG.get("ran", ()):
+            check(idle.evictions > 0 and kept == 0,
+                  f"the idle wordcount context kept {kept} graphs through TeraSort's captures "
+                  f"({idle.evictions} evicted)")
+    else:  # the wordcount phase did not run: its corpus here
+        path = os.path.join(WORK_DIR, "programs_words.txt")
+        os.makedirs(WORK_DIR, exist_ok=True)
+        wc_oracle = _wordcount_text(path)
+        ctx = DryadContext(num_partitions_=P)
+        q = ctx.from_text(path).group_by("word", {"n": ("count", None)})
+        os.remove(path)
+
+    def wc_check(out):
+        check(dict(zip(out["word"].tolist(), out["n"].tolist())) == wc_oracle,
+              "programs WordCount differs from the numpy oracle")
+
+    before = bucket_sum_count.launches
+    res["wordcount"] = program_cell(ctx, q, "wordcount", card, wc_check)
+    n = res["wordcount"]["launches"] = bucket_sum_count.launches - before
+    check(n == 1 + 2 * PG_PAIRS,
+          f"programs WordCount: {n} bucket kernel launches for {1 + 2 * PG_PAIRS} collects")
+    del ctx, q
+    free_card()
+
+    vocab, ids, data = serve_tables(np.random.default_rng(SEED + 11), rows=PG_SERVE_ROWS)[0]
+    ctx = DryadContext(num_partitions_=P)
+    q = ctx.from_arrays(data).group_by("k", {"c": ("count", None), "m": ("mean", "w")})
+    res["serve"] = program_cell(ctx, q, "serve count+mean", card,
+                                lambda out: serve_oracle(1, out, vocab, ids, data))
+    del ctx, q
+    free_card()
+    # a read to the host inside a captured region raises TypeError
+    # naming the unit, as the reference's trace does
+    ctx = DryadContext(num_partitions_=P)
+    bad = ctx.from_arrays({"x": np.arange(1 << 12, dtype=np.int32)}).select(_pg_host_read)
+    try:
+        bad.collect()
+        raised = None
+    except TypeError as e:
+        raised = str(e)
+    check(raised is not None and "select" in raised,
+          f"a host read inside a capture gave {raised!r}, not a TypeError naming the unit")
+    res["host_read_error"] = raised
+    log(f"programs [{card}]: a host read inside a capture raised TypeError: {raised[:160]}")
+    del ctx, bad
+    free_card()
+    res["launches"] = bucket_sum_count.launches  # the programs path ends here
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"programs phase [{card}]: {res['phase_s']:.1f} s")
+    return res
+
+
+def _pg_host_read(c):
+    """A select that reads a device value on the host."""
+    return {"x": c["x"] + int(c["x"].max())}
+
+
 # -- the hybrid DCN x ICI mesh and the staged exchange -------------------------
 
 HY_DCN = 2  # slices of the hybrid context: 2 x 4 partitions
@@ -971,6 +1281,7 @@ def phase_hybrid(dev, card: str) -> dict:
     budgets of 256, 4096 and 16384 MiB: the window each resolves to."""
     from dryad_tpu_torch import DryadConfig, DryadContext
     from dryad_tpu_torch.ops.bucket import bucket_sum_count
+    from dryad_tpu_torch.exec.programs import pool_bytes
     from dryad_tpu_torch.plan.xchgplan import resolve_window
 
     free_card()
@@ -992,7 +1303,7 @@ def phase_hybrid(dev, card: str) -> dict:
         _FLAT["wordcount"] = (fq.collect(), time.perf_counter() - t0)
         del fq
         free_card()
-    flat_wc, flat_warm_s = _FLAT.pop("wordcount")
+    flat_wc, flat_warm_s = _FLAT["wordcount"]  # kept: the stream phase's in-core twin too
     hctx = ctx_of(True)
     check(hctx.mesh.hybrid and (hctx.mesh.dcn, hctx.mesh.ici) == (HY_DCN, P // HY_DCN),
           f"the hybrid context's mesh is {hctx.mesh}")
@@ -1088,7 +1399,11 @@ def phase_hybrid(dev, card: str) -> dict:
             t0 = time.perf_counter()
             out = q.collect()
             secs = time.perf_counter() - t0
-            peak = torch.cuda.max_memory_allocated()
+            # a graph's replay allocates none of its intermediates: they
+            # live in its pool, which card_peak and the programs' held
+            # bytes show
+            peak, peak_alloc = card_peak(), torch.cuda.max_memory_allocated()
+            held = ctx.executor.programs.held_bytes() + pool_bytes(ctx.device)
             rb = _round_bytes(_exchange_rounds(ctx, mark))
             check(overflow_retries(ctx) == 0, f"TeraSort {label} retried an overflow")
             check(rb["windows"] == [w], f"TeraSort {label}: events at windows {rb['windows']}")
@@ -1102,9 +1417,15 @@ def phase_hybrid(dev, card: str) -> dict:
                     check(rb["peak_bytes"] * P == base_rb["peak_bytes"] * w,
                           f"TeraSort {label}: peak staged bytes {rb['peak_bytes']} x P != flat "
                           f"{base_rb['peak_bytes']} x {w}")
-            res["terasort"][label] = {"warm_s": secs, "peak_bytes": peak, **rb}
+            res["terasort"][label] = {"warm_s": secs, "peak_bytes": peak,
+                                      "peak_allocated_bytes": peak_alloc, "programs_held_bytes": held,
+                                      "program_evictions": ctx.executor.programs.evictions, **rb}
             log(f"hybrid terasort [{card}] {label}: {TS_ROWS} rows byte-equal to window 0, warm "
-                f"{secs:.4f} s, peak device memory {peak / 1e9:.3f} GB, exchange_round {rb}")
+                f"{secs:.4f} s, peak device memory (allocated + graph pool) {peak / 1e9:.3f} GB "
+                f"({peak_alloc / 1e9:.3f} GB allocated), the context's programs and the process's "
+                f"graph pool holding {held / 1e9:.3f} GB ({ctx.executor.programs.evictions} "
+                f"evicted), "
+                f"exchange_round {rb}")
             del out
         if not hybrid:  # (d) the auto window over the same table
             res["auto_window"] = {}
@@ -1661,15 +1982,23 @@ def phase_devloop(dev, card: str) -> dict:
     check(d2h_fast == d2h_dev, f"devloop: {d2h_dev} device-to-host copies at {iters} rounds, "
           f"{d2h_fast} at {fast_iters}: they grow with the rounds")
     check(d2h_drv > d2h_dev, f"devloop: the driver loop made {d2h_drv} copies, the device loop {d2h_dev}")
-    # a body that reads a device value on the host falls back (the sync check)
+    # a body that reads a device value on the host raises TypeError at
+    # the loop's check (the sync check), naming the body's stage: the
+    # driver loop's stage programs would refuse the same read in their
+    # capture, as the reference's traced loops raise (ROADMAP section 3)
     small = {c: v[:4096] for c, v in t.items()}
     hctx = DryadContext(num_partitions_=P)
-    hout = hctx.from_arrays(small).do_while(lambda q: q.select(_dl_host_row, schema=q.schema),
-                                            _dl_cond, max_iter=3).collect()
+    try:
+        hctx.from_arrays(small).do_while(lambda q: q.select(_dl_host_row, schema=q.schema),
+                                         _dl_cond, max_iter=3).collect()
+        raised = None
+    except TypeError as e:
+        raised = str(e)
     hk = [k for k, _n, _v in hctx.executor.events if k.startswith("do_while")]
-    check(hk[:2] == ["do_while_device_start", "do_while_device_fallback"] and "do_while_iter" in hk,
-          f"devloop: a host-reading body gave {hk}, expected start, fallback, driver rounds")
-    check(len(hout["x"]) == 4096, "devloop: the host-reading body lost rows")
+    check(hk == ["do_while_device_start"],
+          f"devloop: a host-reading body gave {hk}, expected the start and no driver loop")
+    check(raised is not None and "select" in raised,
+          f"devloop: a host-reading body gave {raised!r}, not a TypeError naming its stage")
     res = {
         "rows": DL_ROWS, "rounds": iters, "first_run_s": first_s, "capture_s": prog.capture_s,
         "pool_bytes": prog.pool_bytes, "device_loop_warm_median_s": dev_med,
@@ -1689,7 +2018,7 @@ def phase_devloop(dev, card: str) -> dict:
         f"({pd['busy_share']:.3f}), {pr['device_busy_s']:.4f} s of {pr['wall_s']:.4f} s for the driver "
         f"loop ({pr['busy_share']:.3f})")
     log(f"devloop [{card}]: device-to-host copies a run: device loop {d2h_dev} at {iters} rounds and "
-        f"{d2h_fast} at {fast_iters}; driver loop {d2h_drv}; a host-reading body fell back")
+        f"{d2h_fast} at {fast_iters}; driver loop {d2h_drv}; a host-reading body raised TypeError")
     log(f"devloop [{card}]: loop-control kernel launches {launches} (one a round), error 0 against "
         f"its plain twin; one launch {lc['kernel_ms'] * 1e3:.2f} us, plain {lc['plain_ms'] * 1e3:.2f} us, "
         f"bound {lc['bound_ms'] * 1e3:.5f} us ({lc['bytes']} bytes): launch-bound")
@@ -2239,9 +2568,9 @@ def phase_cpu_parity(dev, card: str) -> dict:
 # -- phase 14: stores, submit, the event log and the samples ------------------
 
 ST_ROWS = 1 << 26  # TeraSort through stores: 512 MiB of int32 keys and f32 payloads (2^28 to PR 5, 2^27 to PR 9)
-ST_ZLIB_ROWS = 1 << 25  # the compressed store (zlib's host time; cut from 2^26; PERF.md section 4)
+ST_ZLIB_ROWS = 1 << 24  # the compressed store (zlib's host time; cut from 2^26, then 2^25; PERF.md section 4)
 ST_WC_FILES = 8
-ST_WC_WORDS = 1 << 24  # the stores' WordCount corpus (cut from 2^26, then 2^25; PERF.md section 4)
+ST_WC_WORDS = 1 << 23  # the stores' WordCount corpus (cut from 2^26, 2^25, then 2^24; PERF.md section 4)
 # Disk peaks while the sorted TeraSort store is written beside its input
 # (2 x 1 GiB); both go once checked.  The later files (the 0.47 GiB zlib
 # store, the 0.5 GiB corpus, its 8 pieces of 0.5 GiB in all, the 1 GiB
@@ -2477,9 +2806,9 @@ def phase_stores(dev, card: str) -> dict:
             + "; each printed its expected string")
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    res["peak_bytes"] = torch.cuda.max_memory_allocated()
+    res["peak_bytes"] = card_peak()
     res["phase_s"] = time.perf_counter() - t_phase
-    log(f"stores phase [{card}]: peak device memory {res['peak_bytes'] / 1e9:.2f} GB, "
+    log(f"stores phase [{card}]: peak device memory (allocated + graph pool) {res['peak_bytes'] / 1e9:.2f} GB, "
         f"{res['phase_s']:.1f} s")
     return res
 
@@ -2563,27 +2892,58 @@ class LaunchRecorder:
     of the executor's bucket kernel (``exec/kernels.py``) at each shape
     (value-column count, K, cap): in a streaming WordCount, the chunk
     partials' count-only launches and the combine tree's merges and root
-    of one int32 count column.  The kernel's launch counter is left as it is;
-    the context runs one job at a time, so calls do not interleave."""
+    of one int32 count column.  A call inside a stage program's capture
+    (``exec/programs.py``) is recorded into the graph, not run: its
+    input tensors are held (no copy enters the graph, so the graph is
+    the one the port builds; only their blocks stay out of the pool's
+    reuse until then) and copied to the host right after the graph's
+    first replay filled them (the replay reports its launches through
+    ``note_graph_launches``), before another graph of the shared pool
+    can run over them.  ``launched()`` is what the kernel's counter
+    should have gained: the calls outside a capture plus the launches
+    the replays ran.  The kernel's launch counter is left as it is; the
+    context runs one job at a time, so calls do not interleave."""
 
     def __enter__(self):
         from dryad_tpu_torch.exec import kernels
+        from dryad_tpu_torch.ops import bucket
 
         self.mod, self.real = kernels, kernels.bucket_sum_count
-        self.calls, self.first = 0, {}
+        self.bucket, self.real_note = bucket, bucket.note_graph_launches
+        self.calls, self.captured, self.replayed, self.first = 0, 0, 0, {}
+        self.pending = {}  # shape -> a captured call's inputs, filled at the first replay
 
         def rec(keys, values, valid, num_buckets):
             self.calls += 1
             key = (len(values), int(num_buckets), int(keys.shape[1]))
-            if key not in self.first:
-                self.first[key] = (keys.cpu(), [v.cpu() for v in values], valid.cpu())
+            capturing = keys.is_cuda and torch.cuda.is_current_stream_capturing()
+            self.captured += capturing
+            if key not in self.first and key not in self.pending:
+                if capturing:
+                    self.pending[key] = (keys, list(values), valid)
+                else:
+                    self.first[key] = (keys.cpu(), [v.cpu() for v in values], valid.cpu())
             return self.real(keys, values, valid, num_buckets)
 
+        def note(n):
+            self.replayed += int(n)
+            self.real_note(n)
+            for key, (a, vs, m) in self.pending.items():
+                self.first[key] = (a.cpu(), [v.cpu() for v in vs], m.cpu())
+            self.pending.clear()
+
         kernels.bucket_sum_count = rec
+        bucket.note_graph_launches = note
         return self
+
+    def launched(self) -> int:
+        return self.calls - self.captured + self.replayed
 
     def __exit__(self, *exc):
         self.mod.bucket_sum_count = self.real
+        self.bucket.note_graph_launches = self.real_note
+        check(exc[0] is not None or not self.pending,
+              f"captured bucket launches at {sorted(self.pending)} never replayed")
 
 
 def _stream_ctx(spill_root: str, **cfg):
@@ -2637,7 +2997,7 @@ def stream_terasort(rows: int, spill_root: str, card: str) -> dict:
             total = (total + row_checksum(k, piece["payload"])) % (1 << 64)
             pieces += 1
         t_end = time.monotonic()
-    peak = torch.cuda.max_memory_allocated()
+    peak = card_peak()
     evs = ctx.events.events()
     written, read = metric_total(ctx, "spill_bytes"), metric_total(ctx, "spill_read_bytes")
     check(written > 0 and read >= written, f"stream terasort: spill written {written} bytes, read {read}")
@@ -2663,7 +3023,7 @@ def stream_terasort(rows: int, spill_root: str, card: str) -> dict:
         f"{read / 2**30:.2f} GiB; {res['phase1_buckets']} phase-1 buckets, {res['resplits']} "
         f"re-splits, {res['buckets_sorted']} buckets sorted on the card, {pieces} pieces, each sorted, "
         f"boundaries ordered, rows and checksum equal the input's; peak device memory "
-        f"{peak / 1e9:.3f} GB; device busy {busy.busy_s:.3f} s, idle {busy.idle:.3f}")
+        f"(allocated + graph pool) {peak / 1e9:.3f} GB; device busy {busy.busy_s:.3f} s, idle {busy.idle:.3f}")
     del ctx
     free_card()
     return res
@@ -2717,8 +3077,9 @@ def kernel_shape_report(keys, vals, valid, K: int) -> dict:
 def stream_wordcount(root: str, spill_root: str, card: str) -> dict:
     """The wordcount phase's corpus as 8 files through text_stream
     (2^25-byte chunks), group_by(word, count), then the top 20; equal
-    to the in-core WordCount of the same files, and to the numpy
-    oracle.  The bucket kernel's launches are counted from 0 just
+    to the in-core WordCount of the same corpus (the wordcount phase's
+    table when it ran, else the 8 files through from_text), and to the
+    numpy oracle.  The bucket kernel's launches are counted from 0 just
     before the stream query; the inputs of its first launch at each
     shape the query gives it are kept and, after the query, the kernel
     is held byte for byte against its plain version on each."""
@@ -2742,11 +3103,11 @@ def stream_wordcount(root: str, spill_root: str, card: str) -> dict:
     with LaunchRecorder() as rec, DeviceBusy() as busy:
         table = ctx.text_stream(paths).group_by("word", count).collect()
     launches = bucket_sum_count.launches
-    peak = torch.cuda.max_memory_allocated()
+    peak = card_peak()
     top = ctx.from_arrays(table).order_by([("n", True)]).take(20).collect()
-    check(launches == rec.calls == ST_WC_LAUNCHES,
-          f"streaming WordCount launched the bucket kernel {launches} times in {rec.calls} calls, "
-          f"expected {ST_WC_LAUNCHES}")
+    check(launches == rec.launched() == ST_WC_LAUNCHES,
+          f"streaming WordCount launched the bucket kernel {launches} times, its calls and replays "
+          f"{rec.launched()}, expected {ST_WC_LAUNCHES}")
     check({m for m, _, _ in rec.first} == {0, 1},
           f"streaming WordCount's kernel shapes {sorted(rec.first)} lack a chunk partial or a merge")
     shapes = []
@@ -2768,21 +3129,23 @@ def stream_wordcount(root: str, spill_root: str, card: str) -> dict:
         f"delta scatters {pool.delta_scatters}, operand_h2d_bytes {operands['operand_h2d_bytes']:.0f}")
     del ctx
     free_card()
-    incore = DryadContext(num_partitions_=P)
-    t0 = time.perf_counter()
-    q = incore.from_text(paths).group_by("word", count)
-    ref = q.collect()
-    ref_top = q.order_by([("n", True)]).take(20).collect()
-    incore_s = time.perf_counter() - t0
-    del incore, q
-    free_card()
+    if "wordcount" in _FLAT:  # the wordcount phase's in-core table of the same corpus
+        ref, incore_s = _FLAT["wordcount"][0], None
+    else:
+        incore = DryadContext(num_partitions_=P)
+        t0 = time.perf_counter()
+        ref = incore.from_text(paths).group_by("word", count).collect()
+        incore_s = time.perf_counter() - t0
+        del incore
+        free_card()
     got = dict(zip(table["word"].tolist(), table["n"].tolist()))
     check(table["n"].dtype == np.int32, "streaming WordCount's count column is not int32")
     check(got == dict(zip(ref["word"].tolist(), ref["n"].tolist())),
           "streaming WordCount differs from the in-core WordCount")
     uid, ucnt = np.unique(ids, return_counts=True)
     check(got == dict(zip(words[uid].tolist(), ucnt.tolist())), "streaming WordCount differs from numpy")
-    check(top["n"].tolist() == ref_top["n"].tolist() == sorted(ucnt.tolist(), reverse=True)[:20],
+    check(top["n"].tolist() == sorted(ref["n"].tolist(), reverse=True)[:20]
+          == sorted(ucnt.tolist(), reverse=True)[:20],
           "streaming top-20 counts differ from the in-core top-20")
     check(all(got[w] == c for w, c in zip(top["word"], top["n"])), "a streaming top-20 word has a wrong count")
     res = {"words": WC_WORDS, "files": len(paths), "chunks": chunks, "wall_s": busy.wall_s,
@@ -2791,9 +3154,11 @@ def stream_wordcount(root: str, spill_root: str, card: str) -> dict:
            "peak_bytes": peak, "device_busy_s": busy.busy_s, "device_idle": busy.idle, "card": card}
     log(f"stream wordcount [{card}]: {WC_WORDS} words in {len(paths)} files, {chunks} chunks of "
         f"2^25 bytes, text_stream + group_by {busy.wall_s:.2f} s = {WC_WORDS / busy.wall_s:.4g} words/s "
-        f"(in-core from_text + group_by + top-20: {incore_s:.2f} s); {len(got)} words, table and top-20 "
+        + (f"(in-core from_text + group_by: {incore_s:.2f} s)" if incore_s is not None else
+           "(in-core: the wordcount phase's table)")
+        + f"; {len(got)} words, table and top-20 "
         f"equal the in-core WordCount and numpy; bucket kernel launches {launches}; peak device memory "
-        f"{peak / 1e9:.3f} GB; device busy {busy.busy_s:.3f} s, idle {busy.idle:.3f}")
+        f"(allocated + graph pool) {peak / 1e9:.3f} GB; device busy {busy.busy_s:.3f} s, idle {busy.idle:.3f}")
     for p in paths:
         os.remove(p)
     return res
@@ -2835,7 +3200,7 @@ def stream_groupby(spill_root: str, card: str) -> dict:
             "sv": ("sum", "v")}
     with DeviceBusy() as busy:
         out = ctx.from_stream(chunks()).group_by("key", aggs).collect()
-    peak = torch.cuda.max_memory_allocated()
+    peak = card_peak()
     evs = ctx.events.events()
     del ctx
     free_card()
@@ -2865,7 +3230,7 @@ def stream_groupby(spill_root: str, card: str) -> dict:
         f"sum, min, max exact, f32 sum within n_g*2^-23*sum|v| (max |err|/sum|v| "
         f"{res['max_rel_err_sum']:.3g}); {len(levels)} combine_tree_level merges at levels "
         f"{res['tree_levels']}, {res['stream_combine_events']} stream_combine; peak device memory "
-        f"{peak / 1e9:.3f} GB; device busy {busy.busy_s:.3f} s, idle {busy.idle:.3f}")
+        f"(allocated + graph pool) {peak / 1e9:.3f} GB; device busy {busy.busy_s:.3f} s, idle {busy.idle:.3f}")
     return res
 
 
@@ -2892,7 +3257,7 @@ def stream_join(root: str, spill_root: str, card: str) -> dict:
         v = ctx.store_stream(vpath).where(lambda c: (c["visitDate"] >= lo) & (c["visitDate"] < hi))
         j = v.join(ctx.store_stream(rpath), "destURL", "pageURL", strategy="auto", expansion=1.0)
         h = j.group_by("sourceIP", JS_AGGS).to_store(opath)
-    peak = torch.cuda.max_memory_allocated()
+    peak = card_peak()
     evs = ctx.events.events()
     check(any(e["kind"] == "stream_store" for e in evs), "stream join: to_store did not stream")
     joins = sum(e["kind"] == "stream_bucket" for e in evs)
@@ -2918,7 +3283,7 @@ def stream_join(root: str, spill_root: str, card: str) -> dict:
     log(f"stream join [{card}]: {JS_VISITS} visits and {JS_PAGES} pages from stores, Grace join in "
         f"{joins} bucket jobs, group_by and to_store {busy.wall_s:.2f} s; {len(uk)} sourceIPs, keys and "
         f"counts equal the in-core query's, revenue within n_g*2^-23*sum|v| (max rel err "
-        f"{res['max_rel_err_revenue']:.3g}); peak device memory {peak / 1e9:.3f} GB; device busy "
+        f"{res['max_rel_err_revenue']:.3g}); peak device memory (allocated + graph pool) {peak / 1e9:.3f} GB; device busy "
         f"{busy.busy_s:.3f} s, idle {busy.idle:.3f}")
     return res
 
@@ -2948,7 +3313,7 @@ def phase_stream(dev, card: str) -> dict:
         res["terasort_peak_ratio"] = ratio
         check(ratio <= SM_PEAK_RATIO, f"stream terasort: the {SM_TS_ROWS}-row peak is {ratio:.3f}x the "
               f"{SM_TS_SMALL_ROWS}-row peak, past {SM_PEAK_RATIO}x")
-        log(f"stream terasort: peak device memory {res['terasort']['peak_bytes'] / 1e9:.3f} GB at "
+        log(f"stream terasort: peak device memory (allocated + graph pool) {res['terasort']['peak_bytes'] / 1e9:.3f} GB at "
             f"{SM_TS_ROWS} rows, {res['terasort_small']['peak_bytes'] / 1e9:.3f} GB at "
             f"{SM_TS_SMALL_ROWS} rows: {ratio:.3f}x")
         check(not os.listdir(spill_root), "stream terasort left spill directories behind")
@@ -3116,7 +3481,7 @@ def serve_cell(ctx, plans, refs, plan_dispatches, clients: int, cache_on: bool, 
         elapsed = time.perf_counter() - t_start
     stats = svc.stats()
     svc.close()
-    peak = torch.cuda.max_memory_allocated()
+    peak = card_peak()
     check(not errors, f"serve cell {clients}/{'on' if cache_on else 'off'}: {errors[:1]}")
     queries = clients * SV_PER_CLIENT
     check(len(served) == queries, "a served query went missing")
@@ -3151,7 +3516,7 @@ def serve_cell(ctx, plans, refs, plan_dispatches, clients: int, cache_on: bool, 
         f"p50 {res['p50_ms']:.2f} ms, p99 {res['p99_ms']:.2f} ms; hit rate "
         f"{res['cache_hit_rate']:.3f} ({hits} hits, {got} dispatches); fairness spread "
         f"{res['fairness_spread']:.3f}; rejected {rejected[0]}; device idle {busy.idle:.3f}; "
-        f"peak device memory {peak / 1e9:.2f} GB; every result byte-equal to serial")
+        f"peak device memory (allocated + graph pool) {peak / 1e9:.2f} GB; every result byte-equal to serial")
     return res
 
 
@@ -3310,7 +3675,7 @@ def matview_mode(mode: str, base: dict, other: dict, chunks: list, card: str) ->
     stats = svc.stats()
     evs = ctx.events.events()
     svc.close()
-    peak = torch.cuda.max_memory_allocated()
+    peak = card_peak()
     snaps = [e for e in evs if e["kind"] == "view_snapshot"]
     fresh_stal = [e["staleness_s"] for e in snaps if e["fresh"]]
     check(all(s <= MV_STALENESS_S for s in fresh_stal),
@@ -3453,8 +3818,9 @@ def phase_serve(dev, card: str) -> dict:
         res["matview"] = serve_matviews(card)
         res["checkpoint"] = serve_checkpoints(card)
     launches = bucket_sum_count.launches
-    check(launches >= 1 and launches == rec.calls,
-          f"the serve path launched the bucket kernel {launches} times in {rec.calls} calls")
+    check(launches >= 1 and launches == rec.launched(),
+          f"the serve path launched the bucket kernel {launches} times, its calls and replays "
+          f"{rec.launched()}")
     shapes = []
     for (m, K, _), (keys, vals, valid) in sorted(rec.first.items()):
         shapes.append(kernel_shape_report(keys, vals, valid, K))
@@ -3481,8 +3847,8 @@ CL_KILL_AFTER_S = 3.0
 # and 2^26 rows; the corpus from 2^25 too) and its stage-chaos table: cut
 # for the run's time limit
 CL_WORDS = 1 << 24
-CL_DENSE_ROWS = 1 << 25
-CL_CHAOS_ROWS = 1 << 24  # the sort-path group_by of GB_KEYS keys (cut from GB_ROWS)
+CL_DENSE_ROWS = 1 << 24  # the coded group_by (cut from 2^25 for the run's time limit; PERF.md section 4)
+CL_CHAOS_ROWS = 1 << 23  # the sort-path group_by of GB_KEYS keys (cut from GB_ROWS, then 2^24)
 CL_DENSE_K = 65536
 CL_CHAOS = dict(seed=0, stage_failure_prob=0.3)
 CL_CHAOS_RUNS = 8  # the seeded plan's 4th draw fails: at most this many runs to see it
@@ -3609,15 +3975,27 @@ def phase_cluster(dev, card: str) -> dict:
             got = dict(zip(out1["word"].tolist(), out1["n"].tolist()))
             check(got == oracle, "cluster WordCount differs from the numpy oracle")
             pkg = _package(sub, mark, "vertex_job_start")
-            fetch = sorted(e["dur"] for e in _since(sub, mark, "span")
-                           if e.get("name") == "fetch_package")
+            spans = [e for e in _since(sub, mark, "span") if e.get("name") == "fetch_package"]
+            fetch = sorted(e["dur"] for e in spans)
             (asm,) = _since(sub, mark, "assemble_fetch")
             res["wordcount"] = {
                 "job_s": wc_s, "package_bytes": os.path.getsize(pkg), "fetch_s": fetch,
                 "assemble_wire_bytes": asm["wire_bytes"], "assemble_raw_bytes": asm["raw_bytes"],
                 "launches": worker_launches(sub, mark),
             }
-            check(len(fetch) == CL_WORKERS, f"{len(fetch)} package fetches, expected one a worker")
+            # one fetch a worker that ran a task (the package is cached a
+            # worker and job): every worker that completed a vertex shipped
+            # its fetch before its status, and a worker whose only task lost
+            # to a duplicate ships it as the fetch ends (cluster/worker.py)
+            by_worker = {}
+            for e in spans:
+                by_worker[e.get("worker")] = by_worker.get(e.get("worker"), 0) + 1
+            won = {int(e["computer"].removeprefix("worker"))
+                   for e in _since(sub, mark, "vertex_complete")}
+            res["wordcount"]["fetches_by_worker"] = by_worker
+            check(all(by_worker.get(w) == 1 for w in won) and set(by_worker) <= set(range(CL_WORKERS))
+                  and all(n == 1 for n in by_worker.values()),
+                  f"package fetches by worker {by_worker}; the workers that completed a vertex {won}")
             log(f"cluster WordCount [{card}]: {len(oracle)} words equal the oracle; job "
                 f"{wc_s:.2f} s; package {res['wordcount']['package_bytes'] / 2**30:.2f} GiB, "
                 f"fetched in {', '.join(f'{x:.2f}' for x in fetch)} s; assembly "
@@ -3848,8 +4226,8 @@ def _rw_run(label: str, ctx, build, card: str) -> tuple:
     out = build(ctx).collect()
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
-    log(f"rewrite {label} [{card}]: {secs:.3f} s, peak device memory {peak / 1e9:.3f} GB")
+    peak = card_peak()
+    log(f"rewrite {label} [{card}]: {secs:.3f} s, peak device memory (allocated + graph pool) {peak / 1e9:.3f} GB")
     return out, secs, peak
 
 
@@ -4490,7 +4868,7 @@ def phase_fleet(dev, card: str) -> dict:
 
 OBS_SORT_ROWS = 1 << 25  # the adaptive-depth stream sort, in SM_TS_CHUNK-row chunks (cut from 2^26)
 OBS_WORDS = 1 << 25  # the obs path's WordCount corpus (cut from WC_WORDS)
-OBS_COST_PAIRS = 60  # WordCount warm queries with the sampler on and off, interleaved
+OBS_COST_PAIRS = 40  # WordCount warm queries with the sampler on and off, interleaved (cut from 60)
 
 
 def obs_stream_sort(spill_root: str, **cfg) -> dict:
@@ -4537,7 +4915,7 @@ def obs_stream_sort(spill_root: str, **cfg) -> dict:
         rows += len(k)
         total = (total + row_checksum(k, piece["payload"])) % (1 << 64)
     secs = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
+    peak = card_peak()
     check(rows == OBS_SORT_ROWS and total == made["sum"],
           f"obs stream sort: {rows} rows, checksum equal to the input's: {total == made['sum']}")
     depths = {e["depth"] for e in ctx.events.events() if e["kind"] == "dispatch_window"}
@@ -4754,8 +5132,9 @@ def phase_obs(dev, card: str) -> dict:
     check(n_exec > 0 and n_x == n_exec, f"obs: {n_x} execute slices for {n_exec} execute spans")
     launches = bucket_sum_count.launches  # the obs path ends here
     rec.__exit__(None, None, None)
-    check(launches >= 1 and launches == rec.calls,
-          f"obs: the path launched the bucket kernel {launches} times in {rec.calls} calls")
+    check(launches >= 1 and launches == rec.launched(),
+          f"obs: the path launched the bucket kernel {launches} times, its calls and replays "
+          f"{rec.launched()}")
     step("serve_and_span_export")
     shapes = []
     for (m, K, _), (keys, vals, valid) in sorted(rec.first.items()):
@@ -4841,8 +5220,8 @@ def phase_obs(dev, card: str) -> dict:
 GANG_WORKERS = 2
 GANG_PARTS = 4  # partitions a worker holds: P = 8 over the gang
 GANG_DEVICE = "cuda"  # where the gang's workers run
-GANG_TS_ROWS = 1 << 26  # the gang's TeraSort (uniform int32 keys, f32 payloads)
-GANG_WORDS = 1 << 25  # the gang's WordCount corpus: the cluster phase's before its cut
+GANG_TS_ROWS = 1 << 25  # the gang's TeraSort, uniform int32 keys, f32 payloads (cut from 2^26)
+GANG_WORDS = 1 << 24  # the gang's WordCount corpus (cut from 2^25; PERF.md section 4)
 GANG_MANY = 4  # submit_many's queries ...
 GANG_MANY_ROWS = 1 << 20  # ... of this many rows
 GANG_KILL_ROWS = 1 << 24  # the group_by whose gang loses a worker mid-job
@@ -4955,7 +5334,8 @@ def _kill_mid_job(sub, worker: int) -> "threading.Thread":
 
 
 def _start_child(args: list) -> subprocess.Popen:
-    """This script as a child process (its ``--nccl-*`` modes)."""
+    """This script as a child process (its ``--nccl-*`` and
+    ``--terasort-capacity`` modes)."""
     return subprocess.Popen([sys.executable, os.path.abspath(__file__)] + args,
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT)
 
@@ -4993,7 +5373,7 @@ def phase_gang(dev, card: str) -> dict:
     partitions each (P = 8), their collectives over gloo (CUDA tensors
     through the host).  (a) the dense phase's group_by, bucket kernel in
     each worker then the cross-process psum_scatter, against one process
-    at P = 8; (b) TeraSort of 2^26 rows, rows and placement byte-equal to
+    at P = 8; (b) TeraSort of GANG_TS_ROWS rows, rows and placement byte-equal to
     one process's; (c) WordCount of the cluster phase's corpus, the
     dictionary back as dictionary.pkl; (d) submit_many of 4 queries
     through the dispatch window, equal to serial submits; (e) a worker
@@ -5311,14 +5691,17 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument(
         "--phases",
-        default="lint,env,kernel,wordcount,dense,terasort,terasort_hot,groupby_sort,"
+        default="lint,env,kernel,wordcount,dense,terasort,terasort_hot,groupby_sort,programs,"
                 "hybrid,groupby_sort_fused,join_shuffle,join_broadcast,pagerank,devloop,decomposable,"
                 "ordered_ops,cpu_parity,stores,stream,serve,cluster,gang,rewrite,fleet,obs")
     # the gang phase's child processes (not for direct use)
     ap.add_argument("--nccl-probe", nargs=2, type=int, metavar=("RANK", "PORT"), help=argparse.SUPPRESS)
     ap.add_argument("--nccl-world1", metavar="OUT", help=argparse.SUPPRESS)
+    ap.add_argument("--terasort-capacity", nargs=3, metavar=("MODE", "ROWS", "OUT"),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
+    _PG["keep"] = "programs" in phases
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
               file=sys.stderr)
@@ -5327,6 +5710,9 @@ def main(argv=None) -> int:
         return nccl_probe(*args.nccl_probe)
     if args.nccl_world1:
         return nccl_world1(args.nccl_world1)
+    if args.terasort_capacity:
+        mode, rows, out = args.terasort_capacity
+        return terasort_capacity_child(mode, int(rows), out)
     dev = torch.device("cuda", 0)
     card = card_line()
     results = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda}
@@ -5344,6 +5730,7 @@ def main(argv=None) -> int:
         ("terasort", lambda: phase_terasort(dev, card, TS_ROWS, hot=False)),
         ("terasort_hot", lambda: phase_terasort(dev, card, TS_HOT_ROWS, hot=True)),
         ("groupby_sort", lambda: phase_groupby_sort(dev, card)),
+        ("programs", lambda: phase_programs(dev, card)),
         ("hybrid", lambda: phase_hybrid(dev, card)),
         ("groupby_sort_fused", lambda: phase_groupby_sort_fused(dev, card)),
         ("join_shuffle", lambda: phase_join_shuffle(dev, card)),
@@ -5361,11 +5748,14 @@ def main(argv=None) -> int:
         ("rewrite", lambda: phase_rewrite(dev, card)),
         ("fleet", lambda: phase_fleet(dev, card)),
         ("obs", lambda: phase_obs(dev, card)),
+        ("terasort_capacity", lambda: phase_terasort_capacity(dev, card)),
     )
+    _PG["ran"] = ran = []
     for name, run in steps:
         if name in phases:
             t0 = time.perf_counter()
             results[name] = run()
+            ran.append(name)
             wall[name] = time.perf_counter() - t0
             log(f"phase {name}: {wall[name]:.1f} s")
     print("results: " + json.dumps(results))
@@ -5377,6 +5767,7 @@ def main(argv=None) -> int:
         "wordcount": results.get("wordcount", {}).get("launches"),
         "hybrid": results.get("hybrid", {}).get("launches"),
         "dense": results.get("dense", {}).get("launches"),
+        "programs": results.get("programs", {}).get("launches"),
         "join_broadcast": results.get("join_broadcast", {}).get("bucket_sum_count_launches"),
         "pagerank": results.get("pagerank", {}).get("bucket_sum_count_launches"),
         "decomposable": results.get("decomposable", {}).get("bucket_sum_count_launches"),

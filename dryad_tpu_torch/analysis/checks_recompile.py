@@ -3,12 +3,12 @@
 The reference compiles one XLA program per distinct shape, and the
 palette (``ops.stringcode.palette_domain``) quantizes every
 data-dependent dimension to a pow2 domain so compiles stay O(log n).
-The port runs eagerly, but the same shapes still key its caches: the
-executor's operand cache keys a coding table by its
-``operand_signature`` (``exec/executor.py``), so every raw length is a
-new cache key and a new set of device tensors; every new tensor shape
-churns the CUDA caching allocator; and a CUDA-graph capture of a
-stage (ROADMAP queue 1 item 10) replays only the shapes it captured.
+The port's shapes key the same caches: its stage programs
+(``exec/programs.py``) are keyed by the tables' ``operand_signature``
+and the inputs' capacities, and each key is one CUDA-graph capture
+that replays only the shapes it captured, so every raw length is a
+new capture (an ``xla_compile``) and a new set of device buffers held
+by the graph.
 This checker flags the two ways code leaks raw sizes past the palette:
 
 - in OPERAND-PROTOCOL classes (any class carrying an

@@ -510,7 +510,9 @@ class DryadContext:
     def release(self, query: Query) -> None:
         """Drop a table pinned by ``Query.cache()``; later use of the
         query raises the stale-binding error.  Only such queries
-        qualify: releasing a source table or a derived query raises."""
+        qualify: releasing a source table or a derived query raises.
+        The stage programs whose buffers hold a copy of the table (a
+        CUDA graph's inputs, ``exec/programs.py``) go with it."""
         binding = self._bindings.get(query.node.id)
         if query.node.kind != "input" or binding is None or binding[0] != "device":
             raise ValueError(
@@ -522,6 +524,7 @@ class DryadContext:
             del self._bindings[query.node.id]
             self._device_cache.pop(query.node.id, None)
             self._binding_fp_cache.pop(query.node.id, None)
+            self.executor.programs.drop_holding(binding[1])
 
     # -- execution -------------------------------------------------------------
     def _bind_device(self, node: Node) -> ColumnBatch:

@@ -876,7 +876,9 @@ class Query:
         Otherwise the driver loop runs it (a ``do_while_device_fallback``
         event is logged): each round runs the body's plan, built once
         and rebound to the new state, compacts the state, then runs the
-        condition and reads its value on the host."""
+        condition and reads its value on the host.  A body or condition
+        that reads a device value on the host raises ``TypeError`` on
+        the card, as the reference's trace does."""
         return Query(self.ctx, Node(
             "do_while", [self.node], self.schema, PartitionInfo(),
             body=body, cond=cond, max_iter=max_iter, device=device,

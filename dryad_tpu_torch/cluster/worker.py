@@ -76,9 +76,12 @@ class _PackageCache:
 
     A ``runpart`` stream re-uses one loaded plan + context across
     partitions — the reference's VertexHost similarly keeps the vertex
-    DLL loaded across vertex executions."""
+    DLL loaded across vertex executions.  ``flush``: ships the worker's
+    telemetry, called right after a fetch, so the ``fetch_package`` span
+    reaches the driver before the job's result, even when this task
+    itself loses to a duplicate and ends after the job returned."""
 
-    def __init__(self, device=None, tracer=None) -> None:
+    def __init__(self, device=None, tracer=None, flush=None) -> None:
         from dryad_tpu_torch.obs.span import Tracer
 
         self.key: str = ""
@@ -86,6 +89,7 @@ class _PackageCache:
         self.pristine: Dict = {}
         self.device = device
         self.tracer = tracer if tracer is not None else Tracer(None)
+        self.flush = flush
 
     def load(self, rel: str, client):
         if self.key == rel and self.query is not None:
@@ -96,6 +100,8 @@ class _PackageCache:
         # the whole package crosses the driver's file server once per
         # worker and job
         pkg_path = _fetch_package(rel, client, self.tracer)
+        if self.flush is not None:
+            self.flush()
         try:
             # Vertex tasks run as ONE partition on this worker's device:
             # independent work, not the gang's mesh (DrStorageVertex-style
@@ -552,7 +558,13 @@ def main(argv=None) -> int:
     flightrec.get_recorder().set_info(job=args.job, nproc=args.nproc)
 
     after = 0
-    pkgs = _PackageCache(device=device, tracer=wtracer)
+    def flush() -> None:
+        try:
+            cp.ship_telemetry(wlog.drain())
+        except Exception:  # noqa: BLE001 — telemetry is best-effort
+            pass
+
+    pkgs = _PackageCache(device=device, tracer=wtracer, flush=flush)
     pstate: Dict = {}  # lazy PartitionCache
     shipped: Dict[str, int] = {}  # kernel launches already shipped
     delay = {"seconds": 0.0, "count": 0}  # injected straggler behavior

@@ -33,13 +33,15 @@ once more on the final state, so that an overflow in it is not lost.
 :meth:`LoopProgram.check` is the trace-time check of the reference: it
 applies the body and the condition once and raises ``TypeError`` when
 the body changes the carry (its columns, their types or the capacity),
-or, on CUDA, when either reads a value to the host (run under
-``torch.cuda.set_sync_debug_mode("error")``), as the reference's trace
-raises ``ConcretizationTypeError``.  The executor then falls back to its
-driver loop.  On the CPU a read to the host cannot be seen, so such a
-body runs here where the reference falls back (ROADMAP.md, queue 3).
-Nothing gives way to the plain version on a card: a capture or launch
-error raises.
+and the executor then falls back to its driver loop; or, on CUDA, it
+raises :class:`HostReadError` (a ``TypeError``) when either reads a
+value to the host (run under ``torch.cuda.set_sync_debug_mode
+("error")``), and the executor raises it: the driver loop's stage
+programs would refuse the same read in their capture, as the
+reference's trace raises ``ConcretizationTypeError`` in both loops.  On
+the CPU a read to the host cannot be seen, so such a body runs here
+(ROADMAP.md, section 3).  Nothing gives way to the plain version on a
+card: a capture or launch error raises.
 """
 
 from __future__ import annotations
@@ -52,6 +54,7 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from dryad_tpu_torch.columnar.batch import ColumnBatch
+from dryad_tpu_torch.ops import bucket as BK
 from dryad_tpu_torch.ops import loopctl as LC
 
 # body(batch) -> (batch, overflow flag, miss count); cond(batch) -> (batch, overflow flag)
@@ -64,6 +67,10 @@ class LoopResult(NamedTuple):
     overflow: bool
     iters: int
     miss: torch.Tensor  # int64 0-d tensor on the loop's device
+
+
+class HostReadError(TypeError):
+    """A loop's body or condition reads a device value on the host."""
 
 
 def _layout(b: ColumnBatch) -> Tuple:
@@ -122,12 +129,16 @@ class LoopProgram:
         # set at capture: seconds it took, bytes its private pool reserved
         self.capture_s: Optional[float] = None
         self.pool_bytes = 0
+        # bucket-kernel launches the capture recorded: the first round,
+        # a round of the WHILE body, the final condition
+        self._bucket = (0, 0, 0)
 
     # -- the reference's trace-time check ---------------------------------------
     def check(self, current: ColumnBatch):
         """Apply the body and then the condition once; raise TypeError
-        when the body changes the carry or either reads a value to the
-        host (CUDA).  Returns the body's ``(batch, overflow, miss)``."""
+        when the body changes the carry, :class:`HostReadError` when
+        either reads a value to the host (CUDA).  Returns the body's
+        ``(batch, overflow, miss)``."""
         try:
             with _sync_is_error(torch.device("cpu") if self.eager else self.device):
                 out = self.body(current)
@@ -135,7 +146,7 @@ class LoopProgram:
         except RuntimeError as e:
             if "synchronizing" not in str(e):
                 raise
-            raise TypeError(f"do_while subplan reads a device value on the host: {e}") from e
+            raise HostReadError(f"do_while subplan reads a device value on the host: {e}") from e
         if _layout(out[0]) != _layout(current):
             raise TypeError(
                 "do_while body changes the loop carry "
@@ -176,6 +187,8 @@ class LoopProgram:
         self.graph.replay()
         iters, ovf, miss = self.state[:3].cpu().tolist()  # the run's one read
         LC.note_graph_launches(iters)
+        first, each, last = self._bucket
+        BK.note_graph_launches(first + each * max(0, int(iters) - 1) + last)
         out = ColumnBatch({n: t.clone() for n, t in self.carry.data.items()}, self.carry.valid.clone())
         return LoopResult(out, bool(ovf), int(iters), self.state[2].clone())
 
@@ -194,7 +207,8 @@ class LoopProgram:
             torch.empty_like(current.valid, memory_format=torch.contiguous_format),
         )
         self.state = torch.zeros(4, dtype=torch.int64, device=dev)
-        LC.runtime_version()  # load the library before the capture starts
+        LC.runtime_version()  # load the libraries before the capture starts
+        BK.preload(dev)
         t0 = time.perf_counter()
         reserved = torch.cuda.memory_reserved(dev)
         graph = torch.cuda.CUDAGraph()
@@ -207,18 +221,23 @@ class LoopProgram:
                 stream = torch.cuda.current_stream(dev).cuda_stream
                 handle = LC.handle_create(stream)
                 self.state.zero_()
+                marks = [BK.bucket_sum_count.captured]
                 self._round(handle)
+                marks.append(BK.bucket_sum_count.captured)
                 body = LC.while_begin(stream, handle)
                 try:
                     with torch.cuda.stream(torch.cuda.ExternalStream(body, device=dev)):
                         self._round(handle)
                 finally:
                     LC.while_end(body)
+                marks.append(BK.bucket_sum_count.captured)
                 _, covf = self.cond(self.carry)
                 self.state[1:2].bitwise_or_(covf.to(torch.int64).reshape(1))
+                marks.append(BK.bucket_sum_count.captured)
         finally:
             torch._C._cuda_releasePool(idx, pool)  # the routing's reference
         self.graph = graph
+        self._bucket = tuple(b - a for a, b in zip(marks, marks[1:]))
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
         self.capture_s = time.perf_counter() - t0
 

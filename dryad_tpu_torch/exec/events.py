@@ -407,14 +407,11 @@ QUERY_SCOPED_KINDS: Tuple[str, ...] = (
 
 
 # Documented kinds whose emitting part is not ported yet, each with the
-# ROADMAP.md item that brings it.  The port's readers (obs/diagnose.py,
-# obs/metrics.py, obs/critpath.py, tools/jobview.py) fold them from a
-# reference log as the reference's do.  graftlint's ``event-schema``
-# rule lets these kinds go without an emit site and reports one that
-# gains a site, so this list only shrinks.
-PENDING_KINDS: Dict[str, str] = {
-    "xla_compile": "ROADMAP queue 1 item 10",
-}
+# ROADMAP.md item that brings it.  graftlint's ``event-schema`` rule
+# lets these kinds go without an emit site and reports one that gains a
+# site, so this list only shrinks; it is empty since ``xla_compile``
+# gained its emitter (``exec/programs.py``).
+PENDING_KINDS: Dict[str, str] = {}
 
 
 def _to_native(v: Any) -> Any:

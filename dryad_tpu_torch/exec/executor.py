@@ -6,9 +6,20 @@ ported stages need:
 - Stages run in order, each fed its inputs, grouped into retry units
   (:func:`retry_regions`), the regions of ``plan/fuse.py``'s decision:
   the reference compiles each maximal run of stages into one program
-  (on by default) and retries the run as a whole, so the port retries
-  the same runs; a stage the width adaptation may re-dispatch, and a
-  driver stage (``do_while``, ``apply_host``), stands alone, as there.
+  (on by default) and retries the run as a whole, so the port runs and
+  retries the same runs; a stage the width adaptation may re-dispatch,
+  and a driver stage (``do_while``, ``apply_host``), stands alone, as
+  there.
+- Each unit runs as one stage program (``exec/programs.py``) cached
+  under the reference's lowering key ``(unit key, boost, shape key,
+  resolved window, fan)``: one CUDA graph on the card in one process,
+  captured at the key's first dispatch and replayed on every later
+  one; the unit's eager function on the CPU and over a gloo group.
+  The key's first dispatch logs ``xla_compile`` (after ``stage_start``
+  / ``fused_dispatch`` and the fault consultation, before the
+  attempt's ``exchange_round`` events) and the ``xla_compiles`` /
+  ``xla_compile_s`` metrics; the flight recorder's ``xla_programs``
+  probe reads the cache's size.
 - The speculative dispatch window, as the reference's: a unit holding
   an op outside ``NON_OVERFLOW_OPS`` (an exchange, a resize, a join)
   joins the window, and so does every unit dispatched while it is
@@ -37,11 +48,13 @@ ported stages need:
   (``exec/devloop.py``: one CUDA graph a run on the card), logging
   ``do_while_device_start`` and ``do_while_device_done``; an overflow
   reruns it at twice the boost.  A lowering refusal (``ValueError``),
-  or a body that changes the carry or reads a value to the host
-  (``TypeError``), logs ``do_while_device_fallback`` and runs the
-  reference's driver loop (body, then condition, the state compacted
-  after every round, its capacity boosted on overflow).  ``apply_host``
-  is its host round trip per partition.
+  or a body that changes the carry (``TypeError``), logs
+  ``do_while_device_fallback`` and runs the reference's driver loop
+  (body, then condition, the state compacted after every round, its
+  capacity boosted on overflow).  A body or condition that reads a
+  value to the host raises ``TypeError`` on the card (the driver
+  loop's stage programs would refuse the read too).  ``apply_host`` is
+  its host round trip per partition.
 - The string coding tables of each dispatch attempt come from the
   content-addressed operand pool (``exec/operands.py``), which scatters
   a widened table's delta and counts its bytes into ``h2d_bytes`` and
@@ -134,8 +147,9 @@ from dryad_tpu_torch.exec.kernels import (
     NON_OVERFLOW_OPS, OPERAND_PARAMS, StageContext, _round8, run_ops,
 )
 from dryad_tpu_torch.ops import shuffle as SH
-from dryad_tpu_torch.exec.devloop import LoopProgram
-from dryad_tpu_torch.exec.operands import BakedOperands, DeviceOperandPool, DispatchOperands
+from dryad_tpu_torch.exec.devloop import HostReadError, LoopProgram
+from dryad_tpu_torch.exec.operands import BakedOperands, DeviceOperandPool, operand_objects
+from dryad_tpu_torch.exec.programs import PositionalOperands, ProgramCache, types_of
 from dryad_tpu_torch.exec.stats import StageStatistics
 from dryad_tpu_torch.obs import flightrec, tracectx
 from dryad_tpu_torch.obs.metrics import MetricsRegistry
@@ -170,6 +184,25 @@ def _has_miss_guard(ops) -> bool:
     )
 
 
+def _region_structure(unit: List[Stage], exports) -> Tuple[list, list]:
+    """A run's wiring and exports, as the reference's ``FusedStage``
+    holds them: per member, one entry per input, ``("mem", member
+    position, output)`` or ``("ext", external input position)``; the
+    exports as ``(member position, output)``."""
+    pos = {m.id: i for i, m in enumerate(unit)}
+    ext: Dict[Tuple, int] = {}
+    wiring = []
+    for m in unit:
+        w = []
+        for ref, idx in m.input_refs:
+            if ref != "plan_input" and ref in pos:
+                w.append(("mem", pos[ref], idx))
+            else:
+                w.append(("ext", ext.setdefault((ref, idx), len(ext))))
+        wiring.append(tuple(w))
+    return wiring, [(pos[sid], i) for sid, i in exports]
+
+
 class _UnitStage:
     """A run of stages seen as one stage by the checkpoint store (the
     reference's ``FusedStage`` surface): its id is the region's, its
@@ -182,20 +215,10 @@ class _UnitStage:
         self.name = name
         self.ops = [op for m in unit for op in m.ops]
         self.out_slots = list(range(len(exports)))
-        pos = {m.id: i for i, m in enumerate(unit)}
-        ext: Dict[Tuple, int] = {}
-        wiring = []
-        for m in unit:
-            w = []
-            for ref, idx in m.input_refs:
-                if ref != "plan_input" and ref in pos:
-                    w.append(("mem", pos[ref], idx))
-                else:
-                    w.append(("ext", ext.setdefault((ref, idx), len(ext))))
-            wiring.append(tuple(w))
+        wiring, ex = _region_structure(unit, exports)
         self.fingerprint_extra = (
             f"fused:members={[(len(m.ops), tuple(m.out_slots)) for m in unit]!r}"
-            f":wiring={wiring!r}:exports={[(pos[sid], i) for sid, i in exports]!r}"
+            f":wiring={wiring!r}:exports={ex!r}"
         )
 
 
@@ -314,9 +337,9 @@ def retry_regions(graph: StageGraph, report: FuseReport) -> List[List[Stage]]:
     consecutive stages, with an adaptation candidate or a driver stage
     standing alone.  The reference compiles each such run into one
     program whose overflow retries the whole run at the next boost; the
-    port runs the member stages one after another and retries the run
-    the same way, so capacities, range splitters and overflow events
-    follow the reference's."""
+    port runs each as one stage program (its members' ops in order) and
+    retries the run the same way, so capacities, range splitters and
+    overflow events follow the reference's."""
     by_id = {s.id: s for s in graph.stages}
     return [[by_id[m] for m in r["members"]] for r in report.regions]
 
@@ -373,6 +396,13 @@ class GraphExecutor:
         self.baked_operands = BakedOperands(self.device)
         pool = weakref.ref(self.operand_pool)  # the probe must not pin the executor
         flightrec.probe("operand_pool", lambda: _pool_probe(pool()))
+        # each retry unit's program by lowering key (exec/programs.py):
+        # CUDA graphs on the card in one process, the eager function on
+        # the CPU and over a gloo group; the flight recorder's
+        # ``xla_programs`` probe reads how many are cached
+        self.programs = ProgramCache(self.device, mesh, events=self.event_log, metrics=self.metrics)
+        progs = weakref.ref(self.programs)
+        flightrec.probe("xla_programs", lambda: len(progs() or ()))
         # on-device do_while programs by the reference's key, the
         # LOOP_PROGRAMS most recent: a plan built with fresh lambdas is a
         # new key each run, and each graph holds a private pool; the
@@ -480,8 +510,10 @@ class GraphExecutor:
         identity.  ``loop_lowerer``: lowers a do_while subplan to one
         stage (the on-device loop's; without it every loop runs the
         driver loop)."""
-        if self._depth == 0:
+        top = self._depth == 0
+        if top:
             self.events = []
+            self.programs.begin_job()  # its programs are kept until it ends
         # the adaptation state is per graph: a nested run keeps its own
         saved = tuple(getattr(self, a, None) for a in _ADAPT_STATE)
         saved_runner, saved_lowerer = self.subquery_runner, self.loop_lowerer
@@ -496,6 +528,8 @@ class GraphExecutor:
             self.subquery_runner, self.loop_lowerer = saved_runner, saved_lowerer
             for a, v in zip(_ADAPT_STATE, saved):
                 setattr(self, a, v)
+            if top:
+                self.programs.end_job()
         deferred = DeferredFinish(self, misses, ckpts)
         if defer_miss:
             return results, deferred
@@ -741,15 +775,14 @@ class GraphExecutor:
             with torch.profiler.record_function(name), \
                     self.tracer.span(name, cat="execute", stage=sid, version=version, boost=boost), \
                     STAGE.named_failures(self.mesh, name):
-                overflow, dict_miss, rounds = self._dispatch(unit, bindings, results, fan, boost)
+                overflow, dict_miss, counts, rounds = self._dispatch(
+                    unit, bindings, results, fan, boost)
                 # the planner's static accounting: every dispatch attempt
                 # ships these bytes again
                 for rnd in rounds:
                     log.emit("exchange_round", stage=sid, name=name,
                              qid=tracectx.current_qid(), **rnd)
-                counts = [results[e].valid.sum() for e in exports] if want_count else []
-                overflow, dict_miss, counts = STAGE.reduce_replicated(
-                    self.mesh, overflow, dict_miss, counts)
+                counts = counts if want_count else []
                 windowed = window is not None and (can_overflow or bool(window))
                 if windowed:
                     window.append(dict(
@@ -846,29 +879,52 @@ class GraphExecutor:
             self._sleep(backoff)
 
     def _dispatch(self, unit: List[Stage], bindings, results, fan, boost: int):
-        """Run a unit's member stages once; returns its overflow flag and
-        dictionary-miss counter (or-ed and summed over the members) and
-        its exchanges' per-round accounting, in member order."""
-        overflow = dict_miss = None
-        rounds: List[dict] = []
-        # the attempt's tables, each fetched from the pool once
-        operands = (
-            DispatchOperands(self.operand_pool, [op for m in unit for op in m.ops], OPERAND_PARAMS)
-            if self.runtime_operands else self.baked_operands
-        )
-        window = self._resolve_window(self._unit_inputs(unit, bindings, results), boost)
-        for m in unit:
-            run = _fan_adapted_stage(m, fan) if fan else m
-            ctx = StageContext(self.P, self.device, operands, self.config.shuffle_slack, boost,
-                               mesh=self.mesh, window=window)
-            ctx.bind_inputs(self._inputs(m, bindings, results))
-            run_ops(ctx, run.ops)
-            for i, slot in enumerate(m.out_slots):
-                results[(m.id, i)] = ctx.slots[slot]
-            overflow = ctx.overflow if overflow is None else overflow | ctx.overflow
-            dict_miss = ctx.dict_miss if dict_miss is None else dict_miss + ctx.dict_miss
-            rounds += ctx.xchg_log
-        return overflow, dict_miss, rounds
+        """Run a unit once through its stage program (``exec/programs.py``):
+        the program under the unit's lowering key, built at the key's
+        first dispatch.  Publishes the unit's exports and returns its
+        overflow flag and dictionary-miss counter (or-ed and summed over
+        the members), its exports' row counts (each reduced over a
+        gang's group) and its exchanges' per-round accounting, in member
+        order."""
+        inputs = self._unit_inputs(unit, bindings, results)
+        window = self._resolve_window(inputs, boost)
+        run = [_fan_adapted_stage(m, fan) if fan else m for m in unit]
+        exports = self._exports[id(unit)]
+        # the attempt's tables, each fetched once: from the pool (runtime
+        # tables, copied into the program's buffers) or baked
+        objs = operand_objects([op for m in run for op in m.ops], OPERAND_PARAMS)
+        src = self.operand_pool if self.runtime_operands else self.baked_operands
+        tables = [src.get(o) for o in objs]
+        key = (self._unit_key(run, exports), boost, _shape_key(inputs), window, fan)
+        name = unit[0].name if len(unit) == 1 else _unit_name(unit)
+        prog = self.programs.get(key, name, lambda: self._build_program(
+            unit, run, exports, objs, boost, window), types_of(inputs, tables))
+        outs, overflow, dict_miss, counts = self.programs.run(prog, inputs, tables)
+        for e, b in zip(exports, outs):
+            results[e] = b
+        return overflow, dict_miss, counts, prog.rounds
+
+    def _unit_key(self, run: List[Stage], exports) -> Tuple:
+        """A unit's structural identity: its stage's key, or for a run of
+        stages the members' keys with the run's wiring and exports (the
+        reference's ``"fused"`` key: member-local slots overlap, so the
+        chained ops alone would alias differently wired runs)."""
+        if len(run) == 1:
+            return self._stage_key(run[0])
+        wiring, ex = _region_structure(run, exports)
+        return ("fused", tuple(self._stage_key(m) for m in run), tuple(wiring), tuple(ex))
+
+    def _build_program(self, unit: List[Stage], run: List[Stage], exports, objs, boost: int,
+                       window: int):
+        """The unit's function over its external inputs and positional
+        tables, and the cell its exchanges' rounds fill: a lone stage
+        through ``parallel/stage.py::compile_stage``, a run of stages
+        through ``compile_fused`` (the reduction over a gang's group)."""
+        cell: List[dict] = []
+        fn = _unit_fn(unit, run, exports, objs, self.P, self.device, self.config.shuffle_slack,
+                      boost, self.mesh, window, cell)
+        compile_ = STAGE.compile_stage if len(unit) == 1 else STAGE.compile_fused
+        return compile_(self.mesh, fn), cell
 
     def _unit_inputs(self, unit: List[Stage], bindings, results) -> List[ColumnBatch]:
         """A unit's external inputs (the region's, as the reference's
@@ -998,10 +1054,11 @@ class GraphExecutor:
         if (p.get("device") or auto) and self.loop_lowerer is not None:
             try:
                 return self._run_do_while_device(stage, p, current, misses)
+            except HostReadError:
+                raise  # the driver loop's stage programs refuse the same read
             except (ValueError, TypeError) as e:
                 # ValueError: the lowerer refused the subplan (more than
-                # one stage); TypeError: the body changes the carry or a
-                # function reads a device value on the host
+                # one stage); TypeError: the body changes the carry
                 self._note("do_while_device_fallback", stage.name, 0, stage=stage.id,
                            reason=str(e))
         base_pp = max(8, current.capacity)
@@ -1063,7 +1120,11 @@ class GraphExecutor:
                        for s, m in ((body_stage, True), (cond_stage, False))]
                 eager = self.mesh is not None and self.mesh.world > 1
                 prog = LoopProgram(*fns, cond_col, max_iter, self.device, eager=eager)
-                first = prog.check(current)  # TypeError: the driver loop runs it
+                try:
+                    first = prog.check(current)  # TypeError: the driver loop runs it
+                except HostReadError as e:
+                    raise HostReadError(f"do_while {stage.name!r} (body {body_stage.name!r}, "
+                                        f"condition {cond_stage.name!r}): {e}") from e
                 self._loops[key] = prog
                 while len(self._loops) > LOOP_PROGRAMS:
                     self._loops.popitem(last=False)[1].release()
@@ -1207,6 +1268,48 @@ def _loop_stage_fn(stage: Stage, P: int, device, operands, slack: float, boost: 
         out = ctx.slots[stage.out_slots[0]]
         return (out, ctx.overflow, ctx.dict_miss) if with_miss else (out, ctx.overflow)
     return STAGE.compile_stage(mesh, fn)
+
+
+def _shape_key(inputs: List[ColumnBatch]) -> Tuple:
+    """Each input's column names and capacity (the reference's
+    ``_shape_key``; its capacity is the global one, ``P`` times ours).
+    The column types join the program cache's slot, not the key
+    (``exec/programs.py::types_of``)."""
+    return tuple((tuple(sorted(b.data.keys())), b.capacity) for b in inputs)
+
+
+def _unit_fn(unit: List[Stage], run: List[Stage], exports, objs, P: int, device, slack: float,
+             boost: int, mesh, window: int, cell: List[dict]):
+    """A unit as a function ``fn(inputs, tables) -> (exports, overflow,
+    miss, counts)`` of its external inputs (in ``_unit_refs`` order) and
+    its coding tables (in ``objs`` order): the members' ops at ``boost``
+    and ``window``, the fan-adapted copies ``run`` in place of the
+    members.  Each call refills ``cell`` with the exchanges' rounds.  It
+    holds no reference to the executor."""
+    members = {m.id for m in unit}
+    ext = {ref: j for j, ref in enumerate(_unit_refs(unit))}
+
+    def fn(inputs, tables):
+        operands = PositionalOperands(objs, tables)
+        local: Dict[Tuple[int, int], ColumnBatch] = {}
+        overflow = miss = None
+        cell.clear()
+        for m, r in zip(unit, run):
+            ctx = StageContext(P, device, operands, slack, boost, mesh=mesh, window=window)
+            ctx.bind_inputs(tuple(
+                local[(ref, idx)] if ref in members else inputs[ext[(ref, idx)]]
+                for ref, idx in m.input_refs
+            ))
+            run_ops(ctx, r.ops)
+            for i, slot in enumerate(m.out_slots):
+                local[(m.id, i)] = ctx.slots[slot]
+            overflow = ctx.overflow if overflow is None else overflow | ctx.overflow
+            miss = ctx.dict_miss if miss is None else miss + ctx.dict_miss
+            cell.extend(ctx.xchg_log)
+        outs = [local[e] for e in exports]
+        return outs, overflow, miss, [b.valid.sum() for b in outs]
+
+    return fn
 
 
 def _pool_probe(pool: Optional[DeviceOperandPool]) -> dict:

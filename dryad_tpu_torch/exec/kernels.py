@@ -12,10 +12,13 @@ of the reference (the row-wise ops and user functions ``select``,
 ``tail``, ``take_while``, ``skip_while``, ``reverse``,
 ``default_if_empty``, ``zip``, ``sliding_window``; ``scalar_agg``).
 The reference composes them into one traced SPMD program per stage;
-PyTorch runs eagerly, so each op runs as it is applied, on all of a
-rank's partitions at once (all P in one process, ``P / world`` of a
-gang), and a user function of ``apply`` or ``fork`` runs once per
-partition on a one-partition view, as the reference's does.  Every
+here a unit's ops run in order inside its stage program
+(``exec/programs.py``: captured once into a CUDA graph on the card),
+each on all of a rank's partitions at once (all P in one process,
+``P / world`` of a gang), and a user function of ``apply`` or ``fork``
+runs once per partition on a one-partition view, as the reference's
+does.  No op reads a device value on the host or copies a host tensor
+to the device, so every op can be captured.  Every
 partition-axis operation goes through the partition layer's collectives
 (``parallel/partition.py``) over the stage's mesh: tensor ops in one
 process, ``torch.distributed`` calls across a gang's ranks.  Capacities derive from the stage's entry
@@ -74,7 +77,7 @@ class StageContext:
         # each exchange's per-round byte accounting, in order: the
         # executor's exchange_round events of this dispatch
         self.xchg_log: List[Dict[str, int]] = []
-        # the dispatch's tables (exec/operands.py: DispatchOperands, BakedOperands)
+        # the dispatch's tables (exec/programs.py: PositionalOperands)
         self.operands = operands
         self.slack = slack
         self.boost = boost
@@ -724,11 +727,16 @@ def _k_default_if_empty(ctx: StageContext, p) -> None:
     b = ctx.slots[p["slot"]].compact()
     emit = ~PART.any_(b.valid, ctx.mesh)
     first = torch.zeros_like(b.valid)
-    first[0, 0] = ctx.base == 0  # global partition 0 only
+    # global partition 0 only; a fill, not a copy of a host scalar
+    # (capture-safe)
+    first[0, 0].fill_(ctx.base == 0)
     first = first & emit
     data = {}
     for name, col in b.data.items():
-        dflt = torch.as_tensor(p["defaults"].get(name, 0), dtype=col.dtype, device=col.device)
+        # filled on the device (no host tensor crosses: capture-safe)
+        v = p["defaults"].get(name, 0)
+        v = float(v) if col.dtype.is_floating_point else bool(v) if col.dtype == torch.bool else int(v)
+        dflt = torch.full((), v, dtype=col.dtype, device=col.device)
         data[name] = torch.where(first, dflt, col)
     ctx.slots[p["slot"]] = ColumnBatch(data, b.valid | first)
 

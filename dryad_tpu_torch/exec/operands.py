@@ -24,7 +24,12 @@ reference's pool does.
 
 One pool per :class:`~dryad_tpu_torch.exec.executor.GraphExecutor`;
 its ``hits``, ``full_uploads`` and ``delta_scatters`` feed the flight
-recorder's ``operand_pool`` probe.
+recorder's ``operand_pool`` probe.  A dispatch fetches its unit's
+tables from the pool in ``operand_objects`` order and hands them to the
+unit's stage program (``exec/programs.py``), which on the card copies
+them into buffers it owns: a scatter makes new tensors, so a graph
+that captured the resident ones would read a stale table after a widen
+within its tier (the reference's call-time operands).
 """
 
 from __future__ import annotations
@@ -137,18 +142,6 @@ def operand_objects(ops, params) -> list:
                 seen.add(id(v))
                 objs.append(v)
     return objs
-
-
-class DispatchOperands:
-    """The tables of one dispatch attempt: every operand object of the
-    unit's ops fetched from the pool once, before the ops run, as the
-    reference fetches a stage's operands per dispatch."""
-
-    def __init__(self, pool: DeviceOperandPool, ops, params):
-        self._by_id = {id(o): pool.get(o) for o in operand_objects(ops, params)}
-
-    def get(self, obj: Any) -> Tuple[torch.Tensor, ...]:
-        return self._by_id[id(obj)]
 
 
 class BakedOperands:

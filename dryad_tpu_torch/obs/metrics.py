@@ -15,11 +15,11 @@ attribution snapshot (a copy of ``dryad_tpu/obs/metrics.py``).
   combine tree, retries and quarantines, the coded k-of-n launches and
   reconstructions (``cluster/localjob.py``), the worker-side partial
   merges, the serving tier's admission, cache and view counters with
-  their per-tenant folds, and the plan rewriter's decisions.  The port
-  has no compile step and emits no ``xla_compile``, so ``compile_s``
-  and ``compile_count`` stay 0 on its logs; they and the exchange and
-  command-batch fields stay in the snapshot, so the panels keep the
-  reference's layout and read a reference log as the reference does.
+  their per-tenant folds, and the plan rewriter's decisions.
+  ``compile_s`` and ``compile_count`` fold the ``xla_compile`` events
+  both packages log, one per stage program built (the port's
+  ``exec/programs.py``: a CUDA graph's capture on the card, a unit's
+  first eager call on the CPU).
   :func:`format_attribution` renders the text lines jobview prints.
 """
 
@@ -244,9 +244,9 @@ class JobMetrics:
     acceptance criteria name, foldable from any event stream.
 
     Time attribution (seconds):
-    - ``compile_s``/``compile_count``: XLA trace+compile per lowering
-      key (``xla_compile`` events, which only the reference emits: 0
-      on the port's logs);
+    - ``compile_s``/``compile_count``: one stage program built per
+      lowering key (``xla_compile`` events: the reference's XLA trace
+      and compile, the port's graph capture or first eager call);
     - ``execute_s``: engine stage attempts (``span`` cat=execute);
     - ``ingest_stall_s``: driver blocked waiting on the prefetch
       thread (``stream_pipeline`` consumer_wait_s);

@@ -187,12 +187,24 @@ def bucket_sum_count(
     num_buckets: int,
 ) -> Tuple[List[torch.Tensor], torch.Tensor]:
     """Per-partition, per-bucket sums of each value column and row
-    counts (see the module docstring for the contract)."""
+    counts (see the module docstring for the contract).  A launch inside
+    a graph capture is recorded, not run: it counts in ``captured``, and
+    the graph's replays add their launches (:func:`note_graph_launches`)."""
     _check(keys, values, valid, num_buckets)
     if keys.device.type == "cpu":
         return bucket_sum_count_plain(keys, values, valid, num_buckets)
     if keys.device.type != "cuda":
         raise ValueError(f"bucket_sum_count: unsupported device {keys.device}")
+    out = _launch(keys, values, valid, num_buckets)
+    if torch.cuda.is_current_stream_capturing():
+        bucket_sum_count.captured += 1
+    else:
+        bucket_sum_count.launches += 1
+    return out
+
+
+def _launch(keys, values, valid, num_buckets) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """The kernels on the current stream (CUDA tensors, checked)."""
     lib = _kernel_lib()
     P, cap = keys.shape
     cap_a = _round_up(cap, ROW_ALIGN)
@@ -233,11 +245,37 @@ def bucket_sum_count(
             f"bucket_sum_count launch failed ({gs}): "
             f"{lib.dn_cuda_error_string(err).decode()}"
         )
-    bucket_sum_count.launches += 1
     return list(sums.unbind(0)), cnt
 
 
 bucket_sum_count.launches = 0  # kernel launches (plain CPU runs not counted)
+bucket_sum_count.captured = 0  # launches recorded into CUDA graphs
+
+
+def note_graph_launches(n: int) -> None:
+    """A graph replay ran ``n`` recorded launches of the kernel."""
+    bucket_sum_count.launches += int(n)
+
+
+def preload(device) -> None:
+    """Build and load the library and run its kernels once on a tiny
+    input, outside any capture (not counted), so that no module load
+    falls inside a graph capture; once a process and card."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    with _lock:
+        if idx in preload.cards:
+            return
+    with torch.cuda.device(idx):
+        z = torch.zeros((1, ROW_ALIGN), dtype=torch.int32, device=dev)
+        _launch(z, [z, z.float()], z.bool(), 1)
+    with _lock:
+        preload.cards.add(idx)
+
+
+preload.cards = set()  # cards whose kernels are loaded in this process
 
 
 # -- the plain version: the same integer terms, summed with index_add_ -------

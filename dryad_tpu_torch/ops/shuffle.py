@@ -302,9 +302,12 @@ def _bucket_ranks(batch: ColumnBatch, dest: torch.Tensor, P: int):
     small = torch.uint8 if P < 255 else torch.int32
     dsorted, order = torch.sort(d.to(small), dim=-1, stable=True)
     dsorted = dsorted.to(torch.int64)
-    src = torch.arange(S, device=dev).reshape(S, 1)
-    counts = torch.bincount((d + src * (P + 1)).reshape(-1), minlength=S * (P + 1))
-    counts = counts.reshape(S, P + 1)
+    # each destination's run in the sorted row, by binary search: no
+    # host read (``bincount`` sizes its output from a read of the max),
+    # so the exchange can be captured into a stage program's graph
+    edges = torch.arange(P + 2, device=dev).expand(S, P + 2).contiguous()
+    bounds = torch.searchsorted(dsorted, edges)
+    counts = bounds[:, 1:] - bounds[:, :-1]
     offsets = counts.cumsum(-1) - counts
     within = torch.arange(cap, device=dev) - offsets.gather(-1, dsorted)
     return dsorted, order, counts, within

@@ -261,10 +261,10 @@ def ppermute_many(items, mesh=None):
         out = []
         for x, perm in items:
             y = torch.zeros_like(x)
-            if perm:
-                src = torch.tensor([s for s, _ in perm], device=x.device)
-                dst = torch.tensor([d for _, d in perm], device=x.device)
-                y[dst] = x[src]
+            # one copy a pair: no index tensor crosses from the host, so
+            # the round can be captured into a stage program's graph
+            for s, d in perm:
+                y[d] = x[s]
             out.append(y)
         return out
     L, base, me = mesh.local, mesh.base, mesh.rank

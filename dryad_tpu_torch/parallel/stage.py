@@ -5,10 +5,12 @@ traces one per-partition function per stage and ``shard_map``s it over
 the mesh; its replicated outputs (the overflow flag, the dictionary-miss
 count) are reduced across the mesh inside the program
 (``dryad_tpu/exec/kernels.py:1181-1185``), so every device reads the
-same values.  The port runs a stage's ops eagerly on a rank's
-``(local, cap)`` tensors, and this module is the one place where a
-stage's replicated outputs are reduced across the process group: the
-overflow OR, the miss sum and the row counts the executor reads.  Every
+same values.  The port runs a unit's ops on a rank's ``(local, cap)``
+tensors, as one stage program (``exec/programs.py``) built through
+:func:`compile_stage` (a lone stage) or :func:`compile_fused` (a run of
+stages), and this module is the one place where a unit's replicated
+outputs are reduced across the process group: the overflow OR, the miss
+sum and the row counts the executor reads.  Every
 rank then takes the same retry, boost and failure decision; no stage op
 reads a flag that only one rank has.  In one process both functions
 hand their inputs back unchanged.
@@ -63,21 +65,24 @@ def named_failures(mesh, name: str):
 
 
 def compile_stage(mesh, fn: Callable[..., Tuple[Any, ...]]):
-    """A stage function ``fn(*args) -> (out, overflow[, miss])`` whose
-    replicated outputs come back reduced over the mesh's group."""
+    """A stage function ``fn(*args) -> (out, overflow[, miss[,
+    counts]])`` whose replicated outputs come back reduced over the
+    mesh's group in one ``all_reduce`` (the executor's unit programs
+    return their exports' row counts too; a loop stage returns none)."""
     if mesh is None or mesh.group is None:
         return fn
 
     def run(*args):
-        out, ovf, *miss = fn(*args)
-        zero = torch.zeros((), dtype=torch.int64, device=ovf.device)
-        ovf, m, _ = reduce_replicated(mesh, ovf, miss[0] if miss else zero)
-        return (out, ovf, m) if miss else (out, ovf)
+        out, ovf, *rest = fn(*args)
+        miss = rest[0] if rest else torch.zeros((), dtype=torch.int64, device=ovf.device)
+        ovf, m, counts = reduce_replicated(mesh, ovf, miss, rest[1] if len(rest) > 1 else ())
+        return (out, ovf) + ((m,) if rest else ()) + ((counts,) if len(rest) > 1 else ())
 
     return run
 
 
 def compile_fused(mesh, fn: Callable[..., Tuple[Any, ...]]):
     """A fused region's function, with the same calling convention as a
-    single stage's (the reference compiles it the same way)."""
+    single stage's (the reference compiles it the same way); the
+    executor builds every run of stages through it."""
     return compile_stage(mesh, fn)

@@ -7,8 +7,9 @@ broken seam, why.  :func:`fuse` returns the :class:`FuseReport` that
 ``tools/explain.py`` renders and that the executor turns into
 ``fuse_break`` events.  The port does not rewire the graph into regions:
 the executor runs and retries the report's regions as units
-(``exec/executor.py::retry_regions``), and running a region as one
-program is ROADMAP.md queue 1 item 10.
+(``exec/executor.py::retry_regions``), each unit one stage program
+(``exec/programs.py``: one CUDA graph on the card) built through
+``parallel/stage.py::compile_fused``.
 
 Eligibility (a seam BREAKS, with its reason, when a rule fails):
 

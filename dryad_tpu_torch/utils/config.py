@@ -76,8 +76,9 @@ class DryadConfig:
     - ``do_while_device_auto``: every ``do_while`` first tries the
       on-device loop (``exec/devloop.py``: one CUDA graph a run on the
       card), as ``device=True`` does; a body or condition that lowers to
-      more than one stage, changes the loop carry or reads a value to
-      the host falls back to the driver loop.
+      more than one stage or changes the loop carry falls back to the
+      driver loop (one that reads a value to the host raises
+      ``TypeError`` on the card).
     - ``overflow_sync_depth``: units (stages or runs of stages)
       dispatched before their overflow flags are read in one batched
       copy (the speculative dispatch window); 1 reads each at once.

@@ -332,6 +332,32 @@ def _count_plan(n=400, mod=T, kw=None):
     return ctx.from_arrays(tbl).group_by("k", {"c": ("count", None)})
 
 
+def test_fetch_span_reaches_the_driver_before_a_task_that_lost_to_its_duplicate():
+    """A worker ships its telemetry right after it fetched the job's
+    package: its ``fetch_package`` span is in the driver's log when the
+    job returns, even when its only task stalls after the fetch (an
+    injected stage delay), loses to a duplicate on the other worker and
+    ends after the job (the three-fetch WordCount of the card run)."""
+    delay = 8.0
+    with LocalJobSubmission(num_workers=2, device="cpu") as sub:
+        sub.inject_fault(None, plan={"seed": 0, "stage_delay_prob": 1.0,
+                                     "stage_delay_seconds": delay}, workers=[1])
+        mark = len(sub.events.events())
+        t0 = time.monotonic()
+        # the duplicate path (a STRING WordCount's), not the coded one
+        out = sub.submit_partitioned(_count_plan(), nparts=4, coded=False)
+        dt = time.monotonic() - t0
+        evs = sub.events.events()[mark:]
+        assert int(out["c"].sum()) == 400
+        assert dt < delay - 1.0, f"job took {dt:.1f}s, the stalled task was not bypassed"
+        won = {e["computer"] for e in evs if e["kind"] == "vertex_complete"}
+        assert won == {"worker0"} and "vertex_duplicate_win" in {e["kind"] for e in evs}
+        fetches = sorted(e["worker"] for e in evs
+                         if e["kind"] == "span" and e.get("name") == "fetch_package")
+        assert fetches == [0, 1]
+        sub.launcher.stop(sub._handles[1])  # still stalled: do not wait it out
+
+
 def test_late_worker_join_completes_job():
     launcher = CountingLauncher()
     with LocalJobSubmission(num_workers=2, device="cpu", launcher=launcher,

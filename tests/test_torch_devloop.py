@@ -213,9 +213,10 @@ def test_host_read_in_body_is_a_cpu_difference():
     """A body that reads a device value on the host: the reference's
     trace raises ConcretizationTypeError (a TypeError), so its device
     loop logs start and falls back, and its driver loop, whose stages
-    are traced too, raises it.  The port on the card does the same up to
-    the fallback (its sync check) and then runs the driver loop eagerly;
-    on the CPU no sync can be seen, so the device loop runs the body."""
+    are traced too, raises it.  The port on the card raises it at the
+    loop's sync check (``test_host_read_at_the_loop_check_raises_without_
+    the_driver_loop``); on the CPU no sync can be seen, so the device
+    loop runs the body."""
     jc, tc = _ctxs()
     tbl = {"v": np.array([1.0, 2.0], np.float32)}
     with pytest.raises(TypeError):
@@ -318,3 +319,23 @@ def test_loop_programs_are_bounded():
             lambda q: q.select(lambda c: {"v": c["v"] * 2.0}), _dw_cond, max_iter=20).collect()
         assert sorted(out["v"].tolist()) == [64.0, 128.0]
     assert len(tc.executor._loops) == EX.LOOP_PROGRAMS
+
+
+def test_host_read_at_the_loop_check_raises_without_the_driver_loop(monkeypatch):
+    """On the card the loop's check sees a body that reads a device
+    value on the host (``HostReadError``, a ``TypeError``); the executor
+    raises it, naming the loop's stages, instead of falling back to the
+    driver loop, whose stage programs would refuse the same read.  The
+    CPU cannot see the read, so the check's verdict is forced here."""
+    from dryad_tpu_torch.exec import devloop
+
+    def check(self, current):
+        raise devloop.HostReadError("do_while subplan reads a device value on the host")
+
+    monkeypatch.setattr(devloop.LoopProgram, "check", check)
+    _, tc = _ctxs()
+    with pytest.raises(TypeError, match="reads a device value") as err:
+        tc.from_arrays({"v": np.array([1.0, 2.0], np.float32)}).do_while(
+            lambda q: q.select(_host_read_row, schema=q.schema), _dw_cond, max_iter=20).collect()
+    assert isinstance(err.value, devloop.HostReadError) and "select" in str(err.value)
+    assert [e[0] for e in _loop_events(tc)] == ["do_while_device_start"]

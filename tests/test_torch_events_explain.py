@@ -284,18 +284,25 @@ def test_every_emitted_kind_is_registered_with_its_fields():
 def _comparable(events, kinds):
     """Events of ``kinds`` without their clock and ids; diagnoses of the
     rules that follow the wall clock left out, the others and the
-    ``exchange_round`` events without the qid (each package draws qids
-    from its own counter)."""
+    ``exchange_round`` and ``xla_compile`` events without the qid (each
+    package draws qids from its own counter); ``xla_compile`` without its
+    clocks, its key hash numbered by first appearance (the grouping)."""
     drop = ("ts", "mono", "seconds", "stage", "topology", "after", "before")
     out = []
+    keys: dict = {}  # xla_compile key hashes, numbered in order of first appearance
     for e in events:
         if e["kind"] not in kinds:
             continue
         if e["kind"] == "diagnosis" and e["rule"] in CLOCK_RULES:
             continue
         f = {k: v for k, v in e.items() if k not in drop}
-        if e["kind"] in ("diagnosis", "exchange_round"):
+        if e["kind"] in ("diagnosis", "exchange_round", "xla_compile"):
             f.pop("qid", None)
+        if e["kind"] == "xla_compile":
+            # the compile clocks, as ``seconds``; the key grouping, not the hash
+            f = {k: v for k, v in f.items() if k not in ("trace_s", "compile_s")}
+            f["key"] = keys.setdefault(f["key"], len(keys))
+            f["stage"] = e["stage"]
         out.append((e["kind"], f))
     return out
 

@@ -237,6 +237,11 @@ def test_config_keys_mirror_the_dataclass_and_the_reference():
     # the staged exchange brought the last two (exchange_window,
     # exchange_hbm_budget_mb)
     assert TCFG.PENDING_CONFIG_KEYS == {}
+    # and every documented event kind has its emitter: xla_compile, the
+    # last, since the stage programs (exec/programs.py)
+    from dryad_tpu_torch.exec.events import PENDING_KINDS
+
+    assert PENDING_KINDS == {}
     assert {"exchange_window", "exchange_hbm_budget_mb"} <= fields
     assert not any(w in doc for doc in TCFG.CONFIG_KEYS.values() for w in ("XLA", "JAX", "MXU", "SPMD"))
 

@@ -434,21 +434,23 @@ def test_pending_kinds_fire(path, old, new, expect):
 
 
 def test_pending_kinds_of_the_port_are_exactly_its_unemitted_kinds():
-    """Emptied, the real list leaves exactly its own kinds stale: each
-    entry is a documented kind that no site of the port emits."""
+    """The list is empty: every documented kind has an emit site, so the
+    event rules find no stale entry; put back, ``xla_compile`` (the last
+    kind to gain its site, ``exec/programs.py``) is reported as emitted,
+    and it is not query-scoped."""
     from dryad_tpu_torch.exec.events import PENDING_KINDS, QUERY_SCOPED_KINDS
 
+    assert PENDING_KINDS == {}
     project = engine.load_project()
+    assert not TC.run(project, rules=["event-schema", "trace-context"]).unsuppressed()
     src = project.files[EVENTS]
-    start = src.text.index("PENDING_KINDS: Dict[str, str] = {")
-    end = src.text.index("\n}\n", start) + 3
-    project.files[EVENTS] = TC.SourceFile(
-        EVENTS, src.text[:start] + "PENDING_KINDS = {}\n" + "\n" * (src.text[start:end].count("\n") - 1)
-        + src.text[end:])
+    line = "PENDING_KINDS: Dict[str, str] = {}"
+    assert src.text.count(line) == 1
+    project.files[EVENTS] = TC.SourceFile(EVENTS, src.text.replace(
+        line, 'PENDING_KINDS: Dict[str, str] = {"xla_compile": "ROADMAP queue 1 item 10"}'))
     rep = TC.run(project, rules=["event-schema", "trace-context"])
     stale = {"event-schema": set(), "trace-context": set()}
     for f in rep.unsuppressed():
         stale[f.rule].add(re.search(r"'(\w+)'", f.message).group(1))
-    assert stale["event-schema"] == set(PENDING_KINDS) == {"xla_compile"}
-    # exchange_round, the last query-scoped pending kind, is emitted now
-    assert stale["trace-context"] == set(QUERY_SCOPED_KINDS) & set(PENDING_KINDS) == set()
+    assert stale["event-schema"] == {"xla_compile"}
+    assert stale["trace-context"] == {"xla_compile"} & set(QUERY_SCOPED_KINDS) == set()

@@ -323,6 +323,23 @@ def test_worker_telemetry_reaches_the_driver(subs):
     assert any(e["kind"] == "stage_start" and "worker" in e for e in evs)
 
 
+def test_worker_compiles_reach_the_driver_as_the_reference(subs):
+    """A vertex task's stage programs log their ``xla_compile`` in the
+    worker's job context; the worker ships them to the driver with its
+    telemetry, stamped with the worker, as the reference's worker does
+    (``dryad_tpu/cluster/worker.py``, ``_absorb_ctx_events``)."""
+    got = {}
+    for name in ("port", "ref"):
+        sub = subs[name]
+        _, evs = _submit(sub, _etl(name, T if name == "port" else J), 4)
+        comp = [e for e in evs if e["kind"] == "xla_compile"]
+        # which worker ran which task is the scheduler's timing: the
+        # stages compiled, each from a worker, are the plan's
+        assert comp and all(e["worker"] in (0, 1) for e in comp)
+        got[name] = sorted({e["stage"] for e in comp})
+    assert got["port"] == got["ref"]
+
+
 def _oracle_even(tbl):
     m = tbl["k"] % 2 == 0
     return {c: np.sort(tbl[c][m]) for c in ("k", "i")}
