@@ -89,7 +89,19 @@ join_shuffle, join_broadcast, pagerank, devloop, decomposable, ordered_ops,
 cpu_parity, stores, stream, serve, cluster, gang, rewrite, fleet, obs), for
 short first runs of a changed kernel; ``terasort_capacity`` (the largest
 TeraSort that fits with the stage programs as graphs and as eager
-functions) runs only when named.  The WordCount, TeraSort, sort-path group_by, join,
+functions) runs only when named, and so does ``gang_cards``, on a host
+with four cards (``--phases env,gang_cards``; it fails on fewer): 4
+workers, one card each, in one NCCL group at P = 16 through
+``LocalJobSubmission`` (the dense group_by, TeraSort of 2^28 rows at
+exchange windows 0 and 1, WordCount of 2^26 words, ``submit_many``, a
+rank that never reaches its collective failing the submission with the
+stage named, a worker killed mid-job and the gang rebuilt on 2
+workers), every stage program a CUDA graph with its collectives
+captured, held to one process at P = 16; then 4 ranks of this script
+in one NCCL group (``init_distributed``): the Newton do_while over 2^26
+rows as one graph a rank beside the eager loop, TeraSort and the dense
+group_by graph against eager, a rank that captures again while its
+peers replay, and the exchange's bytes a second.  The WordCount, TeraSort, sort-path group_by, join,
 PageRank, decomposable and ordered phases also profile one warm query
 with torch.profiler and print device time by op, the device's busy
 share of the warm query, and peak memory.
@@ -1765,6 +1777,10 @@ DL_ROWS = 1 << 26  # per-row Newton steps over 2^26 rows {id, a, x}: 768 MiB of 
 DL_EPS = 2.0 ** -17  # the condition: max relative residual |x^3 - a| / a above this
 DL_MAX_ITER = 100
 DL_PAIRS = 10  # warm device-loop / driver-loop pairs, interleaved
+# the events of a do_while whose body reads a device value on the host,
+# before its TypeError: the reference's (tests/test_torch_devloop.py
+# holds this list to the reference's own run)
+DL_HOST_READ_KINDS = ["do_while_device_start", "do_while_device_fallback", "do_while_iter"]
 
 
 def _dl_row(c):
@@ -1899,7 +1915,8 @@ def phase_devloop(dev, card: str) -> dict:
     DL_PAIRS interleaved pairs, the device's busy share, and the
     device-to-host copies of one run of each loop, which for the device
     loop must not grow with the rounds.  A body that reads a device
-    value on the host falls back to the driver loop."""
+    value on the host logs the reference's events (the fallback, the
+    driver loop's first round) and raises its TypeError."""
     from dryad_tpu_torch import DryadConfig, DryadContext
     from dryad_tpu_torch.ops import loopctl as LC
 
@@ -1983,9 +2000,10 @@ def phase_devloop(dev, card: str) -> dict:
           f"{d2h_fast} at {fast_iters}: they grow with the rounds")
     check(d2h_drv > d2h_dev, f"devloop: the driver loop made {d2h_drv} copies, the device loop {d2h_dev}")
     # a body that reads a device value on the host raises TypeError at
-    # the loop's check (the sync check), naming the body's stage: the
-    # driver loop's stage programs would refuse the same read in their
-    # capture, as the reference's traced loops raise (ROADMAP section 3)
+    # the loop's check (the sync check), naming the body's stage, after
+    # the reference's events: the fallback and the driver loop's first
+    # round, whose stage programs would refuse the same read in their
+    # capture, as the reference's traced loops raise
     small = {c: v[:4096] for c, v in t.items()}
     hctx = DryadContext(num_partitions_=P)
     try:
@@ -1995,8 +2013,8 @@ def phase_devloop(dev, card: str) -> dict:
     except TypeError as e:
         raised = str(e)
     hk = [k for k, _n, _v in hctx.executor.events if k.startswith("do_while")]
-    check(hk == ["do_while_device_start"],
-          f"devloop: a host-reading body gave {hk}, expected the start and no driver loop")
+    check(hk == DL_HOST_READ_KINDS,
+          f"devloop: a host-reading body gave {hk}, expected the reference's {DL_HOST_READ_KINDS}")
     check(raised is not None and "select" in raised,
           f"devloop: a host-reading body gave {raised!r}, not a TypeError naming its stage")
     res = {
@@ -2850,14 +2868,17 @@ class DeviceBusy:
     """The card's busy share over a whole part, sampled every 100 ms by
     ``nvidia-smi`` on the card torch uses (NVML's ``utilization.gpu``:
     the share of each sample period in which a kernel ran; copies alone
-    count as idle).  Cheap at
+    count as idle), or the mean over the cards ``ids`` names.  Cheap at
     any length, where a torch.profiler trace of the 2^27-row sort's
     thousands of bucket jobs takes minutes to read back."""
+
+    def __init__(self, ids: str = None):
+        self.ids = ids
 
     def __enter__(self):
         torch.cuda.synchronize()
         self.proc = subprocess.Popen(
-            ["nvidia-smi", "-i", card_id(), "--query-gpu=utilization.gpu",
+            ["nvidia-smi", "-i", self.ids or card_id(), "--query-gpu=utilization.gpu",
              "--format=csv,noheader,nounits", "-lms", "100"],
             stdout=subprocess.PIPE, text=True)
         self.t0 = time.perf_counter()
@@ -5260,14 +5281,27 @@ def check_dense_gang(out: dict, one: dict, tbl: dict, label: str) -> float:
     return float(err.max())
 
 
-def _gang_counters(sub, mark: int, name: str) -> dict:
-    """A worker-shipped counter since event ``mark``, by worker."""
+def _gang_counters(sub, mark: int, name: str, **labels) -> dict:
+    """A worker-shipped counter since event ``mark`` (those with
+    ``labels``), by worker."""
     out = {}
     for e in _since(sub, mark, "metrics"):
         for c in e.get("counters", ()):
-            if c["name"] == name:
+            if c["name"] == name and all(c["labels"].get(k) == v for k, v in labels.items()):
                 out[e.get("worker")] = out.get(e.get("worker"), 0) + c["value"]
     return out
+
+
+def _group_by_worker(events: list) -> dict:
+    out = {}
+    for e in events:
+        out.setdefault(e.get("worker"), []).append(e)
+    return out
+
+
+def _by_worker(events: list) -> dict:
+    """How many of ``events`` each worker shipped."""
+    return {w: len(es) for w, es in _group_by_worker(events).items()}
 
 
 def _gang_peaks(sub, mark: int) -> dict:
@@ -5303,8 +5337,16 @@ def gang_job(sub, q, label: str, card: str) -> tuple:
         "job_s": secs, "package_bytes": os.path.getsize(pkg), "fetch_s": fetch,
         "collective_bytes": _gang_counters(sub, mark, "collective_bytes"),
         "launches": worker_launches(sub, mark),
-        "launches_by_worker": _gang_counters(sub, mark, "kernel_launches"),
+        "launches_by_worker": _gang_counters(sub, mark, "kernel_launches", kernel="bucket_sum_count"),
+        "loop_launches_by_worker": _gang_counters(sub, mark, "kernel_launches", kernel="loop_step"),
         "peak_bytes": _gang_peaks(sub, mark),
+        "graphs_by_worker": _gang_counters(sub, mark, "stage_programs", graph="true"),
+        "eager_by_worker": _gang_counters(sub, mark, "stage_programs", graph="false"),
+        "loop_graphs_by_worker": _gang_counters(sub, mark, "loop_programs", graph="true"),
+        "loop_eager_by_worker": _gang_counters(sub, mark, "loop_programs", graph="false"),
+        "compiles_by_worker": _by_worker(_since(sub, mark, "xla_compile")),
+        "keys_by_worker": {w: len({e["key"] for e in es}) for w, es in
+                           _group_by_worker(_since(sub, mark, "xla_compile")).items()},
     }
     log(f"gang {label} [{card}]: job {secs:.2f} s; package {res['package_bytes'] / 2**20:.1f} MiB, "
         f"fetched in {', '.join(f'{x:.2f}' for x in fetch)} s; bytes to the group by worker "
@@ -5667,16 +5709,620 @@ def nccl_world1(out_path: str) -> int:
     return 0
 
 
-def loopctl_line(dl) -> dict:
+# -- the gang on four cards (only when named) -----------------------------------
+
+GC_CARDS = 4  # workers, one card each, in one NCCL group
+GC_PARTS = 4  # partitions a worker holds: P = 16 over the gang
+GC_P = GC_CARDS * GC_PARTS
+GC_DEVICE = "cuda"  # where the gang's workers and ranks run
+GC_TS_ROWS = 1 << 28  # the terasort phase's TeraSort
+GC_WORDS = 1 << 26  # the wordcount phase's corpus
+GC_DL_ROWS = 1 << 26  # the devloop phase's Newton loop
+GC_MANY = 4  # submit_many's queries ...
+GC_MANY_ROWS = 1 << 20  # ... of this many rows
+GC_KILL_ROWS = 1 << 24  # the group_by whose gang loses a worker mid-job
+GC_KILL_TO = 2  # workers the gang is rebuilt on after the kill
+GC_TIMEOUT_S = 150.0  # the workers' worker_timeout (a job's, 2 GiB packages of TeraSort included)
+GC_DIVERGE_TIMEOUT_S = 40.0  # the gang that loses a rank's collective: it waits half
+GC_PAIRS = 3  # graph / eager pairs in the rank gang, interleaved
+GC_RANK_TIMEOUT_S = 60.0  # the rank gang's collectives' bound
+GC_RANK_WALL_S = 300.0  # the rank gang's whole time, past which its ranks are killed
+GC_XCHG_REPS = 5  # timed all_to_all calls at TeraSort's exchange size
+
+
+def _gc_ts_table() -> dict:
+    """The terasort phase's table at GC_TS_ROWS rows (its generator and seed)."""
+    rng = np.random.default_rng(SEED + 4)
+    return {"key": rng.integers(-2**31, 2**31, GC_TS_ROWS, dtype=np.int32),
+            "payload": rng.random(GC_TS_ROWS, dtype=np.float32)}
+
+
+def _gc_loop_table() -> dict:
+    """The devloop phase's Newton table at GC_DL_ROWS rows."""
+    a = np.random.default_rng(SEED + 13).uniform(1.0, 1e6, GC_DL_ROWS).astype(np.float32)
+    return {"id": np.arange(GC_DL_ROWS, dtype=np.int32), "a": a, "x": a.copy()}
+
+
+def _rank_digests(out: dict, counts, parts: int) -> list:
+    """SHA-256 of each rank's rows of a one-process table in partition
+    order (``counts`` rows a partition, ``parts`` partitions a rank)."""
+    import hashlib
+
+    bounds = np.concatenate([[0], np.cumsum(counts)])
+    digs = []
+    for r in range(len(counts) // parts):
+        lo, hi = int(bounds[r * parts]), int(bounds[(r + 1) * parts])
+        h = hashlib.sha256()
+        for c in sorted(out):
+            h.update(np.ascontiguousarray(out[c][lo:hi]).tobytes())
+        digs.append(h.hexdigest())
+    return digs
+
+
+def _local_digest(batch) -> str:
+    """SHA-256 of a rank's valid rows, columns in name order (as
+    :func:`_rank_digests` hashes one process's)."""
+    import hashlib
+
+    host = batch.fetch_valid_rows()
+    h = hashlib.sha256()
+    for c in sorted(host):
+        h.update(np.ascontiguousarray(host[c]).tobytes())
+    return h.hexdigest()
+
+
+def _rank_argv(rank: int, port: int, out_dir: str) -> list:
+    return [sys.executable, os.path.abspath(__file__), "--gang-rank", str(rank), str(port), out_dir]
+
+
+def _run_ranks(out_dir: str, port: int, wall_s: float) -> list:
+    """The rank gang's exit codes: GC_CARDS ranks of this script
+    (``--gang-rank``), each writing its output to ``rank<r>.log`` (not a
+    pipe, which a rank could fill while its peers wait for it), waited
+    for together; past ``wall_s`` every rank still running is killed."""
+    procs = []
+    for r in range(GC_CARDS):
+        with open(os.path.join(out_dir, f"rank{r}.log"), "w") as fh:
+            procs.append(subprocess.Popen(_rank_argv(r, port, out_dir), stdout=fh,
+                                          stderr=subprocess.STDOUT, cwd=ROOT))
+    deadline = time.monotonic() + wall_s
+    while any(p.poll() is None for p in procs) and time.monotonic() < deadline:
+        time.sleep(0.2)
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+    return [p.returncode for p in procs]
+
+
+def _gc_worker_lines(res: dict, devs: dict, backends: list, label: str) -> None:
+    """One line a worker of a gang job: card, backend, bytes, peak,
+    compiles against keys, programs by kind, launches."""
+    for w in sorted(devs):
+        log(f"gang_cards {label} worker {w}: {devs[w].get('device')} ({devs[w].get('device_name')}), "
+            f"{backends[w] if w < len(backends) else None}; job {res['job_s']:.2f} s; "
+            f"{res['collective_bytes'].get(w, 0)} bytes to the group; peak "
+            f"{res['peak_bytes'].get(w, 0) / 1e9:.3f} GB (allocated + graph pool); xla_compile "
+            f"{res['compiles_by_worker'].get(w, 0)} for {res['keys_by_worker'].get(w, 0)} keys; "
+            f"stage programs {res['graphs_by_worker'].get(w, 0)} graphs, "
+            f"{res['eager_by_worker'].get(w, 0)} eager; loops {res['loop_graphs_by_worker'].get(w, 0)} "
+            f"graphs, {res['loop_eager_by_worker'].get(w, 0)} eager; bucket_sum_count "
+            f"{res['launches_by_worker'].get(w, 0)}, loop_step {res['loop_launches_by_worker'].get(w, 0)}")
+
+
+def _gc_check_graphs(res: dict, label: str, workers: int) -> None:
+    """Every worker's stage programs CUDA graphs, one xla_compile a
+    program (a worker's job captures each of its programs once)."""
+    g, e = res["graphs_by_worker"], res["eager_by_worker"]
+    check(sorted(g) == list(range(workers)) and min(g.values()) >= 1 and not e,
+          f"gang_cards {label}: stage programs by worker {g} graphs, {e} eager")
+    check(res["compiles_by_worker"] == g,
+          f"gang_cards {label}: xla_compile {res['compiles_by_worker']} for programs {g}")
+
+
+def phase_gang_cards(dev, card: str) -> dict:
+    """The gang on four cards: one plan as one program across 4 worker
+    processes, one card each, in one NCCL group, 4 partitions a worker
+    (P = 16), through ``LocalJobSubmission.submit``: a rank that never
+    reaches its collective first (the submission fails within the
+    group's timeout, naming the stage), then (a) the dense group_by
+    (2^26 rows, K = 65536: the bucket kernel in each worker, then
+    ``reduce_scatter`` on the cards), (b) TeraSort of 2^28 rows at
+    exchange windows 0 and 1, rows and placement byte-equal to one
+    process at P = 16, (c) WordCount of 2^26 Zipf(1.1) words, (e)
+    ``submit_many`` of 4 queries equal to serial submits, (f) a worker
+    killed mid-job and the gang rebuilt on 2 workers, the re-run equal to
+    the clean run; every worker's stage programs CUDA graphs, one
+    ``xla_compile`` a key.  Then (d) 4 ranks of this script in one NCCL
+    group (``init_distributed``, ``DryadContext(mesh=make_mesh(16))``):
+    the Newton do_while over 2^26 rows as one graph a rank beside the
+    eager loop, rounds and rows equal to one process; TeraSort and the
+    dense group_by graph against eager in interleaved pairs; a rank that
+    releases its programs and captures again while its peers replay;
+    the exchange's all_to_all timed at TeraSort's size.  The one-process
+    results come first, on card 0, and are freed before any worker
+    starts.  Fails on a host with fewer than 4 cards."""
+    import shutil
+    import socket
+
+    from dryad_tpu_torch import DryadConfig, DryadContext
+    from dryad_tpu_torch.cluster.localjob import LocalJobSubmission
+    from dryad_tpu_torch.columnar.io import parse_partition_bytes
+
+    ncards = torch.cuda.device_count()
+    check(ncards >= GC_CARDS, f"gang_cards needs {GC_CARDS} cards, one a worker; this host has "
+          f"{ncards}")
+    free_card()
+    t_phase = time.perf_counter()
+    res = {"card": card, "workers": GC_CARDS, "partitions_per_worker": GC_PARTS, "P": GC_P}
+    root = os.path.join(WORK_DIR, "gang_cards")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+
+    # the one-process results at P = 16 on card 0, and the kernel's inputs
+    t0 = time.perf_counter()
+    tbl = _dense_table()
+    one = DryadContext(num_partitions_=GC_P)
+    with LaunchRecorder() as rec:
+        dense_one = one.from_arrays(tbl).group_by("k", GANG_DENSE_AGGS, dense=DENSE_K).collect()
+    ((_m, K, _cap), (keys, vals, valid)), = rec.first.items()
+    ts = _gc_ts_table()
+    tq = one.from_arrays(ts).order_by([("key", False)])
+    b = one.execute(tq)
+    ts_counts = b.valid.sum(-1).cpu().numpy()
+    ts_one = one._host_table(tq, b)
+    ts_digest = digest(ts_one)
+    ts_rank_digests = _rank_digests(ts_one, ts_counts, GC_PARTS)
+    del b, tq, ts_one
+    lt = _gc_loop_table()
+    loop_one = one.from_arrays(lt).do_while(_dl_body, _dl_cond, max_iter=DL_MAX_ITER).collect()
+    loop_rounds = [v for k, _n, v in one.executor.events if k == "do_while_device_done"][-1]
+    loop_digest = digest(_sorted_by(loop_one, "id"))
+    del loop_one, lt, one
+    free_card()
+    res["one_process_s"] = time.perf_counter() - t0
+    log(f"gang_cards: the one-process results at P={GC_P} on card 0 in {res['one_process_s']:.1f} s "
+        f"(the dense group_by, TeraSort of {GC_TS_ROWS} rows, the Newton loop of {GC_DL_ROWS} rows: "
+        f"{loop_rounds} rounds)")
+
+    rng = np.random.default_rng(SEED + 2)
+    ids = zipf_ids(rng, GC_WORDS)
+    tab = vocab_table()
+    words = np.array([bytes(r).split()[0].decode() for r in tab], object)
+    uid, ucnt = np.unique(ids, return_counts=True)
+    wc_oracle = dict(zip(words[uid].tolist(), ucnt.tolist()))
+    text = os.path.join(root, "words.txt")
+    with open(text, "wb") as fh:
+        fh.write(tab[ids].tobytes())
+    del ids
+
+    # (d) the rank gang: 4 ranks of this script in one NCCL group
+    out_dir = os.path.join(root, "ranks")
+    os.makedirs(out_dir)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    rcs = _run_ranks(out_dir, port, GC_RANK_WALL_S)
+    res["ranks_s"] = time.perf_counter() - t0
+    for r, rc in enumerate(rcs):
+        if rc != 0:
+            with open(os.path.join(out_dir, f"rank{r}.log"), errors="replace") as fh:
+                tail = fh.read()[-3000:]
+            check(False, f"gang_cards rank {r} failed (exit {rc}): {tail}")
+    ranks = []
+    for r in range(GC_CARDS):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as fh:
+            ranks.append(json.load(fh))
+    res["ranks"] = ranks
+    check([x["backend"] for x in ranks] == [GC_BACKEND] * GC_CARDS, "the rank gang's backends")
+    if GC_DEVICE == "cuda":
+        check([x["device"] for x in ranks] == [f"cuda:{i}" for i in range(GC_CARDS)],
+              f"the ranks are not one a card: {[x['device'] for x in ranks]}")
+    for x in ranks:
+        check(x["loop_rounds"] == loop_rounds and x["loop_eager_rounds"] == loop_rounds,
+              f"rank {x['rank']}: the loop ran {x['loop_rounds']} rounds (eager "
+              f"{x['loop_eager_rounds']}), one process {loop_rounds}")
+        check(x["ts_digest"] == ts_rank_digests[x["rank"]],
+              f"rank {x['rank']}: TeraSort's rows differ from one process's")
+    rows = {}
+    for r in range(GC_CARDS):
+        with np.load(os.path.join(out_dir, f"rank{r}_loop.npz"), allow_pickle=False) as z:
+            for c in z.files:
+                rows.setdefault(c, []).append(z[c])
+    rows = {c: np.concatenate(v) for c, v in rows.items()}
+    check(digest(_sorted_by(rows, "id")) == loop_digest, "the rank gang's loop rows differ from one process's")
+    for x in ranks:
+        log(f"gang_cards rank {x['rank']} [{x['card']}]: {x['device']}, {x['backend']}; Newton do_while "
+            f"{x['loop_rounds']} rounds as {x['loop_graphs']} graph (eager loop beside it: same rounds and "
+            f"rows), warm median {x['loop_graph_med_s']:.4f} s against the eager loop's "
+            f"{x['loop_eager_med_s']:.4f} s ({x['loop_eager_med_s'] / x['loop_graph_med_s']:.2f}x); "
+            f"loop_step {x['loop_step_launches']} launches; TeraSort warm median graphs "
+            f"{x['ts_graph_med_s']:.4f} s, eager {x['ts_eager_med_s']:.4f} s "
+            f"({x['ts_eager_med_s'] / x['ts_graph_med_s']:.2f}x), {x['ts_sent_bytes']} bytes to the "
+            f"group a run; dense group_by graphs {x['dense_graph_med_s']:.4f} s, eager "
+            f"{x['dense_eager_med_s']:.4f} s ({x['dense_eager_med_s'] / x['dense_graph_med_s']:.2f}x); "
+            f"bucket_sum_count {x['bucket_launches']} launches; "
+            f"all_to_all {x['xchg_bytes']} bytes to peers in {x['xchg_ms']:.3f} ms "
+            f"({x['xchg_gbps']:.1f} GB/s a card each way; NCCL's call alone {x['xchg_nccl_ms']:.3f} ms, "
+            f"{x['xchg_nccl_gbps']:.1f} GB/s; NVLink 450); peak "
+            f"{x['peak_bytes'] / 1e9:.3f} GB")
+    ev0 = next(x for x in ranks if x["rank"] == 0)
+    if ev0["ts_profile"] is not None:
+        pr = ev0["ts_profile"]
+        log(f"gang_cards rank 0: a warm graph TeraSort under torch.profiler: {pr['d2h']} device-to-host "
+            f"copies (the flags' reads; no collective operand staged through the host), device busy "
+            f"{pr['busy_share']:.3f} of {pr['wall_s']:.4f} s; top ops {pr['top_ops_ms'][:4]}")
+    check(ev0["recapture_compiles"] > 0 and all(x["recapture_compiles"] == 0 for x in ranks[1:]),
+          f"the recapture: xla_compile by rank {[x['recapture_compiles'] for x in ranks]}")
+    log(f"gang_cards: rank 0 released its programs and captured {ev0['recapture_compiles']} again "
+        f"while ranks 1-{GC_CARDS - 1} replayed theirs: TeraSort's rows byte-equal on every rank")
+    rank_launches = (sum(x["bucket_launches"] for x in ranks), sum(x["loop_step_launches"] for x in ranks))
+
+    cards = ",".join(str(i) for i in range(GC_CARDS))
+    with DeviceBusy(cards) as busy:
+        t0 = time.perf_counter()
+        sub = LocalJobSubmission(num_workers=GC_CARDS, devices_per_worker=GC_PARTS,
+                                 root=os.path.join(root, "job"), device=GC_DEVICE,
+                                 worker_timeout=GC_TIMEOUT_S)
+        try:
+            devs = _wait_for_workers(sub, GC_CARDS)
+            res["workers_start_s"] = time.perf_counter() - t0
+            places = sorted(d.get("device", "") for d in devs.values())
+            log(f"gang_cards: {GC_CARDS} workers started in {res['workers_start_s']:.2f} s on {places}")
+            if GC_DEVICE == "cuda":
+                check(places == [f"cuda:{i}" for i in range(GC_CARDS)],
+                      f"gang_cards: the workers are not one a card: {places}")
+            mark0 = len(sub.events.events())
+            ctx = DryadContext(num_partitions_=GC_P)
+
+            # (a) the dense group_by: the bucket kernel in each worker, then
+            # reduce_scatter on the cards
+            out, res["dense"] = gang_job(sub, ctx.from_arrays(tbl).group_by(
+                "k", GANG_DENSE_AGGS, dense=DENSE_K), "dense group_by", card)
+            devs = sub.worker_devices()
+            res["backends"] = backends = _gang_backends(sub)
+            log(f"gang_cards: the process group's backend by worker: {backends}")
+            check(backends == [GC_BACKEND] * GC_CARDS, f"gang_cards backends {backends}")
+            _gc_worker_lines(res["dense"], devs, backends, "dense")
+            _gc_check_graphs(res["dense"], "dense", GC_CARDS)
+            res["dense"]["max_abs_err_sum"] = check_dense_gang(out, dense_one, tbl, "gang_cards dense")
+            by_worker = res["dense"]["launches_by_worker"]
+            check(sorted(by_worker) == list(range(GC_CARDS)) and min(by_worker.values()) >= 1,
+                  f"bucket kernel launches by worker {by_worker}")
+            log(f"gang_cards dense group_by: {DENSE_ROWS} rows, K={DENSE_K}: keys, counts and int sums "
+                f"byte-equal to one process at P={GC_P}; float sums within 2^-16 sum|v| (max |err| "
+                f"{res['dense']['max_abs_err_sum']:.3g})")
+            del out
+
+            # (b) TeraSort at windows 0 and 1: rows and placement byte-equal
+            for w in (0, 1):
+                wctx = DryadContext(num_partitions_=GC_P, config=DryadConfig(exchange_window=w))
+                lab = f"terasort_window{w}"
+                out, res[lab] = gang_job(sub, wctx.from_arrays(ts).order_by([("key", False)]),
+                                         f"TeraSort window {w}", card)
+                _gc_worker_lines(res[lab], devs, backends, lab)
+                _gc_check_graphs(res[lab], lab, GC_CARDS)
+                check(digest(out) == ts_digest, f"gang_cards TeraSort window {w} differs from one process's")
+                seq = _since(sub, mark0, "gang_run_start")[-1]["seq"]
+                part_dir = os.path.join(sub.root, sub.job_id, f"r{seq}", "result")
+                counts = []
+                for g in range(GC_P):
+                    with open(os.path.join(part_dir, f"part{g}.dpf"), "rb") as fh:
+                        counts.append(len(parse_partition_bytes(fh.read())["key"]))
+                check(counts == ts_counts.tolist(), f"gang_cards TeraSort window {w} placement {counts}, "
+                      f"one process {ts_counts.tolist()}")
+                sent = res[lab]["collective_bytes"]
+                log(f"gang_cards TeraSort window {w} [{card}]: {GC_TS_ROWS} rows byte-equal to one process "
+                    f"at P={GC_P}, each partition's rows too; job {res[lab]['job_s']:.2f} s; bytes to the "
+                    f"group by worker {sent}")
+                del out, wctx
+            del ts
+
+            # (c) WordCount: the dictionary comes back as dictionary.pkl
+            wq = ctx.from_text(text).group_by("word", {"n": ("count", None)})
+            out, res["wordcount"] = gang_job(sub, wq, "WordCount", card)
+            _gc_worker_lines(res["wordcount"], devs, backends, "wordcount")
+            _gc_check_graphs(res["wordcount"], "wordcount", GC_CARDS)
+            check(dict(zip(out["word"].tolist(), out["n"].tolist())) == wc_oracle,
+                  "gang_cards WordCount differs from the numpy oracle")
+            check(res["wordcount"]["launches"] >= GC_CARDS, "gang_cards WordCount ran no bucket kernel")
+            log(f"gang_cards WordCount: {GC_WORDS} words, {len(wc_oracle)} equal to the oracle")
+            del out, wq
+            os.remove(text)
+
+            # (e) submit_many through the dispatch window, against serial submits
+            mrng = np.random.default_rng(SEED + 41)
+            cfg = DryadConfig(command_batch=2, gang_batch_depth=2)
+            qs = []
+            for i in range(GC_MANY):
+                t = {"k": mrng.integers(-5000, 5000, GC_MANY_ROWS).astype(np.int32),
+                     "v": mrng.integers(-1000, 1000, GC_MANY_ROWS).astype(np.int32)}
+                qs.append(DryadContext(num_partitions_=GC_P, config=cfg).from_arrays(t).group_by(
+                    "k", {"c": ("count", None), "s": ("sum", "v")}))
+            t0 = time.perf_counter()
+            serial = [sub.submit(q) for q in qs]
+            serial_s = time.perf_counter() - t0
+            mark = len(sub.events.events())
+            t0 = time.perf_counter()
+            many = sub.submit_many(qs)
+            many_s = time.perf_counter() - t0
+            check([digest(o) for o in many] == [digest(o) for o in serial],
+                  "gang_cards submit_many differs from serial submits")
+            (win,) = _since(sub, mark, "gang_window")
+            check(win["peak_in_flight"] >= 2 and win["depth"] == 2,
+                  f"the dispatch window held {win['peak_in_flight']} envelopes")
+            res["submit_many"] = {"serial_s": serial_s, "windowed_s": many_s,
+                                  "peak_in_flight": win["peak_in_flight"], "dispatches": win["dispatches"]}
+            log(f"gang_cards submit_many: {GC_MANY} queries of {GC_MANY_ROWS} rows, command_batch 2, "
+                f"depth 2: {many_s:.2f} s (serial submits {serial_s:.2f} s), byte-equal, "
+                f"{win['peak_in_flight']} envelopes in flight at peak")
+            del serial, many, qs
+
+            # a rank that never reaches its collective: its peers' host
+            # reads give up at the group's timeout and name the stage (a
+            # gang rebuilt with a short bound for it)
+            sub.timeout = GC_DIVERGE_TIMEOUT_S
+            sub.rebuild_gang(GC_CARDS)
+            srng = np.random.default_rng(SEED + 47)
+            small = {"k": srng.integers(-5000, 5000, 1 << 16).astype(np.int32)}
+            sq = ctx.from_arrays(small).group_by("k", {"c": ("count", None)})
+            sub.submit(sq)
+            check(_gang_backends(sub) == [GC_BACKEND] * GC_CARDS, "the rebuilt gang's backends")
+            sub.inject_fault("group_by", count=100, workers=[GC_CARDS - 1])
+            t0 = time.perf_counter()
+            try:
+                sub.submit(sq, auto_recover=False)
+                msg = None
+            except RuntimeError as e:
+                msg = str(e)
+            took = time.perf_counter() - t0
+            sub.inject_fault(None, workers=[GC_CARDS - 1])
+            check(msg is not None and "GangStageError" in msg and "stage '" in msg
+                  and f"of {GC_CARDS}" in msg,
+                  f"gang_cards: a rank that never arrived gave {msg!r}, not a GangStageError naming the stage")
+            check(took < sub.timeout, f"gang_cards: the failure took {took:.1f} s, past {sub.timeout} s")
+            res["diverge"] = {"s": took, "group_timeout_s": sub.timeout / 2,
+                              "error": msg[msg.index("GangStageError"):][:400]}
+            log(f"gang_cards: worker {GC_CARDS - 1} fails before its exchange; its peers' submission "
+                f"failed in {took:.2f} s (the group's timeout {sub.timeout / 2:g} s): "
+                f"{res['diverge']['error'][:240]}")
+            sub.rebuild_gang(GC_CARDS)  # the group is out of step
+
+            # (f) a worker killed mid-job; the gang rebuilt on 2 workers
+            krng = np.random.default_rng(SEED + 43)
+            kt = {"k": krng.integers(-2**20, 2**20, GC_KILL_ROWS).astype(np.int32),
+                  "v": krng.integers(-1000, 1000, GC_KILL_ROWS).astype(np.int32)}
+            kq = ctx.from_arrays(kt).group_by("k", {"c": ("count", None), "s": ("sum", "v")})
+            clean, res["kill_clean"] = gang_job(sub, kq, "group_by (clean)", card)
+            mark = len(sub.events.events())
+            killer = _kill_mid_job(sub, GC_CARDS - 1)
+            t0 = time.perf_counter()
+            try:
+                sub.submit(kq, auto_recover=False)
+                lost = None
+            except (RuntimeError, TimeoutError) as e:
+                lost = str(e)
+            lost_s = time.perf_counter() - t0
+            killer.join(timeout=60)
+            check(lost is not None, "gang_cards: the job with a killed worker did not fail")
+            sub.rebuild_gang(GC_KILL_TO)
+            t0 = time.perf_counter()
+            again = sub.submit(kq)
+            kill_s = time.perf_counter() - t0
+            rebuilds = _since(sub, mark, "gang_rebuild")
+            check([(e["workers"], e["dead"]) for e in rebuilds] == [(GC_KILL_TO, [GC_CARDS - 1])],
+                  f"gang_cards rebuilds {rebuilds}")
+            check(sub.n == GC_KILL_TO, f"the gang has {sub.n} workers after the kill")
+            check(_gang_backends(sub) == [GC_BACKEND] * GC_KILL_TO,
+                  f"the rebuilt gang's backends {_gang_backends(sub)}")
+            check(digest(_sorted_by(again, "k")) == digest(_sorted_by(clean, "k")),
+                  "the re-run on 2 workers differs from the clean run")
+            res["kill"] = {"failed_s": lost_s, "rerun_s": kill_s, "workers_after": sub.n,
+                           "error": lost[:300], "launches": worker_launches(sub, mark)}
+            log(f"gang_cards kill: worker {GC_CARDS - 1} killed past the start barrier; the job failed in "
+                f"{lost_s:.2f} s; gang_rebuild on {GC_KILL_TO} workers, re-run in {kill_s:.2f} s (clean "
+                f"{res['kill_clean']['job_s']:.2f} s on {GC_CARDS}), equal to the clean run")
+            res["launches"] = worker_launches(sub, mark0) + rank_launches[0]
+            res["loop_launches"] = int(sum(_gang_counters(sub, mark0, "kernel_launches",
+                                                          kernel="loop_step").values())) + rank_launches[1]
+            del clean, again, kq, kt, ctx
+        finally:
+            sub.shutdown()
+    res.update(device_idle=busy.idle, device_busy_s=busy.busy_s, wall_s=busy.wall_s)
+
+    shape = kernel_shape_report(keys[:GC_PARTS], [v[:GC_PARTS] for v in vals], valid[:GC_PARTS], K)
+    log(f"kernel vs plain at a gang_cards worker's shape ({shape['shape']}): byte-equal; kernel "
+        f"{shape['kernel_ms']:.3f} ms, plain {shape['plain_ms']:.3f} ms, {shape['library']} "
+        f"{shape['library_ms']:.3f} ms, bound {shape['bound_ms']:.4f} ms")
+    shutil.rmtree(root, ignore_errors=True)
+    free_card()
+    res.update(kernel_shapes=[shape], phase_s=time.perf_counter() - t_phase)
+    log(f"gang_cards phase [{card}]: {res['phase_s']:.1f} s (workers start {res['workers_start_s']:.2f} s, "
+        f"rank gang {res['ranks_s']:.1f} s); {res['launches']} bucket kernel and {res['loop_launches']} "
+        f"loop_step launches in the workers and ranks; cards idle {busy.idle:.3f} of {busy.wall_s:.1f} s "
+        f"(NVML, the mean of {GC_CARDS} cards, the workers' part)")
+    return res
+
+
+GC_BACKEND = "nccl"  # the group's backend on a host with a card a worker
+
+
+def _timed(ctx, q, graphs: bool):
+    """``ctx.execute(q)`` with the stage programs (and the loop) as CUDA
+    graphs, where the port makes them, or eager; (batch, seconds), the
+    card synchronized around it."""
+    from dryad_tpu_torch.exec.programs import graphs_for
+
+    ctx.executor.programs.graphs = graphs and graphs_for(ctx.device, ctx.mesh)
+    _sync()
+    t0 = time.perf_counter()
+    b = ctx.execute(q)
+    _sync()
+    return b, time.perf_counter() - t0
+
+
+def _sync() -> None:
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def gang_rank(rank: int, port: int, out_dir: str) -> int:
+    """Child: rank ``rank`` of the gang_cards phase's rank gang, one
+    card a rank in one NCCL group (``init_distributed``), the context
+    spanning it (``DryadContext(mesh=make_mesh(16))``).  Writes
+    ``rank<r>.json`` (its numbers) and ``rank<r>_loop.npz`` (its rows of
+    the loop) to ``out_dir``."""
+    import torch.distributed as dist
+
+    from dryad_tpu_torch import DryadContext
+    from dryad_tpu_torch.ops.bucket import bucket_sum_count
+    from dryad_tpu_torch.ops.loopctl import loop_step
+    from dryad_tpu_torch.parallel import partition as PART
+    from dryad_tpu_torch.parallel.mesh import make_mesh
+    from dryad_tpu_torch.parallel.multihost import init_distributed
+
+    import traceback
+
+    init_distributed(f"127.0.0.1:{port}", GC_CARDS, rank, device=GC_DEVICE, timeout=GC_RANK_TIMEOUT_S)
+    try:
+        mesh = make_mesh(GC_P, GC_DEVICE if GC_DEVICE != "cuda" else None)
+        on_card = mesh.device.type == "cuda"
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        ctx = DryadContext(mesh=mesh)
+        res = {"rank": rank, "device": str(mesh.device), "backend": mesh.backend,
+               "card": card_line() if on_card else "cpu"}
+        compiles = lambda: sum(1 for e in ctx.events.events() if e["kind"] == "xla_compile")
+
+        # the Newton loop: one graph a rank, beside the eager loop
+        qd = ctx.from_arrays(_gc_loop_table()).do_while(_dl_body, _dl_cond, max_iter=DL_MAX_ITER)
+        loop_step.launches = 0
+        b, res["loop_first_s"] = _timed(ctx, qd, True)
+        res["loop_step_launches"] = loop_step.launches
+        kinds = [(k, v) for k, _n, v in ctx.executor.events if k.startswith("do_while")]
+        check([k for k, _ in kinds] == ["do_while_device_start", "do_while_device_done"],
+              f"rank {rank}: loop events {kinds}")
+        res["loop_rounds"] = kinds[-1][1]
+        loops = [p for key, p in ctx.executor._loops.items() if not key[-1]]
+        res["loop_graphs"] = sum(p.graph is not None for p in loops)
+        check(not on_card or res["loop_graphs"] == 1, f"rank {rank}: the loop ran without its CUDA graph")
+        check(not on_card or res["loop_step_launches"] == res["loop_rounds"],
+              f"rank {rank}: {res['loop_step_launches']} loop_step launches for {res['loop_rounds']} rounds")
+        host = b.fetch_valid_rows()
+        np.savez(os.path.join(out_dir, f"rank{rank}_loop.npz"), **host)
+        graph_digest = digest(host)
+        b, _ = _timed(ctx, qd, False)
+        res["loop_eager_rounds"] = [v for k, _n, v in ctx.executor.events if k == "do_while_device_done"][-1]
+        check(digest(b.fetch_valid_rows()) == graph_digest, f"rank {rank}: the eager loop's rows differ")
+        del b, host
+
+        def pairs(q, label):
+            g_s, e_s = [], []
+            for _ in range(GC_PAIRS):
+                for graphs, acc in ((True, g_s), (False, e_s)):
+                    b, secs = _timed(ctx, q, graphs)
+                    acc.append(secs)
+                    del b
+            res[f"{label}_graph_s"], res[f"{label}_eager_s"] = g_s, e_s
+            res[f"{label}_graph_med_s"] = float(np.median(g_s))
+            res[f"{label}_eager_med_s"] = float(np.median(e_s))
+
+        pairs(qd, "loop")
+
+        # TeraSort: graph against eager, the bytes a run hands the group,
+        # and a rank that captures again while its peers replay
+        tq = ctx.from_arrays(_gc_ts_table()).order_by([("key", False)])
+        b, res["ts_first_s"] = _timed(ctx, tq, True)
+        res["ts_digest"] = _local_digest(b)
+        del b
+        sent = mesh.sent_bytes
+        b, _ = _timed(ctx, tq, True)
+        res["ts_sent_bytes"] = mesh.sent_bytes - sent
+        check(_local_digest(b) == res["ts_digest"], f"rank {rank}: a warm TeraSort's rows differ")
+        b, _ = _timed(ctx, tq, False)
+        check(_local_digest(b) == res["ts_digest"], f"rank {rank}: the eager TeraSort's rows differ")
+        del b
+        pairs(tq, "ts")
+        # the device-to-host copies of a warm graph run, on rank 0 (its
+        # peers replay beside it)
+        if on_card and rank == 0:
+            res["ts_profile"] = profile_run(lambda: _timed(ctx, tq, True))
+        else:
+            _timed(ctx, tq, True)  # the same run, unprofiled
+            res["ts_profile"] = None
+        mark = compiles()
+        if rank == 0:
+            ctx.executor.programs.clear()
+        b, res["recapture_s"] = _timed(ctx, tq, True)
+        res["recapture_compiles"] = compiles() - mark
+        check(_local_digest(b) == res["ts_digest"], f"rank {rank}: TeraSort's rows differ after the recapture")
+        del b, tq
+
+        # the dense group_by: the bucket kernel, then reduce_scatter
+        bucket_sum_count.launches = 0
+        dq = ctx.from_arrays(_dense_table()).group_by("k", GANG_DENSE_AGGS, dense=DENSE_K)
+        b, _ = _timed(ctx, dq, True)
+        del b
+        pairs(dq, "dense")
+        res["bucket_launches"] = int(bucket_sum_count.launches)
+        check(not on_card or res["bucket_launches"] >= 1, f"rank {rank}: no bucket kernel launch")
+        del dq
+
+        # the exchange alone: all_to_all at TeraSort's size (a rank's
+        # 2^26 rows of key and payload, 8 bytes a row)
+        per = GC_TS_ROWS // GC_CARDS // (GC_PARTS * GC_P)
+        send = torch.zeros((GC_PARTS, GC_P, per), dtype=torch.int64, device=mesh.device)
+        PART.all_to_all(send, mesh)
+        PART.settle(mesh, "all_to_all")
+        _sync()
+        t0 = time.perf_counter()
+        for _ in range(GC_XCHG_REPS):
+            PART.all_to_all(send, mesh)
+        PART.settle(mesh, "all_to_all")
+        _sync()
+        res["xchg_ms"] = (time.perf_counter() - t0) / GC_XCHG_REPS * 1e3
+        res["xchg_bytes"] = send.numel() * send.element_size() * (GC_CARDS - 1) // GC_CARDS
+        res["xchg_gbps"] = res["xchg_bytes"] / (res["xchg_ms"] / 1e3) / 1e9
+        # NCCL's all_to_all_single alone, without the layout copies around it
+        flat, recv = send.reshape(-1), torch.empty_like(send.reshape(-1))
+        dist.all_to_all_single(recv, flat, group=mesh.group)
+        _sync()
+        t0 = time.perf_counter()
+        for _ in range(GC_XCHG_REPS):
+            dist.all_to_all_single(recv, flat, group=mesh.group)
+        _sync()
+        res["xchg_nccl_ms"] = (time.perf_counter() - t0) / GC_XCHG_REPS * 1e3
+        res["xchg_nccl_gbps"] = res["xchg_bytes"] / (res["xchg_nccl_ms"] / 1e3) / 1e9
+        del send, flat, recv
+        res["peak_bytes"] = card_peak() if on_card else 0
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
+            json.dump(res, fh)
+        dist.barrier()
+    except BaseException:
+        traceback.print_exc()
+        sys.stdout.flush()
+        os._exit(1)
+    # the rank's work is written: it ends without tearing the group down,
+    # whose communicators the captured graphs' NCCL plans still hold
+    sys.stdout.flush()
+    os._exit(0)
+
+
+def loopctl_line(dl, gc=None) -> dict:
     """The loop-control kernel's entry of the kernels line (the devloop
-    phase's numbers; None where it did not run)."""
+    phase's numbers, and its launches in the gang_cards phase's ranks and
+    workers; None where a phase did not run)."""
     lc = (dl or {}).get("loopctl", {})
+    per_path = {"devloop": (dl or {}).get("loopctl_launches"), "gang_cards": (gc or {}).get("loop_launches")}
+    ran = [n for n in per_path.values() if n is not None]
     return {
         "name": "loop_step",
         "route": "cuda",
         "source": "dryad_tpu_torch/ops/csrc/loop_control.cu",
         "replaces": "none: dryad_tpu/exec/executor.py:1551 (the lax.while_loop condition and carry update)",
-        "launches": (dl or {}).get("loopctl_launches"),
+        "launches": sum(ran) if ran else None,
+        "launches_by_path": per_path,
         "max_abs_err": lc.get("max_abs_err"),
         "ms": lc.get("kernel_ms"),
         "plain_ms": lc.get("plain_ms"),
@@ -5694,8 +6340,9 @@ def main(argv=None) -> int:
         default="lint,env,kernel,wordcount,dense,terasort,terasort_hot,groupby_sort,programs,"
                 "hybrid,groupby_sort_fused,join_shuffle,join_broadcast,pagerank,devloop,decomposable,"
                 "ordered_ops,cpu_parity,stores,stream,serve,cluster,gang,rewrite,fleet,obs")
-    # the gang phase's child processes (not for direct use)
+    # the gang phases' child processes (not for direct use)
     ap.add_argument("--nccl-probe", nargs=2, type=int, metavar=("RANK", "PORT"), help=argparse.SUPPRESS)
+    ap.add_argument("--gang-rank", nargs=3, metavar=("RANK", "PORT", "OUT"), help=argparse.SUPPRESS)
     ap.add_argument("--nccl-world1", metavar="OUT", help=argparse.SUPPRESS)
     ap.add_argument("--terasort-capacity", nargs=3, metavar=("MODE", "ROWS", "OUT"),
                     help=argparse.SUPPRESS)
@@ -5710,6 +6357,9 @@ def main(argv=None) -> int:
         return nccl_probe(*args.nccl_probe)
     if args.nccl_world1:
         return nccl_world1(args.nccl_world1)
+    if args.gang_rank:
+        rank, port, out = args.gang_rank
+        return gang_rank(int(rank), int(port), out)
     if args.terasort_capacity:
         mode, rows, out = args.terasort_capacity
         return terasort_capacity_child(mode, int(rows), out)
@@ -5749,6 +6399,7 @@ def main(argv=None) -> int:
         ("fleet", lambda: phase_fleet(dev, card)),
         ("obs", lambda: phase_obs(dev, card)),
         ("terasort_capacity", lambda: phase_terasort_capacity(dev, card)),
+        ("gang_cards", lambda: phase_gang_cards(dev, card)),
     )
     _PG["ran"] = ran = []
     for name, run in steps:
@@ -5777,6 +6428,7 @@ def main(argv=None) -> int:
         "serve": results.get("serve", {}).get("launches"),
         "cluster": results.get("cluster", {}).get("launches"),
         "gang": results.get("gang", {}).get("launches"),
+        "gang_cards": results.get("gang_cards", {}).get("launches"),
         "rewrite": results.get("rewrite", {}).get("launches"),
         "fleet": results.get("fleet", {}).get("launches"),
         "obs": results.get("obs", {}).get("launches"),
@@ -5815,11 +6467,12 @@ def main(argv=None) -> int:
         "serve_shapes": results.get("serve", {}).get("kernel_shapes"),
         "cluster_shapes": results.get("cluster", {}).get("kernel_shapes"),
         "gang_shapes": results.get("gang", {}).get("kernel_shapes"),
+        "gang_cards_shapes": results.get("gang_cards", {}).get("kernel_shapes"),
         "hybrid_shapes": [results["hybrid"]["wordcount"]["kernel_shape"]] if "hybrid" in results else None,
         "rewrite_shapes": results.get("rewrite", {}).get("kernel_shapes"),
         "fleet_shapes": results.get("fleet", {}).get("kernel_shapes"),
         "obs_shapes": results.get("obs", {}).get("kernel_shapes"),
-    }, loopctl_line(results.get("devloop"))]}
+    }, loopctl_line(results.get("devloop"), results.get("gang_cards"))]}
     print(json.dumps(line))
     print(card)
     print(json.dumps({"ok": True, "device": {

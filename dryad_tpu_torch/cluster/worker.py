@@ -368,12 +368,25 @@ def _run_command(cmd: Dict, args, client, cp, device, wtracer, wlog=None) -> Dic
         cp.barrier(f"done/{cmd['seq']}", args.nproc)
         _absorb_ctx_events(wlog, ctx)
         if wlog is not None:
-            # what this run handed to the group, and its device peak
+            # what this run handed to the group, its device peak, and
+            # its stage and loop programs by kind (a CUDA graph or the
+            # eager function)
             labels = {"backend": mesh.backend or "none"}
             counters = [{"name": "collective_bytes", "labels": labels, "value": mesh.sent_bytes}]
             if on_card:
+                # the allocated peak and the graph pool, where a replay's
+                # working set lies (a replay allocates nothing)
+                from dryad_tpu_torch.exec.programs import pool_bytes
+
                 counters.append({"name": "device_peak_bytes", "labels": labels,
-                                 "value": int(torch.cuda.max_memory_allocated(device))})
+                                 "value": int(torch.cuda.max_memory_allocated(device))
+                                 + pool_bytes(device)})
+            ex = ctx.executor
+            kinds = [("stage_programs", p.graph is not None) for p in ex.programs._progs.values()]
+            kinds += [("loop_programs", p.graph is not None) for p in ex._loops.values()]
+            for name, graph in sorted(set(kinds)):
+                counters.append({"name": name, "labels": dict(labels, graph=str(graph).lower()),
+                                 "value": kinds.count((name, graph))})
             wlog.emit("metrics", counters=counters, hists=[])
         return {"state": "completed", "parts": parts}
     finally:
@@ -386,8 +399,10 @@ def _ship_launches(wlog, shipped: Dict[str, int]) -> None:
     the launches happen in this process, and the driver sums them from
     the telemetry it absorbs."""
     from dryad_tpu_torch.ops.bucket import bucket_sum_count
+    from dryad_tpu_torch.ops.loopctl import loop_step
 
-    now = {"bucket_sum_count": int(bucket_sum_count.launches)}
+    now = {"bucket_sum_count": int(bucket_sum_count.launches),
+           "loop_step": int(loop_step.launches)}
     counters = []
     for name, n in now.items():
         delta = n - shipped.get(name, 0)
@@ -478,6 +493,11 @@ def _exec_one(cmd: Dict, args, client, cp, pkgs, delay, wtracer, wlog,
         traceback.print_exc()
         if isinstance(e, GangStageError) and not pstate.get("out_of_step"):
             pstate["out_of_step"] = str(e)
+            # the failed job's state (its graphs, buffers and context,
+            # held by the traceback) stays until the gang is rebuilt:
+            # over NCCL its collectives still wait on the card, and
+            # releasing what they use would wait with them
+            pstate["stranded"] = e
         info = {"error": f"{type(e).__name__}: {e}", "cmd": cmd}
         cp.report_failure(info)
         status = {"state": "failed", "error": info["error"]}

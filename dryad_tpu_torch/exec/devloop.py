@@ -22,13 +22,22 @@ once more on the final state, so that an overflow in it is not lost.
 - Its plain version (:meth:`LoopProgram.run_plain`) runs the same stage
   functions and the kernel's plain twin in a Python loop that reads the
   predicate each round: the CPU's path, and the card's comparison.
-- A gang's loop (``eager``, a mesh over several ranks) runs the plain
-  version on every device: its stage functions cross ranks through
-  ``torch.distributed`` collectives (gloo stages them through the
-  host), which a CUDA graph cannot hold.  The executor decides this from
-  the mesh before any capture (a one-rank group keeps the graph, its
-  collectives captured in it), and logs ``do_while_device_start`` and
-  ``_done`` as for the graph.
+- Over a process group (``mesh``) the stage functions cross ranks
+  through ``torch.distributed`` collectives.  Over NCCL (each rank on a
+  card of its own) a rank's loop is the same one graph, the collectives
+  of every round captured in it, as the reference's ``lax.while_loop``
+  holds its own.  A gloo group stages them through the host, which a
+  CUDA graph cannot hold: such a loop (``eager``) runs the plain
+  version.  The executor decides this from the mesh before any capture,
+  as it decides its stage programs (``exec/programs.py::graphs_for``),
+  and logs ``do_while_device_start`` and ``_done`` either way.  Every
+  rank must run the same rounds, so over a group the loop-control step
+  reads the condition of global partition 0, gathered from its rank
+  (the replicated value of a whole-table aggregate, the reference's
+  ``couts[0].data[cond_col][0]`` on a one-process mesh); a rank's bytes
+  to the group count every round a replay runs; and a host read of the
+  loop state waits for the group at most its timeout
+  (``parallel/partition.py::settle``).
 
 :meth:`LoopProgram.check` is the trace-time check of the reference: it
 applies the body and the condition once and raises ``TypeError`` when
@@ -56,6 +65,7 @@ import torch
 from dryad_tpu_torch.columnar.batch import ColumnBatch
 from dryad_tpu_torch.ops import bucket as BK
 from dryad_tpu_torch.ops import loopctl as LC
+from dryad_tpu_torch.parallel import partition as PART
 
 # body(batch) -> (batch, overflow flag, miss count); cond(batch) -> (batch, overflow flag)
 BodyFn = Callable[[ColumnBatch], Tuple[ColumnBatch, torch.Tensor, torch.Tensor]]
@@ -113,16 +123,18 @@ class LoopProgram:
     """One do_while loop over a fixed carry layout."""
 
     def __init__(self, body: BodyFn, cond: CondFn, cond_col: str, max_iter: int, device,
-                 eager: bool = False):
+                 eager: bool = False, mesh=None, name: str = "do_while"):
         self.body = body
         self.cond = cond
         self.cond_col = cond_col
         self.max_iter = int(max_iter)
         self.device = torch.device(device)
-        # the Python round loop on every device: a gang's stage
-        # functions cross ranks through collectives, which a CUDA graph
-        # cannot hold (set from the mesh before any capture)
+        # the Python round loop on every device: a gloo group's
+        # collectives stage through the host, which a CUDA graph cannot
+        # hold (set from the mesh before any capture)
         self.eager = bool(eager)
+        self.mesh = mesh  # the process group the stage functions cross, or None
+        self.name = name  # the stage a failed collective names
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.carry: Optional[ColumnBatch] = None
         self.state: Optional[torch.Tensor] = None
@@ -130,8 +142,10 @@ class LoopProgram:
         self.capture_s: Optional[float] = None
         self.pool_bytes = 0
         # bucket-kernel launches the capture recorded: the first round,
-        # a round of the WHILE body, the final condition
+        # a round of the WHILE body, the final condition; and the bytes
+        # each hands to the group
         self._bucket = (0, 0, 0)
+        self._sent = (0, 0, 0)
 
     # -- the reference's trace-time check ---------------------------------------
     def check(self, current: ColumnBatch):
@@ -163,18 +177,29 @@ class LoopProgram:
         b, bovf, bmiss = first if first is not None else self.body(current)
         while True:
             c, covf = self.cond(b)
-            LC.loop_step_plain(st, bovf, bmiss, c.data[self.cond_col], covf, self.max_iter)
+            LC.loop_step_plain(st, bovf, bmiss, self._go(c), covf, self.max_iter)
+            PART.settle(self.mesh, self.name)
             if not bool(st[3]):
                 break
             b, bovf, bmiss = self.body(b)
         _, covf = self.cond(b)
+        PART.settle(self.mesh, self.name)
         overflow = bool(st[1]) or bool(covf)
         return LoopResult(b, overflow, int(st[0]), st[2].clone())
+
+    def _go(self, c: ColumnBatch) -> torch.Tensor:
+        """The condition column the step reads (its first element): over
+        a group, global partition 0's first row, gathered to every rank
+        so that every rank runs the same rounds."""
+        col = c.data[self.cond_col]
+        if self.mesh is None or self.mesh.group is None:
+            return col
+        return PART.gather_rows(col.reshape(col.shape[0], -1)[:, :1], self.mesh)
 
     # -- the graph ------------------------------------------------------------------
     def run(self, current: ColumnBatch, first=None) -> LoopResult:
         """The loop on the loop's device: one graph replay on CUDA, the
-        plain version on the CPU and for an eager (gang) loop."""
+        plain version on the CPU and for an eager (gloo gang) loop."""
         if self.device.type == "cpu" or self.eager:
             return self.run_plain(current, first)
         if self.device.type != "cuda":
@@ -185,10 +210,14 @@ class LoopProgram:
             t.copy_(current.data[n])
         self.carry.valid.copy_(current.valid)
         self.graph.replay()
+        PART.note_dispatch(self.mesh, self.name, graph=True)
+        PART.settle(self.mesh, self.name)
         iters, ovf, miss = self.state[:3].cpu().tolist()  # the run's one read
         LC.note_graph_launches(iters)
-        first, each, last = self._bucket
-        BK.note_graph_launches(first + each * max(0, int(iters) - 1) + last)
+        rounds = lambda per: per[0] + per[1] * max(0, int(iters) - 1) + per[2]
+        BK.note_graph_launches(rounds(self._bucket))
+        if self.mesh is not None:
+            self.mesh.sent_bytes += rounds(self._sent)
         out = ColumnBatch({n: t.clone() for n, t in self.carry.data.items()}, self.carry.valid.clone())
         return LoopResult(out, bool(ovf), int(iters), self.state[2].clone())
 
@@ -197,7 +226,7 @@ class LoopProgram:
         out, bovf, bmiss = self.body(self.carry)
         _assign(self.carry, out)
         c, covf = self.cond(self.carry)
-        LC.loop_step(self.state, bovf, bmiss, c.data[self.cond_col], covf, self.max_iter, handle)
+        LC.loop_step(self.state, bovf, bmiss, self._go(c), covf, self.max_iter, handle)
 
     def _capture(self, current: ColumnBatch) -> None:
         dev = self.device
@@ -211,6 +240,8 @@ class LoopProgram:
         BK.preload(dev)
         t0 = time.perf_counter()
         reserved = torch.cuda.memory_reserved(dev)
+        sent = lambda: getattr(self.mesh, "sent_bytes", 0)
+        sent0 = sent()
         graph = torch.cuda.CUDAGraph()
         side = torch.cuda.Stream(dev)
         pool = torch.cuda.graph_pool_handle()  # the graph's private pool
@@ -221,23 +252,26 @@ class LoopProgram:
                 stream = torch.cuda.current_stream(dev).cuda_stream
                 handle = LC.handle_create(stream)
                 self.state.zero_()
-                marks = [BK.bucket_sum_count.captured]
+                marks = [(BK.bucket_sum_count.captured, sent())]
                 self._round(handle)
-                marks.append(BK.bucket_sum_count.captured)
+                marks.append((BK.bucket_sum_count.captured, sent()))
                 body = LC.while_begin(stream, handle)
                 try:
                     with torch.cuda.stream(torch.cuda.ExternalStream(body, device=dev)):
                         self._round(handle)
                 finally:
                     LC.while_end(body)
-                marks.append(BK.bucket_sum_count.captured)
+                marks.append((BK.bucket_sum_count.captured, sent()))
                 _, covf = self.cond(self.carry)
                 self.state[1:2].bitwise_or_(covf.to(torch.int64).reshape(1))
-                marks.append(BK.bucket_sum_count.captured)
+                marks.append((BK.bucket_sum_count.captured, sent()))
         finally:
             torch._C._cuda_releasePool(idx, pool)  # the routing's reference
         self.graph = graph
-        self._bucket = tuple(b - a for a, b in zip(marks, marks[1:]))
+        self._bucket = tuple(b[0] - a[0] for a, b in zip(marks, marks[1:]))
+        self._sent = tuple(b[1] - a[1] for a, b in zip(marks, marks[1:]))
+        if self.mesh is not None:
+            self.mesh.sent_bytes = sent0  # the capture handed nothing over: its replays do
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
         self.capture_s = time.perf_counter() - t0
 

@@ -12,9 +12,14 @@ ported stages need:
   there.
 - Each unit runs as one stage program (``exec/programs.py``) cached
   under the reference's lowering key ``(unit key, boost, shape key,
-  resolved window, fan)``: one CUDA graph on the card in one process,
-  captured at the key's first dispatch and replayed on every later
-  one; the unit's eager function on the CPU and over a gloo group.
+  resolved window, fan)``: one CUDA graph on the card, in one process
+  or on a rank of an NCCL group, captured at the key's first dispatch
+  and replayed on every later one; the unit's eager function on the
+  CPU and over a gloo group.  Over NCCL a rank's collectives run
+  asynchronously: each dispatch is marked with its unit, and every host
+  read (a flag, the window, a driver stage, the job's end) first waits
+  for them at most the group's timeout, naming the unit that waits on
+  a peer (``parallel/partition.py::settle``).
   The key's first dispatch logs ``xla_compile`` (after ``stage_start``
   / ``fused_dispatch`` and the fault consultation, before the
   attempt's ``exchange_round`` events) and the ``xla_compiles`` /
@@ -52,9 +57,11 @@ ported stages need:
   ``do_while_device_fallback`` and runs the reference's driver loop
   (body, then condition, the state compacted after every round, its
   capacity boosted on overflow).  A body or condition that reads a
-  value to the host raises ``TypeError`` on the card (the driver
-  loop's stage programs would refuse the read too).  ``apply_host`` is
-  its host round trip per partition.
+  value to the host (seen on the card) logs the reference's events, the
+  fallback and the driver loop's first ``do_while_iter``, and raises
+  its ``TypeError`` (the driver loop's stage programs would refuse the
+  same read in their capture, as the reference's trace raises in
+  both loops).  ``apply_host`` is its host round trip per partition.
 - The string coding tables of each dispatch attempt come from the
   content-addressed operand pool (``exec/operands.py``), which scatters
   a widened table's delta and counts its bytes into ``h2d_bytes`` and
@@ -606,6 +613,7 @@ class GraphExecutor:
             if len(window) >= depth:
                 self._drain(window, bindings, results, misses)
         self._drain(window, bindings, results, misses)
+        PART.settle(self.mesh)  # the job's collectives ran, or a stage is named
         return results, misses, self._gated_ckpts
 
     # -- checkpoints -----------------------------------------------------------
@@ -793,6 +801,7 @@ class GraphExecutor:
                     log.emit("stage_dispatched", stage=sid, name=name, version=version,
                              boost=boost, inflight=len(window))
                 elif can_overflow:
+                    PART.settle(self.mesh, name)
                     host = torch.stack([overflow.to(torch.int64)] + counts).cpu().tolist()
             if windowed:
                 return
@@ -900,6 +909,7 @@ class GraphExecutor:
         prog = self.programs.get(key, name, lambda: self._build_program(
             unit, run, exports, objs, boost, window), types_of(inputs, tables))
         outs, overflow, dict_miss, counts = self.programs.run(prog, inputs, tables)
+        PART.note_dispatch(self.mesh, name, graph=prog.graph_mode)
         for e, b in zip(exports, outs):
             results[e] = b
         return overflow, dict_miss, counts, prog.rounds
@@ -990,6 +1000,7 @@ class GraphExecutor:
                             stages=[w["name"] for w in entries])
         parts = [w["flag"].to(torch.int64) for w in entries if w["flag"] is not None]
         parts += [c for w in entries for c in w["counts"]]
+        PART.settle(self.mesh)
         host = iter(torch.stack(parts).cpu().tolist() if parts else [])
         flag_of = {id(w): next(host) for w in entries if w["flag"] is not None}
         count_of = {id(w): [next(host) for _ in w["counts"]] for w in entries}
@@ -1054,8 +1065,15 @@ class GraphExecutor:
         if (p.get("device") or auto) and self.loop_lowerer is not None:
             try:
                 return self._run_do_while_device(stage, p, current, misses)
-            except HostReadError:
-                raise  # the driver loop's stage programs refuse the same read
+            except HostReadError as e:
+                # the reference's trace raises for the read, its device
+                # loop falls back, and its driver loop's first round
+                # raises it again: the same events, then the error (the
+                # driver loop's stage programs refuse the same read)
+                self._note("do_while_device_fallback", stage.name, 0, stage=stage.id,
+                           reason=str(e))
+                self._note("do_while_iter", stage.name, 1, stage=stage.id, iter=1)
+                raise
             except (ValueError, TypeError) as e:
                 # ValueError: the lowerer refused the subplan (more than
                 # one stage); TypeError: the body changes the carry
@@ -1106,8 +1124,12 @@ class GraphExecutor:
         )
         boost = 1
         while True:
+            # a graph exactly when the stage programs are (programs.py::
+            # graphs_for: the card, in one process or over NCCL)
+            eager = not self.programs.graphs
             key = ("do_while_device", self._stage_key(body_stage, split_operands=False),
-                   self._stage_key(cond_stage, split_operands=False), layout, max_iter, boost)
+                   self._stage_key(cond_stage, split_operands=False), layout, max_iter, boost,
+                   eager)
             self._note("do_while_device_start", stage.name, boost, stage=stage.id, boost=boost)
             prog = self._loops.get(key)
             first = None
@@ -1118,8 +1140,8 @@ class GraphExecutor:
                                       self.config.shuffle_slack, boost, with_miss=m,
                                       mesh=self.mesh)
                        for s, m in ((body_stage, True), (cond_stage, False))]
-                eager = self.mesh is not None and self.mesh.world > 1
-                prog = LoopProgram(*fns, cond_col, max_iter, self.device, eager=eager)
+                prog = LoopProgram(*fns, cond_col, max_iter, self.device, eager=eager,
+                                   mesh=self.mesh, name=stage.name)
                 try:
                     first = prog.check(current)  # TypeError: the driver loop runs it
                 except HostReadError as e:
@@ -1153,6 +1175,7 @@ class GraphExecutor:
         schema = p["schema"]
         phys = schema.device_names()
         expected = {n: _phys_np_dtype(n, schema) for n in phys}
+        PART.settle(self.mesh, stage.name)
         valid = b.valid.cpu().numpy()
         host = {n: to_host_column(v) for n, v in b.data.items()}
         base = self.mesh.base if self.mesh is not None else 0

@@ -9,8 +9,10 @@ the unit's first dispatch, logs one ``xla_compile`` event and the
 ``xla_compiles`` / ``xla_compile_s`` metrics for it, and calls the
 cached program on every later dispatch.  Here a program is:
 
-- **on the card, in one process** (a flat or hybrid mesh, or a one-rank
-  NCCL group): one ``torch.cuda.CUDAGraph``.  The first dispatch copies
+- **on the card, in one process or over an NCCL group** (a flat or
+  hybrid mesh, or a gang's rank on a card of its own): one
+  ``torch.cuda.CUDAGraph``, the group's collectives captured in it as
+  the reference's compiled programs hold theirs.  The first dispatch copies
   the inputs and the coding tables into buffers the program owns, loads
   the kernel libraries, captures the unit's ops and replays them.  Every
   later dispatch copies its inputs and tables into the same buffers,
@@ -21,6 +23,16 @@ cached program on every later dispatch.  Here a program is:
   eagerly on every dispatch (a gloo collective cannot be captured);
   ``compile_s`` is the first call's wall time, as the reference's
   ``_CompileTimed`` times its first call.
+
+Over an NCCL group every rank runs each collective once a dispatch, in
+the same order: a capture records the unit's collectives and runs none
+(``compile_s`` is the capture and the first replay), a replay runs them
+once, and nothing captures or runs a unit twice in one dispatch.  The
+byte budget below decides on each rank from its own bytes, so one rank
+may release a program and capture it again while its peers replay
+theirs: safe because a capture runs no collective (shown on four cards,
+``chip_smoke.py`` gang_cards).  A rank's ``mesh.sent_bytes`` counts
+what each replay hands to the group (a capture's Python runs once).
 
 Which of the two a cache builds is decided from the device and the
 mesh before any capture (:func:`graphs_for`), never from a failure: a
@@ -49,7 +61,10 @@ A released key captures again on its next dispatch and logs
 ``xla_compile`` again, the one place where the port logs compiles the
 reference does not, at sizes no CPU test reaches.  An allocation
 failure inside a capture releases every other program of the process
-and captures once more; a second failure raises.  An allocation
+and captures once more, in one process; a second failure raises, and
+over a group the first raises :class:`~dryad_tpu_torch.parallel.stage.
+GangStageError` naming the unit (the retry would replay the unit's
+collectives once more on this rank).  An allocation
 failure in a dispatch outside a capture (a replay's outputs, an eager
 program) releases the programs no running job holds, lets the pool go
 and runs the dispatch once more (in one process: a rank of a gang
@@ -78,6 +93,7 @@ import torch
 from dryad_tpu_torch.columnar.batch import ColumnBatch
 from dryad_tpu_torch.ops import bucket as BK
 from dryad_tpu_torch.parallel import partition as PART
+from dryad_tpu_torch.parallel import stage as STAGE
 from dryad_tpu_torch.obs import tracectx
 
 __all__ = [
@@ -147,14 +163,15 @@ def lowering_key_hash(key) -> str:
 
 def graphs_for(device, mesh) -> bool:
     """True when a program is a CUDA graph: on the card, in one process
-    or a one-rank NCCL group; a gloo group (its collectives stage
-    through the host) runs the eager function."""
+    or over an NCCL group of any world (each rank on a card of its own,
+    ``parallel/multihost.py::choose_backend``); a gloo group (its
+    collectives stage through the host) runs the eager function.  The
+    device loop follows the same decision (``exec/devloop.py``)."""
     if torch.device(device).type != "cuda":
         return False
-    group = getattr(mesh, "group", None)
-    if group is None:
+    if getattr(mesh, "group", None) is None:
         return True
-    return getattr(mesh, "world", 1) == 1 and getattr(mesh, "backend", None) == "nccl"
+    return getattr(mesh, "backend", None) == "nccl"
 
 
 class PositionalOperands:
@@ -210,8 +227,9 @@ class StageProgram:
     filled by the first call and logged on every dispatch."""
 
     def __init__(self, fn: UnitFn, name: str, key_hash: str, build_s: float,
-                 rounds: List[dict], graph: bool, device):
+                 rounds: List[dict], graph: bool, device, mesh=None):
         self.fn = fn
+        self.mesh = mesh
         self.name = name
         self.key_hash = key_hash
         self.build_s = build_s
@@ -227,6 +245,7 @@ class StageProgram:
         self._tables: List[Tuple[torch.Tensor, ...]] = []
         self._out = None
         self._launches = 0  # bucket-kernel launches a replay runs
+        self._sent = 0  # bytes a replay hands to the group's collectives
         self._pool: Optional[_Pool] = None
         self.pool_bytes = 0  # what its capture added to the shared pool
         self.held_bytes = 0  # its buffers (inputs, tables), outside the pool
@@ -269,6 +288,8 @@ class StageProgram:
             raise RuntimeError(f"stage program {self.name!r}: replay failed: {e}") from e
         if self._launches:
             BK.note_graph_launches(self._launches)
+        if self._sent:
+            self.mesh.sent_bytes += self._sent
 
     def _capture(self, inputs, tables) -> None:
         dev = self.device
@@ -280,6 +301,7 @@ class StageProgram:
         BK.preload(dev)  # the libraries and their modules, before the capture
         reserved = torch.cuda.memory_reserved(dev)
         before = BK.bucket_sum_count.captured
+        sent = getattr(self.mesh, "sent_bytes", 0)
         graph = torch.cuda.CUDAGraph()
         pool = _pool(dev)
         side = pool.stream
@@ -313,6 +335,10 @@ class StageProgram:
         self.graph, self._pool = graph, pool
         self._out = out
         self._launches = BK.bucket_sum_count.captured - before
+        if self.mesh is not None:
+            # the capture handed nothing over: its replays do
+            self._sent = self.mesh.sent_bytes - sent
+            self.mesh.sent_bytes = sent
         self._replay()
         self.compile_s = time.perf_counter() - t0
         self.compiled = True
@@ -346,7 +372,8 @@ class ProgramCache:
         self.mesh = mesh
         self.graphs = graphs_for(self.device, mesh)
         # a group's communicator starts at its first collective, which
-        # must not fall inside a capture (a one-rank NCCL group)
+        # must not fall inside a capture: one eager all_reduce before
+        # the cache's first capture, the same dispatch on every rank
         self._group_ready = getattr(mesh, "group", None) is None
         self.events = events
         self.metrics = metrics
@@ -404,7 +431,7 @@ class ProgramCache:
                 t0 = time.perf_counter()
                 fn, cell = build()
                 prog = StageProgram(fn, name, lowering_key_hash(key), time.perf_counter() - t0,
-                                    cell, self.graphs, self.device)
+                                    cell, self.graphs, self.device, self.mesh)
                 self._progs[slot] = prog
             prog.last_used = next(_TICK)
             return prog
@@ -432,7 +459,12 @@ class ProgramCache:
                 return self._relieved(prog, lambda: prog(inputs, tables))
             try:
                 out = prog(inputs, tables)
-            except torch.cuda.OutOfMemoryError:
+            except torch.cuda.OutOfMemoryError as e:
+                if getattr(self.mesh, "world", 1) > 1:
+                    raise STAGE.GangStageError(
+                        f"stage {prog.name!r} failed on rank {self.mesh.rank} of "
+                        f"{self.mesh.world}: out of device memory in its capture (a rank "
+                        f"of a gang does not capture again: {e})") from e
                 _evict_everything(keep=prog)
                 torch.cuda.empty_cache()
                 try:

@@ -41,6 +41,10 @@ DCN_AXIS = "d"
 # partitions of a context or hybrid mesh that names none
 DEFAULT_PARTITIONS = 8
 
+# seconds a group's collective may wait for its peers, unless the group
+# was joined with another bound (parallel/multihost.py::init_distributed)
+DEFAULT_TIMEOUT_S = 300.0
+
 
 def resolve_device(device: Union[None, str, torch.device]) -> torch.device:
     """``None`` -> the current CUDA device; raises when there is none.
@@ -73,6 +77,7 @@ class PartitionMesh:
         group=None,
         backend: Optional[str] = None,
         dcn_slices: Optional[int] = None,
+        timeout: Optional[float] = None,
     ):
         P, world = int(num_partitions), int(world)
         dcn = 1 if dcn_slices is None else int(dcn_slices)
@@ -99,6 +104,11 @@ class PartitionMesh:
         self.group = group
         self.backend = backend
         self.sent_bytes = 0  # bytes this rank handed to the group's collectives
+        self.timeout = float(timeout) if timeout is not None else DEFAULT_TIMEOUT_S
+        # (event, stage) of the work enqueued on the card since the last
+        # settle (an NCCL group's; parallel/partition.py::settle)
+        self.inflight: list = []
+        self.replayed = False  # a graph replay among them
         # the 2-D (DCN_AXIS, AXIS) layout: dcn slices of ici partitions
         self.hybrid = dcn_slices is not None
         self.dcn = dcn
@@ -133,10 +143,12 @@ def make_mesh(num_partitions: Optional[int] = None, device=None, group=None) -> 
         group = dist.group.WORLD
     if group is None:
         return PartitionMesh(num_partitions or 1, device)
+    from dryad_tpu_torch.parallel import multihost
+
     world = dist.get_world_size(group)
     return PartitionMesh(
         num_partitions or world, device, rank=dist.get_rank(group), world=world,
-        group=group, backend=str(dist.get_backend(group)),
+        group=group, backend=str(dist.get_backend(group)), timeout=multihost.group_timeout(),
     )
 
 

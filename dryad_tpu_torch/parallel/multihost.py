@@ -23,6 +23,7 @@ import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from dryad_tpu_torch.cluster.service import Mailbox, ServiceClient
+from dryad_tpu_torch.parallel.mesh import DEFAULT_TIMEOUT_S
 from dryad_tpu_torch.utils.logging import get_logger
 
 log = get_logger("dryad_tpu_torch.parallel.multihost")
@@ -30,7 +31,17 @@ log = get_logger("dryad_tpu_torch.parallel.multihost")
 _initialized = False
 _init_lock = threading.Lock()
 
-DEFAULT_TIMEOUT_S = 300.0
+_timeout_s = DEFAULT_TIMEOUT_S  # the joined group's bound
+
+# an NCCL group's own watchdog gives up this many times the group's
+# timeout: after ``partition.settle`` has named the stage that waits
+NCCL_WATCHDOG_FACTOR = 2.0
+
+
+def group_timeout() -> float:
+    """Seconds a collective of the group this process joined may wait
+    for its peers (:data:`DEFAULT_TIMEOUT_S` before any join)."""
+    return _timeout_s
 
 
 def local_index(process_id: int, num_processes: int) -> Tuple[int, int]:
@@ -91,8 +102,18 @@ def init_distributed(
     through the coordinator's store before the group is made.
     ``timeout`` (seconds, default 300) bounds every collective, so a
     rank that never arrives fails its peers' call instead of hanging
-    them."""
-    global _initialized
+    them: gloo's collectives block for it at most; NCCL's run on the
+    cards, asynchronously, and every host read of a rank waits for them
+    that long at most (``partition.py::settle``, which names the stage),
+    while NCCL's own watchdog, a backstop at :data:`NCCL_WATCHDOG_FACTOR`
+    times the bound, aborts the communicator without ending the process
+    (``TORCH_NCCL_ASYNC_ERROR_HANDLING=2`` unless set).  An NCCL group
+    runs without NCCL's support for graph and eager launches in flight
+    together (``NCCL_GRAPH_MIXING_SUPPORT=0`` unless set): with it, NCCL
+    adds event nodes to a captured graph, which the body of a WHILE node
+    (``exec/devloop.py``) may not hold; the collectives wait for a
+    replay before an eager launch instead (``partition.py::_wire``)."""
+    global _initialized, _timeout_s
     with _init_lock:
         if _initialized:
             return True
@@ -123,7 +144,13 @@ def init_distributed(
         store.set(f"layout/{rank}", f"{socket.gethostname()}/{dev}")
         layout = [store.get(f"layout/{r}").decode() for r in range(world)]
         backend = choose_backend(layout)
-        dist.init_process_group(backend, store=store, world_size=world, rank=rank, timeout=td)
+        pg_td = td
+        if backend == "nccl":
+            os.environ.setdefault("TORCH_NCCL_ASYNC_ERROR_HANDLING", "2")
+            os.environ.setdefault("NCCL_GRAPH_MIXING_SUPPORT", "0")
+            pg_td = td * NCCL_WATCHDOG_FACTOR
+        dist.init_process_group(backend, store=store, world_size=world, rank=rank, timeout=pg_td)
+        _timeout_s = td.total_seconds()
         _initialized = True
         log.info(
             "joined process group %s as rank %d/%d on %s (%s)",

@@ -28,14 +28,21 @@ exclusive prefix over partitions   ``cumsum(0) - x``      ``all_gather``, then t
 =================================  ====================  ================================
 
 A group of the ``gloo`` backend carries CUDA tensors through the host
-(each collective copies its operand to the CPU and the result back);
-``nccl`` takes them on the card.  Every call blocks on or orders after
-the group's timeout (``init_distributed``): a rank that never reaches a
-collective fails its peers' call instead of hanging them.
+(each collective copies its operand to the CPU and the result back, and
+blocks until the group's timeout at most: a rank that never reaches a
+collective fails its peers' call instead of hanging them).  ``nccl``
+takes them on the card, one rank a card, and runs them asynchronously:
+inside a stage program's CUDA graph, or enqueued after it.  Its bound
+is :func:`settle`: every read of a device value on the host over an
+NCCL group first waits, the group's timeout at most, for the work the
+rank enqueued (each dispatch marked with its stage by
+:func:`note_dispatch`), and raises :class:`GangStageError` naming the
+first stage whose collectives did not complete.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -85,14 +92,73 @@ def block_layout(
 
 # -- transport -----------------------------------------------------------------
 
+class GangStageError(RuntimeError):
+    """A stage of a gang failed on this rank, its collective included (a
+    peer that never arrived, a peer that died): the message names the
+    stage and the rank."""
+
+
 def _spans(mesh) -> bool:
     return mesh is not None and mesh.group is not None
+
+
+def _on_cards(mesh) -> bool:
+    """An NCCL group of several ranks: its collectives run on the cards,
+    asynchronously to the host."""
+    return _spans(mesh) and mesh.backend == "nccl" and mesh.world > 1
+
+
+# the host's poll of a settle, seconds between two queries of an event
+SETTLE_POLL_S = 5e-5
+
+
+def note_dispatch(mesh, name: str, graph: bool = False) -> None:
+    """Over an NCCL group: mark the work this rank enqueued on the card
+    so far as stage ``name``'s (an event on the current stream), for
+    :func:`settle` to wait for and to name; ``graph``: it replayed a
+    CUDA graph.  Nothing elsewhere, and nothing inside a capture."""
+    if not _on_cards(mesh) or torch.cuda.is_current_stream_capturing():
+        return
+    ev = torch.cuda.Event()
+    ev.record(torch.cuda.current_stream(mesh.device))
+    mesh.inflight.append((ev, name))
+    mesh.replayed = mesh.replayed or graph
+
+
+def settle(mesh, name: Optional[str] = None) -> None:
+    """Over an NCCL group, before a read of a device value on the host:
+    wait until the work this rank enqueued has run, the group's timeout
+    (``mesh.timeout``) at most, and raise :class:`GangStageError`
+    naming the first marked stage (:func:`note_dispatch`) that has not
+    run by then: its collectives wait for a peer that died or never
+    arrived.  ``name`` names the work since the last mark.  Nothing
+    elsewhere (gloo's collectives block on the host themselves)."""
+    if not _on_cards(mesh) or torch.cuda.is_current_stream_capturing():
+        return
+    note_dispatch(mesh, name or (mesh.inflight[-1][1] if mesh.inflight else "the job"))
+    pending, mesh.inflight, mesh.replayed = mesh.inflight, [], False
+    deadline = time.monotonic() + mesh.timeout
+    for ev, stage in pending:
+        while not ev.query():
+            if time.monotonic() > deadline:
+                raise GangStageError(
+                    f"stage {stage!r} failed on rank {mesh.rank} of {mesh.world}: its "
+                    f"collectives did not complete within {mesh.timeout:g} s (a peer died or "
+                    "never arrived)")
+            time.sleep(SETTLE_POLL_S)
 
 
 def _wire(mesh, t: torch.Tensor) -> torch.Tensor:
     """A fresh contiguous copy of ``t`` where the group's backend takes
     it: the host for ``gloo`` (which stages CUDA tensors), the mesh's
-    card for ``nccl``.  Bools travel as uint8."""
+    card for ``nccl``.  Bools travel as uint8.  An NCCL collective
+    launched outside a capture after a graph's replay first waits for
+    the replay (:func:`settle`): the group runs without NCCL's support
+    for graph and eager launches in flight together
+    (``NCCL_GRAPH_MIXING_SUPPORT=0``, which a WHILE node's body needs,
+    ``init_distributed``)."""
+    if mesh.replayed and not torch.cuda.is_current_stream_capturing():
+        settle(mesh)
     dev = torch.device("cpu") if mesh.backend == "gloo" else mesh.device
     dt = torch.uint8 if t.dtype == torch.bool else t.dtype
     buf = torch.empty(t.shape, dtype=dt, device=dev).copy_(t)
@@ -100,7 +166,11 @@ def _wire(mesh, t: torch.Tensor) -> torch.Tensor:
     return buf
 
 
-def _back(buf: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+def _back(buf: torch.Tensor, like: torch.Tensor, mesh=None) -> torch.Tensor:
+    """The collective's result as ``like``'s device and dtype; a result
+    bound for the host from the card waits for the group (:func:`settle`)."""
+    if like.device.type == "cpu" and buf.device.type == "cuda":
+        settle(mesh)
     return buf.to(device=like.device, dtype=like.dtype)
 
 
@@ -114,7 +184,7 @@ def allreduce(t: torch.Tensor, op: str, mesh=None) -> torch.Tensor:
         return t
     buf = _wire(mesh, t)
     dist.all_reduce(buf, op=getattr(dist.ReduceOp, _OPS[op]), group=mesh.group)
-    return _back(buf, t)
+    return _back(buf, t, mesh)
 
 
 def gather_ranks(t: torch.Tensor, mesh=None) -> torch.Tensor:
@@ -127,7 +197,7 @@ def gather_ranks(t: torch.Tensor, mesh=None) -> torch.Tensor:
         dist.all_gather_single(out, buf, group=mesh.group)
     else:
         dist.all_gather_into_tensor(out, buf, group=mesh.group)
-    return _back(out.reshape((mesh.world,) + tuple(t.shape)), t)
+    return _back(out.reshape((mesh.world,) + tuple(t.shape)), t, mesh)
 
 
 def gather_rows(x: torch.Tensor, mesh=None) -> torch.Tensor:
@@ -161,7 +231,7 @@ def psum_scatter(x: torch.Tensor, mesh=None) -> torch.Tensor:
         dist.reduce_scatter_single(out, buf, op=dist.ReduceOp.SUM, group=mesh.group)
     else:
         dist.reduce_scatter_tensor(out, buf, op=dist.ReduceOp.SUM, group=mesh.group)
-    return _back(out, s).reshape(mesh.local, -1)
+    return _back(out, s, mesh).reshape(mesh.local, -1)
 
 
 def all_gather(x: torch.Tensor, mesh=None) -> torch.Tensor:
@@ -237,7 +307,7 @@ def all_to_all(send: torch.Tensor, mesh=None) -> torch.Tensor:
     dist.all_to_all_single(out, buf, group=mesh.group)
     # out: (world_src, S_src, local_dst, B, ...) -> (local_dst, P * B, ...)
     recv = out.permute((2, 0, 1, 3) + tuple(range(4, out.dim())))
-    return _back(recv.reshape((L, W * S * B) + rest), send)
+    return _back(recv.reshape((L, W * S * B) + rest), send, mesh)
 
 
 def ppermute(x: torch.Tensor, perm, mesh=None) -> torch.Tensor:
@@ -297,7 +367,7 @@ def ppermute_many(items, mesh=None):
         for req in dist.batch_isend_irecv(ops):
             req.wait()
     for peer, buf in landing:
-        rows = _back(buf, outs[recvs[peer][0][0]])
+        rows = _back(buf, outs[recvs[peer][0][0]], mesh)
         for j, (k, i) in enumerate(recvs[peer]):
             outs[k][i] = rows[j]
     return outs
@@ -311,7 +381,8 @@ def first_valid(col: torch.Tensor, valid: torch.Tensor, mesh=None):
         return vals.cpu()[0] if len(vals) else None
     has = torch.tensor([len(vals)], dtype=torch.int64, device=col.device)
     one = vals if len(vals) else torch.zeros(1, dtype=col.dtype, device=col.device)
-    hs = gather_ranks(has, mesh).reshape(-1).cpu()
-    vs = gather_ranks(one, mesh).reshape(-1).cpu()
+    hs, vs = gather_ranks(has, mesh).reshape(-1), gather_ranks(one, mesh).reshape(-1)
+    settle(mesh)
+    hs, vs = hs.cpu(), vs.cpu()
     at = (hs > 0).nonzero()
     return vs[int(at[0])] if len(at) else None

@@ -23,14 +23,19 @@ from typing import Any, Callable, List, Sequence, Tuple
 
 import torch
 
-from dryad_tpu_torch.parallel.partition import allreduce
+from dryad_tpu_torch.parallel.partition import GangStageError, allreduce
+
+__all__ = ["GangStageError", "compile_fused", "compile_stage", "named_failures",
+           "reduce_replicated"]
 
 
 def reduce_replicated(
     mesh, overflow: torch.Tensor, miss: torch.Tensor, counts: Sequence[torch.Tensor] = ()
 ) -> Tuple[torch.Tensor, torch.Tensor, List[torch.Tensor]]:
     """``(overflow, miss, counts)`` summed over the group in one
-    ``all_reduce`` (the flag as an OR: a sum above 0)."""
+    ``all_reduce`` (the flag as an OR: a sum above 0).  It is part of
+    the unit's function, so a stage program's CUDA graph holds it (over
+    NCCL); the executor reads the result after the replay."""
     if mesh is None or mesh.group is None:
         return overflow, miss, list(counts)
     vec = torch.stack(
@@ -38,12 +43,6 @@ def reduce_replicated(
     )
     vec = allreduce(vec, "sum", mesh)
     return vec[0] > 0, vec[1], list(vec[2:])
-
-
-class GangStageError(RuntimeError):
-    """A stage of a gang failed on this rank, its collective included (a
-    peer that never arrived, a peer that died): the message names the
-    stage and the rank."""
 
 
 @contextlib.contextmanager

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 import dryad_tpu as J
 import dryad_tpu_torch as T
 from dryad_tpu_torch.columnar.batch import ColumnBatch
@@ -324,9 +325,11 @@ def test_loop_programs_are_bounded():
 def test_host_read_at_the_loop_check_raises_without_the_driver_loop(monkeypatch):
     """On the card the loop's check sees a body that reads a device
     value on the host (``HostReadError``, a ``TypeError``); the executor
-    raises it, naming the loop's stages, instead of falling back to the
-    driver loop, whose stage programs would refuse the same read.  The
-    CPU cannot see the read, so the check's verdict is forced here."""
+    logs the reference's events (the fallback with its reason, the
+    driver loop's first round: ``chip_smoke.DL_HOST_READ_KINDS``) and
+    raises it, naming the loop's stages, instead of running the driver
+    loop, whose stage programs would refuse the same read.  The CPU
+    cannot see the read, so the check's verdict is forced here."""
     from dryad_tpu_torch.exec import devloop
 
     def check(self, current):
@@ -338,4 +341,19 @@ def test_host_read_at_the_loop_check_raises_without_the_driver_loop(monkeypatch)
         tc.from_arrays({"v": np.array([1.0, 2.0], np.float32)}).do_while(
             lambda q: q.select(_host_read_row, schema=q.schema), _dw_cond, max_iter=20).collect()
     assert isinstance(err.value, devloop.HostReadError) and "select" in str(err.value)
-    assert [e[0] for e in _loop_events(tc)] == ["do_while_device_start"]
+    assert [e[0] for e in _loop_events(tc)] == chip_smoke.DL_HOST_READ_KINDS
+    (fb,) = [e for e in tc.events.events() if e["kind"] == "do_while_device_fallback"]
+    assert "reads a device value" in fb["reason"]
+
+
+def test_the_cards_host_read_events_are_the_references():
+    """The events ``chip_smoke.py``'s devloop phase expects of a
+    host-reading body on the card, before its ``TypeError``, are the
+    reference's: its device loop's start and fallback, then its driver
+    loop's first round, whose trace raises."""
+    jc, _ = _ctxs()
+    with pytest.raises(TypeError):
+        jc.from_arrays({"v": np.array([1.0, 2.0], np.float32)}).do_while(
+            lambda q: q.select(_host_read_row, schema=q.schema), _dw_cond, max_iter=20).collect()
+    kinds = [e["kind"] for e in jc.events.events() if e["kind"].startswith("do_while")]
+    assert kinds == chip_smoke.DL_HOST_READ_KINDS

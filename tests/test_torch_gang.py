@@ -156,6 +156,57 @@ def test_a_mesh_defaults_to_the_card(monkeypatch):
     assert TM.make_mesh(4, "cpu").device == torch.device("cpu")
 
 
+class _Event:
+    """A CUDA event's host side: done or never."""
+
+    def __init__(self, done):
+        self.done = done
+
+    def query(self):
+        return self.done
+
+
+@pytest.mark.parametrize("hung", [False, True], ids=["ran", "peer_missing"])
+def test_a_host_read_over_nccl_waits_for_the_group_at_most_its_timeout(monkeypatch, hung):
+    """Over an NCCL group a rank's collectives run on its card,
+    asynchronously: a host read first waits for the work each dispatch
+    marked, at most the group's timeout, and names the first stage whose
+    collectives did not complete (a peer that died or never arrived).
+    The events stand in for the card's here."""
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: False)
+    monkeypatch.setattr(PART, "note_dispatch", lambda mesh, name, graph=False: None)
+    mesh = TM.PartitionMesh(8, "cpu", rank=2, world=4, group=object(), backend="nccl", timeout=0.3)
+    mesh.inflight = [(_Event(True), "input+hash_partition"), (_Event(not hung), "group_by"),
+                     (_Event(not hung), "order_by")]
+    mesh.replayed = True
+    t0 = time.monotonic()
+    if hung:
+        with pytest.raises(PART.GangStageError,
+                           match=r"stage 'group_by' failed on rank 2 of 4: .* within 0.3 s"):
+            PART.settle(mesh, "fetch")
+        assert 0.3 <= time.monotonic() - t0 < 5.0
+    else:
+        PART.settle(mesh, "fetch")
+    assert mesh.inflight == [] and mesh.replayed is False
+    # gloo and one process: the collectives block on the host themselves
+    for m in (TM.PartitionMesh(8, "cpu", rank=0, world=2, group=object(), backend="gloo"),
+              TM.PartitionMesh(8, "cpu")):
+        m.inflight = [(_Event(False), "x")]
+        PART.settle(m)
+        assert m.inflight == [(m.inflight[0][0], "x")]
+
+
+@pytest.mark.parametrize("cards", [0, 1, 3])
+def test_the_four_card_phase_fails_on_fewer_cards(monkeypatch, cards):
+    """``chip_smoke.py --phases env,gang_cards`` fails, and does not
+    skip, on a host with fewer cards than workers."""
+    import chip_smoke
+
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    with pytest.raises(AssertionError, match="gang_cards needs 4 cards"):
+        chip_smoke.phase_gang_cards(torch.device("cpu"), "no card")
+
+
 def test_context_mesh_is_exclusive_and_a_rank_never_collects():
     m = TM.PartitionMesh(4, "cpu")
     ctx = T.DryadContext(mesh=m)

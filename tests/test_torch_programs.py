@@ -19,6 +19,7 @@ import weakref
 
 import numpy as np
 import pytest
+import torch
 
 import dryad_tpu as J
 import dryad_tpu_torch as T
@@ -286,6 +287,82 @@ def test_programs_are_graphs_only_on_the_card():
     assert not PR.graphs_for("cuda", Mesh(object(), 1, "gloo"))
     tc = T.DryadContext(num_partitions_=P, device="cpu")
     assert tc.executor.programs.graphs is False
+
+
+class _FakeMesh:
+    """What the program cache and the executor read of a mesh."""
+
+    def __init__(self, backend, world, rank=0):
+        self.group = object()
+        self.backend, self.world, self.rank = backend, world, rank
+        self.sent_bytes = 0
+
+
+@pytest.mark.parametrize("backend,world,graphs", [
+    ("nccl", 4, True), ("gloo", 2, False), ("nccl", 1, True)],
+    ids=["nccl_world4", "gloo_world2", "nccl_world1"])
+def test_graphs_and_the_device_loop_follow_the_mesh(monkeypatch, backend, world, graphs):
+    """A CUDA graph on the card in one process and over an NCCL group of
+    any world (each rank on a card of its own); the eager function over
+    gloo.  The device loop follows the stage programs' decision: one
+    graph where they are graphs, the eager loop where they are not (the
+    cache's decision forced into a CPU context, whose programs stay the
+    eager functions)."""
+    mesh = _FakeMesh(backend, world)
+    assert PR.graphs_for("cuda", mesh) is graphs
+    assert PR.graphs_for("cuda:1", mesh) is graphs
+    assert PR.graphs_for("cpu", mesh) is False
+    assert PR.ProgramCache("cuda:0", mesh).graphs is graphs
+    init = PR.StageProgram.__init__
+    monkeypatch.setattr(PR.StageProgram, "__init__",
+                        lambda self, *a, **k: init(self, *a[:5], False, *a[6:], **k))
+    tc = T.DryadContext(num_partitions_=P, device="cpu")
+    tc.executor.programs.graphs = PR.graphs_for("cuda", mesh)
+    out = tc.from_arrays({"v": np.array([1.0, 2.0], np.float32)}).do_while(
+        lambda q: q.select(lambda c: {"v": c["v"] * 2.0}),
+        lambda q: q.aggregate_as_query({"m": ("max", "v")}).select(lambda c: {"go": c["m"] < 100.0}),
+        max_iter=20).collect()
+    assert sorted(out["v"].tolist()) == [64.0, 128.0]
+    (loop,) = tc.executor._loops.values()
+    assert loop.eager is (not graphs)
+
+
+class _Starved(PR.StageProgram):
+    """A graph program whose every call runs out of device memory."""
+
+    def __init__(self):
+        super().__init__(lambda i, t: None, "input+group_by", "0", 0.0, [], True, "cuda:0")
+        self.calls = 0
+
+    def __call__(self, inputs, tables):
+        self.calls += 1
+        raise torch.cuda.OutOfMemoryError("CUDA out of memory")
+
+
+@pytest.mark.parametrize("world", [1, 4])
+def test_an_out_of_memory_capture_over_a_group_names_the_stage(world):
+    """In one process a capture that runs out of memory releases the
+    other programs and captures once more; a rank of a gang raises
+    ``GangStageError`` naming the unit and its rank at once (a second
+    call would replay the unit's collectives again on this rank only)."""
+    from dryad_tpu_torch.parallel.stage import GangStageError
+
+    mesh = _FakeMesh("nccl", world, rank=world - 1)
+    cache = PR.ProgramCache("cuda:0", mesh if world > 1 else None)
+    cache._group_ready = True  # the communicator started (an eager all_reduce, card only)
+    cache.max_bytes = 1 << 40  # no card to size the budget from
+    prog = _Starved()
+    try:
+        if world > 1:
+            with pytest.raises(GangStageError, match=r"stage 'input\+group_by' failed on rank 3 of 4"):
+                cache.run(prog, [], [])
+            assert prog.calls == 1
+        else:
+            with pytest.raises(RuntimeError, match="with every program released"):
+                cache.run(prog, [], [])
+            assert prog.calls == 2
+    finally:
+        cache.max_bytes = None
 
 
 class _Held(PR.StageProgram):

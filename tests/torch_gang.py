@@ -246,6 +246,15 @@ def _dowhile(ctx):
                        max_iter=30)]
 
 
+def _dowhile_row_cond(ctx):
+    """A loop whose condition is a row, not a whole-table aggregate: each
+    rank's first row differs, and every rank must still run the rounds
+    of global partition 0's first row (the one-process loop's)."""
+    q = ctx.from_arrays({"x": corpus_table()["d"]})
+    return [q.do_while(lambda s: s.select(lambda c: {"x": c["x"] // 2}),
+                       lambda s: s.select(lambda c: {"go": c["x"] > 3}), max_iter=30)]
+
+
 def _fork(ctx):
     q = _t(ctx)
     a, b = q.fork(lambda bt: (bt.filter(bt["b"]), bt.filter(bt["w"] > 0)), [q.schema, q.schema])
@@ -309,6 +318,7 @@ CORPUS = {
     "decomposable": lambda c: [_t(c).group_by("g", decomposable=_variance_dec())],
     "select_many": lambda c: [_t(c).select_many(_dup_neg_w, 2)],
     "do_while": _dowhile,
+    "do_while_row_cond": _dowhile_row_cond,
     "join_inner_shuffle": _join("inner", "shuffle"),
     "join_inner_broadcast": _join("inner", "broadcast"),
     "join_left_auto": _join("left", "auto"),
@@ -319,7 +329,7 @@ CORPUS = {
 
 # the plans whose functions are written for torch only (the
 # rest also build on the JAX package, for the reference comparison)
-PORT_ONLY = {"decomposable", "select_many"}
+PORT_ONLY = {"decomposable", "select_many", "do_while_row_cond"}
 
 
 def partition_rows(batch):
