@@ -58,7 +58,9 @@ rows, TeraSort of 2^25 rows (flat and staged one bucket a round) and WordCount o
 held to one process at P = 8; ``submit_many`` through the dispatch
 window; a worker killed mid-job and the gang rebuilt on 1 worker; then
 the dense group_by over a one-rank NCCL group, and NCCL's answer to two
-ranks on one card), the runtime plan rewriter at the default config (a
+ranks on one card), one context over several devices (``cards1``: two
+rank threads on the card over gloo at P = 8, WordCount of 2^22 words and
+TeraSort of 2^22 rows equal to one rank, then ``rebuild_mesh([1])``), the runtime plan rewriter at the default config (a
 2^26-row drift sort and a skewed Grace join whose hot buckets split
 mid-stream, a thrashing streaming combine pinned to the host and the
 next stream flipped to the combine tree, an overflowing group_by
@@ -86,7 +88,7 @@ result line.  Without a CUDA device it exits non-zero at once.
 ``--phases`` runs a subset (lint, env, kernel, wordcount, dense, terasort,
 terasort_hot, groupby_sort, programs, hybrid, groupby_sort_fused,
 join_shuffle, join_broadcast, pagerank, devloop, decomposable, ordered_ops,
-cpu_parity, stores, stream, serve, cluster, gang, rewrite, fleet, obs), for
+cpu_parity, stores, stream, serve, cluster, gang, cards1, rewrite, fleet, obs), for
 short first runs of a changed kernel; ``terasort_capacity`` (the largest
 TeraSort that fits with the stage programs as graphs and as eager
 functions) runs only when named, and so does ``gang_cards``, on a host
@@ -101,7 +103,13 @@ captured, held to one process at P = 16; then 4 ranks of this script
 in one NCCL group (``init_distributed``): the Newton do_while over 2^26
 rows as one graph a rank beside the eager loop, TeraSort and the dense
 group_by graph against eager, a rank that captures again while its
-peers replay, and the exchange's bytes a second.  The WordCount, TeraSort, sort-path group_by, join,
+peers replay, and the exchange's bytes a second.  ``cards`` (only when
+named, four cards: ``--phases env,cards``) runs one context over the
+four cards, a rank thread a card in this process over one NCCL group
+(``DryadContext(devices=4, num_partitions_=16)``): WordCount, the dense
+and the sort-path group_by, TeraSort of 2^28 rows, the Join Task,
+PageRank and the Newton do_while, each held to one card at P = 16, then
+``rebuild_mesh([3])`` and a checkpointed job resumed on 3 cards.  The WordCount, TeraSort, sort-path group_by, join,
 PageRank, decomposable and ordered phases also profile one warm query
 with torch.profiler and print device time by op, the device's busy
 share of the warm query, and peak memory.
@@ -6309,12 +6317,543 @@ def gang_rank(rank: int, port: int, out_dir: str) -> int:
     os._exit(0)
 
 
-def loopctl_line(dl, gc=None) -> dict:
+# -- one context over several cards: rank threads (parallel/ranks.py) ------------
+
+CD_CARDS = 4  # the cards phase's cards, a rank thread each, one NCCL group
+CD_P = 16  # its partitions: 4 a card
+CD_DEVICE = "cuda"  # where its ranks run (a list of cards; "cpu" rehearses it)
+CD_BACKEND = "nccl"  # the group's backend there
+CD_REPS = 3  # warm collects a query and context, median
+CD_DL_ROWS = 1 << 24  # the Newton do_while: loop_step on every rank
+CD_CK_ROWS = 1 << 22  # the checkpointed group_by on the rebuilt cards
+CD1_RANKS = 2  # the default run's rank threads, both on card 0 (gloo)
+CD1_P = 8
+CD1_WORDS = 1 << 22
+CD1_TS_ROWS = 1 << 22
+
+
+class CardsBusy:
+    """Each card's busy share over a part, sampled every 100 ms by
+    ``nvidia-smi`` (NVML's ``utilization.gpu``) on the cards ``ids``."""
+
+    def __init__(self, ids):
+        self.ids = list(ids)
+
+    def __enter__(self):
+        for i in self.ids:
+            torch.cuda.synchronize(i)
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "-i", ",".join(str(i) for i in self.ids),
+             "--query-gpu=index,utilization.gpu", "--format=csv,noheader,nounits", "-lms", "100"],
+            stdout=subprocess.PIPE, text=True)
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        try:
+            for i in self.ids:
+                torch.cuda.synchronize(i)
+            self.wall_s = time.perf_counter() - self.t0
+        finally:
+            self.proc.terminate()
+            out, _ = self.proc.communicate(timeout=60)
+        if exc[0] is not None:
+            return
+        per = {i: [] for i in self.ids}
+        for line in out.splitlines():
+            parts = [x.strip() for x in line.split(",")]
+            if len(parts) == 2 and parts[0].isdigit() and parts[1].replace(".", "", 1).isdigit():
+                if int(parts[0]) in per:
+                    per[int(parts[0])].append(float(parts[1]))
+        check(all(per.values()), f"nvidia-smi gave no utilization samples for some card: {per.keys()}")
+        self.idle = {i: 1.0 - sum(v) / len(v) / 100.0 for i, v in per.items()}
+
+
+CD_STEP_S = 150  # a step of the cards phases past this dumps every thread's stack and ends the run
+
+
+def _cd_arm() -> None:
+    """(Re)start the phase's watchdog: a step that stalls (ranks waiting
+    on each other) ends the run with every thread's stack on stderr
+    instead of holding the cards until the call's limit."""
+    import faulthandler
+
+    faulthandler.dump_traceback_later(CD_STEP_S, exit=True)
+
+
+def _cd_disarm() -> None:
+    import faulthandler
+
+    faulthandler.cancel_dump_traceback_later()
+
+
+def _cd_ranks_run(ctx, fn):
+    """``fn(rank context)`` on every rank of a context over several cards,
+    each on its thread (the timing helpers' entry)."""
+    return ctx._ranks.run(fn)
+
+
+def _cd_peaks(ctx) -> list:
+    """Each card's peak since its statistics were reset: allocated plus
+    the graph pool (a replay allocates nothing)."""
+    from dryad_tpu_torch.exec.programs import pool_bytes
+
+    return [int(torch.cuda.max_memory_allocated(d)) + pool_bytes(d) if d.type == "cuda" else 0
+            for d in ctx.devices]
+
+
+def _cd_result(ctx, q) -> tuple:
+    """(logical table, rows a partition, overflow retries) of one run."""
+    b = ctx.execute(q)
+    _host, counts = b.fetch_valid_rows(with_counts=True)
+    del b
+    out = q.collect()
+    return out, np.asarray(counts), overflow_retries(ctx)
+
+
+def _cd_warm(ctx, q, reps: int = CD_REPS) -> dict:
+    """``reps`` warm collects: the median, and the last one's split into
+    the ranks' work (``compute_s``) and the result's gather."""
+    secs, split = [], {}
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = q.collect()
+        secs.append(time.perf_counter() - t0)
+        del out
+        split = {k: ctx.io_stats.get(k) for k in ("compute_s", "gather_s")}
+    return {"warm_s": secs, "warm_med_s": float(np.median(secs)), **split}
+
+
+def _cd_same(label: str, one: tuple, many: tuple, floats=()) -> None:
+    """A context over several cards against one card at the same P: the
+    rows a partition (placement), the overflow retries and every integer
+    column byte-equal; ``floats`` are checked by the caller's bound."""
+    (o1, c1, r1), (o4, c4, r4) = one, many
+    check(np.array_equal(c1, c4), f"cards {label}: rows a partition differ from one card's")
+    check(r1 == r4, f"cards {label}: overflow retries {r4} against one card's {r1}")
+    check(sorted(o1) == sorted(o4), f"cards {label}: columns differ")
+    for c in o1:
+        if c in floats:
+            continue
+        a, b = o1[c], o4[c]
+        same = (a.dtype == b.dtype and a.shape == b.shape
+                and (a.tobytes() == b.tobytes() if a.dtype != object else bool((a == b).all())))
+        check(same, f"cards {label}: column {c} differs from one card's")
+
+
+def _cd_wordcount_text(root: str) -> tuple:
+    rng = np.random.default_rng(SEED + 2)
+    ids = zipf_ids(rng, WC_WORDS)
+    tab = vocab_table()
+    words = np.array([bytes(r).split()[0].decode() for r in tab], object)
+    uid, ucnt = np.unique(ids, return_counts=True)
+    oracle = dict(zip(words[uid].tolist(), ucnt.tolist()))
+    path = os.path.join(root, "words.txt")
+    with open(path, "wb") as fh:
+        fh.write(tab[ids].tobytes())
+    return path, oracle
+
+
+def cards_queries(root: str) -> list:
+    """The cards phase's queries: (label, build(ctx) -> query, check(one
+    card's result, the cards' result)), each the one-card phase's size."""
+    wc_path, wc_oracle = _cd_wordcount_text(root)
+    dense = _dense_table()
+    ts = _gc_ts_table()
+    ts_oracle = {}
+    sorter = threading.Thread(target=lambda: ts_oracle.update(v=terasort_oracle(ts["key"], ts["payload"])))
+    sorter.start()  # the numpy oracle sorts while the cards work
+    gb, gb_oracle = groupby_inputs()
+    visits, rankings = visits_tables(np.random.default_rng(SEED + 8))
+    lo, hi = JS_WEEK
+    src, dst = kronecker_edges(SEED + 11, PR_SCALE, device=CD_DEVICE)
+    n = 1 << PR_SCALE
+    deg = np.bincount(src, minlength=n).astype(np.float32)
+    w = (1.0 / np.maximum(deg, 1.0))[src].astype(np.float32)
+    pr_oracle = pagerank_oracle(src, dst, w, n, PR_ROUNDS)
+    dl = _gc_loop_table()
+    dl = {c: a[:CD_DL_ROWS] for c, a in dl.items()}
+
+    def wc_check(one, many):
+        _cd_same("wordcount", one, many)
+        got = dict(zip(many[0]["word"].tolist(), many[0]["n"].tolist()))
+        check(got == wc_oracle, "cards wordcount: counts differ from the numpy oracle")
+
+    def dense_check(one, many):
+        _cd_same("dense group_by", one, many, floats=("sv", "mv"))
+        return check_dense_gang(many[0], one[0], dense, "cards dense group_by")
+
+    def ts_check(one, many):
+        _cd_same("terasort", one, many)
+        sorter.join()
+        check_terasort(many[0], ts["key"], ts["payload"], "cards terasort", oracle=ts_oracle["v"])
+
+    def gb_check(one, many):
+        _cd_same("groupby_sort", one, many, floats=("sv", "mv"))
+        return check_groupby(many[0], gb_oracle, "cards groupby_sort")
+
+    def js_check(one, many):
+        _cd_same("join task", one, many, floats=("totalRevenue", "avgPageRank"))
+        check_join_task(many[0], visits, rankings, "cards join task")
+
+    def pr_check(one, many):
+        _cd_same("pagerank", one, many, floats=("rank", "prev"))
+        rank = np.empty(n, np.float64)
+        rank[many[0]["node"]] = many[0]["rank"]
+        err = np.abs(rank - pr_oracle)
+        check(bool((err <= PR_REL * pr_oracle.max()).all()),
+              f"cards pagerank: a rank is past {PR_REL} * max(r) of the oracle")
+        return float(err.max() / pr_oracle.max())
+
+    def dl_check(one, many):
+        _cd_same("newton do_while", one, many, floats=("x",))
+        check(np.array_equal(one[0]["x"], many[0]["x"]), "cards newton: rows differ from one card's")
+
+    def js_query(c):
+        v = c.from_arrays(visits).where(lambda t: (t["visitDate"] >= lo) & (t["visitDate"] < hi))
+        return v.join(c.from_arrays(rankings), "destURL", "pageURL", strategy="shuffle",
+                      expansion=1.0).group_by("sourceIP", JS_AGGS)
+
+    return [
+        ("wordcount", lambda c: c.from_text(wc_path).group_by("word", {"n": ("count", None)}), wc_check),
+        ("dense", lambda c: c.from_arrays(dense).group_by("k", GANG_DENSE_AGGS, dense=DENSE_K),
+         dense_check),
+        ("terasort", lambda c: c.from_arrays(ts).order_by([("key", False)]), ts_check),
+        ("groupby_sort", lambda c: c.from_arrays(gb).group_by("key", GB_AGGS), gb_check),
+        ("join_task", js_query, js_check),
+        ("pagerank", lambda c: pagerank_query(c, src, dst, w, n), pr_check),
+        ("newton", lambda c: c.from_arrays(dl).do_while(_dl_body, _dl_cond, max_iter=DL_MAX_ITER),
+         dl_check),
+    ]
+
+
+def _cd_one(queries, P: int, cfg, labels=None) -> dict:
+    """One card at ``P``: each query's result and warm median, the card
+    freed after each (a TeraSort twin that cannot fit with graphs runs
+    eager, and says so)."""
+    from dryad_tpu_torch import DryadContext
+
+    out = {}
+    for label, build, _check in queries:
+        if labels is not None and label not in labels:
+            continue
+        _cd_arm()
+        ctx = DryadContext(num_partitions_=P, config=cfg())
+        q = build(ctx)
+        mode = "graphs"
+        try:
+            res = _cd_result(ctx, q)
+        except torch.cuda.OutOfMemoryError:
+            del q, ctx
+            free_card()
+            ctx = DryadContext(num_partitions_=P, config=cfg())
+            ctx.executor.programs.graphs = False
+            q = build(ctx)
+            mode = "eager"
+            log(f"cards: the one-card twin of {label} at P={P} does not fit with graphs: it runs eager")
+            res = _cd_result(ctx, q)
+        warm = _cd_warm(ctx, q)
+        out[label] = (res, warm, mode)
+        log(f"cards: one card at P={P}, {label} ({mode}): warm median {warm['warm_med_s']:.4f} s")
+        del q, ctx
+        free_card()
+    return out
+
+
+def _cd_a2a(ctx) -> list:
+    """The in-process ranks' ``all_to_all`` at TeraSort's exchange size
+    (a rank's 2^26 rows of key and payload), and NCCL's call alone: ms
+    and GB/s a card each way, each rank on its thread."""
+    from dryad_tpu_torch.parallel import partition as PART
+
+    D, P_ = len(ctx.devices), ctx.num_partitions
+    per = GC_TS_ROWS // D // ((P_ // D) * P_)
+
+    def run(rc):
+        mesh = rc.mesh
+        send = torch.zeros((mesh.local, P_, per), dtype=torch.int64, device=mesh.device)
+        PART.all_to_all(send, mesh)
+        PART.settle(mesh, "all_to_all")
+        torch.cuda.synchronize(mesh.device)
+        t0 = time.perf_counter()
+        for _ in range(GC_XCHG_REPS):
+            PART.all_to_all(send, mesh)
+        PART.settle(mesh, "all_to_all")
+        torch.cuda.synchronize(mesh.device)
+        ms = (time.perf_counter() - t0) / GC_XCHG_REPS * 1e3
+        flat, recv = send.reshape(-1), torch.empty_like(send.reshape(-1))
+        PART._alltoall_into(mesh, recv, flat)
+        torch.cuda.synchronize(mesh.device)
+        t0 = time.perf_counter()
+        for _ in range(GC_XCHG_REPS):
+            PART._alltoall_into(mesh, recv, flat)
+        torch.cuda.synchronize(mesh.device)
+        nccl_ms = (time.perf_counter() - t0) / GC_XCHG_REPS * 1e3
+        nbytes = send.numel() * send.element_size() * (D - 1) // D
+        return {"rank": mesh.rank, "bytes": nbytes, "ms": ms, "gbps": nbytes / ms / 1e6,
+                "nccl_ms": nccl_ms, "nccl_gbps": nbytes / nccl_ms / 1e6}
+
+    return _cd_ranks_run(ctx, run)
+
+
+def _cd_kernels(devs, card: str) -> dict:
+    """The bucket kernel against its plain version on every card at the
+    cards phase's shape (a rank's 4 partitions of the dense table at
+    P = 16: cap 2^22, K = 65536, f32 + i32), timed on card 0 beside the
+    plain version and one ``index_add_``; the loop-control kernel against
+    its plain version on every card.  Comparison launches are not the
+    main path's (the counters are put back)."""
+    from dryad_tpu_torch.ops.bucket import bucket_sum_count, bucket_sum_count_plain
+    from dryad_tpu_torch.ops.loopctl import loop_step
+
+    before, lbefore = bucket_sum_count.launches, loop_step.launches
+    L, cap = CD_P // CD_CARDS, DENSE_ROWS // CD_P
+    res = {"shape": f"P={L} cap={cap} K={DENSE_K} values=f32,i32", "cards": []}
+    for d in devs:
+        gen = torch.Generator().manual_seed(SEED + 21)
+        dk = torch.randint(0, DENSE_K, (L, cap), generator=gen, dtype=torch.int32).to(d)
+        dv = [(torch.randn((L, cap), generator=gen) * 100).to(d),
+              torch.randint(-100, 100, (L, cap), generator=gen, dtype=torch.int32).to(d)]
+        valid = torch.ones((L, cap), dtype=torch.bool, device=d)
+        with torch.cuda.device(d):
+            err = _compare(dk, valid, dv, DENSE_K)
+            lc = loopctl_report(d)
+            entry = {"device": str(d), "max_abs_err": err, "loop_step_max_abs_err": lc["max_abs_err"]}
+            if d.index == 0:
+                kernel_ms = cuda_time_ms(lambda: bucket_sum_count(dk, dv, valid, DENSE_K), 10)
+                plain_ms = cuda_time_ms(lambda: bucket_sum_count_plain(dk, dv, valid, DENSE_K), 3)
+                flat = (dk.long() + torch.arange(L, device=d).reshape(L, 1) * DENSE_K).reshape(-1)
+                src = torch.stack([valid.reshape(-1).float(), dv[0].reshape(-1),
+                                   dv[1].reshape(-1).float()], 1)
+                tab = torch.zeros((L * DENSE_K, 3), device=d)
+                lib_ms = cuda_time_ms(lambda: tab.zero_().index_add_(0, flat, src), 5)
+                check(torch.equal(tab[:, 0].reshape(L, DENSE_K),
+                                  bucket_sum_count(dk, dv, valid, DENSE_K)[1]),
+                      "cards: index_add_ yardstick counts differ")
+                n = dk.numel()
+                res.update(kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                           bound_ms=(n * (4 + 1 + 8) + 3 * L * DENSE_K * 4) / HBM_BYTES_PER_S * 1e3,
+                           loopctl=lc)
+                del flat, src, tab
+        res["cards"].append(entry)
+        log(f"cards: bucket_sum_count on {d} at {res['shape']}: byte-equal to the plain version; "
+            f"loop_step equal to its plain version")
+        del dk, dv, valid
+    bucket_sum_count.launches, loop_step.launches = before, lbefore
+    log(f"cards [{card}]: bucket_sum_count at {res['shape']} on card 0: kernel {res['kernel_ms']:.3f} ms, "
+        f"plain {res['plain_ms']:.3f} ms, one index_add_ {res['library_ms']:.3f} ms, bound "
+        f"{res['bound_ms']:.4f} ms")
+    return res
+
+
+def phase_cards(dev, card: str) -> dict:
+    """One context over four cards (``DryadContext(devices=4,
+    num_partitions_=16)``): a rank thread a card in the driver's process,
+    one NCCL group made there, every stage program a CUDA graph on every
+    card.  WordCount of 2^26 Zipf(1.1) words, the dense group_by (2^26
+    rows, K = 65536), TeraSort of 2^28 rows, the sort-path group_by (2^26
+    rows, 2^22 keys), the Join Task and PageRank on a Graph500 graph
+    (scale 20, a do_while), and the Newton do_while over 2^24 rows (the
+    loop kernel on every rank), each held to one card at P = 16 (run
+    after the cards, on the results they left on the host):
+    integers, placement and overflow retries byte-equal, floats within
+    the bounds of PERF.md section 2.  Then ``rebuild_mesh([3])``:
+    TeraSort and the group_by on 3 cards at P = 12, equal to one card at
+    P = 12, and a checkpointed job that resumes on them.  Prints warm
+    medians on 4 cards against 1, the in-process ``all_to_all`` rate,
+    each card's idle share (NVML) and peak, and ``collect()`` split into
+    the ranks' work and the gather.  Fails on fewer than 4 cards."""
+    import shutil
+
+    from dryad_tpu_torch import DryadConfig, DryadContext
+    from dryad_tpu_torch.ops.bucket import bucket_sum_count
+    from dryad_tpu_torch.ops.loopctl import loop_step
+
+    ncards = torch.cuda.device_count()
+    check(ncards >= CD_CARDS, f"cards needs {CD_CARDS} cards, a rank thread each; this host has {ncards}")
+    free_card()
+    root = os.path.join(WORK_DIR, "cards")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    res = {"card": card, "cards": CD_CARDS, "P": CD_P}
+    cfg = lambda **kw: DryadConfig(device_cache_bytes=JOIN_CACHE_BYTES, **kw)  # noqa: E731
+    devices = CD_CARDS if CD_DEVICE == "cuda" else [CD_DEVICE] * CD_CARDS
+    t0 = time.perf_counter()
+    queries = cards_queries(root)
+    res["setup_s"] = time.perf_counter() - t0
+    log(f"cards: tables and oracles made in {res['setup_s']:.1f} s (set-up)")
+
+    # the cards first (a fault shows before the one-card twins run), their
+    # results kept on the host; then one card at P = 16 and P = 12
+    ctx = DryadContext(num_partitions_=CD_P, devices=devices, config=cfg())
+    check(ctx._ranks.backend == CD_BACKEND, f"cards: the group's backend is {ctx._ranks.backend}")
+    for d in ctx.devices:
+        if d.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(d)
+    bucket_sum_count.launches = loop_step.launches = 0  # the main path starts here
+    many, per_query = {}, {}
+    with CardsBusy([d.index for d in ctx.devices]) as busy:
+        for label, build, _qcheck in queries:
+            _cd_arm()
+            q = build(ctx)
+            t0 = time.perf_counter()
+            many[label] = _cd_result(ctx, q)
+            per_query[label] = {"cold_s": time.perf_counter() - t0, **_cd_warm(ctx, q)}
+            log(f"cards {label}: warm median {per_query[label]['warm_med_s']:.4f} s on {CD_CARDS} "
+                f"cards; collect split: ranks' work {per_query[label]['compute_s']:.4f} s, gather "
+                f"{per_query[label]['gather_s']:.4f} s")
+            del q
+    launches, loop_launches = bucket_sum_count.launches, loop_step.launches
+    res["launches"], res["loop_launches"] = launches, loop_launches
+    check(launches >= CD_CARDS, f"cards: the bucket kernel ran {launches} times on the main path")
+    check(loop_launches >= CD_CARDS, f"cards: loop_step ran {loop_launches} times on the main path")
+    progs = [rc.executor.programs for rc in ctx._ranks.contexts]
+    graphs = [sum(p.graph is not None for p in pc._progs.values()) for pc in progs]
+    eager = [sum(p.graph is None and p.compiled for p in pc._progs.values()) for pc in progs]
+    if CD_DEVICE == "cuda":
+        check(all(pc.graphs for pc in progs) and min(graphs) >= 1 and not any(eager),
+              f"cards: stage programs by card {graphs} graphs, {eager} eager")
+    res["graphs_by_card"], res["eager_by_card"] = graphs, eager
+    res["idle_by_card"] = getattr(busy, "idle", {})
+    res["peak_by_card"] = _cd_peaks(ctx)
+    _cd_arm()
+    res["a2a"] = _cd_a2a(ctx) if CD_DEVICE == "cuda" else []
+    for x in res["a2a"]:
+        log(f"cards: rank {x['rank']} all_to_all {x['bytes']} bytes to peers in {x['ms']:.3f} ms "
+            f"({x['gbps']:.1f} GB/s a card each way; NCCL's call alone {x['nccl_ms']:.3f} ms, "
+            f"{x['nccl_gbps']:.1f} GB/s)")
+    log(f"cards [{card}]: backend {ctx._ranks.backend}; stage programs by card {graphs} graphs; "
+        f"bucket_sum_count {launches} launches, loop_step {loop_launches}; idle by card "
+        f"{res['idle_by_card']}; peak by card (allocated + graph pool) "
+        f"{[round(p / 1e9, 3) for p in res['peak_by_card']]} GB")
+
+    # rebuild_mesh([3]): the same partitions a card on the 3 left
+    _cd_arm()
+    t0 = time.perf_counter()
+    ctx.rebuild_mesh([3])
+    res["rebuild_s"] = time.perf_counter() - t0
+    check(ctx.num_partitions == CD_P * 3 // CD_CARDS and len(ctx.devices) == 3,
+          f"cards: rebuild_mesh left {ctx.num_partitions} partitions on {ctx.devices}")
+    rebuilt, many12 = {}, {}
+    for label, build, _qcheck in queries:
+        if label not in ("terasort", "groupby_sort"):
+            continue
+        _cd_arm()
+        q = build(ctx)
+        many12[label] = _cd_result(ctx, q)
+        rebuilt[label] = _cd_warm(ctx, q)
+        del q
+    res["rebuilt"] = rebuilt
+    del ctx
+    free_card()
+
+    one = _cd_one(queries, CD_P, cfg)
+    one12 = _cd_one(queries, CD_P * 3 // CD_CARDS, cfg, labels=("terasort", "groupby_sort"))
+    _cd_arm()
+    for label, _build, qcheck in queries:
+        err = qcheck(one[label][0], many[label])
+        w1 = one[label][1]["warm_med_s"]
+        pq = per_query[label]
+        pq.update(one_card_warm_med_s=w1, one_card_mode=one[label][2], err=err,
+                  speedup=w1 / pq["warm_med_s"])
+        log(f"cards {label}: equal to one card at P={CD_P} (integers, placement, retries"
+            f"{'; floats within their bound' if err is not None else ''}); warm median "
+            f"{pq['warm_med_s']:.4f} s on {CD_CARDS} cards against {w1:.4f} s on one "
+            f"({pq['speedup']:.2f}x)")
+    res["queries"] = per_query
+    for label, _build, qcheck in queries:
+        if label in many12:
+            qcheck(one12[label][0], many12[label])
+            log(f"cards: after rebuild_mesh([3]), {label} on 3 cards at P={CD_P * 3 // CD_CARDS} "
+                f"equals one card's; warm median {rebuilt[label]['warm_med_s']:.4f} s against "
+                f"{one12[label][1]['warm_med_s']:.4f} s on one card")
+    del many, many12, one, one12
+
+    # a checkpointed job on the 3 cards: saved, then resumed by a new context
+    _cd_arm()
+    ck_dir = os.path.join(root, "ckpt")
+    tbl = groupby_table(np.random.default_rng(SEED + 17), CD_CK_ROWS, 1 << 16)
+    devs3 = (["cuda:0", "cuda:1", "cuda:2"] if CD_DEVICE == "cuda" else [CD_DEVICE] * 3)
+    outs, kinds = [], []
+    for _ in range(2):
+        c3 = DryadContext(num_partitions_=12, devices=devs3, config=DryadConfig(checkpoint_dir=ck_dir))
+        outs.append(c3.from_arrays(tbl).group_by("key", GB_AGGS).collect())
+        kinds.append([e["kind"] for e in c3.events.events() if "checkpoint" in e["kind"]])
+        del c3
+    check("stage_checkpoint_saved" in kinds[0] and "stage_checkpoint_hit" in kinds[1]
+          and "stage_checkpoint_saved" not in kinds[1], f"cards: checkpoint events {kinds}")
+    check(digest(outs[0]) == digest(outs[1]), "cards: the resumed job's rows differ")
+    res["checkpoint_events"] = kinds
+    log(f"cards: a group_by of {CD_CK_ROWS} rows on 3 cards saved its checkpoint and a new context "
+        f"resumed it, byte-equal")
+    if CD_DEVICE == "cuda":
+        _cd_arm()
+        res["kernel"] = _cd_kernels([torch.device("cuda", i) for i in range(CD_CARDS)], card)
+    _cd_disarm()
+    free_card()
+    return res
+
+
+def phase_cards1(dev, card: str) -> dict:
+    """The default run's look at one context over several devices: two
+    rank threads on card 0 (``devices=["cuda:0", "cuda:0"]``, gloo: two
+    ranks on one card), P = 8: WordCount of 2^22 words and TeraSort of
+    2^22 rows, each equal to one rank at P = 8 (rows, placement, retries),
+    then ``rebuild_mesh([1])`` and TeraSort again on one rank."""
+    from dryad_tpu_torch import DryadContext
+    from dryad_tpu_torch.ops.bucket import bucket_sum_count
+
+    t_all = time.perf_counter()
+    _cd_arm()
+    rng = np.random.default_rng(SEED + 19)
+    text = vocab_table()[zipf_ids(rng, CD1_WORDS)].tobytes()  # the native tokenizer's input
+    ts = {"key": rng.integers(-2**31, 2**31, CD1_TS_ROWS, dtype=np.int32),
+          "payload": rng.random(CD1_TS_ROWS, dtype=np.float32)}
+    builds = {"wordcount": lambda c: c.from_text(text).group_by("word", {"n": ("count", None)}),
+              "terasort": lambda c: c.from_arrays(ts).order_by([("key", False)])}
+    one_ctx = DryadContext(num_partitions_=CD1_P)
+    one = {k: _cd_result(one_ctx, b(one_ctx)) for k, b in builds.items()}
+    del one_ctx
+    devs = [str(dev)] * CD1_RANKS
+    ctx = DryadContext(num_partitions_=CD1_P, devices=devs)
+    check(ctx._ranks.backend == "gloo" and ctx.mesh.world == CD1_RANKS,
+          f"cards1: backend {ctx._ranks.backend}, world {ctx.mesh.world}")
+    res = {"ranks": CD1_RANKS, "P": CD1_P, "backend": ctx._ranks.backend, "card": card}
+    bucket_sum_count.launches = 0  # the main path starts here
+    for label, b in builds.items():
+        q = b(ctx)
+        many = _cd_result(ctx, q)
+        _cd_same(f"cards1 {label}", one[label], many)
+        res[label] = _cd_warm(ctx, q, reps=1)
+        del q, many
+    res["launches"] = bucket_sum_count.launches
+    check(res["launches"] >= CD1_RANKS, f"cards1: the bucket kernel ran {res['launches']} times")
+    ctx.rebuild_mesh([1])
+    check(ctx.mesh.world == 1 and ctx.num_partitions == CD1_P // CD1_RANKS,
+          f"cards1: rebuild_mesh left world {ctx.mesh.world}, P {ctx.num_partitions}")
+    out = ctx.from_arrays(ts).order_by([("key", False)]).collect()
+    check(out["key"].tobytes() == one["terasort"][0]["key"].tobytes()
+          and out["payload"].tobytes() == one["terasort"][0]["payload"].tobytes(),
+          "cards1: TeraSort on the rank left differs")
+    del ctx
+    _cd_disarm()
+    free_card()
+    res["phase_s"] = time.perf_counter() - t_all
+    log(f"cards1 [{card}]: {CD1_RANKS} rank threads on {dev} over gloo at P={CD1_P}: WordCount of "
+        f"{CD1_WORDS} words (warm {res['wordcount']['warm_med_s']:.4f} s) and TeraSort of "
+        f"{CD1_TS_ROWS} rows (warm {res['terasort']['warm_med_s']:.4f} s) equal to one rank; "
+        f"bucket_sum_count {res['launches']} launches; rebuild_mesh([1]): TeraSort equal on one rank")
+    return res
+
+
+def loopctl_line(dl, gc=None, cd=None) -> dict:
     """The loop-control kernel's entry of the kernels line (the devloop
-    phase's numbers, and its launches in the gang_cards phase's ranks and
-    workers; None where a phase did not run)."""
-    lc = (dl or {}).get("loopctl", {})
-    per_path = {"devloop": (dl or {}).get("loopctl_launches"), "gang_cards": (gc or {}).get("loop_launches")}
+    phase's numbers, or the cards phase's when it ran alone; its
+    launches in the gang_cards phase's ranks and workers and in the
+    cards phase's ranks; None where a phase did not run)."""
+    lc = (dl or {}).get("loopctl") or (cd or {}).get("kernel", {}).get("loopctl", {})
+    per_path = {"devloop": (dl or {}).get("loopctl_launches"), "gang_cards": (gc or {}).get("loop_launches"),
+                "cards": (cd or {}).get("loop_launches")}
     ran = [n for n in per_path.values() if n is not None]
     return {
         "name": "loop_step",
@@ -6339,7 +6878,7 @@ def main(argv=None) -> int:
         "--phases",
         default="lint,env,kernel,wordcount,dense,terasort,terasort_hot,groupby_sort,programs,"
                 "hybrid,groupby_sort_fused,join_shuffle,join_broadcast,pagerank,devloop,decomposable,"
-                "ordered_ops,cpu_parity,stores,stream,serve,cluster,gang,rewrite,fleet,obs")
+                "ordered_ops,cpu_parity,stores,stream,serve,cluster,gang,cards1,rewrite,fleet,obs")
     # the gang phases' child processes (not for direct use)
     ap.add_argument("--nccl-probe", nargs=2, type=int, metavar=("RANK", "PORT"), help=argparse.SUPPRESS)
     ap.add_argument("--gang-rank", nargs=3, metavar=("RANK", "PORT", "OUT"), help=argparse.SUPPRESS)
@@ -6395,11 +6934,13 @@ def main(argv=None) -> int:
         ("serve", lambda: phase_serve(dev, card)),
         ("cluster", lambda: phase_cluster(dev, card)),
         ("gang", lambda: phase_gang(dev, card)),
+        ("cards1", lambda: phase_cards1(dev, card)),
         ("rewrite", lambda: phase_rewrite(dev, card)),
         ("fleet", lambda: phase_fleet(dev, card)),
         ("obs", lambda: phase_obs(dev, card)),
         ("terasort_capacity", lambda: phase_terasort_capacity(dev, card)),
         ("gang_cards", lambda: phase_gang_cards(dev, card)),
+        ("cards", lambda: phase_cards(dev, card)),
     )
     _PG["ran"] = ran = []
     for name, run in steps:
@@ -6412,6 +6953,10 @@ def main(argv=None) -> int:
     print("results: " + json.dumps(results))
 
     kern = results.get("kernel", {})
+    ck = results.get("cards", {}).get("kernel", {})
+    if not kern and ck:  # the cards phase alone: its shape's numbers
+        kern = {k: ck[k] for k in ("kernel_ms", "plain_ms", "bound_ms", "library_ms")}
+        kern["max_abs_err"] = max(c["max_abs_err"] for c in ck["cards"])
     # launches on each main path that ran, each counted from 0 just
     # before its queries and read just after
     per_path = {
@@ -6429,6 +6974,8 @@ def main(argv=None) -> int:
         "cluster": results.get("cluster", {}).get("launches"),
         "gang": results.get("gang", {}).get("launches"),
         "gang_cards": results.get("gang_cards", {}).get("launches"),
+        "cards1": results.get("cards1", {}).get("launches"),
+        "cards": results.get("cards", {}).get("launches"),
         "rewrite": results.get("rewrite", {}).get("launches"),
         "fleet": results.get("fleet", {}).get("launches"),
         "obs": results.get("obs", {}).get("launches"),
@@ -6468,11 +7015,18 @@ def main(argv=None) -> int:
         "cluster_shapes": results.get("cluster", {}).get("kernel_shapes"),
         "gang_shapes": results.get("gang", {}).get("kernel_shapes"),
         "gang_cards_shapes": results.get("gang_cards", {}).get("kernel_shapes"),
+        "cards_shape": results.get("cards", {}).get("kernel", {}).get("shape"),
+        "cards_kernel_ms": results.get("cards", {}).get("kernel", {}).get("kernel_ms"),
+        "cards_plain_ms": results.get("cards", {}).get("kernel", {}).get("plain_ms"),
+        "cards_library_ms": results.get("cards", {}).get("kernel", {}).get("library_ms"),
+        "cards_bound_ms": results.get("cards", {}).get("kernel", {}).get("bound_ms"),
+        "cards_max_abs_err_by_card": [c["max_abs_err"] for c in
+                                      results.get("cards", {}).get("kernel", {}).get("cards", [])] or None,
         "hybrid_shapes": [results["hybrid"]["wordcount"]["kernel_shape"]] if "hybrid" in results else None,
         "rewrite_shapes": results.get("rewrite", {}).get("kernel_shapes"),
         "fleet_shapes": results.get("fleet", {}).get("kernel_shapes"),
         "obs_shapes": results.get("obs", {}).get("kernel_shapes"),
-    }, loopctl_line(results.get("devloop"), results.get("gang_cards"))]}
+    }, loopctl_line(results.get("devloop"), results.get("gang_cards"), results.get("cards"))]}
     print(json.dumps(line))
     print(card)
     print(json.dumps({"ok": True, "device": {

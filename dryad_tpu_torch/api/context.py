@@ -18,7 +18,10 @@ resume stage outputs keyed by the inputs' content fingerprints
 query trace context (``obs/tracectx.py``) when ``config.query_trace``
 is on, so the job's spans and dispatch gaps carry its ``qid``.  A context owns one device (CUDA unless the caller
 passes ``device="cpu"``; it never falls back by itself), P logical
-partitions on it, the string dictionary, the job event log
+partitions on it, or, with ``devices=``, several cards, one rank thread
+a card holding ``P / len(devices)`` of the partitions (the reference's
+single controller over ``jax.devices()``, ``parallel/ranks.py``), the
+string dictionary, the job event log
 (``exec/events.py``: a JSONL file under ``event_log_dir``, or memory
 only), and a device-resident ingest cache keyed by binding, LRU by
 bytes.  A cached table is a pin, not an entry of that cache: its budget
@@ -32,6 +35,7 @@ import math
 import os
 import threading
 import time
+import weakref
 from collections import OrderedDict
 from typing import Dict, Optional, Union
 
@@ -51,6 +55,7 @@ from dryad_tpu_torch.parallel.mesh import (
     DEFAULT_PARTITIONS, PartitionMesh, make_hybrid_mesh, make_mesh, resolve_device,
 )
 from dryad_tpu_torch.parallel.partition import first_valid
+from dryad_tpu_torch.parallel.ranks import RankBatches, RankGroup, join_rows, resolve_devices
 from dryad_tpu_torch.plan.lower import lower
 from dryad_tpu_torch.plan.nodes import Node, PartitionInfo
 from dryad_tpu_torch.rewrite import RewriteController
@@ -89,8 +94,16 @@ class DryadContext:
         local_debug: bool = False,
         mesh: Optional[PartitionMesh] = None,
         dcn_slices: Optional[int] = None,
+        devices=None,
     ):
-        """``mesh``: the partitions' mesh (``parallel/mesh.py``), for
+        """``devices``: several devices, a list or an int ``n`` (the
+        first ``n`` visible cards): one rank thread a device holds
+        ``num_partitions_ / len(devices)`` partitions (default one a
+        device, as the reference's mesh), over a group made in this
+        process (``parallel/ranks.py``: NCCL when each rank has a card
+        of its own, else gloo).  A card the host lacks raises.  Without
+        it the context holds all its partitions on one device.
+        ``mesh``: the partitions' mesh (``parallel/mesh.py``), for
         instance a gang worker's, whose ranks each hold ``P / world``
         partitions; it fixes the partition count and the device.
         ``dcn_slices``: a hybrid mesh of that many slices
@@ -104,7 +117,16 @@ class DryadContext:
         # collect() runs the NumPy interpreter of exec/localdebug.py over
         # the logical plan instead of the engine (differential debugging)
         self.local_debug = local_debug
-        if mesh is not None:
+        self._ranks: Optional[RankGroup] = None
+        if devices is not None:
+            self._refuse_with_devices(mesh, dcn_slices, local_debug)
+            devs = resolve_devices(devices)
+            self.device = devs[0]
+            self.mesh = None  # rank 0's, once the ranks are built below
+            self.num_partitions = num_partitions_ if num_partitions_ is not None else len(devs)
+            if self.num_partitions < 1:
+                raise ValueError("num_partitions_ must be >= 1")
+        elif mesh is not None:
             if num_partitions_ is not None and num_partitions_ != mesh.P:
                 raise ValueError(
                     f"pass either num_partitions_ or mesh (num_partitions_="
@@ -128,8 +150,9 @@ class DryadContext:
             if (num_partitions_ or DEFAULT_PARTITIONS) < 1:
                 raise ValueError("num_partitions_ must be >= 1")
             self.mesh = make_mesh(num_partitions_ or DEFAULT_PARTITIONS, self.device)
-        self.num_partitions = self.mesh.P
-        if self.mesh.world > 1 and self.config.checkpoint_dir:
+        if devices is None:
+            self.num_partitions = self.mesh.P
+        if devices is None and self.mesh.world > 1 and self.config.checkpoint_dir:
             raise NotImplementedError(
                 "stage checkpoints of a gang (a mesh over several ranks) are "
                 "not ported: ROADMAP queue 1 item 11"
@@ -193,11 +216,14 @@ class DryadContext:
             )
             self.headroom = self.telemetry.headroom
             self.events.add_tap(self.telemetry.observe)
-        self.executor = GraphExecutor(
-            self.num_partitions, self.config, self.device, self.events, mesh=self.mesh
-        )
-        self.executor.rewriter = self.rewriter
-        self.executor.headroom = self.headroom
+        if devices is None:
+            self.executor = GraphExecutor(
+                self.num_partitions, self.config, self.device, self.events, mesh=self.mesh
+            )
+            self.executor.rewriter = self.rewriter
+            self.executor.headroom = self.headroom
+        else:
+            self._build_ranks(devs)
         # one job at a time: the executor keeps per-job state, and the
         # stream driver runs jobs from its prefetch threads too (a
         # group_by over a join's bucket stream); re-entrant for do_while
@@ -212,6 +238,151 @@ class DryadContext:
         # included; fetch_s: the device->host copy; write_s)
         self.io_native = None
         self.io_stats: Dict[str, float] = {}
+
+    # -- several cards -----------------------------------------------------------
+    @staticmethod
+    def _refuse_with_devices(mesh, dcn_slices, local_debug) -> None:
+        if mesh is not None:
+            raise ValueError("pass either devices or mesh")
+        if dcn_slices is not None:
+            raise NotImplementedError(
+                "dcn_slices together with devices (a hybrid mesh over cards) is not "
+                "ported: ROADMAP queue 1 item 18")
+        if local_debug:
+            raise ValueError("local_debug runs the NumPy interpreter on the host: it takes no devices")
+
+    def _build_ranks(self, devs) -> None:
+        """One rank a device (``parallel/ranks.py``): rank 0's mesh and
+        executor are the context's, and its events are the context's."""
+        from dryad_tpu_torch.parallel.multihost import group_timeout
+
+        me = weakref.ref(self)  # the ranks must not keep the context alive
+        if getattr(self, "_close_ranks", None) is not None:
+            # the ranks it replaces: their graphs and tables go while their
+            # group still stands, then their threads end
+            for rc in self._ranks.contexts:
+                rc._release()
+            self._close_ranks()
+        self._ranks = RankGroup(devs, self.num_partitions, group_timeout(),
+                                make_context=lambda mesh: _RankContext(me(), mesh),
+                                attach=lambda rc, mesh: rc._attach(mesh))
+        self._close_ranks = weakref.finalize(self, self._ranks.close)
+        self._wire_rank0()
+
+    def _wire_rank0(self) -> None:
+        rc = self._ranks.contexts[0]
+        self.mesh, self.executor, self.device = rc.mesh, rc.executor, rc.device
+
+    @property
+    def devices(self) -> list:
+        """The devices the context's partitions lie on, in rank order."""
+        return list(self._ranks.devices) if self._ranks is not None else [self.device]
+
+    def _refuse_cards(self, what: str, item: int) -> None:
+        """A surface the context over several cards does not run."""
+        if self._ranks is not None:
+            raise NotImplementedError(
+                f"{what} on a context over several cards is not ported: ROADMAP queue 1 "
+                f"item {item}")
+
+    def rebuild_mesh(self, exclude_device_ids) -> None:
+        """Elastic recovery (the reference's ``rebuild_mesh``): shrink the
+        mesh past failed devices and rebuild the executors.  The ids are
+        indices into the context's devices (``self.devices``).  Device
+        bindings and the device cache are dropped (a cached table used
+        afterwards raises); host and store bindings survive.  Over
+        several cards the ranks are built anew over the surviving cards,
+        each with the same partitions a card as before; excluding every
+        device (a one-device context's only one) raises ``ValueError``."""
+        from dryad_tpu_torch.parallel.mesh import exclude_devices
+
+        with self._job_lock:
+            if self._ranks is None:
+                self.mesh = exclude_devices(self.mesh, exclude_device_ids)
+            else:
+                keep = exclude_devices(self.mesh, exclude_device_ids)
+                if len(keep) != len(self._ranks.devices):
+                    local = self.num_partitions // len(self._ranks.devices)
+                    self.num_partitions = local * len(keep)
+                    self._build_ranks(keep)
+                else:
+                    for rc in self._ranks.contexts:
+                        rc._device_cache.clear()
+                        rc._attach(rc.mesh)
+                    self._wire_rank0()
+            for nid in [n for n, b in self._bindings.items() if b[0] == "device"]:
+                del self._bindings[nid]
+            self._device_cache.clear()
+            if self._ranks is None:
+                self.num_partitions = self.mesh.P
+                self.executor = GraphExecutor(
+                    self.num_partitions, self.config, self.device, self.events, mesh=self.mesh
+                )
+                self.executor.rewriter = self.rewriter
+                self.executor.headroom = self.headroom
+
+    def _run_ranks(self, queries, fetch: bool = False):
+        """Lower once, then run the job on every rank at once: each rank
+        binds its own blocks of the inputs and executes the graph on its
+        context.  Returns one :class:`RankBatches` a query, or with
+        ``fetch`` one host table's physical columns a query (each rank's
+        valid rows fetched on its thread, joined in partition order);
+        ``io_stats`` gains ``compute_s`` (the slowest rank's job) and
+        ``gather_s`` (the rest of the call: the fetch and the join of the
+        ranks' rows on the host)."""
+        from dryad_tpu_torch.exec import faults
+
+        with self._job_lock:
+            t0 = time.perf_counter()
+            graph = lower([q.node for q in queries], self.config, self.dictionary,
+                          P=self.num_partitions)
+            for n in graph.inputs.values():
+                self._bound(n)  # the stale-binding error, raised here once
+            fps = None
+            if self.config.checkpoint_dir:
+                fps = {nid: self._binding_fp(n) for nid, n in graph.inputs.items()}
+            tctx = tracectx.current()
+            # every rank reads the same rewrites and injected faults
+            rewriter = _FrozenRewriter(self.rewriter) if self.rewriter is not None else None
+            shared_faults = faults.registry.armed()
+
+            def job(rc):
+                t = time.perf_counter()
+                with tracectx.activate(tctx):
+                    rc.executor.rewriter = rewriter
+                    rc.executor.shared_faults = shared_faults
+                    rc.io_stats = {}
+                    bindings = {nid: rc._bind_device(n) for nid, n in graph.inputs.items()}
+                    out = rc.executor.execute(
+                        graph, bindings, subquery_runner=rc._run_subquery, binding_fps=fps,
+                        loop_lowerer=rc._lower_loop_stage,
+                    )
+                    batches = [out[graph.outputs[q.node.id]] for q in queries]
+                    if not fetch:
+                        return batches, time.perf_counter() - t, dict(rc.io_stats)
+                    compute = time.perf_counter() - t
+                    rows = [b.fetch_valid_rows(with_counts=True) for b in batches]
+                    rc.io_stats["fetched_bytes"] = sum(b.nbytes() for b in batches)
+                    return rows, compute, dict(rc.io_stats)
+
+            per_rank = self._ranks.run(job)
+            out = ([RankBatches([r[0][i] for r in per_rank]) for i in range(len(queries))]
+                   if not fetch else
+                   [join_rows([r[0][i] for r in per_rank], with_counts=True)
+                    for i in range(len(queries))])
+            wall = time.perf_counter() - t0
+            compute = max(r[1] for r in per_rank)
+            stats = [r[2] for r in per_rank]
+            if any("h2d_bytes" in st for st in stats):
+                # a store ingest: each rank copied its own partitions
+                self.io_stats.update(
+                    repack_s=max(st.get("repack_s", 0.0) for st in stats),
+                    h2d_s=max(st.get("h2d_s", 0.0) for st in stats),
+                    h2d_bytes=sum(st.get("h2d_bytes", 0) for st in stats),
+                )
+            self.io_stats.update(compute_s=compute, gather_s=wall - compute,
+                                 fetched_bytes=sum(st.get("fetched_bytes", 0) for st in stats))
+        return out
 
     # -- ingestion -----------------------------------------------------------
     def from_arrays(
@@ -391,6 +562,7 @@ class DryadContext:
         concat.  Without ``schema`` the first chunk's dtypes give it."""
         from dryad_tpu_torch.exec.outofcore import ChunkSource
 
+        self._refuse_cards("from_stream", 16)
         it = iter(chunks)
         if schema is None:
             first = next(it, None)
@@ -524,19 +696,28 @@ class DryadContext:
             del self._bindings[query.node.id]
             self._device_cache.pop(query.node.id, None)
             self._binding_fp_cache.pop(query.node.id, None)
-            self.executor.programs.drop_holding(binding[1])
+            if isinstance(binding[1], RankBatches):
+                for rc, part in zip(self._ranks.contexts, binding[1].parts):
+                    rc.executor.programs.drop_holding(part)
+            else:
+                self.executor.programs.drop_holding(binding[1])
 
     # -- execution -------------------------------------------------------------
-    def _bind_device(self, node: Node) -> ColumnBatch:
+    def _bound(self, node: Node) -> tuple:
         if node.id not in self._bindings:
             raise RuntimeError(
-                f"input node {node.id} has no binding: its device-resident "
-                "table was dropped (release() drops it) — re-run .cache() "
-                "or re-ingest"
+                f"input node {node.id} has no binding: its device-"
+                "resident table was dropped (rebuild_mesh clears cached "
+                "tables; release() drops them explicitly) — re-run "
+                ".cache() or re-ingest"
             )
-        binding = self._bindings[node.id]
+        return self._bindings[node.id]
+
+    def _bind_device(self, node: Node) -> ColumnBatch:
+        binding = self._bound(node)
         if binding[0] == "device":
-            return binding[1]  # a pin, outside the ingest cache
+            b = binding[1]  # a pin, outside the ingest cache
+            return b.parts[self.mesh.rank] if isinstance(b, RankBatches) else b
         budget = self.config.device_cache_bytes
         hit = self._device_cache.get(node.id)
         if hit is not None and hit[0] is binding:
@@ -711,6 +892,9 @@ class DryadContext:
         return ctx
 
     def _run_graph(self, queries, defer_miss: bool = False):
+        if self._ranks is not None:
+            # each rank checked its misses at its job's end
+            return self._run_ranks(queries), (_Finished() if defer_miss else None)
         with self._job_lock:
             graph = lower([q.node for q in queries], self.config, self.dictionary, P=self.num_partitions)
             bindings = {nid: self._bind_device(n) for nid, n in graph.inputs.items()}
@@ -733,8 +917,10 @@ class DryadContext:
 
     def _refuse_gang(self, what: str) -> None:
         """A rank of a gang holds only its own partitions: results leave
-        as partition files (``cluster/worker.py``), never as one table."""
-        if self.mesh.world > 1:
+        as partition files (``cluster/worker.py``), never as one table.
+        The ranks of a context over several cards are its own threads,
+        whose partitions it joins."""
+        if self.mesh.world > 1 and self.mesh.link is None:
             raise RuntimeError(
                 f"{what} on a context whose mesh spans {self.mesh.world} ranks: "
                 "this rank holds partitions "
@@ -748,7 +934,12 @@ class DryadContext:
         # device->host byte accounting (obs/metrics.py): every result
         # fetch funnels through here or the stream driver
         self.executor.metrics.add("d2h_bytes", batch.nbytes())
-        table = batch.to_numpy(query.schema, self.dictionary)
+        return self._decode(query, batch.fetch_valid_rows())
+
+    def _decode(self, query: Query, host: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        """A result's valid physical rows -> its logical host table (the
+        strings decoded with the context's dictionary)."""
+        table = decode_physical_table(query.schema, slice(None), host, self.dictionary)
         if self._codecs:
             from dryad_tpu_torch.columnar.codecs import collapse_table
 
@@ -776,6 +967,12 @@ class DryadContext:
             from dryad_tpu_torch.exec.localdebug import LocalDebugInterpreter
 
             return LocalDebugInterpreter(self).run_to_logical(query.node)
+        if self._ranks is not None:
+            # every rank fetches its own rows on its thread
+            ((host, _counts),) = self._run_ranks([query], fetch=True)
+            # the whole table's bytes, every rank's part (the one-card count)
+            self.executor.metrics.add("d2h_bytes", self.io_stats["fetched_bytes"])
+            return self._decode(query, host)
         return self._host_table(query, self.execute(query))
 
     def _fetch(self, query: Query, batch: ColumnBatch, deferred, tctx):
@@ -846,17 +1043,21 @@ class DryadContext:
             rows = StreamExecutor(self).to_store(query.node, path)
             return JobHandle({"rows": np.asarray([rows])}, path)
         t_run = time.perf_counter()
-        batch = self.execute(query)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        t0 = time.perf_counter()
-        host, counts = batch.fetch_valid_rows(with_counts=True)
+        if self._ranks is not None:
+            ((host, counts),) = self._run_ranks([query], fetch=True)
+            t0 = t_run + self.io_stats["compute_s"]
+        else:
+            batch = self.execute(query)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            t0 = time.perf_counter()
+            host, counts = batch.fetch_valid_rows(with_counts=True)
         t1 = time.perf_counter()
         bounds = np.concatenate([[0], np.cumsum(counts)])
         names = sorted(host)
         parts = [
             {c: host[c][bounds[i] : bounds[i + 1]] for c in names}
-            for i in range(batch.num_partitions)
+            for i in range(len(counts))
         ]
         self.io_native = RB.io_native_loaded()
         write_store_uri(
@@ -912,6 +1113,99 @@ class DryadContext:
         # the first valid row in global order: every gang rank reads the same
         first = first_valid(next(iter(batch.data.values())), batch.valid, self.mesh)
         return bool(first) if first is not None else False
+
+
+class _RankContext(DryadContext):
+    """One rank of a context over several cards (``parallel/ranks.py``):
+    a mesh, an executor and a device cache of its own, on its card; the
+    driver's config, dictionary, bindings and codecs, read through.
+    Rank 0's events are the driver's stream (the reference's single
+    controller logs one stream); the other ranks' stay in memory."""
+
+    def __init__(self, driver: DryadContext, mesh: PartitionMesh):
+        self._driver_ref = weakref.ref(driver)
+        self.config = driver.config
+        self.local_debug = False
+        self._ranks = None
+        self._any_stream = False
+        self._device_cache: "OrderedDict[int, tuple]" = OrderedDict()
+        self.events = (driver.events if mesh.rank == 0
+                       else EventLog(None, mem_cap=self.config.obs_events_mem_cap))
+        self.diagnosis = self.rewriter = self.telemetry = None
+        self.headroom = driver.headroom
+        self._job_lock = threading.RLock()
+        self.tokenizer_native = self.io_native = None
+        self.io_stats: Dict[str, float] = {}
+        self._attach(mesh)
+
+    def _attach(self, mesh: PartitionMesh) -> None:
+        """Serve ``mesh`` (a new group's) with a new executor."""
+        self.mesh, self.device, self.num_partitions = mesh, mesh.device, mesh.P
+        self._subplans: Dict[tuple, tuple] = {}
+        self.executor = GraphExecutor(self.num_partitions, self.config, self.device, self.events,
+                                      mesh=mesh)
+        self.executor.headroom = self.headroom
+
+    def _release(self) -> None:
+        """Drop this rank's device tables and its stage and loop programs."""
+        from dryad_tpu_torch.exec.executor import _release_loops
+
+        self._device_cache.clear()
+        self.executor.programs.clear()
+        _release_loops(self.executor._loops)
+
+    @property
+    def _driver(self) -> DryadContext:
+        d = self._driver_ref()
+        if d is None:
+            raise RuntimeError("the context this rank served is gone")
+        return d
+
+    @property
+    def dictionary(self) -> StringDictionary:
+        return self._driver.dictionary
+
+    @property
+    def _bindings(self) -> Dict[int, tuple]:
+        return self._driver._bindings
+
+    @property
+    def _codecs(self) -> Dict[str, object]:
+        return self._driver._codecs
+
+    @property
+    def _binding_fp_cache(self) -> Dict[int, Optional[str]]:
+        return self._driver._binding_fp_cache
+
+
+class _FrozenRewriter:
+    """The plan rewriter's decisions as a job starts (boost floors and
+    the exchange-window hint): every rank of a context over several
+    cards reads the same ones, whatever the rewriter learns meanwhile
+    from rank 0's events (ranks that decided differently would wait in
+    different collectives)."""
+
+    def __init__(self, rewriter):
+        with rewriter._lock:
+            self._floors = dict(rewriter._floors)
+        self._hint = rewriter.exchange_window_hint()
+
+    def boost_floor(self, name: str) -> int:
+        return self._floors.get(name, 1)
+
+    def exchange_window_hint(self) -> Optional[int]:
+        return self._hint
+
+
+class _Finished:
+    """The deferred tail of a job whose ranks ran their miss checks and
+    checkpoint saves at its end: nothing is left to do."""
+
+    def finish(self, deferred: bool = True) -> None:
+        pass
+
+    def abort(self, reason: str) -> None:
+        pass
 
 
 def _rows(cols: Dict[str, np.ndarray]) -> int:

@@ -244,10 +244,18 @@ class ColumnBatch:
             if n is not None and m != n:
                 raise ValueError("ragged input columns")
             n = m
+        total = None
+        if rows is not None and n:
+            # a rank's partitions: encode only their rows
+            per = -(-n // num_partitions)
+            parts = range(num_partitions)[rows]
+            lo, hi = min(parts.start * per, n), min(parts.stop * per, n)
+            arrays = {name: np.asarray(arrays[name])[lo:hi] for name in schema.names}
+            total = n
         phys: Dict[str, np.ndarray] = {}
         for f in schema.fields:
             phys.update(encode_physical(f, np.asarray(arrays[f.name]), dictionary))
-        data, valid = block_layout(phys, num_partitions, partition_capacity, rows)
+        data, valid = block_layout(phys, num_partitions, partition_capacity, rows, total)
         return ColumnBatch.from_host_layout(data, valid, device)
 
     def fetch_valid_rows(self, with_counts: bool = False):

@@ -216,24 +216,29 @@ class CheckpointStore:
         return removed
 
     def load(
-        self, stage, fp: str, device, partitions: int
+        self, stage, fp: str, device, partitions: int, rows: Optional[slice] = None
     ) -> Optional[Tuple[ColumnBatch, ...]]:
+        """The checkpoint's outputs as ``(partitions, cap)`` batches on
+        ``device``, or None; ``rows``: only those partitions (a rank's
+        own, of a context over several cards)."""
         d = self._dir(stage, fp)
         meta_path = os.path.join(d, "meta.json")
         if not os.path.exists(meta_path):
             return None
         with self._tracer.span(f"ckpt_load:{stage.name}", cat="checkpoint"):
-            return self._load(stage, fp, d, meta_path, device, partitions)
+            return self._load(stage, fp, d, meta_path, device, partitions, rows)
 
     def _load(
-        self, stage, fp: str, d: str, meta_path: str, device, partitions: int
+        self, stage, fp: str, d: str, meta_path: str, device, partitions: int,
+        rows: Optional[slice] = None,
     ) -> Optional[Tuple[ColumnBatch, ...]]:
         try:
             with open(meta_path) as fh:
                 meta = json.load(fh)
 
             def up(a: np.ndarray):
-                return to_device_column(a, device).reshape(partitions, -1)
+                a = a.reshape((partitions, -1) + a.shape[1:])
+                return to_device_column(a if rows is None else a[rows], device)
 
             outs = []
             crcs = meta.get("crc", {})

@@ -66,6 +66,7 @@ from dryad_tpu_torch.columnar.batch import ColumnBatch
 from dryad_tpu_torch.ops import bucket as BK
 from dryad_tpu_torch.ops import loopctl as LC
 from dryad_tpu_torch.parallel import partition as PART
+from dryad_tpu_torch.parallel.ranks import exclusive
 
 # body(batch) -> (batch, overflow flag, miss count); cond(batch) -> (batch, overflow flag)
 BodyFn = Callable[[ColumnBatch], Tuple[ColumnBatch, torch.Tensor, torch.Tensor]]
@@ -104,6 +105,30 @@ def _sync_is_error(device: torch.device):
         yield
     finally:
         torch.cuda.set_sync_debug_mode(prev)
+
+
+@contextlib.contextmanager
+def _capturing(graph, pool, stream, device: torch.device):
+    """``torch.cuda.graph``'s capture on ``stream`` without its
+    device-wide ``synchronize`` and ``empty_cache``: the latter frees
+    cached blocks on every card, which waits on every card, and a rank
+    of a context over several cards touches only its own (another's may
+    hold a collective that waits on this one)."""
+    from dryad_tpu_torch.exec.programs import CAPTURE_LOCK
+
+    stream.wait_stream(torch.cuda.current_stream(device))
+    with CAPTURE_LOCK, torch.cuda.stream(stream):
+        graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+        try:
+            yield
+        except BaseException:
+            try:
+                graph.capture_end()
+            except RuntimeError:
+                pass  # the capture was invalidated by the error being raised
+            raise
+        graph.capture_end()
+    torch.cuda.current_stream(device).wait_stream(stream)
 
 
 @contextlib.contextmanager
@@ -153,8 +178,12 @@ class LoopProgram:
         when the body changes the carry, :class:`HostReadError` when
         either reads a value to the host (CUDA).  Returns the body's
         ``(batch, overflow, miss)``."""
+        on_card = not self.eager and self.device.type == "cuda"
         try:
-            with _sync_is_error(torch.device("cpu") if self.eager else self.device):
+            # the sync check is process-wide: the ranks of a context over
+            # several cards take it one at a time, the others parked
+            with exclusive(self.mesh if on_card else None), \
+                    _sync_is_error(self.device if on_card else torch.device("cpu")):
                 out = self.body(current)
                 self.cond(out[0])
         except RuntimeError as e:
@@ -229,6 +258,12 @@ class LoopProgram:
         LC.loop_step(self.state, bovf, bmiss, self._go(c), covf, self.max_iter, handle)
 
     def _capture(self, current: ColumnBatch) -> None:
+        from dryad_tpu_torch.exec.programs import card_lock
+
+        with card_lock(self.device):  # the card's captures, one at a time
+            self._capture_locked(current)
+
+    def _capture_locked(self, current: ColumnBatch) -> None:
         dev = self.device
         self.carry = ColumnBatch(
             {n: torch.empty_like(t, memory_format=torch.contiguous_format)
@@ -247,24 +282,30 @@ class LoopProgram:
         pool = torch.cuda.graph_pool_handle()  # the graph's private pool
         idx = dev.index if dev.index is not None else torch.cuda.current_device()
         try:
-            with torch.cuda.graph(graph, pool=pool, stream=side, capture_error_mode="thread_local"), \
-                    _thread_to_pool(dev, pool):
+            # in one process, torch's capture; a rank of a context over
+            # several cards must not wait on the other cards (_capturing)
+            if getattr(self.mesh, "link", None) is None:
+                capture = torch.cuda.graph(graph, pool=pool, stream=side,
+                                           capture_error_mode="thread_local")
+            else:
+                capture = _capturing(graph, pool, side, dev)
+            with capture, _thread_to_pool(dev, pool):
                 stream = torch.cuda.current_stream(dev).cuda_stream
                 handle = LC.handle_create(stream)
                 self.state.zero_()
-                marks = [(BK.bucket_sum_count.captured, sent())]
+                marks = [(BK.captured_here(), sent())]
                 self._round(handle)
-                marks.append((BK.bucket_sum_count.captured, sent()))
+                marks.append((BK.captured_here(), sent()))
                 body = LC.while_begin(stream, handle)
                 try:
                     with torch.cuda.stream(torch.cuda.ExternalStream(body, device=dev)):
                         self._round(handle)
                 finally:
                     LC.while_end(body)
-                marks.append((BK.bucket_sum_count.captured, sent()))
+                marks.append((BK.captured_here(), sent()))
                 _, covf = self.cond(self.carry)
                 self.state[1:2].bitwise_or_(covf.to(torch.int64).reshape(1))
-                marks.append((BK.bucket_sum_count.captured, sent()))
+                marks.append((BK.captured_here(), sent()))
         finally:
             torch._C._cuda_releasePool(idx, pool)  # the routing's reference
         self.graph = graph

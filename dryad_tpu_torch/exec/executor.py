@@ -452,6 +452,10 @@ class GraphExecutor:
         )
         # injectable sleep: backoff-timing tests record instead of wait
         self._sleep: Callable[[float], None] = time.sleep
+        # the ranks of a context over several cards share one decision
+        # of the fault registry per attempt (rank 0's), set per job by
+        # the context while the registry is armed
+        self.shared_faults = False
         # the runtime plan rewriter (rewrite/controller.py), wired by the
         # context after construction; consulted for per-unit starting
         # boost floors (overflow pre-widening) and, under
@@ -599,6 +603,7 @@ class GraphExecutor:
                 self._drain(window, bindings, results, misses)
                 stage = unit[0]
                 (current,) = self._inputs(stage, bindings, results)
+                self._mark(stage.name)
                 with STAGE.named_failures(self.mesh, stage.name):
                     if driver == "do_while":
                         results[(stage.id, 0)] = self._run_do_while(stage, current, misses)
@@ -651,8 +656,14 @@ class GraphExecutor:
             return False
         stage = self._unit_stage(unit)
         exports = self._exports[id(unit)]
-        hit = self.checkpoints.load(stage, fp, self.device, self.P)
-        if hit is None or len(hit) != len(exports):
+        link = getattr(self.mesh, "link", None)
+        rows = slice(self.mesh.base, self.mesh.base + self.mesh.local) if link else None
+        hit = self.checkpoints.load(stage, fp, self.device, self.P, rows=rows)
+        ok = hit is not None and len(hit) == len(exports)
+        if link is not None:
+            # every rank loads, or every rank runs the unit
+            ok = all(link.exchange(self.mesh.rank, ok, f"stage {stage.name!r}"))
+        if not ok:
             return False
         self.event_log.emit("stage_checkpoint_hit", stage=stage.id, name=stage.name)
         for e, b in zip(exports, hit):
@@ -676,6 +687,18 @@ class GraphExecutor:
         self._write_checkpoint(stage, fp, outs)
 
     def _write_checkpoint(self, stage, fp: str, outs) -> None:
+        link = getattr(self.mesh, "link", None)
+        if link is not None:
+            # the ranks of a context over several cards: rank 0 writes the
+            # whole table, every rank's partitions in order
+            mine = [ColumnBatch({n: t.cpu() for n, t in b.data.items()}, b.valid.cpu())
+                    for b in outs]
+            every = link.exchange(self.mesh.rank, mine, f"stage {stage.name!r}")
+            if self.mesh.rank:
+                return
+            outs = [ColumnBatch({n: torch.cat([r[i].data[n] for r in every]) for n in b.data},
+                                torch.cat([r[i].valid for r in every]))
+                    for i, b in enumerate(mine)]
         if self.config.checkpoint_retain_seconds is not None:
             n = self.checkpoints.gc(self.config.checkpoint_retain_seconds)
             if n:
@@ -733,6 +756,7 @@ class GraphExecutor:
             return
         solo = unit[0] if len(unit) == 1 else None
         name = solo.name if solo else _unit_name(unit)
+        self._mark(name)
         sid = self._unit_id[id(unit)]
         log = self.event_log
         ops = [op for m in unit for op in m.ops]
@@ -834,7 +858,35 @@ class GraphExecutor:
                 raise StageFailedError(_exhausted_message(name, ops, boost))
             boost *= 2
 
+    def _mark(self, name: str) -> None:
+        """The unit this rank runs now, named by a failure's message."""
+        if self.mesh is not None:
+            self.mesh.stage = name
+
     def _inject_faults(self, sid: int, name: str) -> None:
+        if self.shared_faults and getattr(self.mesh, "link", None) is not None:
+            self._inject_shared_faults(sid, name)
+            return
+        self._consult_faults(sid, name)
+
+    def _inject_shared_faults(self, sid: int, name: str) -> None:
+        """Rank 0 consults the registry, and every rank of the context
+        takes its outcome (an injected failure or delay), so that all
+        retry alike."""
+        link = self.mesh.link
+        if self.mesh.rank == 0:
+            try:
+                self._consult_faults(sid, name)
+                link.exchange(0, None, f"stage {name!r}")
+            except faults.InjectedFault as e:
+                link.exchange(0, e, f"stage {name!r}")
+                raise
+            return
+        e = link.exchange(self.mesh.rank, None, f"stage {name!r}")[0]
+        if e is not None:
+            raise type(e)(*e.args)
+
+    def _consult_faults(self, sid: int, name: str) -> None:
         """The fault registry's consultation points before a dispatch
         (``exec/faults.py``): an injected failure raises, a seeded kill
         ends this process (after logging ``worker_killed_injected`` and

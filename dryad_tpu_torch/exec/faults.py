@@ -134,6 +134,13 @@ class _Registry:
             self._plan_corruptions = 0
             self._plan_kills = 0
 
+    def armed(self) -> bool:
+        """True while a stage failure, a delay or a seeded plan may fire
+        (the ranks of a context over several cards then share rank 0's
+        consultation)."""
+        with self._lock:
+            return bool(self._by_stage or self._delay_by_stage or self._plan is not None)
+
     # -- consultation points -------------------------------------------------
     def _plan_matches(self, tokens: set) -> bool:
         assert self._plan is not None

@@ -46,15 +46,17 @@ would fail the reads other threads make meanwhile (the stream driver's
 prefetcher, a result copy).
 
 Memory.  Every graph of the process captures into one memory pool per
-card, on one capture stream: graphs run one at a time under one
-process-wide lock, on the dispatching thread's stream, and each run's
+card, on one capture stream: a card's graphs are captured and run one
+at a time under the card's lock (the device loop's captures too), on the dispatching thread's stream, and each run's
 outputs are cloned out before the next, so the pool holds the largest
 working set and not the sum of them (the input buffers and tables lie
 outside it).  The pool goes when its last graph does.  The graphs of
 the process share a byte budget, :data:`BUDGET_SHARE` of the card's
 memory (or a cache's ``max_bytes``, when set), counting the buffers and
-the pool: before and after a capture, and when a job ends, the least
-recently used programs are released until the bytes fit, except those
+the pool, each card apart (the ranks of a context over several cards
+each capture on their own): before and after a capture, and when a job
+ends, the least recently used programs of the card are released until
+the bytes fit, except those
 a job used while it is still running (a job never captures its own
 units twice); an idle executor's programs are released like any other.
 A released key captures again on its next dispatch and logs
@@ -107,8 +109,16 @@ BUDGET_SHARE = 0.5
 # unit fn(inputs, tables) -> (exports, overflow, miss, counts)
 UnitFn = Callable[[Sequence[ColumnBatch], Sequence[Tuple[torch.Tensor, ...]]], tuple]
 
-# captures and replays, process-wide: the graphs share one memory pool
-_LOCK = threading.RLock()
+# captures and replays of one card: its graphs share one memory pool.  A
+# lock a card, so the ranks of a context over several cards, each on its
+# own card, never wait on each other's (a rank holding a process-wide
+# lock while its card waits for a peer's collective would stall the peer)
+_LOCKS: Dict[int, threading.RLock] = {}
+_LOCKS_GUARD = threading.Lock()
+# one capture at a time in the process, whatever its card: a capture
+# waits on nothing (it refuses every host read), so holding this across
+# one never stalls a peer's collective
+CAPTURE_LOCK = threading.Lock()
 # every live cache of the process (the byte budget spans them)
 _CACHES: "weakref.WeakSet[ProgramCache]" = weakref.WeakSet()
 _TICK = itertools.count(1)  # least-recently-used order across caches
@@ -142,6 +152,15 @@ def _pool(device: torch.device) -> _Pool:
     if idx not in _POOLS:
         _POOLS[idx] = _Pool(device)
     return _POOLS[idx]
+
+
+def card_lock(device) -> threading.RLock:
+    """The lock of ``device``'s card (one for the CPU): its captures,
+    replays, budget and caches."""
+    device = torch.device(device)
+    key = _card(device) if device.type == "cuda" else -1
+    with _LOCKS_GUARD:
+        return _LOCKS.setdefault(key, threading.RLock())
 
 
 def pool_bytes(device) -> int:
@@ -300,7 +319,7 @@ class StageProgram:
         self._tables = [tuple(t.clone() for t in tab) for tab in tables]
         BK.preload(dev)  # the libraries and their modules, before the capture
         reserved = torch.cuda.memory_reserved(dev)
-        before = BK.bucket_sum_count.captured
+        before = BK.captured_here()
         sent = getattr(self.mesh, "sent_bytes", 0)
         graph = torch.cuda.CUDAGraph()
         pool = _pool(dev)
@@ -308,7 +327,7 @@ class StageProgram:
         side.wait_stream(torch.cuda.current_stream(dev))
         pool.graphs += 1
         try:
-            with torch.cuda.stream(side):
+            with CAPTURE_LOCK, torch.cuda.stream(side):
                 graph.capture_begin(pool=pool.handle, capture_error_mode="thread_local")
                 try:
                     out = self.fn(self._in, self._tables)
@@ -334,7 +353,7 @@ class StageProgram:
         torch.cuda.current_stream(dev).wait_stream(side)
         self.graph, self._pool = graph, pool
         self._out = out
-        self._launches = BK.bucket_sum_count.captured - before
+        self._launches = BK.captured_here() - before
         if self.mesh is not None:
             # the capture handed nothing over: its replays do
             self._sent = self.mesh.sent_bytes - sent
@@ -373,8 +392,10 @@ class ProgramCache:
         self.graphs = graphs_for(self.device, mesh)
         # a group's communicator starts at its first collective, which
         # must not fall inside a capture: one eager all_reduce before
-        # the cache's first capture, the same dispatch on every rank
-        self._group_ready = getattr(mesh, "group", None) is None
+        # the cache's first capture, the same dispatch on every rank (the
+        # in-process ranks' group ran its first when it was made)
+        self._group_ready = (getattr(mesh, "group", None) is None
+                             or getattr(mesh, "link", None) is not None)
         self.events = events
         self.metrics = metrics
         self.max_bytes: Optional[int] = None
@@ -386,7 +407,7 @@ class ProgramCache:
         self.job_tick = 0
         self._progs: Dict[Tuple, StageProgram] = {}
         _CACHES.add(self)
-        weakref.finalize(self, _release_all, self._progs)
+        weakref.finalize(self, _release_all, self._progs, self.device)
 
     def __len__(self) -> int:
         return len(self._progs)
@@ -398,7 +419,7 @@ class ProgramCache:
     def begin_job(self) -> None:
         """A top-level job starts: until it ends, the programs it uses
         are the running job's."""
-        with _LOCK:
+        with card_lock(self.device):
             self.running += 1
             self.job_tick = next(_TICK)
 
@@ -409,7 +430,7 @@ class ProgramCache:
         grown the pool past it); the ended job's own stay until the next
         capture or allocation failure wants their memory, so a job over
         the budget does not capture everything anew on each run."""
-        with _LOCK:
+        with card_lock(self.device):
             self.running -= 1
             if self.running == 0:
                 _enforce_budget(device=self.device, spare=self)
@@ -422,7 +443,7 @@ class ProgramCache:
         """The program under ``key`` for inputs of ``types`` (see
         :func:`types_of`), built by ``build() -> (fn, rounds cell)`` on
         a miss."""
-        with _LOCK:
+        with card_lock(self.device):
             # a graph and an eager program of a key apart, and programs
             # over other column types (one key hash, as the reference's)
             slot = (self.graphs, key, types)
@@ -445,7 +466,7 @@ class ProgramCache:
             if first:
                 self._compiled(prog)
             return out
-        with _LOCK:
+        with card_lock(self.device):
             first = not prog.compiled
             if first and not self._group_ready:
                 PART.allreduce(torch.zeros((), dtype=torch.int64, device=self.device), "sum",
@@ -488,7 +509,7 @@ class ProgramCache:
         except torch.cuda.OutOfMemoryError:
             if self.device.type != "cuda" or getattr(self.mesh, "world", 1) > 1:
                 raise
-            with _LOCK:
+            with card_lock(self.device):
                 freed = _release_idle(keep=prog)
             torch.cuda.empty_cache()
             if not freed:
@@ -506,7 +527,7 @@ class ProgramCache:
             )
 
     def evict(self, key) -> None:
-        with _LOCK:
+        with card_lock(self.device):
             prog = self._progs.pop(key, None)
             if prog is not None:
                 prog.release()
@@ -515,19 +536,18 @@ class ProgramCache:
     def drop_holding(self, batch: ColumnBatch) -> int:
         """Release the programs whose buffers hold a copy of ``batch``
         (a released table); returns how many."""
-        with _LOCK:
+        with card_lock(self.device):
             keys = [k for k, p in self._progs.items() if p.holds(batch)]
             for k in keys:
                 self._progs.pop(k).release()
             return len(keys)
 
     def clear(self) -> None:
-        with _LOCK:
-            _release_all(self._progs)
+        _release_all(self._progs, self.device)
 
 
-def _release_all(progs: Dict[Tuple, StageProgram]) -> None:
-    with _LOCK:
+def _release_all(progs: Dict[Tuple, StageProgram], device) -> None:
+    with card_lock(device):
         for p in progs.values():
             p.release()
         progs.clear()
@@ -544,11 +564,20 @@ def _budget(device: torch.device) -> Optional[int]:
     return int(torch.cuda.get_device_properties(device).total_memory * BUDGET_SHARE)
 
 
-def _victims(keep: Optional[StageProgram], spare: Optional[ProgramCache] = None) -> list:
+def _same_card(a: torch.device, b: torch.device) -> bool:
+    if a.type != "cuda" or b.type != "cuda":
+        return a.type == b.type
+    return _card(a) == _card(b)
+
+
+def _victims(keep: Optional[StageProgram], spare: Optional[ProgramCache] = None,
+             device=None) -> list:
     """``(last used, cache, key)`` of every program that holds memory
-    and may go: not ``keep``, not one a running job used, not one the
-    last job of ``spare`` used."""
-    return [(p.last_used, c, k) for c in list(_CACHES) for k, p in list(c._progs.items())
+    and may go: on ``device``'s card (every card when None), not
+    ``keep``, not one a running job used, not one the last job of
+    ``spare`` used."""
+    caches = [c for c in list(_CACHES) if device is None or _same_card(c.device, device)]
+    return [(p.last_used, c, k) for c in caches for k, p in list(c._progs.items())
             if p is not keep and not c._protected(p)
             and not (c is spare and p.last_used >= c.job_tick)
             and (p.held_bytes or p.graph is not None)]
@@ -566,9 +595,11 @@ def _enforce_budget(keep: Optional[StageProgram] = None, device=None,
     budget = _budget(device)
     if budget is None:
         return
-    caches = list(_CACHES)
+    # each card's programs under its own budget: the ranks of a context
+    # over several cards capture into one pool a card
+    caches = [c for c in list(_CACHES) if _same_card(c.device, device)]
     while sum(c.held_bytes() for c in caches) + pool_bytes(device) > budget:
-        victims = _victims(keep, spare)
+        victims = _victims(keep, spare, device)
         if not victims:
             return
         _, cache, key = min(victims, key=lambda v: v[0])
@@ -576,9 +607,9 @@ def _enforce_budget(keep: Optional[StageProgram] = None, device=None,
 
 
 def _release_idle(keep: Optional[StageProgram]) -> int:
-    """Release every program no running job holds, but ``keep``;
-    returns how many."""
-    victims = _victims(keep)
+    """Release every program on ``keep``'s card no running job holds,
+    but ``keep``; returns how many."""
+    victims = _victims(keep, device=keep.device)
     for _, cache, key in victims:
         cache.evict(key)
     return len(victims)
@@ -595,9 +626,9 @@ def types_of(inputs: Sequence[ColumnBatch], tables: Sequence[Tuple[torch.Tensor,
 
 
 def _evict_everything(keep: StageProgram) -> None:
-    """Release every program of the process but ``keep`` (whose capture
-    ran out of memory)."""
-    for c in list(_CACHES):
+    """Release every program on ``keep``'s card but ``keep`` (whose
+    capture ran out of memory)."""
+    for c in [c for c in list(_CACHES) if _same_card(c.device, keep.device)]:
         for k, p in list(c._progs.items()):
             if p is not keep:
                 c.evict(k)

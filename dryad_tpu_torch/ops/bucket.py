@@ -196,10 +196,12 @@ def bucket_sum_count(
     if keys.device.type != "cuda":
         raise ValueError(f"bucket_sum_count: unsupported device {keys.device}")
     out = _launch(keys, values, valid, num_buckets)
-    if torch.cuda.is_current_stream_capturing():
-        bucket_sum_count.captured += 1
-    else:
-        bucket_sum_count.launches += 1
+    with _COUNTS:  # the ranks of a context over several cards launch from threads
+        if torch.cuda.is_current_stream_capturing():
+            bucket_sum_count.captured += 1
+            _HERE.captured = captured_here() + 1
+        else:
+            bucket_sum_count.launches += 1
     return out
 
 
@@ -250,11 +252,22 @@ def _launch(keys, values, valid, num_buckets) -> Tuple[List[torch.Tensor], torch
 
 bucket_sum_count.launches = 0  # kernel launches (plain CPU runs not counted)
 bucket_sum_count.captured = 0  # launches recorded into CUDA graphs
+_COUNTS = threading.Lock()
+_HERE = threading.local()
+
+
+def captured_here() -> int:
+    """Launches this thread recorded into CUDA graphs: a capture records
+    its own thread's launches (``capture_error_mode="thread_local"``), so
+    the difference across one capture is that graph's, whatever other
+    threads capture on other cards meanwhile."""
+    return getattr(_HERE, "captured", 0)
 
 
 def note_graph_launches(n: int) -> None:
     """A graph replay ran ``n`` recorded launches of the kernel."""
-    bucket_sum_count.launches += int(n)
+    with _COUNTS:
+        bucket_sum_count.launches += int(n)
 
 
 def preload(device) -> None:

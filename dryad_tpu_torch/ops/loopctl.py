@@ -111,15 +111,18 @@ def loop_step(st: torch.Tensor, body_ovf: torch.Tensor, body_miss: torch.Tensor,
         )
     _raise("loop_step launch", err)
     if not torch.cuda.is_current_stream_capturing():
-        loop_step.launches += 1
+        with _COUNTS:  # the ranks of a context over several cards launch from threads
+            loop_step.launches += 1
 
 
 loop_step.launches = 0  # kernel launches (plain CPU runs not counted)
+_COUNTS = threading.Lock()
 
 
 def note_graph_launches(n: int) -> None:
     """A graph replay ran the recorded kernel ``n`` times."""
-    loop_step.launches += int(n)
+    with _COUNTS:
+        loop_step.launches += int(n)
 
 
 def loop_step_plain(st: torch.Tensor, body_ovf: torch.Tensor, body_miss: torch.Tensor,

@@ -23,6 +23,13 @@ splits traffic by fabric; all partitions still live on the one device.
 A gang keeps the flat mesh, as the reference's ``LocalJobSubmission``
 does.
 
+The ranks of a group are processes (a gang: ``init_distributed``) or
+threads of one process, one a card, as the reference's single
+controller spans ``jax.devices()``: ``DryadContext(devices=...)``
+builds one mesh a rank over an unregistered group
+(``parallel/ranks.py``), each holding ``link``, the state its peers
+share (the cards, the abort flag, the host exchange).
+
 ``force_cpu_backend`` has no counterpart: ``device="cpu"`` pins a
 context, or a gang's workers, to the CPU.
 """
@@ -78,6 +85,7 @@ class PartitionMesh:
         backend: Optional[str] = None,
         dcn_slices: Optional[int] = None,
         timeout: Optional[float] = None,
+        link=None,
     ):
         P, world = int(num_partitions), int(world)
         dcn = 1 if dcn_slices is None else int(dcn_slices)
@@ -109,6 +117,11 @@ class PartitionMesh:
         # settle (an NCCL group's; parallel/partition.py::settle)
         self.inflight: list = []
         self.replayed = False  # a graph replay among them
+        # ranks that are threads of one process: what they share
+        # (parallel/ranks.py::RankLink); None for a gang's process or one
+        # process alone
+        self.link = link
+        self.stage: Optional[str] = None  # the unit the rank runs (error messages)
         # the 2-D (DCN_AXIS, AXIS) layout: dcn slices of ici partitions
         self.hybrid = dcn_slices is not None
         self.dcn = dcn
@@ -170,13 +183,16 @@ def make_hybrid_mesh(dcn_slices: int, ici_partitions: Optional[int] = None,
     return PartitionMesh(dcn_slices * n_ici, device, dcn_slices=dcn_slices)
 
 
-def exclude_devices(mesh: PartitionMesh, bad_ids) -> PartitionMesh:
+def exclude_devices(mesh: PartitionMesh, bad_ids):
     """The mesh without the excluded devices (the reference's elastic
     recovery step).  A flat rank holds one device, named by its rank:
     excluding none of them returns the mesh; a one-process mesh whose
-    device is excluded is empty; a process group cannot shrink, so a
-    multi-rank mesh is rebuilt by restarting the gang
-    (``LocalJobSubmission.rebuild_gang``).  On a hybrid mesh each
+    device is excluded is empty.  Ranks that are threads of one process
+    (``mesh.link``) return the list of the surviving cards, in order,
+    over which ``DryadContext.rebuild_mesh`` builds its ranks anew; a
+    process group cannot shrink, so a multi-process mesh is rebuilt by
+    restarting the gang (``LocalJobSubmission.rebuild_gang``).  On a
+    hybrid mesh each
     partition stands for one of the reference's devices, named by its
     global id: as the reference's, the mesh keeps its 2-D structure,
     each slice sheds its excluded partitions, the slices shrink to the
@@ -194,6 +210,11 @@ def exclude_devices(mesh: PartitionMesh, bad_ids) -> PartitionMesh:
         k = min(len(r) for r in rows)
         return PartitionMesh(len(rows) * k, mesh.device, dcn_slices=len(rows))
     bad = set(bad_ids) & set(range(mesh.world))
+    if mesh.link is not None:
+        keep = [d for i, d in enumerate(mesh.link.devices) if i not in bad]
+        if not keep:
+            raise ValueError("excluding all devices leaves an empty mesh")
+        return keep
     if not bad:
         return mesh
     if mesh.world == 1:

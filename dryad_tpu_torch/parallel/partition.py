@@ -18,14 +18,26 @@ reference collective               one process           over a group
 ``psum`` / ``pmin`` / ``pmax``     reduction over axis 0  local reduction, ``all_reduce``
 ``all_gather(tiled=True)``         ``reshape(1, P * n)``  ``all_gather`` of the blocks
                                    (a stride-0 view)
-``all_to_all(tiled=True)``         transpose of           ``all_to_all_single`` of the
+``all_to_all(tiled=True)``         transpose of           ``alltoall_base`` of the
                                    ``(P, P, B)``          ``(world, local, local, B)``
                                                           send buffer
 ``axis_index``                     ``arange(P)``          ``rank * local + arange(local)``
 exclusive prefix over partitions   ``cumsum(0) - x``      ``all_gather``, then the same
-``ppermute``                       an index of axis 0     ``batch_isend_irecv``, one send
-                                                          and one receive a peer rank
+``ppermute``                       an index of axis 0     sends and receives in one
+                                                          coalesced launch (NCCL), one
+                                                          send and one receive a peer
 =================================  ====================  ================================
+
+Every collective runs through one adapter over the group object's own
+methods (:func:`_allreduce_into`, :func:`_allgather_into`,
+:func:`_reduce_scatter_into`, :func:`_alltoall_into`, :func:`_p2p`):
+the same calls serve a gang's group, registered by
+``init_process_group``, and the unregistered groups of a context whose
+ranks are threads of one process (``parallel/ranks.py``), which
+``torch.distributed``'s functions refuse.  Over the latter a rank's
+wait for its peers also watches the group's abort flag
+(``mesh.link.abort``): the context sets it when a rank failed, and a
+rank waiting on the failed one raises :class:`GangStageError` at once.
 
 A group of the ``gloo`` backend carries CUDA tensors through the host
 (each collective copies its operand to the CPU and the result back, and
@@ -48,6 +60,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.distributed import distributed_c10d as c10d
 
 
 def block_layout(
@@ -55,6 +68,7 @@ def block_layout(
     P: int,
     partition_capacity: Optional[int] = None,
     rows: Optional[slice] = None,
+    total: Optional[int] = None,
 ) -> Tuple[Dict[str, np.ndarray], np.ndarray]:
     """Block-partition encoded physical columns on the host.
 
@@ -63,25 +77,32 @@ def block_layout(
     ``dryad_tpu/parallel/distribute.py::from_physical_table``, so the
     partition-major order equals the original row order.  Returns
     ``(P, cap)`` host arrays and the ``(P, cap)`` valid mask; with
-    ``rows``, only those partitions of the layout (a rank's own)."""
+    ``rows``, only those partitions of the layout (a rank's own).
+    ``total``: the table's row count when ``phys`` holds only the rows
+    of ``rows``' partitions (a rank encodes only its own rows)."""
     names = list(phys.keys())
-    n = len(np.asarray(phys[names[0]])) if names else 0
+    held = len(np.asarray(phys[names[0]])) if names else 0
+    n = held if total is None else int(total)
     per = -(-n // P) if n else 1
     cap = partition_capacity if partition_capacity is not None else per
     if cap < per:
         raise ValueError(f"partition_capacity {cap} < required {per}")
     parts = range(P)[rows] if rows is not None else range(P)
     sizes = [min((p + 1) * per, n) - min(p * per, n) for p in parts]
+    # the row the arrays start at: 0, or the first row of ``rows``
+    # when they hold only those partitions' rows
+    off = 0 if total is None else min(parts.start * per, n) if len(parts) else 0
     data = {}
     for c in names:
         a = np.asarray(phys[c])
         if cap == per and n == P * per:
             # exact fit: a view, no copy
-            data[c] = a.reshape(P, cap)[parts.start : parts.stop]
+            data[c] = (a.reshape(P, cap)[parts.start : parts.stop] if total is None
+                       else a.reshape((len(parts), cap) + a.shape[1:]))
             continue
         pad = np.zeros((len(parts), cap) + a.shape[1:], a.dtype)
         for i, (p, m) in enumerate(zip(parts, sizes)):
-            lo = min(p * per, n)
+            lo = min(p * per, n) - off
             pad[i, :m] = a[lo : lo + m]
         data[c] = pad
     valid = np.zeros((len(parts), cap), np.bool_)
@@ -125,6 +146,20 @@ def note_dispatch(mesh, name: str, graph: bool = False) -> None:
     mesh.replayed = mesh.replayed or graph
 
 
+def _aborted(mesh) -> bool:
+    """True when the context of in-process ranks gave up on the group
+    (a peer rank failed)."""
+    link = getattr(mesh, "link", None)
+    return link is not None and link.abort.is_set()
+
+
+def _abort_error(mesh, stage: Optional[str] = None) -> GangStageError:
+    stage = stage or getattr(mesh, "stage", None) or "the job"
+    return GangStageError(
+        f"stage {stage!r} failed on rank {mesh.rank} of {mesh.world}: the group was "
+        "aborted (a peer rank failed)")
+
+
 def settle(mesh, name: Optional[str] = None) -> None:
     """Over an NCCL group, before a read of a device value on the host:
     wait until the work this rank enqueued has run, the group's timeout
@@ -140,6 +175,8 @@ def settle(mesh, name: Optional[str] = None) -> None:
     deadline = time.monotonic() + mesh.timeout
     for ev, stage in pending:
         while not ev.query():
+            if _aborted(mesh):
+                raise _abort_error(mesh, stage)
             if time.monotonic() > deadline:
                 raise GangStageError(
                     f"stage {stage!r} failed on rank {mesh.rank} of {mesh.world}: its "
@@ -176,6 +213,94 @@ def _back(buf: torch.Tensor, like: torch.Tensor, mesh=None) -> torch.Tensor:
 
 _OPS = {"sum": "SUM", "max": "MAX", "min": "MIN"}
 
+# -- the adapter over the group object ---------------------------------------------
+
+def _polled(mesh) -> bool:
+    """In-process ranks over gloo: their waits poll (see :func:`_wait`),
+    so each collective is one whose gloo work reports its completion
+    (an all-reduce, an all-gather, an all-to-all)."""
+    return getattr(mesh, "link", None) is not None and mesh.backend == "gloo"
+
+
+def _wait(mesh, work) -> None:
+    """Wait for a collective's ``work`` as ``torch.distributed``'s
+    blocking calls do (gloo: on the host; NCCL: the current stream waits
+    for it).  Over in-process gloo ranks the host's wait polls, so that
+    a rank waiting on a failed peer raises once the context aborts the
+    group (a gloo collective cannot be cancelled: it ends at the group's
+    timeout, on a group nobody uses again)."""
+    if work is None:
+        return
+    if _polled(mesh):
+        while not work.is_completed():
+            if _aborted(mesh):
+                raise _abort_error(mesh)
+            time.sleep(SETTLE_POLL_S)
+    work.wait()
+
+
+def _opts(cls, op: Optional[str] = None):
+    o = cls()
+    if op is not None:
+        o.reduceOp = getattr(dist.ReduceOp, _OPS[op])
+    if hasattr(o, "asyncOp"):
+        o.asyncOp = False  # as the blocking calls: NCCL runs on the current stream
+    return o
+
+
+def _allreduce_into(mesh, buf: torch.Tensor, op: str) -> None:
+    _wait(mesh, mesh.group.allreduce([buf], _opts(c10d.AllreduceOptions, op)))
+
+
+def _allgather_into(mesh, out: torch.Tensor, buf: torch.Tensor) -> None:
+    _wait(mesh, mesh.group._allgather_base(out, buf, _opts(c10d.AllgatherOptions)))
+
+
+def _reduce_scatter_into(mesh, out: torch.Tensor, buf: torch.Tensor) -> None:
+    if _polled(mesh):
+        # gloo's reduce-scatter runs inside its wait: reduce it all, keep ours
+        _allreduce_into(mesh, buf, "sum")
+        out.copy_(buf.reshape(mesh.world, -1)[mesh.rank])
+        return
+    _wait(mesh, mesh.group._reduce_scatter_base(
+        out, buf, _opts(c10d.ReduceScatterOptions, "sum")))
+
+
+def _alltoall_into(mesh, out: torch.Tensor, buf: torch.Tensor) -> None:
+    _wait(mesh, mesh.group.alltoall_base(out, buf, [], [], _opts(c10d.AllToAllOptions)))
+
+
+def _coalesces(pg, device: torch.device) -> bool:
+    """NCCL-style coalescing of point-to-point calls (one group launch),
+    as ``batch_isend_irecv`` decides it."""
+    if type(pg) is dist.ProcessGroup:
+        return bool(pg._get_backend(device).supports_coalescing)
+    return bool(getattr(pg, "supports_coalescing", False))
+
+
+def _p2p(mesh, sends, recvs) -> None:
+    """One round of point-to-point messages, ``sends`` and ``recvs``
+    lists of ``(peer rank, tensor)`` in the group's ranks: posted as one
+    coalesced launch where the backend coalesces (NCCL), else each
+    posted asynchronously (gloo) before any wait."""
+    pg = mesh.group
+    items = sends + recvs
+    if not items:
+        return
+    dev = items[0][1].device
+    co = _coalesces(pg, dev)
+    # a group takes the device its backend serves; a backend is that one
+    on = (dev,) if type(pg) is dist.ProcessGroup else ()
+    if co:
+        pg._start_coalescing(*on)
+    works = [pg.send([t], peer, 0) for peer, t in sends]
+    works += [pg.recv([t], peer, 0) for peer, t in recvs]
+    if co:
+        works = [pg._end_coalescing(*on)]
+    for w in works:
+        _wait(mesh, w)
+
+
 
 def allreduce(t: torch.Tensor, op: str, mesh=None) -> torch.Tensor:
     """``t`` reduced elementwise over the ranks (``op`` sum, max or
@@ -183,7 +308,7 @@ def allreduce(t: torch.Tensor, op: str, mesh=None) -> torch.Tensor:
     if not _spans(mesh):
         return t
     buf = _wire(mesh, t)
-    dist.all_reduce(buf, op=getattr(dist.ReduceOp, _OPS[op]), group=mesh.group)
+    _allreduce_into(mesh, buf, op)
     return _back(buf, t, mesh)
 
 
@@ -193,10 +318,7 @@ def gather_ranks(t: torch.Tensor, mesh=None) -> torch.Tensor:
         return t.unsqueeze(0)
     buf = _wire(mesh, t).reshape(-1)
     out = torch.empty(mesh.world * buf.numel(), dtype=buf.dtype, device=buf.device)
-    if hasattr(dist, "all_gather_single"):
-        dist.all_gather_single(out, buf, group=mesh.group)
-    else:
-        dist.all_gather_into_tensor(out, buf, group=mesh.group)
+    _allgather_into(mesh, out, buf)
     return _back(out.reshape((mesh.world,) + tuple(t.shape)), t, mesh)
 
 
@@ -227,10 +349,7 @@ def psum_scatter(x: torch.Tensor, mesh=None) -> torch.Tensor:
         return s.reshape(x.shape[0], -1)
     buf = _wire(mesh, s)
     out = torch.empty(buf.shape[0] // mesh.world, dtype=buf.dtype, device=buf.device)
-    if hasattr(dist, "reduce_scatter_single"):
-        dist.reduce_scatter_single(out, buf, op=dist.ReduceOp.SUM, group=mesh.group)
-    else:
-        dist.reduce_scatter_tensor(out, buf, op=dist.ReduceOp.SUM, group=mesh.group)
+    _reduce_scatter_into(mesh, out, buf)
     return _back(out, s, mesh).reshape(mesh.local, -1)
 
 
@@ -304,7 +423,7 @@ def all_to_all(send: torch.Tensor, mesh=None) -> torch.Tensor:
     # per destination rank: (world_dst, S, local_dst, B, ...)
     buf = _wire(mesh, send.reshape((S, W, L, B) + rest).transpose(0, 1))
     out = torch.empty_like(buf)
-    dist.all_to_all_single(out, buf, group=mesh.group)
+    _alltoall_into(mesh, out, buf)
     # out: (world_src, S_src, local_dst, B, ...) -> (local_dst, P * B, ...)
     recv = out.permute((2, 0, 1, 3) + tuple(range(4, out.dim())))
     return _back(recv.reshape((L, W * S * B) + rest), send, mesh)
@@ -338,6 +457,18 @@ def ppermute_many(items, mesh=None):
             out.append(y)
         return out
     L, base, me = mesh.local, mesh.base, mesh.rank
+    if _polled(mesh):
+        # gloo's point-to-point waits cannot be polled: every rank's rows
+        # to every rank, each keeping those its pairs name
+        outs = []
+        for x, perm in items:
+            g = gather_rows(x, mesh)
+            y = torch.zeros_like(x)
+            for s, d in perm:
+                if base <= d < base + L:
+                    y[d - base] = g[s]
+            outs.append(y)
+        return outs
     outs = [torch.zeros_like(x) for x, _ in items]
     sends: Dict[int, list] = {}  # peer -> [(item, local source row)]
     recvs: Dict[int, list] = {}  # peer -> [(item, local destination row)]
@@ -350,22 +481,19 @@ def ppermute_many(items, mesh=None):
                 sends.setdefault(dr, []).append((k, s - base))
             elif dr == me:
                 recvs.setdefault(sr, []).append((k, d - base))
-    ops, landing = [], []
+    out_msgs, landing = [], []
     for peer in sorted(set(sends) | set(recvs)):
         if peer in sends:
             rows = torch.stack([items[k][0][i] for k, i in sends[peer]])
-            ops.append(dist.P2POp(dist.isend, _wire(mesh, rows), peer, group=mesh.group))
+            out_msgs.append((peer, _wire(mesh, rows)))
         if peer in recvs:
             k0 = recvs[peer][0][0]
             like = items[k0][0]
             dev = torch.device("cpu") if mesh.backend == "gloo" else mesh.device
             dt = torch.uint8 if like.dtype == torch.bool else like.dtype
             buf = torch.empty((len(recvs[peer]),) + tuple(like.shape[1:]), dtype=dt, device=dev)
-            ops.append(dist.P2POp(dist.irecv, buf, peer, group=mesh.group))
             landing.append((peer, buf))
-    if ops:
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
+    _p2p(mesh, out_msgs, landing)
     for peer, buf in landing:
         rows = _back(buf, outs[recvs[peer][0][0]], mesh)
         for j, (k, i) in enumerate(recvs[peer]):

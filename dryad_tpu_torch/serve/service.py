@@ -234,6 +234,8 @@ class QueryService:
     """Long-lived multiplexing front end over one DryadContext."""
 
     def __init__(self, ctx, start: bool = True):
+        if getattr(ctx, "_ranks", None) is not None:
+            ctx._refuse_cards("serving (QueryService, and the fleet's replicas)", 17)
         self.ctx = ctx
         self.config = ctx.config
         self.events = ctx.events

@@ -432,6 +432,8 @@ class ViewRegistry:
     normal recompute path, which is correct, just not incremental."""
 
     def __init__(self, ctx, events=None):
+        if getattr(ctx, "_ranks", None) is not None:
+            ctx._refuse_cards("materialized views", 17)
         self.ctx = ctx
         self.events = events
         self._views: Dict[Tuple[str, int], MaterializedView] = {}

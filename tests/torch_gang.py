@@ -334,8 +334,13 @@ PORT_ONLY = {"decomposable", "select_many", "do_while_row_cond"}
 
 def partition_rows(batch):
     """A ``(parts, cap)`` batch -> (capacity, [each partition's valid
-    physical columns, uint32 words restored])."""
+    physical columns, uint32 words restored]); a result over the ranks
+    of a context over several devices (``RankBatches``) -> its ranks'
+    partitions in order."""
     from dryad_tpu_torch.columnar.batch import to_host_column
+
+    if hasattr(batch, "parts"):
+        return batch.capacity, [p for b in batch.parts for p in partition_rows(b)[1]]
 
     valid = batch.valid.cpu().numpy()
     cols = {c: to_host_column(v) for c, v in batch.data.items()}
