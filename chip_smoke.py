@@ -60,7 +60,9 @@ window; a worker killed mid-job and the gang rebuilt on 1 worker; then
 the dense group_by over a one-rank NCCL group, and NCCL's answer to two
 ranks on one card), one context over several devices (``cards1``: two
 rank threads on the card over gloo at P = 8, WordCount of 2^22 words and
-TeraSort of 2^22 rows equal to one rank, then ``rebuild_mesh([1])``), the runtime plan rewriter at the default config (a
+TeraSort of 2^22 rows equal to one rank, a combine-tree group_by and an
+external sort of 2^22 rows each through ``from_stream`` in 2^20-row
+chunks equal to one rank, then ``rebuild_mesh([1])``), the runtime plan rewriter at the default config (a
 2^26-row drift sort and a skewed Grace join whose hot buckets split
 mid-stream, a thrashing streaming combine pinned to the host and the
 next stream flipped to the combine tree, an overflowing group_by
@@ -109,7 +111,17 @@ four cards, a rank thread a card in this process over one NCCL group
 (``DryadContext(devices=4, num_partitions_=16)``): WordCount, the dense
 and the sort-path group_by, TeraSort of 2^28 rows, the Join Task,
 PageRank and the Newton do_while, each held to one card at P = 16, then
-``rebuild_mesh([3])`` and a checkpointed job resumed on 3 cards.  The WordCount, TeraSort, sort-path group_by, join,
+``rebuild_mesh([3])`` and a checkpointed job resumed on 3 cards.
+``cards_stream`` (only when named, four cards: ``--phases
+env,cards_stream``) runs the stream phase's workloads on one context
+over the four cards at P = 16 at the default stream config: the
+external TeraSort of 2^27 and then 2^28 rows in 2^24-row chunks (every
+card's peak at 2^28 within 1.5x of its peak at 2^27), the streaming
+WordCount of 2^26 words through ``text_stream`` and its top 20, the
+combine-tree group_by of 2^26 rows over 2^22 keys and the Join Task as a
+Grace join of two ``store_stream``s into a stream ``to_store``, each
+beside one card at P = 16, and the bucket kernel against its plain
+version on every card at a rank's chunk-partial shape.  The WordCount, TeraSort, sort-path group_by, join,
 PageRank, decomposable and ordered phases also profile one warm query
 with torch.profiler and print device time by op, the device's busy
 share of the warm query, and peak memory.
@@ -2954,9 +2966,9 @@ class LaunchRecorder:
                     self.first[key] = (keys.cpu(), [v.cpu() for v in values], valid.cpu())
             return self.real(keys, values, valid, num_buckets)
 
-        def note(n):
+        def note(n, device=None):
             self.replayed += int(n)
-            self.real_note(n)
+            self.real_note(n, device)
             for key, (a, vs, m) in self.pending.items():
                 self.first[key] = (a.cpu(), [v.cpu() for v in vs], m.cpu())
             self.pending.clear()
@@ -3103,6 +3115,22 @@ def kernel_shape_report(keys, vals, valid, K: int) -> dict:
     return out
 
 
+def wordcount_files(root: str, n: int) -> tuple:
+    """``n`` of the wordcount phase's Zipf(1.1) words as ST_WC_FILES
+    text files under ``root``, and their numpy counts."""
+    rng = np.random.default_rng(SEED + 2)
+    ids = zipf_ids(rng, n)
+    tab = vocab_table()
+    words = np.array([bytes(r).split()[0].decode() for r in tab], object)
+    paths = []
+    for i, part in enumerate(np.array_split(ids, ST_WC_FILES)):
+        paths.append(os.path.join(root, f"corpus-{i}.txt"))
+        with open(paths[-1], "wb") as fh:
+            fh.write(tab[part].tobytes())
+    uid, ucnt = np.unique(ids, return_counts=True)
+    return paths, dict(zip(words[uid].tolist(), ucnt.tolist()))
+
+
 def stream_wordcount(root: str, spill_root: str, card: str) -> dict:
     """The wordcount phase's corpus as 8 files through text_stream
     (2^25-byte chunks), group_by(word, count), then the top 20; equal
@@ -3115,15 +3143,7 @@ def stream_wordcount(root: str, spill_root: str, card: str) -> dict:
     from dryad_tpu_torch import DryadContext
     from dryad_tpu_torch.ops.bucket import bucket_sum_count
 
-    rng = np.random.default_rng(SEED + 2)
-    ids = zipf_ids(rng, WC_WORDS)
-    tab = vocab_table()
-    words = np.array([bytes(r).split()[0].decode() for r in tab], object)
-    paths = []
-    for i, part in enumerate(np.array_split(ids, ST_WC_FILES)):
-        paths.append(os.path.join(root, f"corpus-{i}.txt"))
-        with open(paths[-1], "wb") as fh:
-            fh.write(tab[part].tobytes())
+    paths, oracle = wordcount_files(root, WC_WORDS)
     count = {"n": ("count", None)}
     ctx = _stream_ctx(spill_root)
     free_card()
@@ -3171,10 +3191,9 @@ def stream_wordcount(root: str, spill_root: str, card: str) -> dict:
     check(table["n"].dtype == np.int32, "streaming WordCount's count column is not int32")
     check(got == dict(zip(ref["word"].tolist(), ref["n"].tolist())),
           "streaming WordCount differs from the in-core WordCount")
-    uid, ucnt = np.unique(ids, return_counts=True)
-    check(got == dict(zip(words[uid].tolist(), ucnt.tolist())), "streaming WordCount differs from numpy")
+    check(got == oracle, "streaming WordCount differs from numpy")
     check(top["n"].tolist() == sorted(ref["n"].tolist(), reverse=True)[:20]
-          == sorted(ucnt.tolist(), reverse=True)[:20],
+          == sorted(oracle.values(), reverse=True)[:20],
           "streaming top-20 counts differ from the in-core top-20")
     check(all(got[w] == c for w, c in zip(top["word"], top["n"])), "a streaming top-20 word has a wrong count")
     res = {"words": WC_WORDS, "files": len(paths), "chunks": chunks, "wall_s": busy.wall_s,
@@ -3193,72 +3212,96 @@ def stream_wordcount(root: str, spill_root: str, card: str) -> dict:
     return res
 
 
+def groupby_stream_work():
+    """``(work, oracle)``: ``work(ctx)`` streams SM_GB_ROWS rows over
+    GB_KEYS int32 keys spread over the int32 range (groupby_sort's
+    distribution) in SM_GB_CHUNK-row chunks through group_by (count, int
+    sum, min, max, f32 sum); the numpy oracle fills on the first run."""
+    oracle = {}
+
+    def work(ctx):
+        rng = np.random.default_rng(SEED + 17)
+        width = (1 << 32) // GB_KEYS
+        pool = (np.arange(GB_KEYS, dtype=np.int64) * width + rng.integers(0, width, GB_KEYS)
+                - 2**31).astype(np.int32)  # ascending, one key in each bin
+        first = not oracle
+        if first:
+            oracle.update(pool=pool, cnt=np.zeros(GB_KEYS, np.int64), sum=np.zeros(GB_KEYS, np.int64),
+                          min=np.full(GB_KEYS, np.iinfo(np.int32).max, np.int32),
+                          max=np.full(GB_KEYS, np.iinfo(np.int32).min, np.int32),
+                          fs=np.zeros(GB_KEYS), abs=np.zeros(GB_KEYS))
+
+        def chunks():
+            for _ in range(SM_GB_ROWS // SM_GB_CHUNK):
+                idx = rng.integers(0, GB_KEYS, SM_GB_CHUNK)
+                w = rng.integers(-1000, 1000, SM_GB_CHUNK, dtype=np.int32)
+                v = (rng.standard_normal(SM_GB_CHUNK) * 100).astype(np.float32)
+                if first:
+                    oracle["cnt"] += np.bincount(idx, minlength=GB_KEYS)
+                    oracle["sum"] += np.bincount(idx, weights=w, minlength=GB_KEYS).astype(np.int64)
+                    np.minimum.at(oracle["min"], idx, w)
+                    np.maximum.at(oracle["max"], idx, w)
+                    oracle["fs"] += np.bincount(idx, weights=v.astype(np.float64), minlength=GB_KEYS)
+                    oracle["abs"] += np.bincount(idx, weights=np.abs(v.astype(np.float64)),
+                                                 minlength=GB_KEYS)
+                yield {"key": pool[idx], "w": w, "v": v}
+
+        aggs = {"c": ("count", None), "sw": ("sum", "w"), "lo": ("min", "w"), "hi": ("max", "w"),
+                "sv": ("sum", "v")}
+        out = ctx.from_stream(chunks()).group_by("key", aggs).collect()
+        evs = ctx.events.events()
+        return {"table": _sorted_by(out, "key"),
+                "levels": sorted({e["level"] for e in evs if e["kind"] == "combine_tree_level"}),
+                "tree_merges": sum(e["kind"] == "combine_tree_level" for e in evs),
+                "stream_combines": sum(e["kind"] == "stream_combine" for e in evs),
+                "degrades": sum(e["kind"] == "combine_tree_degrade" for e in evs)}
+
+    return work, oracle
+
+
+def check_groupby_stream(got: dict, oracle: dict, label: str) -> float:
+    """A streamed group_by against the oracle: keys, counts, int sums,
+    min and max exact, the f32 sum within n_g * 2^-23 * sum|v| of
+    float64, the tree's merges logged and no key range degraded;
+    returns the largest |err| / sum|v| of the f32 sums."""
+    live = oracle["cnt"] > 0
+    t = got["table"]
+    check(np.array_equal(t["key"], oracle["pool"][live]), f"{label}: keys differ from the oracle's")
+    check(np.array_equal(t["c"], oracle["cnt"][live].astype(np.int32)), f"{label}: counts differ")
+    check(np.array_equal(t["sw"].astype(np.int64), oracle["sum"][live]), f"{label}: int sums differ")
+    check(np.array_equal(t["lo"], oracle["min"][live]) and np.array_equal(t["hi"], oracle["max"][live]),
+          f"{label}: min or max differ")
+    err = np.abs(t["sv"].astype(np.float64) - oracle["fs"][live])
+    check(bool((err <= oracle["cnt"][live] * F32_REL * oracle["abs"][live]).all()),
+          f"{label}: f32 sums past n_g * 2^-23 * sum|v|")
+    check(got["tree_merges"] >= 1, f"{label}: the combine tree logged no merge")
+    check(not got["degrades"], f"{label}: a reducing stream degraded key ranges to the host")
+    return float((err / np.maximum(oracle["abs"][live], 1e-30)).max())
+
+
 def stream_groupby(spill_root: str, card: str) -> dict:
-    """SM_GB_ROWS rows over GB_KEYS int32 keys spread over the int32
-    range (groupby_sort's distribution), SM_GB_CHUNK-row chunks, through
-    the combine tree: count, int sum, min, max exact; the f32 sum within
-    n_g * 2^-23 * sum|v| of float64; the tree's merge events logged."""
-    rng = np.random.default_rng(SEED + 17)
-    width = (1 << 32) // GB_KEYS
-    pool = (np.arange(GB_KEYS, dtype=np.int64) * width + rng.integers(0, width, GB_KEYS)
-            - 2**31).astype(np.int32)  # ascending, one key in each bin
-    o_cnt = np.zeros(GB_KEYS, np.int64)
-    o_sum = np.zeros(GB_KEYS, np.int64)
-    o_min = np.full(GB_KEYS, np.iinfo(np.int32).max, np.int32)
-    o_max = np.full(GB_KEYS, np.iinfo(np.int32).min, np.int32)
-    o_fs = np.zeros(GB_KEYS)
-    o_abs = np.zeros(GB_KEYS)
-
-    def chunks():
-        for _ in range(SM_GB_ROWS // SM_GB_CHUNK):
-            idx = rng.integers(0, GB_KEYS, SM_GB_CHUNK)
-            w = rng.integers(-1000, 1000, SM_GB_CHUNK, dtype=np.int32)
-            v = (rng.standard_normal(SM_GB_CHUNK) * 100).astype(np.float32)
-            o_cnt[:] += np.bincount(idx, minlength=GB_KEYS)
-            o_sum[:] += np.bincount(idx, weights=w, minlength=GB_KEYS).astype(np.int64)
-            np.minimum.at(o_min, idx, w)
-            np.maximum.at(o_max, idx, w)
-            o_fs[:] += np.bincount(idx, weights=v.astype(np.float64), minlength=GB_KEYS)
-            o_abs[:] += np.bincount(idx, weights=np.abs(v.astype(np.float64)), minlength=GB_KEYS)
-            yield {"key": pool[idx], "w": w, "v": v}
-
+    """The combine-tree group_by of ``groupby_stream_work`` on the
+    default stream config, held to its oracle."""
+    work, oracle = groupby_stream_work()
     ctx = _stream_ctx(spill_root)
     free_card()
     torch.cuda.reset_peak_memory_stats()
-    aggs = {"c": ("count", None), "sw": ("sum", "w"), "lo": ("min", "w"), "hi": ("max", "w"),
-            "sv": ("sum", "v")}
     with DeviceBusy() as busy:
-        out = ctx.from_stream(chunks()).group_by("key", aggs).collect()
+        got = work(ctx)
     peak = card_peak()
-    evs = ctx.events.events()
     del ctx
     free_card()
-    live = o_cnt > 0
-    o = np.argsort(out["key"])
-    got = {c: a[o] for c, a in out.items()}
-    check(np.array_equal(got["key"], pool[live]), "stream group_by: keys differ from the oracle's")
-    check(np.array_equal(got["c"], o_cnt[live].astype(np.int32)), "stream group_by: counts differ")
-    check(np.array_equal(got["sw"].astype(np.int64), o_sum[live]), "stream group_by: int sums differ")
-    check(np.array_equal(got["lo"], o_min[live]) and np.array_equal(got["hi"], o_max[live]),
-          "stream group_by: min or max differ")
-    err = np.abs(got["sv"].astype(np.float64) - o_fs[live])
-    check(bool((err <= o_cnt[live] * F32_REL * o_abs[live]).all()),
-          "stream group_by: f32 sums past n_g * 2^-23 * sum|v|")
-    levels = [e for e in evs if e["kind"] == "combine_tree_level"]
-    check(bool(levels), "stream group_by: the combine tree logged no merge")
-    check(not any(e["kind"] == "combine_tree_degrade" for e in evs),
-          "stream group_by: a reducing stream degraded key ranges to the host")
-    res = {"rows": SM_GB_ROWS, "keys": int(live.sum()), "wall_s": busy.wall_s,
-           "rows_per_s": SM_GB_ROWS / busy.wall_s, "tree_merges": len(levels),
-           "tree_levels": sorted({e["level"] for e in levels}),
-           "stream_combine_events": sum(e["kind"] == "stream_combine" for e in evs),
-           "max_rel_err_sum": float((err / np.maximum(o_abs[live], 1e-30)).max()),
+    rel = check_groupby_stream(got, oracle, "stream group_by")
+    res = {"rows": SM_GB_ROWS, "keys": int((oracle["cnt"] > 0).sum()), "wall_s": busy.wall_s,
+           "rows_per_s": SM_GB_ROWS / busy.wall_s, "tree_merges": got["tree_merges"],
+           "tree_levels": got["levels"], "stream_combine_events": got["stream_combines"],
+           "max_rel_err_sum": rel,
            "peak_bytes": peak, "device_busy_s": busy.busy_s, "device_idle": busy.idle, "card": card}
     log(f"stream group_by [{card}]: {SM_GB_ROWS} rows in {SM_GB_ROWS // SM_GB_CHUNK} chunks, "
         f"{res['keys']} keys, {busy.wall_s:.2f} s = {SM_GB_ROWS / busy.wall_s:.4g} rows/s; count, int "
         f"sum, min, max exact, f32 sum within n_g*2^-23*sum|v| (max |err|/sum|v| "
-        f"{res['max_rel_err_sum']:.3g}); {len(levels)} combine_tree_level merges at levels "
-        f"{res['tree_levels']}, {res['stream_combine_events']} stream_combine; peak device memory "
+        f"{res['max_rel_err_sum']:.3g}); {got['tree_merges']} combine_tree_level merges at levels "
+        f"{got['levels']}, {got['stream_combines']} stream_combine; peak device memory "
         f"(allocated + graph pool) {peak / 1e9:.3f} GB; device busy {busy.busy_s:.3f} s, idle {busy.idle:.3f}")
     return res
 
@@ -6330,6 +6373,9 @@ CD1_RANKS = 2  # the default run's rank threads, both on card 0 (gloo)
 CD1_P = 8
 CD1_WORDS = 1 << 22
 CD1_TS_ROWS = 1 << 22
+CD1_SM_ROWS = 1 << 22  # its stream look: a combine-tree group_by and an external sort ...
+CD1_SM_CHUNK = 1 << 20  # ... in chunks of this many rows
+CD1_SM_KEYS = 1 << 16  # the group_by's int32 keys: auto-dense, the bucket kernel's path
 
 
 class CardsBusy:
@@ -6372,13 +6418,13 @@ class CardsBusy:
 CD_STEP_S = 150  # a step of the cards phases past this dumps every thread's stack and ends the run
 
 
-def _cd_arm() -> None:
+def _cd_arm(seconds: float = CD_STEP_S) -> None:
     """(Re)start the phase's watchdog: a step that stalls (ranks waiting
     on each other) ends the run with every thread's stack on stderr
     instead of holding the cards until the call's limit."""
     import faulthandler
 
-    faulthandler.dump_traceback_later(CD_STEP_S, exit=True)
+    faulthandler.dump_traceback_later(seconds, exit=True)
 
 
 def _cd_disarm() -> None:
@@ -6828,6 +6874,8 @@ def phase_cards1(dev, card: str) -> dict:
         del q, many
     res["launches"] = bucket_sum_count.launches
     check(res["launches"] >= CD1_RANKS, f"cards1: the bucket kernel ran {res['launches']} times")
+    res["stream"] = cards1_stream(ctx, card)
+    res["launches"] += res["stream"]["launches"]
     ctx.rebuild_mesh([1])
     check(ctx.mesh.world == 1 and ctx.num_partitions == CD1_P // CD1_RANKS,
           f"cards1: rebuild_mesh left world {ctx.mesh.world}, P {ctx.num_partitions}")
@@ -6843,6 +6891,501 @@ def phase_cards1(dev, card: str) -> dict:
         f"{CD1_WORDS} words (warm {res['wordcount']['warm_med_s']:.4f} s) and TeraSort of "
         f"{CD1_TS_ROWS} rows (warm {res['terasort']['warm_med_s']:.4f} s) equal to one rank; "
         f"bucket_sum_count {res['launches']} launches; rebuild_mesh([1]): TeraSort equal on one rank")
+    return res
+
+
+def _cd1_stream_chunks(seed: int, group: bool) -> list:
+    """The stream look's chunks: group_by rows (int32 keys in [0,
+    CD1_SM_KEYS), an int32 value) or sort rows (an int32 key over the
+    int32 range, an f32 payload)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(CD1_SM_ROWS // CD1_SM_CHUNK):
+        if group:
+            out.append({"key": rng.integers(0, CD1_SM_KEYS, CD1_SM_CHUNK, dtype=np.int32),
+                        "w": rng.integers(-1000, 1000, CD1_SM_CHUNK, dtype=np.int32)})
+        else:
+            out.append({"key": rng.integers(-2**31, 2**31, CD1_SM_CHUNK, dtype=np.int32),
+                        "payload": rng.random(CD1_SM_CHUNK, dtype=np.float32)})
+    return out
+
+
+def cards1_stream(ctx, card: str) -> dict:
+    """The stream look of ``cards1``: a combine-tree group_by and an
+    external sort, CD1_SM_ROWS rows each in CD1_SM_CHUNK-row chunks, on
+    the default stream config, through ``from_stream`` on the two rank
+    threads of ``ctx`` and on one rank at the same P: every column
+    byte-equal (the group_by's sorted by key).  The bucket kernel's
+    launches are counted from 0 just before the two ranks' streams."""
+    import shutil
+
+    from dryad_tpu_torch import DryadConfig, DryadContext
+    from dryad_tpu_torch.ops.bucket import bucket_sum_count
+
+    root = os.path.join(WORK_DIR, "cards1")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    gchunks, schunks = _cd1_stream_chunks(SEED + 23, True), _cd1_stream_chunks(SEED + 24, False)
+    # a count and an integer sum (the dense path's aggregates): byte-equal
+    # whatever the order of the ranks' reduction
+    aggs = {"c": ("count", None), "sw": ("sum", "w")}
+
+    def run(c):
+        t0 = time.perf_counter()
+        g = c.from_stream(iter([dict(x) for x in gchunks])).group_by("key", aggs).collect()
+        t1 = time.perf_counter()
+        o = c.from_stream(iter([dict(x) for x in schunks])).order_by([("key", False)]).collect()
+        t2 = time.perf_counter()
+        levels = sum(e["kind"] == "combine_tree_level" for e in c.events.events())
+        return _sorted_by(g, "key"), o, t1 - t0, t2 - t1, levels
+
+    try:
+        ctx.config.stream_spill_dir = os.path.join(root, "ranks")
+        bucket_sum_count.launches = 0  # the stream look's main path starts here
+        many = run(ctx)
+        launches = bucket_sum_count.launches
+        one_ctx = DryadContext(num_partitions_=CD1_P, config=DryadConfig(
+            stream_spill_dir=os.path.join(root, "one")))
+        one = run(one_ctx)
+        del one_ctx
+    finally:
+        ctx.config.stream_spill_dir = None
+        shutil.rmtree(root, ignore_errors=True)
+    _byte_equal(one[0], many[0], "cards1 stream group_by")
+    _byte_equal(one[1], many[1], "cards1 stream sort")
+    check(many[4] >= 1 and many[4] == one[4],
+          f"cards1 stream group_by: combine-tree merges {many[4]} against one rank's {one[4]}")
+    check(bool((many[1]["key"][1:] >= many[1]["key"][:-1]).all()), "cards1 stream sort: not sorted")
+    check(launches >= CD1_RANKS, f"cards1 stream: the bucket kernel ran {launches} times")
+    res = {"rows": CD1_SM_ROWS, "chunk": CD1_SM_CHUNK, "group_s": many[2], "sort_s": many[3],
+           "one_group_s": one[2], "one_sort_s": one[3], "tree_merges": many[4], "launches": launches}
+    log(f"cards1 stream [{card}]: {CD1_RANKS} ranks at P={CD1_P}: combine-tree group_by of "
+        f"{CD1_SM_ROWS} rows {many[2]:.3f} s (one rank {one[2]:.3f} s, {many[4]} tree merges) and "
+        f"external sort {many[3]:.3f} s (one rank {one[3]:.3f} s), byte-equal to one rank; "
+        f"bucket_sum_count {launches} launches")
+    return res
+
+
+# -- cards_stream: streams on one context over four cards ----------------------
+
+CS_CARDS = 4  # a rank thread a card, one NCCL group (only when named)
+CS_STEP_S = 400  # the watchdog's bound on one workload (the 2^28-row sort's included)
+CS_P = 16
+CS_DEVICE = "cuda"  # where its ranks run ("cpu" rehearses it)
+CS_BACKEND = "nccl"
+CS_TS_SMALL_ROWS = 1 << 27  # the external TeraSort first at this size, for the peak ...
+CS_TS_ROWS = 1 << 28  # ... this size's peak on every card must stay within SM_PEAK_RATIO of
+CS_WORDS = WC_WORDS  # the wordcount phase's corpus, through text_stream ...
+CS_WC_CHUNK_BYTES = 1 << 25  # ... in chunks of this many bytes
+CS_TOP = 20
+# the 2^28-row sort's spill (its table, 2 GiB, and the re-splits), the
+# Join Task's stores and the corpus, one workload at a time
+CS_FREE_BYTES = 12 << 30
+
+
+def _cs_free(devs) -> None:
+    """Return the cards' cached blocks after a workload (no rank job runs
+    then)."""
+    gc.collect()
+    for d in devs:
+        if d.type == "cuda":
+            with torch.cuda.device(d):
+                torch.cuda.empty_cache()
+
+
+class _CsShapes:
+    """While installed, the shape (P, cap, K, value columns) of the first
+    call of the executor's bucket kernel a card, without its values: the
+    chunk partial of a rank is the first launch of a streaming WordCount
+    on its card."""
+
+    def __enter__(self):
+        from dryad_tpu_torch.exec import kernels
+
+        self.mod, self.real, self.first = kernels, kernels.bucket_sum_count, {}
+
+        def rec(keys, values, valid, num_buckets):
+            self.first.setdefault(str(keys.device), (int(keys.shape[0]), int(keys.shape[1]),
+                                                     int(num_buckets), len(values)))
+            return self.real(keys, values, valid, num_buckets)
+
+        kernels.bucket_sum_count = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.bucket_sum_count = self.real
+
+
+def _cs_measure(ctx, work, label: str, card: str) -> tuple:
+    """``work(ctx)`` on a context over several cards (or one card): its
+    result, and the wall seconds, each card's idle share (NVML) and peak,
+    the spill bytes, and the split of the wall time into the ranks' jobs
+    (``RankGroup.run``, every rank's stage work, one job at a time under
+    the job lock) and the rest, the driver's host work (routing, spill,
+    the threads' waits), beside the seconds of the host reads of results
+    on the rank threads (``RankGroup.local``, the collector's, which
+    overlap the jobs)."""
+    devs = ctx.devices
+    for d in devs:
+        if d.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(d)
+    split = {"jobs_s": 0.0, "reads_s": 0.0, "jobs": 0}
+    g = ctx._ranks
+    if g is not None:
+        real_run, real_local = g.run, g.local
+
+        def run(fn):
+            t0 = time.perf_counter()
+            try:
+                return real_run(fn)
+            finally:
+                split["jobs_s"] += time.perf_counter() - t0
+                split["jobs"] += 1
+
+        def local(fn):
+            t0 = time.perf_counter()
+            try:
+                return real_local(fn)
+            finally:
+                split["reads_s"] += time.perf_counter() - t0
+
+        g.run, g.local = run, local
+    w0, r0 = metric_total(ctx, "spill_bytes"), metric_total(ctx, "spill_read_bytes")
+    try:
+        with CardsBusy([d.index for d in devs if d.type == "cuda"] or [0]) as busy:
+            out = work(ctx)
+    finally:
+        if g is not None:
+            del g.run, g.local
+    m = {"wall_s": busy.wall_s, "idle_by_card": getattr(busy, "idle", {}),
+         "peak_by_card": _cd_peaks(ctx),
+         "spill_written_bytes": metric_total(ctx, "spill_bytes") - w0,
+         "spill_read_bytes": metric_total(ctx, "spill_read_bytes") - r0, **split}
+    m["host_s"] = m["wall_s"] - split["jobs_s"]
+    log(f"cards_stream {label} on {len(devs)} card(s) [{card}]: {m['wall_s']:.2f} s; "
+        + (f"ranks' jobs {split['jobs']} in {split['jobs_s']:.2f} s, the driver's host work (no "
+           f"job running) {m['host_s']:.2f} s, of it reads on the rank threads overlapping "
+           f"jobs {split['reads_s']:.2f} s; " if g is not None else "")
+        + f"spill written {m['spill_written_bytes'] / 2**30:.2f} GiB, read "
+        f"{m['spill_read_bytes'] / 2**30:.2f} GiB; peak by card (allocated + graph pool) "
+        f"{[round(p / 1e9, 3) for p in m['peak_by_card']]} GB; idle by card {m['idle_by_card']}")
+    return out, m
+
+
+def _cs_terasort(rows: int):
+    """The external TeraSort of ``rows`` seeded rows (int32 key, f32
+    payload) in SM_TS_CHUNK-row chunks, read with collect_stream and
+    checked as it streams (each piece sorted, the boundaries ordered, the
+    row count and the order-free checksum of the input's); returns the
+    SHA-1 of its rows in order, for the byte-equal check."""
+    import hashlib
+
+    def work(ctx):
+        rng = np.random.default_rng(SEED + 16)
+        made = {"sum": 0}
+
+        def chunks():
+            for _ in range(rows // SM_TS_CHUNK):
+                key = rng.integers(-2**31, 2**31, SM_TS_CHUNK, dtype=np.int32)
+                pay = rng.random(SM_TS_CHUNK, dtype=np.float32)
+                made["sum"] = (made["sum"] + row_checksum(key, pay)) % (1 << 64)
+                yield {"key": key, "payload": pay}
+
+        h, got, total, last, pieces = hashlib.sha1(), 0, 0, None, 0
+        for piece in ctx.from_stream(chunks()).order_by([("key", False)]).collect_stream():
+            k = piece["key"]
+            if len(k) == 0:
+                continue
+            check(bool((k[1:] >= k[:-1]).all()), f"cards_stream terasort: piece {pieces} is not sorted")
+            check(last is None or int(k[0]) >= last,
+                  f"cards_stream terasort: piece {pieces} starts below the previous one's last key")
+            last = int(k[-1])
+            h.update(k.tobytes())
+            h.update(piece["payload"].tobytes())
+            got += len(k)
+            total = (total + row_checksum(k, piece["payload"])) % (1 << 64)
+            pieces += 1
+        check(got == rows, f"cards_stream terasort: {got} rows out of {rows}")
+        check(total == made["sum"], "cards_stream terasort: the (key, payload) checksum differs")
+        return {"sha1": h.hexdigest(), "pieces": pieces}
+
+    return work
+
+
+def _cs_wordcount(paths):
+    def work(ctx):
+        table = ctx.text_stream(paths, chunk_bytes=CS_WC_CHUNK_BYTES).group_by(
+            "word", {"n": ("count", None)}).collect()
+        top = ctx.from_arrays(table).order_by([("n", True)]).take(CS_TOP).collect()
+        chunks = sum(e["kind"] == "stream_chunk" for e in ctx.events.events())
+        return {"table": _sorted_by(table, "word"), "top": top, "chunks": chunks}
+
+    return work
+
+
+def _cs_join(vpath: str, rpath: str, root: str):
+    """The Join Task as a Grace join of two store_streams, then the
+    group_by into a stream to_store; returns the store read back."""
+    def work(ctx):
+        lo, hi = JS_WEEK
+        out = os.path.join(root, f"grouped-{len(ctx.devices)}")
+        v = ctx.store_stream(vpath).where(lambda c: (c["visitDate"] >= lo) & (c["visitDate"] < hi))
+        j = v.join(ctx.store_stream(rpath), "destURL", "pageURL", strategy="auto", expansion=1.0)
+        h = j.group_by("sourceIP", JS_AGGS).to_store(out)
+        table = _read_back(out)
+        check(int(h.result()["rows"][0]) == len(table["sourceIP"]),
+              "cards_stream join: the store's row count differs")
+        evs = ctx.events.events()
+        check(any(e["kind"] == "stream_store" for e in evs), "cards_stream join: to_store did not stream")
+        return {"table": _sorted_by(table, "sourceIP"),
+                "bucket_joins": sum(e["kind"] == "stream_bucket" for e in evs)}
+
+    return work
+
+
+def _cs_kernel(devs, shape, card: str) -> dict:
+    """The bucket kernel against its plain version on every card at a
+    rank's chunk-partial shape of the streaming WordCount (``shape``:
+    P, cap, K, no values; Zipf(1.1) word ids, the last 1/16 of each
+    partition invalid), timed on card 0 beside the plain version and one
+    ``index_add_`` of the mask; the bound reads keys and mask once and
+    writes the count table once.  The counters are put back."""
+    from dryad_tpu_torch.ops.bucket import bucket_sum_count, bucket_sum_count_plain
+
+    before, by_card = bucket_sum_count.launches, dict(bucket_sum_count.by_card)
+    L, cap, K, m = shape
+    check(m == 0, f"cards_stream: the chunk partial's shape {shape} has value columns")
+    ids = zipf_ids(np.random.default_rng(SEED + 25), L * cap).astype(np.int32).reshape(L, cap)
+    res = {"shape": f"P={L} cap={cap} K={K} values=0", "cards": []}
+    for d in devs:
+        keys = torch.from_numpy(ids).to(d)
+        valid = torch.ones((L, cap), dtype=torch.bool, device=d)
+        valid[:, cap - cap // 16:] = False
+        with torch.cuda.device(d):
+            err = _compare(keys, valid, [], K)
+            if d.index == 0:
+                flat = torch.where(valid, keys.long() + torch.arange(L, device=d).reshape(L, 1) * K,
+                                   L * K).reshape(-1)
+                src = valid.reshape(-1, 1).float()
+                tab = torch.zeros((L * K + 1, 1), device=d)
+                lib = lambda: tab.zero_().index_add_(0, flat, src)  # noqa: E731
+                check(torch.equal(lib()[: L * K, 0].reshape(L, K),
+                                  bucket_sum_count(keys, [], valid, K)[1]),
+                      "cards_stream: index_add_ yardstick counts differ")
+                n = keys.numel()
+                res.update(
+                    kernel_ms=cuda_time_ms(lambda: bucket_sum_count(keys, [], valid, K), 10),
+                    plain_ms=cuda_time_ms(lambda: bucket_sum_count_plain(keys, [], valid, K), 3),
+                    library_ms=cuda_time_ms(lib, 10),
+                    bound_ms=(n * (4 + 1) + L * K * 4) / HBM_BYTES_PER_S * 1e3)
+                del flat, src, tab
+        res["cards"].append({"device": str(d), "max_abs_err": err})
+        del keys, valid
+    bucket_sum_count.launches = before
+    bucket_sum_count.by_card.clear()
+    bucket_sum_count.by_card.update(by_card)
+    log(f"cards_stream [{card}]: bucket_sum_count at a rank's chunk-partial shape {res['shape']}: "
+        f"byte-equal to the plain version on {len(devs)} cards; on card 0 kernel "
+        f"{res['kernel_ms']:.3f} ms, plain {res['plain_ms']:.3f} ms, one index_add_ "
+        f"{res['library_ms']:.3f} ms, bound {res['bound_ms']:.4f} ms")
+    return res
+
+
+def phase_cards_stream(dev, card: str) -> dict:
+    """Streams on one context over four cards (``DryadContext(devices=4,
+    num_partitions_=16)``, NCCL, stage programs as graphs), at the
+    default stream config: the external TeraSort at 2^27 and then 2^28
+    rows in 2^24-row chunks (read with collect_stream; the peak of every
+    card at 2^28 within SM_PEAK_RATIO of its peak at 2^27), the streaming
+    WordCount of 2^26 Zipf(1.1) words through text_stream in 2^25-byte
+    chunks and its top 20, the combine-tree group_by (2^26 rows, 2^22
+    keys, 2^24-row chunks) and the Join Task as a Grace join of two
+    store_streams into a stream to_store.  Each beside one card at P =
+    16 (the 2^28-row sort; the 2^27 one runs on the cards alone): the
+    sort's rows byte-equal in order, integers byte-equal, float sums
+    within n_g * 2^-23 * sum|v| of the oracle.  For each: wall seconds
+    and rows/s on four cards and on one, each card's peak and idle share
+    (NVML), spill bytes, the ranks' jobs against the driver's host work,
+    and the bucket kernel's launches on each card.  Then the kernel
+    against its plain version on every card at a rank's chunk-partial
+    shape.  Fails on fewer than 4 cards."""
+    import shutil
+
+    from dryad_tpu_torch import DryadConfig, DryadContext
+    from dryad_tpu_torch.ops.bucket import bucket_sum_count
+
+    t_phase = time.perf_counter()
+    ncards = torch.cuda.device_count()
+    check(ncards >= CS_CARDS, f"cards_stream needs {CS_CARDS} cards, a rank thread each; "
+          f"this host has {ncards}")
+    root = os.path.join(WORK_DIR, "cards_stream")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    free = shutil.disk_usage(root).free
+    if free < CS_FREE_BYTES:
+        raise RuntimeError(f"cards_stream needs {CS_FREE_BYTES / 2**30:.0f} GiB free under {root}; "
+                           f"{free / 2**30:.1f} GiB free")
+    spill_root = os.path.join(root, "spill")
+    devices = CS_CARDS if CS_DEVICE == "cuda" else [CS_DEVICE] * CS_CARDS
+    res = {"card": card, "cards": CS_CARDS, "P": CS_P, "free_bytes": free}
+
+    def cfg():
+        c = DryadConfig(stream_spill_dir=spill_root, obs_events_mem_cap=0)
+        check((c.stream_pipeline_depth, c.dispatch_depth, c.combine_tree)
+              == (4, 2, True), "cards_stream is not on the default stream config")
+        return c
+
+    def cards_ctx():
+        ctx = DryadContext(num_partitions_=CS_P, devices=devices, config=cfg())
+        check(ctx._ranks.backend == CS_BACKEND, f"cards_stream: the group's backend is "
+              f"{ctx._ranks.backend}")
+        return ctx
+
+    def one_ctx():
+        return DryadContext(num_partitions_=CS_P, config=cfg(),
+                            **({} if CS_DEVICE == "cuda" else {"device": CS_DEVICE}))
+
+    launches, by_card, graphs_ok = 0, {}, []
+
+    def on_cards(label, work, rows):
+        """``work`` on a new context over the cards, its launches counted
+        from 0 just before and read just after; its stage programs checked."""
+        nonlocal launches
+        _cd_arm(CS_STEP_S)
+        ctx = cards_ctx()
+        bucket_sum_count.launches = 0  # this workload's main path starts here
+        bucket_sum_count.by_card.clear()
+        out, m = _cs_measure(ctx, work, label, card)
+        m["launches"] = bucket_sum_count.launches
+        m["launches_by_card"] = {int(k): v for k, v in bucket_sum_count.by_card.items()
+                                 if k is not None}
+        launches += m["launches"]
+        for k, v in m["launches_by_card"].items():
+            by_card[k] = by_card.get(k, 0) + v
+        progs = [rc.executor.programs for rc in ctx._ranks.contexts]
+        graphs = [sum(p.graph is not None for p in pc._progs.values()) for pc in progs]
+        eager = [sum(p.graph is None and p.compiled for p in pc._progs.values()) for pc in progs]
+        if CS_DEVICE == "cuda":
+            check(all(pc.graphs for pc in progs) and min(graphs) >= 1 and not any(eager),
+                  f"cards_stream {label}: stage programs by card {graphs} graphs, {eager} eager")
+        graphs_ok.append((label, graphs))
+        m["graphs_by_card"] = graphs
+        m["rows_per_s"] = rows / m["wall_s"]
+        devs = ctx.devices
+        del ctx
+        _cs_free(devs)
+        check(not os.listdir(spill_root) if os.path.isdir(spill_root) else True,
+              f"cards_stream {label}: spill directories left behind")
+        return out, m
+
+    def on_one(label, work, rows):
+        _cd_arm(CS_STEP_S)
+        ctx = one_ctx()
+        before, by = bucket_sum_count.launches, dict(bucket_sum_count.by_card)
+        out, m = _cs_measure(ctx, work, label, card)
+        bucket_sum_count.launches = before  # the one-card twin is not the main path
+        bucket_sum_count.by_card.clear()
+        bucket_sum_count.by_card.update(by)
+        m["rows_per_s"] = rows / m["wall_s"]
+        del ctx
+        _cs_free([torch.device("cuda", 0)] if CS_DEVICE == "cuda" else [])
+        return out, m
+
+    def record(label, many, one, rows, unit="rows"):
+        res[label] = {"rows": rows, "cards_run": many, "one_card": one,
+                      "speedup": one["wall_s"] / many["wall_s"]}
+        log(f"cards_stream {label}: {rows} {unit} in {many['wall_s']:.2f} s on {CS_CARDS} cards "
+            f"({rows / many['wall_s']:.4g} {unit}/s) against {one['wall_s']:.2f} s on one "
+            f"({rows / one['wall_s']:.4g} {unit}/s): {res[label]['speedup']:.2f}x; bucket launches "
+            f"by card {many['launches_by_card']}")
+
+    try:
+        # the external TeraSort: 2^27 on the cards (the peak's base), then 2^28 beside one card
+        small, ms = on_cards("terasort_small", _cs_terasort(CS_TS_SMALL_ROWS), CS_TS_SMALL_ROWS)
+        big, mb = on_cards("terasort", _cs_terasort(CS_TS_ROWS), CS_TS_ROWS)
+        one_ts, mo = on_one("terasort", _cs_terasort(CS_TS_ROWS), CS_TS_ROWS)
+        check(big["sha1"] == one_ts["sha1"],
+              "cards_stream terasort: the sorted rows differ from one card's")
+        ratios = [b / max(a, 1) for a, b in zip(ms["peak_by_card"], mb["peak_by_card"])]
+        check(all(r <= SM_PEAK_RATIO for r in ratios),
+              f"cards_stream terasort: peak by card at {CS_TS_ROWS} rows is {ratios} of the peak at "
+              f"{CS_TS_SMALL_ROWS}, past {SM_PEAK_RATIO}x")
+        res["terasort_small"] = {"rows": CS_TS_SMALL_ROWS, "cards_run": ms}
+        record("terasort", mb, mo, CS_TS_ROWS)
+        res["terasort"]["peak_ratio_by_card"] = ratios
+        log(f"cards_stream terasort: rows byte-equal to one card's in order ({big['pieces']} pieces); "
+            f"peak by card at {CS_TS_ROWS} rows {[round(r, 3) for r in ratios]} of the peak at "
+            f"{CS_TS_SMALL_ROWS}")
+        del small, big, one_ts
+
+        # the streaming WordCount through text_stream, then the top 20
+        paths, oracle = wordcount_files(root, CS_WORDS)
+        with _CsShapes() as shapes:
+            wc, mw = on_cards("wordcount", _cs_wordcount(paths), CS_WORDS)
+        wc1, mw1 = on_one("wordcount", _cs_wordcount(paths), CS_WORDS)
+        _byte_equal(wc1["table"], wc["table"], "cards_stream wordcount")
+        _byte_equal(wc1["top"], wc["top"], "cards_stream wordcount top 20")
+        got = dict(zip(wc["table"]["word"].tolist(), wc["table"]["n"].tolist()))
+        check(got == oracle, "cards_stream wordcount: counts differ from numpy")
+        check(wc["top"]["n"].tolist() == sorted(oracle.values(), reverse=True)[:CS_TOP],
+              "cards_stream wordcount: the top-20 counts differ from numpy")
+        check(mw["launches"] >= CS_CARDS and len(mw["launches_by_card"]) == CS_CARDS
+              if CS_DEVICE == "cuda" else True,
+              f"cards_stream wordcount: bucket launches by card {mw['launches_by_card']}")
+        record("wordcount", mw, mw1, CS_WORDS, unit="words")
+        res["wordcount"]["chunks"] = wc["chunks"]
+        for p in paths:
+            os.remove(p)
+        shape = shapes.first.get("cuda:0") or next(iter(shapes.first.values()), None)
+        res["wordcount"]["chunk_partial_shape_by_card"] = shapes.first
+        del wc, wc1
+
+        # the combine-tree group_by
+        work, oracle = groupby_stream_work()
+        gb, mg = on_cards("groupby", work, SM_GB_ROWS)
+        gb1, mg1 = on_one("groupby", work, SM_GB_ROWS)
+        err = check_groupby_stream(gb, oracle, "cards_stream group_by")
+        check_groupby_stream(gb1, oracle, "cards_stream group_by (one card)")
+        t, t1 = gb["table"], gb1["table"]
+        for c in ("key", "c", "sw", "lo", "hi"):
+            check(t[c].tobytes() == t1[c].tobytes(), f"cards_stream group_by: {c} differs from one card's")
+        record("groupby", mg, mg1, SM_GB_ROWS)
+        res["groupby"].update(tree_merges=gb["tree_merges"], max_rel_err_sum=err,
+                              float_sums_byte_equal=t["sv"].tobytes() == t1["sv"].tobytes())
+        del gb, gb1, oracle
+
+        # the Join Task: two store_streams, a Grace join, a stream to_store
+        rng = np.random.default_rng(SEED + 8)
+        visits, rankings = visits_tables(rng)
+        vpath, rpath = os.path.join(root, "visits"), os.path.join(root, "rankings")
+        w = one_ctx()
+        w.from_arrays(visits).to_store(vpath)
+        w.from_arrays(rankings).to_store(rpath)
+        del w
+        _cs_free([torch.device("cuda", 0)] if CS_DEVICE == "cuda" else [])
+        js, mj = on_cards("join", _cs_join(vpath, rpath, root), JS_VISITS)
+        js1, mj1 = on_one("join", _cs_join(vpath, rpath, root), JS_VISITS)
+        t, t1 = js["table"], js1["table"]
+        check(t["sourceIP"].tobytes() == t1["sourceIP"].tobytes() and t["n"].tobytes() == t1["n"].tobytes(),
+              "cards_stream join: sourceIPs or counts differ from one card's")
+        check_join_task(t, visits, rankings, "cards_stream join")
+        check_join_task(t1, visits, rankings, "cards_stream join (one card)")
+        record("join", mj, mj1, JS_VISITS, unit="visits")
+        res["join"].update(bucket_joins=js["bucket_joins"],
+                           float_sums_byte_equal=all(t[c].tobytes() == t1[c].tobytes() for c in t))
+        del js, js1, visits, rankings
+
+        res["launches"], res["launches_by_card"] = launches, by_card
+        res["graphs_by_card"] = graphs_ok
+        if CS_DEVICE == "cuda":
+            _cd_arm()
+            res["kernel"] = _cs_kernel([torch.device("cuda", i) for i in range(CS_CARDS)], shape, card)
+    finally:
+        _cd_disarm()
+        shutil.rmtree(root, ignore_errors=True)
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"cards_stream [{card}]: bucket_sum_count {launches} launches on the main path, by card "
+        f"{by_card}; phase {res['phase_s']:.1f} s")
     return res
 
 
@@ -6941,6 +7484,7 @@ def main(argv=None) -> int:
         ("terasort_capacity", lambda: phase_terasort_capacity(dev, card)),
         ("gang_cards", lambda: phase_gang_cards(dev, card)),
         ("cards", lambda: phase_cards(dev, card)),
+        ("cards_stream", lambda: phase_cards_stream(dev, card)),
     )
     _PG["ran"] = ran = []
     for name, run in steps:
@@ -6953,8 +7497,8 @@ def main(argv=None) -> int:
     print("results: " + json.dumps(results))
 
     kern = results.get("kernel", {})
-    ck = results.get("cards", {}).get("kernel", {})
-    if not kern and ck:  # the cards phase alone: its shape's numbers
+    ck = results.get("cards", {}).get("kernel", {}) or results.get("cards_stream", {}).get("kernel", {})
+    if not kern and ck:  # a cards phase alone: its shape's numbers
         kern = {k: ck[k] for k in ("kernel_ms", "plain_ms", "bound_ms", "library_ms")}
         kern["max_abs_err"] = max(c["max_abs_err"] for c in ck["cards"])
     # launches on each main path that ran, each counted from 0 just
@@ -6976,6 +7520,7 @@ def main(argv=None) -> int:
         "gang_cards": results.get("gang_cards", {}).get("launches"),
         "cards1": results.get("cards1", {}).get("launches"),
         "cards": results.get("cards", {}).get("launches"),
+        "cards_stream": results.get("cards_stream", {}).get("launches"),
         "rewrite": results.get("rewrite", {}).get("launches"),
         "fleet": results.get("fleet", {}).get("launches"),
         "obs": results.get("obs", {}).get("launches"),
@@ -7022,6 +7567,15 @@ def main(argv=None) -> int:
         "cards_bound_ms": results.get("cards", {}).get("kernel", {}).get("bound_ms"),
         "cards_max_abs_err_by_card": [c["max_abs_err"] for c in
                                       results.get("cards", {}).get("kernel", {}).get("cards", [])] or None,
+        "cards_stream_shape": results.get("cards_stream", {}).get("kernel", {}).get("shape"),
+        "cards_stream_kernel_ms": results.get("cards_stream", {}).get("kernel", {}).get("kernel_ms"),
+        "cards_stream_plain_ms": results.get("cards_stream", {}).get("kernel", {}).get("plain_ms"),
+        "cards_stream_library_ms": results.get("cards_stream", {}).get("kernel", {}).get("library_ms"),
+        "cards_stream_bound_ms": results.get("cards_stream", {}).get("kernel", {}).get("bound_ms"),
+        "cards_stream_max_abs_err_by_card": [
+            c["max_abs_err"] for c in
+            results.get("cards_stream", {}).get("kernel", {}).get("cards", [])] or None,
+        "cards_stream_launches_by_card": results.get("cards_stream", {}).get("launches_by_card"),
         "hybrid_shapes": [results["hybrid"]["wordcount"]["kernel_shape"]] if "hybrid" in results else None,
         "rewrite_shapes": results.get("rewrite", {}).get("kernel_shapes"),
         "fleet_shapes": results.get("fleet", {}).get("kernel_shapes"),

@@ -212,7 +212,9 @@ class DryadContext:
         if self.config.obs_telemetry and not local_debug:
             self.telemetry = ResourceMonitor(
                 interval_s=self.config.telemetry_sample_s, events=self.events,
-                device_memory_fn=device_memory_probe(self.device),
+                # every card of the context, summed, as the reference
+                # sums the memory of its local devices
+                device_memory_fn=device_memory_probe(devs if devices is not None else self.device),
             )
             self.headroom = self.telemetry.headroom
             self.events.add_tap(self.telemetry.observe)
@@ -310,6 +312,8 @@ class DryadContext:
                         rc._device_cache.clear()
                         rc._attach(rc.mesh)
                     self._wire_rank0()
+                if self.telemetry is not None:  # the headroom of the cards that remain
+                    self.telemetry._device_memory = device_memory_probe(self.devices)
             for nid in [n for n, b in self._bindings.items() if b[0] == "device"]:
                 del self._bindings[nid]
             self._device_cache.clear()
@@ -366,7 +370,8 @@ class DryadContext:
                     return rows, compute, dict(rc.io_stats)
 
             per_rank = self._ranks.run(job)
-            out = ([RankBatches([r[0][i] for r in per_rank]) for i in range(len(queries))]
+            out = ([RankBatches([r[0][i] for r in per_rank], self._ranks)
+                    for i in range(len(queries))]
                    if not fetch else
                    [join_rows([r[0][i] for r in per_rank], with_counts=True)
                     for i in range(len(queries))])
@@ -562,7 +567,6 @@ class DryadContext:
         concat.  Without ``schema`` the first chunk's dtypes give it."""
         from dryad_tpu_torch.exec.outofcore import ChunkSource
 
-        self._refuse_cards("from_stream", 16)
         it = iter(chunks)
         if schema is None:
             first = next(it, None)
@@ -979,7 +983,9 @@ class DryadContext:
         """A zero-arg closure that runs ``deferred``'s miss check (when
         given) and copies ``batch`` to the host as ``query``'s table,
         under the trace context ``tctx`` (a fetch drained on another
-        thread still stamps its spans with the query's qid)."""
+        thread still stamps its spans with the query's qid).  Over
+        several cards each rank copies its rows on its own thread
+        (``RankBatches.fetch_valid_rows``), never the draining one."""
         def fetch() -> Dict[str, np.ndarray]:
             with tracectx.activate(tctx):
                 if deferred is not None:

@@ -74,7 +74,11 @@ class TreeShape:
 
 def batch_bytes(batch) -> int:
     """Layout bytes of a device batch — shape metadata only, no
-    readback (``nbytes`` never syncs the dispatch loop)."""
+    readback (``nbytes`` never syncs the dispatch loop).  A batch over
+    the ranks of a context over several cards counts every rank's
+    layout: the one-card batch's bytes."""
+    if hasattr(batch, "parts"):
+        return sum(batch_bytes(p) for p in batch.parts)
     return sum(int(v.nbytes) for v in batch.data.values()) + int(
         batch.valid.nbytes
     )
@@ -86,9 +90,14 @@ def layout_rows(batch) -> int:
     per partition).  The stream driver compacts the tree's batches and
     records the reference's count of the un-compacted layout as
     ``nominal_rows``; the tree's flush cadence and its events follow
-    that count."""
+    that count.  Over the ranks of a context over several cards every
+    rank's layout counts (P partitions in all, as on one card)."""
     nominal = getattr(batch, "nominal_rows", None)
-    return int(batch.valid.numel()) if nominal is None else nominal
+    if nominal is not None:
+        return nominal
+    if hasattr(batch, "parts"):
+        return sum(layout_rows(p) for p in batch.parts)
+    return int(batch.valid.numel())
 
 
 def neutral_snapshot(ranges: int) -> Dict[str, Any]:

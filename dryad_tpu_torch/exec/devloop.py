@@ -244,7 +244,7 @@ class LoopProgram:
         iters, ovf, miss = self.state[:3].cpu().tolist()  # the run's one read
         LC.note_graph_launches(iters)
         rounds = lambda per: per[0] + per[1] * max(0, int(iters) - 1) + per[2]
-        BK.note_graph_launches(rounds(self._bucket))
+        BK.note_graph_launches(rounds(self._bucket), self.device)
         if self.mesh is not None:
             self.mesh.sent_bytes += rounds(self._sent)
         out = ColumnBatch({n: t.clone() for n, t in self.carry.data.items()}, self.carry.valid.clone())

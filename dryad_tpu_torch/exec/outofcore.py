@@ -50,6 +50,7 @@ from dryad_tpu_torch.exec.spill import SpillDir, SpillWriter
 from dryad_tpu_torch.obs import telemetry
 from dryad_tpu_torch.obs.metrics import KeyRangeHistogram
 from dryad_tpu_torch.obs.span import Tracer
+from dryad_tpu_torch.parallel.ranks import RankBatches
 from dryad_tpu_torch.plan.nodes import Node, PartitionInfo, walk
 
 # Node kinds applied chunk-locally in phase 1 (row-wise, stateless
@@ -566,12 +567,18 @@ class StreamExecutor:
         (their host arrays and cached device tables): the job has run,
         and the next chunk rebinds the node if it needs it."""
         ctx = self.ctx
+        # over several cards each rank ingested its own blocks into its
+        # own cache; no rank job runs while the lock is held
+        caches = [ctx._device_cache] + (
+            [rc._device_cache for rc in ctx._ranks.contexts]
+            if getattr(ctx, "_ranks", None) is not None else [])
         with ctx._job_lock:  # another thread's job may be evicting the cache
             for n in walk([r.node if hasattr(r, "node") else r for r in roots]):
                 if n.kind == "input" and n.id in self._owned:
                     self._owned.discard(n.id)
                     ctx._bindings.pop(n.id, None)
-                    ctx._device_cache.pop(n.id, None)
+                    for cache in caches:
+                        cache.pop(n.id, None)
 
     def _device(self, query):
         """Run a driver-built query; its result batch stays on the
@@ -1142,9 +1149,9 @@ class StreamExecutor:
             # (``tail_fanout_rows``); a compacted layout too narrow for it
             # would overflow into retries the reference's padded layout
             # never takes, so a small root holds all its rows a partition
-            rows = int(root.valid.sum())
+            rows = sum(_each(root, lambda b: int(b.valid.sum())))
             if rows <= cfg.tail_fanout_rows and root.capacity < rows:
-                root = root.pad_to(-(-rows // 8) * 8)
+                root = _map(root, lambda b: b.pad_to(-(-rows // 8) * 8))
             q = self._from_batch(root, st["pschema"]).group_by(keys, merge_spec)
             out = self._host(self._finalize_query(q, plan, keys, node.schema))
         else:
@@ -1853,14 +1860,29 @@ def _compacted(batch, nominal: int):
     chunk's rows, and a merge's is the sum of its inputs'), so the
     tree's batches would grow with the stream, not with its keys; the
     rows, their order in each partition and every result stay the
-    same.  Costs one read of the largest count."""
-    need = int(batch.valid.sum(-1).max())
+    same.  Costs one read of the largest count.  Over the ranks of a
+    context over several cards the cut is the largest count of all P
+    partitions, so every rank keeps one capacity (its collectives'
+    block sizes), the one-card batch's; each rank reads its own count
+    and cuts its own part on its thread."""
+    need = max(_each(batch, lambda b: int(b.valid.sum(-1).max())))
     cap = max(8, -(-need // 8) * 8)
     if cap < batch.capacity:
-        order = batch.compact_order()[:, :cap]
-        batch = batch.take(order)
+        batch = _map(batch, lambda b: b.take(b.compact_order()[:, :cap]))
     batch.nominal_rows = nominal
     return batch
+
+
+def _each(batch, fn) -> list:
+    """``[fn(batch)]``, or over the ranks ``fn`` of each rank's part, on
+    its rank's thread."""
+    return batch.each(fn) if isinstance(batch, RankBatches) else [fn(batch)]
+
+
+def _map(batch, fn):
+    """``fn(batch)``, or over the ranks the parts ``fn`` makes, each on
+    its rank's thread."""
+    return batch.map(fn) if isinstance(batch, RankBatches) else fn(batch)
 
 
 # ---- host-side helpers -------------------------------------------------

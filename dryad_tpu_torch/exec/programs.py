@@ -306,7 +306,7 @@ class StageProgram:
         except RuntimeError as e:
             raise RuntimeError(f"stage program {self.name!r}: replay failed: {e}") from e
         if self._launches:
-            BK.note_graph_launches(self._launches)
+            BK.note_graph_launches(self._launches, self.device)
         if self._sent:
             self.mesh.sent_bytes += self._sent
 

@@ -446,24 +446,31 @@ def _no_device_memory() -> Optional[Tuple[int, int]]:
 
 
 def device_memory_probe(device) -> Callable[[], Optional[Tuple[int, int]]]:
-    """The ``device_memory_fn`` of a context on ``device``: a reader of
-    ``(used, limit)`` bytes of that card (see the module doc), which
-    returns None (the host fallback) off CUDA, or while the process's
-    CUDA state is uninitialized, so that sampling never creates a
-    context."""
+    """The ``device_memory_fn`` of a context on ``device``, or on each
+    of a list of devices (a context over several cards): a reader of
+    ``(used, limit)`` bytes summed over those cards (see the module
+    doc), as the reference sums its local devices' memory stats.  It
+    returns None (the host fallback) when none of them is a CUDA card,
+    or while the process's CUDA state is uninitialized, so that
+    sampling never creates a context."""
     import torch  # noqa: PLC0415 - keeps this module light to import
 
-    device = torch.device(device)
-    if device.type != "cuda":
+    devices = [torch.device(d) for d in (device if isinstance(device, (list, tuple)) else [device])]
+    cards = [d for d in devices if d.type == "cuda"]
+    if not cards:
         return _no_device_memory
 
     def read() -> Optional[Tuple[int, int]]:
         if not torch.cuda.is_initialized():
             return None
-        free, total = torch.cuda.mem_get_info(device)
-        cached = torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
-        headroom = min(total, free + max(0, cached))
-        return total - headroom, total
+        used = limit = 0
+        for card in cards:
+            free, total = torch.cuda.mem_get_info(card)
+            cached = torch.cuda.memory_reserved(card) - torch.cuda.memory_allocated(card)
+            headroom = min(total, free + max(0, cached))
+            used += total - headroom
+            limit += total
+        return used, limit
 
     return read
 
@@ -478,7 +485,7 @@ class ResourceMonitor:
     through :meth:`sample`, which is also the manual test surface.
 
     ``device_memory_fn`` is injectable (tests fake HBM readings; a
-    context passes ``device_memory_probe(ctx.device)``, and without
+    context passes ``device_memory_probe`` of its cards, and without
     one every sample takes the host fallback); ``clock`` paces
     opportunistic sampling deterministically."""
 

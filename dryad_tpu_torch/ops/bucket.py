@@ -34,6 +34,7 @@ or raises.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import threading
 from typing import List, NamedTuple, Optional, Sequence, Tuple
@@ -202,6 +203,7 @@ def bucket_sum_count(
             _HERE.captured = captured_here() + 1
         else:
             bucket_sum_count.launches += 1
+            bucket_sum_count.by_card[keys.device.index] += 1
     return out
 
 
@@ -252,6 +254,9 @@ def _launch(keys, values, valid, num_buckets) -> Tuple[List[torch.Tensor], torch
 
 bucket_sum_count.launches = 0  # kernel launches (plain CPU runs not counted)
 bucket_sum_count.captured = 0  # launches recorded into CUDA graphs
+# the launches by card index (the ranks of a context over several cards);
+# a replay adds its launches to its card's count when the caller names it
+bucket_sum_count.by_card = collections.Counter()
 _COUNTS = threading.Lock()
 _HERE = threading.local()
 
@@ -264,10 +269,13 @@ def captured_here() -> int:
     return getattr(_HERE, "captured", 0)
 
 
-def note_graph_launches(n: int) -> None:
-    """A graph replay ran ``n`` recorded launches of the kernel."""
+def note_graph_launches(n: int, device=None) -> None:
+    """A graph replay ran ``n`` recorded launches of the kernel (on the
+    CUDA ``device``, when given)."""
     with _COUNTS:
         bucket_sum_count.launches += int(n)
+        if device is not None:
+            bucket_sum_count.by_card[torch.device(device).index] += int(n)
 
 
 def preload(device) -> None:

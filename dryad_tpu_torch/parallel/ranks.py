@@ -166,6 +166,7 @@ class _RankThread:
 
     def __init__(self, device: torch.device, rank: int):
         self.device = device
+        self._stopped = False
         self._q: "queue.Queue" = queue.Queue()
         self._t = threading.Thread(target=self._serve, name=f"dryad-rank-{rank}", daemon=True)
         self._t.start()
@@ -190,10 +191,15 @@ class _RankThread:
 
     def submit(self, fn: Callable[[], object]) -> cf.Future:
         fut: cf.Future = cf.Future()
+        if self._stopped:
+            fut.set_exception(RuntimeError(
+                f"the rank thread of {self.device} has stopped (its context was rebuilt)"))
+            return fut
         self._q.put((fn, fut))
         return fut
 
     def stop(self) -> None:
+        self._stopped = True
         self._q.put(None)
         if threading.current_thread() is not self._t:
             self._t.join(timeout=60.0)
@@ -365,6 +371,26 @@ class RankGroup:
             f"stage {stage!r} failed on rank {r} of {self.world} ({self.devices[r]}): "
             f"{type(e).__name__}: {e}") from e
 
+    def local(self, fn: Callable[[int], object]) -> list:
+        """``[fn(r) for each rank]``, each on its rank's thread, for work
+        that holds no collective (a copy to the host, a gather of one
+        rank's rows): it may run between two jobs of the ranks, in any
+        order across them.  An error every rank raised alike is raised
+        as it is; otherwise the first failed rank's error is raised as
+        :class:`GangStageError` naming the rank."""
+        futs = [t.submit(lambda r=r: fn(r)) for r, t in enumerate(self._threads)]
+        cf.wait(futs)
+        errors = {i: f.exception() for i, f in enumerate(futs) if f.exception() is not None}
+        if not errors:
+            return [f.result() for f in futs]
+        if len(errors) == self.world and len({(type(e), str(e)) for e in errors.values()}) == 1:
+            return _raise(errors[0])
+        r = min(errors)
+        e = errors[r]
+        raise GangStageError(
+            f"a host read of the result failed on rank {r} of {self.world} ({self.devices[r]}): "
+            f"{type(e).__name__}: {e}") from e
+
     def close(self) -> None:
         for t in self._threads:
             t.stop()
@@ -381,10 +407,18 @@ def _is_abort(e: BaseException) -> bool:
 class RankBatches:
     """A result over the ranks of one context: ``parts[r]`` is rank r's
     ``(local, cap)`` batch on its card, so partition ``r * local + i``
-    is ``parts[r]``'s row ``i``."""
+    is ``parts[r]``'s row ``i``.
 
-    def __init__(self, parts: Sequence):
+    Shape metadata is read where it is called; every device operation
+    on a part runs on its rank's thread (``group.local``): after an
+    abort a rank works on a stream of its own, so a copy made on another
+    thread would race the rank's work.  ``nominal_rows``, when set, is the layout rows the
+    one-card batch would count (``exec/combinetree.py::layout_rows``)."""
+
+    def __init__(self, parts: Sequence, group: Optional["RankGroup"] = None):
         self.parts = list(parts)
+        self.group = group
+        self.nominal_rows: Optional[int] = None
 
     @property
     def num_partitions(self) -> int:
@@ -397,11 +431,27 @@ class RankBatches:
     def nbytes(self) -> int:
         return sum(p.nbytes() for p in self.parts)
 
+    def each(self, fn: Callable[[object], object]) -> list:
+        """``[fn(parts[r]) for each rank]``, each on its rank's thread."""
+        if self.group is None:
+            return [fn(p) for p in self.parts]
+        return self.group.local(lambda r: fn(self.parts[r]))
+
+    def map(self, fn: Callable[[object], object]) -> "RankBatches":
+        """The batches ``fn(parts[r])``, each made on its rank's thread."""
+        return RankBatches(self.each(fn), self.group)
+
     def fetch_valid_rows(self, with_counts: bool = False):
         """Each rank's valid rows, concatenated in partition order (the
         one-card batch's flat order)."""
-        got = [p.fetch_valid_rows(with_counts=True) for p in self.parts]
+        got = self.each(lambda p: p.fetch_valid_rows(with_counts=True))
         return join_rows(got, with_counts)
+
+    def to_numpy(self, schema, dictionary=None) -> Dict[str, np.ndarray]:
+        """The valid rows as host logical columns, in partition order."""
+        from dryad_tpu_torch.columnar.batch import decode_physical_table
+
+        return decode_physical_table(schema, slice(None), self.fetch_valid_rows(), dictionary)
 
 
 def join_rows(got: Sequence[tuple], with_counts: bool = False):

@@ -394,10 +394,15 @@ def _serve(c):
     QueryService(c, start=False)
 
 
+def _views(c):
+    from dryad_tpu_torch.views.matview import ViewRegistry
+
+    ViewRegistry(c)
+
+
 REFUSED = {
-    "from_stream": (lambda: cards(2).from_stream(iter([{"k": np.arange(4, dtype=np.int32)}])),
-                    "item 16"),
     "serving": (lambda: _serve(cards(2)), "item 17"),
+    "views": (lambda: _views(cards(2)), "item 17"),
     "hybrid": (lambda: T.DryadContext(num_partitions_=P, devices=["cpu"] * 2, dcn_slices=2),
                "item 18"),
 }
