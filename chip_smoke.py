@@ -62,7 +62,9 @@ ranks on one card), one context over several devices (``cards1``: two
 rank threads on the card over gloo at P = 8, WordCount of 2^22 words and
 TeraSort of 2^22 rows equal to one rank, a combine-tree group_by and an
 external sort of 2^22 rows each through ``from_stream`` in 2^20-row
-chunks equal to one rank, then ``rebuild_mesh([1])``), the runtime plan rewriter at the default config (a
+chunks equal to one rank, one tenant of 2^20 rows served to 8 clients
+through ``QueryService`` and a view read, appended to and read again,
+each equal to one rank, then ``rebuild_mesh([1])``), the runtime plan rewriter at the default config (a
 2^26-row drift sort and a skewed Grace join whose hot buckets split
 mid-stream, a thrashing streaming combine pinned to the host and the
 next stream flipped to the combine tree, an overflowing group_by
@@ -121,7 +123,15 @@ WordCount of 2^26 words through ``text_stream`` and its top 20, the
 combine-tree group_by of 2^26 rows over 2^22 keys and the Join Task as a
 Grace join of two ``store_stream``s into a stream ``to_store``, each
 beside one card at P = 16, and the bucket kernel against its plain
-version on every card at a rank's chunk-partial shape.  The WordCount, TeraSort, sort-path group_by, join,
+version on every card at a rank's chunk-partial shape.  ``cards_serve``
+(only when named, four cards: ``--phases env,cards_serve``) serves on one
+context over the four cards at P = 16: the reference's serve bench at
+its own size (4 tenants of 2^24 rows, its four plans, 16 and 64
+clients, the result cache off and on) and its matview bench's three
+modes at 2^24 rows, each beside one card at P = 16, then the fleet (two
+replica processes, each a context over two cards, 16 client processes,
+a replica killed with queries in flight), and the bucket kernel against
+its plain version on every card at each serve shape.  The WordCount, TeraSort, sort-path group_by, join,
 PageRank, decomposable and ordered phases also profile one warm query
 with torch.profiler and print device time by op, the device's busy
 share of the warm query, and peak memory.
@@ -132,6 +142,7 @@ It imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import argparse
+import collections
 import gc
 import itertools
 import json
@@ -2942,8 +2953,10 @@ class LaunchRecorder:
     ``note_graph_launches``), before another graph of the shared pool
     can run over them.  ``launched()`` is what the kernel's counter
     should have gained: the calls outside a capture plus the launches
-    the replays ran.  The kernel's launch counter is left as it is; the
-    context runs one job at a time, so calls do not interleave."""
+    the replays ran, neither inside ``_OffMainPath`` (an oracle's, whose
+    launches the counter does not keep).  The kernel's launch counter is
+    left as it is; the context runs one job at a time, so calls do not
+    interleave."""
 
     def __enter__(self):
         from dryad_tpu_torch.exec import kernels
@@ -2955,6 +2968,8 @@ class LaunchRecorder:
         self.pending = {}  # shape -> a captured call's inputs, filled at the first replay
 
         def rec(keys, values, valid, num_buckets):
+            if _OffMainPath.active:
+                return self.real(keys, values, valid, num_buckets)
             self.calls += 1
             key = (len(values), int(num_buckets), int(keys.shape[1]))
             capturing = keys.is_cuda and torch.cuda.is_current_stream_capturing()
@@ -2967,7 +2982,7 @@ class LaunchRecorder:
             return self.real(keys, values, valid, num_buckets)
 
         def note(n, device=None):
-            self.replayed += int(n)
+            self.replayed += 0 if _OffMainPath.active else int(n)
             self.real_note(n, device)
             for key, (a, vs, m) in self.pending.items():
                 self.first[key] = (a.cpu(), [v.cpu() for v in vs], m.cpu())
@@ -3430,22 +3445,25 @@ MV_MODES = ("views", "recompute", "epoch")
 CK_FREE_BYTES = 10 << 30  # the group_by's checkpoint (4.4 GB) twice: a rerun writes its new copy before removing the old
 
 
+def serve_table(rng, t: int, rows: int) -> tuple:
+    """Tenant ``t``'s table of the reference's serve bench schema: a
+    STRING key over its 1024 words (indexed from a vocabulary array),
+    int64 v in [0, 1000) and f32 w; with its vocabulary and word ids
+    for the oracle."""
+    vocab = np.array([f"t{t}w{i:04d}" for i in range(SV_WORDS)], object)
+    ids = rng.integers(0, SV_WORDS, rows)
+    return vocab, ids, {
+        "k": vocab[ids],
+        "v": rng.integers(0, 1000, rows).astype(np.int64),
+        "w": rng.random(rows).astype(np.float32),
+    }
+
+
 def serve_tables(rng, rows: int = None) -> list:
-    """The reference's serve bench schema: per tenant a STRING key over
-    its 1024 words (indexed from a vocabulary array), int64 v in [0,
-    1000) and f32 w; each with its word ids for the oracle.  ``rows``
-    a table (default SV_ROWS)."""
+    """SV_TENANTS tenants' tables (``serve_table``) of ``rows`` rows
+    each (default SV_ROWS)."""
     rows = SV_ROWS if rows is None else rows
-    out = []
-    for t in range(SV_TENANTS):
-        vocab = np.array([f"t{t}w{i:04d}" for i in range(SV_WORDS)], object)
-        ids = rng.integers(0, SV_WORDS, rows)
-        out.append((vocab, ids, {
-            "k": vocab[ids],
-            "v": rng.integers(0, 1000, rows).astype(np.int64),
-            "w": rng.random(rows).astype(np.float32),
-        }))
-    return out
+    return [serve_table(rng, t, rows) for t in range(SV_TENANTS)]
 
 
 def serve_plans(tab) -> list:
@@ -3496,12 +3514,45 @@ def _dispatches(ctx) -> int:
     return JobMetrics.from_events(ctx.events.events()).dispatch_count
 
 
+def _rank_dispatches(ctx) -> list:
+    """Each rank's stage dispatches so far on a context over several
+    devices (rank 0's stream is the context's); [] on one device."""
+    ranks = getattr(ctx, "_ranks", None)
+    return [_dispatches(rc) for rc in ranks.contexts] if ranks is not None else []
+
+
+def _cards_of(ctx) -> list:
+    """The cards of a context over several cards ([] on one device, or
+    ranks on the CPU)."""
+    return [d for d in ctx.devices if d.type == "cuda"] if len(ctx.devices) > 1 else []
+
+
+def _reset_peaks(cards: list) -> None:
+    """Reset the peak statistics of each of ``cards``, or of the card
+    torch uses when there are none."""
+    for d in cards:
+        torch.cuda.reset_peak_memory_stats(d)
+    if not cards:
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _share(idle) -> str:
+    """An idle share, or one a card."""
+    return f"{idle:.3f}" if isinstance(idle, float) else str({k: round(v, 3) for k, v in idle.items()})
+
+
+def _gigabytes(peak) -> str:
+    """A peak in GB, or one a card."""
+    return f"{peak / 1e9:.2f}" if isinstance(peak, int) else str([round(p / 1e9, 3) for p in peak])
+
+
 def _pct(lat: list, q: float) -> float:
     lat = sorted(lat)
     return lat[min(len(lat) - 1, int(len(lat) * q))]
 
 
-def serve_cell(ctx, plans, refs, plan_dispatches, clients: int, cache_on: bool, card: str) -> dict:
+def serve_cell(ctx, plans, refs, plan_dispatches, clients: int, cache_on: bool, card: str,
+               rows: int = None) -> dict:
     """The bench's run_cell: ``clients`` closed-loop threads spread over
     the tenants, SV_PER_CLIENT queries each (a rejected query is
     retried), through one QueryService over ``ctx``.  Every result is
@@ -3513,9 +3564,11 @@ def serve_cell(ctx, plans, refs, plan_dispatches, clients: int, cache_on: bool, 
     from dryad_tpu_torch.serve import QueryRejected, QueryService
 
     ctx.config.serve_result_cache_bytes = SV_CACHE_BYTES if cache_on else 0
-    d0 = _dispatches(ctx)
+    d0, r0 = _dispatches(ctx), _rank_dispatches(ctx)
+    cards = _cards_of(ctx)
     free_card()
-    torch.cuda.reset_peak_memory_stats()
+    _cs_free(cards)
+    _reset_peaks(cards)
     svc = QueryService(ctx)
     lat = [[] for _ in range(clients)]
     fin = [0.0] * clients
@@ -3544,7 +3597,7 @@ def serve_cell(ctx, plans, refs, plan_dispatches, clients: int, cache_on: bool, 
             errors.append(repr(e))
 
     ths = [threading.Thread(target=client, args=(i,)) for i in range(clients)]
-    with DeviceBusy() as busy:
+    with (CardsBusy([d.index for d in cards]) if cards else DeviceBusy()) as busy:
         t_start = time.perf_counter()
         for th in ths:
             th.start()
@@ -3553,7 +3606,7 @@ def serve_cell(ctx, plans, refs, plan_dispatches, clients: int, cache_on: bool, 
         elapsed = time.perf_counter() - t_start
     stats = svc.stats()
     svc.close()
-    peak = card_peak()
+    peak = _cd_peaks(ctx) if cards else card_peak()
     check(not errors, f"serve cell {clients}/{'on' if cache_on else 'off'}: {errors[:1]}")
     queries = clients * SV_PER_CLIENT
     check(len(served) == queries, "a served query went missing")
@@ -3564,6 +3617,8 @@ def serve_cell(ctx, plans, refs, plan_dispatches, clients: int, cache_on: bool, 
     want = sum(plan_dispatches[t][pi] for t, pi, _, c in served if not c)
     got = _dispatches(ctx) - d0
     check(got == want, f"serve cell: {got} dispatches, expected {want} (a cache hit dispatched)")
+    by_rank = [b - a for a, b in zip(r0, _rank_dispatches(ctx))]
+    check(all(n == got for n in by_rank), f"serve cell: dispatches by rank {by_rank}, rank 0's {got}")
     check(rejected[0] == 0 and sum(t["rejected"] for t in stats["tenants"].values()) == 0,
           f"serve cell: {rejected[0]} queries rejected")
     tput = []
@@ -3576,19 +3631,21 @@ def serve_cell(ctx, plans, refs, plan_dispatches, clients: int, cache_on: bool, 
     res = {
         "clients": clients, "cache": "on" if cache_on else "off", "queries": queries,
         "seconds": elapsed, "queries_per_s": queries / elapsed,
-        "rows_per_s": queries * SV_ROWS / elapsed,
+        "rows_per_s": queries * (rows or SV_ROWS) / elapsed,
         "p50_ms": 1e3 * _pct(all_lat, 0.5), "p99_ms": 1e3 * _pct(all_lat, 0.99),
         "cache_hit_rate": cache["hits"] / looked if looked else 0.0, "served_hits": hits,
         "fairness_spread": max(tput) / max(min(tput), 1e-9), "rejected": rejected[0],
-        "dispatches": got, "device_idle": busy.idle, "device_busy_s": busy.busy_s,
-        "peak_bytes": peak, "card": card,
+        "dispatches": got, "device_idle": busy.idle, "device_busy_s": getattr(busy, "busy_s", None),
+        "peak_bytes": peak, "ranks": len(ctx.devices), "card": card,
     }
-    log(f"serve cell [{card}]: {clients} clients, cache {res['cache']}: {queries} queries in "
+    log(f"serve cell [{card}]: {clients} clients, cache {res['cache']}, {len(ctx.devices)} "
+        f"device(s): {queries} queries in "
         f"{elapsed:.3f} s = {res['queries_per_s']:.1f} queries/s, {res['rows_per_s']:.4g} rows/s; "
         f"p50 {res['p50_ms']:.2f} ms, p99 {res['p99_ms']:.2f} ms; hit rate "
         f"{res['cache_hit_rate']:.3f} ({hits} hits, {got} dispatches); fairness spread "
-        f"{res['fairness_spread']:.3f}; rejected {rejected[0]}; device idle {busy.idle:.3f}; "
-        f"peak device memory (allocated + graph pool) {peak / 1e9:.2f} GB; every result byte-equal to serial")
+        f"{res['fairness_spread']:.3f}; rejected {rejected[0]}; device idle {_share(busy.idle)}; "
+        f"peak device memory (allocated + graph pool) {_gigabytes(peak)} GB; every result byte-equal "
+        "to serial")
     return res
 
 
@@ -3672,25 +3729,32 @@ def matview_plans(tab) -> list:
             tab.group_by("k", {"c": ("count", None), "m": ("mean", "w")})]
 
 
-def matview_mode(mode: str, base: dict, other: dict, chunks: list, card: str) -> dict:
+def matview_mode(mode: str, base: dict, other: dict, chunks: list, card: str, P_: int = P,
+                 devices=None) -> dict:
     """The reference's matview bench cell: a hot tenant whose table
-    takes MV_APPENDS appends while MV_READERS readers read its two
-    plans, and an unrelated tenant's cached plan read by
+    takes an append of each of ``chunks`` while MV_READERS readers read
+    its two plans, and an unrelated tenant's cached plan read by
     MV_OTHER_READERS readers.  ``views``: the hot plans are views
     (max_staleness_s=0.05); ``recompute``: every read after an append
-    recomputes; ``epoch``: each append also bumps both tenants' epochs."""
+    recomputes; ``epoch``: each append also bumps both tenants' epochs.
+    On ``DryadContext(num_partitions_=P_, devices=devices)``; the reads
+    after the writer are held to a recompute on one card at ``P_``, and
+    over several devices no rank may keep a finalize's state table or
+    the hot table's rows before an append."""
     import threading
 
     from dryad_tpu_torch import DryadConfig, DryadContext
     from dryad_tpu_torch.serve import QueryService
 
-    final_rows = MV_ROWS + MV_APPENDS * MV_APPEND_ROWS
-    cost = sum(a.nbytes for a in base.values()) * final_rows // MV_ROWS
-    ctx = DryadContext(num_partitions_=P, config=DryadConfig(
+    rows0 = len(base["k"])
+    final_rows = rows0 + sum(len(ch["k"]) for ch in chunks)
+    cost = sum(a.nbytes for a in base.values()) * final_rows // rows0
+    ctx = DryadContext(num_partitions_=P_, devices=devices, config=DryadConfig(
         device_cache_bytes=SV_DEVICE_CACHE, obs_events_mem_cap=0,
         serve_result_cache_bytes=SV_CACHE_BYTES, serve_max_bytes=MV_READERS * cost))
+    cards, ranks = _cards_of(ctx), len(ctx.devices)
     free_card()
-    torch.cuda.reset_peak_memory_stats()
+    _reset_peaks(cards)
     svc = QueryService(ctx)
     hot = svc.session("hot")
     hot_t = hot.ingest(dict(base))
@@ -3734,7 +3798,7 @@ def matview_mode(mode: str, base: dict, other: dict, chunks: list, card: str) ->
             for i in range(MV_READERS)]
     ths += [threading.Thread(target=reader, args=(i, oth, other_q, oth_counts))
             for i in range(MV_OTHER_READERS)]
-    with DeviceBusy() as busy:
+    with (CardsBusy([d.index for d in cards]) if cards else DeviceBusy()) as busy:
         t_start = time.perf_counter()
         for th in ths:
             th.start()
@@ -3747,7 +3811,10 @@ def matview_mode(mode: str, base: dict, other: dict, chunks: list, card: str) ->
     stats = svc.stats()
     evs = ctx.events.events()
     svc.close()
-    peak = card_peak()
+    peak = _cd_peaks(ctx) if cards else card_peak()
+    if ctx._ranks is not None:  # every finalize's state table and pre-append copy forgotten
+        stale = _stale_tables(ctx)
+        check(not stale, f"matview {mode}: ranks keep stale tables {stale}")
     snaps = [e for e in evs if e["kind"] == "view_snapshot"]
     fresh_stal = [e["staleness_s"] for e in snaps if e["fresh"]]
     check(all(s <= MV_STALENESS_S for s in fresh_stal),
@@ -3759,13 +3826,16 @@ def matview_mode(mode: str, base: dict, other: dict, chunks: list, card: str) ->
               f"({o['cache_hits']} hits of {MV_OTHER_READERS * MV_READS} reads)")
     del ctx, svc, hot_t, hot_plans, other_q
     free_card()
-    # the oracle: a new context over every row, the plans run directly
+    _cs_free(cards)
+    # the oracle: a new context over every row on one card, the plans run
+    # directly (not the main path: its launches and shapes are left out)
     rows = {c: np.concatenate([base[c]] + [ch[c] for ch in chunks]) for c in base}
-    fresh = DryadContext(num_partitions_=P, config=DryadConfig(device_cache_bytes=SV_DEVICE_CACHE))
-    tab = fresh.from_arrays(rows)
-    for q, got in zip(matview_plans(tab), final):
-        _byte_equal(got, fresh.run_to_host(q), f"matview {mode}: a read after the writer stopped")
-    del fresh, tab, rows
+    with _OffMainPath():
+        fresh = DryadContext(num_partitions_=P_, config=DryadConfig(device_cache_bytes=SV_DEVICE_CACHE))
+        tab = fresh.from_arrays(rows)
+        for q, got in zip(matview_plans(tab), final):
+            _byte_equal(got, fresh.run_to_host(q), f"matview {mode}: a read after the writer stopped")
+        del fresh, tab, rows
     free_card()
     views = stats["views"]
     hot_reads = sum(hot_counts)
@@ -3778,16 +3848,19 @@ def matview_mode(mode: str, base: dict, other: dict, chunks: list, card: str) ->
         "fresh_staleness_max_ms": 1e3 * max(fresh_stal, default=0.0),
         "delta_fold_bytes": views["delta_bytes"], "snapshots_fresh": views["snapshots_fresh"],
         "snapshots_finalized": views["snapshots_finalized"], "register_s": register_s,
-        "append_s": append_s, "device_idle": busy.idle, "peak_bytes": peak, "card": card,
+        "append_s": append_s, "device_idle": busy.idle, "peak_bytes": peak,
+        "xla_compiles": sum(e["kind"] == "xla_compile" for e in evs), "ranks": ranks, "card": card,
     }
-    log(f"matview {mode} [{card}]: {hot_reads} hot reads in {elapsed:.3f} s = "
-        f"{res['reads_per_s']:.2f} reads/s during {len(chunks)} appends of {MV_APPEND_ROWS} rows "
+    log(f"matview {mode} [{card}]: {res['ranks']} device(s): {hot_reads} hot reads in {elapsed:.3f} s = "
+        f"{res['reads_per_s']:.2f} reads/s during {len(chunks)} appends of {len(chunks[0]['k'])} rows "
         f"(append {min(append_s):.3f}-{max(append_s):.3f} s); {stats['dispatches']} dispatches; "
         f"unrelated tenant hit rate {res['unrelated_hit_rate']:.3f}; staleness p95 "
         f"{res['staleness_p95_ms']:.2f} ms (fresh max {res['fresh_staleness_max_ms']:.2f} ms); "
         f"delta-fold bytes {views['delta_bytes']}; snapshots fresh {views['snapshots_fresh']}, "
-        f"finalized {views['snapshots_finalized']}; device idle {busy.idle:.3f}; reads after "
-        f"the writer equal a full recompute over {final_rows} rows")
+        f"finalized {views['snapshots_finalized']}; {res['xla_compiles']} xla_compile events (rank 0's); "
+        f"device idle {_share(busy.idle)}; peak "
+        f"(allocated + graph pool) {_gigabytes(peak)} GB; reads after the writer equal a full "
+        f"recompute over {final_rows} rows on one device")
     return res
 
 
@@ -6376,6 +6449,10 @@ CD1_TS_ROWS = 1 << 22
 CD1_SM_ROWS = 1 << 22  # its stream look: a combine-tree group_by and an external sort ...
 CD1_SM_CHUNK = 1 << 20  # ... in chunks of this many rows
 CD1_SM_KEYS = 1 << 16  # the group_by's int32 keys: auto-dense, the bucket kernel's path
+CD1_SV_ROWS = 1 << 20  # its serve look: one tenant's table (the serve phase's schema) ...
+CD1_SV_CLIENTS = 8  # ... served to this many closed-loop clients, each running the four plans
+CD1_MV_ROWS = 1 << 20  # ... and one view over a matview table of this many rows ...
+CD1_MV_APPEND = 1 << 18  # ... read, appended to with this many rows, and read again
 
 
 class CardsBusy:
@@ -6845,7 +6922,9 @@ def phase_cards1(dev, card: str) -> dict:
     rank threads on card 0 (``devices=["cuda:0", "cuda:0"]``, gloo: two
     ranks on one card), P = 8: WordCount of 2^22 words and TeraSort of
     2^22 rows, each equal to one rank at P = 8 (rows, placement, retries),
-    then ``rebuild_mesh([1])`` and TeraSort again on one rank."""
+    then its stream look (``cards1_stream``) and its serve look
+    (``cards1_serve``), and ``rebuild_mesh([1])`` and TeraSort again on
+    one rank."""
     from dryad_tpu_torch import DryadContext
     from dryad_tpu_torch.ops.bucket import bucket_sum_count
 
@@ -6876,6 +6955,8 @@ def phase_cards1(dev, card: str) -> dict:
     check(res["launches"] >= CD1_RANKS, f"cards1: the bucket kernel ran {res['launches']} times")
     res["stream"] = cards1_stream(ctx, card)
     res["launches"] += res["stream"]["launches"]
+    res["serve"] = cards1_serve(ctx, dev, card)
+    res["launches"] += res["serve"]["launches"]
     ctx.rebuild_mesh([1])
     check(ctx.mesh.world == 1 and ctx.num_partitions == CD1_P // CD1_RANKS,
           f"cards1: rebuild_mesh left world {ctx.mesh.world}, P {ctx.num_partitions}")
@@ -6966,6 +7047,197 @@ def cards1_stream(ctx, card: str) -> dict:
     return res
 
 
+class _OffMainPath:
+    """While installed, the bucket kernel's launches (a twin's, an
+    oracle's, a comparison's) are not the main path's: its counters are
+    put back, and ``_KernelShapes`` records none of its shapes."""
+
+    active = 0  # how many are installed
+
+    def __enter__(self):
+        from dryad_tpu_torch.ops.bucket import bucket_sum_count
+
+        self.counter = bucket_sum_count
+        self.launches, self.by_card = bucket_sum_count.launches, dict(bucket_sum_count.by_card)
+        _OffMainPath.active += 1
+        return self
+
+    def __exit__(self, *exc):
+        _OffMainPath.active -= 1
+        self.counter.launches = self.launches
+        self.counter.by_card.clear()
+        self.counter.by_card.update(self.by_card)
+
+
+class _MainPath:
+    """A main path's bucket-kernel accounting: on entry the launch
+    counters go to 0 and the shape recorder (``_KernelShapes``) starts;
+    on exit ``launches``, ``by_card`` (card index: launches) and
+    ``shapes`` (``_KernelShapes.seen``) are the path's own.  What runs
+    inside ``_OffMainPath`` meanwhile is in none of them."""
+
+    def __enter__(self):
+        from dryad_tpu_torch.ops.bucket import bucket_sum_count
+
+        self.counter = bucket_sum_count
+        bucket_sum_count.launches = 0
+        bucket_sum_count.by_card.clear()
+        self.recorder = _KernelShapes().__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.recorder.__exit__(*exc)
+        self.launches = self.counter.launches
+        self.by_card = {int(k): v for k, v in self.counter.by_card.items() if k is not None}
+        self.shapes = self.recorder.seen
+
+
+def kernel_on_cards(shape: tuple, devs: list, seed: int) -> dict:
+    """The bucket kernel against its plain version on each card of
+    ``devs`` at a main path's ``shape`` (``_KernelShapes``): seeded keys
+    in [0, K), the last 1/16 of each partition invalid, values of the
+    shape's dtypes; on the first card timed beside the plain version,
+    one library call and the bound (``kernel_shape_report``).  The
+    launch counters are put back (comparison launches are not the main
+    path's)."""
+    L, cap, K, kinds = shape
+    gen = torch.Generator().manual_seed(seed)
+    keys = torch.randint(0, K, (L, cap), generator=gen, dtype=torch.int32)
+    valid = torch.ones((L, cap), dtype=torch.bool)
+    valid[:, cap - cap // 16:] = False
+    vals = []
+    for k in kinds:
+        check(k in ("float32", "int32"), f"a bucket kernel shape with a {k} column")
+        vals.append(torch.randn((L, cap), generator=gen) * 100 if k == "float32"
+                    else torch.randint(-100, 100, (L, cap), generator=gen, dtype=torch.int32))
+    errs = []
+    with _OffMainPath():
+        for d in devs:
+            with torch.cuda.device(d):
+                errs.append(_compare(keys.to(d), valid.to(d), [v.to(d) for v in vals], K))
+        with torch.cuda.device(devs[0]):
+            rep = kernel_shape_report(keys, vals, valid, K)
+    rep["max_abs_err_by_card"] = errs
+    return rep
+
+
+def _stale_tables(ctx) -> dict:
+    """By rank, the tables a rank's cache holds that are no node's
+    current binding (a finalize's state table, a table's rows before an
+    append)."""
+    out = {}
+    for rc in ctx._ranks.contexts:
+        stale = [nid for nid, entry in rc._device_cache.items()
+                 if entry[0] is not ctx._bindings.get(nid)]
+        if stale:
+            out[rc.mesh.rank] = stale
+    return out
+
+
+def _without(t: dict, col: str) -> dict:
+    return {c: v for c, v in t.items() if c != col}
+
+
+def cards1_serve(ctx, dev, card: str) -> dict:
+    """The serve look of ``cards1``: one tenant of CD1_SV_ROWS rows (the
+    serve bench's schema and its four plans) served to CD1_SV_CLIENTS
+    closed-loop clients through a QueryService on the two rank threads
+    of ``ctx`` (cache off), and one view (count and mean by key) over a
+    matview table of CD1_MV_ROWS rows read, appended to (CD1_MV_APPEND
+    rows) and read again.  Each beside one rank at the same P: integers
+    byte-equal, the dense mean within 2^-16 * sum|w| of numpy, the
+    view's integer-valued means byte-equal; served results byte-equal to
+    serial.  No rank keeps a finalize's state table or the rows before
+    the append.  The bucket kernel's launches are counted from 0 just
+    before the ranks serve; it is held against its plain version at each
+    shape they gave it."""
+    import threading
+
+    from dryad_tpu_torch import DryadContext
+    from dryad_tpu_torch.serve import QueryService
+
+    rng = np.random.default_rng(SEED + 26)
+    vocab, ids, data = serve_table(rng, 0, CD1_SV_ROWS)
+    base, extra = matview_chunk(rng, CD1_MV_ROWS), matview_chunk(rng, CD1_MV_APPEND)
+    grown = {c: np.concatenate([base[c], extra[c]]) for c in base}
+    t0 = time.perf_counter()
+    with _OffMainPath():  # the one-rank twin
+        one_ctx = DryadContext(num_partitions_=CD1_P)
+        one = [one_ctx.run_to_host(q) for q in serve_plans(one_ctx.from_arrays(data))]
+        one_view = [one_ctx.run_to_host(matview_plans(one_ctx.from_arrays(t))[1]) for t in (base, grown)]
+        del one_ctx
+    one_s = time.perf_counter() - t0
+    saved = ctx.config.serve_result_cache_bytes
+    ctx.config.serve_result_cache_bytes = 0
+    out, errors = [], []
+    try:
+        with _MainPath() as main:  # the serve look's main path
+            t0 = time.perf_counter()
+            tab = ctx.from_arrays(data)
+            plans = serve_plans(tab)
+            refs = [ctx.run_to_host(q) for q in plans]
+            serial_s = time.perf_counter() - t0
+            with QueryService(ctx) as svc:
+                sess = svc.session("tenant0")
+
+                def client(i):
+                    try:
+                        for j in range(len(plans)):
+                            pi = (i + j) % len(plans)
+                            out.append((pi, sess.run(plans[pi], timeout=300)))
+                    except BaseException as e:  # noqa: BLE001 - raised below
+                        errors.append(repr(e))
+
+                ths = [threading.Thread(target=client, args=(i,)) for i in range(CD1_SV_CLIENTS)]
+                t0 = time.perf_counter()
+                for th in ths:
+                    th.start()
+                for th in ths:
+                    th.join()
+                serve_s = time.perf_counter() - t0
+                vs = svc.session("view")
+                t = vs.ingest(dict(base))
+                q = matview_plans(t)[1]
+                vs.register_view(q)
+                t0 = time.perf_counter()
+                first = vs.run(q, timeout=300)
+                vs.append(t, dict(extra))
+                second = vs.run(q, timeout=300)
+                view_s = time.perf_counter() - t0
+                stale = _stale_tables(ctx)
+    finally:
+        ctx.config.serve_result_cache_bytes = saved
+    check(not errors, f"cards1 serve: {errors[:1]}")
+    check(len(out) == CD1_SV_CLIENTS * len(plans), "cards1 serve: a served query went missing")
+    for i, (a, b) in enumerate(zip(refs, one)):
+        serve_oracle(i, a, vocab, ids, data)
+        _byte_equal(_without(a, "m"), _without(b, "m"), f"cards1 serve plan {i} against one rank")
+    for pi, got in out:
+        _byte_equal(got, refs[pi], f"cards1 served plan {pi}")
+    _byte_equal(first, one_view[0], "cards1 view before the append")
+    _byte_equal(second, one_view[1], "cards1 view after the append")
+    check(not stale, f"cards1 serve: ranks keep stale tables {stale}")
+    launches = main.launches
+    check(launches >= CD1_RANKS, f"cards1 serve: the bucket kernel ran {launches} times")
+    shapes_out = []
+    if dev.type == "cuda":
+        for i, shape in enumerate(sorted(main.shapes)):
+            shapes_out.append(kernel_on_cards(shape, [dev], SEED + 27 + i))
+    res = {"rows": CD1_SV_ROWS, "clients": CD1_SV_CLIENTS, "queries": len(out), "serial_s": serial_s,
+           "serve_s": serve_s, "queries_per_s": len(out) / serve_s, "view_s": view_s,
+           "one_rank_s": one_s, "launches": launches,
+           "launches_by_card": main.by_card, "kernel_shapes": shapes_out}
+    log(f"cards1 serve [{card}]: {CD1_RANKS} ranks at P={CD1_P}: one tenant of {CD1_SV_ROWS} rows, "
+        f"{len(out)} queries from {CD1_SV_CLIENTS} clients in {serve_s:.3f} s "
+        f"({res['queries_per_s']:.1f} queries/s), byte-equal to serial and to one rank (the mean "
+        f"within 2^-16 * sum|w|); a view read, appended to and read in {view_s:.3f} s, equal to one "
+        f"rank; no stale table on a rank; bucket_sum_count {launches} launches at "
+        f"{len(main.shapes)} shapes" + "".join(
+            f"; at {r['shape']} byte-equal to the plain version, kernel {r['kernel_ms']:.3f} ms, "
+            f"plain {r['plain_ms']:.3f} ms" for r in shapes_out))
+    return res
+
+
 # -- cards_stream: streams on one context over four cards ----------------------
 
 CS_CARDS = 4  # a rank thread a card, one NCCL group (only when named)
@@ -6993,20 +7265,25 @@ def _cs_free(devs) -> None:
                 torch.cuda.empty_cache()
 
 
-class _CsShapes:
-    """While installed, the shape (P, cap, K, value columns) of the first
-    call of the executor's bucket kernel a card, without its values: the
-    chunk partial of a rank is the first launch of a streaming WordCount
-    on its card."""
+class _KernelShapes:
+    """While installed, the shapes the executor's bucket kernel is called
+    at, without its values (a call inside a stage program's capture too:
+    its shape is the replays'): ``first``, by card, the first call's
+    (P, cap, K, value columns), as the chunk partial of a rank is the
+    first launch of a streaming WordCount on its card; ``seen``, every
+    (P, cap, K, the value columns' dtypes) with the cards it ran on."""
 
     def __enter__(self):
         from dryad_tpu_torch.exec import kernels
 
-        self.mod, self.real, self.first = kernels, kernels.bucket_sum_count, {}
+        self.mod, self.real, self.first, self.seen = kernels, kernels.bucket_sum_count, {}, {}
 
         def rec(keys, values, valid, num_buckets):
-            self.first.setdefault(str(keys.device), (int(keys.shape[0]), int(keys.shape[1]),
-                                                     int(num_buckets), len(values)))
+            if not _OffMainPath.active:
+                P_, cap, K = int(keys.shape[0]), int(keys.shape[1]), int(num_buckets)
+                self.first.setdefault(str(keys.device), (P_, cap, K, len(values)))
+                kinds = tuple(str(v.dtype).replace("torch.", "") for v in values)
+                self.seen.setdefault((P_, cap, K, kinds), set()).add(str(keys.device))
             return self.real(keys, values, valid, num_buckets)
 
         kernels.bucket_sum_count = rec
@@ -7320,7 +7597,7 @@ def phase_cards_stream(dev, card: str) -> dict:
 
         # the streaming WordCount through text_stream, then the top 20
         paths, oracle = wordcount_files(root, CS_WORDS)
-        with _CsShapes() as shapes:
+        with _KernelShapes() as shapes:
             wc, mw = on_cards("wordcount", _cs_wordcount(paths), CS_WORDS)
         wc1, mw1 = on_one("wordcount", _cs_wordcount(paths), CS_WORDS)
         _byte_equal(wc1["table"], wc["table"], "cards_stream wordcount")
@@ -7386,6 +7663,368 @@ def phase_cards_stream(dev, card: str) -> dict:
     res["phase_s"] = time.perf_counter() - t_phase
     log(f"cards_stream [{card}]: bucket_sum_count {launches} launches on the main path, by card "
         f"{by_card}; phase {res['phase_s']:.1f} s")
+    return res
+
+
+# -- cards_serve: serving, views and the fleet on one context over four cards ---
+
+CV_CARDS = 4  # a rank thread a card, one NCCL group (only when named)
+CV_P = 16
+CV_DEVICE = "cuda"  # where its ranks run ("cpu" rehearses it)
+CV_BACKEND = "nccl"
+CV_STEP_S = 600  # the watchdog's bound on one part of the phase
+CV_ROWS = 1 << 24  # a tenant's table: the reference's serve bench at its own size (the serve phase cuts it to 2^22)
+CV_MV_ROWS = 1 << 24  # the matview bench's tables at its own size ...
+CV_MV_APPEND_ROWS = 1 << 22  # ... and its chunks, a quarter of the table
+CV_FL_CARDS = 2  # a fleet replica's cards: r0 on cards 0-1, r1 on cards 2-3
+
+
+def cards_serve_tenants(devices, card: str) -> dict:
+    """The reference's serve bench at its own size: 4 tenants of CV_ROWS
+    rows on one resident context over the cards, each plan run serially
+    (cold, then warm: the warm result is the reference, held to numpy),
+    the cells of SV_CELLS clients with the result cache off and on, and
+    one hit alone dispatching on no rank; then the same on one card at
+    CV_P.  Integers byte-equal to one card's, the dense mean within
+    2^-16 * sum|w| of numpy on both."""
+    from dryad_tpu_torch import DryadConfig, DryadContext
+    from dryad_tpu_torch.serve import QueryService
+
+    rng = np.random.default_rng(SEED + 11)
+    t0 = time.perf_counter()
+    tables = serve_tables(rng, CV_ROWS)
+    gen_s = time.perf_counter() - t0
+    cost = sum(a.nbytes for a in tables[0][2].values())
+
+    def cfg():
+        return DryadConfig(device_cache_bytes=SV_DEVICE_CACHE, obs_events_mem_cap=0,
+                           serve_max_bytes=SV_MAX_CLIENTS_PER_TENANT * cost)
+
+    def run(ctx, label: str) -> tuple:
+        t0 = time.perf_counter()
+        tabs = [ctx.from_arrays(d) for _, _, d in tables]
+        register_s = time.perf_counter() - t0
+        plans = [serve_plans(t) for t in tabs]
+        refs, plan_dispatches, first_s = [], [], []
+        for (vocab, ids, data), ps in zip(tables, plans):
+            refs.append([])
+            plan_dispatches.append([])
+            for i, q in enumerate(ps):
+                t0 = time.perf_counter()
+                cold = ctx.run_to_host(q)
+                first_s.append(time.perf_counter() - t0)
+                d0 = _dispatches(ctx)
+                warm = ctx.run_to_host(q)
+                plan_dispatches[-1].append(_dispatches(ctx) - d0)
+                _byte_equal(warm, cold, f"cards_serve {label} plan {i}: warm vs cold")
+                serve_oracle(i, warm, vocab, ids, data)
+                refs[-1].append(warm)
+        log(f"cards_serve tenants on {label} [{card}]: {SV_TENANTS} tenants x {CV_ROWS} rows "
+            f"registered in {register_s:.2f} s; serial plans (first run, ingest included) "
+            f"{min(first_s):.3f}-{max(first_s):.3f} s; every result equals numpy")
+        cells = [serve_cell(ctx, plans, refs, plan_dispatches, clients, on, card, rows=CV_ROWS)
+                 for clients in SV_CELLS for on in (False, True)]
+        ctx.config.serve_result_cache_bytes = SV_CACHE_BYTES
+        with QueryService(ctx) as svc:  # one hit, alone: no rank dispatches
+            s = svc.session("tenant0")
+            s.run(plans[0][1], timeout=600)
+            d0, r0 = _dispatches(ctx), _rank_dispatches(ctx)
+            fut = s.submit(plans[0][1])
+            _byte_equal(fut.result(timeout=600), refs[0][1], f"cards_serve {label}: a cache hit")
+            check(fut.cached and _dispatches(ctx) == d0 and _rank_dispatches(ctx) == r0,
+                  f"cards_serve {label}: a cache hit dispatched")
+        return {"register_s": register_s, "first_query_s": first_s,
+                "plan_dispatches": plan_dispatches, "cells": cells}, refs
+
+    def on_cards():
+        ctx = DryadContext(num_partitions_=CV_P, devices=devices, config=cfg())
+        check(ctx._ranks.backend == CV_BACKEND, f"cards_serve: the group's backend is {ctx._ranks.backend}")
+        out = run(ctx, f"{CV_CARDS} cards")
+        devs = ctx.devices
+        del ctx
+        _cs_free(devs)
+        return out
+
+    with _MainPath() as main:
+        many, refs = on_cards()
+    with _OffMainPath():  # the one-card twin
+        ctx = DryadContext(num_partitions_=CV_P, config=cfg())
+        one, one_refs = run(ctx, "one card")
+        del ctx
+        free_card()
+    for t in range(SV_TENANTS):
+        for i, (a, b) in enumerate(zip(refs[t], one_refs[t])):
+            _byte_equal(_without(a, "m"), _without(b, "m"), f"cards_serve tenant{t} plan {i} against one card")
+    ratio = [a["queries_per_s"] / b["queries_per_s"] for a, b in zip(many["cells"], one["cells"])]
+    log(f"cards_serve tenants: queries/s on {CV_CARDS} cards against one card, cells "
+        f"{[(c['clients'], c['cache']) for c in many['cells']]}: {[round(r, 3) for r in ratio]}; "
+        f"every result's integers byte-equal to one card's; bucket launches by card {main.by_card}")
+    return {"rows_per_tenant": CV_ROWS, "tenants": SV_TENANTS, "query_bytes": cost, "generate_s": gen_s,
+            "cards_run": many, "one_card": one, "cells_ratio": ratio, "launches": main.launches,
+            "launches_by_card": main.by_card, "shapes": main.shapes}
+
+
+def cards_serve_matviews(devices, card: str) -> dict:
+    """The matview bench's three modes at its own size (CV_MV_ROWS rows,
+    MV_APPENDS chunks of CV_MV_APPEND_ROWS) on a context over the cards,
+    each beside one card at CV_P; the reads after the writer equal a
+    recompute on one card, and no rank keeps a stale table."""
+    rng = np.random.default_rng(SEED + 12)
+    base = matview_chunk(rng, CV_MV_ROWS)
+    other = matview_chunk(rng, CV_MV_ROWS)
+    chunks = [matview_chunk(rng, CV_MV_APPEND_ROWS) for _ in range(MV_APPENDS)]
+    res, shapes = {}, {}
+    for m in MV_MODES:
+        with _MainPath() as main:
+            many = matview_mode(m, base, other, chunks, card, P_=CV_P, devices=devices)
+        with _OffMainPath():  # the one-card twin
+            one = matview_mode(m, base, other, chunks, card, P_=CV_P)
+        res[m] = {"cards_run": many, "one_card": one, "launches": main.launches,
+                  "launches_by_card": main.by_card,
+                  "reads_ratio": many["reads_per_s"] / one["reads_per_s"]}
+        for k, v in main.shapes.items():
+            shapes.setdefault(k, set()).update(v)
+        log(f"cards_serve matview {m}: {many['reads_per_s']:.2f} reads/s on {CV_CARDS} cards against "
+            f"{one['reads_per_s']:.2f} on one card ({res[m]['reads_ratio']:.2f}x); bucket launches by "
+            f"card {main.by_card}")
+    res["views_speedup"] = res["views"]["cards_run"]["reads_per_s"] / res["recompute"]["cards_run"]["reads_per_s"]
+    res["shapes"] = shapes
+    return res
+
+
+def cards_fleet(card: str) -> dict:
+    """The fleet over cards: a front door in this process before two
+    replica processes, each a context over CV_FL_CARDS cards (r0 on cards
+    0-1, r1 on 2-3, an NCCL group each), at CV_P; 4 tenants of FL_ROWS
+    rows and the serve bench's four plans, each warmed on its rendezvous
+    owner, then FL_CLIENTS closed-loop client processes (FL_PER_CLIENT
+    queries each), then r0 killed with queries in flight (its process and
+    its rank threads die at once).  Every result's integers byte-equal to
+    a direct run on one card at CV_P, the mean within 2^-16 * sum|w| of
+    numpy; every replay byte-identical to the direct run.  The replicas'
+    bucket launches are their processes' own, over both their cards."""
+    import pickle
+    import shutil
+    import threading
+
+    from dryad_tpu_torch import DryadContext
+    from dryad_tpu_torch.serve.fleet import FLEET_PID, ServeFleet, decode_result, pack_for_fleet
+    from dryad_tpu_torch.serve.router import rendezvous_rank
+
+    root = os.path.join(WORK_DIR, "cards_fleet")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(os.path.join(root, "door"))
+    rng = np.random.default_rng(SEED + 51)
+    tables = serve_tables(rng, FL_ROWS)
+    direct = DryadContext(num_partitions_=CV_P)
+    tabs = [direct.from_arrays(d) for _, _, d in tables]
+    refs, packs = [], []
+    for t, tab in enumerate(tabs):
+        ps = serve_plans(tab)
+        refs.append([q.collect() for q in ps])
+        for i, out in enumerate(refs[t]):
+            serve_oracle(i, out, *tables[t])
+        packs.append([pack_for_fleet(q) for q in ps])
+    for t in range(SV_TENANTS):
+        with open(os.path.join(root, f"payload{t}.pkl"), "wb") as fh:
+            pickle.dump(packs[t], fh, protocol=pickle.HIGHEST_PROTOCOL)
+    client = os.path.join(root, "client.py")
+    with open(client, "w") as fh:
+        fh.write(FLEET_CLIENT)
+    rids = ["r0", "r1"]
+    boots = {}
+    for r, rid in enumerate(rids):
+        devs = ([f"cuda:{CV_FL_CARDS * r + j}" for j in range(CV_FL_CARDS)] if CV_DEVICE == "cuda"
+                else [CV_DEVICE] * CV_FL_CARDS)
+        boots[rid] = os.path.join(root, f"bootstrap_{rid}.py")
+        with open(boots[rid], "w") as fh:
+            fh.write("from dryad_tpu_torch import DryadContext\n\n\ndef build_context():\n"
+                     f"    return DryadContext(num_partitions_={CV_P}, devices={devs!r})\n")
+    res = {"card": card, "replicas": len(rids), "cards_a_replica": CV_FL_CARDS, "rows": FL_ROWS,
+           "clients": FL_CLIENTS}
+
+    def result_of(fleet, qid):
+        got = fleet.mailbox.get_prop(FLEET_PID, f"res/{qid}")
+        check(got is not None, f"cards fleet: no result for {qid}")
+        header, table = decode_result(got[1])
+        check(header["ok"], f"cards fleet: {qid} failed: {header.get('error')}")
+        return header, table
+
+    def same(t, i, table, what):
+        if i == 1:  # the dense mean: its integers byte-equal, the mean held to numpy
+            _byte_equal(_without(table, "m"), _without(refs[t][1], "m"), what)
+            serve_oracle(1, table, *tables[t])
+        else:
+            _byte_equal(table, refs[t][i], what)
+
+    fleet = ServeFleet(root=os.path.join(root, "door"), hb_interval=FL_HB_S, stale_after=FL_STALE_S,
+                       res_gc_s=3600.0)
+    try:
+        errs = []
+
+        def spawn(rid):
+            try:
+                fleet.spawn_process(rid, boots[rid], timeout=600.0)
+            except BaseException as e:  # noqa: BLE001 - raised below
+                errs.append(repr(e))
+
+        ths = [threading.Thread(target=spawn, args=(rid,)) for rid in rids]
+        t0 = time.perf_counter()
+        for th in ths:
+            th.start()
+        for th in ths:
+            th.join()
+        check(not errs, f"cards fleet: a replica did not start: {errs[:1]}")
+        res["boot_s"] = time.perf_counter() - t0
+        owners = {fp: rendezvous_rank(fp, rids)[0] for p in packs for _b, fp in p}
+        t0 = time.perf_counter()
+        for t in range(SV_TENANTS):
+            for i, (blob, fp) in enumerate(packs[t]):
+                qid = fleet.submit(tenant=f"tenant{t}", package=blob, fingerprint=fp, tier=_tier(t))
+                fleet.result(qid, timeout=600)
+                header, table = result_of(fleet, qid)
+                check(header["replica"] == owners[fp], f"cards fleet warm-up: {qid} ran off its owner")
+                same(t, i, table, f"cards fleet warm-up: tenant{t} plan {i}")
+        res["warm_s"] = time.perf_counter() - t0
+        log(f"cards fleet: 2 replica processes over {CV_FL_CARDS} cards each up in {res['boot_s']:.2f} s; "
+            f"{len(owners)} plans warmed on their owners in {res['warm_s']:.2f} s")
+        ids = list(range(CV_CARDS)) if CV_DEVICE == "cuda" else []
+        with (CardsBusy(ids) if ids else DeviceBusy()) as busy:
+            t0 = time.perf_counter()
+            procs = [subprocess.Popen(
+                [sys.executable, client, fleet.host, str(fleet.port),
+                 os.path.join(root, f"payload{i % SV_TENANTS}.pkl"), f"tenant{i % SV_TENANTS}",
+                 _tier(i % SV_TENANTS), str(FL_PER_CLIENT), str(i // SV_TENANTS)],
+                stdout=subprocess.PIPE, text=True) for i in range(FL_CLIENTS)]
+            reports = []
+            for p in procs:
+                out, _ = p.communicate(timeout=900)
+                check(p.returncode == 0, f"cards fleet client exited {p.returncode}")
+                reports.append(json.loads(out.strip().splitlines()[-1]))
+            elapsed = time.perf_counter() - t0
+        done = [(int(r["tenant"][6:]), q) for r in reports for q in r["done"]]
+        check(len(done) == FL_CLIENTS * FL_PER_CLIENT, "cards fleet: a client query went missing")
+        cached = 0
+        for t, q in done:
+            header, table = result_of(fleet, q["qid"])
+            same(t, q["plan"], table, f"cards fleet: tenant{t} plan {q['plan']}")
+            check(header["replica"] == owners[packs[t][q["plan"]][1]], f"cards fleet: {q['qid']} ran off its owner")
+            cached += bool(header["cached"])
+        lat = sorted(q["lat"] for _t, q in done)
+        res.update(queries=len(done), seconds=elapsed, queries_per_s=len(done) / elapsed,
+                   hit_rate=cached / len(done), p50_ms=1e3 * _pct(lat, 0.5), p99_ms=1e3 * _pct(lat, 0.99),
+                   device_idle=busy.idle)
+        log(f"cards fleet cell [{card}]: {len(done)} queries from {FL_CLIENTS} client processes in "
+            f"{elapsed:.3f} s = {res['queries_per_s']:.2f} queries/s; p50/p99 {res['p50_ms']:.1f}/"
+            f"{res['p99_ms']:.1f} ms; hit rate {res['hit_rate']:.3f}; idle by card {_share(busy.idle)}; "
+            f"every result equal to the direct run on one card, each on its owner")
+
+        # r0 killed with queries in flight: fresh plans it owns
+        victim = rids[0]
+        fresh = []
+        for t in range(SV_TENANTS):
+            for n in range(65, 4096):
+                q = tabs[t].order_by("v").take(n)
+                blob, fp = pack_for_fleet(q)
+                if rendezvous_rank(fp, rids)[0] == victim:
+                    fresh.append((t, q, blob, fp))
+                    break
+        want = [digest(q.collect()) for _t, q, _b, _f in fresh]
+        routed0 = fleet.stats()["router"]["routed"]
+        qids = [fleet.submit(tenant=f"tenant{t}", package=b, fingerprint=fp, tier=_tier(t))
+                for t, _q, b, fp in fresh]
+        deadline = time.monotonic() + 60
+        while fleet.stats()["router"]["routed"] < routed0 + len(qids):
+            check(time.monotonic() < deadline, "cards fleet: the kill cell's queries were not routed")
+            time.sleep(0.001)
+        t_kill = time.perf_counter()
+        fleet.kill_replica(victim)
+        in_flight = sum(fleet.mailbox.get_prop(FLEET_PID, f"res/{qid}") is None for qid in qids)
+        for qid, w in zip(qids, want):
+            fleet.result(qid, timeout=600)
+            header, table = result_of(fleet, qid)
+            check(digest(table) == w, f"cards fleet: the replayed {qid} differs from the direct run")
+        recover_s = time.perf_counter() - t_kill
+        router = fleet.stats()["router"]
+        check(router["dead"] == [victim], f"cards fleet: dead replicas {router['dead']}")
+        check(in_flight >= 1 and router["replayed"] >= in_flight,
+              f"cards fleet: {in_flight} queries in flight at the kill, {router['replayed']} replayed")
+        res.update(killed=victim, in_flight_at_kill=in_flight, replayed=router["replayed"],
+                   recover_s=recover_s)
+        log(f"cards fleet kill [{card}]: {victim} (cards 0-{CV_FL_CARDS - 1}) killed with {in_flight} of "
+            f"{len(qids)} queries in flight; {router['replayed']} replayed on r1, byte-identical to the "
+            f"direct runs; recovered in {recover_s:.3f} s")
+    finally:
+        fleet.close()
+    launches = {}
+    for rid in rids:
+        got = fleet.mailbox.get_prop(FLEET_PID, f"stats/{rid}")
+        launches[rid] = pickle.loads(got[1])["kernel_launches"]["bucket_sum_count"] if got else 0
+    res["replica_launches"] = launches
+    res["launches"] = sum(launches.values())
+    check(res["launches"] >= 1 or CV_DEVICE != "cuda", "cards fleet: the replicas launched no bucket kernel")
+    del direct, tabs
+    shutil.rmtree(root, ignore_errors=True)
+    free_card()
+    return res
+
+
+def phase_cards_serve(dev, card: str) -> dict:
+    """Serving, views and the fleet on one context over four cards
+    (``DryadContext(devices=4, num_partitions_=16)``, NCCL, stage
+    programs as graphs): the reference's serve bench at its own size
+    (4 tenants of 2^24 rows, its four plans, 16 and 64 closed-loop
+    clients, the result cache off and on), the matview bench's three
+    modes at 2^24 rows, each beside one card at P = 16; and the fleet:
+    two replica processes over two cards each, 16 client processes, a
+    replica killed.  Reported: queries/s, p50/p99, hit rate, each card's
+    peak (allocated + graph pool) and idle share (NVML), and bucket
+    launches by card (``bucket_sum_count.by_card``).  Then the kernel
+    against its plain version on each of the 4 cards at every shape the
+    cards' serving gave it.  Fails on fewer than 4 cards."""
+    t_phase = time.perf_counter()
+    ncards = torch.cuda.device_count()
+    check(ncards >= CV_CARDS, f"cards_serve needs {CV_CARDS} cards, a rank thread each; "
+          f"this host has {ncards}")
+    devices = CV_CARDS if CV_DEVICE == "cuda" else [CV_DEVICE] * CV_CARDS
+    res = {"card": card, "cards": CV_CARDS, "P": CV_P}
+    try:
+        _cd_arm(CV_STEP_S)
+        res["tenants"] = cards_serve_tenants(devices, card)
+        _cd_arm(CV_STEP_S)
+        res["matview"] = cards_serve_matviews(devices, card)
+        _cd_arm(CV_STEP_S)
+        res["fleet"] = cards_fleet(card)
+        paths = [res["tenants"]] + [res["matview"][m] for m in MV_MODES]
+        res["launches"] = sum(p["launches"] for p in paths)
+        res["launches_by_card"] = dict(sum((collections.Counter(p["launches_by_card"]) for p in paths),
+                                           collections.Counter()))
+        if CV_DEVICE == "cuda":
+            check(len(res["launches_by_card"]) == CV_CARDS,
+                  f"cards_serve: bucket launches by card {res['launches_by_card']}")
+            _cd_arm(CV_STEP_S)
+            cards = [torch.device("cuda", i) for i in range(CV_CARDS)]
+            shapes = sorted(set(res["tenants"].pop("shapes")) | set(res["matview"].pop("shapes")))
+            reports = [kernel_on_cards(sh, cards, SEED + 31 + i) for i, sh in enumerate(shapes)]
+            for r in reports:
+                log(f"cards_serve [{card}]: bucket_sum_count at {r['shape']}: byte-equal to the plain "
+                    f"version on {CV_CARDS} cards; on card 0 kernel {r['kernel_ms']:.3f} ms, plain "
+                    f"{r['plain_ms']:.3f} ms, {r['library']} {r['library_ms']:.3f} ms, bound "
+                    f"{r['bound_ms']:.4f} ms")
+            res["kernel_shapes"] = reports
+            tenant = max((r for r, sh in zip(reports, shapes) if sh[2] == SV_WORDS and len(sh[3]) == 1),
+                         key=lambda r: r["bound_ms"], default=reports[0])
+            res["kernel"] = dict(tenant, cards=[{"device": str(d), "max_abs_err": e}
+                                                for d, e in zip(cards, tenant["max_abs_err_by_card"])])
+        else:
+            res["tenants"].pop("shapes")
+            res["matview"].pop("shapes")
+    finally:
+        _cd_disarm()
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"cards_serve [{card}]: bucket_sum_count {res['launches']} launches on the main path, by card "
+        f"{res['launches_by_card']} (the fleet's replicas {res['fleet']['launches']} more); phase "
+        f"{res['phase_s']:.1f} s")
     return res
 
 
@@ -7485,6 +8124,7 @@ def main(argv=None) -> int:
         ("gang_cards", lambda: phase_gang_cards(dev, card)),
         ("cards", lambda: phase_cards(dev, card)),
         ("cards_stream", lambda: phase_cards_stream(dev, card)),
+        ("cards_serve", lambda: phase_cards_serve(dev, card)),
     )
     _PG["ran"] = ran = []
     for name, run in steps:
@@ -7497,7 +8137,8 @@ def main(argv=None) -> int:
     print("results: " + json.dumps(results))
 
     kern = results.get("kernel", {})
-    ck = results.get("cards", {}).get("kernel", {}) or results.get("cards_stream", {}).get("kernel", {})
+    ck = (results.get("cards", {}).get("kernel", {}) or results.get("cards_stream", {}).get("kernel", {})
+          or results.get("cards_serve", {}).get("kernel", {}))
     if not kern and ck:  # a cards phase alone: its shape's numbers
         kern = {k: ck[k] for k in ("kernel_ms", "plain_ms", "bound_ms", "library_ms")}
         kern["max_abs_err"] = max(c["max_abs_err"] for c in ck["cards"])
@@ -7521,6 +8162,8 @@ def main(argv=None) -> int:
         "cards1": results.get("cards1", {}).get("launches"),
         "cards": results.get("cards", {}).get("launches"),
         "cards_stream": results.get("cards_stream", {}).get("launches"),
+        "cards_serve": results.get("cards_serve", {}).get("launches"),
+        "cards_serve_fleet": results.get("cards_serve", {}).get("fleet", {}).get("launches"),
         "rewrite": results.get("rewrite", {}).get("launches"),
         "fleet": results.get("fleet", {}).get("launches"),
         "obs": results.get("obs", {}).get("launches"),
@@ -7576,6 +8219,9 @@ def main(argv=None) -> int:
             c["max_abs_err"] for c in
             results.get("cards_stream", {}).get("kernel", {}).get("cards", [])] or None,
         "cards_stream_launches_by_card": results.get("cards_stream", {}).get("launches_by_card"),
+        "cards_serve_shapes": results.get("cards_serve", {}).get("kernel_shapes"),
+        "cards_serve_launches_by_card": results.get("cards_serve", {}).get("launches_by_card"),
+        "cards1_serve_shapes": results.get("cards1", {}).get("serve", {}).get("kernel_shapes"),
         "hybrid_shapes": [results["hybrid"]["wordcount"]["kernel_shape"]] if "hybrid" in results else None,
         "rewrite_shapes": results.get("rewrite", {}).get("kernel_shapes"),
         "fleet_shapes": results.get("fleet", {}).get("kernel_shapes"),

@@ -280,13 +280,6 @@ class DryadContext:
         """The devices the context's partitions lie on, in rank order."""
         return list(self._ranks.devices) if self._ranks is not None else [self.device]
 
-    def _refuse_cards(self, what: str, item: int) -> None:
-        """A surface the context over several cards does not run."""
-        if self._ranks is not None:
-            raise NotImplementedError(
-                f"{what} on a context over several cards is not ported: ROADMAP queue 1 "
-                f"item {item}")
-
     def rebuild_mesh(self, exclude_device_ids) -> None:
         """Elastic recovery (the reference's ``rebuild_mesh``): shrink the
         mesh past failed devices and rebuild the executors.  The ids are
@@ -494,9 +487,8 @@ class DryadContext:
                     if a.size:
                         stats[name] = (min(lo, int(a.min())), max(hi, int(a.max())))
                 node.params["col_stats"] = stats
+            self._forget(node.id)
             self._bindings[node.id] = ("host", merged, cap)
-            self._binding_fp_cache.pop(node.id, None)
-            self._device_cache.pop(node.id, None)
         return old_fp
 
     def _tokenize_buf(self, buf: bytes):
@@ -696,15 +688,34 @@ class DryadContext:
                 f"{query.node.kind!r} node bound as "
                 f"{binding[0] if binding else None!r}"
             )
+        self._forget(query.node.id)
+
+    def _forget(self, node_id: int, programs: bool = True) -> None:
+        """Forget a table: the node's binding, its fingerprint and its
+        device copy, in the driver's cache and in every rank's (each rank
+        of a context over several cards ingests its own blocks into its
+        own cache), with the stage programs whose buffers hold a copy of
+        it or of a pinned table (a CUDA graph's inputs).  ``programs``
+        False keeps the programs, for a table whose successor has its
+        shape (a stream's next chunk, a view's next finalize): it replays
+        into the same buffers.  Under the job lock, so no job binds or
+        reads the table meanwhile."""
         with self._job_lock:
-            del self._bindings[query.node.id]
-            self._device_cache.pop(query.node.id, None)
-            self._binding_fp_cache.pop(query.node.id, None)
-            if isinstance(binding[1], RankBatches):
-                for rc, part in zip(self._ranks.contexts, binding[1].parts):
-                    rc.executor.programs.drop_holding(part)
-            else:
-                self.executor.programs.drop_holding(binding[1])
+            binding = self._bindings.pop(node_id, None)
+            self._binding_fp_cache.pop(node_id, None)
+            pinned = binding[1] if binding is not None and binding[0] == "device" else None
+            ranks = [self]
+            if self._ranks is not None:  # each rank bound its own blocks
+                self._device_cache.pop(node_id, None)
+                ranks = self._ranks.contexts
+            for r, rc in enumerate(ranks):
+                hit = rc._device_cache.pop(node_id, None)
+                if not programs:
+                    continue
+                part = pinned.parts[r] if isinstance(pinned, RankBatches) else pinned
+                for batch in (hit[1] if hit is not None else None, part):
+                    if batch is not None:
+                        rc.executor.programs.drop_holding(batch)
 
     # -- execution -------------------------------------------------------------
     def _bound(self, node: Node) -> tuple:

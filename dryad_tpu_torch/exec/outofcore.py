@@ -567,18 +567,13 @@ class StreamExecutor:
         (their host arrays and cached device tables): the job has run,
         and the next chunk rebinds the node if it needs it."""
         ctx = self.ctx
-        # over several cards each rank ingested its own blocks into its
-        # own cache; no rank job runs while the lock is held
-        caches = [ctx._device_cache] + (
-            [rc._device_cache for rc in ctx._ranks.contexts]
-            if getattr(ctx, "_ranks", None) is not None else [])
         with ctx._job_lock:  # another thread's job may be evicting the cache
             for n in walk([r.node if hasattr(r, "node") else r for r in roots]):
                 if n.kind == "input" and n.id in self._owned:
                     self._owned.discard(n.id)
-                    ctx._bindings.pop(n.id, None)
-                    for cache in caches:
-                        cache.pop(n.id, None)
+                    # every card's copy; the next chunk's job replays
+                    # into the programs' buffers
+                    ctx._forget(n.id, programs=False)
 
     def _device(self, query):
         """Run a driver-built query; its result batch stays on the

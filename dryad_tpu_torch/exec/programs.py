@@ -59,6 +59,10 @@ ends, the least recently used programs of the card are released until
 the bytes fit, except those
 a job used while it is still running (a job never captures its own
 units twice); an idle executor's programs are released like any other.
+The programs holding a copy of a table the context forgets (a released
+pin, an append's old rows: ``DryadContext._forget``) are released with
+it, on every card; those of a stream chunk or a view finalize's state
+table stay, as the next one of its shape replays them.
 A released key captures again on its next dispatch and logs
 ``xla_compile`` again, the one place where the port logs compiles the
 reference does not, at sizes no CPU test reaches.  An allocation

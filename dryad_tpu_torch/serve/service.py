@@ -29,6 +29,14 @@ there:
   and an append's rows upload at the next bind, all on the device's
   default stream, which every host thread shares, so each copy is
   ordered after the kernels that produced it.
+- over several cards (``DryadContext(devices=...)``) the driver's job
+  runs on every rank thread at once, and each rank copies its part of a
+  result on its own thread and stream (``RankBatches.fetch_valid_rows``),
+  so a fetch of query k and the job of query k+1 may queue in either
+  order on different ranks: a fetch holds no collective, so neither
+  waits on the other, and the window still commits in submit order.  A
+  rank that fails resolves its query's future with the
+  ``GangStageError`` naming it; the next job runs on a new group.
 
 Fair share is classic weighted deficit round robin: each visit to a
 tenant with queued work earns ``weight`` quantum units, a query costs
@@ -234,8 +242,6 @@ class QueryService:
     """Long-lived multiplexing front end over one DryadContext."""
 
     def __init__(self, ctx, start: bool = True):
-        if getattr(ctx, "_ranks", None) is not None:
-            ctx._refuse_cards("serving (QueryService, and the fleet's replicas)", 17)
         self.ctx = ctx
         self.config = ctx.config
         self.events = ctx.events

@@ -24,6 +24,12 @@ finalize dispatch; ``max_staleness_s > 0`` lets reads reuse a
 snapshot that is at most that old even when newer deltas exist
 (bounded staleness); ``max_staleness_s == 0`` means reads always see
 the latest folded delta (one finalize dispatch per write round).
+
+Over several cards (``DryadContext(devices=...)``) the folds stay on
+the host and the finalize plan's state table is ingested by every rank
+in its own blocks: the plan's commit or failure forgets the table on
+every card (``DryadContext._forget``), and keeps the stage programs
+that ran it, which the next finalize replays.
 """
 
 from __future__ import annotations
@@ -366,10 +372,10 @@ class MaterializedView:
         if query is not None:
             version, node_id = self._pending.pop(query.node.id, (version, None))
         if node_id is not None and ctx is not None:
-            with ctx._job_lock:  # the device cache changes under it
-                ctx._bindings.pop(node_id, None)
-                ctx._binding_fp_cache.pop(node_id, None)
-                ctx._device_cache.pop(node_id, None)
+            # from every card's cache; the programs stay: the next
+            # finalize's state table has the same shape and replays into
+            # their buffers
+            ctx._forget(node_id, programs=False)
         return version
 
     def stats(self) -> Dict:
@@ -432,8 +438,6 @@ class ViewRegistry:
     normal recompute path, which is correct, just not incremental."""
 
     def __init__(self, ctx, events=None):
-        if getattr(ctx, "_ranks", None) is not None:
-            ctx._refuse_cards("materialized views", 17)
         self.ctx = ctx
         self.events = events
         self._views: Dict[Tuple[str, int], MaterializedView] = {}

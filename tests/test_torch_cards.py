@@ -388,21 +388,7 @@ def test_point_to_point_coalesces_on_a_backend_made_in_the_process():
 
 # -- what the context refuses, and what it never does -------------------------------------
 
-def _serve(c):
-    from dryad_tpu_torch.serve.service import QueryService
-
-    QueryService(c, start=False)
-
-
-def _views(c):
-    from dryad_tpu_torch.views.matview import ViewRegistry
-
-    ViewRegistry(c)
-
-
 REFUSED = {
-    "serving": (lambda: _serve(cards(2)), "item 17"),
-    "views": (lambda: _views(cards(2)), "item 17"),
     "hybrid": (lambda: T.DryadContext(num_partitions_=P, devices=["cpu"] * 2, dcn_slices=2),
                "item 18"),
 }
