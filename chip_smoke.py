@@ -64,7 +64,8 @@ TeraSort of 2^22 rows equal to one rank, a combine-tree group_by and an
 external sort of 2^22 rows each through ``from_stream`` in 2^20-row
 chunks equal to one rank, one tenant of 2^20 rows served to 8 clients
 through ``QueryService`` and a view read, appended to and read again,
-each equal to one rank, then ``rebuild_mesh([1])``), the runtime plan rewriter at the default config (a
+each equal to one rank, a tree group_by of 2^20 rows on two rank threads as two DCN slices
+(``dcn_slices=2``) equal to the one-card hybrid, then ``rebuild_mesh([1])``), the runtime plan rewriter at the default config (a
 2^26-row drift sort and a skewed Grace join whose hot buckets split
 mid-stream, a thrashing streaming combine pinned to the host and the
 next stream flipped to the combine tree, an overflowing group_by
@@ -131,7 +132,19 @@ clients, the result cache off and on) and its matview bench's three
 modes at 2^24 rows, each beside one card at P = 16, then the fleet (two
 replica processes, each a context over two cards, 16 client processes,
 a replica killed with queries in flight), and the bucket kernel against
-its plain version on every card at each serve shape.  The WordCount, TeraSort, sort-path group_by, join,
+its plain version on every card at each serve shape.  ``cards_hybrid``
+(only when named, four cards: ``--phases env,cards_hybrid``) runs the
+hybrid mesh over the four cards (``DryadContext(devices=4,
+num_partitions_=16, dcn_slices=2)``: two DCN slices of two cards, each
+rank with an ICI and a DCN sub-group) beside the flat four cards and
+the one-card hybrid at P = 16: WordCount of 2^26 words, the tree
+exchange's group_by of 2^26 rows (hybrid and flat warm in turns),
+TeraSort of 2^28 rows at windows 0, 1, 2 flat and 2 hybrid, the
+reference's hybrid bench's stream (combine tree on and off at three
+key skews), then ``rebuild_mesh([1])`` and the group_by again on 2 x 1
+cards at P = 8; each held to the one-card hybrid, and the bucket
+kernel against its plain version on each card at each of the path's
+shapes.  The WordCount, TeraSort, sort-path group_by, join,
 PageRank, decomposable and ordered phases also profile one warm query
 with torch.profiler and print device time by op, the device's busy
 share of the warm query, and peak memory.
@@ -6922,9 +6935,9 @@ def phase_cards1(dev, card: str) -> dict:
     rank threads on card 0 (``devices=["cuda:0", "cuda:0"]``, gloo: two
     ranks on one card), P = 8: WordCount of 2^22 words and TeraSort of
     2^22 rows, each equal to one rank at P = 8 (rows, placement, retries),
-    then its stream look (``cards1_stream``) and its serve look
-    (``cards1_serve``), and ``rebuild_mesh([1])`` and TeraSort again on
-    one rank."""
+    then its stream look (``cards1_stream``), its serve look
+    (``cards1_serve``) and its hybrid look (``cards1_hybrid``), and
+    ``rebuild_mesh([1])`` and TeraSort again on one rank."""
     from dryad_tpu_torch import DryadContext
     from dryad_tpu_torch.ops.bucket import bucket_sum_count
 
@@ -6957,6 +6970,7 @@ def phase_cards1(dev, card: str) -> dict:
     res["launches"] += res["stream"]["launches"]
     res["serve"] = cards1_serve(ctx, dev, card)
     res["launches"] += res["serve"]["launches"]
+    res["hybrid"] = cards1_hybrid(dev, card)
     ctx.rebuild_mesh([1])
     check(ctx.mesh.world == 1 and ctx.num_partitions == CD1_P // CD1_RANKS,
           f"cards1: rebuild_mesh left world {ctx.mesh.world}, P {ctx.num_partitions}")
@@ -7666,6 +7680,397 @@ def phase_cards_stream(dev, card: str) -> dict:
     return res
 
 
+# -- cards_hybrid: the hybrid mesh over four cards ---------------------------------
+
+CH_CARDS = 4  # a rank thread a card, one NCCL group (only when named)
+CH_DCN = 2  # DCN slices of two whole cards each
+CH_P = 16
+CH_DEVICE = "cuda"  # where its ranks run ("cpu" rehearses it)
+CH_BACKEND = "nccl"
+CH_STEP_S = 300  # the watchdog's bound on one workload
+CH_TS_WINDOWS = (0, 1, 2)  # TeraSort's exchange windows on the flat cards ...
+CH_TS_HYBRID_WINDOW = 2  # ... and on the hybrid cards
+CH_AGG_CHUNKS = 8  # the reference's hybrid bench (bench.py aggtree_metric): 2^16 rows ...
+CH_AGG_CHUNK = 1 << 13  # ... in chunks of 2^13, stream_combine_rows the chunk's rows
+CH_AGG_SKEWS = ("dense", "zipf", "uniform")
+CH_EXCLUDE = [1]  # rebuild_mesh sheds card 1: slice 0 keeps card 0, slice 1 shrinks to card 2
+CD1_HY_ROWS = 1 << 20  # cards1's hybrid look: the tree group_by's rows ...
+CD1_HY_KEYS = 1 << 16  # ... over this many int32 keys, negatives included
+
+
+def _ch_rounds(ctx, mark: int) -> list:
+    """The exchange_round events since ``mark``, each with the fields the
+    reference fills (qid and clocks aside), stage ids numbered from 0."""
+    ids = {}
+    return [{"stage": ids.setdefault(e["stage"], len(ids)),
+             **{f: e[f] for f in ("name", "round", "window", "bytes", "ici_bytes", "dcn_bytes")}}
+            for e in _exchange_rounds(ctx, mark)]
+
+
+def aggtree_chunks(skew: str) -> list:
+    """The reference's hybrid bench's stream (bench.py's aggtree child):
+    CH_AGG_CHUNKS chunks of CH_AGG_CHUNK rows of int64 keys at its
+    ``skew`` and int64 values, from its seed."""
+    rng = np.random.default_rng(3)
+    n = CH_AGG_CHUNK
+    out = []
+    for _ in range(CH_AGG_CHUNKS):
+        if skew == "uniform":  # high cardinality, nearly all distinct
+            k = rng.integers(0, 50 * n, n)
+        elif skew == "zipf":  # heavy hitters and a high-cardinality tail
+            k = np.concatenate([rng.integers(0, 64, n // 2), rng.integers(64, 20 * n, n - n // 2)])
+            rng.shuffle(k)
+        else:  # dense: every range collapses on the device
+            k = rng.integers(0, 4096, n)
+        out.append({"k": k.astype(np.int64), "v": rng.integers(-1000, 1000, n).astype(np.int64)})
+    return out
+
+
+def _ch_measure(ctx, fn):
+    """``fn()`` with each card's NVML idle share and peak (allocated plus
+    graph pool) over it: (result, wall s, idle by card, peak by card)."""
+    for d in ctx.devices:
+        if d.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(d)
+    ids = sorted({d.index for d in ctx.devices if d.type == "cuda"}) or [0]
+    with CardsBusy(ids) as busy:
+        out = fn()
+    return out, busy.wall_s, getattr(busy, "idle", {}), _cd_peaks(ctx)
+
+
+def phase_cards_hybrid(dev, card: str) -> dict:
+    """The hybrid mesh over four cards (``DryadContext(devices=4,
+    num_partitions_=16, dcn_slices=2)``): two DCN slices of two cards, a
+    rank thread a card, one NCCL group with each rank's ICI sub-group
+    (its slice's cards) and DCN sub-group (the cards at its position),
+    stage programs as graphs.  Beside it the flat context over the four
+    cards at P = 16 and the one-card hybrid ``DryadContext(dcn_slices=2,
+    num_partitions_=16)``, neither of them the main path.
+
+    (a) WordCount of the wordcount phase's 2^26 Zipf(1.1) words: the table
+    byte-equal to the one-card hybrid's (rows a partition too), the
+    bucket kernel's launches by card; after the phase the kernel held
+    against its plain version on each card at each of the main path's
+    shapes (``kernel_on_cards``).  (b) The sort-path group_by of 2^26
+    rows over 2^22 keys, negatives included (the tree exchange: the ICI
+    hop over a slice's cards, the per-slice reduce, the DCN hop over the
+    cards at one position): integers and placement byte-equal to the
+    one-card hybrid's, float sums within n_g * 2^-23 * sum_g |v| of the
+    oracle, rank 0's exchange_round events equal to the one-card
+    hybrid's; warm seconds hybrid against the flat cards in turns
+    (hybrid, flat, flat, hybrid), each card's bytes sent.  (c) TeraSort
+    of 2^28 rows on the flat cards at windows 0, 1 and 2 and on the
+    hybrid cards at window 2: rows byte-equal to window 0, warm seconds,
+    each card's peak.  (d) The reference's hybrid bench (bench.py
+    aggtree_metric: 8 chunks of 2^13 rows at three key skews) through
+    from_stream, combine tree on and off: results equal to the one-card
+    hybrid's, the stream_combine DCN bytes the tree saves.  (e)
+    ``rebuild_mesh([1])``: 2 x 1 cards at P = 8, then (b) again, equal to
+    the one-card hybrid at P = 8.  Each card's NVML idle and peak over
+    (b) and (c).  Fails on fewer than 4 cards."""
+    import shutil
+
+    from dryad_tpu_torch import DryadConfig, DryadContext
+
+    t_phase = time.perf_counter()
+    ncards = torch.cuda.device_count()
+    check(ncards >= CH_CARDS, f"cards_hybrid needs {CH_CARDS} cards, a rank thread each; "
+          f"this host has {ncards}")
+    root = os.path.join(WORK_DIR, "cards_hybrid")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    devices = CH_CARDS if CH_DEVICE == "cuda" else [CH_DEVICE] * CH_CARDS
+    on_one = {} if CH_DEVICE == "cuda" else {"device": CH_DEVICE}
+    res = {"card": card, "cards": CH_CARDS, "P": CH_P, "dcn_slices": CH_DCN}
+
+    def cfg(**kw):
+        return DryadConfig(device_cache_bytes=JOIN_CACHE_BYTES, obs_events_mem_cap=0, **kw)
+
+    def one_hybrid(P_=CH_P, **kw):
+        return DryadContext(num_partitions_=P_, dcn_slices=CH_DCN, config=cfg(**kw), **on_one)
+
+    def twin(fn):
+        """A one-card or flat twin's run: not the main path's launches."""
+        with _OffMainPath():
+            return fn()
+
+    _cd_arm(CH_STEP_S)
+    t0 = time.perf_counter()
+    wc_path, wc_oracle = _cd_wordcount_text(root)
+    gb, gb_oracle = groupby_inputs()
+    ts = _gc_ts_table()
+    ts_oracle = {}
+    sorter = threading.Thread(target=lambda: ts_oracle.update(v=terasort_oracle(ts["key"], ts["payload"])))
+    sorter.start()  # the numpy oracle sorts while the cards work
+    res["setup_s"] = time.perf_counter() - t0
+    h = DryadContext(num_partitions_=CH_P, devices=devices, dcn_slices=CH_DCN, config=cfg())
+    C = CH_CARDS // CH_DCN
+    meshes = h._ranks.meshes
+    check(h._ranks.backend == CH_BACKEND and h.mesh.hybrid
+          and (h.mesh.dcn, h.mesh.ici) == (CH_DCN, CH_P // CH_DCN),
+          f"cards_hybrid: backend {h._ranks.backend}, mesh {h.mesh}")
+    check([(m.slice_index, m.position) for m in meshes] == [divmod(r, C) for r in range(CH_CARDS)]
+          and all(m.ici_group is not None and m.dcn_group is not None for m in meshes),
+          "cards_hybrid: a rank's slice, position or sub-groups are not the layout's")
+    f = DryadContext(num_partitions_=CH_P, devices=devices, config=cfg())
+    log(f"cards_hybrid: {CH_DCN} slices x {C} cards at P={CH_P} (backend {h._ranks.backend}, "
+        f"{len(h._ranks.groups)} communicators), the flat cards beside; set-up {res['setup_s']:.1f} s")
+
+    with _MainPath() as main:
+        # (a) WordCount
+        _cd_arm(CH_STEP_S)
+        q = h.from_text(wc_path).group_by("word", {"n": ("count", None)})
+        many = _cd_result(h, q)
+        warm = _cd_warm(h, q)
+        oc = one_hybrid()
+        one = twin(lambda: _cd_result(oc, oc.from_text(wc_path).group_by("word", {"n": ("count", None)})))
+        del oc
+        _cd_same("cards_hybrid wordcount", one, many)
+        got = dict(zip(many[0]["word"].tolist(), many[0]["n"].tolist()))
+        check(got == wc_oracle, "cards_hybrid wordcount: counts differ from the numpy oracle")
+        res["wordcount"] = {"words": WC_WORDS, **warm}
+        log(f"cards_hybrid wordcount: {WC_WORDS} words, table and rows a partition byte-equal to the "
+            f"one-card hybrid's; warm median {warm['warm_med_s']:.4f} s")
+        del q, many, one
+
+        # (b) the tree exchange's group_by, hybrid against flat in turns
+        _cd_arm(CH_STEP_S)
+        qs = {"hybrid": h.from_arrays(gb).group_by("key", GB_AGGS),
+              "flat": f.from_arrays(gb).group_by("key", GB_AGGS)}
+        ctxs = {"hybrid": h, "flat": f}
+        mark = len(h.events.events())
+        many = _cd_result(h, qs["hybrid"])
+        rounds = _ch_rounds(h, mark)
+        twin(lambda: qs["flat"].collect())  # cold
+        times, sent = {"hybrid": [], "flat": []}, {}
+
+        def turns():
+            for k in ("hybrid", "flat", "flat", "hybrid"):
+                c = ctxs[k]
+                before = [rc.mesh.sent_bytes for rc in c._ranks.contexts]
+                t0 = time.perf_counter()
+                out = q_run(k)
+                times[k].append(time.perf_counter() - t0)
+                sent[k] = [rc.mesh.sent_bytes - b for rc, b in zip(c._ranks.contexts, before)]
+                check(digest(out) == digest(many[0]) if k == "hybrid" else True,
+                      "cards_hybrid group_by: a warm rerun differs")
+                del out
+
+        def q_run(k):
+            return qs[k].collect() if k == "hybrid" else twin(lambda: qs[k].collect())
+
+        _none, wall, idle, peaks = _ch_measure(h, turns)
+        oc = one_hybrid()
+        mark1 = len(oc.events.events())
+        one = twin(lambda: _cd_result(oc, oc.from_arrays(gb).group_by("key", GB_AGGS)))
+        one_rounds = _ch_rounds(oc, mark1)
+        del oc
+        _cd_same("cards_hybrid group_by", one, many, floats=("sv", "mv"))
+        err = check_groupby(many[0], gb_oracle, "cards_hybrid group_by")
+        check(rounds == one_rounds and any(r["dcn_bytes"] for r in rounds),
+              f"cards_hybrid group_by: exchange_round events {rounds} against the one-card "
+              f"hybrid's {one_rounds}")
+        res["groupby"] = {
+            "rows": GB_ROWS, "keys": GB_KEYS, "hybrid_warm_s": times["hybrid"],
+            "flat_warm_s": times["flat"], "hybrid_over_flat": float(np.median(times["flat"]))
+            / float(np.median(times["hybrid"])), "sent_bytes_by_card": sent, "rounds": rounds,
+            "floats_byte_equal": many[0]["sv"].tobytes() == one[0]["sv"].tobytes(),
+            "max_rel_err_sum": err, "idle_by_card": idle, "peak_by_card": peaks, "wall_s": wall}
+        log(f"cards_hybrid group_by: {GB_ROWS} rows through the tree exchange, integers and rows a "
+            f"partition byte-equal to the one-card hybrid's, floats "
+            f"{'byte-equal' if res['groupby']['floats_byte_equal'] else 'within the bound'} "
+            f"(max |err|/sum|v| {err:.3g}), exchange_round events equal to its; warm hybrid "
+            f"{times['hybrid']} s, flat {times['flat']} s (flat / hybrid "
+            f"{res['groupby']['hybrid_over_flat']:.3f}); bytes sent by card {sent}; idle by card "
+            f"{idle}; peak by card {[round(p / 1e9, 3) for p in peaks]} GB")
+        del qs, many, one
+
+        # (c) TeraSort: the flat cards at windows 0, 1, 2; the hybrid cards at 2
+        res["terasort"] = {}
+        base = None
+        for label, c, w in ([(f"flat window {w}", f, w) for w in CH_TS_WINDOWS]
+                            + [(f"hybrid window {CH_TS_HYBRID_WINDOW}", h, CH_TS_HYBRID_WINDOW)]):
+            _cd_arm(CH_STEP_S)
+            c.config.exchange_window = w
+            q = c.from_arrays(ts).order_by([("key", False)])
+            run = (lambda q=q: q.collect()) if c is h else (lambda q=q: twin(q.collect))
+            run()  # ingest and the first run at this window
+            mark = len(c.events.events())
+            t0 = time.perf_counter()
+            out, wall, idle, peaks = _ch_measure(c, run)
+            secs = time.perf_counter() - t0
+            rb = _round_bytes(_exchange_rounds(c, mark))
+            check(overflow_retries(c) == 0, f"cards_hybrid TeraSort {label} retried an overflow")
+            check(rb["windows"] == [w], f"cards_hybrid TeraSort {label}: events at windows "
+                  f"{rb['windows']}")
+            if base is None:
+                sorter.join()
+                check_terasort(out, ts["key"], ts["payload"], "cards_hybrid terasort",
+                               oracle=ts_oracle["v"])
+                base = out
+            else:
+                check(_same_rows(out, base), f"cards_hybrid TeraSort {label} differs from window 0's rows")
+            res["terasort"][label] = {"warm_s": secs, "idle_by_card": idle, "peak_by_card": peaks,
+                                      **rb}
+            log(f"cards_hybrid terasort {label}: {GC_TS_ROWS} rows byte-equal to window 0, warm "
+                f"{secs:.4f} s; peak by card {[round(p / 1e9, 3) for p in peaks]} GB; idle by card "
+                f"{idle}; exchange_round {rb}")
+            del out, q
+        h.config.exchange_window = f.config.exchange_window = 0
+        del base, f
+        _cs_free([torch.device("cuda", i) for i in range(CH_CARDS)] if CH_DEVICE == "cuda" else [])
+
+        # (d) the reference's hybrid bench's stream, combine tree on and off,
+        # as it runs it: a new context a skew and setting, a warm run, then
+        # the timed one
+        res["aggtree"] = {}
+        aggs = {"c": ("count", None), "s": ("sum", "v")}
+        for skew in CH_AGG_SKEWS:
+            _cd_arm(CH_STEP_S)
+            entry = {}
+            chunks = aggtree_chunks(skew)
+            for tree in (True, False):
+                got = []
+                for on_cards in (True, False):
+                    kw = dict(combine_tree=tree, stream_combine_rows=CH_AGG_CHUNK)
+                    c = (DryadContext(num_partitions_=CH_P, devices=devices, dcn_slices=CH_DCN,
+                                      config=DryadConfig(**kw)) if on_cards else one_hybrid(**kw))
+
+                    def once(c=c):
+                        return c.from_stream(iter([dict(x) for x in chunks])).group_by(
+                            "k", aggs).collect()
+
+                    run = once if on_cards else (lambda once=once: twin(once))
+                    run()  # warm: every shape's first run
+                    mark = len(c.events.events())
+                    t0 = time.perf_counter()
+                    out = _sorted_by(run(), "k")
+                    secs = time.perf_counter() - t0
+                    comb = [(e["kind"], e.get("level"), int(e.get("ici_bytes", 0) or 0),
+                             int(e.get("dcn_bytes", 0) or 0)) for e in c.events.events()[mark:]
+                            if e["kind"] in ("stream_combine", "combine_tree_level")]
+                    got.append((out, comb, secs))
+                    del c
+                (out, comb, secs), (o1, comb1, secs1) = got
+                _byte_equal(out, o1, f"cards_hybrid aggtree {skew} tree={tree}")
+                check(comb == comb1 and comb, f"cards_hybrid aggtree {skew} tree={tree}: combine "
+                      f"events {comb} differ from the one-card hybrid's {comb1}")
+                entry["tree" if tree else "flat"] = {
+                    "seconds": secs, "rows_per_sec": CH_AGG_CHUNKS * CH_AGG_CHUNK / secs,
+                    "one_card_rows_per_sec": CH_AGG_CHUNKS * CH_AGG_CHUNK / secs1,
+                    "out_rows": len(out["k"]), "combines": len(comb),
+                    "ici_bytes": sum(x[2] for x in comb), "dcn_bytes": sum(x[3] for x in comb)}
+                del out, o1
+            entry["dcn_bytes_saved"] = entry["flat"]["dcn_bytes"] - entry["tree"]["dcn_bytes"]
+            check(entry["tree"]["out_rows"] == entry["flat"]["out_rows"],
+                  f"cards_hybrid aggtree {skew}: tree and flat rows differ")
+            res["aggtree"][skew] = entry
+            log(f"cards_hybrid aggtree {skew}: results and combine events equal to the one-card "
+                f"hybrid's; tree on {entry['tree']['rows_per_sec']:.4g} rows/s "
+                f"({entry['tree']['combines']} combines, dcn {entry['tree']['dcn_bytes']} B) against "
+                f"off {entry['flat']['rows_per_sec']:.4g} rows/s (dcn {entry['flat']['dcn_bytes']} B): "
+                f"{entry['dcn_bytes_saved']} DCN bytes saved")
+
+        # (e) rebuild_mesh([1]): 2 x 1 cards at P = 8, then (b) again
+        _cd_arm(CH_STEP_S)
+        t0 = time.perf_counter()
+        h.rebuild_mesh(CH_EXCLUDE)
+        res["rebuild_s"] = time.perf_counter() - t0
+        want = ([torch.device("cuda", 0), torch.device("cuda", 2)] if CH_DEVICE == "cuda"
+                else [torch.device(CH_DEVICE)] * 2)
+        check(h.devices == want and (h.mesh.dcn, h.mesh.ici, h.num_partitions) == (CH_DCN, 4, 8),
+              f"cards_hybrid: rebuild_mesh left {h.devices}, {h.mesh}")
+        mark = len(h.events.events())
+        many = _cd_result(h, h.from_arrays(gb).group_by("key", GB_AGGS))
+        rounds = _ch_rounds(h, mark)
+        warm = _cd_warm(h, h.from_arrays(gb).group_by("key", GB_AGGS), reps=1)
+        # read before the one-card twin captures on card 0: its capture may
+        # evict rank 0's idle programs under the card's budget
+        progs = [rc.executor.programs for rc in h._ranks.contexts]
+        graphs = [sum(p.graph is not None for p in pc._progs.values()) for pc in progs]
+        if CH_DEVICE == "cuda":
+            check(all(pc.graphs for pc in progs) and min(graphs) >= 1,
+                  f"cards_hybrid: stage programs by card {graphs} graphs (graphs on "
+                  f"{[pc.graphs for pc in progs]}, evictions {[pc.evictions for pc in progs]})")
+        res["graphs_by_card"] = graphs
+        del progs
+        oc = one_hybrid(8)
+        mark1 = len(oc.events.events())
+        one = twin(lambda: _cd_result(oc, oc.from_arrays(gb).group_by("key", GB_AGGS)))
+        one_rounds = _ch_rounds(oc, mark1)
+        del oc
+        _cd_same("cards_hybrid rebuilt group_by", one, many, floats=("sv", "mv"))
+        check_groupby(many[0], gb_oracle, "cards_hybrid rebuilt group_by")
+        check(rounds == one_rounds and rounds, "cards_hybrid rebuilt group_by: exchange_round "
+              "events differ from the one-card hybrid's at P=8")
+        res["rebuilt"] = {"devices": [str(d) for d in h.devices], "P": h.num_partitions, **warm}
+        log(f"cards_hybrid: rebuild_mesh({CH_EXCLUDE}) in {res['rebuild_s']:.2f} s: "
+            f"{[str(d) for d in h.devices]}, 2 x 1 at P=8; the group_by equal to the one-card hybrid "
+            f"at P=8, warm {warm['warm_med_s']:.4f} s")
+        del many, one, h
+    res["launches"], res["launches_by_card"] = main.launches, main.by_card
+    res["kernel_shapes"] = {f"P={k[0]} cap={k[1]} K={k[2]} values={','.join(k[3]) or '-'}": sorted(v)
+                            for k, v in main.shapes.items()}
+    if CH_DEVICE == "cuda":
+        check(sorted(main.by_card) == list(range(CH_CARDS))
+              and len(set(main.by_card.values())) == 1,
+              f"cards_hybrid: bucket launches by card {main.by_card}, not equal on the {CH_CARDS} cards")
+        _cd_arm(CH_STEP_S)
+        cards = [torch.device("cuda", i) for i in range(CH_CARDS)]
+        shapes = sorted(main.shapes)
+        reports = [kernel_on_cards(sh, cards, SEED + 53 + i) for i, sh in enumerate(shapes)]
+        for r in reports:
+            log(f"cards_hybrid [{card}]: bucket_sum_count at {r['shape']}: byte-equal to the plain "
+                f"version on {CH_CARDS} cards; on card 0 kernel {r['kernel_ms']:.3f} ms, plain "
+                f"{r['plain_ms']:.3f} ms, {r['library']} {r['library_ms']:.3f} ms, bound "
+                f"{r['bound_ms']:.4f} ms")
+        res["kernel_shapes"] = reports
+        wc = max((r for r, sh in zip(reports, shapes) if not sh[3]),
+                 key=lambda r: r["bound_ms"], default=reports[0])
+        res["kernel"] = dict(wc, cards=[{"device": str(d), "max_abs_err": e}
+                                        for d, e in zip(cards, wc["max_abs_err_by_card"])])
+    _cd_disarm()
+    shutil.rmtree(root, ignore_errors=True)
+    free_card()
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"cards_hybrid [{card}]: bucket_sum_count {main.launches} launches on the main path, by card "
+        f"{main.by_card}, at {res['kernel_shapes']}; phase {res['phase_s']:.1f} s")
+    return res
+
+
+def cards1_hybrid(dev, card: str) -> dict:
+    """The hybrid look of ``cards1``: two rank threads on card 0 (gloo),
+    ``dcn_slices=2`` (a slice a rank: the ICI hop stays on each rank, the
+    DCN hop crosses), P = 8: a tree group_by of CD1_HY_ROWS rows, rows a
+    partition, integers and exchange_round events equal to the one-card
+    hybrid's at P = 8, floats within the sort path's bound."""
+    from dryad_tpu_torch import DryadContext
+
+    t0 = time.perf_counter()
+    t = groupby_table(np.random.default_rng(SEED + 27), CD1_HY_ROWS, CD1_HY_KEYS)
+    oracle = groupby_oracle(t)
+    ctx = DryadContext(num_partitions_=CD1_P, devices=[str(dev)] * CD1_RANKS, dcn_slices=2)
+    check(ctx.mesh.hybrid and ctx._ranks.backend == "gloo", f"cards1 hybrid: {ctx.mesh}")
+    mark = len(ctx.events.events())
+    many = _cd_result(ctx, ctx.from_arrays(t).group_by("key", GB_AGGS))
+    rounds = _ch_rounds(ctx, mark)
+    del ctx
+    with _OffMainPath():
+        oc = DryadContext(num_partitions_=CD1_P, dcn_slices=2, device=dev)
+        one = _cd_result(oc, oc.from_arrays(t).group_by("key", GB_AGGS))
+        one_rounds = _ch_rounds(oc, 0)
+        del oc
+    _cd_same("cards1 hybrid group_by", one, many, floats=("sv", "mv"))
+    check_groupby(many[0], oracle, "cards1 hybrid group_by")
+    check(rounds == one_rounds and any(r["dcn_bytes"] for r in rounds),
+          f"cards1 hybrid: exchange_round events {rounds} against one rank's {one_rounds}")
+    res = {"rows": CD1_HY_ROWS, "seconds": time.perf_counter() - t0, "rounds": len(rounds)}
+    log(f"cards1 hybrid [{card}]: {CD1_RANKS} rank threads on {dev}, dcn_slices=2, P={CD1_P}: a tree "
+        f"group_by of {CD1_HY_ROWS} rows equal to the one-card hybrid (rows a partition, integers, "
+        f"{len(rounds)} exchange_round events) in {res['seconds']:.2f} s")
+    return res
+
+
 # -- cards_serve: serving, views and the fleet on one context over four cards ---
 
 CV_CARDS = 4  # a rank thread a card, one NCCL group (only when named)
@@ -8074,6 +8479,9 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device; this script runs only on the card",
               file=sys.stderr)
         return 2
+    import faulthandler
+
+    faulthandler.enable(all_threads=True)  # a fatal signal prints every thread's stack
     if args.nccl_probe:
         return nccl_probe(*args.nccl_probe)
     if args.nccl_world1:
@@ -8125,6 +8533,7 @@ def main(argv=None) -> int:
         ("cards", lambda: phase_cards(dev, card)),
         ("cards_stream", lambda: phase_cards_stream(dev, card)),
         ("cards_serve", lambda: phase_cards_serve(dev, card)),
+        ("cards_hybrid", lambda: phase_cards_hybrid(dev, card)),
     )
     _PG["ran"] = ran = []
     for name, run in steps:
@@ -8138,7 +8547,8 @@ def main(argv=None) -> int:
 
     kern = results.get("kernel", {})
     ck = (results.get("cards", {}).get("kernel", {}) or results.get("cards_stream", {}).get("kernel", {})
-          or results.get("cards_serve", {}).get("kernel", {}))
+          or results.get("cards_serve", {}).get("kernel", {})
+          or results.get("cards_hybrid", {}).get("kernel", {}))
     if not kern and ck:  # a cards phase alone: its shape's numbers
         kern = {k: ck[k] for k in ("kernel_ms", "plain_ms", "bound_ms", "library_ms")}
         kern["max_abs_err"] = max(c["max_abs_err"] for c in ck["cards"])
@@ -8164,6 +8574,7 @@ def main(argv=None) -> int:
         "cards_stream": results.get("cards_stream", {}).get("launches"),
         "cards_serve": results.get("cards_serve", {}).get("launches"),
         "cards_serve_fleet": results.get("cards_serve", {}).get("fleet", {}).get("launches"),
+        "cards_hybrid": results.get("cards_hybrid", {}).get("launches"),
         "rewrite": results.get("rewrite", {}).get("launches"),
         "fleet": results.get("fleet", {}).get("launches"),
         "obs": results.get("obs", {}).get("launches"),
@@ -8222,6 +8633,15 @@ def main(argv=None) -> int:
         "cards_serve_shapes": results.get("cards_serve", {}).get("kernel_shapes"),
         "cards_serve_launches_by_card": results.get("cards_serve", {}).get("launches_by_card"),
         "cards1_serve_shapes": results.get("cards1", {}).get("serve", {}).get("kernel_shapes"),
+        "cards_hybrid_shapes": results.get("cards_hybrid", {}).get("kernel_shapes"),
+        "cards_hybrid_launches_by_card": results.get("cards_hybrid", {}).get("launches_by_card"),
+        "cards_hybrid_kernel_ms": results.get("cards_hybrid", {}).get("kernel", {}).get("kernel_ms"),
+        "cards_hybrid_plain_ms": results.get("cards_hybrid", {}).get("kernel", {}).get("plain_ms"),
+        "cards_hybrid_library_ms": results.get("cards_hybrid", {}).get("kernel", {}).get("library_ms"),
+        "cards_hybrid_bound_ms": results.get("cards_hybrid", {}).get("kernel", {}).get("bound_ms"),
+        "cards_hybrid_max_abs_err_by_card": [
+            c["max_abs_err"] for c in
+            results.get("cards_hybrid", {}).get("kernel", {}).get("cards", [])] or None,
         "hybrid_shapes": [results["hybrid"]["wordcount"]["kernel_shape"]] if "hybrid" in results else None,
         "rewrite_shapes": results.get("rewrite", {}).get("kernel_shapes"),
         "fleet_shapes": results.get("fleet", {}).get("kernel_shapes"),

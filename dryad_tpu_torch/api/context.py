@@ -108,7 +108,11 @@ class DryadContext:
         partitions; it fixes the partition count and the device.
         ``dcn_slices``: a hybrid mesh of that many slices
         (``make_hybrid_mesh``), ``num_partitions_ // dcn_slices``
-        partitions each (``num_partitions_`` must divide).  Without
+        partitions each (``num_partitions_`` must divide), on one
+        device; with ``devices``, each slice holds whole cards
+        (``dcn_slices`` must divide the card count): slice ``d`` is
+        cards ``d * C .. d * C + C - 1``, ``C = len(devices) /
+        dcn_slices``, each rank with a sub-group for each axis.  Without
         either, ``make_mesh(num_partitions_)`` on ``device``, which
         spans the process group this process joined
         (``init_distributed``), if any."""
@@ -119,7 +123,7 @@ class DryadContext:
         self.local_debug = local_debug
         self._ranks: Optional[RankGroup] = None
         if devices is not None:
-            self._refuse_with_devices(mesh, dcn_slices, local_debug)
+            self._refuse_with_devices(mesh, local_debug)
             devs = resolve_devices(devices)
             self.device = devs[0]
             self.mesh = None  # rank 0's, once the ranks are built below
@@ -225,7 +229,7 @@ class DryadContext:
             self.executor.rewriter = self.rewriter
             self.executor.headroom = self.headroom
         else:
-            self._build_ranks(devs)
+            self._build_ranks(devs, dcn_slices)
         # one job at a time: the executor keeps per-job state, and the
         # stream driver runs jobs from its prefetch threads too (a
         # group_by over a join's bucket stream); re-entrant for do_while
@@ -243,19 +247,16 @@ class DryadContext:
 
     # -- several cards -----------------------------------------------------------
     @staticmethod
-    def _refuse_with_devices(mesh, dcn_slices, local_debug) -> None:
+    def _refuse_with_devices(mesh, local_debug) -> None:
         if mesh is not None:
             raise ValueError("pass either devices or mesh")
-        if dcn_slices is not None:
-            raise NotImplementedError(
-                "dcn_slices together with devices (a hybrid mesh over cards) is not "
-                "ported: ROADMAP queue 1 item 18")
         if local_debug:
             raise ValueError("local_debug runs the NumPy interpreter on the host: it takes no devices")
 
-    def _build_ranks(self, devs) -> None:
+    def _build_ranks(self, devs, dcn_slices: Optional[int] = None) -> None:
         """One rank a device (``parallel/ranks.py``): rank 0's mesh and
-        executor are the context's, and its events are the context's."""
+        executor are the context's, and its events are the context's.
+        ``dcn_slices``: a hybrid mesh over the cards."""
         from dryad_tpu_torch.parallel.multihost import group_timeout
 
         me = weakref.ref(self)  # the ranks must not keep the context alive
@@ -267,7 +268,8 @@ class DryadContext:
             self._close_ranks()
         self._ranks = RankGroup(devs, self.num_partitions, group_timeout(),
                                 make_context=lambda mesh: _RankContext(me(), mesh),
-                                attach=lambda rc, mesh: rc._attach(mesh))
+                                attach=lambda rc, mesh: rc._attach(mesh),
+                                dcn_slices=dcn_slices)
         self._close_ranks = weakref.finalize(self, self._ranks.close)
         self._wire_rank0()
 
@@ -288,7 +290,10 @@ class DryadContext:
         afterwards raises); host and store bindings survive.  Over
         several cards the ranks are built anew over the surviving cards,
         each with the same partitions a card as before; excluding every
-        device (a one-device context's only one) raises ``ValueError``."""
+        device (a one-device context's only one) raises ``ValueError``.
+        A hybrid mesh over cards keeps its 2-D structure (each slice
+        sheds its cards, the slices shrink to the smallest survivor, an
+        empty one goes), as the reference's ``exclude_devices``."""
         from dryad_tpu_torch.parallel.mesh import exclude_devices
 
         with self._job_lock:
@@ -296,10 +301,13 @@ class DryadContext:
                 self.mesh = exclude_devices(self.mesh, exclude_device_ids)
             else:
                 keep = exclude_devices(self.mesh, exclude_device_ids)
+                dcn = len(keep) if self.mesh.hybrid else None  # the surviving slices
+                if dcn is not None:
+                    keep = [d for row in keep for d in row]
                 if len(keep) != len(self._ranks.devices):
                     local = self.num_partitions // len(self._ranks.devices)
                     self.num_partitions = local * len(keep)
-                    self._build_ranks(keep)
+                    self._build_ranks(keep, dcn)
                 else:
                     for rc in self._ranks.contexts:
                         rc._device_cache.clear()

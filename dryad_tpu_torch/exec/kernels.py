@@ -28,8 +28,9 @@ the planner's byte accounting (``plan/xchgplan.py``) on the context's
 ``xchg_log`` (the executor's ``exchange_round`` events) and runs the
 flat exchange (window 0) or the staged one.  On a hybrid mesh the
 ``tree`` param of ``exchange_hash`` runs the reference's tree exchange
-(:func:`_tree_exchange_hash`); on a flat mesh it is ignored, as the
-reference ignores it on a one-axis mesh.
+(:func:`_tree_exchange_hash`; over rank threads each hop over its
+axis's sub-group); on a flat mesh it is ignored, as the reference
+ignores it on a one-axis mesh.
 """
 
 from __future__ import annotations

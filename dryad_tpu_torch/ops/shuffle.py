@@ -32,6 +32,13 @@ axis: ``axis=AXIS`` within each slice (``num_partitions`` the slice's
 ``ici``), ``axis=DCN_AXIS`` across the slices at each ICI index
 (``num_partitions`` the slice count).  Its received width is
 ``num_partitions * B``, as the reference's exchange over one mesh axis.
+In one process the DCN axis reorders the partitions so that each ICI
+index's slices lie together.  Over rank threads no partition moves to
+be reordered: the ICI axis is the group exchange over the slice's cards
+(their sub-group), and on the DCN axis each local partition exchanges
+with the partition at its place on each card of its DCN sub-group
+(:func:`_exchange_group` through ``all_to_all_strided``, and the
+staged exchange's hops over that sub-group).  Either gives the one-process hybrid's bytes.
 """
 
 from __future__ import annotations
@@ -89,13 +96,13 @@ def exchange(
     partitions' mesh; over a process group the rows cross ranks.
     ``axis``: one axis of a hybrid mesh (module docstring); None, all
     partitions (``n == P``)."""
+    inv = None
     if axis is not None:
-        batch, dest, inv = _axis_view(batch, dest, num_partitions, mesh, axis)
-        out, overflow = _exchange_local(batch, dest, num_partitions, bucket_cap, capacity)
-        return _partitions(out, inv), overflow
+        batch, dest, inv, mesh = _axis_view(batch, dest, num_partitions, mesh, axis)
     if mesh is not None and mesh.group is not None:
         return _exchange_group(batch, dest, num_partitions, bucket_cap, capacity, mesh)
-    return _exchange_local(batch, dest, num_partitions, bucket_cap, capacity)
+    out, overflow = _exchange_local(batch, dest, num_partitions, bucket_cap, capacity)
+    return _partitions(out, inv), overflow
 
 
 def _exchange_local(batch: ColumnBatch, dest: torch.Tensor, n: int, B: int,
@@ -135,24 +142,31 @@ def _exchange_local(batch: ColumnBatch, dest: torch.Tensor, n: int, B: int,
 
 
 def _axis_view(batch: ColumnBatch, dest: torch.Tensor, n: int, mesh, axis: str):
-    """A hybrid mesh's partitions laid out group-major for an exchange
-    over ``axis``: ``(batch, dest, inverse)``, ``inverse`` (None when
-    the layout is the mesh's own) restoring the mesh's order."""
-    if mesh is None or not mesh.hybrid or mesh.group is not None:
-        raise ValueError(f"an exchange over axis {axis!r} needs a one-process hybrid mesh")
+    """What an exchange over ``axis`` of a hybrid mesh runs on:
+    ``(batch, dest, inverse, mesh)``.  In one process the partitions
+    laid out group-major, ``inverse`` (None when the layout is the
+    mesh's own) restoring the mesh's order, and no mesh.  Over ranks the
+    batch as it is and the axis's mesh (``PartitionMesh.axis_mesh``):
+    no partition leaves its card to be reordered."""
+    if mesh is None or not mesh.hybrid:
+        raise ValueError(f"an exchange over axis {axis!r} needs a hybrid mesh")
     if axis == AXIS:
         if n != mesh.ici:
             raise ValueError(f"an ICI exchange moves rows among {mesh.ici} partitions, not {n}")
-        return batch, dest, None
-    if axis != DCN_AXIS:
+    elif axis == DCN_AXIS:
+        if n != mesh.dcn:
+            raise ValueError(f"a DCN exchange moves rows among {mesh.dcn} slices, not {n}")
+    else:
         raise ValueError(f"unknown mesh axis {axis!r}")
-    if n != mesh.dcn:
-        raise ValueError(f"a DCN exchange moves rows among {mesh.dcn} slices, not {n}")
+    if mesh.group is not None:
+        return batch, dest, None, mesh.axis_mesh(axis)
+    if axis == AXIS:
+        return batch, dest, None, None
     D, ici, dev = mesh.dcn, mesh.ici, batch.device
     # position p * D + d holds partition d * ici + p
     order = torch.arange(mesh.P, device=dev).reshape(D, ici).t().reshape(-1)
     inv = torch.arange(mesh.P, device=dev).reshape(ici, D).t().reshape(-1)
-    return _partitions(batch, order), dest[order], inv
+    return _partitions(batch, order), dest[order], inv, None
 
 
 def _partitions(batch: ColumnBatch, idx: Optional[torch.Tensor]) -> ColumnBatch:
@@ -167,13 +181,19 @@ def _kept_before(counts: torch.Tensor, n: int, B: int, capacity: int, mesh):
     ``(source, destination)`` bucket keeps at most ``B`` rows, and its
     rows land behind the kept rows of every earlier source of its group
     of ``n`` partitions.  Returns ``(before, overflow)``: ``before[s, d]``
-    over every source in global order (over a group, the sources'
-    counts gathered from every rank), and whether a destination kept
-    more than ``capacity`` rows."""
+    over every source of the mesh in its order (over a group, the
+    sources' counts gathered from every rank; on a hybrid mesh's DCN
+    axis over ranks, ``AxisMesh(strided=True)``, source ``s`` is member
+    ``s // local`` of group ``s % local``), and whether a destination
+    kept more than ``capacity`` rows."""
     kept = PART.gather_rows(counts[:, :n].clamp(max=B), mesh)
-    groups = kept.reshape(-1, n, n)
-    before = (groups.cumsum(1) - groups).reshape(-1, n)
-    return before, (groups.sum(1) > capacity).any()
+    if getattr(mesh, "strided", False):
+        groups = kept.reshape(n, -1, n).transpose(0, 1)  # (group, member, destination)
+        before = (groups.cumsum(1) - groups).transpose(0, 1)
+    else:
+        groups = kept.reshape(-1, n, n)
+        before = groups.cumsum(1) - groups
+    return before.reshape(-1, n), (groups.sum(1) > capacity).any()
 
 
 def exchange_staged(
@@ -210,9 +230,10 @@ def exchange_staged(
                          f"exchange over {n}")
     inv = None
     if axis is not None:
-        batch, dest, inv = _axis_view(batch, dest, n, mesh, axis)
-        mesh = None  # the slices' partitions all live in this process
+        batch, dest, inv, mesh = _axis_view(batch, dest, n, mesh, axis)
     spans = mesh is not None and mesh.group is not None
+    # the DCN axis over ranks: local partition i is member ``rank`` of group i
+    strided = spans and getattr(mesh, "strided", False)
     S, cap = batch.valid.shape
     dev = batch.device
     base = mesh.base if spans else 0
@@ -222,7 +243,8 @@ def exchange_staged(
     kept = counts[:, :n].clamp(max=B)
     offsets = counts.cumsum(-1) - counts
     pos = torch.arange(base, base + S, device=dev)
-    member = pos % n  # each local partition's index in its group of n
+    # each local partition's index in its group of n
+    member = torch.full((S,), mesh.rank, device=dev) if strided else pos % n
     if capacity is None:
         width = n * B
     else:
@@ -239,6 +261,13 @@ def exchange_staged(
     def target(m, sd: int, sp: int):
         return ((m // ici + sd) % D) * ici + (m % ici + sp) % ici
 
+    def pair(g: int, sd: int, sp: int):
+        """Source ``g`` (an index of the mesh) and its hop's destination."""
+        if strided:
+            m, i = divmod(g, S)
+            return g, target(m, sd, sp) * S + i
+        return g, g - g % n + target(g % n, sd, sp)
+
     def block(tgt: torch.Tensor):
         """Every local source's (B,) block per column for its target."""
         t = tgt.reshape(S, 1)
@@ -253,7 +282,8 @@ def exchange_staged(
         if capacity is None:
             at = s * B + w
         else:  # behind the kept rows of the group's earlier sources
-            at = before[pos - member + src, member].reshape(S, 1) + w
+            row = src * S + torch.arange(S, device=dev) if strided else pos - member + src
+            at = before[row, member].reshape(S, 1) + w
             ok = ok & (at < capacity)
         at = torch.where(ok, row0 + at, size + w % DUMP).reshape(-1)
         for out, blk in zip(outs, blocks):
@@ -265,8 +295,7 @@ def exchange_staged(
         items, srcs = [], []
         for sd, sp in rnd.hops:
             blocks, ok = block(target(member, sd, sp))
-            items.append((_pack(blocks + [ok]), [
-                (g, g - g % n + target(g % n, sd, sp)) for g in range(total)]))
+            items.append((_pack(blocks + [ok]), [pair(g, sd, sp) for g in range(total)]))
             srcs.append(target(member, -sd, -sp))
         for got in PART.ppermute_many(items, mesh):
             *blocks, ok = _unpack(got, [t.dtype for _, t in cols] + [torch.bool], B)
@@ -285,7 +314,9 @@ def _unpack(packed: torch.Tensor, dtypes, B: int) -> List[torch.Tensor]:
     out, at = [], 0
     for dt in dtypes:
         size = B * torch.empty((), dtype=dt).element_size()
-        out.append(packed[:, at : at + size].contiguous().view(dt))
+        # a copy with the default strides: a one-row slice counts as
+        # contiguous with its parent's row stride, which a view refuses
+        out.append(packed[:, at : at + size].clone(memory_format=torch.contiguous_format).view(dt))
         at += size
     return out
 
@@ -317,9 +348,14 @@ def _exchange_group(batch, dest, P, B, capacity, mesh):
     """:func:`exchange` over a process group: a ``(local, P, B)`` send
     buffer through ``all_to_all``, then, with ``capacity``, each
     received row placed behind the kept rows of every earlier source
-    (their counts from an ``all_gather``)."""
+    (their counts from an ``all_gather``).  On a hybrid mesh's DCN axis
+    over ranks (``AxisMesh(strided=True)``, ``P`` the slice count) local
+    partition ``i`` exchanges with partition ``i`` of the other ranks
+    through ``all_to_all_strided``, into the received layout
+    ``recv[i, slice * B + w]``."""
     S, cap = batch.valid.shape
     dev = batch.device
+    strided = getattr(mesh, "strided", False)
     dsorted, order, counts, within = _bucket_ranks(batch, dest, P)
     keep = (dsorted < P) & (within < B)
     overflow = (counts[:, :P] > B).any()
@@ -328,34 +364,43 @@ def _exchange_group(batch, dest, P, B, capacity, mesh):
     pos = torch.arange(cap, device=dev)
     tgt_sorted = torch.where(keep, (src * P + dsorted) * B + within, size + pos % DUMP)
     tgt = torch.empty_like(tgt_sorted).scatter_(-1, order, tgt_sorted).reshape(-1)
+    collective = PART.all_to_all_strided if strided else PART.all_to_all
 
     def send(col: torch.Tensor) -> torch.Tensor:
         out = torch.zeros(size + DUMP, dtype=col.dtype, device=dev)
         return out.scatter_(0, tgt, col.reshape(-1))[:size].reshape(S, P, B)
 
-    data = {c: PART.all_to_all(send(t), mesh) for c, t in batch.data.items()}
-    valid = PART.all_to_all(send(torch.ones_like(batch.valid)), mesh)
+    data = {c: collective(send(t), mesh) for c, t in batch.data.items()}
+    valid = collective(send(torch.ones_like(batch.valid)), mesh)
     if capacity is None:
         return ColumnBatch(data, valid), overflow
     # each local destination's offsets behind every source's kept rows
     before, over = _kept_before(counts, P, B, capacity, mesh)
-    overflow = overflow | over
-    before = before[:, mesh.base : mesh.base + mesh.local]  # (P, local)
-    L = valid.shape[0]
-    at = before.t().unsqueeze(-1) + torch.arange(B, device=dev)  # (local, P, B)
-    at = at.reshape(L, P * B)
+    if strided:  # (P * local, P), member-major
+        before = before.reshape(P, S, P)[:, :, mesh.rank].t()
+    else:
+        before = before[:, mesh.base : mesh.base + mesh.local].t()
+    return _place(data, valid, before, B, capacity), overflow | over
+
+
+def _place(data, valid, before: torch.Tensor, B: int, capacity: int) -> ColumnBatch:
+    """Received ``(local, n * B)`` columns placed into ``capacity`` rows:
+    source ``s``'s block of local destination ``i`` behind
+    ``before[i, s]`` kept rows; a row past ``capacity`` is dropped."""
+    L, n = before.shape
+    dev = valid.device
+    at = (before.unsqueeze(-1) + torch.arange(B, device=dev)).reshape(L, n * B)
     ok = valid & (at < capacity)
     flat = torch.where(
         ok, torch.arange(L, device=dev).reshape(L, 1) * capacity + at,
-        L * capacity + torch.arange(P * B, device=dev) % DUMP,
+        L * capacity + torch.arange(n * B, device=dev) % DUMP,
     ).reshape(-1)
 
     def place(col: torch.Tensor) -> torch.Tensor:
         out = torch.zeros(L * capacity + DUMP, dtype=col.dtype, device=dev)
         return out.scatter_(0, flat, col.reshape(-1))[: L * capacity].reshape(L, capacity)
 
-    out = ColumnBatch({c: place(t) for c, t in data.items()}, place(ok))
-    return out, overflow
+    return ColumnBatch({c: place(t) for c, t in data.items()}, place(ok))
 
 
 def resize(batch: ColumnBatch, capacity: int) -> Tuple[ColumnBatch, torch.Tensor]:

@@ -12,16 +12,24 @@ each rank's partitions on its one device as the leading axis of every
 holds all P partitions and every collective of
 ``parallel/partition.py`` is a tensor operation on that axis.
 
-A hybrid mesh (:func:`make_hybrid_mesh`) lays the P partitions of one
-process out as ``dcn_slices`` slices of ``ici`` partitions each, as the
-reference's 2-D ``(DCN_AXIS, AXIS)`` device mesh does: global
-partition ``d * ici + p`` is partition ``p`` of slice ``d``.  Its
-exchanges follow the reference's topology (the tree exchange's ICI hop
-within each slice, then one DCN hop across slices, and the staged
-exchange's ICI rounds before its DCN round), and its byte accounting
-splits traffic by fabric; all partitions still live on the one device.
-A gang keeps the flat mesh, as the reference's ``LocalJobSubmission``
-does.
+A hybrid mesh lays the P partitions out as ``dcn_slices`` slices of
+``ici`` partitions each, as the reference's 2-D ``(DCN_AXIS, AXIS)``
+device mesh does: global partition ``d * ici + p`` is partition ``p``
+of slice ``d``.  Its exchanges follow the reference's topology (the
+tree exchange's ICI hop within each slice, then one DCN hop across
+slices, and the staged exchange's ICI rounds before its DCN round), and
+its byte accounting splits traffic by fabric.  In one process
+(:func:`make_hybrid_mesh`) every partition lives on the one device.
+Over the rank threads of ``DryadContext(devices=..., dcn_slices=...)``
+a slice holds whole cards: with ``W`` cards, slice ``d`` is cards
+``d * C .. d * C + C - 1`` (``C = W / dcn``), so global partition
+``d * ici + p`` lies on card ``d * C + p // local``, the reference's
+slice-major order.  Each rank then holds two sub-groups of its group
+(``parallel/ranks.py``): its slice's ``C`` cards (the ICI axis) and the
+``dcn`` cards at its position ``rank % C`` in every slice (the DCN
+axis); :meth:`PartitionMesh.axis_mesh` is the view an exchange over one
+axis runs its collectives over.  A gang keeps the flat mesh, as the
+reference's ``LocalJobSubmission`` does.
 
 The ranks of a group are processes (a gang: ``init_distributed``) or
 threads of one process, one a card, as the reference's single
@@ -73,7 +81,10 @@ class PartitionMesh:
     collectives run over, ``None`` in one process; ``backend`` is its
     backend (``"nccl"`` or ``"gloo"``).  ``dcn_slices`` makes the mesh
     hybrid (2-D): ``dcn_slices`` slices of ``ici = P // dcn_slices``
-    partitions, slice-major (one process only)."""
+    partitions, slice-major, in one process or over the rank threads of
+    one process (``link`` set), a slice of whole cards; ``ici_group``
+    and ``dcn_group`` are then this rank's sub-groups (None where the
+    axis stays on the card: one card a slice, or one slice)."""
 
     def __init__(
         self,
@@ -86,6 +97,8 @@ class PartitionMesh:
         dcn_slices: Optional[int] = None,
         timeout: Optional[float] = None,
         link=None,
+        ici_group=None,
+        dcn_group=None,
     ):
         P, world = int(num_partitions), int(world)
         dcn = 1 if dcn_slices is None else int(dcn_slices)
@@ -93,8 +106,9 @@ class PartitionMesh:
             raise ValueError("num_partitions must be >= 1")
         if dcn < 1 or P % dcn:
             raise ValueError(f"dcn_slices {dcn} must divide num_partitions {P}")
-        if dcn_slices is not None and world > 1:
-            raise ValueError("a hybrid mesh lives in one process: a gang keeps the flat mesh")
+        if dcn_slices is not None and world > 1 and link is None:
+            raise ValueError("a gang keeps the flat mesh: dcn_slices needs the rank "
+                             "threads of one process (DryadContext(devices=...))")
         if world < 1 or not 0 <= rank < world:
             raise ValueError(f"rank {rank} outside a world of {world}")
         if P % world:
@@ -102,6 +116,10 @@ class PartitionMesh:
                 f"num_partitions {P} is not a multiple of the {world} ranks "
                 "(every rank holds the same number of partitions)"
             )
+        if world % dcn and world > 1:
+            raise ValueError(
+                f"dcn_slices {dcn} does not divide the {world} cards: a DCN slice "
+                "holds whole cards")
         if world > 1 and group is None:
             raise ValueError("a mesh over several ranks needs their process group")
         self.P = P
@@ -122,15 +140,31 @@ class PartitionMesh:
         # process alone
         self.link = link
         self.stage: Optional[str] = None  # the unit the rank runs (error messages)
-        # the 2-D (DCN_AXIS, AXIS) layout: dcn slices of ici partitions
+        # the 2-D (DCN_AXIS, AXIS) layout of the whole mesh: dcn slices
+        # of ici partitions
         self.hybrid = dcn_slices is not None
         self.dcn = dcn
         self.ici = P // dcn
+        # over ranks: cards a slice, this rank's slice and its position
+        # in it, and the sub-groups of the two axes
+        self.cards_per_slice = max(world // dcn, 1)
+        self.slice_index = self.rank // self.cards_per_slice
+        self.position = self.rank % self.cards_per_slice
+        self.ici_group, self.dcn_group = ici_group, dcn_group
 
     @property
     def base(self) -> int:
         """Global id of this rank's first partition."""
         return self.rank * self.local
+
+    def axis_mesh(self, axis: str) -> "AxisMesh":
+        """The flat mesh an exchange over one axis of a hybrid mesh over
+        ranks runs its collectives over (:class:`AxisMesh`)."""
+        C = self.cards_per_slice
+        if axis == AXIS:
+            return AxisMesh(self, self.ici, self.position, C, self.ici_group, strided=False)
+        return AxisMesh(self, self.dcn * self.local, self.slice_index, self.dcn,
+                        self.dcn_group, strided=True)
 
     def __repr__(self) -> str:
         return (
@@ -138,6 +172,64 @@ class PartitionMesh:
             f"local={self.local}, device={self.device}, backend={self.backend}"
             + (f", dcn_slices={self.dcn}, ici={self.ici})" if self.hybrid else ")")
         )
+
+
+class AxisMesh:
+    """One axis of a hybrid mesh over ranks, as the flat mesh the
+    collectives of ``parallel/partition.py`` take: ``world`` ranks of
+    the axis's sub-group (``group``; None where the axis stays on this
+    card), this rank ``rank`` of them, each holding the whole mesh's
+    ``local`` partitions, sub-ids ``rank * local + i``.
+
+    - The ICI axis (``strided`` False): the slice's ``ici`` partitions
+      over its ``C`` cards, one exchange group, member ``sub-id``.
+    - The DCN axis (``strided`` True): the ``dcn`` cards at one
+      position, whose local partition ``i`` is member ``rank`` of
+      exchange group ``i`` (the partitions at one ICI index).
+
+    Device, backend, timeout, link and stage are the whole mesh's, and
+    the bytes sent and the work in flight count on it."""
+
+    hybrid = False
+    dcn = 1
+
+    def __init__(self, whole: PartitionMesh, P: int, rank: int, world: int, group,
+                 strided: bool):
+        self.whole = whole
+        self.P, self.rank, self.world, self.group = P, rank, world, group
+        self.local = whole.local
+        self.strided = strided
+
+    @property
+    def base(self) -> int:
+        return self.rank * self.local
+
+    def __getattr__(self, name):  # device, backend, timeout, link, stage
+        return getattr(self.whole, name)
+
+    @property
+    def sent_bytes(self) -> int:
+        return self.whole.sent_bytes
+
+    @sent_bytes.setter
+    def sent_bytes(self, v: int) -> None:
+        self.whole.sent_bytes = v
+
+    @property
+    def inflight(self) -> list:
+        return self.whole.inflight
+
+    @inflight.setter
+    def inflight(self, v: list) -> None:
+        self.whole.inflight = v
+
+    @property
+    def replayed(self) -> bool:
+        return self.whole.replayed
+
+    @replayed.setter
+    def replayed(self, v: bool) -> None:
+        self.whole.replayed = v
 
 
 def make_mesh(num_partitions: Optional[int] = None, device=None, group=None) -> PartitionMesh:
@@ -191,23 +283,30 @@ def exclude_devices(mesh: PartitionMesh, bad_ids):
     (``mesh.link``) return the list of the surviving cards, in order,
     over which ``DryadContext.rebuild_mesh`` builds its ranks anew; a
     process group cannot shrink, so a multi-process mesh is rebuilt by
-    restarting the gang (``LocalJobSubmission.rebuild_gang``).  On a
-    hybrid mesh each
-    partition stands for one of the reference's devices, named by its
-    global id: as the reference's, the mesh keeps its 2-D structure,
-    each slice sheds its excluded partitions, the slices shrink to the
-    smallest survivor (rows stay rectangular) and a slice left with
-    none is dropped."""
+    restarting the gang (``LocalJobSubmission.rebuild_gang``).
+
+    A hybrid mesh keeps its 2-D structure, as the reference's: each
+    slice sheds its excluded devices, the slices shrink to the smallest
+    survivor (rows stay rectangular) and a slice left with none is
+    dropped.  In one process each partition stands for one of the
+    reference's devices, named by its global id, and the result is the
+    smaller mesh; over rank threads a device is a card, named by its
+    rank, and the result is the surviving cards a slice, in slice
+    order (a list of lists)."""
     if mesh.hybrid:
         bad = set(bad_ids)
-        rows = [[d * mesh.ici + p for p in range(mesh.ici) if d * mesh.ici + p not in bad]
-                for d in range(mesh.dcn)]
+        over_cards = mesh.link is not None
+        n, per = (mesh.world, mesh.cards_per_slice) if over_cards else (mesh.P, mesh.ici)
+        rows = [[i for i in range(d * per, (d + 1) * per) if i not in bad]
+                for d in range(n // per)]
         rows = [r for r in rows if r]
         if not rows:
             raise ValueError("excluding all devices leaves an empty mesh")
-        if len(rows) == mesh.dcn and min(map(len, rows)) == mesh.ici:
-            return mesh
         k = min(len(r) for r in rows)
+        if over_cards:
+            return [[mesh.link.devices[i] for i in r[:k]] for r in rows]
+        if len(rows) == mesh.dcn and k == mesh.ici:
+            return mesh
         return PartitionMesh(len(rows) * k, mesh.device, dcn_slices=len(rows))
     bad = set(bad_ids) & set(range(mesh.world))
     if mesh.link is not None:

@@ -28,6 +28,13 @@ exclusive prefix over partitions   ``cumsum(0) - x``      ``all_gather``, then t
                                                           send and one receive a peer
 =================================  ====================  ================================
 
+On a hybrid mesh over rank threads an exchange over one axis passes
+the axis's view (``parallel/mesh.py::AxisMesh``) as the mesh: the same
+collectives then run over the axis's sub-group, a slice's cards or the
+cards at one position, and on the DCN axis :func:`all_to_all_strided`
+moves each local partition's blocks to the partition at its place on
+every card of the sub-group.  Their bytes count on the whole mesh.
+
 Every collective runs through one adapter over the group object's own
 methods (:func:`_allreduce_into`, :func:`_allgather_into`,
 :func:`_reduce_scatter_into`, :func:`_alltoall_into`, :func:`_p2p`):
@@ -427,6 +434,25 @@ def all_to_all(send: torch.Tensor, mesh=None) -> torch.Tensor:
     # out: (world_src, S_src, local_dst, B, ...) -> (local_dst, P * B, ...)
     recv = out.permute((2, 0, 1, 3) + tuple(range(4, out.dim())))
     return _back(recv.reshape((L, W * S * B) + rest), send, mesh)
+
+
+def all_to_all_strided(send: torch.Tensor, mesh=None) -> torch.Tensor:
+    """``send[i, dst, b]`` -> ``recv[i, src * B + b]`` over a mesh whose
+    ranks each hold member ``rank`` of the same ``local`` exchange
+    groups (a hybrid mesh's DCN axis over ranks,
+    ``parallel/mesh.py::AxisMesh``): local partition ``i`` sends its
+    block for ``dst`` to partition ``i`` of rank ``dst`` and receives
+    every rank's block for it, in rank order.  Each rank's blocks for
+    one peer travel together."""
+    L, W, B = send.shape[:3]
+    rest = tuple(send.shape[3:])
+    if not _spans(mesh):
+        return send.reshape((L, W * B) + rest)
+    buf = _wire(mesh, send.transpose(0, 1))  # (world_dst, local, B, ...)
+    out = torch.empty_like(buf)
+    _alltoall_into(mesh, out, buf)
+    # out: (world_src, local, B, ...) -> (local, world_src * B, ...)
+    return _back(out.transpose(0, 1).reshape((L, W * B) + rest), send, mesh)
 
 
 def ppermute(x: torch.Tensor, perm, mesh=None) -> torch.Tensor:

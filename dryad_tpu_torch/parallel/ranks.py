@@ -18,7 +18,11 @@ and no partition files.
   every rank at once (:meth:`RankGroup.run`).  The group is made over a
   shared ``HashStore``: ``ProcessGroupNCCL`` when every rank has a card
   of its own, ``ProcessGroupGloo`` when two ranks share a card or run on
-  the CPU (``multihost.choose_backend`` decides, as for a gang).
+  the CPU (``multihost.choose_backend`` decides, as for a gang).  For a
+  hybrid mesh (``dcn_slices``) it also makes each rank's two
+  sub-groups, its slice's cards and the cards at its position in every
+  slice, each under a prefix of its own and connected eagerly as the
+  group is.
 - :class:`RankLink` is what the ranks of one group share: the cards,
   the abort flag every wait of a rank watches, and a host exchange of
   Python values among the threads (checkpoint files, injected faults,
@@ -50,7 +54,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from dryad_tpu_torch.parallel.mesh import PartitionMesh
+from dryad_tpu_torch.parallel.mesh import AXIS, DCN_AXIS, PartitionMesh
 from dryad_tpu_torch.parallel.multihost import NCCL_WATCHDOG_FACTOR, choose_backend
 from dryad_tpu_torch.parallel.partition import GangStageError, allreduce
 from dryad_tpu_torch.utils.logging import get_logger
@@ -245,7 +249,7 @@ class RankGroup:
     a new group re-attaches it, ``attach(ctx, mesh)``)."""
 
     def __init__(self, devices: Sequence[torch.device], num_partitions: int, timeout: float,
-                 make_context: Callable, attach: Callable):
+                 make_context: Callable, attach: Callable, dcn_slices: Optional[int] = None):
         self.devices = list(devices)
         self.world = len(self.devices)
         self.P = int(num_partitions)
@@ -253,6 +257,11 @@ class RankGroup:
             raise ValueError(
                 f"num_partitions {self.P} is not a multiple of the {self.world} devices "
                 "(every card holds the same number of partitions)")
+        # a hybrid mesh over the cards: dcn_slices slices of whole cards
+        if dcn_slices is not None and (dcn_slices < 1 or self.world % dcn_slices):
+            raise ValueError(f"dcn_slices {dcn_slices} does not divide the {self.world} devices: "
+                             "a DCN slice holds whole cards")
+        self.dcn_slices = dcn_slices
         self.timeout = float(timeout)
         host = socket.gethostname()
         self.backend = choose_backend([f"{host}/{d}" for d in self.devices])
@@ -282,6 +291,8 @@ class RankGroup:
             os.environ.setdefault("NCCL_RUNTIME_CONNECT", "0")
         link = RankLink(self.devices)
         store = dist.PrefixStore(f"ranks/{id(self)}/{self.generation}/", dist.HashStore())
+        D = self.dcn_slices or 1
+        C = self.world // D
 
         fresh = self.fresh_streams
 
@@ -293,14 +304,29 @@ class RankGroup:
                     torch.cuda.set_stream(torch.cuda.Stream(self.devices[r]))
                 BK.preload(self.devices[r])  # the kernels load before any collective waits
             pg = _new_group(self.backend, store, r, self.world, self.timeout)
+            # a hybrid mesh's sub-groups: the slice's C cards (ICI) and the
+            # D cards at this position in every slice (DCN), each under a
+            # prefix of its own; an axis of one card stays on the card
+            d, q = divmod(r, C)
+            ici = (_new_group(self.backend, dist.PrefixStore(f"ici{d}/", store), q, C,
+                              self.timeout) if self.dcn_slices and C > 1 else None)
+            dcn = (_new_group(self.backend, dist.PrefixStore(f"dcn{q}/", store), d, D,
+                              self.timeout) if self.dcn_slices and D > 1 else None)
             mesh = PartitionMesh(self.P, self.devices[r], rank=r, world=self.world, group=pg,
-                                 backend=self.backend, timeout=self.timeout, link=link)
+                                 backend=self.backend, timeout=self.timeout, link=link,
+                                 dcn_slices=self.dcn_slices, ici_group=ici, dcn_group=dcn)
             _connect(mesh)
+            if self.dcn_slices:  # every rank: the whole group, then ICI, then DCN
+                for axis in (AXIS, DCN_AXIS):
+                    sub = mesh.axis_mesh(axis)
+                    if sub.group is not None:
+                        _connect(sub)
             return mesh
 
         self.meshes = self._each(make)
         self.link = link
-        self.groups = [m.group for m in self.meshes]
+        self.groups = [g for m in self.meshes for g in (m.group, m.ici_group, m.dcn_group)
+                       if g is not None]
         for r, mesh in enumerate(self.meshes):
             if self.contexts[r] is None:
                 self.contexts[r] = self._make_context(mesh)
@@ -313,8 +339,8 @@ class RankGroup:
         return [f.result() for f in futs]
 
     def abort(self) -> None:
-        """Give the group up: every waiting rank raises, the group is
-        aborted (NCCL's kernels stop; gloo's pending work ends at its
+        """Give the group up: every waiting rank raises, the group and its
+        sub-groups are aborted (NCCL's kernels stop; gloo's pending work ends at its
         timeout) on a thread of its own, waited for ``ABORT_WAIT_S`` at
         most, and the next run makes a new group, each rank on a fresh
         stream (work queued behind a collective that never completes

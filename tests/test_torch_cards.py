@@ -13,7 +13,7 @@ byte-equal, float sums within the summation-order bounds of
 ``tests/test_torch_gang.py`` (the dense path's 2^-16 * sum|v|, the sort
 path's n_g * 2^-23 * sum_g|v|).  The event stream and ``JobMetrics`` equal
 the reference's; ``rebuild_mesh``, checkpoints, a failing rank and the
-refused surfaces are held to the reference or named.  Each test runs
+devices a host lacks are held to the reference or named.  Each test runs
 under a time limit of its own (``TEST_LIMIT_S``).
 """
 
@@ -387,19 +387,6 @@ def test_point_to_point_coalesces_on_a_backend_made_in_the_process():
 
 
 # -- what the context refuses, and what it never does -------------------------------------
-
-REFUSED = {
-    "hybrid": (lambda: T.DryadContext(num_partitions_=P, devices=["cpu"] * 2, dcn_slices=2),
-               "item 18"),
-}
-
-
-@pytest.mark.parametrize("name", sorted(REFUSED))
-def test_refused_surfaces_are_named(name):
-    fn, item = REFUSED[name]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 {item}"):
-        fn()
-
 
 def _have():
     return torch.cuda.device_count() if torch.cuda.is_available() else 0
